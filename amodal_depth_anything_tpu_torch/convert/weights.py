@@ -9,7 +9,9 @@ so loading a released checkpoint is a strict `load_state_dict`.
 blocks stacked [L, ...], linear weights [in, out], conv weights HWIO,
 transposed-conv weights [C_in, k, k, C_out]) into that state dict; with
 `load_params_npz` it reads the in-repo trained proxies
-(`checkpoints/proxy/*.npz`, flat "/"-joined keys).
+(`checkpoints/proxy/*.npz`, flat "/"-joined keys). `params_to_jax` is its
+inverse, for parameters or for gradients under the parameters' names, so a
+train step of the port can be held against the JAX package's leaf by leaf.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 from ..models.amodal_dav2 import DAV2Config
 
 __all__ = ["load_state_dict", "infer_dav2_config", "params_from_jax",
-           "load_params_npz"]
+           "params_to_jax", "load_params_npz"]
 
 
 def load_state_dict(path: str) -> dict[str, torch.Tensor]:
@@ -90,79 +92,120 @@ def load_params_npz(path: str) -> dict:
     return tree
 
 
+# torch layout <- JAX layout, per kind of leaf, and back
+_TO_TORCH = {"same": lambda a: a,
+             "linear": lambda a: a.T,                        # [in,out] -> [out,in]
+             "conv": lambda a: a.transpose(3, 2, 0, 1),      # HWIO -> OIHW
+             "convt": lambda a: a.transpose(0, 3, 1, 2)}     # [Ci,k,k,Co] -> [Ci,Co,k,k]
+_TO_JAX = {"same": lambda a: a,
+           "linear": lambda a: a.T,
+           "conv": lambda a: a.transpose(2, 3, 1, 0),
+           "convt": lambda a: a.transpose(0, 2, 3, 1)}
+
+
+def _leaf_map(cfg: DAV2Config):
+    """Every parameter of `cfg`'s model as (state-dict key, path in the JAX
+    tree, kind of leaf, block index or None). Block leaves are stacked
+    [L, ...] in the JAX tree, so they carry their layer index."""
+    out = []
+
+    def lin(name, path, layer=None, bias=True):
+        out.append((f"{name}.weight", path + ("w",), "linear", layer))
+        if bias:
+            out.append((f"{name}.bias", path + ("b",), "same", layer))
+
+    def conv(name, path, kind="conv", bias=True):
+        out.append((f"{name}.weight", path + ("w",), kind, None))
+        if bias:
+            out.append((f"{name}.bias", path + ("b",), "same", None))
+
+    def ln(name, path, layer=None):
+        out.append((f"{name}.weight", path + ("scale",), "same", layer))
+        out.append((f"{name}.bias", path + ("bias",), "same", layer))
+
+    vit = cfg.vit
+    prefix = "" if cfg.raw else "encoder."
+    p, bb = f"{prefix}pretrained.", ("backbone",)
+    for key in ("cls_token", "pos_embed", "mask_token"):
+        out.append((f"{p}{key}", bb + (key,), "same", None))
+    conv(f"{p}patch_embed.proj", bb + ("patch_embed", "proj"))
+    if vit.guide_channels:
+        conv(f"{p}patch_embed_guidance.proj",
+             bb + ("patch_embed_guidance", "proj"))
+    ln(f"{p}norm", bb + ("norm",))
+    blk = bb + ("blocks",)
+    ffn = ("fc1", "fc2") if vit.ffn == "mlp" else ("w12", "w3")
+    for i in range(vit.depth):
+        b = f"{p}blocks.{i}."
+        ln(f"{b}norm1", blk + ("norm1",), i)
+        lin(f"{b}attn.qkv", blk + ("attn", "qkv"), i)
+        lin(f"{b}attn.proj", blk + ("attn", "proj"), i)
+        out.append((f"{b}ls1.gamma", blk + ("ls1", "gamma"), "same", i))
+        ln(f"{b}norm2", blk + ("norm2",), i)
+        out.append((f"{b}ls2.gamma", blk + ("ls2", "gamma"), "same", i))
+        for name in ffn:
+            lin(f"{b}mlp.{name}", blk + ("mlp", name), i)
+
+    hp, hd = f"{prefix}depth_head.", ("depth_head",)
+    for i in range(4):
+        conv(f"{hp}projects.{i}", hd + ("projects", str(i)))
+    conv(f"{hp}resize_layers.0", hd + ("resize_layers", "0"), "convt")
+    conv(f"{hp}resize_layers.1", hd + ("resize_layers", "1"), "convt")
+    conv(f"{hp}resize_layers.3", hd + ("resize_layers", "3"))
+    if cfg.dpt.use_input_projection:
+        for i in range(4):
+            ip = hd + ("input_projection", str(i))
+            conv(f"{hp}input_projection.{i}.0", ip + ("conv",))
+            ln(f"{hp}input_projection.{i}.1", ip + ("ln",))
+    sc = hd + ("scratch",)
+    for i in range(1, 5):
+        conv(f"{hp}scratch.layer{i}_rn", sc + (f"layer{i}_rn",), bias=False)
+        r, rr = sc + (f"refinenet{i}",), f"{hp}scratch.refinenet{i}."
+        for unit in ("resConfUnit1", "resConfUnit2"):
+            conv(f"{rr}{unit}.conv1", r + (unit, "conv1"))
+            conv(f"{rr}{unit}.conv2", r + (unit, "conv2"))
+        conv(f"{rr}out_conv", r + ("out_conv",))
+    conv(f"{hp}scratch.output_conv1", sc + ("output_conv1",))
+    conv(f"{hp}scratch.output_conv2.0", sc + ("output_conv2", "conv1"))
+    conv(f"{hp}scratch.output_conv2.2", sc + ("output_conv2", "conv2"))
+    return out
+
+
 def params_from_jax(params: dict, cfg: DAV2Config) -> dict[str, torch.Tensor]:
     """JAX-layout parameter pytree (numpy leaves) -> the port's state dict
     for `cfg` ("encoder." keys for AmodalDAv2, bare keys for the raw base)."""
-    sd: dict[str, np.ndarray] = {}
-
-    def lin(name, p):
-        sd[f"{name}.weight"] = np.asarray(p["w"]).T
-        if "b" in p:
-            sd[f"{name}.bias"] = np.asarray(p["b"])
-
-    def conv(name, p):  # HWIO -> OIHW
-        sd[f"{name}.weight"] = np.asarray(p["w"]).transpose(3, 2, 0, 1)
-        if "b" in p:
-            sd[f"{name}.bias"] = np.asarray(p["b"])
-
-    def convt(name, p):  # [C_in, k, k, C_out] -> [C_in, C_out, k, k]
-        sd[f"{name}.weight"] = np.asarray(p["w"]).transpose(0, 3, 1, 2)
-        sd[f"{name}.bias"] = np.asarray(p["b"])
-
-    def ln(name, p):
-        sd[f"{name}.weight"] = np.asarray(p["scale"])
-        sd[f"{name}.bias"] = np.asarray(p["bias"])
-
-    prefix = "" if cfg.raw else "encoder."
-    bb, p = params["backbone"], f"{prefix}pretrained."
-    for key in ("cls_token", "pos_embed", "mask_token"):
-        sd[f"{p}{key}"] = np.asarray(bb[key])
-    conv(f"{p}patch_embed.proj", bb["patch_embed"]["proj"])
-    if "patch_embed_guidance" in bb:
-        conv(f"{p}patch_embed_guidance.proj",
-             bb["patch_embed_guidance"]["proj"])
-    ln(f"{p}norm", bb["norm"])
-    blocks = bb["blocks"]
-    for i in range(cfg.vit.depth):
-        blk = _layer(blocks, i)
-        b = f"{p}blocks.{i}."
-        ln(f"{b}norm1", blk["norm1"])
-        lin(f"{b}attn.qkv", blk["attn"]["qkv"])
-        lin(f"{b}attn.proj", blk["attn"]["proj"])
-        sd[f"{b}ls1.gamma"] = blk["ls1"]["gamma"]
-        ln(f"{b}norm2", blk["norm2"])
-        sd[f"{b}ls2.gamma"] = blk["ls2"]["gamma"]
-        for name, sub in blk["mlp"].items():  # fc1/fc2 or w12/w3
-            lin(f"{b}mlp.{name}", sub)
-
-    hd, hp = params["depth_head"], f"{prefix}depth_head."
-    for i in range(4):
-        conv(f"{hp}projects.{i}", hd["projects"][str(i)])
-    convt(f"{hp}resize_layers.0", hd["resize_layers"]["0"])
-    convt(f"{hp}resize_layers.1", hd["resize_layers"]["1"])
-    conv(f"{hp}resize_layers.3", hd["resize_layers"]["3"])
-    if "input_projection" in hd:
-        for i in range(4):
-            ip = hd["input_projection"][str(i)]
-            conv(f"{hp}input_projection.{i}.0", ip["conv"])
-            ln(f"{hp}input_projection.{i}.1", ip["ln"])
-    sc = hd["scratch"]
-    for i in range(1, 5):
-        conv(f"{hp}scratch.layer{i}_rn", sc[f"layer{i}_rn"])
-        r, rr = sc[f"refinenet{i}"], f"{hp}scratch.refinenet{i}."
-        for unit in ("resConfUnit1", "resConfUnit2"):
-            conv(f"{rr}{unit}.conv1", r[unit]["conv1"])
-            conv(f"{rr}{unit}.conv2", r[unit]["conv2"])
-        conv(f"{rr}out_conv", r["out_conv"])
-    conv(f"{hp}scratch.output_conv1", sc["output_conv1"])
-    conv(f"{hp}scratch.output_conv2.0", sc["output_conv2"]["conv1"])
-    conv(f"{hp}scratch.output_conv2.2", sc["output_conv2"]["conv2"])
-    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
-            for k, v in sd.items()}
+    sd = {}
+    for key, path, kind, layer in _leaf_map(cfg):
+        leaf = params
+        for part in path:
+            leaf = leaf[part]
+        leaf = np.asarray(leaf)
+        if layer is not None:
+            leaf = leaf[layer]
+        sd[key] = torch.from_numpy(np.ascontiguousarray(
+            _TO_TORCH[kind](leaf), dtype=np.float32))
+    return sd
 
 
-def _layer(tree, i: int):
-    """Layer i of a stacked-[L, ...] block tree."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return np.asarray(tree)[i]
+def params_to_jax(sd: dict, cfg: DAV2Config) -> dict:
+    """The inverse of `params_from_jax`: a {state-dict key: tensor} tree of
+    the port (parameters, or gradients under the parameters' names) -> the
+    JAX-layout pytree as float32 numpy arrays, blocks stacked [L, ...]."""
+    tree: dict = {}
+    stacks: dict[tuple, list] = {}
+    for key, path, kind, layer in _leaf_map(cfg):
+        leaf = _TO_JAX[kind](sd[key].detach().cpu().float().numpy())
+        if layer is not None:
+            stacks.setdefault(path, []).append(leaf)
+            continue
+        _set_path(tree, path, np.ascontiguousarray(leaf))
+    for path, layers in stacks.items():
+        _set_path(tree, path, np.stack(layers))
+    return tree
+
+
+def _set_path(tree: dict, path: tuple, leaf) -> None:
+    *parents, last = path
+    for part in parents:
+        tree = tree.setdefault(part, {})
+    tree[last] = leaf

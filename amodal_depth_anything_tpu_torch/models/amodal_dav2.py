@@ -26,7 +26,7 @@ from ..ops.conv import ConvTranspose2dNHWC, LayerNorm2d
 from .dinov2 import (INTERMEDIATE_LAYER_IDX, DinoVisionTransformer,
                      PatchEmbed, ViTConfig)
 from .dpt import DPTConfig, DPTHead
-from .layers import LayerScale
+from .layers import LayerNorm, LayerScale
 
 __all__ = ["IMAGENET_MEAN", "IMAGENET_STD", "DAV2_PRESETS", "DAV2Config",
            "build_guide", "DepthAnythingV2", "AmodalDAv2", "RawDAV2",
@@ -144,11 +144,12 @@ class DepthAnythingV2(nn.Module):
                              persistent=False)
 
     def forward(self, x: torch.Tensor, guide: torch.Tensor | None = None, *,
-                attn_impl: str | None = None) -> torch.Tensor:
+                attn_impl: str | None = None,
+                remat: bool | str = False) -> torch.Tensor:
         x = (x - self.mean.to(x.dtype)) / self.std.to(x.dtype)
         ph, pw = x.shape[1] // 14, x.shape[2] // 14
         feats = self.pretrained.get_intermediate_layers(
-            x, guide, self.cfg.taps, attn_impl=attn_impl)
+            x, guide, self.cfg.taps, attn_impl=attn_impl, remat=remat)
         return self.depth_head(feats, (ph, pw))
 
 
@@ -161,10 +162,13 @@ class AmodalDAv2(nn.Module):
         self.encoder = DepthAnythingV2(cfg)
 
     def forward(self, x: torch.Tensor, *, guide_rgb=None, guide_mask=None,
-                observation=None, attn_impl: str | None = None):
-        """x: [B,H,W,3] RGB in [0,1] -> depth [B,H',W',1]."""
+                observation=None, attn_impl: str | None = None,
+                remat: bool | str = False):
+        """x: [B,H,W,3] RGB in [0,1] -> depth [B,H',W',1], in x's dtype
+        whatever the parameters' dtype. `remat`: False | True | "attn",
+        what the trunk's blocks keep for the backward pass."""
         guide = build_guide(self.cfg, guide_rgb, guide_mask, observation)
-        return self.encoder(x, guide, attn_impl=attn_impl)
+        return self.encoder(x, guide, attn_impl=attn_impl, remat=remat)
 
 
 class RawDAV2(DepthAnythingV2):
@@ -211,7 +215,7 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             nn_init.trunc_normal_(mod.weight, std=0.02, a=-0.04, b=0.04,
                                   generator=generator)
             mod.bias.zero_()
-        elif isinstance(mod, (nn.LayerNorm, LayerNorm2d)):
+        elif isinstance(mod, (LayerNorm, LayerNorm2d)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
         elif isinstance(mod, LayerScale):

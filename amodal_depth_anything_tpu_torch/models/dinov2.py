@@ -19,9 +19,10 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.resize import resize2d
-from .layers import DEFAULT_LN_EPS, Block
+from .layers import DEFAULT_LN_EPS, Block, LayerNorm
 
 __all__ = ["GUIDE_CHANNELS", "VIT_PRESETS", "INTERMEDIATE_LAYER_IDX",
            "ViTConfig", "PatchEmbed", "DinoVisionTransformer",
@@ -97,7 +98,9 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, patch_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.proj(x.permute(0, 3, 1, 2))
+        proj = self.proj
+        y = F.conv2d(x.permute(0, 3, 1, 2), proj.weight.to(x.dtype),
+                     proj.bias.to(x.dtype), stride=proj.stride)
         return y.flatten(2).transpose(1, 2)
 
 
@@ -141,7 +144,7 @@ class DinoVisionTransformer(nn.Module):
         self.blocks = nn.ModuleList(
             Block(d, cfg.num_heads, mlp_ratio=cfg.mlp_ratio, ffn=cfg.ffn,
                   init_values=cfg.init_values) for _ in range(cfg.depth))
-        self.norm = nn.LayerNorm(d, eps=DEFAULT_LN_EPS)
+        self.norm = LayerNorm(d, eps=DEFAULT_LN_EPS)
 
     def prepare_tokens(self, x: torch.Tensor,
                        guide: torch.Tensor | None) -> torch.Tensor:
@@ -163,16 +166,17 @@ class DinoVisionTransformer(nn.Module):
     def get_intermediate_layers(
             self, x: torch.Tensor, guide: torch.Tensor | None = None,
             taps: Sequence[int] | None = None, *,
-            attn_impl: str | None = None
+            attn_impl: str | None = None, remat: bool | str = False
     ) -> list[tuple[torch.Tensor, torch.Tensor]]:
         """[(patch_tokens [B,N,D], cls [B,D])] per tap, final-LayerNormed
         (reference `get_intermediate_layers(norm=True,
-        return_class_token=True)`). x: [B,H,W,3]; guide: [B,H,W,Cg]."""
+        return_class_token=True)`). x: [B,H,W,3]; guide: [B,H,W,Cg].
+        `remat`: False | True | "attn", per block (see `layers.Block`)."""
         taps = set((self.cfg.depth - 1,) if taps is None else taps)
         t = self.prepare_tokens(x, guide)
         out = []
         for i, blk in enumerate(self.blocks):
-            t = blk(t, attn_impl=attn_impl)
+            t = blk(t, attn_impl=attn_impl, remat=remat)
             if i in taps:
                 n = self.norm(t)
                 out.append((n[:, 1:], n[:, 0]))

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with nvcc at first use; load them with ctypes.
 
-Each kernel is one `csrc/<name>.cu` with a plain C entry point. It compiles
-for Hopper (`sm_90a`) into `<repo>/build/torch_kernels/lib<name>_<hash>.so`,
-where the hash covers the source and the flags, so an edited source builds
-anew and an unchanged one is reused. `build()` starts one nvcc per kernel,
+Each kernel library is one `csrc/<name>.cu` with plain C entry points. It
+compiles for Hopper (`sm_90a`) into
+`<repo>/build/torch_kernels/lib<name>_<hash>.so`, where the hash covers the
+source, the shared `csrc/*.cuh` headers and the flags, so an edited source
+builds anew and an unchanged one is reused. `build()` starts one nvcc per kernel,
 all together, and waits for them; `load()` builds what is missing and
 returns the `ctypes.CDLL`. Nothing here runs at import.
 """
@@ -19,7 +20,7 @@ from pathlib import Path
 
 __all__ = ["KERNELS", "BUILD_DIR", "build", "load"]
 
-KERNELS = ("flash_attn_fwd",)
+KERNELS = ("flash_attn_fwd", "flash_attn_bwd")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,6 +43,8 @@ def _nvcc() -> str:
 
 def _library(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

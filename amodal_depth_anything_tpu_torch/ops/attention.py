@@ -1,7 +1,7 @@
-"""Multi-head attention dispatch: the Hopper kernel or the plain version.
+"""Multi-head attention dispatch: the Hopper kernels or the plain version.
 
-`impl=None` takes the kernel for CUDA tensors and the plain version for CPU
-tensors. An explicit "plain" is allowed on the card (the JAX package's
+`impl=None` takes the kernels for CUDA tensors and the plain version for CPU
+tensors; both are differentiable. An explicit "plain" is allowed on the card (the JAX package's
 `attn_impl="xla"`), so the two can be compared there; an explicit "kernel"
 on a CPU tensor raises.
 """
@@ -17,18 +17,21 @@ ATTN_IMPLS = ("kernel", "plain")
 
 def multi_head_attention(q, k, v, *, impl: str | None = None,
                          kv_len: int | None = None,
-                         sm_scale: float | None = None):
+                         sm_scale: float | None = None,
+                         residuals: dict | None = None):
     """Attention over [B, H, N, D] tensors; returns [B, H, Nq, D].
 
     `kv_len`: keys at index >= kv_len are masked (default: all).
-    `sm_scale`: softmax scale override (default 1/sqrt(D))."""
-    if impl is None:
-        impl = "kernel" if q.is_cuda else "plain"
-    if impl == "kernel":
-        if not q.is_cuda:
-            raise ValueError("impl='kernel' needs CUDA tensors; the CPU has "
-                             "only the plain version (impl='plain')")
-        return mha(q, k, v, kv_len=kv_len, sm_scale=sm_scale)
+    `sm_scale`: softmax scale override (default 1/sqrt(D)).
+    `residuals`: see `mha`; `impl=None` and "kernel" pass it on, an explicit
+    "plain" differentiates `mha_reference` with plain autograd and keeps
+    nothing."""
+    if impl == "kernel" and not q.is_cuda:
+        raise ValueError("impl='kernel' needs CUDA tensors; the CPU has "
+                         "only the plain version (impl='plain')")
+    if impl is None or impl == "kernel":
+        return mha(q, k, v, kv_len=kv_len, sm_scale=sm_scale,
+                   residuals=residuals)
     if impl == "plain":
         return mha_reference(q, k, v, kv_len=kv_len, sm_scale=sm_scale)
     raise ValueError(f"unknown attention impl: {impl!r} (one of {ATTN_IMPLS})")

@@ -3,7 +3,8 @@
 Tensors stay NHWC at these functions, as in the JAX package; the library
 convolutions run on the NCHW view of the same memory (channels-last), so no
 layout copy is made. Weights keep torch's own layouts, the ones the
-reference checkpoints hold.
+reference checkpoints hold, and follow the input's dtype at use, so a head
+with float32 master weights computes in bfloat16 on bfloat16 activations.
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ def conv_transpose_same_stride(x: torch.Tensor, weight: torch.Tensor,
 
     `weight`: torch's ConvTranspose2d layout [C_in, C_out, k, k]."""
     k = weight.shape[-1]
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight, bias, stride=k)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
+                           None if bias is None else bias.to(x.dtype),
+                           stride=k)
     return y.permute(0, 2, 3, 1)
 
 
@@ -42,7 +45,10 @@ class Conv2dNHWC(nn.Conv2d):
     """nn.Conv2d (same parameters and state-dict keys) on NHWC tensors."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        y = self._conv_forward(x.permute(0, 3, 1, 2),
+                               self.weight.to(x.dtype), bias)
+        return y.permute(0, 2, 3, 1)
 
 
 class ConvTranspose2dNHWC(nn.ConvTranspose2d):

@@ -10,8 +10,10 @@ Antialiasing stays off, as in the reference.
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -70,3 +72,16 @@ def resize2d(x: torch.Tensor, size=None, scale_factor=None, *,
                  _out_size(x.shape[-2], ow, sw)) == tuple(x.shape[-3:-1])):
         return x  # same size, no scale_factor: identity
     return _interpolate(x, size, scale_factor, method, align_corners)
+
+
+@functools.lru_cache(maxsize=256)
+def _nearest_indices(in_size: int, out_size: int, *,
+                     exact: bool) -> np.ndarray:
+    """Source indices of a nearest resize for host-side numpy rasters (the
+    data layer). torch computes them in float32 (aten
+    `nearest_neighbor_compute_source_index`); float64 would flip floor() at
+    exact-integer boundaries (e.g. 222*35/518 == 15)."""
+    scale = np.float32(in_size / out_size)
+    d = np.arange(out_size, dtype=np.float32)
+    idx = np.floor((d + np.float32(0.5)) * scale if exact else d * scale)
+    return np.clip(idx, 0, in_size - 1).astype(np.int32)

@@ -9,19 +9,34 @@ plain PyTorch version on the card:
 
   1. device and flags: `nvidia-smi` name and power limit, the TF32 flags;
   2. build: nvcc compiles every kernel from `csrc/` (all at once);
-  3. kernel vs plain version at the main path's attention shapes and
+  3. kernel vs plain version at the main paths' attention shapes and
      more, float32 (max abs <= 2e-5) and bfloat16 (<= 2e-2, plain version
      on the bf16-rounded inputs in float32), with kernel, plain and
-     `F.scaled_dot_product_attention` times (the last a yardstick only);
-  4. the trained in-repo proxies through the pipeline on the card (f32,
-     TF32 off, kernel) against the same pipeline on the CPU (plain), max
-     abs <= 1e-4;
-  5. full width: seeded random vitg raw base + vitl AmodalDAv2 at 518 px,
-     one float32 image through the kernel and the plain path, then
-     bfloat16 batch 4 through `AmodalDepthPipeline.__call__` for timed
-     calls: finite [4, 518, 518] outputs, exactly 64 kernel launches per
-     call, images/s, p50 latency and peak memory; then one more call
-     under torch.profiler for the device time by kernel.
+     `F.scaled_dot_product_attention` times (the last a yardstick only):
+     the forward, then the two backward kernels (dQ; dK and dV) against
+     `mha_bwd_reference`, tolerances relative to the reference's max abs,
+     and `mha` under autograd on strided CUDA views;
+  4. the trained in-repo proxies on the card (f32, TF32 off, kernels)
+     against the CPU (plain): the pipeline's maps, max abs <= 1e-4, and
+     one train step's loss and every parameter's gradient, <= 1e-4 of each
+     gradient's max abs;
+  5. inference at full width: seeded random vitg raw base + vitl
+     AmodalDAv2 at 518 px, one float32 image through the kernel and the
+     plain path, then bfloat16 batch 4 through
+     `AmodalDepthPipeline.__call__` for timed calls: finite [4, 518, 518]
+     outputs, exactly 64 kernel launches per call, images/s, p50 latency
+     and peak memory; then one more call under torch.profiler for the
+     device time by kernel;
+  6. training at full width: seeded random vitl AmodalDAv2 under
+     `DiscriminativeTrainer` with the shipped recipe
+     (`configs/train_discriminative_vitl.yaml`: bfloat16, remat "attn",
+     Adam, clip 0.01), fed batches of 8 synthetic scenes at 518 px from
+     memory. Five steps through `trainer.train()`: finite losses, moved
+     parameters, exactly 24 forward, 24 dQ and 24 dK/dV launches per step;
+     one float32 step at batch 1 with the kernels against the same step
+     with plain attention (loss and gradient norm within 1e-3); one
+     `validate()` over two batches; steps/s, p50 step time, peak memory
+     and a torch.profiler breakdown of one step.
 
 Prints a `{"kernels": [...]}` line, the card's name and power limit, and as
 its last line `{"ok": true, "device": {...}}`. Exits non-zero without that
@@ -30,6 +45,7 @@ line when there is no CUDA device or any check fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -38,8 +54,15 @@ import time
 
 import numpy as np
 
-KERNEL_SOURCE = "amodal_depth_anything_tpu_torch/csrc/flash_attn_fwd.cu"
-KERNEL_REPLACES = "amodal_depth_anything_tpu/ops/flash_attention.py:111"
+CSRC = "amodal_depth_anything_tpu_torch/csrc/"
+JAX_KERNELS = "amodal_depth_anything_tpu/ops/flash_attention.py"
+# name -> (source, file:line of the TPU kernel it replaces)
+KERNELS = {"flash_attn_fwd": (CSRC + "flash_attn_fwd.cu",
+                              JAX_KERNELS + ":111"),
+           "flash_attn_bwd_dq": (CSRC + "flash_attn_bwd.cu",
+                                 JAX_KERNELS + ":208"),
+           "flash_attn_bwd_dkv": (CSRC + "flash_attn_bwd.cu",
+                                  JAX_KERNELS + ":228")}
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, FP32 outside the
 # tensor cores, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -47,15 +70,26 @@ PEAK_BYTES = 3.35e12
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LSE_TOL = 1e-5
 PROXY_TOL = 1e-4
+PROXY_GRAD_TOL = 1e-4   # of each gradient's max abs: sums in another order
 FULL_F32_TOL = 1e-3
+TRAIN_F32_TOL = 1e-3    # loss and gradient norm, kernels vs plain attention
 MIN_STD = 1e-3   # a depth map that varies: the trunks reach the output
 # (shape [B, H, N, D], kv_len): vitg/vitl trunk shapes at 518 px (N = 1370)
 # for batch 1 and 4, vitg at 1022 px (N = 5330), a ragged N and kv_len < N
 ATTN_CASES = [((4, 24, 1370, 64), None), ((1, 24, 1370, 64), None),
-              ((4, 16, 1370, 64), None), ((1, 24, 5330, 64), None),
-              ((2, 16, 777, 64), None), ((1, 16, 1408, 64), 1370)]
+              ((4, 16, 1370, 64), None), ((8, 16, 1370, 64), None),
+              ((1, 24, 5330, 64), None), ((2, 16, 777, 64), None),
+              ((1, 16, 1408, 64), 1370)]
 MAIN_CASE = ((4, 24, 1370, 64), None, "bfloat16")   # the kernels-line shape
-FULL_BATCH, FULL_CALLS, SIZE = 4, 5, 518
+# the backward kernels: the training main path (vitl, batch 8, 518 px)
+# first, then batch 1, a ragged N, vitg at 1022 px and kv_len < N
+BWD_CASES = [((8, 16, 1370, 64), None), ((1, 16, 1370, 64), None),
+             ((2, 16, 777, 64), None), ((1, 24, 5330, 64), None),
+             ((1, 16, 1408, 64), 1370)]
+BWD_MAIN_CASE = ((8, 16, 1370, 64), None, "bfloat16")
+FULL_BATCH, FULL_CALLS, SIZE = 4, 3, 518
+TRAIN_CONFIG = "configs/train_discriminative_vitl.yaml"
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_BLOCKS = 8, 5, 24
 
 failures: list[str] = []
 
@@ -145,6 +179,155 @@ def attention_phase(gpu: str) -> dict:
     return main
 
 
+def roofline(flops: float, nbytes: float, dt_name: str):
+    """(bound in ms, what bounds it): the larger of the operations over the
+    card's peak for the type and the bytes over its memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dt_name], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bwd_phase(gpu: str) -> dict:
+    """The two backward kernels against `mha_bwd_reference` on the same
+    inputs (the kernels' own forward output and LSE among them)."""
+    import torch
+    import torch.nn.functional as F
+
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import (
+        flash_attn_bwd_dkv, flash_attn_bwd_dq, mha, mha_bwd_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    main = {}
+    for shape, kv_len in BWD_CASES:
+        for dt_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt_name)
+            b, h, n, d = shape
+            kv = n if kv_len is None else kv_len
+            scale = d ** -0.5
+            q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                           .to(dtype) for _ in range(4))
+            if kv_len is not None:
+                do[:, :, kv_len:] = 0   # padded query rows carry no cotangent
+            o, lse = mha(q, k, v, kv_len=kv_len, return_lse=True)
+            delta = (do.float() * o.float()).sum(-1)
+            args = (q, k, v, do, lse, delta)
+            kw = {"sm_scale": scale, "kv_len": kv_len}
+            dq = flash_attn_bwd_dq(*args, **kw)
+            dk, dv = flash_attn_bwd_dkv(*args, **kw)
+            torch.cuda.synchronize()
+            refs = mha_bwd_reference(q.float(), k.float(), v.float(),
+                                     o.float(), lse, do.float(), **kw)
+            errs, rels = {}, {}
+            for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+                errs[name] = (out.float() - ref).abs().max().item()
+                rels[name] = errs[name] / ref.abs().max().item()
+            del refs
+            for name in ("dq", "dk", "dv"):
+                check(rels[name] <= TOL[dt_name],
+                      f"flash_attn_bwd {name} {dt_name} {list(shape)} "
+                      f"kv_len={kv}: max abs {errs[name]:.3e} = "
+                      f"{rels[name]:.3e} of the reference's max abs <= "
+                      f"{TOL[dt_name]}")
+            if kv_len is not None:
+                dead = max(dk[:, :, kv_len:].abs().max().item(),
+                           dv[:, :, kv_len:].abs().max().item())
+                check(dead == 0.0, f"flash_attn_bwd {dt_name} rows >= kv_len "
+                                   f"of dK and dV exactly 0 (max {dead})")
+            es = q.element_size()
+            io = 2 * b * h * n * d + 2 * b * h * kv * d   # q, dO, k, v
+            stats = 2 * b * h * n * 4                      # LSE, delta
+            q_len = kv if kv_len is not None else n
+            dq_flops = 6 * b * h * n * kv * d
+            dkv_flops = 8 * b * h * q_len * kv * d
+            dq_bound = roofline(dq_flops, (io + b * h * n * d) * es + stats,
+                                dt_name)
+            dkv_bound = roofline(dkv_flops,
+                                 (io + 2 * b * h * n * d) * es + stats,
+                                 dt_name)
+            iters = max(3, min(30, int(1e11 / dq_flops)))
+            dq_ms = cuda_ms(lambda: flash_attn_bwd_dq(*args, **kw), iters)
+            dkv_ms = cuda_ms(lambda: flash_attn_bwd_dkv(*args, **kw), iters)
+            plain_ms = cuda_ms(lambda: mha_bwd_reference(
+                q, k, v, o, lse, do, **kw), 2, warmup=1)
+            # yardstick only: the library's backward, as the time of its
+            # forward plus backward less the time of its forward
+            mask = None if kv_len is None else (
+                torch.arange(n, device="cuda") < kv_len)[None, None, None]
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+            def sdpa_fwd_bwd():
+                F.scaled_dot_product_attention(
+                    *leaves, attn_mask=mask).backward(do)
+                for t in leaves:
+                    t.grad = None
+
+            lib_ms = cuda_ms(sdpa_fwd_bwd, iters) - cuda_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=mask), iters)
+            print(f"  attn bwd {dt_name:8s} {str(list(shape)):20s} "
+                  f"kv_len={kv} rel err dq {rels['dq']:.2e} dk "
+                  f"{rels['dk']:.2e} dv {rels['dv']:.2e}; dq kernel "
+                  f"{dq_ms:.4f} ms (bound {dq_bound[0]:.4f} ms, "
+                  f"{dq_bound[1]}, {dq_flops / dq_ms / 1e9:.1f} TFLOP/s), "
+                  f"dk/dv kernel {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f} "
+                  f"ms, {dkv_bound[1]}, {dkv_flops / dkv_ms / 1e9:.1f} "
+                  f"TFLOP/s); plain dq+dk+dv {plain_ms:.4f} ms; sdpa "
+                  f"backward (dq+dk+dv) {lib_ms:.4f} ms [{gpu}]", flush=True)
+            if (shape, kv_len, dt_name) == BWD_MAIN_CASE:
+                # the plain version and the library compute all three
+                # gradients in one call: both kernels carry that one time
+                main["flash_attn_bwd_dq"] = {
+                    "max_abs_err": errs["dq"], "ms": dq_ms,
+                    "plain_ms": plain_ms, "bound_ms": dq_bound[0],
+                    "bound_by": dq_bound[1], "library_ms": lib_ms}
+                main["flash_attn_bwd_dkv"] = {
+                    "max_abs_err": max(errs["dk"], errs["dv"]), "ms": dkv_ms,
+                    "plain_ms": plain_ms, "bound_ms": dkv_bound[0],
+                    "bound_by": dkv_bound[1], "library_ms": lib_ms}
+            del q, k, v, do, o, lse, delta, dq, dk, dv, args, leaves
+            torch.cuda.empty_cache()
+    autograd_check()
+    return main
+
+
+def autograd_check() -> None:
+    """`mha` on CUDA tensors that need gradients returns them from the two
+    backward kernels, on the strided views the model hands over."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import (
+        mha, mha_bwd_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b, n, h, d = 2, 1370, 16, 64
+    qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda",
+                      dtype=torch.bfloat16).requires_grad_()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    before = (mha.launches, mha.bwd_dq_launches, mha.bwd_dkv_launches)
+    o = mha(q, k, v)
+    tokens = o.transpose(1, 2).reshape(b, n, h * d)
+    w = torch.randn((b, n, h * d), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    (tokens * w).sum().backward()
+    torch.cuda.synchronize()
+    after = (mha.launches, mha.bwd_dq_launches, mha.bwd_dkv_launches)
+    check(o.grad_fn is not None and qkv.grad is not None
+          and tuple(a - c for a, c in zip(after, before)) == (1, 1, 1),
+          "mha on CUDA tensors with requires_grad: a grad_fn, a gradient and "
+          "one launch of each of the three kernels")
+    with torch.no_grad():
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        o2, lse = mha(q, k, v, return_lse=True)
+        do = w.view(b, n, h, d).transpose(1, 2).float()
+        refs = mha_bwd_reference(qf, kf, vf, o2.float(), lse, do)
+        worst = max(((qkv.grad[:, :, i].transpose(1, 2).float() - ref)
+                     .abs().max() / ref.abs().max()).item()
+                    for i, ref in enumerate(refs))
+    check(worst <= TOL["bfloat16"],
+          f"autograd gradients of the qkv buffer vs mha_bwd_reference: "
+          f"{worst:.3e} of the max abs <= {TOL['bfloat16']}")
+
+
 def proxy_phase() -> None:
     import torch
 
@@ -190,16 +373,17 @@ def proxy_phase() -> None:
                           f"times (12 + 12 blocks)")
 
 
-def profile_call(pipe, img, mask, gpu: str) -> None:
-    """Where one bf16 call's device time goes: the device-side (kernel and
-    copy) events of a torch.profiler trace, summed by name."""
+def profile_call(fn, what: str, gpu: str) -> None:
+    """Where the device time of one call of `fn` goes: the device-side
+    (kernel and copy) events of a torch.profiler trace, summed by name. `fn`
+    must end synchronised."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        pipe(img, mask)
+        fn()
         wall_ms = (time.perf_counter() - t) * 1e3
     by_name: dict[str, list] = {}
     for e in prof.events():
@@ -212,7 +396,7 @@ def profile_call(pipe, img, mask, gpu: str) -> None:
               flush=True)
         return
     busy_ms = sum(ms for ms, _ in by_name.values())
-    print(f"  one profiled bf16 call: wall {wall_ms:.1f} ms, device busy "
+    print(f"  one profiled {what}: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall) "
           f"[{gpu}]", flush=True)
     for name, (ms, count) in sorted(by_name.items(),
@@ -280,7 +464,7 @@ def full_width_phase(gpu: str) -> int:
               and a.std() > MIN_STD,
               f"bf16 {name} map finite, [{FULL_BATCH},{SIZE},{SIZE}], not "
               f"constant (std {a.std():.4f})")
-    profile_call(pipe, img, mask, gpu)
+    profile_call(lambda: pipe(img, mask), "bf16 call", gpu)
     diff = float(np.abs(blended[0] - blended_k[0]).max())
     p50 = float(np.median(latencies)) * 1e3
     print(f"  full width bf16 batch {FULL_BATCH} at {SIZE} px: "
@@ -289,6 +473,251 @@ def full_width_phase(gpu: str) -> int:
           f"{[round(x * 1e3, 1) for x in latencies]} ms, peak memory "
           f"{peak:.2f} GiB; bf16 vs f32 blended max abs {diff:.3e} [{gpu}]",
           flush=True)
+    return launches
+
+
+class SceneDataset:
+    """Synthetic amodal scenes held in memory, with every key the port's
+    `SAMAmodalDataset` yields (same shapes, dtypes and quantisation: 8-bit
+    images, 16-bit depths), rendered by `data/synthetic.py::_render_scene`
+    from a seed. Stands in for the dataset on disk, whose decoding needs
+    PIL."""
+
+    disp_name = "synthetic_scenes"
+
+    def __init__(self, n: int, hw: int, seed: int):
+        from amodal_depth_anything_tpu_torch.data.synthetic import \
+            _render_scene
+
+        rng = np.random.default_rng(seed)
+        self.samples = []
+        while len(self.samples) < n:
+            (rgb, whole, scene_depth, amodal_depth, whole_mask, visible,
+             frac) = _render_scene(rng, hw)
+            if not (0.05 < frac < 0.95 and visible.sum() > 4):
+                continue   # the target must be partially occluded
+
+            def image(x):
+                x = (np.clip(x, 0, 1) * 255).astype(np.uint8)
+                return x.astype(np.float32)
+
+            def depth(x):
+                x = (x * 65535).astype(np.uint16).astype(np.float32)
+                return (x / 65535.0)[..., None]
+
+            def mask(x):
+                return x.astype(np.float32)[..., None]
+
+            i = len(self.samples)
+            ones = np.ones((hw, hw, 1), bool)
+            self.samples.append({
+                "rgb_int": image(rgb),
+                "rgb_norm": image(rgb) / 255.0 * 2.0 - 1.0,
+                "guide_rgb_int": image(whole),
+                "guide_rgb_norm": image(whole) / 255.0 * 2.0 - 1.0,
+                "guide": mask(whole_mask), "visible_mask": mask(visible),
+                "depth_observation": depth(scene_depth),
+                "depth_gt": depth(amodal_depth),
+                "valid_mask_raw": ones, "valid_mask_filled": ones.copy(),
+                "invisible_mask": mask(whole_mask & ~visible),
+                "index": i, "rgb_relative_path": f"occlusion/{i:04d}.png"})
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, index: int) -> dict:
+        return self.samples[index]
+
+
+def proxy_grad_phase() -> None:
+    """One train step's loss and gradients on the trained amodal proxy:
+    the card (kernels, forward and backward) against the CPU (plain)."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.convert.weights import (
+        load_params_npz, params_from_jax)
+    from amodal_depth_anything_tpu_torch.data import collate
+    from amodal_depth_anything_tpu_torch.models.amodal_dav2 import (
+        DAV2Config, build_model)
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.train import (DiscriminativeTrainer,
+                                                       TrainerConfig)
+
+    cfg = DAV2Config(encoder="vitp")
+    params = params_from_jax(load_params_npz(
+        os.path.join("checkpoints", "proxy", "amodal.npz")), cfg)
+    scenes = SceneDataset(2, 112, seed=3)
+    batch = collate([scenes[0], scenes[1]])
+    tcfg = TrainerConfig(compute_dtype="float32", remat="attn")
+    out = {}
+    for device in ("cpu", "cuda"):
+        trainer = DiscriminativeTrainer(tcfg, build_model(cfg), None,
+                                        device=device, params=params)
+        mha.launches = mha.bwd_dq_launches = mha.bwd_dkv_launches = 0
+        loss, grads = trainer.loss_and_grads(trainer._device_batch(batch))
+        out[device] = (loss.item(), {k: g.cpu() for k, g in grads.items()})
+    launches = (mha.launches, mha.bwd_dq_launches, mha.bwd_dkv_launches)
+    check(launches == (12, 12, 12), f"proxy train step on the card launched "
+                                    f"fwd, dq, dkv {launches} times (12 each)")
+    (cpu_loss, cpu_grads), (gpu_loss, gpu_grads) = out["cpu"], out["cuda"]
+    check(np.isfinite(gpu_loss) and abs(gpu_loss - cpu_loss) <=
+          PROXY_GRAD_TOL * abs(cpu_loss),
+          f"proxy train loss, card {gpu_loss:.6f} vs CPU {cpu_loss:.6f}")
+    worst, worst_name, live = 0.0, "", 0
+    for name, ref in cpu_grads.items():
+        scale = ref.abs().max().item()
+        err = (gpu_grads[name] - ref).abs().max().item()
+        if scale == 0.0:
+            rel = 0.0 if err == 0.0 else float("inf")
+        else:
+            rel, live = err / scale, live + 1
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(worst <= PROXY_GRAD_TOL and live >= len(cpu_grads) - 5,
+          f"proxy gradients, card (kernels) vs CPU (plain), {live} of "
+          f"{len(cpu_grads)} non-zero: worst {worst:.3e} of its max abs "
+          f"({worst_name}) <= {PROXY_GRAD_TOL}")
+
+
+def train_phase(gpu: str) -> dict:
+    import torch
+
+    from amodal_depth_anything_tpu_torch.cli.train import \
+        trainer_config_from_cfg
+    from amodal_depth_anything_tpu_torch.data import DataLoader
+    from amodal_depth_anything_tpu_torch.models import get_model
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.train import get_trainer_cls
+    from amodal_depth_anything_tpu_torch.train.state import global_norm
+    from amodal_depth_anything_tpu_torch.utils.config import \
+        recursive_load_config
+    from amodal_depth_anything_tpu_torch.utils.profiling import StepTimer
+
+    cfg = recursive_load_config(TRAIN_CONFIG)
+    # one card and batches of 8: no accumulation (the recipe's effective
+    # batch of 32 is four cards of 8). No warm-up, so that no step has a
+    # learning rate of 0; no periodic validation, saving or visualisation
+    tcfg = dataclasses.replace(
+        trainer_config_from_cfg(cfg, accumulation_steps=1),
+        lr_warmup_steps=0, max_iter=TRAIN_STEPS, log_interval=1,
+        validation_period=0, save_period=0, visualization_period=0)
+    check((tcfg.compute_dtype, tcfg.remat, tcfg.optimizer, tcfg.max_grad_norm,
+           tcfg.loss_name, tcfg.loss_strategy, tcfg.lr) ==
+          ("bfloat16", "attn", "adam", 0.01, "silog_loss",
+           "entire_target_object", 3e-5),
+          f"recipe {TRAIN_CONFIG}: bfloat16, remat attn, adam, clip 0.01, "
+          f"silog_loss on entire_target_object, lr 3e-5")
+
+    t0 = time.time()
+    scenes = SceneDataset(2 * TRAIN_BATCH, SIZE, seed=4)
+    train_loader = DataLoader(scenes, batch_size=TRAIN_BATCH, shuffle=True,
+                              drop_last=True, seed=0)
+    val_loader = DataLoader(scenes, batch_size=TRAIN_BATCH, pad_last=True)
+    model = get_model(cfg.model.name, device="cuda",
+                      **cfg.model.kwargs.to_dict())
+    trainer = get_trainer_cls(cfg.trainer.name)(
+        tcfg, model, train_loader, [val_loader], device="cuda", seed=0)
+    n_params = sum(p.numel() for p in trainer.state.params.values())
+    torch.cuda.synchronize()
+    print(f"  {len(scenes)} scenes at {SIZE} px rendered and seeded vitl "
+          f"AmodalDAv2 ({n_params / 1e6:.1f} M parameters, "
+          f"{model.cfg.vit.depth} blocks, width {model.cfg.vit.embed_dim}) "
+          f"built on the card in {time.time() - t0:.1f} s", flush=True)
+    check(model.cfg.vit.depth == TRAIN_BLOCKS, "vitl at full depth")
+
+    watched = ("encoder.pretrained.cls_token",
+               "encoder.pretrained.blocks.11.attn.qkv.weight",
+               "encoder.depth_head.scratch.output_conv1.weight")
+    before = {k: trainer.state.params[k].detach().clone() for k in watched}
+    losses = []
+    step = trainer._train_step
+
+    def recording_step(batch):
+        loss = step(batch)
+        losses.append(float(loss))
+        return loss
+
+    trainer._train_step = recording_step
+    trainer.step_timer = StepTimer(warmup=1)   # the first step loads cuDNN
+    torch.cuda.reset_peak_memory_stats()
+    mha.launches = mha.bwd_dq_launches = mha.bwd_dkv_launches = 0
+    trainer.train()                            # the main path
+    launches = {"flash_attn_fwd": mha.launches,
+                "flash_attn_bwd_dq": mha.bwd_dq_launches,
+                "flash_attn_bwd_dkv": mha.bwd_dkv_launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer._train_step = step
+    check(trainer.effective_iter == TRAIN_STEPS and
+          len(losses) == TRAIN_STEPS and bool(np.isfinite(losses).all())
+          and min(losses) > 0,
+          f"{TRAIN_STEPS} train steps, losses finite and positive: "
+          f"{[round(x, 5) for x in losses]}")
+    for name, count in launches.items():
+        check(count == TRAIN_BLOCKS * TRAIN_STEPS,
+              f"training launched {name} {count} times "
+              f"({TRAIN_BLOCKS} per step under remat='attn')")
+    for k, old in before.items():
+        new = trainer.state.params[k]
+        check(bool(torch.isfinite(new).all()) and not torch.equal(new, old),
+              f"parameter {k} finite and moved (max abs change "
+              f"{(new - old).abs().max().item():.3e})")
+    timing = trainer.step_timer.summary()
+    print(f"  training vitl AmodalDAv2 bf16 batch {TRAIN_BATCH} at {SIZE} px, "
+          f"remat='attn': {timing['steps_per_sec']:.4f} steps/s "
+          f"({TRAIN_BATCH * timing['steps_per_sec']:.3f} images/s), p50 "
+          f"{timing['p50_s'] * 1e3:.1f} ms per step over {timing['steps']} "
+          f"steps {[round(x * 1e3, 1) for x in trainer.step_timer.durations]} "
+          f"ms, peak memory {peak:.2f} GiB [{gpu}]", flush=True)
+
+    # the remat modes on the card, forward + backward without the update:
+    # launches of the forward kernel per step, time and peak memory
+    batch8 = trainer._device_batch(next(iter(val_loader)))
+    for remat, want in ((False, 1), (True, 2), ("attn", 1)):
+        trainer.cfg.remat = remat
+        torch.cuda.reset_peak_memory_stats()
+        mha.launches = 0
+        ms = cuda_ms(lambda: trainer.loss_and_grads(batch8), 2, warmup=1)
+        check(mha.launches == 3 * want * TRAIN_BLOCKS,
+              f"remat={remat!r}: {mha.launches // 3} forward launches per "
+              f"step ({want * TRAIN_BLOCKS})")
+        print(f"  remat={remat!r}: forward + backward {ms:.1f} ms, peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+              f"GiB [{gpu}]", flush=True)
+    profile_call(lambda: float(trainer._train_step(batch8)),
+                 "bf16 train step", gpu)
+
+    results = trainer.validate()
+    banks = results[scenes.disp_name]
+    values = [banks[bank][m] for bank in ("overall", "align_overall")
+              for m in tcfg.eval_metrics]
+    check(len(values) == 20 and bool(np.isfinite(values).all()),
+          f"validate() over 2 batches of {TRAIN_BATCH}: 10 metrics x "
+          f"(raw, aligned) finite; abs_rel raw "
+          f"{banks['overall']['abs_relative_difference']:.4f}, aligned "
+          f"{banks['align_overall']['abs_relative_difference']:.4f} (the "
+          f"scenes' objects are flat, so the alignment alone recovers the "
+          f"hidden part)")
+
+    # one float32 step at batch 1: the kernels against plain attention
+    del batch8
+    cfg32 = dataclasses.replace(tcfg, compute_dtype="float32")
+    t32 = get_trainer_cls(cfg.trainer.name)(
+        cfg32, model, None, device="cuda", params=model.state_dict())
+    batch1 = {k: v[:1] for k, v in next(iter(val_loader)).items()
+              if isinstance(v, np.ndarray)}
+    batch1 = t32._device_batch(batch1)
+    got = {}
+    for impl in (None, "plain"):
+        t32.cfg.attn_impl = impl
+        loss, grads = t32.loss_and_grads(batch1)
+        got[impl] = (loss.item(), global_norm(list(grads.values())).item())
+        del grads
+    (k_loss, k_norm), (p_loss, p_norm) = got[None], got["plain"]
+    check(abs(k_loss - p_loss) <= TRAIN_F32_TOL * abs(p_loss) and
+          abs(k_norm - p_norm) <= TRAIN_F32_TOL * p_norm and p_norm > 0,
+          f"f32 step at batch 1, kernels vs plain attention: loss "
+          f"{k_loss:.6f} vs {p_loss:.6f}, gradient norm {k_norm:.6e} vs "
+          f"{p_norm:.6e} (within {TRAIN_F32_TOL} relative)")
     return launches
 
 
@@ -321,17 +750,30 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     print("[3] kernels against their plain versions", flush=True)
-    main_attn = attention_phase(gpu)
+    measured = {"flash_attn_fwd": attention_phase(gpu)}
+    measured.update(attention_bwd_phase(gpu))
 
     print("[4] trained proxies: card vs CPU", flush=True)
     proxy_phase()
+    proxy_grad_phase()
 
-    print("[5] full width: vitg base + vitl AmodalDAv2", flush=True)
-    launches = full_width_phase(gpu)
+    print("[5] inference at full width: vitg base + vitl AmodalDAv2",
+          flush=True)
+    infer_launches = full_width_phase(gpu)
+    torch.cuda.empty_cache()
 
-    kernels = [{"name": "flash_attn_fwd", "route": "cuda",
-                "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-                "launches": launches, **main_attn}]
+    print("[6] training at full width: vitl AmodalDAv2", flush=True)
+    launches = train_phase(gpu)
+
+    # launches: over the main paths, each counted from 0; the forward
+    # kernel runs on both (inference [5] and training [6])
+    kernels = [{"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                **measured[name]}
+               for name, (source, replaces) in KERNELS.items()]
+    kernels[0].update(launches=infer_launches + launches["flash_attn_fwd"],
+                      launches_inference=infer_launches,
+                      launches_training=launches["flash_attn_fwd"])
     print(json.dumps({"kernels": kernels}))
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", file=sys.stderr)

@@ -1,0 +1,141 @@
+"""Port flash-attention backward on the CPU (`mha_bwd_reference`, and the
+`autograd.Function` that takes it there) vs `jax.grad` of the JAX package's
+Pallas kernels in interpret mode and of its XLA reference.
+
+The same seeded numpy inputs and cotangent go to both packages, f32, JAX at
+Precision.HIGHEST; max abs <= 1e-5 (sums in another order). With
+`kv_len < N` and Nq == Nk the query rows at or past kv_len are padding and
+carry a zero cotangent, as `mha`'s contract demands."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from amodal_depth_anything_tpu.ops.flash_attention import mha as jax_mha
+from amodal_depth_anything_tpu.ops.flash_attention import \
+    mha_reference as jax_mha_reference
+from amodal_depth_anything_tpu_torch.ops import flash_attention as fa
+from amodal_depth_anything_tpu_torch.ops.attention import multi_head_attention
+from amodal_depth_anything_tpu_torch.ops.flash_attention import (
+    mha, mha_bwd_reference, mha_reference)
+from tests.test_torch_models import few_torch_threads  # noqa: F401
+
+TOL = 1e-5
+
+# (batch, heads, n_q, n_k, kv_len, sm_scale)
+CASES = [
+    (1, 2, 200, 200, None, None),    # ragged N (not a multiple of 64/128)
+    (2, 3, 37, 37, None, None),      # tiny ragged N, batch > 1
+    (1, 2, 256, 256, 200, None),     # kv_len < N with Nq == Nk
+    (1, 2, 130, 130, None, 0.3),     # custom sm_scale
+    (1, 2, 100, 150, None, None),    # cross attention, Nq != Nk
+    (1, 2, 100, 192, 150, None),     # cross attention with masked keys
+]
+
+
+def _inputs(b, h, nq, nk, kv_len, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, nq, 64), dtype=np.float32)
+    k = rng.standard_normal((b, h, nk, 64), dtype=np.float32)
+    v = rng.standard_normal((b, h, nk, 64), dtype=np.float32)
+    do = rng.standard_normal((b, h, nq, 64), dtype=np.float32)
+    if kv_len is not None and nq == nk:
+        do[:, :, kv_len:] = 0.0
+    return q, k, v, do
+
+
+def _jax_grads(fn, q, k, v, do, **kw):
+    def loss(q, k, v):
+        return jnp.sum(fn(q, k, v, **kw) * do)
+    return [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
+
+
+def _check(ours, ref):
+    for name, a, r in zip(("dq", "dk", "dv"), ours, ref):
+        a = a.detach().numpy()
+        assert a.shape == r.shape, name
+        assert np.abs(a - r).max() <= TOL, (name, np.abs(a - r).max())
+
+
+@pytest.mark.parametrize("b,h,nq,nk,kv_len,scale", CASES)
+def test_bwd_reference_matches_jax_pallas_grad(b, h, nq, nk, kv_len, scale):
+    q, k, v, do = _inputs(b, h, nq, nk, kv_len)
+    ref = _jax_grads(jax_mha, q, k, v, do, interpret=True, kv_len=kv_len,
+                     sm_scale=scale)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = mha_reference(tq, tk, tv, kv_len=kv_len, sm_scale=scale,
+                           return_lse=True)
+    _check(mha_bwd_reference(tq, tk, tv, o, lse, tdo, kv_len=kv_len,
+                             sm_scale=scale), ref)
+    if kv_len is not None:  # rows of dk, dv at or past kv_len: exactly 0
+        _, dk, dv = mha_bwd_reference(tq, tk, tv, o, lse, tdo, kv_len=kv_len,
+                                      sm_scale=scale)
+        assert not dk[:, :, kv_len:].any() and not dv[:, :, kv_len:].any()
+
+
+@pytest.mark.parametrize("b,h,nq,nk,kv_len,scale", CASES)
+def test_mha_autograd_matches_jax_reference_grad(b, h, nq, nk, kv_len, scale):
+    q, k, v, do = _inputs(b, h, nq, nk, kv_len, seed=1)
+    ref = _jax_grads(jax_mha_reference, q, k, v, do, kv_len=kv_len,
+                     sm_scale=scale)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o = mha(tq, tk, tv, kv_len=kv_len, sm_scale=scale)
+    assert o.grad_fn is not None
+    grads = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
+    if kv_len is not None:
+        # the JAX reference has no mask on dk, dv rows past kv_len; they are
+        # zero there because the softmax gives those keys no weight
+        assert not grads[1][:, :, kv_len:].any()
+    _check(grads, ref)
+
+
+def test_mha_cpu_gradient_takes_the_plain_backward(monkeypatch):
+    """On CPU tensors the Function's backward is `mha_bwd_reference`, no
+    kernel is launched, and without a gradient there is no Function."""
+    q, k, v, do = _inputs(1, 2, 40, 40, None, seed=2)
+    calls = []
+    monkeypatch.setattr(fa, "mha_bwd_reference",
+                        lambda *a, **kw: calls.append(1)
+                        or mha_bwd_reference(*a, **kw))
+    before = (mha.launches, mha.bwd_dq_launches, mha.bwd_dkv_launches)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    multi_head_attention(tq, tk, tv).backward(torch.from_numpy(do))
+    assert calls == [1] and tq.grad is not None
+    assert (mha.launches, mha.bwd_dq_launches, mha.bwd_dkv_launches) == before
+    with torch.no_grad():
+        assert mha(tq, tk, tv).grad_fn is None
+    assert mha(tq.detach(), tk.detach(), tv.detach()).grad_fn is None
+
+
+def test_mha_residuals_skip_the_second_forward(monkeypatch):
+    """A filled `residuals` dict stands in for the forward: the recompute
+    pass of a rematerialised block reuses the kept output and LSE."""
+    q, k, v, do = _inputs(1, 2, 50, 50, None, seed=3)
+    forwards = []
+    monkeypatch.setattr(fa, "mha_reference",
+                        lambda *a, **kw: forwards.append(1)
+                        or mha_reference(*a, **kw))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    kept: dict = {}
+    o1 = mha(tq, tk, tv, residuals=kept)
+    assert set(kept) == {"o", "lse"} and len(forwards) == 1
+    o2 = mha(tq, tk, tv, residuals=kept)
+    assert len(forwards) == 1 and torch.equal(o1, o2)
+    g1 = torch.autograd.grad(o1, (tq, tk, tv), torch.from_numpy(do))
+    g2 = torch.autograd.grad(o2, (tq, tk, tv), torch.from_numpy(do))
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def test_plain_impl_differentiates_mha_reference():
+    q, k, v, do = _inputs(1, 2, 33, 33, None, seed=4)
+    grads = []
+    for impl in (None, "plain"):
+        tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+        o = multi_head_attention(tq, tk, tv, impl=impl)
+        grads.append(torch.autograd.grad(o, (tq, tk, tv),
+                                         torch.from_numpy(do)))
+    for a, b in zip(*grads):
+        assert (a - b).abs().max() <= TOL
