@@ -12,6 +12,16 @@ transposed-conv weights [C_in, k, k, C_out]) into that state dict; with
 (`checkpoints/proxy/*.npz`, flat "/"-joined keys). `params_to_jax` is its
 inverse, for parameters or for gradients under the parameters' names, so a
 train step of the port can be held against the JAX package's leaf by leaf.
+
+The DepthFM family has the same pair (`depthfm_params_from_jax`,
+`depthfm_params_to_jax`: the UNet under "unet.", the VAE under "vae.", the
+empty-text embedding), `load_depthfm_proxy` for the in-repo trained proxy
+(`checkpoints/proxy/depthfm.npz` with the overrides of `depthfm_meta.json`),
+and `load_depthfm_checkpoints` for the reference artifacts: the
+`depthfm-v1.ckpt` layout (LDM UNet state dict, hparams, noising step,
+empty-text embedding; conv-in widened with zeros for the guidance channels)
+and a diffusers `AutoencoderKL` state dict whose topology is read off its
+keys.
 """
 
 from __future__ import annotations
@@ -20,9 +30,13 @@ import numpy as np
 import torch
 
 from ..models.amodal_dav2 import DAV2Config
+from ..models.depthfm import DepthFM, DepthFMConfig, build_depthfm
+from ..models.unet_ldm import UNetConfig, build_plan
 
 __all__ = ["load_state_dict", "infer_dav2_config", "params_from_jax",
-           "params_to_jax", "load_params_npz"]
+           "params_to_jax", "load_params_npz", "depthfm_params_from_jax",
+           "depthfm_params_to_jax", "load_depthfm_proxy",
+           "load_depthfm_checkpoints"]
 
 
 def load_state_dict(path: str) -> dict[str, torch.Tensor]:
@@ -209,3 +223,264 @@ def _set_path(tree: dict, path: tuple, leaf) -> None:
     for part in parents:
         tree = tree.setdefault(part, {})
     tree[last] = leaf
+
+
+# ------------------------------------------------------------------ DepthFM
+
+def _unet_leaf_map(cfg: UNetConfig, prefix: str, root: tuple) -> list:
+    """(state-dict key, path in the JAX tree, kind) for every parameter of
+    the LDM UNet, walking the plan both packages build it from."""
+    out = []
+
+    def lin(name, path, bias=True):
+        out.append((f"{prefix}{name}.weight", root + path + ("w",), "linear"))
+        if bias:
+            out.append((f"{prefix}{name}.bias", root + path + ("b",), "same"))
+
+    def conv(name, path):
+        out.append((f"{prefix}{name}.weight", root + path + ("w",), "conv"))
+        out.append((f"{prefix}{name}.bias", root + path + ("b",), "same"))
+
+    def norm(name, path):
+        out.append((f"{prefix}{name}.weight", root + path + ("scale",), "same"))
+        out.append((f"{prefix}{name}.bias", root + path + ("bias",), "same"))
+
+    def layer(kind, meta, name, path):
+        if kind == "conv_in":
+            conv(name, path)
+        elif kind == "res":
+            norm(f"{name}.in_layers.0", path + ("norm1",))
+            conv(f"{name}.in_layers.2", path + ("conv1",))
+            lin(f"{name}.emb_layers.1", path + ("emb",))
+            norm(f"{name}.out_layers.0", path + ("norm2",))
+            conv(f"{name}.out_layers.3", path + ("conv2",))
+            if meta["in"] != meta["out"]:
+                conv(f"{name}.skip_connection", path + ("skip",))
+        elif kind == "attn":
+            norm(f"{name}.norm", path + ("norm",))
+            proj = lin if cfg.use_linear_in_transformer else conv
+            proj(f"{name}.proj_in", path + ("proj_in",))
+            proj(f"{name}.proj_out", path + ("proj_out",))
+            for d in range(cfg.transformer_depth):
+                b = f"{name}.transformer_blocks.{d}"
+                bp = path + ("transformer_blocks", str(d))
+                for attn in ("attn1", "attn2"):
+                    for part in ("to_q", "to_k", "to_v"):
+                        lin(f"{b}.{attn}.{part}", bp + (attn, part),
+                            bias=False)
+                    lin(f"{b}.{attn}.to_out.0", bp + (attn, "to_out"))
+                lin(f"{b}.ff.net.0.proj", bp + ("ff", "geglu"))
+                lin(f"{b}.ff.net.2", bp + ("ff", "out"))
+                for n in ("norm1", "norm2", "norm3"):
+                    norm(f"{b}.{n}", bp + (n,))
+        elif kind == "down":
+            conv(f"{name}.op", path)
+        elif kind == "up":
+            conv(f"{name}.conv", path)
+        else:
+            raise ValueError(kind)
+
+    lin("time_embed.0", ("time_embed", "fc1"))
+    lin("time_embed.2", ("time_embed", "fc2"))
+    inp, mid, outp = build_plan(cfg)
+    for i, layers in enumerate(inp):
+        for j, (kind, meta) in enumerate(layers):
+            layer(kind, meta, f"input_blocks.{i}.{j}",
+                  ("input_blocks", str(i), str(j)))
+    for j, (kind, meta) in enumerate(mid):
+        layer(kind, meta, f"middle_block.{j}", ("middle_block", str(j)))
+    for i, layers in enumerate(outp):
+        for j, (kind, meta) in enumerate(layers):
+            layer(kind, meta, f"output_blocks.{i}.{j}",
+                  ("output_blocks", str(i), str(j)))
+    norm("out.0", ("out", "norm"))
+    conv("out.2", ("out", "conv"))
+    return out
+
+
+def _vae_leaf_map(cfg, prefix: str, root: tuple) -> list:
+    """The same for the SD VAE, in the diffusers key layout."""
+    out = []
+
+    def lin(name, path):
+        out.append((f"{prefix}{name}.weight", root + path + ("w",), "linear"))
+        out.append((f"{prefix}{name}.bias", root + path + ("b",), "same"))
+
+    def conv(name, path):
+        out.append((f"{prefix}{name}.weight", root + path + ("w",), "conv"))
+        out.append((f"{prefix}{name}.bias", root + path + ("b",), "same"))
+
+    def norm(name, path):
+        out.append((f"{prefix}{name}.weight", root + path + ("scale",), "same"))
+        out.append((f"{prefix}{name}.bias", root + path + ("bias",), "same"))
+
+    def resnet(name, path, c_in, c_out):
+        norm(f"{name}.norm1", path + ("norm1",))
+        conv(f"{name}.conv1", path + ("conv1",))
+        norm(f"{name}.norm2", path + ("norm2",))
+        conv(f"{name}.conv2", path + ("conv2",))
+        if c_in != c_out:
+            conv(f"{name}.conv_shortcut", path + ("conv_shortcut",))
+
+    def mid(name, path, ch):
+        resnet(f"{name}.resnets.0", path + ("resnets", "0"), ch, ch)
+        resnet(f"{name}.resnets.1", path + ("resnets", "1"), ch, ch)
+        a, ap = f"{name}.attentions.0", path + ("attentions", "0")
+        norm(f"{a}.group_norm", ap + ("group_norm",))
+        for part in ("to_q", "to_k", "to_v"):
+            lin(f"{a}.{part}", ap + (part,))
+        lin(f"{a}.to_out.0", ap + ("to_out",))
+
+    chans = list(cfg.block_out_channels)
+    last = len(chans) - 1
+    conv("encoder.conv_in", ("encoder", "conv_in"))
+    ch = chans[0]
+    for i, c_out in enumerate(chans):
+        for j in range(cfg.layers_per_block):
+            resnet(f"encoder.down_blocks.{i}.resnets.{j}",
+                   ("encoder", "down_blocks", str(i), "resnets", str(j)),
+                   ch if j == 0 else c_out, c_out)
+        ch = c_out
+        if i != last:
+            conv(f"encoder.down_blocks.{i}.downsamplers.0.conv",
+                 ("encoder", "down_blocks", str(i), "downsampler"))
+    mid("encoder.mid_block", ("encoder", "mid_block"), ch)
+    norm("encoder.conv_norm_out", ("encoder", "conv_norm_out"))
+    conv("encoder.conv_out", ("encoder", "conv_out"))
+
+    conv("decoder.conv_in", ("decoder", "conv_in"))
+    mid("decoder.mid_block", ("decoder", "mid_block"), chans[-1])
+    ch = chans[-1]
+    for i, c_out in enumerate(reversed(chans)):
+        for j in range(cfg.layers_per_block + 1):
+            resnet(f"decoder.up_blocks.{i}.resnets.{j}",
+                   ("decoder", "up_blocks", str(i), "resnets", str(j)),
+                   ch if j == 0 else c_out, c_out)
+        ch = c_out
+        if i != last:
+            conv(f"decoder.up_blocks.{i}.upsamplers.0.conv",
+                 ("decoder", "up_blocks", str(i), "upsampler"))
+    norm("decoder.conv_norm_out", ("decoder", "conv_norm_out"))
+    conv("decoder.conv_out", ("decoder", "conv_out"))
+    conv("quant_conv", ("quant_conv",))
+    conv("post_quant_conv", ("post_quant_conv",))
+    return out
+
+
+def _depthfm_leaf_map(cfg: DepthFMConfig) -> list:
+    return (_unet_leaf_map(cfg.unet, "unet.", ("unet",))
+            + _vae_leaf_map(cfg.vae, "vae.", ("vae",))
+            + [("empty_text_embed", ("empty_text_embed",), "same")])
+
+
+def depthfm_params_from_jax(params: dict,
+                            cfg: DepthFMConfig) -> dict[str, torch.Tensor]:
+    """The JAX package's DepthFM parameter pytree (numpy leaves: linears
+    [in, out], convs HWIO) -> the state dict of `models.depthfm.DepthFM`."""
+    sd = {}
+    for key, path, kind in _depthfm_leaf_map(cfg):
+        leaf = params
+        for part in path:
+            leaf = leaf[part]
+        sd[key] = torch.from_numpy(np.ascontiguousarray(
+            _TO_TORCH[kind](np.asarray(leaf)), dtype=np.float32))
+    return sd
+
+
+def depthfm_params_to_jax(sd: dict, cfg: DepthFMConfig) -> dict:
+    """The inverse of `depthfm_params_from_jax`, as float32 numpy arrays."""
+    tree: dict = {}
+    for key, path, kind in _depthfm_leaf_map(cfg):
+        leaf = _TO_JAX[kind](sd[key].detach().cpu().float().numpy())
+        _set_path(tree, path, np.ascontiguousarray(leaf))
+    return tree
+
+
+def load_depthfm_proxy(npz_path: str, meta_path: str | None = None, *,
+                       guide_type: str = "mask+observation",
+                       device="cuda") -> DepthFM:
+    """The trained in-repo DepthFM proxy as a module on `device`: the
+    parameters of `npz_path` under the config overrides that the JSON next
+    to it (`<name>_meta.json`) records."""
+    import json
+
+    if meta_path is None:
+        meta_path = str(npz_path)[:-len(".npz")] + "_meta.json"
+    with open(meta_path) as f:
+        over = json.load(f)["overrides"]
+    over = {k: tuple(v) if isinstance(v, list) else v for k, v in over.items()}
+    cfg = DepthFMConfig(guide_type=guide_type, **over)
+    model = build_depthfm(cfg, device=device)
+    model.load_state_dict(
+        depthfm_params_from_jax(load_params_npz(npz_path), cfg), strict=True)
+    return model
+
+
+def _depthfm_config_from_ckpt(ckpt: dict, guide_type: str) -> DepthFMConfig:
+    """The config a `depthfm-v1.ckpt`-layout dict describes (its
+    `ldm_hparams`, `noising_step` and empty-text embedding)."""
+    hp = ckpt["ldm_hparams"]
+    empty = torch.as_tensor(np.asarray(ckpt["empty_text_embedding"]))
+    return DepthFMConfig(guide_type=guide_type,
+                         noising_step=int(ckpt["noising_step"]),
+                         context_dim=int(hp["context_dim"]),
+                         context_len=int(empty.shape[-2]),
+                         model_channels=int(hp["model_channels"]),
+                         channel_mult=tuple(hp["channel_mult"]),
+                         num_heads=int(hp["num_heads"]))
+
+
+def _infer_vae_topology(vae_sd: dict) -> dict:
+    """`vae_channels` and `vae_layers` read off a diffusers AutoencoderKL
+    state dict's keys and shapes."""
+    n_down = 1 + max(int(k.split(".")[2]) for k in vae_sd
+                     if k.startswith("encoder.down_blocks."))
+    layers = 1 + max(int(k.split(".")[4]) for k in vae_sd
+                     if k.startswith("encoder.down_blocks.0.resnets."))
+    chans = tuple(
+        int(vae_sd[f"encoder.down_blocks.{i}.resnets.0.conv1.weight"]
+            .shape[0]) for i in range(n_down))
+    return {"vae_channels": chans, "vae_layers": layers}
+
+
+def load_depthfm_checkpoints(depthfm_ckpt, vae_ckpt, *,
+                             guide_type: str = "mask+observation",
+                             cfg_overrides: dict | None = None,
+                             device="cuda") -> DepthFM:
+    """A DepthFM module on `device` from the reference artifacts.
+
+    `depthfm_ckpt`: a path to (or the loaded dict of) `depthfm-v1.ckpt`:
+    `state_dict` (LDM UNet, reference keys), `ldm_hparams`, `noising_step`,
+    `empty_text_embedding`. Its conv-in holds the 8 pretrained input
+    channels; the `additional_dim` guidance channels are appended as zeros
+    (reference dfm_amodal.py:70-83). `vae_ckpt`: a path to (or the state
+    dict of) the diffusers SD-1.5 AutoencoderKL (.safetensors or .bin),
+    which ships apart. `cfg_overrides` patches DepthFMConfig fields neither
+    artifact carries."""
+    import dataclasses
+
+    ckpt = depthfm_ckpt
+    if not isinstance(ckpt, dict):
+        ckpt = torch.load(ckpt, map_location="cpu", weights_only=False)
+    vae_sd = vae_ckpt if isinstance(vae_ckpt, dict) \
+        else load_state_dict(vae_ckpt)
+    vae_sd = {k: torch.as_tensor(np.asarray(v)) for k, v in vae_sd.items()}
+    cfg = _depthfm_config_from_ckpt(ckpt, guide_type)
+    cfg = dataclasses.replace(cfg, **{**_infer_vae_topology(vae_sd),
+                                      **(cfg_overrides or {})})
+    unet_sd = {k: torch.as_tensor(np.asarray(v)).float()
+               for k, v in ckpt["state_dict"].items()}
+    w = unet_sd["input_blocks.0.0.weight"]      # OIHW
+    if cfg.additional_dim and w.shape[1] == 8:
+        pad = w.new_zeros(w.shape[0], cfg.additional_dim, *w.shape[2:])
+        unet_sd["input_blocks.0.0.weight"] = torch.cat([w, pad], dim=1)
+    empty = torch.as_tensor(np.asarray(ckpt["empty_text_embedding"])).float()
+    if empty.dim() == 2:
+        empty = empty[None]
+    model = build_depthfm(cfg, device=device)
+    model.unet.load_state_dict(unet_sd, strict=True)
+    model.vae.load_state_dict({k: v.float() for k, v in vae_sd.items()},
+                              strict=True)
+    with torch.no_grad():
+        model.empty_text_embed.copy_(empty)
+    return model

@@ -12,7 +12,8 @@
 
 namespace {
 
-constexpr int kD = 64;          // head dim
+constexpr int kD = 64;          // head dim of the backward kernels; the
+                                // forward is templated on a padded head dim
 constexpr int kBM = 64;         // query rows per block
 constexpr int kBN = 64;         // key rows per K/V tile
 constexpr float kLn2 = 0.6931471805599453f;
@@ -30,16 +31,19 @@ constexpr int kF32Ld = kD + 4;       // padded smem rows: float4-aligned,
                                      // conflict-free broadcast reads
 
 // Stage rows [row0, row0 + 64) of one (b, h) slice into smem (row stride
-// `ld` floats), zero-filling rows at or past `rows`, times `mul`.
+// `ld` floats, DPAD columns), times `mul`, zero-filling rows at or past
+// `rows` and the columns from the head dim `d` (a multiple of 4) to DPAD.
+template <int DPAD = kD>
 __device__ __forceinline__ void stage_tile_f32(float* dst, int ld,
                                                const float* src,
                                                long long row_stride, int row0,
-                                               int rows, float mul) {
-  for (int i = threadIdx.x; i < 64 * (kD / 4); i += kF32Threads) {
-    const int r = i / (kD / 4);
-    const int c = (i % (kD / 4)) * 4;
+                                               int rows, float mul,
+                                               int d = DPAD) {
+  for (int i = threadIdx.x; i < 64 * (DPAD / 4); i += kF32Threads) {
+    const int r = i / (DPAD / 4);
+    const int c = (i % (DPAD / 4)) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < rows) {
+    if (row0 + r < rows && c < d) {
       v = *reinterpret_cast<const float4*>(
           src + (long long)(row0 + r) * row_stride + c);
       v.x *= mul; v.y *= mul; v.z *= mul; v.w *= mul;
@@ -124,16 +128,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Start the cp.async copies of rows [row0, row0 + 64) of one (b, h) slice
-// into a [64][kBf16Ld] smem tile, zero-filling rows at or past `rows`.
+// into a [64][DPAD + 8] smem tile, zero-filling rows at or past `rows` and
+// the columns from the head dim `d` (a multiple of 8) to DPAD.
+template <int DPAD = kD>
 __device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
                                                long long row_stride, int row0,
-                                               int rows) {
-  for (int i = threadIdx.x; i < 64 * (kD / 8); i += kBf16Threads) {
-    const int r = i / (kD / 8);
-    const int c = (i % (kD / 8)) * 8;
-    const bool valid = row0 + r < rows;
-    cp_async16(dst + r * kBf16Ld + c,
-               src + (long long)(valid ? row0 + r : 0) * row_stride + c,
+                                               int rows, int d = DPAD) {
+  for (int i = threadIdx.x; i < 64 * (DPAD / 8); i += kBf16Threads) {
+    const int r = i / (DPAD / 8);
+    const int c = (i % (DPAD / 8)) * 8;
+    const bool valid = row0 + r < rows && c < d;
+    cp_async16(dst + r * (DPAD + 8) + c,
+               valid ? src + (long long)(row0 + r) * row_stride + c : src,
                valid);
   }
 }

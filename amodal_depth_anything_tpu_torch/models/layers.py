@@ -42,7 +42,8 @@ class Linear(nn.Linear):
     """nn.Linear whose parameters follow the input's dtype at use."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
 class LayerNorm(nn.LayerNorm):

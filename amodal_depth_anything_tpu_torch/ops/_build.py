@@ -20,7 +20,7 @@ from pathlib import Path
 
 __all__ = ["KERNELS", "BUILD_DIR", "build", "load"]
 
-KERNELS = ("flash_attn_fwd", "flash_attn_bwd")
+KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "fused_epilogue")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,9 +1,14 @@
 """Multi-head attention dispatch: the Hopper kernels or the plain version.
 
 `impl=None` takes the kernels for CUDA tensors and the plain version for CPU
-tensors; both are differentiable. An explicit "plain" is allowed on the card (the JAX package's
-`attn_impl="xla"`), so the two can be compared there; an explicit "kernel"
-on a CPU tensor raises.
+tensors; both are differentiable. Nothing is rerouted by size: the trunks'
+self-attention, the UNet's self-attention at head dims 40/80/160 and its
+cross-attention onto 77 context tokens all launch the kernel on the card
+(the JAX package sends tiny key sets to XLA to get around Mosaic tilings;
+the CUDA kernel masks any Nk itself). An explicit "plain" is allowed on the
+card (the JAX package's `attn_impl="xla"`), so the two can be compared
+there, and is what the VAE's single-head f32 mid-block attention asks for,
+as the JAX package does; an explicit "kernel" on a CPU tensor raises.
 """
 
 from __future__ import annotations

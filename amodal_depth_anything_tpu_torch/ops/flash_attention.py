@@ -15,9 +15,12 @@ an exception, in both directions. Each backward kernel has its own wrapper
 `mha.bwd_dq_launches` and `mha.bwd_dkv_launches` count the three kernels'
 launches.
 
-Layout [B, H, N, D] as in the JAX package. The kernels take any N (they
-mask the ragged edges and keys >= `kv_len` themselves), head dim 64, and
-float32 or bfloat16.
+Layout [B, H, N, D] as in the JAX package. The kernels take any Nq and Nk
+(they mask the ragged edges and keys >= `kv_len` themselves) and float32 or
+bfloat16. The forward kernel takes any head dim up to 160 that is a multiple
+of 4 (float32) or 8 (bfloat16), the 16-byte vector loads' rule: the DINOv2
+trunks' 64 and the SD-1.5 UNet's 40, 80 and 160 among them. The two backward
+kernels take head dim 64 only.
 """
 
 from __future__ import annotations
@@ -27,10 +30,11 @@ import ctypes
 import torch
 
 __all__ = ["mha", "mha_reference", "mha_bwd_reference", "flash_attn_bwd_dq",
-           "flash_attn_bwd_dkv", "HEAD_DIM", "NEG_INF"]
+           "flash_attn_bwd_dkv", "MAX_HEAD_DIM", "BWD_HEAD_DIM", "NEG_INF"]
 
 NEG_INF = -1e30  # the JAX package's mask value (avoids inf - inf NaNs)
-HEAD_DIM = 64    # every DINOv2 preset on the main path
+MAX_HEAD_DIM = 160   # the forward kernel's widest instantiation
+BWD_HEAD_DIM = 64    # the backward kernels: every DINOv2 preset
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -97,9 +101,12 @@ def _check(q, k, v, kv_len):
     if k.shape[0] != b or k.shape[1] != h or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
                          f"in batch, heads or head dim")
-    if d != HEAD_DIM:
-        raise ValueError(f"the attention kernels take head dim {HEAD_DIM}, "
-                         f"got {d}")
+    vec = 16 // q.element_size()
+    if d % vec or not vec <= d <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"the forward attention kernel takes a head dim that is a "
+            f"multiple of {vec} for {q.dtype} (16-byte vector loads) and at "
+            f"most {MAX_HEAD_DIM}, got {d}")
     if not 1 <= kv_len <= k.shape[2]:
         raise ValueError(f"kv_len {kv_len} outside [1, {k.shape[2]}]")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -153,11 +160,11 @@ def _launch_fwd(q, k, v, sm_scale: float, kv_len: int | None, need_lse: bool):
     o = _token_major(b, h, nq, d, q)
     lse = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
            if need_lse else None)
-    fn = _entry("flash_attn_fwd", "flash_attn_fwd", 5, 4)
+    fn = _entry("flash_attn_fwd", "flash_attn_fwd", 5, 5)
     with torch.cuda.device(q.device):
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  o.data_ptr(), None if lse is None else lse.data_ptr(),
-                 b, h, nq, kv_len, float(sm_scale), _strides(q, k, v, o),
+                 b, h, nq, kv_len, d, float(sm_scale), _strides(q, k, v, o),
                  0 if lse is None else lse.stride(0),
                  0 if lse is None else lse.stride(1),
                  torch.cuda.current_stream(q.device).cuda_stream)
@@ -169,6 +176,11 @@ def _launch_fwd(q, k, v, sm_scale: float, kv_len: int | None, need_lse: bool):
 
 def _check_bwd(q, k, v, do, lse, delta, kv_len: int):
     _check(q, k, v, kv_len)
+    if q.shape[3] != BWD_HEAD_DIM:
+        raise ValueError(
+            f"the backward attention kernels take head dim {BWD_HEAD_DIM} "
+            f"only (the forward kernel is the one widened to other head "
+            f"dims), got {q.shape[3]}")
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"dO must match q: got {tuple(do.shape)} {do.dtype} "
                          f"on {do.device}")

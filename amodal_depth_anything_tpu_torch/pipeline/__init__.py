@@ -1,1 +1,2 @@
-"""End-to-end amodal-depth inference."""
+"""End-to-end inference: amodal depth (`amodal_pipeline`) and the
+generative DepthFM family (`depthfm_pipeline`)."""

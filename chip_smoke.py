@@ -8,18 +8,27 @@ its user entry points and holds every hand-written kernel against its
 plain PyTorch version on the card:
 
   1. device and flags: `nvidia-smi` name and power limit, the TF32 flags;
-  2. build: nvcc compiles every kernel from `csrc/` (all at once);
+  2. build: nvcc compiles the three kernel libraries from `csrc/` (all at
+     once);
   3. kernel vs plain version at the main paths' attention shapes and
      more, float32 (max abs <= 2e-5) and bfloat16 (<= 2e-2, plain version
      on the bf16-rounded inputs in float32), with kernel, plain and
      `F.scaled_dot_product_attention` times (the last a yardstick only):
-     the forward, then the two backward kernels (dQ; dK and dV) against
-     `mha_bwd_reference`, tolerances relative to the reference's max abs,
-     and `mha` under autograd on strided CUDA views;
+     the forward at the DINOv2 trunks' head dim 64 and at the SD-1.5
+     UNet's shapes (head dims 40/80/160, self-attention and
+     cross-attention onto 77 keys, the proxy's 12/24/48), then the two
+     backward kernels (dQ; dK and dV) against `mha_bwd_reference`,
+     tolerances relative to the reference's max abs, and `mha` under
+     autograd on strided CUDA views; then the fused matmul + LayerScale +
+     residual epilogue against `matmul_scale_residual_reference` at the
+     trunks' proj / fc2 shapes, and its path: a chain of four blocks at
+     vitg width with the kernel and with the library chain (`F.linear`,
+     `torch.addcmul`), results compared and both timed;
   4. the trained in-repo proxies on the card (f32, TF32 off, kernels)
-     against the CPU (plain): the pipeline's maps, max abs <= 1e-4, and
-     one train step's loss and every parameter's gradient, <= 1e-4 of each
-     gradient's max abs;
+     against the CPU (plain): the pipeline's maps, max abs <= 1e-4, one
+     train step's loss and every parameter's gradient, <= 1e-4 of each
+     gradient's max abs, and the DepthFM proxy through
+     `DepthFMPipeline.__call__` at 64 px, max abs <= 1e-4;
   5. inference at full width: seeded random vitg raw base + vitl
      AmodalDAv2 at 518 px, one float32 image through the kernel and the
      plain path, then bfloat16 batch 4 through
@@ -36,7 +45,15 @@ plain PyTorch version on the card:
      one float32 step at batch 1 with the kernels against the same step
      with plain attention (loss and gradient norm within 1e-3); one
      `validate()` over two batches; steps/s, p50 step time, peak memory
-     and a torch.profiler breakdown of one step.
+     and a torch.profiler breakdown of one step;
+  7. DepthFM inference at full width: seeded random DepthFMAmodal (SD-1.5
+     UNet 320 x (1,2,4,4), 8 heads, context 77 x 1024, VAE
+     (128,256,512,512) x 2) at 512 px, 4 Euler steps. One float32 image
+     with the kernels against plain attention, then bfloat16 batch 4
+     through `DepthFMPipeline.__call__` from host arrays: finite
+     [4, 512, 512] outputs in [0, 1], exactly 128 forward-kernel launches
+     per call (4 steps x (16 self + 16 cross)), images/s, p50 latency,
+     peak memory and a torch.profiler breakdown of one call.
 
 Prints a `{"kernels": [...]}` line, the card's name and power limit, and as
 its last line `{"ok": true, "device": {...}}`. Exits non-zero without that
@@ -48,6 +65,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -56,13 +74,16 @@ import numpy as np
 
 CSRC = "amodal_depth_anything_tpu_torch/csrc/"
 JAX_KERNELS = "amodal_depth_anything_tpu/ops/flash_attention.py"
+JAX_EPILOGUE = "amodal_depth_anything_tpu/ops/fused_epilogue.py"
 # name -> (source, file:line of the TPU kernel it replaces)
 KERNELS = {"flash_attn_fwd": (CSRC + "flash_attn_fwd.cu",
                               JAX_KERNELS + ":111"),
            "flash_attn_bwd_dq": (CSRC + "flash_attn_bwd.cu",
                                  JAX_KERNELS + ":208"),
            "flash_attn_bwd_dkv": (CSRC + "flash_attn_bwd.cu",
-                                  JAX_KERNELS + ":228")}
+                                  JAX_KERNELS + ":228"),
+           "fused_epilogue": (CSRC + "fused_epilogue.cu",
+                              JAX_EPILOGUE + ":46")}
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, FP32 outside the
 # tensor cores, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -81,6 +102,28 @@ ATTN_CASES = [((4, 24, 1370, 64), None), ((1, 24, 1370, 64), None),
               ((1, 24, 5330, 64), None), ((2, 16, 777, 64), None),
               ((1, 16, 1408, 64), 1370)]
 MAIN_CASE = ((4, 24, 1370, 64), None, "bfloat16")   # the kernels-line shape
+# (q shape, Nk): the SD-1.5 UNet at 512 px, batch 4 (8 heads over 320 / 640
+# / 1280 channels): self-attention over 4096 / 1024 / 256 / 64 latent
+# tokens, cross-attention onto the 77 context tokens
+UNET_ATTN_CASES = [((4, 8, 4096, 40), 4096), ((4, 8, 1024, 80), 1024),
+                   ((4, 8, 256, 160), 256), ((4, 8, 64, 160), 64),
+                   ((4, 8, 4096, 40), 77), ((4, 8, 1024, 80), 77),
+                   ((4, 8, 256, 160), 77)]
+# the DepthFM proxy's self-attention shapes (float32 only: head dim 12 is
+# no multiple of the bfloat16 kernel's 8)
+PROXY_ATTN_CASES = [((2, 4, 64, 12), 64), ((2, 4, 16, 24), 16),
+                    ((2, 4, 4, 48), 4)]
+# (M, K, N) of the fused epilogue: vitg proj and fc2, vitl proj and fc2 at
+# 518 px batch 4 (M = 4 x 1370), vitl proj at batch 8, the two trunks' proj
+# at 1022 px batch 8 (M = 8 x 5330), and a ragged one
+EPILOGUE_CASES = [(5480, 1536, 1536), (5480, 4096, 1536), (5480, 1024, 1024),
+                  (5480, 4096, 1024), (10960, 1024, 1024),
+                  (42640, 1024, 1024), (42640, 1536, 1536), (777, 128, 256)]
+EPILOGUE_MAIN_CASE = ((42640, 1536, 1536), "bfloat16")   # the chain's shape
+CHAIN_BLOCKS = 4
+DEPTHFM_PROXY = os.path.join("checkpoints", "proxy", "depthfm.npz")
+DEPTHFM_SIZE, DEPTHFM_STEPS, DEPTHFM_BATCH, DEPTHFM_CALLS = 512, 4, 4, 3
+DEPTHFM_LAUNCHES = DEPTHFM_STEPS * 32   # 16 self + 16 cross per UNet call
 # the backward kernels: the training main path (vitl, batch 8, 518 px)
 # first, then batch 1, a ragged N, vitg at 1022 px and kv_len < N
 BWD_CASES = [((8, 16, 1370, 64), None), ((1, 16, 1370, 64), None),
@@ -90,6 +133,11 @@ BWD_MAIN_CASE = ((8, 16, 1370, 64), None, "bfloat16")
 FULL_BATCH, FULL_CALLS, SIZE = 4, 3, 518
 TRAIN_CONFIG = "configs/train_discriminative_vitl.yaml"
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_BLOCKS = 8, 5, 24
+
+# a kernel's name, and its padded head dim if it is a template, in the
+# mangled name ptxas reports
+ENTRY_NAME = re.compile(r"((?:flash_attn|fused_epilogue)_[a-z_]*(?:bf16|f32))"
+                        r"(?:ILi(\d+)E)?")
 
 failures: list[str] = []
 
@@ -121,61 +169,171 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_phase(gpu: str) -> dict:
+def attention_case(gen, shape, nk, kv_len, dt_name: str, gpu: str) -> dict:
+    """One forward-attention case: q `shape` [B,H,Nq,D] against k, v with
+    `nk` keys of which `kv_len` are live; kernel against plain version,
+    with their times, SDPA's and the roofline bound."""
     import torch
     import torch.nn.functional as F
 
     from amodal_depth_anything_tpu_torch.ops.flash_attention import (
         mha, mha_reference)
 
+    dtype = getattr(torch, dt_name)
+    b, h, n, d = shape
+    q = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, h, nk, d), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    out, lse = mha(q, k, v, kv_len=kv_len, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = mha_reference(q.float(), k.float(), v.float(),
+                                 kv_len=kv_len, return_lse=True)
+    err = (out.float() - ref).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    del ref, ref_lse
+    kv = nk if kv_len is None else kv_len
+    flops = 4 * b * h * n * kv * d
+    nbytes = (2 * b * h * n * d + 2 * b * h * kv * d) * q.element_size()
+    bound_ms, bound_by = roofline(flops, nbytes, dt_name)
+    mask = None if kv_len is None else (
+        torch.arange(nk, device="cuda") < kv_len)[None, None, None]
+    iters = max(3, min(50, int(2e11 / flops)))
+    ms = cuda_ms(lambda: mha(q, k, v, kv_len=kv_len), iters)
+    plain_ms = cuda_ms(
+        lambda: mha_reference(q, k, v, kv_len=kv_len), 3, warmup=1)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), iters)
+    print(f"  attn {dt_name:8s} q {str(list(shape)):20s} Nk={nk} "
+          f"kv_len={kv} max_abs={err:.3e} lse_abs={lse_err:.3e} "
+          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa "
+          f"{lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
+          f"{flops / ms / 1e9:.1f} TFLOP/s [{gpu}]", flush=True)
+    check(err <= TOL[dt_name] and err == err,
+          f"flash_attn_fwd {dt_name} {list(shape)} Nk={nk} kv_len={kv}: "
+          f"max abs {err:.3e} <= {TOL[dt_name]}")
+    check(lse_err <= LSE_TOL,
+          f"flash_attn_fwd {dt_name} {list(shape)} Nk={nk} LSE max abs "
+          f"{lse_err:.3e} <= {LSE_TOL}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def attention_phase(gpu: str) -> dict:
+    import torch
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     main = None
     for shape, kv_len in ATTN_CASES:
         for dt_name in ("float32", "bfloat16"):
+            got = attention_case(gen, shape, shape[2], kv_len, dt_name, gpu)
+            if (shape, kv_len, dt_name) == MAIN_CASE:
+                main = got
+    unet = []
+    for shape, nk in UNET_ATTN_CASES:
+        for dt_name in ("float32", "bfloat16"):
+            got = attention_case(gen, shape, nk, None, dt_name, gpu)
+            if dt_name == "bfloat16":   # the DepthFM main path's dtype
+                unet.append({"q": list(shape), "nk": nk, **got})
+    for shape, nk in PROXY_ATTN_CASES:
+        attention_case(gen, shape, nk, None, "float32", gpu)
+    main["depthfm_shapes"] = unet
+    torch.cuda.empty_cache()
+    return main
+
+
+def epilogue_phase(gpu: str) -> dict:
+    """The fused epilogue kernel against its plain version at the trunks'
+    shapes, then its path: the four-block chain with the kernel and with
+    the library chain."""
+    import torch
+    import torch.nn.functional as F
+
+    from amodal_depth_anything_tpu_torch.ops.fused_epilogue import (
+        matmul_scale_residual, matmul_scale_residual_reference)
+
+    def library(x, w_t, b, g, r):
+        # yardstick only: cuBLAS with the bias fused, then one addcmul
+        return torch.addcmul(r, F.linear(x, w_t, b), g)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    main = None
+    for m, k, n in EPILOGUE_CASES:
+        for dt_name in ("float32", "bfloat16"):
             dtype = getattr(torch, dt_name)
-            b, h, n, d = shape
-            q, k, v = (torch.randn(shape, generator=gen, device="cuda")
-                       .to(dtype) for _ in range(3))
-            out, lse = mha(q, k, v, kv_len=kv_len, return_lse=True)
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((k, n), generator=gen, device="cuda")
+                 * 0.02).to(dtype)
+            b = torch.randn((n,), generator=gen, device="cuda")
+            g = torch.randn((n,), generator=gen, device="cuda") * 0.1
+            r = torch.randn((m, n), generator=gen, device="cuda").to(dtype)
+            out = matmul_scale_residual(x, w, b, g, r)
             torch.cuda.synchronize()
-            ref, ref_lse = mha_reference(q.float(), k.float(), v.float(),
-                                         kv_len=kv_len, return_lse=True)
+            ref = matmul_scale_residual_reference(x.float(), w.float(), b, g,
+                                                  r.float())
             err = (out.float() - ref).abs().max().item()
-            lse_err = (lse - ref_lse).abs().max().item()
-            del ref, ref_lse
-            kv = n if kv_len is None else kv_len
-            flops = 4 * b * h * n * kv * d
-            nbytes = (2 * b * h * n * d + 2 * b * h * kv * d) * q.element_size()
-            t_ops, t_bytes = flops / PEAK_FLOPS[dt_name], nbytes / PEAK_BYTES
-            bound_ms = max(t_ops, t_bytes) * 1e3
-            mask = None if kv_len is None else (
-                torch.arange(n, device="cuda") < kv_len)[None, None, None]
+            del ref
+            es = x.element_size()
+            flops = 2 * m * k * n
+            bound_ms, bound_by = roofline(
+                flops, (m * k + k * n + 2 * m * n) * es + 8 * n, dt_name)
             iters = max(3, min(50, int(2e11 / flops)))
-            ms = cuda_ms(lambda: mha(q, k, v, kv_len=kv_len), iters)
-            plain_ms = cuda_ms(
-                lambda: mha_reference(q, k, v, kv_len=kv_len), 3, warmup=1)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask), iters)
-            print(f"  attn {dt_name:8s} {str(list(shape)):20s} "
-                  f"kv_len={kv} max_abs={err:.3e} lse_abs={lse_err:.3e} "
-                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa "
-                  f"{lib_ms:.4f} ms bound {bound_ms:.4f} ms "
-                  f"({'operations' if t_ops >= t_bytes else 'bytes'}) "
+            w_t, b_d, g_d = w.t().contiguous(), b.to(dtype), g.to(dtype)
+            ms = cuda_ms(lambda: matmul_scale_residual(x, w, b, g, r), iters)
+            plain_ms = cuda_ms(lambda: matmul_scale_residual_reference(
+                x, w, b, g, r), iters)
+            lib_ms = cuda_ms(lambda: library(x, w_t, b_d, g_d, r), iters)
+            print(f"  epilogue {dt_name:8s} [{m},{k}]x[{k},{n}] "
+                  f"max_abs={err:.3e} kernel {ms:.4f} ms plain "
+                  f"{plain_ms:.4f} ms library chain {lib_ms:.4f} ms bound "
+                  f"{bound_ms:.4f} ms ({bound_by}) "
                   f"{flops / ms / 1e9:.1f} TFLOP/s [{gpu}]", flush=True)
             check(err <= TOL[dt_name] and err == err,
-                  f"flash_attn_fwd {dt_name} {list(shape)} kv_len={kv}: "
-                  f"max abs {err:.3e} <= {TOL[dt_name]}")
-            check(lse_err <= LSE_TOL,
-                  f"flash_attn_fwd {dt_name} {list(shape)} LSE max abs "
-                  f"{lse_err:.3e} <= {LSE_TOL}")
-            if (shape, kv_len, dt_name) == MAIN_CASE:
+                  f"fused_epilogue {dt_name} [{m},{k}]x[{k},{n}]: max abs "
+                  f"{err:.3e} <= {TOL[dt_name]}")
+            if ((m, k, n), dt_name) == EPILOGUE_MAIN_CASE:
                 main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms,
-                        "bound_by": ("operations" if t_ops >= t_bytes
-                                     else "bytes"),
+                        "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": lib_ms}
-            del q, k, v, out, lse
-    torch.cuda.empty_cache()
+            del x, w, b, g, r, out, w_t
+            torch.cuda.empty_cache()
+
+    # the kernel's path: x <- x + gamma * (x @ W + b), four blocks at vitg
+    # width, bf16, 8 x 5330 tokens
+    (m, d, _), _ = EPILOGUE_MAIN_CASE
+    x0 = torch.randn((m, d), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((d, d), generator=gen, device="cuda")
+         * 0.02).to(torch.bfloat16)
+    b = torch.zeros((d,), device="cuda")
+    g = torch.full((d,), 1e-5, device="cuda")
+    w_t, b_d, g_d = w.t().contiguous(), b.bfloat16(), g.bfloat16()
+
+    def chain(fused: bool):
+        x = x0
+        for _ in range(CHAIN_BLOCKS):
+            x = matmul_scale_residual(x, w, b, g, x) if fused \
+                else library(x, w_t, b_d, g_d, x)
+        return x
+
+    matmul_scale_residual.launches = 0        # the path starts here
+    fused_out = chain(True)
+    torch.cuda.synchronize()
+    launches = matmul_scale_residual.launches  # ... and ends here
+    diff = (fused_out.float() - chain(False).float()).abs().max().item()
+    check(launches == CHAIN_BLOCKS, f"the chain launched fused_epilogue "
+                                    f"{launches} times ({CHAIN_BLOCKS})")
+    check(bool(torch.isfinite(fused_out).all()) and diff <= TOL["bfloat16"],
+          f"4-block chain, kernel vs library chain: max abs {diff:.3e} <= "
+          f"{TOL['bfloat16']}")
+    times = {}
+    for name, fused in (("kernel/a", True), ("library/a", False),
+                        ("library/b", False), ("kernel/b", True)):
+        times[name] = cuda_ms(lambda: chain(fused), 10)
+    print(f"  4-block chain [{m},{d}] bf16: kernel "
+          f"{times['kernel/a']:.4f} / {times['kernel/b']:.4f} ms, library "
+          f"chain (F.linear + addcmul) {times['library/a']:.4f} / "
+          f"{times['library/b']:.4f} ms [{gpu}]", flush=True)
+    main.update(launches=launches, chain_ms=times["kernel/b"],
+                chain_library_ms=times["library/b"])
     return main
 
 
@@ -373,6 +531,41 @@ def proxy_phase() -> None:
                           f"times (12 + 12 blocks)")
 
 
+def depthfm_proxy_phase() -> None:
+    """The trained DepthFM proxy through `DepthFMPipeline.__call__` at
+    64 px: the card (kernels) against the CPU (plain), same seeded noise."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.convert.weights import \
+        load_depthfm_proxy
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.pipeline.depthfm_pipeline import \
+        DepthFMPipeline
+
+    rng = np.random.default_rng(5)
+    img = (rng.random((2, 50, 70, 3)) * 255).astype(np.float32)
+    mask = np.zeros((2, 50, 70), np.float32)
+    mask[:, 10:40, 20:55] = 1.0
+    obs = rng.random((2, 50, 70)).astype(np.float32)
+    out = {}
+    for device in ("cpu", "cuda"):
+        pipe = DepthFMPipeline(
+            load_depthfm_proxy(DEPTHFM_PROXY, device=device), size=64,
+            num_steps=DEPTHFM_STEPS, dtype=torch.float32, device=device)
+        mha.launches = 0
+        out[device] = pipe(img, mask, obs)
+    launches = mha.launches
+    err = float(np.abs(out["cuda"] - out["cpu"]).max())
+    check(out["cuda"].shape == (2, 64, 64) and np.isfinite(out["cuda"]).all()
+          and out["cuda"].std() > MIN_STD and err <= PROXY_TOL,
+          f"DepthFM proxy depth, card (kernel) vs CPU (plain): max abs "
+          f"{err:.3e} <= {PROXY_TOL}, std {out['cuda'].std():.4f}")
+    check(launches == DEPTHFM_LAUNCHES,
+          f"DepthFM proxy call launched flash_attn_fwd {launches} times "
+          f"({DEPTHFM_LAUNCHES} = {DEPTHFM_STEPS} steps x (16 self + 16 "
+          f"cross))")
+
+
 def profile_call(fn, what: str, gpu: str) -> None:
     """Where the device time of one call of `fn` goes: the device-side
     (kernel and copy) events of a torch.profiler trace, summed by name. `fn`
@@ -472,6 +665,89 @@ def full_width_phase(gpu: str) -> int:
           f"{p50:.1f} ms per call, latencies "
           f"{[round(x * 1e3, 1) for x in latencies]} ms, peak memory "
           f"{peak:.2f} GiB; bf16 vs f32 blended max abs {diff:.3e} [{gpu}]",
+          flush=True)
+    return launches
+
+
+def depthfm_phase(gpu: str) -> int:
+    import torch
+
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.pipeline.depthfm_pipeline import \
+        DepthFMPipeline
+
+    t0 = time.time()
+    pipe = DepthFMPipeline.init_random(
+        0, tiny=False, size=DEPTHFM_SIZE, num_steps=DEPTHFM_STEPS,
+        device="cuda", dtype=torch.float32)
+    torch.cuda.synchronize()
+    cfg = pipe.cfg
+    n_params = sum(p.numel() for p in pipe.model.parameters())
+    print(f"  seeded DepthFMAmodal ({n_params / 1e6:.1f} M parameters) built "
+          f"on the card in {time.time() - t0:.1f} s", flush=True)
+    check((cfg.guide_type, cfg.model_channels, tuple(cfg.channel_mult),
+           cfg.num_heads, cfg.context_len, cfg.context_dim,
+           tuple(cfg.vae_channels), cfg.vae_layers) ==
+          ("mask+observation", 320, (1, 2, 4, 4), 8, 77, 1024,
+           (128, 256, 512, 512), 2),
+          "DepthFMAmodal at the SD-1.5 widths: UNet 320 x (1,2,4,4), 8 "
+          "heads, context 77 x 1024, VAE (128,256,512,512) x 2")
+    rng = np.random.default_rng(6)
+    img = (rng.random((DEPTHFM_BATCH, 600, 800, 3)) * 255).astype(np.float32)
+    mask = np.zeros((DEPTHFM_BATCH, 600, 800), np.float32)
+    mask[:, 150:450, 250:600] = 1.0
+    obs = rng.random((DEPTHFM_BATCH, 600, 800)).astype(np.float32)
+    shape = (DEPTHFM_SIZE, DEPTHFM_SIZE)
+
+    mha.launches = 0
+    depth_k = pipe(img[0], mask[0], obs[0])
+    f32_launches = mha.launches
+    pipe.attn_impl = "plain"
+    depth_p = pipe(img[0], mask[0], obs[0])
+    pipe.attn_impl = None
+    err = float(np.abs(depth_k - depth_p).max())
+    print(f"  full width f32 depth: std {depth_k.std():.4f}, kernel vs "
+          f"plain attention max abs {err:.3e}", flush=True)
+    check(f32_launches == DEPTHFM_LAUNCHES,
+          f"f32 full-width DepthFM call launched flash_attn_fwd "
+          f"{f32_launches} times ({DEPTHFM_LAUNCHES})")
+    check(depth_k.shape == shape and np.isfinite(depth_k).all()
+          and depth_k.std() > MIN_STD and err <= FULL_F32_TOL,
+          f"full-width f32 DepthFM depth finite, {list(shape)}, not "
+          f"constant, kernel vs plain max abs {err:.3e} <= {FULL_F32_TOL}")
+
+    # the same module, cast in place to bfloat16
+    pipe = DepthFMPipeline(pipe.model, size=DEPTHFM_SIZE,
+                           num_steps=DEPTHFM_STEPS, device="cuda",
+                           dtype=torch.bfloat16)
+    pipe(img, mask, obs)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    latencies = []
+    mha.launches = 0                      # the main path starts here
+    for _ in range(DEPTHFM_CALLS):
+        t = time.perf_counter()
+        depth = pipe(img, mask, obs)      # returns numpy: synchronised
+        latencies.append(time.perf_counter() - t)
+    launches = mha.launches               # ... and ends here
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(launches == DEPTHFM_LAUNCHES * DEPTHFM_CALLS,
+          f"bf16 DepthFM main path launched flash_attn_fwd {launches} times "
+          f"({DEPTHFM_LAUNCHES * DEPTHFM_CALLS} = {DEPTHFM_LAUNCHES} per "
+          f"call)")
+    check(depth.shape == (DEPTHFM_BATCH, *shape) and np.isfinite(depth).all()
+          and depth.min() >= 0.0 and depth.max() <= 1.0
+          and depth.std() > MIN_STD,
+          f"bf16 DepthFM depth finite, [{DEPTHFM_BATCH},{shape[0]},"
+          f"{shape[1]}], in [0,1], not constant (std {depth.std():.4f})")
+    profile_call(lambda: pipe(img, mask, obs), "bf16 DepthFM call", gpu)
+    diff = float(np.abs(depth[0] - depth_k).max())
+    p50 = float(np.median(latencies)) * 1e3
+    print(f"  DepthFM full width bf16 batch {DEPTHFM_BATCH} at "
+          f"{DEPTHFM_SIZE} px, {DEPTHFM_STEPS} steps: "
+          f"{DEPTHFM_BATCH * DEPTHFM_CALLS / sum(latencies):.3f} images/s, "
+          f"p50 {p50:.1f} ms per call, latencies "
+          f"{[round(x * 1e3, 1) for x in latencies]} ms, peak memory "
+          f"{peak:.2f} GiB; bf16 vs f32 depth max abs {diff:.3e} [{gpu}]",
           flush=True)
     return launches
 
@@ -746,16 +1022,22 @@ def main() -> int:
     print(f"  built {sorted(reports)} in {time.time() - t0:.1f} s", flush=True)
     for name, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+            entry = ENTRY_NAME.search(line)
+            if "Compiling entry function" in line and entry:
+                pad = f"<{entry.group(2)}>" if entry.group(2) else ""
+                print(f"  {name}: {entry.group(1)}{pad}", flush=True)
+            elif "registers" in line or "spill" in line:
+                print(f"  {name}:   {line.strip()}", flush=True)
 
     print("[3] kernels against their plain versions", flush=True)
     measured = {"flash_attn_fwd": attention_phase(gpu)}
     measured.update(attention_bwd_phase(gpu))
+    measured["fused_epilogue"] = epilogue_phase(gpu)
 
     print("[4] trained proxies: card vs CPU", flush=True)
     proxy_phase()
     proxy_grad_phase()
+    depthfm_proxy_phase()
 
     print("[5] inference at full width: vitg base + vitl AmodalDAv2",
           flush=True)
@@ -764,16 +1046,26 @@ def main() -> int:
 
     print("[6] training at full width: vitl AmodalDAv2", flush=True)
     launches = train_phase(gpu)
+    torch.cuda.empty_cache()
+
+    print("[7] DepthFM inference at full width: SD-1.5 UNet + VAE",
+          flush=True)
+    depthfm_launches = depthfm_phase(gpu)
 
     # launches: over the main paths, each counted from 0; the forward
-    # kernel runs on both (inference [5] and training [6])
+    # kernel runs on three (inference [5], training [6], DepthFM [7]), the
+    # fused epilogue on its chain [3]
+    launches["fused_epilogue"] = measured["fused_epilogue"]["launches"]
     kernels = [{"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
-                **measured[name]}
+                "replaces": replaces, **measured[name],
+                "launches": launches[name]}
                for name, (source, replaces) in KERNELS.items()]
-    kernels[0].update(launches=infer_launches + launches["flash_attn_fwd"],
-                      launches_inference=infer_launches,
-                      launches_training=launches["flash_attn_fwd"])
+    kernels[0].update(
+        launches=infer_launches + launches["flash_attn_fwd"]
+        + depthfm_launches,
+        launches_inference=infer_launches,
+        launches_training=launches["flash_attn_fwd"],
+        launches_depthfm=depthfm_launches)
     print(json.dumps({"kernels": kernels}))
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", file=sys.stderr)

@@ -15,7 +15,7 @@ from amodal_depth_anything_tpu.ops.flash_attention import \
     mha_reference as jax_mha_reference
 from amodal_depth_anything_tpu_torch.ops.attention import multi_head_attention
 from amodal_depth_anything_tpu_torch.ops.flash_attention import (
-    mha, mha_reference)
+    _check, flash_attn_bwd_dq, mha, mha_reference)
 from tests.test_torch_models import few_torch_threads  # noqa: F401
 
 TOL = 1e-5
@@ -84,7 +84,7 @@ def test_mha_lse_matches_jax_logsumexp(kv_len, scale):
 
 
 def test_mha_plain_takes_other_head_dims():
-    # the kernel takes D = 64 only; the CPU plain version any D
+    # the CPU plain version takes any D
     q, k, v = _qkv(1, 2, 50, 50, d=32, seed=3)
     ref = np.asarray(jax_mha_reference(jnp.asarray(q), jnp.asarray(k),
                                        jnp.asarray(v)))
@@ -108,3 +108,86 @@ def test_dispatch_defaults_to_plain_on_cpu_and_rejects_unknown():
                                mha_reference(q, k, v), rtol=0, atol=0)
     with pytest.raises(ValueError, match="unknown attention impl"):
         multi_head_attention(q, k, v, impl="pallas")
+
+
+# the SD-1.5 UNet's head dims (40/80/160), the DepthFM proxy's 12, and
+# cross-attention onto 77 context tokens: (heads, n_q, n_k, d, sm_scale)
+UNET_CASES = [(2, 64, 64, 12, None), (2, 100, 100, 40, None),
+              (2, 70, 70, 80, None), (1, 64, 64, 160, None),
+              (2, 100, 77, 40, None), (1, 64, 77, 160, None),
+              (2, 64, 64, 40, 0.11)]
+
+
+@pytest.mark.parametrize("h,nq,nk,d,scale", UNET_CASES)
+def test_mha_reference_matches_jax_reference_at_unet_head_dims(h, nq, nk, d,
+                                                               scale):
+    q, k, v = _qkv(2, h, nq, nk, d=d, seed=6)
+    ref = np.asarray(jax_mha_reference(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), sm_scale=scale))
+    ours = mha(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+               sm_scale=scale).numpy()
+    assert ours.shape == (2, h, nq, d)
+    assert np.abs(ours - ref).max() <= TOL
+
+
+@pytest.mark.parametrize("h,nq,nk,d,scale", [UNET_CASES[1], UNET_CASES[4],
+                                             UNET_CASES[5]])
+def test_mha_matches_jax_pallas_interpret_at_unet_head_dims(h, nq, nk, d,
+                                                            scale):
+    # the Pallas kernel lane-pads d; the port's kernel pads it to a
+    # multiple of 16; both must equal plain attention at the true d
+    q, k, v = _qkv(1, h, nq, nk, d=d, seed=7)
+    ref = np.asarray(jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             interpret=True, sm_scale=scale))
+    ours = mha_reference(torch.from_numpy(q), torch.from_numpy(k),
+                         torch.from_numpy(v), sm_scale=scale).numpy()
+    assert np.abs(ours - ref).max() <= TOL
+
+
+class _OnCard:
+    """A stand-in the kernel wrappers' checks see as a CUDA tensor: the
+    head-dim rule is plain Python and is held here without a card."""
+
+    is_cuda = True
+    device = "cuda:0"
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = torch.Size(shape), dtype
+        self._t = torch.empty(shape, dtype=dtype)
+
+    def dim(self):
+        return len(self.shape)
+
+    def stride(self, *a):
+        return self._t.stride(*a)
+
+    def element_size(self):
+        return self._t.element_size()
+
+    def data_ptr(self):
+        return 0
+
+
+@pytest.mark.parametrize("dtype,d,ok", [
+    (torch.float32, 12, True), (torch.float32, 40, True),
+    (torch.float32, 160, True), (torch.float32, 64, True),
+    (torch.bfloat16, 40, True), (torch.bfloat16, 80, True),
+    (torch.bfloat16, 160, True), (torch.bfloat16, 24, True),
+    (torch.bfloat16, 12, False), (torch.float32, 6, False),
+    (torch.float32, 164, False), (torch.bfloat16, 168, False),
+    (torch.bfloat16, 20, False)])
+def test_check_head_dim_rule(dtype, d, ok):
+    q = _OnCard((1, 2, 9, d), dtype)
+    k = _OnCard((1, 2, 7, d), dtype)
+    if ok:
+        _check(q, k, k, 7)
+    else:
+        with pytest.raises(ValueError, match="head dim"):
+            _check(q, k, k, 7)
+
+
+def test_backward_kernels_keep_head_dim_64():
+    q = _OnCard((1, 2, 8, 40), torch.float32)
+    stat = _OnCard((1, 2, 8), torch.float32)
+    with pytest.raises(ValueError, match="head dim 64"):
+        flash_attn_bwd_dq(q, q, q, q, stat, stat, sm_scale=1.0)

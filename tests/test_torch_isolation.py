@@ -46,3 +46,26 @@ def test_kernel_impl_on_cpu_raises():
     q = torch.zeros(1, 2, 8, 64)
     with pytest.raises(ValueError, match="CUDA"):
         multi_head_attention(q, q, q, impl="kernel")
+
+
+def test_fused_epilogue_on_cpu_takes_the_plain_version_or_raises():
+    from amodal_depth_anything_tpu_torch.ops.fused_epilogue import (
+        fused_epilogue_kernel, matmul_scale_residual,
+        matmul_scale_residual_reference)
+    gen = torch.Generator().manual_seed(0)
+    x, w, r = (torch.randn(shape, generator=gen)
+               for shape in ((24, 16), (16, 8), (24, 8)))
+    b, g = torch.randn(8, generator=gen), torch.randn(8, generator=gen)
+    launches = matmul_scale_residual.launches
+    torch.testing.assert_close(
+        matmul_scale_residual(x, w, b, g, r),
+        matmul_scale_residual_reference(x, w, b, g, r), rtol=0, atol=0)
+    assert matmul_scale_residual.launches == launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_epilogue_kernel(x, w, b, g, r)
+
+
+def test_every_csrc_kernel_library_is_registered_for_the_build():
+    from amodal_depth_anything_tpu_torch.ops import _build
+    sources = sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
+    assert sources == sorted(_build.KERNELS)
