@@ -10,14 +10,6 @@
 // before P.V and the product accumulates in float32, as on the TPU; float32
 // operands run in full float32.
 //
-// Head dims. The TPU kernel pads d to its 128 lanes; here both kernels are
-// templates on a padded head dim DPAD, a multiple of 16 (the K step of
-// mma.sync m16n8k16), instantiated at 16, 32, 48, 64, 80 and 160.
-// A head dim d <= 160 (a multiple of 4 in float32, of 8 in bfloat16: the
-// 16-byte vector loads) runs in the smallest DPAD >= d with the shared-
-// memory columns from d to DPAD zero-filled, which changes no result: the
-// DINOv2 trunks' 64, the SD-1.5 UNet's 40, 80 and 160 (as 48, 80, 160).
-//
 // Bound on this card: 4*B*H*Nq*kv_len*d operations against
 // 2*B*H*(Nq+kv_len)*d elements moved. Self-attention on the main paths
 // (N = 1370 at d = 64, N = 4096 at d = 40) is compute-bound by a wide
@@ -27,33 +19,62 @@
 //
 // Design. The TPU kernel keeps all of K/V resident in VMEM; at N = 5330 that
 // is ~1.4 MB per head, far above the 227 KB of shared memory a block may
-// use. Both kernels here follow the FlashAttention-2 schedule instead: one
-// block per (batch, head, 64-row query tile) walks 64-row K/V tiles staged
-// in shared memory and keeps an online softmax (running max and sum per
-// row), the 64 x DPAD output accumulator in float32 registers, dividing by
-// the sum once at the end. Query rows past Nq are never stored and key
-// columns past kv_len are masked to -inf (their K/V rows load as zero), so
-// no caller has to pad the sequence, and Nq and Nk are independent.
+// use. Every kernel here streams K/V tiles through shared memory instead and
+// keeps an online softmax (running max and sum per row) and the output
+// accumulator in float32 registers, dividing by the sum once at the end.
+// Query rows past Nq are never stored and key columns past kv_len are masked
+// to -inf (their K/V rows load as zero), so no caller has to pad the
+// sequence, and Nq and Nk are independent. Operands are addressed through
+// (batch, head, token) strides with a unit stride on the head dim, so the
+// q/k/v views of one fused qkv projection and an output laid out
+// [B, N, H, D] need no copies.
 //
-//  * bfloat16: 4 warps, 16 query rows each, on the tensor cores with
-//    mma.sync m16n8k16 (bf16 in, f32 accumulate). Q stays in registers as
-//    A fragments; K/V tiles arrive by cp.async into a double buffer, so the
-//    next tile loads while this one computes; ldmatrix feeds K (and, with
-//    .trans, V) as B fragments; the score accumulator of S = QK^T is reused
-//    as the A fragment of P.V after rounding P to bf16. Shared memory is
-//    dynamic: 640 * (DPAD + 8) bytes, 107.5 KB at DPAD = 160. mma.sync
-//    reaches only part of Hopper's tensor-core rate (wgmma and TMA are
-//    later work).
+// Which kernel runs is a fixed table by dtype and head dim d:
+//
+//   bfloat16, d <= 64   flash_attn_fwd_bf16_wgmma<ceil(d / 16)>
+//   bfloat16, d <= 80   flash_attn_fwd_bf16<80>    (mma.sync)
+//   bfloat16, d <= 160  flash_attn_fwd_bf16<160>   (mma.sync)
+//   float32,  d <= 160  flash_attn_fwd_f32<DPAD>, DPAD the smallest of
+//                       16, 32, 48, 64, 80, 160 that holds d
+//
+//  * bfloat16, d <= 64 (both DINOv2 trunks' 64, the SD-1.5 UNet's 40): the
+//    tensor cores' full-rate path, wgmma fed by TMA, FlashAttention-3's
+//    shape at its simplest. A block is three warpgroups on 128 query rows.
+//    One thread of the producer warpgroup (which gives its registers away
+//    with setmaxnreg) starts TMA loads through 4-D tensor maps over (d,
+//    token, head, batch) that the C entry encodes from the strides it is
+//    given: Q once, then K and V tiles of 128 keys into a ring of three
+//    stages, each tile a 128 x 64 box with the 128-byte swizzle, each stage
+//    with a "full" and an "empty" mbarrier for K and another pair for V.
+//    TMA fills what lies outside the tensor with zeros: rows past Nq or
+//    kv_len (the K and V maps end at kv_len) and, for d < 64, the columns
+//    from d on. Each of the two consumer warpgroups owns 64 query rows: S =
+//    Q K^T is ceil(d / 16) wgmma m64n128k16 with both operands in shared
+//    memory; the online softmax runs on the accumulator fragments in
+//    registers; P, rounded to bfloat16, is regrouped in place into m64k16 A
+//    fragments (no shuffle) and P.V is eight wgmma m64nNk16, N = 16 *
+//    ceil(d / 16), with V as the MN-major B operand straight from its
+//    [keys, d] tile. So d = 40 pays for 48 columns, not 64. What bounds the
+//    kernel is the softmax (FP32 and exp work of two warps a scheduler),
+//    so the products are made to run under it: tile t's S goes out together
+//    with tile t-1's P.V, the softmax of tile t runs while P.V is still in
+//    flight, and the two warpgroups take turns on the tensor cores over a
+//    pair of named barriers, so that one's softmax falls under the other's
+//    products.
+//  * bfloat16, 64 < d <= 160 (the UNet's 80 and 160, launch-bound shapes of
+//    at most 1024 tokens): 4 warps, 16 query rows each, mma.sync m16n8k16.
+//    Q stays in registers as A fragments; 64-key K/V tiles arrive by
+//    cp.async into a double buffer; ldmatrix feeds K (and, with .trans, V)
+//    as B fragments; the score accumulator is reused as the A fragment of
+//    P.V. Shared memory is dynamic: 640 * (DPAD + 8) bytes, 107.5 KB at 160.
 //  * float32: 256 threads, each 4 rows x 4 keys of the score tile and 4 rows
 //    x DPAD/16 columns of the output tile, scalar FMAs on float32 smem
 //    tiles: exact to float32 (TF32 tensor cores would lose the parity the
 //    float32 path exists for), bounded by the 67 TFLOP/s of the FP32 units.
-//
-// Operands are addressed through (batch, head, token) strides with a unit
-// stride on the head dim, so the q/k/v views of one fused qkv projection
-// and an output laid out [B, N, H, D] need no copies.
+//    The shared-memory columns from d to DPAD are zero-filled, which changes
+//    no result.
 
-#include "flash_attn_common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -234,7 +255,7 @@ flash_attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ----------------------------------------------------------- bfloat16 path
+// ------------------------------------- bfloat16 path, d > 64: mma.sync
 
 template <int DPAD>
 constexpr int kBf16SmemBytes = 2 * (kBM + 4 * kBN) * (DPAD + 8);  // Q, 2 K, 2 V
@@ -394,6 +415,274 @@ flash_attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ------------------------------------ bfloat16 path, d <= 64: wgmma + TMA
+
+constexpr int kWgRows = 128;             // query rows per block, keys per tile
+constexpr int kWgStages = 3;
+constexpr int kWgThreads = 384;          // two consumer warpgroups, then the
+                                         // producer's
+constexpr int kWgTile = kWgRows * 64;    // elements of a Q, K or V tile
+constexpr int kWgTileBytes = 2 * kWgTile;
+constexpr int kWgSmemBytes = (1 + 2 * kWgStages) * kWgTileBytes +
+                             (1 + 4 * kWgStages) * 8 +
+                             kSwizzleAtom;   // room to align the tiles
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one 64 x 128 score tile held as accumulator
+// fragments: s becomes P = exp2(scale * s - new max) in place, m (the running
+// max of scale * s) and l (this thread's share of the row sums) are brought
+// up to date, and alpha is what the output so far must be multiplied by. The
+// max is taken over the raw scores, of s or, for a negative scale (NEG), of
+// -s: rounding is monotonic, so |scale| times that is exactly the max of the
+// rounded scale * s, and the scale costs no instruction of its own: it is
+// the multiplier of the one fused multiply-add under the exponential. In a
+// RAGGED tile (the last one, when kv_len is no multiple of 128) keys >=
+// kv_len are left out of the max and get P = 0.
+template <bool RAGGED, bool NEG>
+__device__ __forceinline__ void softmax_body(float (&s)[64], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             float scale_log2, int key0,
+                                             int kv_len) {
+  float mx[2] = {-INFINITY, -INFINITY};
+  #pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if (RAGGED && key0 + (i >> 2) * 8 + (i & 1) >= kv_len) continue;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], NEG ? -s[i] : s[i]);
+  }
+  #pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // finite: every tile holds a key < kv_len
+    const float m_new = fmaxf(m[r], mx[r] * fabsf(scale_log2));
+    alpha[r] = exp2_approx(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+  #pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    s[i] = exp2_approx(fmaf(s[i], scale_log2, -m[(i >> 1) & 1]));
+    if (RAGGED && key0 + (i >> 2) * 8 + (i & 1) >= kv_len) s[i] = 0.f;
+    l[(i >> 1) & 1] += s[i];
+  }
+}
+
+// tile_end: one past the tile's last key
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             float scale_log2, int key0,
+                                             int tile_end, int kv_len) {
+  if (scale_log2 < 0.f) {
+    if (tile_end > kv_len)
+      softmax_body<true, true>(s, m, l, alpha, scale_log2, key0, kv_len);
+    else
+      softmax_body<false, true>(s, m, l, alpha, scale_log2, key0, kv_len);
+  } else if (tile_end > kv_len) {
+    softmax_body<true, false>(s, m, l, alpha, scale_log2, key0, kv_len);
+  } else {
+    softmax_body<false, false>(s, m, l, alpha, scale_log2, key0, kv_len);
+  }
+}
+
+// P, rounded to bf16, regrouped into the A fragments of eight k16 steps: the
+// accumulator's column tiles 2kk and 2kk + 1 are one m64k16 A fragment
+__device__ __forceinline__ void pack_p(uint32_t (&pf)[8][4],
+                                       const float (&s)[64]) {
+  #pragma unroll
+  for (int i = 0; i < 64; i += 2)
+    pf[i >> 3][(i >> 1) & 3] = pack_bf16(s[i], s[i + 1]);
+}
+
+template <int KSTEPS>   // k16 steps over the head dim: ceil(d / 16)
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attn_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          bf16* __restrict__ o, float* __restrict__ lse,
+                          int nq, int kv_len, int d, float scale_log2,
+                          Strides so, long long lse_sb, long long lse_sh) {
+  constexpr int kNV = 16 * KSTEPS;      // output columns computed
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle pattern is a function of the address: 1024-byte aligned tiles
+  uint8_t* smem = smem_raw + ((kSwizzleAtom - smem_addr(smem_raw)) &
+                              (kSwizzleAtom - 1));
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + kWgTile;
+  bf16* vs = ks + kWgStages * kWgTile;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kWgStages * kWgTile);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kWgStages;
+  uint64_t* k_empty = v_full + kWgStages;
+  uint64_t* v_empty = k_empty + kWgStages;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(k_full + s, 1);   // the producer's arrive; TMA adds the bytes
+      mbar_init(v_full + s, 1);
+      mbar_init(k_empty + s, 2);  // one thread of each consumer warpgroup
+      mbar_init(v_empty + s, 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int q0 = blockIdx.x * kWgRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_tiles = (kv_len + kWgRows - 1) / kWgRows;
+  const int wg = threadIdx.x >> 7;
+
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 2 * 128) {
+      tma_prefetch_map(&map_q);
+      tma_prefetch_map(&map_k);
+      tma_prefetch_map(&map_v);
+      mbar_arrive_expect_tx(q_full, kWgTileBytes);
+      tma_load_4d(qs, &map_q, q_full, 0, q0, h, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        mbar_wait(k_empty + stage, phase ^ 1);   // free from the start
+        mbar_arrive_expect_tx(k_full + stage, kWgTileBytes);
+        tma_load_4d(ks + stage * kWgTile, &map_k, k_full + stage, 0,
+                    t * kWgRows, h, b);
+        mbar_wait(v_empty + stage, phase ^ 1);
+        mbar_arrive_expect_tx(v_full + stage, kWgTileBytes);
+        tma_load_4d(vs + stage * kWgTile, &map_v, v_full + stage, 0,
+                    t * kWgRows, h, b);
+        if (++stage == kWgStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    setmaxnreg_inc<232>();
+    const int lane = threadIdx.x & 31;
+    // per thread: rows row0 and row0 + 8; in each 8-wide column tile,
+    // columns col0 and col0 + 1 (the accumulator layout, see sm90.cuh)
+    const int row0 = q0 + wg * 64 + ((threadIdx.x >> 5) & 3) * 16 +
+                     (lane >> 2);
+    const int col0 = 2 * (lane & 3);
+    const bool elected = (threadIdx.x & 127) == 0;
+
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+    float alpha[2];
+    float acc[kNV / 2];
+    #pragma unroll
+    for (int i = 0; i < kNV / 2; ++i) acc[i] = 0.f;
+    uint32_t pf[8][4];    // the tile before's P in bf16, read by its P.V
+
+    // Tile t's S = Q K^T (ceil(d / 16) wgmma m64n128k16, operands in shared
+    // memory) is started together with tile t-1's O += P V (eight wgmma
+    // m64nNk16, P from registers, V [keys, d] the MN-major B operand), so
+    // that tile t's softmax runs while the tensor cores work on P V.
+    if (wg == 1) turn_pass(wg);   // warpgroup 0 goes first
+    mbar_wait(q_full, 0);
+    const uint64_t dq = wgmma_desc(qs + wg * 64 * 64, 16, kSwizzleAtom);
+    const auto start_s = [&](float (&s)[64], int stage) {
+      const uint64_t dk = wgmma_desc(ks + stage * kWgTile, 16, kSwizzleAtom);
+      #pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk)
+        wgmma_ss<0>(s, wgmma_desc_advance(dq, kk * 32),
+                    wgmma_desc_advance(dk, kk * 32), kk != 0);
+      wgmma_commit();
+    };
+    const auto start_pv = [&](int stage) {
+      const uint64_t dv = wgmma_desc(vs + stage * kWgTile, 16, kSwizzleAtom);
+      #pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_rs(acc, pf[kk], wgmma_desc_advance(dv, kk * 16 * kSwizzleRow));
+      wgmma_commit();
+    };
+
+    {   // tile 0: nothing to overlap with yet
+      float s[64];
+      mbar_wait(k_full, 0);
+      turn_wait(wg);
+      wgmma_fence();
+      start_s(s, 0);
+      turn_pass(wg);
+      wgmma_wait<0>();
+      wgmma_pin(s);
+      if (elected) mbar_arrive(k_empty);
+      softmax_tile(s, m, l, alpha, scale_log2, col0, kWgRows, kv_len);
+      pack_p(pf, s);   // acc is 0: nothing to rescale
+    }
+    int k_stage = 1 % kWgStages, v_stage = 0;
+    uint32_t k_phase = kWgStages == 1, v_phase = 0;
+    for (int t = 1; t < n_tiles; ++t) {
+      float s[64];
+      mbar_wait(k_full + k_stage, k_phase);
+      turn_wait(wg);
+      wgmma_fence();   // acc, rescaled, and pf were written by ordinary code
+      start_s(s, k_stage);
+      mbar_wait(v_full + v_stage, v_phase);
+      start_pv(v_stage);
+      turn_pass(wg);
+
+      wgmma_wait<1>();   // S is complete, P V may still run
+      wgmma_pin(s);
+      if (elected) mbar_arrive(k_empty + k_stage);
+      if (++k_stage == kWgStages) {
+        k_stage = 0;
+        k_phase ^= 1;
+      }
+      softmax_tile(s, m, l, alpha, scale_log2, t * kWgRows + col0,
+                   (t + 1) * kWgRows, kv_len);
+      wgmma_wait<0>();
+      wgmma_pin(acc);
+      if (elected) mbar_arrive(v_empty + v_stage);
+      if (++v_stage == kWgStages) {
+        v_stage = 0;
+        v_phase ^= 1;
+      }
+      pack_p(pf, s);
+      if (alpha[0] != 1.f || alpha[1] != 1.f) {   // a row's max has moved
+        #pragma unroll
+        for (int i = 0; i < kNV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      }
+    }
+    mbar_wait(v_full + v_stage, v_phase);   // the last tile's P V
+    turn_wait(wg);
+    wgmma_fence();
+    start_pv(v_stage);
+    turn_pass(wg);
+    wgmma_wait<0>();
+    wgmma_pin(acc);
+
+    bf16* ob = o + b * so.b + h * so.h;
+    #pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = row0 + r * 8;
+      if (row >= nq) continue;
+      const float inv = 1.f / l[r];
+      #pragma unroll
+      for (int j = 0; j < kNV / 8; ++j) {
+        const int col = j * 8 + col0;   // d is a multiple of 8
+        if (col < d)
+          *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row * so.n + col) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
+                                    acc[4 * j + 2 * r + 1] * inv);
+      }
+      if (lse != nullptr && col0 == 0)
+        lse[b * lse_sb + h * lse_sh + row] = m[r] * kLn2 + logf(l[r]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v;
   void *o;
@@ -423,7 +712,7 @@ cudaError_t launch(int dtype, const Args& a, dim3 grid, cudaStream_t s) {
         static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse,
         a.nq, a.kv_len, a.d, a.scale_log2, a.sq, a.sk, a.sv, a.so, a.lse_sb,
         a.lse_sh);
-  } else {
+  } else if constexpr (DPAD > 64) {
     constexpr int smem = kBf16SmemBytes<DPAD>;
     const cudaError_t err = allow_smem(flash_attn_fwd_bf16<DPAD>, smem);
     if (err != cudaSuccess) return err;
@@ -432,7 +721,32 @@ cudaError_t launch(int dtype, const Args& a, dim3 grid, cudaStream_t s) {
         static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.nq,
         a.kv_len, a.d, a.scale_log2, a.sq, a.sk, a.sv, a.so, a.lse_sb,
         a.lse_sh);
+  } else {
+    return cudaErrorInvalidValue;   // bf16 at d <= 64 is launch_wgmma's
   }
+  return cudaGetLastError();
+}
+
+// One operand's tensor map: (d, token, head, batch) in boxes of 64 columns
+// x 128 tokens of one head.
+bool attention_map(CUtensorMap* map, const void* base, int d, int tokens,
+                   int heads, int batch, const Strides& st) {
+  const long long dims[4] = {d, tokens, heads, batch};
+  const long long strides[3] = {st.n, st.h, st.b};
+  const int box[4] = {64, kWgRows, 1, 1};
+  return encode_tensor_map_bf16(map, base, 4, dims, strides, box);
+}
+
+template <int KSTEPS>
+cudaError_t launch_wgmma(const Args& a, const CUtensorMap& map_q,
+                         const CUtensorMap& map_k, const CUtensorMap& map_v,
+                         dim3 grid, cudaStream_t s) {
+  const cudaError_t err =
+      allow_smem(flash_attn_fwd_bf16_wgmma<KSTEPS>, kWgSmemBytes);
+  if (err != cudaSuccess) return err;
+  flash_attn_fwd_bf16_wgmma<KSTEPS><<<grid, kWgThreads, kWgSmemBytes, s>>>(
+      map_q, map_k, map_v, static_cast<bf16*>(a.o), a.lse, a.nq, a.kv_len,
+      a.d, a.scale_log2, a.so, a.lse_sb, a.lse_sh);
   return cudaGetLastError();
 }
 
@@ -440,9 +754,10 @@ cudaError_t launch(int dtype, const Args& a, dim3 grid, cudaStream_t s) {
 
 // dtype: 0 = float32, 1 = bfloat16. d: the head dim, <= 160 and a multiple
 // of 4 (float32) or 8 (bfloat16). strides: 12 values, (batch, head, token)
-// for q, k, v, o in elements (the head dim is contiguous). lse: float32
-// [.., Nq] addressed by (lse_sb, lse_sh, 1), or null. Returns the
-// cudaError_t of the launch (0 on success).
+// for q, k, v, o in elements (the head dim is contiguous), multiples of the
+// 16-byte vector. lse: float32 [.., Nq] addressed by (lse_sb, lse_sh, 1), or
+// null. Returns the cudaError_t of the tensor-map encode or the launch (0 on
+// success).
 extern "C" int flash_attn_fwd(int dtype, const void* q, const void* k,
                               const void* v, void* o, void* lse, int batch,
                               int heads, int nq, int kv_len, int d,
@@ -453,12 +768,24 @@ extern "C" int flash_attn_fwd(int dtype, const void* q, const void* k,
       d % (dtype == 0 ? 4 : 8) != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((nq + kBM - 1) / kBM, heads, batch);
   const Args a{q, k, v, o, static_cast<float*>(lse), nq, kv_len, d,
                sm_scale * kLog2e,
                Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
                Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
                lse_sb, lse_sh};
+  if (dtype == 1 && d <= 64) {
+    CUtensorMap map_q, map_k, map_v;
+    if (!attention_map(&map_q, q, d, nq, heads, batch, a.sq) ||
+        !attention_map(&map_k, k, d, kv_len, heads, batch, a.sk) ||
+        !attention_map(&map_v, v, d, kv_len, heads, batch, a.sv))
+      return (int)cudaErrorInvalidValue;
+    const dim3 grid((nq + kWgRows - 1) / kWgRows, heads, batch);
+    if (d <= 16) return (int)launch_wgmma<1>(a, map_q, map_k, map_v, grid, s);
+    if (d <= 32) return (int)launch_wgmma<2>(a, map_q, map_k, map_v, grid, s);
+    if (d <= 48) return (int)launch_wgmma<3>(a, map_q, map_k, map_v, grid, s);
+    return (int)launch_wgmma<4>(a, map_q, map_k, map_v, grid, s);
+  }
+  const dim3 grid((nq + kBM - 1) / kBM, heads, batch);
   if (d <= 16) return (int)launch<16>(dtype, a, grid, s);
   if (d <= 32) return (int)launch<32>(dtype, a, grid, s);
   if (d <= 48) return (int)launch<48>(dtype, a, grid, s);

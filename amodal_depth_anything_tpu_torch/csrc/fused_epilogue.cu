@@ -20,25 +20,43 @@
 //
 // Design. The TPU kernel keeps all of W resident in VMEM (up to 9.4 MB) and
 // walks M in 256-row blocks; a Hopper block has 227 KB of shared memory, so
-// here the grid tiles both M and N (128 x 128 outputs per block of 256
-// threads) and every block streams 128 x BK tiles of x and BK x 128 tiles of
-// w over K through a cp.async double buffer, so the next pair of tiles loads
-// while this one computes. W is re-read by every row of blocks, out of the
-// 50 MB L2. Any M, K and N that are multiples of 8 (16-byte vector loads)
-// are taken: rows past M, columns past N and the tail of K load as zeros and
-// are never stored, so no caller pads tokens.
+// here the output is cut into tiles and x and w stream through shared
+// memory over K. Any M and any K and N that are multiples of 8 (the 16-byte
+// rule of vector loads and of a tensor map's strides) are taken: what lies
+// past M, N or K loads as zeros and rows past M and columns past N are never
+// stored, so no caller pads tokens.
 //
-//  * bfloat16: 8 warps as 4 (M) x 2 (N), each a 32 x 64 patch as 2 x 8
-//    mma.sync m16n8k16 tiles (bf16 in, f32 accumulate), BK = 32. ldmatrix
-//    feeds x as A fragments and, with .trans, the row-major w tile as B
-//    fragments. mma.sync reaches only part of Hopper's tensor-core rate
-//    (wgmma and TMA are later work).
-//  * float32: each thread an 8 x 8 patch (two 4-row and two 4-column
-//    groups, 64 apart), scalar FMAs, BK = 16: exact to float32 (TF32 tensor
-//    cores keep ~3 digits and would miss a 2e-5 bar), bounded by the
-//    67 TFLOP/s of the FP32 units.
+//  * bfloat16: the tensor cores' full-rate path, wgmma fed by TMA. A
+//    persistent grid (one block of three warpgroups per SM) walks 128 x 256
+//    output tiles, N fastest, so that the tiles in flight share a few
+//    128-row bands of x and all of w out of the 50 MB L2. One thread, the
+//    loader (its warpgroup gives its registers away with setmaxnreg), keeps
+//    a ring of three stages full: per stage one TMA box of x (128 rows x
+//    64 k) and four of w (64 k x 64 columns each), written with the
+//    128-byte swizzle and reported to the stage's "full" mbarrier. Each of
+//    the two consumer warpgroups owns 64 rows of the tile: per stage four
+//    wgmma m64n256k16 read x K-major and w MN-major (the transpose bit: w
+//    stays [K, N], no transposed copy) straight from shared memory, one
+//    group of them stays in flight while the stage before it is handed back
+//    through its "empty" mbarrier, and the loader runs ahead into the next
+//    tile during the epilogue. The epilogue never touches device memory from a
+//    consumer thread (a tile stored from the accumulator fragments stalls the
+//    consumers on eight partial rows a store): the loader also fetches the
+//    residual's tile by TMA into a 64 KB buffer while the product runs; the
+//    consumers read it there in the accumulator's fragment layout (the swizzle
+//    makes that free of bank conflicts), apply bias, gamma and the residual in
+//    float32 registers, write the rounded result back in place and arrive on a
+//    third mbarrier; a second thread of the loader's warpgroup, the storer,
+//    sends the tile off with a TMA store (which clips rows past M and columns
+//    past N) and frees the buffer for the next residual once the store has
+//    read it. So the consumers go straight on to the next tile's product while
+//    the store drains.
+//  * float32: 256 threads, each an 8 x 8 patch (two 4-row and two 4-column
+//    groups, 64 apart), scalar FMAs on a cp.async double buffer, BK = 16:
+//    exact to float32 (TF32 tensor cores keep ~3 digits and would miss a
+//    2e-5 bar), bounded by the 67 TFLOP/s of the FP32 units.
 
-#include "flash_attn_common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -68,94 +86,184 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
 
 // ----------------------------------------------------------- bfloat16 path
 
-constexpr int kBkBf16 = 32;
-constexpr int kLdA = kBkBf16 + 8;   // 80-byte rows: 16-byte chunks per row
-constexpr int kLdB = kTN + 8;       // odd, so ldmatrix has no bank conflicts
+constexpr int kWideTN = 256;             // output columns per tile: the widest
+                                         // wgmma
+constexpr int kBK = 64;                  // one 128-byte swizzled row of bf16
+constexpr int kStages = 3;
+constexpr int kGemmThreads = 384;        // two consumer warpgroups, then the
+                                         // loader's and the storer's
+constexpr int kXTile = kTM * kBK;        // elements per stage: 16 KB of x
+constexpr int kBox = 64 * kTM;           // a 64-column box of 128 rows (or
+                                         // 64 k), 16 KB
+constexpr int kBoxes = kWideTN / 64;     // ... four of w, and of the residual
+constexpr int kWTile = kBoxes * kBK * 64;
+constexpr int kStageBytes = 2 * (kXTile + kWTile);
+constexpr int kCTile = kBoxes * kBox;    // the residual / output tile, 64 KB
+constexpr int kGemmSmemBytes = kStages * kStageBytes + 2 * kCTile +
+                               (2 * kStages + 3) * 8 +
+                               kSwizzleAtom;   // room to align the tiles
 
-__global__ void __launch_bounds__(kThreads)
-fused_epilogue_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
+__global__ void __launch_bounds__(kGemmThreads, 1)
+fused_epilogue_bf16(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_w,
+                    const __grid_constant__ CUtensorMap map_resid,
+                    const __grid_constant__ CUtensorMap map_out,
                     const float* __restrict__ bias,
-                    const float* __restrict__ gamma,
-                    const bf16* __restrict__ resid, bf16* __restrict__ out,
-                    int m, int k, int n) {
-  __shared__ __align__(16) bf16 as[2][kTM * kLdA];
-  __shared__ __align__(16) bf16 bs[2][kBkBf16 * kLdB];
+                    const float* __restrict__ gamma, int m, int k, int n) {
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle pattern is a function of the address: 1024-byte aligned tiles
+  uint8_t* smem = smem_raw + ((kSwizzleAtom - smem_addr(smem_raw)) &
+                              (kSwizzleAtom - 1));
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* ws = xs + kStages * kXTile;
+  bf16* cs = ws + kStages * kWTile;   // residual in, output out
+  uint64_t* full = reinterpret_cast<uint64_t*>(cs + kCTile);
+  uint64_t* empty = full + kStages;
+  uint64_t* c_full = empty + kStages;   // the residual's tile has landed
+  uint64_t* c_ready = c_full + 1;       // ... has become the output tile
+  uint64_t* c_empty = c_ready + 1;      // ... has been read by its store
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = (warp & 3) * 32;   // the warp's rows in the block tile
-  const int wn = (warp >> 2) * 64;  // ... and its columns
-  const int m0 = blockIdx.y * kTM;
-  const int n0 = blockIdx.x * kTN;
-
-  float acc[2][8][4];
-  #pragma unroll
-  for (int i = 0; i < 2; ++i)
-    #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  load_tile<bf16, kTM, kBkBf16>(as[0], kLdA, x, k, m0, m, 0, k);
-  load_tile<bf16, kBkBf16, kTN>(bs[0], kLdB, w, n, 0, k, n0, n);
-  cp_async_commit();
-
-  const int n_tiles = (k + kBkBf16 - 1) / kBkBf16;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) {  // prefetch the next pair into the other buffer
-      const int k0 = (t + 1) * kBkBf16;
-      load_tile<bf16, kTM, kBkBf16>(as[buf ^ 1], kLdA, x, k, m0, m, k0, k);
-      load_tile<bf16, kBkBf16, kTN>(bs[buf ^ 1], kLdB, w, n, k0, k, n0, n);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);    // the loader's arrive; TMA adds the bytes
+      mbar_init(empty + s, 2);   // one thread of each consumer warpgroup
     }
-    cp_async_commit();
-    cp_async_wait_all_but_newest();  // tile pair t has landed
-    __syncthreads();
+    mbar_init(c_full, 1);
+    mbar_init(c_ready, 256);     // every consumer thread
+    mbar_init(c_empty, 1);       // the storer
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    #pragma unroll
-    for (int kk = 0; kk < kBkBf16 / 16; ++kk) {
-      uint32_t af[2][4];
-      #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldmatrix_x4(af[i], as[buf] + (wm + i * 16 + (lane & 15)) * kLdA +
-                               kk * 16 + (lane >> 4) * 8);
-      #pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t bf[4];  // B fragments of column tiles j and j + 1
-        ldmatrix_x4_trans(bf, bs[buf] + (kk * 16 + (lane & 7) +
-                                         ((lane >> 3) & 1) * 8) * kLdB +
-                                  wn + j * 8 + (lane >> 4) * 8);
-        #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][j], af[i], bf[0], bf[1]);
-          mma_bf16(acc[i][j + 1], af[i], bf[2], bf[3]);
+  const int n_tiles = (n + kWideTN - 1) / kWideTN;
+  const int tiles = ((m + kTM - 1) / kTM) * n_tiles;
+  const int k_tiles = (k + kBK - 1) / kBK;
+  const int wg = threadIdx.x >> 7;
+
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 2 * 128) {
+      // -------------------------------------------------------------- loader
+      tma_prefetch_map(&map_x);
+      tma_prefetch_map(&map_w);
+      tma_prefetch_map(&map_resid);
+      // the residual follows the stages that the consumers can start on
+      const int resid_at = k_tiles < kStages ? k_tiles - 1 : kStages - 1;
+      int stage = 0;
+      uint32_t phase = 0, c_phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / n_tiles) * kTM;
+        const int n0 = (tile % n_tiles) * kWideTN;
+        for (int kt = 0; kt < k_tiles; ++kt) {
+          mbar_wait(empty + stage, phase ^ 1);   // free from the start
+          mbar_arrive_expect_tx(full + stage, kStageBytes);
+          tma_load_2d(xs + stage * kXTile, &map_x, full + stage, kt * kBK, m0);
+          #pragma unroll
+          for (int c = 0; c < kBoxes; ++c)
+            tma_load_2d(ws + stage * kWTile + c * kBK * 64, &map_w,
+                        full + stage, n0 + 64 * c, kt * kBK);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+          if (kt == resid_at) {
+            mbar_wait(c_empty, c_phase ^ 1);   // the tile before has left
+            mbar_arrive_expect_tx(c_full, 2 * kCTile);
+            #pragma unroll
+            for (int c = 0; c < kBoxes; ++c)
+              tma_load_2d(cs + c * kBox, &map_resid, c_full, n0 + 64 * c, m0);
+            c_phase ^= 1;
+          }
         }
       }
-    }
-    __syncthreads();  // every warp is done with buffer `buf`
-  }
-
-  // epilogue on the accumulator: rows g = lane/4 and g + 8 of each 16-row
-  // tile, columns 2*(lane%4) and +1 of each 8-wide tile (the C fragment)
-  #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = n0 + wn + j * 8 + 2 * (lane & 3);
-    if (col >= n) continue;   // n is even: col + 1 < n as well
-    const float2 bv = *reinterpret_cast<const float2*>(bias + col);
-    const float2 gv = *reinterpret_cast<const float2*>(gamma + col);
-    #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = m0 + wm + i * 16 + (lane >> 2) + r * 8;
-        if (row >= m) continue;
-        const long long at = (long long)row * n + col;
-        const float2 rv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(resid + at));
-        *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(
-            rv.x + gv.x * (acc[i][j][2 * r] + bv.x),
-            rv.y + gv.y * (acc[i][j][2 * r + 1] + bv.y));
+    } else if (threadIdx.x == 2 * 128 + 32) {
+      // -------------------------------------------------------------- storer
+      tma_prefetch_map(&map_out);
+      uint32_t c_phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / n_tiles) * kTM;
+        const int n0 = (tile % n_tiles) * kWideTN;
+        mbar_wait(c_ready, c_phase);
+        #pragma unroll
+        for (int c = 0; c < kBoxes; ++c)
+          tma_store_2d(&map_out, cs + c * kBox, n0 + 64 * c, m0);
+        tma_store_commit();
+        tma_store_wait_read();
+        mbar_arrive(c_empty);
+        c_phase ^= 1;
       }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    setmaxnreg_inc<232>();
+    const int lane = threadIdx.x & 31;
+    const int row_in_tile = wg * 64 + ((threadIdx.x >> 5) & 3) * 16 +
+                            (lane >> 2);          // and 8 further down
+    const int col_in_tile = 2 * (lane & 3);       // and +1, in each 8 columns
+    const bool elected = (threadIdx.x & 127) == 0;
+    int stage = 0;
+    uint32_t phase = 0, c_phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int n0 = (tile % n_tiles) * kWideTN;
+
+      float acc[kWideTN / 2];
+      int prev = 0;
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        mbar_wait(full + stage, phase);
+        const uint64_t dx = wgmma_desc(xs + stage * kXTile + wg * 64 * kBK,
+                                       16, kSwizzleAtom);
+        const uint64_t dw = wgmma_desc(ws + stage * kWTile, 2 * kBK * 64,
+                                       kSwizzleAtom);
+        wgmma_fence();
+        #pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          wgmma_ss<1>(acc, wgmma_desc_advance(dx, kk * 32),
+                      wgmma_desc_advance(dw, kk * 16 * kSwizzleRow),
+                      (kt | kk) != 0);   // the tile's first one overwrites
+        wgmma_commit();
+        if (kt > 0) {   // the stage before this one has been read
+          wgmma_wait<1>();
+          if (elected) mbar_arrive(empty + prev);
+        }
+        prev = stage;
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      if (elected) mbar_arrive(empty + prev);
+      wgmma_pin(acc);
+
+      // Epilogue on the accumulator fragments: the residual is read from,
+      // and the rounded result written back to, the tile in shared memory.
+      // Row r of a 64-column box keeps its 16-byte chunk c at c ^ (r % 8)
+      // (the 128-byte swizzle), so a warp's eight rows hit all 32 banks.
+      mbar_wait(c_full, c_phase);
+      c_phase ^= 1;
+      #pragma unroll
+      for (int j = 0; j < kWideTN / 8; ++j) {
+        const int col = n0 + j * 8 + col_in_tile;   // n is even: col + 1 too
+        float2 bv = make_float2(0.f, 0.f), gv = bv;
+        if (col < n) {
+          bv = *reinterpret_cast<const float2*>(bias + col);
+          gv = *reinterpret_cast<const float2*>(gamma + col);
+        }
+        #pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row_in_tile + r * 8;
+          __nv_bfloat162* at = reinterpret_cast<__nv_bfloat162*>(
+              cs + (j >> 3) * kBox + row * 64 + (((j & 7) ^ (row & 7)) << 3) +
+              col_in_tile);
+          const float2 rv = __bfloat1622float2(*at);
+          *at = __floats2bfloat162_rn(
+              rv.x + gv.x * (acc[4 * j + 2 * r] + bv.x),
+              rv.y + gv.y * (acc[4 * j + 2 * r + 1] + bv.y));
+        }
+      }
+      fence_proxy_async();   // these writes, before the TMA store reads them
+      mbar_arrive(c_ready);
+    }
   }
 }
 
@@ -251,7 +359,8 @@ fused_epilogue_f32(const float* __restrict__ x, const float* __restrict__ w,
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w, resid, out); bias and gamma are
 // float32. All tensors contiguous and 16-byte aligned; k and n multiples of
-// 8. Returns the cudaError_t of the launch (0 on success).
+// 8. Returns the cudaError_t of the tensor-map encode or the launch (0 on
+// success).
 extern "C" int fused_epilogue(int dtype, const void* x, const void* w,
                               const void* bias, const void* gamma,
                               const void* resid, void* out, int m, int k,
@@ -259,17 +368,40 @@ extern "C" int fused_epilogue(int dtype, const void* x, const void* w,
   if (m < 1 || k < 8 || n < 8 || k % 8 != 0 || n % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + kTN - 1) / kTN, (m + kTM - 1) / kTM);
+  const int m_tiles = (m + kTM - 1) / kTM, n_tiles = (n + kTN - 1) / kTN;
   const float* b = static_cast<const float*>(bias);
   const float* g = static_cast<const float*>(gamma);
   if (dtype == 0) {
-    fused_epilogue_f32<<<grid, kThreads, 0, s>>>(
+    fused_epilogue_f32<<<dim3(n_tiles, m_tiles), kThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), b, g,
         static_cast<const float*>(resid), static_cast<float*>(out), m, k, n);
   } else if (dtype == 1) {
-    fused_epilogue_bf16<<<grid, kThreads, 0, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w), b, g,
-        static_cast<const bf16*>(resid), static_cast<bf16*>(out), m, k, n);
+    // x as (k, m) boxes of 64 x 128, w as (n, k) boxes of 64 x 64, the
+    // residual and the output as (n, m) boxes of 64 x 128
+    CUtensorMap map_x, map_w, map_resid, map_out;
+    const long long dims_x[2] = {k, m}, dims_w[2] = {n, k}, dims_c[2] = {n, m};
+    const long long stride_x[1] = {k}, stride_n[1] = {n};
+    const int box_x[2] = {kBK, kTM}, box_w[2] = {64, kBK}, box_c[2] = {64, kTM};
+    if (!encode_tensor_map_bf16(&map_x, x, 2, dims_x, stride_x, box_x) ||
+        !encode_tensor_map_bf16(&map_w, w, 2, dims_w, stride_n, box_w) ||
+        !encode_tensor_map_bf16(&map_resid, resid, 2, dims_c, stride_n,
+                                box_c) ||
+        !encode_tensor_map_bf16(&map_out, out, 2, dims_c, stride_n, box_c))
+      return (int)cudaErrorInvalidValue;
+    int device = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fused_epilogue_bf16,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kGemmSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    const int tiles = m_tiles * ((n + kWideTN - 1) / kWideTN);
+    const int blocks = tiles < sms ? tiles : sms;   // persistent: one per SM
+    fused_epilogue_bf16<<<blocks, kGemmThreads, kGemmSmemBytes, s>>>(
+        map_x, map_w, map_resid, map_out, b, g, m, k, n);
   } else {
     return (int)cudaErrorInvalidValue;
   }

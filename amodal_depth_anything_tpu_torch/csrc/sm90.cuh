@@ -1,0 +1,461 @@
+// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
+// mbarriers, TMA (cp.async.bulk.tensor) loads and stores through a
+// CUtensorMap, the wgmma shared-memory matrix descriptor and the
+// wgmma.mma_async wrappers (bf16 in, f32 accumulate), setmaxnreg,
+// named-barrier turn-taking and the host helper that encodes a tensor map.
+// Included by fused_epilogue.cu and flash_attn_fwd.cu.
+//
+// Conventions. Every tile that wgmma reads is written by TMA with the
+// 128-byte swizzle: rows of 64 bf16 (128 bytes), 8 rows to a 1024-byte
+// swizzle atom, the tile's base 1024-byte aligned. An operand whose
+// reduction (K) dim is the contiguous one ("K-major": x, Q, K^T) steps
+// 32 bytes along the row per k16 instruction; an operand whose other dim is
+// contiguous ("MN-major": w [K, N], V [keys, d]) is read with the
+// instruction's transpose bit and steps 16 rows (2048 bytes).
+
+#pragma once
+
+#include <cuda.h>
+
+#include "flash_attn_common.cuh"
+
+namespace {
+
+constexpr int kSwizzleRow = 128;     // bytes per row of a swizzled tile
+constexpr int kSwizzleAtom = 1024;   // 8 rows: alignment of every tile
+
+// ------------------------------------------------------------- mbarriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::
+                   "r"(smem_addr(bar)), "r"(arrivals) : "memory");
+}
+
+// after the inits, before any thread or the TMA unit uses the barriers
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// one arrival, and `bytes` more that the TMA loads will report
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::
+                   "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Wait until the barrier's phase differs from `parity` (a barrier starts in
+// phase 0 and flips each time its arrivals and bytes are all in). A wait
+// that lasts two seconds is a protocol error: trap, so that the launch
+// fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  uint64_t t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t0));
+  while (!mbar_try_wait(bar, parity)) {
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+    if (t - t0 > 2000000000ull) __trap();
+  }
+}
+
+// ------------------------------------------------------------------- TMA
+
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::
+                   "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// Copy the map's box at (c0, c1[, c2, c3]) (innermost coordinate first)
+// into shared memory; the bytes are reported to `bar`. Elements outside
+// the tensor arrive as zeros. One thread executes it.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::
+          "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+          "r"(smem_addr(bar)), "r"(c0), "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
+          "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// Copy a box from shared memory to the map's tensor at (c0, c1); what lies
+// outside the tensor is not written. One thread executes it, after every
+// writer of the tile ran fence_proxy_async() and was waited for.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0),
+          "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until the issuing thread's committed stores have read their shared memory
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// ------------------------------------------------------ register budgets
+
+// Both take a whole warpgroup; the roles must sit in the two arms of one
+// if/else that never rejoin, or ptxas ignores the request.
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(REGS));
+}
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(REGS));
+}
+
+// Turn-taking of two consumer warpgroups (0 and 1) on the tensor cores,
+// over named barriers 1 and 2: warpgroup w waits for its turn before it
+// starts a batch of wgmmas and passes the turn on once they are under way,
+// so that one's ordinary arithmetic (a softmax, an epilogue) runs under the
+// other's products. Warpgroup 1 passes once before its first wait, and both
+// take the same number of turns.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(1 + wg) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(2 - wg) : "memory");
+}
+
+// ----------------------------------------------------------------- wgmma
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled tile starting at
+// `tile` (which may point 32, 64 or 96 bytes into a row, or any number of
+// 8-row groups down). SBO is the distance between 8-row groups; LBO, for
+// an MN-major operand wider than 64, the distance between its 64-column
+// boxes (unused otherwise).
+__device__ __forceinline__ uint64_t wgmma_desc(const void* tile,
+                                               uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  uint64_t desc = (smem_addr(tile) & 0x3FFFF) >> 4;
+  desc |= static_cast<uint64_t>(lbo_bytes >> 4) << 16;
+  desc |= static_cast<uint64_t>(sbo_bytes >> 4) << 32;
+  desc |= 1ull << 62;   // layout type: 128-byte swizzle
+  return desc;
+}
+
+// The descriptor `bytes` further into the tile (a multiple of 16)
+__device__ __forceinline__ uint64_t wgmma_desc_advance(uint64_t desc,
+                                                       uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
+// before the first wgmma that reads registers or shared memory written by
+// ordinary code
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most PENDING committed groups are still running
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(PENDING)
+               : "memory");
+}
+
+// Pin accumulator registers at this point of the program, so that the
+// compiler moves no read or write of them across an asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void wgmma_pin(float (&regs)[N]) {
+  #pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(regs[i]) :: "memory");
+}
+
+// generic-proxy writes to shared memory made visible to TMA and wgmma
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The accumulator of an m64nN instruction, per thread: warp w of the
+// warpgroup holds rows 16w .. 16w+15; d[4j + e] is row 16w + lane/4 +
+// 8*(e/2), column 8j + 2*(lane%4) + (e%2) (the mma.sync C fragment, tiled
+// along N).
+
+// d[64 x 128] (+)= A[64 x 16] * B[16 x 128], both operands in shared memory
+// (A K-major; B K-major when TRANS_B = 0, MN-major when 1)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d[64 x 256] (+)= A[64 x 16] * B[16 x 256], both operands in shared memory
+// (A K-major; B K-major when TRANS_B = 0, MN-major when 1)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[128],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, "
+      " %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, "
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, %131;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d[64 x 16] += A[64 x 16] * B[16 x 16]: A as four registers of bf16 pairs
+// per thread (the m16n8k16 A-fragment layout of each warp's 16 rows), B
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+    const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 32] += A[64 x 16] * B[16 x 32]: A as four registers of bf16 pairs
+// per thread (the m16n8k16 A-fragment layout of each warp's 16 rows), B
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+    const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 48] += A[64 x 16] * B[16 x 48]: A as four registers of bf16 pairs
+// per thread (the m16n8k16 A-fragment layout of each warp's 16 rows), B
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[24],
+    const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] * B[16 x 64]: A as four registers of bf16 pairs
+// per thread (the m16n8k16 A-fragment layout of each warp's 16 rows), B
+// MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+    const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ------------------------------------------------- tensor maps (host side)
+
+typedef CUresult (*TensorMapEncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled belongs to libcuda, not to the runtime: looked up
+// once through the runtime, so that the library links against nothing but
+// cudart.
+inline TensorMapEncodeTiled tensor_map_encoder() {
+  static const TensorMapEncodeTiled fn = [] {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault);
+#endif
+    return err == cudaSuccess ? reinterpret_cast<TensorMapEncodeTiled>(p)
+                              : nullptr;
+  }();
+  return fn;
+}
+
+// Encode a bf16 tensor map of `rank` dims (innermost first) with the
+// 128-byte swizzle and zero fill outside the tensor. dims: extents in
+// elements; strides: of dims 1 .. rank-1 in elements (dim 0 is contiguous);
+// box: the tile a load copies, box[0] <= 64. False if the encode is refused
+// (a base that is not 16-byte aligned, a stride that is no multiple of 8).
+inline bool encode_tensor_map_bf16(CUtensorMap* map, const void* base,
+                                   int rank, const long long* dims,
+                                   const long long* strides, const int* box) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t gdim[4], gstride[3];
+  cuuint32_t gbox[4], estride[4];
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = static_cast<cuuint64_t>(dims[i]);
+    gbox[i] = static_cast<cuuint32_t>(box[i]);
+    estride[i] = 1;
+    if (i > 0)
+      gstride[i - 1] = static_cast<cuuint64_t>(strides[i - 1]) * sizeof(bf16);
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                const_cast<void*>(base), gdim, gstride, gbox, estride,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace

@@ -6,7 +6,10 @@ compiles for Hopper (`sm_90a`) into
 source, the shared `csrc/*.cuh` headers and the flags, so an edited source
 builds anew and an unchanged one is reused. `build()` starts one nvcc per kernel,
 all together, and waits for them; `load()` builds what is missing and
-returns the `ctypes.CDLL`. Nothing here runs at import.
+returns the `ctypes.CDLL`. The libraries link against the CUDA runtime
+only: the one libcuda function they need (`cuTensorMapEncodeTiled`, for the
+TMA tensor maps of `csrc/sm90.cuh`) is fetched through the runtime at first
+use. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["KERNELS", "BUILD_DIR", "build", "load"]
+__all__ = ["KERNELS", "BUILD_DIR", "build", "load", "library_path",
+           "nvcc_path"]
 
 KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "fused_epilogue")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -29,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -41,7 +45,8 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
-def _library(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where kernel library `name` is, or will be, built."""
     src = (CSRC / f"{name}.cu").read_bytes()
     for header in sorted(CSRC.glob("*.cuh")):
         src += header.read_bytes()
@@ -53,14 +58,14 @@ def build(names=KERNELS) -> dict[str, str]:
     """Compile every kernel in `names` that is not built yet, all nvcc
     processes at once. Returns {name: ptxas report} for those compiled
     here; raises RuntimeError with the compiler output if any fails."""
-    todo = [n for n in names if not _library(n).exists()]
+    todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = nvcc_path()
     procs = []
     for name in todo:
-        tmp = _library(name).with_suffix(f".{os.getpid()}.tmp")
+        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -70,7 +75,7 @@ def build(names=KERNELS) -> dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
             continue
-        os.replace(tmp, _library(name))
+        os.replace(tmp, library_path(name))
         reports[name] = out
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
@@ -81,6 +86,6 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         build((name,))
-        lib = ctypes.CDLL(str(_library(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

@@ -30,7 +30,8 @@ import ctypes
 import torch
 
 __all__ = ["mha", "mha_reference", "mha_bwd_reference", "flash_attn_bwd_dq",
-           "flash_attn_bwd_dkv", "MAX_HEAD_DIM", "BWD_HEAD_DIM", "NEG_INF"]
+           "flash_attn_bwd_dkv", "entry_argtypes", "MAX_HEAD_DIM",
+           "BWD_HEAD_DIM", "NEG_INF"]
 
 NEG_INF = -1e30  # the JAX package's mask value (avoids inf - inf NaNs)
 MAX_HEAD_DIM = 160   # the forward kernel's widest instantiation
@@ -124,19 +125,30 @@ def _vector_ready(t) -> bool:
             and t.data_ptr() % 16 == 0)
 
 
-def _entry(library: str, name: str, n_ptrs: int, n_ints: int):
-    """C entry point `name` of csrc/<library>.cu (built at first use):
-    (dtype, pointers..., ints..., sm_scale, strides, [lse strides], stream)."""
+# C entry point -> (library under csrc/, pointer arguments, int arguments)
+_ENTRIES = {"flash_attn_fwd": ("flash_attn_fwd", 5, 5),
+            "flash_attn_bwd_dq": ("flash_attn_bwd", 7, 4),
+            "flash_attn_bwd_dkv": ("flash_attn_bwd", 8, 6)}
+
+
+def entry_argtypes(name: str) -> list:
+    """The ctypes signature of C entry point `name`: (dtype, pointers...,
+    ints..., sm_scale, strides, [lse strides], stream), every pointer and
+    the stream as c_void_p."""
+    _, n_ptrs, n_ints = _ENTRIES[name]
+    lse_strides = [ctypes.c_longlong] * 2 if name == "flash_attn_fwd" else []
+    return ([ctypes.c_int] + [ctypes.c_void_p] * n_ptrs
+            + [ctypes.c_int] * n_ints + [ctypes.c_float, ctypes.c_void_p]
+            + lse_strides + [ctypes.c_void_p])
+
+
+def _entry(name: str):
+    """C entry point `name` of its csrc/<library>.cu (built at first use)."""
     from ._build import load
 
-    fn = getattr(load(library), name)
-    if fn.argtypes is None:  # every pointer and the stream as c_void_p
-        lse_strides = [ctypes.c_longlong] * 2 if name == "flash_attn_fwd" \
-            else []
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptrs
-                       + [ctypes.c_int] * n_ints
-                       + [ctypes.c_float, ctypes.c_void_p] + lse_strides
-                       + [ctypes.c_void_p])
+    fn = getattr(load(_ENTRIES[name][0]), name)
+    if fn.argtypes is None:
+        fn.argtypes = entry_argtypes(name)
         fn.restype = ctypes.c_int
     return fn
 
@@ -160,7 +172,7 @@ def _launch_fwd(q, k, v, sm_scale: float, kv_len: int | None, need_lse: bool):
     o = _token_major(b, h, nq, d, q)
     lse = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
            if need_lse else None)
-    fn = _entry("flash_attn_fwd", "flash_attn_fwd", 5, 5)
+    fn = _entry("flash_attn_fwd")
     with torch.cuda.device(q.device):
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  o.data_ptr(), None if lse is None else lse.data_ptr(),
@@ -203,7 +215,7 @@ def flash_attn_bwd_dq(q, k, v, do, lse, delta, *, sm_scale: float,
     _check_bwd(q, k, v, do, lse, delta, kv_len)
     b, h, nq, d = q.shape
     dq = _token_major(b, h, nq, d, q)
-    fn = _entry("flash_attn_bwd", "flash_attn_bwd_dq", 7, 4)
+    fn = _entry("flash_attn_bwd_dq")
     with torch.cuda.device(q.device):
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -229,7 +241,7 @@ def flash_attn_bwd_dkv(q, k, v, do, lse, delta, *, sm_scale: float,
     b, h, _, d = q.shape
     dk = _token_major(b, h, nk, d, k)
     dv = _token_major(b, h, nk, d, v)
-    fn = _entry("flash_attn_bwd", "flash_attn_bwd_dkv", 8, 6)
+    fn = _entry("flash_attn_bwd_dkv")
     with torch.cuda.device(q.device):
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),

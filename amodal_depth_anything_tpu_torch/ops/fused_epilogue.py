@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 __all__ = ["matmul_scale_residual", "matmul_scale_residual_reference",
-           "fused_epilogue_kernel"]
+           "fused_epilogue_kernel", "entry_argtypes"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -64,6 +64,14 @@ def _check(x, w, b, gamma, resid):
                              f"got strides {t.stride()}")
 
 
+def entry_argtypes() -> list:
+    """The ctypes signature of the C entry point `fused_epilogue`: (dtype,
+    x, w, bias, gamma, resid, out, m, k, n, stream), every pointer and the
+    stream as c_void_p."""
+    return ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
+
+
 def fused_epilogue_kernel(x, w, b, gamma, resid):
     """The kernel itself (CUDA tensors only; raises on anything else)."""
     _check(x, w, b, gamma, resid)
@@ -71,8 +79,7 @@ def fused_epilogue_kernel(x, w, b, gamma, resid):
 
     fn = load("fused_epilogue").fused_epilogue
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.argtypes = entry_argtypes()
         fn.restype = ctypes.c_int
     # the two [N] vectors ride in float32 whatever they came in
     b32 = b.float().contiguous()

@@ -9,21 +9,27 @@ plain PyTorch version on the card:
 
   1. device and flags: `nvidia-smi` name and power limit, the TF32 flags;
   2. build: nvcc compiles the three kernel libraries from `csrc/` (all at
-     once);
+     once); where `cuobjdump` is found, the forward and the epilogue
+     libraries' SASS must hold HGMMA (wgmma) and UTMALDG (TMA load)
+     opcodes;
   3. kernel vs plain version at the main paths' attention shapes and
      more, float32 (max abs <= 2e-5) and bfloat16 (<= 2e-2, plain version
      on the bf16-rounded inputs in float32), with kernel, plain and
      `F.scaled_dot_product_attention` times (the last a yardstick only):
      the forward at the DINOv2 trunks' head dim 64 and at the SD-1.5
      UNet's shapes (head dims 40/80/160, self-attention and
-     cross-attention onto 77 keys, the proxy's 12/24/48), then the two
-     backward kernels (dQ; dK and dV) against `mha_bwd_reference`,
+     cross-attention onto 77 keys, the proxy's 12/24/48) and on the
+     edges of the Hopper kernel's 128-row tiles (N from 1 to 257, kv_len
+     one short of N and in the middle of a tile, 77 keys under 4096 rows,
+     strided views of one qkv buffer, with and without the LSE), then the
+     two backward kernels (dQ; dK and dV) against `mha_bwd_reference`,
      tolerances relative to the reference's max abs, and `mha` under
      autograd on strided CUDA views; then the fused matmul + LayerScale +
      residual epilogue against `matmul_scale_residual_reference` at the
      trunks' proj / fc2 shapes, and its path: a chain of four blocks at
      vitg width with the kernel and with the library chain (`F.linear`,
-     `torch.addcmul`), results compared and both timed;
+     `torch.addcmul`), results compared and both timed; and what a launch
+     of each redesigned kernel costs the host (1000 launches, no sync);
   4. the trained in-repo proxies on the card (f32, TF32 off, kernels)
      against the CPU (plain): the pipeline's maps, max abs <= 1e-4, one
      train step's loss and every parameter's gradient, <= 1e-4 of each
@@ -109,16 +115,26 @@ UNET_ATTN_CASES = [((4, 8, 4096, 40), 4096), ((4, 8, 1024, 80), 1024),
                    ((4, 8, 256, 160), 256), ((4, 8, 64, 160), 64),
                    ((4, 8, 4096, 40), 77), ((4, 8, 1024, 80), 77),
                    ((4, 8, 256, 160), 77)]
+# N = Nq = Nk on the edges of the bf16 kernel's tiles (128 query rows a
+# block, 64 a warpgroup, 128 keys a tile); each also with kv_len = N - 1 and,
+# where it fits, N - 70; head dims 64 and 40 (the main paths') and 24 and 8,
+# so that all four instantiations of the bf16 kernel (16, 32, 48 and 64
+# columns) are held against the plain version
+EDGE_NS = (1, 63, 64, 65, 127, 128, 129, 255, 257)
+EDGE_HEAD_DIMS = (64, 40, 24, 8)
+HOST_LAUNCHES = 1000
 # the DepthFM proxy's self-attention shapes (float32 only: head dim 12 is
 # no multiple of the bfloat16 kernel's 8)
 PROXY_ATTN_CASES = [((2, 4, 64, 12), 64), ((2, 4, 16, 24), 16),
                     ((2, 4, 4, 48), 4)]
 # (M, K, N) of the fused epilogue: vitg proj and fc2, vitl proj and fc2 at
 # 518 px batch 4 (M = 4 x 1370), vitl proj at batch 8, the two trunks' proj
-# at 1022 px batch 8 (M = 8 x 5330), and a ragged one
+# at 1022 px batch 8 (M = 8 x 5330), a ragged M, and M, K and N all off the
+# kernel's 128 x 256 x 64 tiles
 EPILOGUE_CASES = [(5480, 1536, 1536), (5480, 4096, 1536), (5480, 1024, 1024),
                   (5480, 4096, 1024), (10960, 1024, 1024),
-                  (42640, 1024, 1024), (42640, 1536, 1536), (777, 128, 256)]
+                  (42640, 1024, 1024), (42640, 1536, 1536), (777, 128, 256),
+                  (777, 136, 264), (129, 72, 8)]
 EPILOGUE_MAIN_CASE = ((42640, 1536, 1536), "bfloat16")   # the chain's shape
 CHAIN_BLOCKS = 4
 DEPTHFM_PROXY = os.path.join("checkpoints", "proxy", "depthfm.npz")
@@ -136,8 +152,8 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_BLOCKS = 8, 5, 24
 
 # a kernel's name, and its padded head dim if it is a template, in the
 # mangled name ptxas reports
-ENTRY_NAME = re.compile(r"((?:flash_attn|fused_epilogue)_[a-z_]*(?:bf16|f32))"
-                        r"(?:ILi(\d+)E)?")
+ENTRY_NAME = re.compile(r"((?:flash_attn|fused_epilogue)_[a-z_]*(?:bf16|f32)"
+                        r"(?:_wgmma)?)(?:ILi(\d+)E)?")
 
 failures: list[str] = []
 
@@ -218,6 +234,112 @@ def attention_case(gen, shape, nk, kv_len, dt_name: str, gpu: str) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
+def attention_edge_cases() -> None:
+    """The forward kernel on the edges of its tiles, through strided views
+    of one qkv buffer as the models hand them over, with and without the
+    LSE, against the plain version on the same (bf16-rounded) inputs."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import (
+        mha, mha_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [(n, n, kv) for n in EDGE_NS for kv in (None, n - 1, n - 70)
+             if kv is None or kv >= 1] + [(4096, 77, None)]
+    b, h = 2, 2
+    for dt_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt_name)
+        for d in EDGE_HEAD_DIMS:
+            worst, worst_lse, bad = 0.0, 0.0, []
+            for nq, nk, kv_len in cases:
+                qkv = torch.randn((b, nk, 3, h, d), generator=gen,
+                                  device="cuda").to(dtype)
+                q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+                if nq != nk:
+                    q = torch.randn((b, nq, h, d), generator=gen,
+                                    device="cuda").to(dtype).transpose(1, 2)
+                out, lse = mha(q, k, v, kv_len=kv_len, return_lse=True)
+                alone = mha(q, k, v, kv_len=kv_len)
+                torch.cuda.synchronize()
+                ref, ref_lse = mha_reference(q.float(), k.float(), v.float(),
+                                             kv_len=kv_len, return_lse=True)
+                err = max((out.float() - ref).abs().max().item(),
+                          (alone.float() - ref).abs().max().item())
+                lse_err = (lse - ref_lse).abs().max().item()
+                if not (err <= TOL[dt_name] and lse_err <= LSE_TOL):
+                    bad.append((nq, nk, kv_len, err, lse_err))
+                worst, worst_lse = max(worst, err), max(worst_lse, lse_err)
+            check(not bad,
+                  f"flash_attn_fwd {dt_name} d={d} on {len(cases)} tile-edge "
+                  f"cases (N in {list(EDGE_NS)}, kv_len N-1 and N-70, 4096 x "
+                  f"77), with and without LSE: max abs {worst:.3e} <= "
+                  f"{TOL[dt_name]}, LSE {worst_lse:.3e} <= {LSE_TOL}"
+                  + (f"; failing (Nq, Nk, kv_len, err, lse err): {bad}"
+                     if bad else ""))
+
+
+def host_cost_phase(gpu: str) -> None:
+    """What one launch of each redesigned kernel costs the host, wrapper
+    and tensor-map encodes included: many launches of a tiny case, no
+    synchronisation inside the loop. The float32 launch of the same
+    wrapper, which encodes no tensor map, is timed beside it, so that the
+    difference is what the encodes (and the shared-memory opt-in) cost."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.ops.fused_epilogue import \
+        matmul_scale_residual
+
+    def per_launch_us(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(HOST_LAUNCHES):
+            fn()
+        us = (time.perf_counter() - t) / HOST_LAUNCHES * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    us = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = torch.randn((1, 128, 3, 2, 64), device="cuda", dtype=dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        x = torch.randn((128, 64), device="cuda", dtype=dtype)
+        w = torch.randn((64, 128), device="cuda", dtype=dtype)
+        b, g = torch.zeros(128, device="cuda"), torch.ones(128, device="cuda")
+        r = torch.zeros((128, 128), device="cuda", dtype=dtype)
+        us["flash_attn_fwd", dtype] = per_launch_us(lambda: mha(q, k, v))
+        us["fused_epilogue", dtype] = per_launch_us(
+            lambda: matmul_scale_residual(x, w, b, g, r))
+    for name, what in (("flash_attn_fwd", "[1,2,128,64], three tensor maps"),
+                       ("fused_epilogue", "[128,64]x[64,128], four tensor "
+                        "maps")):
+        print(f"  host cost of a launch of {name} (bf16 {what}): "
+              f"{us[name, torch.bfloat16]:.1f} us; float32, no tensor map: "
+              f"{us[name, torch.float32]:.1f} us; over {HOST_LAUNCHES} "
+              f"launches each [{gpu}]", flush=True)
+
+
+def sass_check() -> None:
+    """The two redesigned libraries' SASS holds wgmma and TMA-load opcodes."""
+    import shutil
+
+    from amodal_depth_anything_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        print("  cuobjdump not found: SASS not inspected", flush=True)
+        return
+    for name in ("flash_attn_fwd", "fused_epilogue"):
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True).stdout
+        counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        check(all(counts.values()),
+              f"{name}: SASS holds {counts['HGMMA']} HGMMA and "
+              f"{counts['UTMALDG']} UTMALDG opcodes")
+
+
 def attention_phase(gpu: str) -> dict:
     import torch
 
@@ -236,6 +358,7 @@ def attention_phase(gpu: str) -> dict:
                 unet.append({"q": list(shape), "nk": nk, **got})
     for shape, nk in PROXY_ATTN_CASES:
         attention_case(gen, shape, nk, None, "float32", gpu)
+    attention_edge_cases()
     main["depthfm_shapes"] = unet
     torch.cuda.empty_cache()
     return main
@@ -1008,6 +1131,11 @@ def main() -> int:
     from amodal_depth_anything_tpu_torch.ops.precision import \
         apply_precision_policy
 
+    started = time.time()
+
+    def phase(title: str) -> None:
+        print(f"{title} (at {time.time() - started:.1f} s)", flush=True)
+
     gpu = card()
     print(f"[1] device: {gpu}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
@@ -1016,7 +1144,7 @@ def main() -> int:
     print(f"  allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
 
-    print("[2] build", flush=True)
+    phase("[2] build")
     t0 = time.time()
     reports = _build.build()
     print(f"  built {sorted(reports)} in {time.time() - t0:.1f} s", flush=True)
@@ -1026,30 +1154,32 @@ def main() -> int:
             if "Compiling entry function" in line and entry:
                 pad = f"<{entry.group(2)}>" if entry.group(2) else ""
                 print(f"  {name}: {entry.group(1)}{pad}", flush=True)
+            elif "(C7" in line:   # an advisory on a wgmma pipeline
+                print(f"  {name}:   {line.strip()[:150]} ...", flush=True)
             elif "registers" in line or "spill" in line:
                 print(f"  {name}:   {line.strip()}", flush=True)
+    sass_check()
 
-    print("[3] kernels against their plain versions", flush=True)
+    phase("[3] kernels against their plain versions")
     measured = {"flash_attn_fwd": attention_phase(gpu)}
     measured.update(attention_bwd_phase(gpu))
     measured["fused_epilogue"] = epilogue_phase(gpu)
+    host_cost_phase(gpu)
 
-    print("[4] trained proxies: card vs CPU", flush=True)
+    phase("[4] trained proxies: card vs CPU")
     proxy_phase()
     proxy_grad_phase()
     depthfm_proxy_phase()
 
-    print("[5] inference at full width: vitg base + vitl AmodalDAv2",
-          flush=True)
+    phase("[5] inference at full width: vitg base + vitl AmodalDAv2")
     infer_launches = full_width_phase(gpu)
     torch.cuda.empty_cache()
 
-    print("[6] training at full width: vitl AmodalDAv2", flush=True)
+    phase("[6] training at full width: vitl AmodalDAv2")
     launches = train_phase(gpu)
     torch.cuda.empty_cache()
 
-    print("[7] DepthFM inference at full width: SD-1.5 UNet + VAE",
-          flush=True)
+    phase("[7] DepthFM inference at full width: SD-1.5 UNet + VAE")
     depthfm_launches = depthfm_phase(gpu)
 
     # launches: over the main paths, each counted from 0; the forward
@@ -1066,6 +1196,7 @@ def main() -> int:
         launches_inference=infer_launches,
         launches_training=launches["flash_attn_fwd"],
         launches_depthfm=depthfm_launches)
+    print(f"  all phases took {time.time() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", file=sys.stderr)

@@ -30,6 +30,18 @@ CASES = [
 ]
 
 
+# the edges of the Hopper forward kernel's 128-row query and key tiles (and
+# of the 64 rows each consumer warpgroup owns): N around 64, 128 and 256,
+# kv_len one short of N and in the middle of a tile, 77 keys under many rows
+EDGE_KV_CASES = [(1, 1, 129, 129, 128, None), (1, 1, 257, 257, 187, None),
+                 (1, 2, 128, 128, 58, None), (1, 1, 1024, 77, None, None)]
+EDGE_CASES = [(1, 1, n, n, None, None)
+              for n in (1, 63, 64, 65, 127, 128, 129, 255, 257)] + EDGE_KV_CASES
+# the Pallas kernel in interpret mode is slow: the 128 edge and the kv cases
+INTERPRET_EDGE_CASES = [(1, 1, n, n, None, None)
+                        for n in (127, 128, 129)] + EDGE_KV_CASES
+
+
 def _qkv(b, h, nq, nk, d=64, seed=0):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, h, nq, d), dtype=np.float32)
@@ -38,7 +50,8 @@ def _qkv(b, h, nq, nk, d=64, seed=0):
     return q, k, v
 
 
-@pytest.mark.parametrize("b,h,nq,nk,kv_len,scale", CASES)
+@pytest.mark.parametrize("b,h,nq,nk,kv_len,scale",
+                         CASES + INTERPRET_EDGE_CASES)
 def test_mha_matches_jax_pallas_interpret(b, h, nq, nk, kv_len, scale):
     q, k, v = _qkv(b, h, nq, nk)
     ref = np.asarray(jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -49,7 +62,7 @@ def test_mha_matches_jax_pallas_interpret(b, h, nq, nk, kv_len, scale):
     assert np.abs(ours - ref).max() <= TOL
 
 
-@pytest.mark.parametrize("b,h,nq,nk,kv_len,scale", CASES)
+@pytest.mark.parametrize("b,h,nq,nk,kv_len,scale", CASES + EDGE_CASES)
 def test_mha_reference_matches_jax_reference(b, h, nq, nk, kv_len, scale):
     q, k, v = _qkv(b, h, nq, nk, seed=1)
     ref = np.asarray(jax_mha_reference(jnp.asarray(q), jnp.asarray(k),

@@ -42,10 +42,13 @@ def _torch(arrays, dtype=torch.float32):
 
 
 # (M, K, N, bf16-rounded inputs): M = 512 as the JAX package's own test,
-# a ragged M the Pallas entry would refuse, and bfloat16-valued inputs
+# a ragged M the Pallas entry would refuse, bfloat16-valued inputs, and M, K
+# and N all off the Hopper kernel's 128 x 256 x 64 tiles
 @pytest.mark.parametrize("m,k,n,rounded", [(512, 128, 256, False),
                                            (777, 128, 256, False),
-                                           (512, 64, 128, True)])
+                                           (512, 64, 128, True),
+                                           (777, 136, 264, False),
+                                           (129, 72, 8, True)])
 def test_plain_version_matches_jax_reference(m, k, n, rounded):
     arrays = _inputs(m, k, n, seed=1, bf16_rounded=rounded)
     ref = np.asarray(jax_reference(*map(jnp.asarray, arrays),

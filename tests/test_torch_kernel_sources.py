@@ -1,0 +1,100 @@
+"""The port's CUDA sources, read as text: no compiler is needed.
+
+Every kernel library has its source, each C entry point takes as many
+arguments as its Python wrapper declares, the build targets `sm_90a`, the
+two tensor-core kernels redesigned for Hopper are built from wgmma and TMA,
+and no source leans on a library's kernels."""
+
+import re
+
+import pytest
+
+from amodal_depth_anything_tpu_torch.ops import (_build, flash_attention,
+                                                 fused_epilogue)
+from amodal_depth_anything_tpu_torch.tools.kernel_ablation import ABLATIONS
+
+CSRC = _build.CSRC
+ENTRY = re.compile(r'extern "C" int (\w+)\(([^)]*)\)')
+INCLUDE = re.compile(r'#include\s+[<"]([^>"]+)[>"]')
+# C entry point -> (library, the argtypes its wrapper sets)
+ENTRIES = {
+    "flash_attn_fwd": ("flash_attn_fwd",
+                       flash_attention.entry_argtypes("flash_attn_fwd")),
+    "flash_attn_bwd_dq": ("flash_attn_bwd",
+                          flash_attention.entry_argtypes("flash_attn_bwd_dq")),
+    "flash_attn_bwd_dkv": (
+        "flash_attn_bwd", flash_attention.entry_argtypes("flash_attn_bwd_dkv")),
+    "fused_epilogue": ("fused_epilogue", fused_epilogue.entry_argtypes()),
+}
+
+
+def _with_headers(name: str) -> str:
+    """The text of csrc/<name>, followed by that of every "..." header it
+    includes, directly or through another."""
+    text, seen, todo = "", set(), [name]
+    while todo:
+        name = todo.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        src = (CSRC / name).read_text()
+        text += src
+        todo += [h for h in re.findall(r'#include\s+"([^"]+)"', src)]
+    return text
+
+
+@pytest.mark.parametrize("name", _build.KERNELS)
+def test_every_kernel_library_has_its_source(name):
+    assert (CSRC / f"{name}.cu").is_file()
+
+
+def test_every_source_is_a_kernel_library():
+    assert sorted(p.stem for p in CSRC.glob("*.cu")) == sorted(_build.KERNELS)
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_entry_point_takes_what_its_wrapper_declares(entry):
+    library, argtypes = ENTRIES[entry]
+    found = dict(ENTRY.findall((CSRC / f"{library}.cu").read_text()))
+    assert entry in found
+    params = [p for p in found[entry].split(",") if p.strip()]
+    assert len(params) == len(argtypes)
+
+
+def test_every_entry_point_has_a_wrapper():
+    for name in _build.KERNELS:
+        for entry, _ in ENTRY.findall((CSRC / f"{name}.cu").read_text()):
+            assert ENTRIES[entry][0] == name
+
+
+def test_build_targets_sm_90a():
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+
+
+@pytest.mark.parametrize("name", ["flash_attn_fwd.cu", "fused_epilogue.cu"])
+@pytest.mark.parametrize("ptx", [
+    "wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait.parity",
+    "setmaxnreg"])
+def test_tensor_core_kernels_are_built_from_wgmma_and_tma(name, ptx):
+    assert '#include "sm90.cuh"' in (CSRC / name).read_text()
+    assert ptx in _with_headers(name)
+
+
+@pytest.mark.parametrize("path", sorted(
+    p.name for p in list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh"))))
+def test_no_source_includes_a_library_of_kernels(path):
+    for header in INCLUDE.findall((CSRC / path).read_text()):
+        low = header.lower()
+        assert not any(word in low for word in (
+            "cublas", "cudnn", "torch", "aten", "c10", "cutlass/gemm/device"))
+
+
+@pytest.mark.parametrize("library,ablation", [
+    (library, label) for library, ablations in sorted(ABLATIONS.items())
+    for label in sorted(ablations)])
+def test_ablation_edits_still_find_their_text(library, ablation):
+    """`tools/kernel_ablation.py` takes parts out of a kernel by text."""
+    text = (CSRC / f"{library}.cu").read_text()
+    for old, new in ABLATIONS[library][ablation]:
+        assert old in text and new != old
