@@ -3,8 +3,8 @@
 // Replaces the two Pallas TPU kernels
 //   amodal_depth_anything_tpu/ops/flash_attention.py::_attn_bwd_dq_kernel
 //   amodal_depth_anything_tpu/ops/flash_attention.py::_attn_bwd_dkv_kernel
-// and computes the same functions over [B, H, N, 64] operands. With the
-// forward's natural-log LSE per query row and delta = rowsum(dO * O):
+// and computes the same functions over [B, H, N, d] operands, d <= 160. With
+// the forward's natural-log LSE per query row and delta = rowsum(dO * O):
 //   P  = exp(sm_scale * Q K^T - LSE)      (0 for keys at index >= kv_len)
 //   dP = dO V^T
 //   dS = P * (dP - delta)
@@ -18,97 +18,110 @@
 // and P^T before P^T dO, the TPU kernels' rounding points; every product
 // accumulates in float32. float32 operands run in full float32.
 //
-// Bound on this card: the dQ kernel does 6*B*H*Nq*kv_len*64 operations
-// (S, dP, dS K), the dK/dV kernel 8*B*H*q_len*kv_len*64 (S^T, dP^T, P^T dO,
-// dS^T Q), each against about 2*B*H*(Nq+Nk)*64 elements read and B*H*N*64
-// (or twice that) written: several hundred operations per byte at N = 1370
-// in bfloat16, so both are bound by operations wherever training calls
-// them (989 TFLOP/s of bf16 tensor cores; float32 is held to the 67 TFLOP/s
-// of the FP32 units outside the tensor cores).
+// Bound on this card: the dQ kernel does 6*B*H*Nq*kv_len*d operations (S,
+// dP, dS K), the dK/dV kernel 8*B*H*q_len*kv_len*d (S^T, dP^T, P^T dO, dS^T
+// Q), each against about 2*B*H*(Nq+Nk)*d elements read and B*H*N*d (or
+// twice that) written: several hundred operations per byte at N = 1370 in
+// bfloat16, so both are bound by operations wherever training calls them
+// (989 TFLOP/s of bf16 tensor cores; float32 is held to the 67 TFLOP/s of
+// the FP32 units outside the tensor cores).
 //
 // Design. The TPU kernels keep a whole stream resident in VMEM (K and V in
 // the dQ kernel, Q and dO in the dK/dV kernel); a Hopper block has at most
-// 227 KB of shared memory, so both kernels here stream 64-row tiles of the
-// other stream, as the forward does, and keep the TPU split into two
-// kernels so that every output element is summed by one thread in a fixed
-// order: no atomics, no second pass, the same bits on every run.
+// 227 KB of shared memory, so both kernels here stream tiles of the other
+// stream, and keep the TPU split into two kernels so that every output
+// element is summed by one thread in a fixed order: no atomics, no second
+// pass, the same bits on every run. The dK/dV kernel works on the transposed
+// problem, S^T = K Q^T and dP^T = V dO^T, so that the key rows are the
+// accumulator rows. Which kernel runs is a fixed table by dtype and head dim
+// d (the forward's):
 //
-//  * dQ: one block per (batch, head, 64-row query tile). Q and dO stay in
-//    registers; the block walks 64-row K/V tiles, rebuilds S and dP, and
-//    sums dQ in float32 registers.
-//  * dK/dV: one block per (batch, head, 64-row key tile). It works on the
-//    transposed problem, S^T = K Q^T and dP^T = V dO^T, so that K and V stay
-//    in registers and the key rows are the accumulator rows; it walks 64-row
-//    Q/dO tiles with their LSE and delta and sums dK and dV in registers.
-//  * bfloat16: 4 warps of 16 rows on mma.sync m16n8k16 tensor-core
-//    operations. The streamed tiles arrive by cp.async into a double
-//    buffer; ldmatrix feeds them as B fragments, plain for the products
-//    that contract over the head dim and .trans for those that contract
-//    over the streamed rows; the score accumulators are reused as A
-//    fragments after rounding. The resident operands are staged through the
-//    second buffer before the loop starts, which keeps the block within
-//    48 KB of static shared memory. mma.sync reaches only part of Hopper's
-//    tensor-core rate; a fused single kernel, wgmma and TMA are later work.
-//  * float32: 256 threads, each a 4x4 patch of the score and output tiles,
-//    scalar FMAs on float32 smem tiles (TF32 would miss the parity bar).
+//   bfloat16, d <= 64   flash_attn_bwd_{dq,dkv}_bf16_wgmma<ceil(d / 16)>
+//   bfloat16, d <= 80   flash_attn_bwd_{dq,dkv}_bf16<80>    (mma.sync)
+//   bfloat16, d <= 160  flash_attn_bwd_{dq,dkv}_bf16<160>   (mma.sync)
+//   float32,  d <= 160  flash_attn_bwd_{dq,dkv}_f32<DPAD>, DPAD the
+//                       smallest of 16, 32, 48, 64, 80, 160 that holds d
+//
+//  * bfloat16, d <= 64 (the DINOv2 trunks' 64, the SD-1.5 UNet's 40): wgmma
+//    fed by TMA, the forward's shape. A block is three warpgroups on 128
+//    resident rows (query rows in dQ, key rows in dK/dV) that land once by
+//    TMA; one thread of the producer warpgroup (setmaxnreg 40) streams
+//    64-row tiles of the other pair (K and V; Q and dO) into a ring of four
+//    stages through 4-D tensor maps over (d, token, head, batch), each tile
+//    a 64 x 64 box with the 128-byte swizzle. Each of the two consumer
+//    warpgroups (setmaxnreg 232) owns 64 resident rows, the wgmma M. Per
+//    tile: the two score products (S and dP; S^T and dP^T) are ceil(d/16)
+//    wgmma m64n64k16 each with both operands in shared memory, K-major over
+//    the head dim; P and dS are rebuilt on the accumulator fragments and,
+//    rounded to bfloat16, regrouped in place into m64k16 A fragments for
+//    the products that contract over the tile's 64 rows (dS K; P^T dO and
+//    dS^T Q): four wgmma m64nNk16 each, N = 16 * ceil(d / 16), with the
+//    streamed tile as the MN-major B operand straight from its [rows, d]
+//    box. The two warpgroups take turns on the tensor cores over named
+//    barriers, so that one's exponentials run under the other's products.
+//    dQ also overlaps within a warpgroup: tile t's score products go out
+//    together with tile t-1's dS K. dK/dV cannot: its dK and dV
+//    accumulators, P^T and dS^T beside the next tile's scores are more
+//    registers than ptxas will hold for wgmmas in flight (it serialises
+//    every wgmma, C7512: `tools/kernel_ablation.py`, dkv_pipelined), so
+//    each of its warpgroups keeps one batch in flight and takes two turns
+//    a tile. TMA zero-fills what
+//    lies outside the tensor: rows past the maps' ends (kv_len for K and V;
+//    q_len for Q and dO in the dK/dV kernel) and the columns from d on. In
+//    the dK/dV kernel a second producer warp copies each tile's LSE (times
+//    log2 e; +inf for rows at or past q_len, so that their P is exactly 0)
+//    and delta into the stage beside the tiles, and arrives on the stage's
+//    barrier with the TMA bytes; in the dQ kernel the keys at or past
+//    kv_len of the last tile are masked by a second instance of the tile
+//    body.
+//  * bfloat16, 64 < d <= 160 (the UNet's 80 and 160, launch-bound shapes of
+//    at most 1024 tokens): mma.sync m16n8k16 on 64-row tiles, with the
+//    resident operands in shared memory (read by ldmatrix per use, so that
+//    no warp holds them as fragments) and the streamed tiles in a cp.async
+//    double buffer. dQ: 4 warps of 16 query rows. dK/dV: 8 warps, warps 0-3
+//    sum dV and warps 4-7 dK over the same 64 key rows (both rebuild P^T),
+//    so that no warp holds both 16 x d accumulators.
+//  * float32: 256 threads, each a 4x4 patch of the score tiles and 4 rows x
+//    DPAD/16 columns of the output tiles, scalar FMAs on float32 smem tiles
+//    (TF32 would miss the parity bar); 64-row tiles of DPAD + 4 floats, the
+//    P^T and dS^T tiles 64 wide: 203 KB of shared memory at DPAD = 160.
 //
 // Operands are addressed through (batch, head, token) strides with a unit
 // stride on the head dim; LSE and delta are contiguous [B, H, Nq] float32.
 
-#include "flash_attn_common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 // ------------------------------------------------------------ float32 path
 
-constexpr int kTileF32 = 64 * kF32Ld;   // floats in one padded smem tile
-constexpr int kDqF32SmemBytes = 4 * 5 * kTileF32;             // Q dO K V dS
-constexpr int kDkvF32SmemBytes = 4 * (6 * kTileF32 + 2 * 64);  // K V Q dO P^T
-                                                              // dS^T + stats
+template <int DPAD>
+struct BwdF32 : F32Cols<DPAD> {
+  static constexpr int kLd = F32Cols<DPAD>::kLd;
+  static constexpr int kTile = 64 * kLd;     // floats in a Q, dO, K or V tile
+  static constexpr int kDqSmemBytes = 4 * (4 * kTile + 64 * kPLd);  // + dS
+  static constexpr int kDkvSmemBytes =
+      4 * (4 * kTile + 2 * 64 * kPLd + 2 * 64);   // + P^T, dS^T, stats
+};
 
-// acc[i][j] += sum_kk a[(4ty+i)][kk] * b[kk][4tx+j] over a 64-deep tile
-__device__ __forceinline__ void accum_rows_f32(float acc[4][4], const float* a,
-                                               const float* b, int ty,
-                                               int tx) {
-  #pragma unroll 2
-  for (int kk = 0; kk < 64; kk += 4) {
-    float4 av[4];
-    #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (ty * 4 + i) * kF32Ld + kk);
-    #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float4 bv =
-          *reinterpret_cast<const float4*>(b + (kk + u) * kF32Ld + tx * 4);
-      #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float x = u == 0 ? av[i].x : u == 1 ? av[i].y
-                      : u == 2 ? av[i].z : av[i].w;
-        acc[i][0] += x * bv.x;
-        acc[i][1] += x * bv.y;
-        acc[i][2] += x * bv.z;
-        acc[i][3] += x * bv.w;
-      }
-    }
-  }
-}
-
-// out[i][j] = sum_d a[(4ty+i)][d] * b[(tx+16j)][d]
+// out[i][j] = sum_c a[(4ty+i)][c] * b[(tx+16j)][c] over DPAD columns
+template <int DPAD>
 __device__ __forceinline__ void dot_rows_f32(float out[4][4], const float* a,
                                              const float* b, int ty, int tx) {
+  constexpr int kLd = F32Cols<DPAD>::kLd;
   #pragma unroll
   for (int i = 0; i < 4; ++i)
     #pragma unroll
     for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
   #pragma unroll 4
-  for (int d = 0; d < kD; d += 4) {
+  for (int c = 0; c < DPAD; c += 4) {
     float4 av[4], bv[4];
     #pragma unroll
     for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (ty * 4 + i) * kF32Ld + d);
+      av[i] = *reinterpret_cast<const float4*>(a + (ty * 4 + i) * kLd + c);
     #pragma unroll
     for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * kF32Ld + d);
+      bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * kLd + c);
     #pragma unroll
     for (int i = 0; i < 4; ++i)
       #pragma unroll
@@ -118,22 +131,84 @@ __device__ __forceinline__ void dot_rows_f32(float out[4][4], const float* a,
   }
 }
 
+// acc[i][c] += sum_kk x[(4ty+i)][kk] * b[kk][column(c)] over a 64-row tile
+// x ([64][kPLd]) and b ([64][kLd]); columns as F32Cols
+template <int DPAD>
+__device__ __forceinline__ void accum_rows_f32(
+    float (&acc)[4][F32Cols<DPAD>::kCols], const float* x, const float* b,
+    int ty, int tx) {
+  using C = F32Cols<DPAD>;
+  #pragma unroll 2
+  for (int kk = 0; kk < 64; kk += 4) {
+    float4 xv[4];
+    #pragma unroll
+    for (int i = 0; i < 4; ++i)
+      xv[i] = *reinterpret_cast<const float4*>(x + (ty * 4 + i) * kPLd + kk);
+    #pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float bv[C::kCols];
+      #pragma unroll
+      for (int g = 0; g < C::kGroups; ++g)
+        load_vec<C::kVec>(bv + g * C::kVec,
+                          b + (kk + u) * C::kLd + g * 16 * C::kVec +
+                              tx * C::kVec);
+      #pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float xs = u == 0 ? xv[i].x : u == 1 ? xv[i].y
+                       : u == 2 ? xv[i].z : xv[i].w;
+        #pragma unroll
+        for (int c = 0; c < C::kCols; ++c) acc[i][c] += xs * bv[c];
+      }
+    }
+  }
+}
+
+// Store a thread's 4 rows x kCols of an output tile, times `mul`; rows at or
+// past `rows` are skipped, rows at or past `live` written as zero, columns
+// at or past d (a multiple of 4) skipped.
+template <int DPAD>
+__device__ __forceinline__ void store_rows_f32(
+    float* dst, long long row_stride,
+    const float (&acc)[4][F32Cols<DPAD>::kCols], float mul, int row0,
+    int rows, int live, int d, int ty, int tx) {
+  using C = F32Cols<DPAD>;
+  const float zeros[C::kVec] = {};
+  #pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + ty * 4 + i;
+    if (row >= rows) continue;
+    #pragma unroll
+    for (int g = 0; g < C::kGroups; ++g) {
+      const int col = g * 16 * C::kVec + tx * C::kVec;
+      if (col < d)
+        // literal zeros for a dead row: its sums of P = exp(-LSE) terms
+        // may have overflowed, and inf * 0 is NaN
+        store_vec<C::kVec>(dst + (long long)row * row_stride + col,
+                           row < live ? acc[i] + g * C::kVec : zeros,
+                           row < live ? mul : 0.f);
+    }
+  }
+}
+
+template <int DPAD>
 __global__ void __launch_bounds__(kF32Threads)
 flash_attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
                       const float* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dq,
-                      int nq, int kv_len, float sm_scale, Strides sq,
+                      int nq, int kv_len, int d, float sm_scale, Strides sq,
                       Strides sk, Strides sv, Strides sdo, Strides sdq) {
+  using T = BwdF32<DPAD>;
+  constexpr int kLd = T::kLd;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + kTileF32;
-  float* ks = dos + kTileF32;
-  float* vs = ks + kTileF32;
-  float* dss = vs + kTileF32;
+  float* dos = qs + T::kTile;
+  float* ks = dos + T::kTile;
+  float* vs = ks + T::kTile;
+  float* dss = vs + T::kTile;
 
-  const int tx = threadIdx.x & 15;   // score cols tx + 16j; output cols 4tx + j
+  const int tx = threadIdx.x & 15;   // score cols tx + 16j
   const int ty = threadIdx.x >> 4;   // rows 4ty + i
   const int q0 = blockIdx.x * kBM;
   const int h = blockIdx.y;
@@ -144,54 +219,48 @@ flash_attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + b * sv.b + h * sv.h;
   // Q carries sm_scale * log2(e), as in the forward kernel, so that S and
   // the LSE round alike and P = exp2(S - LSE) loses nothing to the scale
-  stage_tile_f32(qs, kF32Ld, q + b * sq.b + h * sq.h, sq.n, q0, nq,
-                 scale_log2);
-  stage_tile_f32(dos, kF32Ld, dout + b * sdo.b + h * sdo.h, sdo.n, q0, nq,
-                 1.f);
+  stage_tile_f32<DPAD>(qs, kLd, q + b * sq.b + h * sq.h, sq.n, q0, nq,
+                       scale_log2, d);
+  stage_tile_f32<DPAD>(dos, kLd, dout + b * sdo.b + h * sdo.h, sdo.n, q0, nq,
+                       1.f, d);
 
   const long long stat0 = ((long long)b * gridDim.y + h) * nq;
-  float lse2[4], dl[4], acc[4][4];
+  float lse2[4], dl[4], acc[4][T::kCols];
   #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     lse2[i] = row < nq ? lse[stat0 + row] * kLog2e : 0.f;
     dl[i] = row < nq ? delta[stat0 + row] : 0.f;
     #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < T::kCols; ++c) acc[i][c] = 0.f;
   }
 
   for (int k0 = 0; k0 < kv_len; k0 += kBN) {
     __syncthreads();  // the previous tile's dS.K is done with ks/dss
-    stage_tile_f32(ks, kF32Ld, kb, sk.n, k0, kv_len, 1.f);
-    stage_tile_f32(vs, kF32Ld, vb, sv.n, k0, kv_len, 1.f);
+    stage_tile_f32<DPAD>(ks, kLd, kb, sk.n, k0, kv_len, 1.f, d);
+    stage_tile_f32<DPAD>(vs, kLd, vb, sv.n, k0, kv_len, 1.f, d);
     __syncthreads();
 
     float s[4][4], dp[4][4];
-    dot_rows_f32(s, qs, ks, ty, tx);     // Q K^T
-    dot_rows_f32(dp, dos, vs, ty, tx);   // dO V^T
+    dot_rows_f32<DPAD>(s, qs, ks, ty, tx);     // Q K^T
+    dot_rows_f32<DPAD>(dp, dos, vs, ty, tx);   // dO V^T
     #pragma unroll
     for (int i = 0; i < 4; ++i)
       #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = k0 + tx + 16 * j < kv_len
                             ? exp2f(s[i][j] - lse2[i]) : 0.f;
-        dss[(ty * 4 + i) * kF32Ld + tx + 16 * j] = p * (dp[i][j] - dl[i]);
+        dss[(ty * 4 + i) * kPLd + tx + 16 * j] = p * (dp[i][j] - dl[i]);
       }
     __syncthreads();
-    accum_rows_f32(acc, dss, ks, ty, tx);  // dQ += dS K
+    accum_rows_f32<DPAD>(acc, dss, ks, ty, tx);  // dQ += dS K
   }
 
-  float* ob = dq + b * sdq.b + h * sdq.h;
-  #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= nq) continue;
-    *reinterpret_cast<float4*>(ob + (long long)row * sdq.n + tx * 4) =
-        make_float4(acc[i][0] * sm_scale, acc[i][1] * sm_scale,
-                    acc[i][2] * sm_scale, acc[i][3] * sm_scale);
-  }
+  store_rows_f32<DPAD>(dq + b * sdq.b + h * sdq.h, sdq.n, acc, sm_scale, q0,
+                       nq, nq, d, ty, tx);
 }
 
+template <int DPAD>
 __global__ void __launch_bounds__(kF32Threads)
 flash_attn_bwd_dkv_f32(const float* __restrict__ q,
                        const float* __restrict__ k,
@@ -200,43 +269,47 @@ flash_attn_bwd_dkv_f32(const float* __restrict__ q,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
                        float* __restrict__ dk, float* __restrict__ dv, int nq,
-                       int nk, int q_len, int kv_len, float sm_scale,
+                       int nk, int q_len, int kv_len, int d, float sm_scale,
                        Strides sq, Strides sk, Strides sv, Strides sdo,
                        Strides sdk, Strides sdv) {
+  using T = BwdF32<DPAD>;
+  constexpr int kLd = T::kLd;
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + kTileF32;
-  float* qs = vs + kTileF32;
-  float* dos = qs + kTileF32;
-  float* pts = dos + kTileF32;
-  float* dsts = pts + kTileF32;
-  float* lses = dsts + kTileF32;   // [64], log2 units
-  float* dls = lses + 64;          // [64]
+  float* vs = ks + T::kTile;
+  float* qs = vs + T::kTile;
+  float* dos = qs + T::kTile;
+  float* pts = dos + T::kTile;
+  float* dsts = pts + 64 * kPLd;
+  float* lses = dsts + 64 * kPLd;   // [64], log2 units
+  float* dls = lses + 64;           // [64]
 
-  const int tx = threadIdx.x & 15;   // query cols tx + 16j; output cols 4tx + j
+  const int tx = threadIdx.x & 15;   // query cols tx + 16j
   const int ty = threadIdx.x >> 4;   // key rows 4ty + i
   const int k0 = blockIdx.x * kBN;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const float scale_log2 = sm_scale * kLog2e;
 
-  float dka[4][4], dva[4][4];
+  float dka[4][T::kCols], dva[4][T::kCols];
   #pragma unroll
   for (int i = 0; i < 4; ++i)
     #pragma unroll
-    for (int j = 0; j < 4; ++j) dka[i][j] = dva[i][j] = 0.f;
+    for (int c = 0; c < T::kCols; ++c) dka[i][c] = dva[i][c] = 0.f;
 
   if (k0 < kv_len) {  // key tiles at or past kv_len only write zeros
     const float* qb = q + b * sq.b + h * sq.h;
     const float* dob = dout + b * sdo.b + h * sdo.h;
     const long long stat0 = ((long long)b * gridDim.y + h) * nq;
-    stage_tile_f32(ks, kF32Ld, k + b * sk.b + h * sk.h, sk.n, k0, kv_len, 1.f);
-    stage_tile_f32(vs, kF32Ld, v + b * sv.b + h * sv.h, sv.n, k0, kv_len, 1.f);
+    stage_tile_f32<DPAD>(ks, kLd, k + b * sk.b + h * sk.h, sk.n, k0, kv_len,
+                         1.f, d);
+    stage_tile_f32<DPAD>(vs, kLd, v + b * sv.b + h * sv.h, sv.n, k0, kv_len,
+                         1.f, d);
 
     for (int q0 = 0; q0 < q_len; q0 += kBM) {
       __syncthreads();  // the previous tile's products are done with smem
-      stage_tile_f32(qs, kF32Ld, qb, sq.n, q0, q_len, scale_log2);
-      stage_tile_f32(dos, kF32Ld, dob, sdo.n, q0, q_len, 1.f);
+      stage_tile_f32<DPAD>(qs, kLd, qb, sq.n, q0, q_len, scale_log2, d);
+      stage_tile_f32<DPAD>(dos, kLd, dob, sdo.n, q0, q_len, 1.f, d);
       if (threadIdx.x < 64) {
         const int row = q0 + threadIdx.x;
         lses[threadIdx.x] = row < q_len ? lse[stat0 + row] * kLog2e : 0.f;
@@ -247,8 +320,8 @@ flash_attn_bwd_dkv_f32(const float* __restrict__ q,
       __syncthreads();
 
       float st[4][4], dpt[4][4];
-      dot_rows_f32(st, ks, qs, ty, tx);     // K Q^T
-      dot_rows_f32(dpt, vs, dos, ty, tx);   // V dO^T
+      dot_rows_f32<DPAD>(st, ks, qs, ty, tx);     // K Q^T
+      dot_rows_f32<DPAD>(dpt, vs, dos, ty, tx);   // V dO^T
       #pragma unroll
       for (int i = 0; i < 4; ++i)
         #pragma unroll
@@ -256,37 +329,23 @@ flash_attn_bwd_dkv_f32(const float* __restrict__ q,
           const int c = tx + 16 * j;
           const float p = q0 + c < q_len
                               ? exp2f(st[i][j] - lses[c]) : 0.f;
-          pts[(ty * 4 + i) * kF32Ld + c] = p;
-          dsts[(ty * 4 + i) * kF32Ld + c] = p * (dpt[i][j] - dls[c]);
+          pts[(ty * 4 + i) * kPLd + c] = p;
+          dsts[(ty * 4 + i) * kPLd + c] = p * (dpt[i][j] - dls[c]);
         }
       __syncthreads();
-      accum_rows_f32(dva, pts, dos, ty, tx);   // dV += P^T dO
-      accum_rows_f32(dka, dsts, qs, ty, tx);   // dK += dS^T Q
+      accum_rows_f32<DPAD>(dva, pts, dos, ty, tx);   // dV += P^T dO
+      accum_rows_f32<DPAD>(dka, dsts, qs, ty, tx);   // dK += dS^T Q
     }
   }
 
-  float* dkb = dk + b * sdk.b + h * sdk.h;
-  float* dvb = dv + b * sdv.b + h * sdv.h;
-  #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty * 4 + i;
-    if (row >= nk) continue;
-    // a masked key row inside a live tile has summed P = exp(-LSE) terms
-    // (its K row was staged as zeros): write literal zeros, not a product
-    // that an overflowed sum would turn into NaN
-    const bool live = row < kv_len;
-    // the staged Q carried sm_scale * log2(e): dK = ln(2) * dS^T (Q scaled)
-    *reinterpret_cast<float4*>(dkb + (long long)row * sdk.n + tx * 4) =
-        live ? make_float4(dka[i][0] * kLn2, dka[i][1] * kLn2,
-                           dka[i][2] * kLn2, dka[i][3] * kLn2)
-             : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(dvb + (long long)row * sdv.n + tx * 4) =
-        live ? make_float4(dva[i][0], dva[i][1], dva[i][2], dva[i][3])
-             : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+  // the staged Q carried sm_scale * log2(e): dK = ln(2) * dS^T (Q scaled)
+  store_rows_f32<DPAD>(dk + b * sdk.b + h * sdk.h, sdk.n, dka, kLn2, k0, nk,
+                       kv_len, d, ty, tx);
+  store_rows_f32<DPAD>(dv + b * sdv.b + h * sdv.h, sdv.n, dva, 1.f, k0, nk,
+                       kv_len, d, ty, tx);
 }
 
-// ----------------------------------------------------------- bfloat16 path
+// ------------------------------- bfloat16 path, 64 < d <= 160: mma.sync
 
 // 4 bytes global -> shared, asynchronously; zero-filled when !valid
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -295,40 +354,37 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                    "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
 }
 
-// The warp's 16 rows of a [64][kBf16Ld] smem tile as four A fragments, one
-// per 16-wide step over the head dim.
-__device__ __forceinline__ void load_a_frags(uint32_t f[4][4], const bf16* tile,
-                                             int warp, int lane) {
+// c[j] = A * tile^T over KST 16-wide steps of the head dim: A the warp's 16
+// rows [row16, row16 + 16) of smem tile `a`, tile 64 rows; both [64][LD].
+template <int KST, int LD>
+__device__ __forceinline__ void mma_rows_t(float (&c)[8][4], const bf16* a,
+                                           const bf16* tile, int row16,
+                                           int lane) {
   #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    ldmatrix_x4(f[kk], tile + (warp * 16 + (lane & 15)) * kBf16Ld + kk * 16 +
-                           (lane >> 4) * 8);
-}
-
-// c[j] = a (16 x 64, A fragments) * tile^T, tile [64 rows][64]: the product
-// contracts over the head dim, 16 rows x 64 tile rows per warp.
-__device__ __forceinline__ void mma_a_tile_t(float c[8][4],
-                                             const uint32_t a[4][4],
-                                             const bf16* tile, int lane) {
-  #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < 8; ++j)
     #pragma unroll
     for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+  #pragma unroll
+  for (int kk = 0; kk < KST; ++kk) {
+    uint32_t af[4];
+    ldmatrix_x4(af, a + (row16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
     #pragma unroll
-    for (int kk = 0; kk < 4; kk += 2) {
-      uint32_t bf[4];  // B fragments of k steps kk and kk + 1
-      ldmatrix_x4(bf, tile + (j * 8 + (lane & 7)) * kBf16Ld + kk * 16 +
-                          (lane >> 3) * 8);
-      mma_bf16(c[j], a[kk], bf[0], bf[1]);
-      mma_bf16(c[j], a[kk + 1], bf[2], bf[3]);
+    for (int j = 0; j < 8; j += 2) {
+      uint32_t bf[4];  // B fragments of row tiles j and j + 1 at step kk
+      ldmatrix_x4(bf, tile + ((j + (lane >> 4)) * 8 + (lane & 7)) * LD +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16(c[j], af, bf[0], bf[1]);
+      mma_bf16(c[j + 1], af, bf[2], bf[3]);
     }
   }
 }
 
 // acc += x (16 x 64 float32 C fragments, rounded to bf16) * tile, tile
-// [64 rows][64]: the product contracts over the tile's rows.
-__device__ __forceinline__ void mma_c_tile(float acc[8][4],
-                                           const float x[8][4],
+// [64 rows][LD] with DT 8-wide column tiles: the product contracts over the
+// tile's rows.
+template <int DT, int LD>
+__device__ __forceinline__ void mma_c_rows(float (&acc)[DT][4],
+                                           const float (&x)[8][4],
                                            const bf16* tile, int lane) {
   #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
@@ -338,10 +394,10 @@ __device__ __forceinline__ void mma_c_tile(float acc[8][4],
                             pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
                             pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
     #pragma unroll
-    for (int jd = 0; jd < 8; jd += 2) {
+    for (int jd = 0; jd < DT; jd += 2) {
       uint32_t bf[4];  // B fragments of d tiles jd and jd + 1
       ldmatrix_x4_trans(bf, tile + (kk * 16 + (lane & 7) +
-                                    ((lane >> 3) & 1) * 8) * kBf16Ld +
+                                    ((lane >> 3) & 1) * 8) * LD +
                                 jd * 8 + (lane >> 4) * 8);
       mma_bf16(acc[jd], af, bf[0], bf[1]);
       mma_bf16(acc[jd + 1], af, bf[2], bf[3]);
@@ -349,40 +405,60 @@ __device__ __forceinline__ void mma_c_tile(float acc[8][4],
   }
 }
 
-// Store the warp's 16 x 64 float32 accumulator, times `mul`, as bf16 rows
-// [row0 + warp*16, +16) of one (b, h) slice; rows at or past `rows` are
-// skipped and rows at or past `live` are written as zero.
+// Store a warp's 16 x (8 DT) float32 accumulator, times `mul`, as bf16 rows
+// [row16, row16 + 16) of one (b, h) slice; rows at or past `rows` are
+// skipped, rows at or past `live` written as zero, columns from d skipped.
+template <int DT>
 __device__ __forceinline__ void store_acc_bf16(bf16* dst, long long row_stride,
-                                               const float acc[8][4],
-                                               float mul, int row0, int rows,
-                                               int live, int warp, int lane) {
+                                               const float (&acc)[DT][4],
+                                               float mul, int row16, int rows,
+                                               int live, int d, int lane) {
   #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = row0 + warp * 16 + (lane >> 2) + r * 8;
+    const int row = row16 + (lane >> 2) + r * 8;
     if (row >= rows) continue;
     // literal zeros for a dead row: its sums of P = exp(-LSE) terms may
     // have overflowed, and inf * 0 is NaN
     const bool keep = row < live;
     #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)row * row_stride +
-                                         j * 8 + 2 * (lane & 3)) =
-          keep ? __floats2bfloat162_rn(acc[j][2 * r] * mul,
-                                       acc[j][2 * r + 1] * mul)
-               : __floats2bfloat162_rn(0.f, 0.f);
+    for (int j = 0; j < DT; ++j) {
+      const int col = j * 8 + 2 * (lane & 3);   // d is a multiple of 8
+      if (col < d)
+        *reinterpret_cast<__nv_bfloat162*>(dst + (long long)row * row_stride +
+                                           col) =
+            keep ? __floats2bfloat162_rn(acc[j][2 * r] * mul,
+                                         acc[j][2 * r + 1] * mul)
+                 : __floats2bfloat162_rn(0.f, 0.f);
+    }
   }
 }
 
+template <int DPAD>
+constexpr int kLdBf16 = DPAD + 8;
+template <int DPAD>
+constexpr int kDqMmaSmemBytes = 2 * 6 * 64 * kLdBf16<DPAD>;   // Q dO 2K 2V
+template <int DPAD>
+constexpr int kDkvMmaSmemBytes =
+    2 * 6 * 64 * kLdBf16<DPAD> + 2 * 2 * 64 * 4;   // K V 2Q 2dO, 2 LSE 2 delta
+constexpr int kDkvMmaThreads = 256;
+
+template <int DPAD>
 __global__ void __launch_bounds__(kBf16Threads)
 flash_attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v,
                        const bf16* __restrict__ dout,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta, bf16* __restrict__ dq,
-                       int nq, int kv_len, float sm_scale, Strides sq,
+                       int nq, int kv_len, int d, float sm_scale, Strides sq,
                        Strides sk, Strides sv, Strides sdo, Strides sdq) {
-  __shared__ __align__(16) bf16 ks[2][kBN * kBf16Ld];
-  __shared__ __align__(16) bf16 vs[2][kBN * kBf16Ld];
+  constexpr int kLd = kLdBf16<DPAD>;
+  constexpr int kTile = 64 * kLd;
+  constexpr int kDT = DPAD / 8;
+  extern __shared__ float4 smem4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem4);
+  bf16* dos = qs + kTile;
+  bf16* ks = dos + kTile;        // two K tiles, then two V tiles
+  bf16* vs = ks + 2 * kTile;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -393,18 +469,11 @@ flash_attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
 
-  // Q and dO pass through the second buffer into registers
-  load_tile_bf16(ks[1], q + b * sq.b + h * sq.h, sq.n, q0, nq);
-  load_tile_bf16(vs[1], dout + b * sdo.b + h * sdo.h, sdo.n, q0, nq);
-  load_tile_bf16(ks[0], kb, sk.n, 0, kv_len);
-  load_tile_bf16(vs[0], vb, sv.n, 0, kv_len);
+  load_tile_bf16<DPAD>(qs, q + b * sq.b + h * sq.h, sq.n, q0, nq, d);
+  load_tile_bf16<DPAD>(dos, dout + b * sdo.b + h * sdo.h, sdo.n, q0, nq, d);
+  load_tile_bf16<DPAD>(ks, kb, sk.n, 0, kv_len, d);
+  load_tile_bf16<DPAD>(vs, vb, sv.n, 0, kv_len, d);
   cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t qf[4][4], dof[4][4];
-  load_a_frags(qf, ks[1], warp, lane);
-  load_a_frags(dof, vs[1], warp, lane);
-  __syncthreads();  // before the first prefetch overwrites the buffer
 
   // per thread: rows g = lane/4 and g + 8 of the warp's 16; in each 8-wide
   // column tile, columns 2*(lane%4) and +1 (the mma C-fragment layout)
@@ -416,9 +485,9 @@ flash_attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lse2[r] = row < nq ? lse[stat0 + row] * kLog2e : 0.f;
     dl[r] = row < nq ? delta[stat0 + row] : 0.f;
   }
-  float acc[8][4];
+  float acc[kDT][4];
   #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kDT; ++j)
     #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
@@ -426,16 +495,18 @@ flash_attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < n_tiles) {  // prefetch the next tile into the other buffer
-      load_tile_bf16(ks[buf ^ 1], kb, sk.n, (t + 1) * kBN, kv_len);
-      load_tile_bf16(vs[buf ^ 1], vb, sv.n, (t + 1) * kBN, kv_len);
+      load_tile_bf16<DPAD>(ks + (buf ^ 1) * kTile, kb, sk.n, (t + 1) * kBN,
+                           kv_len, d);
+      load_tile_bf16<DPAD>(vs + (buf ^ 1) * kTile, vb, sv.n, (t + 1) * kBN,
+                           kv_len, d);
     }
     cp_async_commit();
-    cp_async_wait_all_but_newest();  // tile t has landed
+    cp_async_wait_all_but_newest();  // tile t (and Q, dO) have landed
     __syncthreads();
 
     float s[8][4], dp[8][4];
-    mma_a_tile_t(s, qf, ks[buf], lane);     // Q K^T
-    mma_a_tile_t(dp, dof, vs[buf], lane);   // dO V^T
+    mma_rows_t<DPAD / 16, kLd>(s, qs, ks + buf * kTile, warp * 16, lane);
+    mma_rows_t<DPAD / 16, kLd>(dp, dos, vs + buf * kTile, warp * 16, lane);
     const int col0 = t * kBN + 2 * (lane & 3);
     #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -445,15 +516,16 @@ flash_attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             ? exp2f(s[j][e] * scale_log2 - lse2[e >> 1]) : 0.f;
         s[j][e] = p * (dp[j][e] - dl[e >> 1]);   // dS
       }
-    mma_c_tile(acc, s, ks[buf], lane);      // dQ += dS K
+    mma_c_rows<kDT, kLd>(acc, s, ks + buf * kTile, lane);   // dQ += dS K
     __syncthreads();  // every warp is done with buffer `buf`
   }
 
-  store_acc_bf16(dq + b * sdq.b + h * sdq.h, sdq.n, acc, sm_scale, q0, nq, nq,
-                 warp, lane);
+  store_acc_bf16<kDT>(dq + b * sdq.b + h * sdq.h, sdq.n, acc, sm_scale,
+                      q0 + warp * 16, nq, nq, d, lane);
 }
 
-__global__ void __launch_bounds__(kBf16Threads)
+template <int DPAD>
+__global__ void __launch_bounds__(kDkvMmaThreads)
 flash_attn_bwd_dkv_bf16(const bf16* __restrict__ q,
                         const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
@@ -461,26 +533,35 @@ flash_attn_bwd_dkv_bf16(const bf16* __restrict__ q,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         bf16* __restrict__ dk, bf16* __restrict__ dv, int nq,
-                        int nk, int q_len, int kv_len, float sm_scale,
+                        int nk, int q_len, int kv_len, int d, float sm_scale,
                         Strides sq, Strides sk, Strides sv, Strides sdo,
                         Strides sdk, Strides sdv) {
-  __shared__ __align__(16) bf16 qs[2][kBM * kBf16Ld];
-  __shared__ __align__(16) bf16 dos[2][kBM * kBf16Ld];
-  __shared__ __align__(16) float lses[2][kBM];   // natural-log units
-  __shared__ __align__(16) float dls[2][kBM];
+  constexpr int kLd = kLdBf16<DPAD>;
+  constexpr int kTile = 64 * kLd;
+  constexpr int kDT = DPAD / 8;
+  extern __shared__ float4 smem4[];
+  bf16* ks = reinterpret_cast<bf16*>(smem4);
+  bf16* vs = ks + kTile;
+  bf16* qs = vs + kTile;          // two Q tiles, then two dO tiles
+  bf16* dos = qs + 2 * kTile;
+  float* lses = reinterpret_cast<float*>(dos + 2 * kTile);   // [2][64]
+  float* dls = lses + 2 * 64;                                // [2][64]
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  // warps 0-3 sum dV, warps 4-7 dK, over the same 64 key rows
+  const bool dk_warp = warp >= 4;
+  const int row16 = (warp & 3) * 16;
   const int k0 = blockIdx.x * kBN;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const float scale_log2 = sm_scale * kLog2e;
 
-  float dka[8][4], dva[8][4];
+  float acc[kDT][4];
   #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kDT; ++j)
     #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
   if (k0 < kv_len) {  // key tiles at or past kv_len only write zeros
     const bf16* qb = q + b * sq.b + h * sq.h;
@@ -490,45 +571,45 @@ flash_attn_bwd_dkv_bf16(const bf16* __restrict__ q,
 
     // one 64-row tile of Q, dO, LSE and delta into buffer `buf`
     auto load_q_tile = [&](int buf, int row0) {
-      load_tile_bf16(qs[buf], qb, sq.n, row0, q_len);
-      load_tile_bf16(dos[buf], dob, sdo.n, row0, q_len);
+      load_tile_bf16<DPAD, kDkvMmaThreads>(qs + buf * kTile, qb, sq.n, row0,
+                                           q_len, d);
+      load_tile_bf16<DPAD, kDkvMmaThreads>(dos + buf * kTile, dob, sdo.n,
+                                           row0, q_len, d);
       const int i = threadIdx.x & 63;
       const bool valid = row0 + i < q_len;
       if (threadIdx.x < 64)
-        cp_async4(&lses[buf][i], lseb + (valid ? row0 + i : 0), valid);
-      else
-        cp_async4(&dls[buf][i], dlb + (valid ? row0 + i : 0), valid);
+        cp_async4(&lses[buf * 64 + i], lseb + (valid ? row0 + i : 0), valid);
+      else if (threadIdx.x < 128)
+        cp_async4(&dls[buf * 64 + i], dlb + (valid ? row0 + i : 0), valid);
     };
 
-    // K and V pass through the second buffer into registers
-    load_tile_bf16(qs[1], k + b * sk.b + h * sk.h, sk.n, k0, kv_len);
-    load_tile_bf16(dos[1], v + b * sv.b + h * sv.h, sv.n, k0, kv_len);
+    load_tile_bf16<DPAD, kDkvMmaThreads>(ks, k + b * sk.b + h * sk.h, sk.n,
+                                         k0, kv_len, d);
+    load_tile_bf16<DPAD, kDkvMmaThreads>(vs, v + b * sv.b + h * sv.h, sv.n,
+                                         k0, kv_len, d);
     load_q_tile(0, 0);
     cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    uint32_t kf[4][4], vf[4][4];
-    load_a_frags(kf, qs[1], warp, lane);
-    load_a_frags(vf, dos[1], warp, lane);
-    __syncthreads();  // before the first prefetch overwrites the buffer
 
     const int n_tiles = (q_len + kBM - 1) / kBM;
     for (int t = 0; t < n_tiles; ++t) {
       const int buf = t & 1;
       if (t + 1 < n_tiles) load_q_tile(buf ^ 1, (t + 1) * kBM);
       cp_async_commit();
-      cp_async_wait_all_but_newest();  // tile t has landed
+      cp_async_wait_all_but_newest();  // tile t (and K, V) have landed
       __syncthreads();
 
-      // rows: this warp's 16 keys; columns: the tile's 64 queries
+      // rows: the warp's 16 keys; columns: the tile's 64 queries
+      const bf16* qt = qs + buf * kTile;
+      const bf16* dot = dos + buf * kTile;
       float st[8][4], dpt[8][4];
-      mma_a_tile_t(st, kf, qs[buf], lane);     // K Q^T
-      mma_a_tile_t(dpt, vf, dos[buf], lane);   // V dO^T
+      mma_rows_t<DPAD / 16, kLd>(st, ks, qt, row16, lane);      // K Q^T
+      if (dk_warp)
+        mma_rows_t<DPAD / 16, kLd>(dpt, vs, dot, row16, lane);  // V dO^T
       #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = j * 8 + 2 * (lane & 3);
-        const float2 l2 = *reinterpret_cast<const float2*>(&lses[buf][c]);
-        const float2 d2 = *reinterpret_cast<const float2*>(&dls[buf][c]);
+        const float2 l2 = *reinterpret_cast<const float2*>(&lses[buf * 64 + c]);
+        const float2 d2 = *reinterpret_cast<const float2*>(&dls[buf * 64 + c]);
         #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float l = (e & 1) ? l2.y : l2.x;
@@ -536,67 +617,684 @@ flash_attn_bwd_dkv_bf16(const bf16* __restrict__ q,
           const float p = t * kBM + c + (e & 1) < q_len
                               ? exp2f(st[j][e] * scale_log2 - l * kLog2e)
                               : 0.f;
-          st[j][e] = p;                      // P^T
-          dpt[j][e] = p * (dpt[j][e] - dd);  // dS^T
+          st[j][e] = dk_warp ? p * (dpt[j][e] - dd) : p;   // dS^T or P^T
         }
       }
-      mma_c_tile(dva, st, dos[buf], lane);   // dV += P^T dO
-      mma_c_tile(dka, dpt, qs[buf], lane);   // dK += dS^T Q
+      mma_c_rows<kDT, kLd>(acc, st, dk_warp ? qt : dot, lane);  // dK, dV
       __syncthreads();  // every warp is done with buffer `buf`
     }
   }
 
-  store_acc_bf16(dk + b * sdk.b + h * sdk.h, sdk.n, dka, sm_scale, k0, nk,
-                 kv_len, warp, lane);
-  store_acc_bf16(dv + b * sdv.b + h * sdv.h, sdv.n, dva, 1.f, k0, nk, kv_len,
-                 warp, lane);
+  if (dk_warp)
+    store_acc_bf16<kDT>(dk + b * sdk.b + h * sdk.h, sdk.n, acc, sm_scale,
+                        k0 + row16, nk, kv_len, d, lane);
+  else
+    store_acc_bf16<kDT>(dv + b * sdv.b + h * sdv.h, sdv.n, acc, 1.f,
+                        k0 + row16, nk, kv_len, d, lane);
 }
+
+// ------------------------------------ bfloat16 path, d <= 64: wgmma + TMA
+
+constexpr int kWgRows = 128;               // resident rows per block
+constexpr int kWgStream = 64;              // rows of a streamed tile
+constexpr int kWgStages = 4;
+constexpr int kWgThreads = 384;            // two consumer warpgroups, then
+                                           // the producer's
+constexpr int kWgResident = kWgRows * 64;  // elements of a resident tile
+constexpr int kWgTile = kWgStream * 64;    // elements of a streamed tile
+constexpr int kWgResidentBytes = 2 * kWgResident;
+constexpr int kWgTileBytes = 2 * kWgTile;
+constexpr int kWgKStepBytes = 16 * kSwizzleRow;   // 16 rows of a tile
+// two resident tiles, two streamed tiles a stage, LSE and delta rows a
+// stage (dK/dV), the barriers, and room to align the tiles to 1024 bytes
+constexpr int kWgSmemBytes = 2 * kWgResidentBytes +
+                             kWgStages * (2 * kWgTileBytes + 2 * 64 * 4) +
+                             (1 + 2 * kWgStages) * 8 + kSwizzleAtom;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// An m64n64 score accumulator, rounded to bf16, regrouped into the A
+// fragments of four k16 steps: its column tiles 2kk and 2kk + 1 are one
+// m64k16 A fragment
+__device__ __forceinline__ void pack_a(uint32_t (&f)[4][4],
+                                       const float (&s)[32]) {
+  #pragma unroll
+  for (int i = 0; i < 32; i += 2)
+    f[i >> 3][(i >> 1) & 3] = pack_bf16(s[i], s[i + 1]);
+}
+
+// s (+)= A B^T over KSTEPS k16 steps of the head dim, both operands K-major
+// 128-byte-swizzled tiles in shared memory (A 64 rows, B 64 rows)
+template <int KSTEPS>
+__device__ __forceinline__ void scores(float (&s)[32], const bf16* a,
+                                       const bf16* b) {
+  const uint64_t da = wgmma_desc(a, 16, kSwizzleAtom);
+  const uint64_t db = wgmma_desc(b, 16, kSwizzleAtom);
+  #pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk)
+    wgmma_ss<0>(s, wgmma_desc_advance(da, kk * 32),
+                wgmma_desc_advance(db, kk * 32), kk != 0);
+}
+
+// acc += F tile, F the A fragments of a 64 x 64 operand, tile a streamed or
+// resident [64 rows, d] box read as the MN-major B operand (16 rows a k16
+// step): N = 16 * KSTEPS columns
+template <int KSTEPS>
+__device__ __forceinline__ void accumulate(float (&acc)[8 * KSTEPS],
+                                           const uint32_t (&f)[4][4],
+                                           const bf16* tile) {
+  const uint64_t db = wgmma_desc(tile, 16, kSwizzleAtom);
+  #pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs(acc, f[kk], wgmma_desc_advance(db, kk * kWgKStepBytes));
+}
+
+// Store a warpgroup's 64 x (16 KSTEPS) accumulator, times `mul`, as bf16
+// rows of one (b, h) slice (row0: the thread's first row, as in the
+// accumulator layout of sm90.cuh); rows at or past `rows` are skipped, rows
+// at or past `live` written as zero, columns from d skipped.
+template <int KSTEPS>
+__device__ __forceinline__ void store_wg_bf16(bf16* dst, long long row_stride,
+                                              const float (&acc)[8 * KSTEPS],
+                                              float mul, int row0, int rows,
+                                              int live, int d, int col0) {
+  #pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    if (row >= rows) continue;
+    const bool keep = row < live;   // literal zeros for a dead row
+    #pragma unroll
+    for (int j = 0; j < 2 * KSTEPS; ++j) {
+      const int col = j * 8 + col0;   // d is a multiple of 8
+      if (col < d)
+        *reinterpret_cast<__nv_bfloat162*>(dst + (long long)row * row_stride +
+                                           col) =
+            keep ? __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul,
+                                         acc[4 * j + 2 * r + 1] * mul)
+                 : __floats2bfloat162_rn(0.f, 0.f);
+    }
+  }
+}
+
+// The shared memory of a wgmma backward block: two resident 128 x 64 tiles,
+// then a ring of stages, each two streamed 64 x 64 tiles and 64 LSE and
+// delta values, then the barriers; tiles aligned to 1024 bytes (the swizzle
+// pattern is a function of the address).
+struct WgSmem {
+  bf16* res0;         // Q (dQ) or K (dK/dV)
+  bf16* res1;         // dO (dQ) or V (dK/dV)
+  bf16* str0;         // [stage]: K (dQ) or Q (dK/dV)
+  bf16* str1;         // [stage]: V (dQ) or dO (dK/dV)
+  float* lse2;        // [stage][64], log2 units (dK/dV)
+  float* dl;          // [stage][64] (dK/dV)
+  uint64_t* res_full;
+  uint64_t* full;     // [stage]
+  uint64_t* empty;    // [stage]
+
+  __device__ explicit WgSmem(uint8_t* raw) {
+    uint8_t* p = raw + ((kSwizzleAtom - smem_addr(raw)) & (kSwizzleAtom - 1));
+    res0 = reinterpret_cast<bf16*>(p);
+    res1 = res0 + kWgResident;
+    str0 = res1 + kWgResident;
+    str1 = str0 + kWgStages * kWgTile;
+    lse2 = reinterpret_cast<float*>(str1 + kWgStages * kWgTile);
+    dl = lse2 + kWgStages * 64;
+    res_full = reinterpret_cast<uint64_t*>(dl + kWgStages * 64);
+    full = res_full + 1;
+    empty = full + kWgStages;
+  }
+};
+
+// The producer thread: the two resident tiles at row r0, then the streamed
+// tiles of n_tiles into the ring, each stage once both consumers released
+// it (and, for dK/dV, the stats warp has also arrived on `full`)
+__device__ __forceinline__ void produce(const WgSmem& sm,
+                                        const CUtensorMap* res_map0,
+                                        const CUtensorMap* res_map1,
+                                        const CUtensorMap* str_map0,
+                                        const CUtensorMap* str_map1, int r0,
+                                        int n_tiles, int h, int b) {
+  tma_prefetch_map(res_map0);
+  tma_prefetch_map(res_map1);
+  tma_prefetch_map(str_map0);
+  tma_prefetch_map(str_map1);
+  mbar_arrive_expect_tx(sm.res_full, 2 * kWgResidentBytes);
+  tma_load_4d(sm.res0, res_map0, sm.res_full, 0, r0, h, b);
+  tma_load_4d(sm.res1, res_map1, sm.res_full, 0, r0, h, b);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    mbar_wait(sm.empty + stage, phase ^ 1);   // free from the start
+    mbar_arrive_expect_tx(sm.full + stage, 2 * kWgTileBytes);
+    tma_load_4d(sm.str0 + stage * kWgTile, str_map0, sm.full + stage, 0,
+                t * kWgStream, h, b);
+    tma_load_4d(sm.str1 + stage * kWgTile, str_map1, sm.full + stage, 0,
+                t * kWgStream, h, b);
+    if (++stage == kWgStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// The dK/dV kernel's score tile body: P^T = exp2(c S^T - LSE2) in place
+// (exactly 0 for query rows at or past q_len, whose LSE2 is +inf), then
+// dS^T = P^T (dP^T - delta) in place, the LSE and delta of the tile's query
+// columns read from the stage
+__device__ __forceinline__ void dkv_tile_p(float (&st)[32], const float* l2,
+                                           float c, int col0) {
+  #pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(l2 + j * 8 + col0);
+    #pragma unroll
+    for (int e = 0; e < 4; ++e)
+      st[4 * j + e] = ex2(fmaf(st[4 * j + e], c, -((e & 1) ? l.y : l.x)));
+  }
+}
+
+__device__ __forceinline__ void dkv_tile_ds(float (&dpt)[32],
+                                            const float (&pt)[32],
+                                            const float* dl, int col0) {
+  #pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 dd = *reinterpret_cast<const float2*>(dl + j * 8 + col0);
+    #pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dpt[4 * j + e] =
+          pt[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? dd.y : dd.x));
+  }
+}
+
+template <int KSTEPS>   // k16 steps over the head dim: ceil(d / 16)
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attn_bwd_dkv_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              const __grid_constant__ CUtensorMap map_do,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv,
+                              int nq, int nk, int q_len, int kv_len, int d,
+                              float sm_scale, Strides sdk, Strides sdv) {
+  extern __shared__ uint8_t smem_raw[];
+  const WgSmem sm(smem_raw);
+  const int k0 = blockIdx.x * kWgRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int wg = threadIdx.x >> 7;
+
+  if (k0 >= kv_len) {   // key rows at or past kv_len only write zeros
+    if (wg < 2) {
+      const float zero[8 * KSTEPS] = {};
+      const int lane = threadIdx.x & 31;
+      const int row0 = k0 + wg * 64 + ((threadIdx.x >> 5) & 3) * 16 +
+                       (lane >> 2);
+      store_wg_bf16<KSTEPS>(dk + b * sdk.b + h * sdk.h, sdk.n, zero, 0.f,
+                            row0, nk, 0, d, 2 * (lane & 3));
+      store_wg_bf16<KSTEPS>(dv + b * sdv.b + h * sdv.h, sdv.n, zero, 0.f,
+                            row0, nk, 0, d, 2 * (lane & 3));
+    }
+    return;
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.res_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      // the TMA thread's arrive (the bytes come with it) and the stats
+      // warp's 32 lanes
+      mbar_init(sm.full + s, 1 + 32);
+      mbar_init(sm.empty + s, 2);   // one thread of each consumer warpgroup
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int n_tiles = (q_len + kWgStream - 1) / kWgStream;
+
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<40>();
+    const int warp = (threadIdx.x >> 5) & 3;
+    if (threadIdx.x == 2 * 128) {
+      produce(sm, &map_k, &map_v, &map_q, &map_do, k0, n_tiles, h, b);
+    } else if (warp == 1) {
+      // the stats warp: each tile's LSE (in log2 units; +inf for query rows
+      // at or past q_len) and delta into the stage
+      const int lane = threadIdx.x & 31;
+      const long long stat0 = ((long long)b * gridDim.y + h) * nq;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        mbar_wait(sm.empty + stage, phase ^ 1);
+        #pragma unroll
+        for (int r = lane; r < 64; r += 32) {
+          const int row = t * kWgStream + r;
+          const bool live = row < q_len;
+          sm.lse2[stage * 64 + r] =
+              live ? lse[stat0 + row] * kLog2e : INFINITY;
+          sm.dl[stage * 64 + r] = live ? delta[stat0 + row] : 0.f;
+        }
+        mbar_arrive(sm.full + stage);
+        if (++stage == kWgStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    setmaxnreg_inc<232>();
+    const int lane = threadIdx.x & 31;
+    // per thread: key rows row0 and row0 + 8; in each 8-wide column tile,
+    // query columns col0 and col0 + 1 (the accumulator layout, sm90.cuh)
+    const int row0 = k0 + wg * 64 + ((threadIdx.x >> 5) & 3) * 16 +
+                     (lane >> 2);
+    const int col0 = 2 * (lane & 3);
+    const bool elected = (threadIdx.x & 127) == 0;
+    const float c = sm_scale * kLog2e;
+    const bf16* kw = sm.res0 + wg * 64 * 64;   // this warpgroup's key rows
+    const bf16* vw = sm.res1 + wg * 64 * 64;
+
+    float dka[8 * KSTEPS], dva[8 * KSTEPS];
+    #pragma unroll
+    for (int i = 0; i < 8 * KSTEPS; ++i) dka[i] = dva[i] = 0.f;
+
+    // A tile is two batches of wgmmas: S^T = K Q^T and dP^T = V dO^T, then
+    // dV += P^T dO and dK += dS^T Q, each batch on a turn of its own, so
+    // that one warpgroup's exponentials run under the other's products.
+    // Only one batch is in flight per warpgroup: tile t's score
+    // accumulators beside tile t-1's accumulating products would need more
+    // registers than ptxas has and it would serialise every wgmma (C7512).
+    if (wg == 1) turn_pass(wg);   // warpgroup 0 goes first
+    mbar_wait(sm.res_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      float st[32], dpt[32];
+      mbar_wait(sm.full + stage, phase);
+      turn_wait(wg);
+      wgmma_fence();
+      scores<KSTEPS>(st, kw, sm.str0 + stage * kWgTile);
+      wgmma_commit();
+      scores<KSTEPS>(dpt, vw, sm.str1 + stage * kWgTile);
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<1>();   // S^T is complete, dP^T may still run
+      wgmma_pin(st);
+      dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);
+      wgmma_wait<0>();
+      wgmma_pin(dpt);
+      dkv_tile_ds(dpt, st, sm.dl + stage * 64, col0);
+      uint32_t pf[4][4], dsf[4][4];   // P^T and dS^T in bf16
+      pack_a(pf, st);
+      pack_a(dsf, dpt);
+
+      turn_wait(wg);
+      wgmma_fence();   // pf, dsf were written by ordinary code
+      accumulate<KSTEPS>(dva, pf, sm.str1 + stage * kWgTile);
+      accumulate<KSTEPS>(dka, dsf, sm.str0 + stage * kWgTile);
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<0>();   // the stage is free
+      wgmma_pin(dka);
+      wgmma_pin(dva);
+      if (elected) mbar_arrive(sm.empty + stage);
+      if (++stage == kWgStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    store_wg_bf16<KSTEPS>(dk + b * sdk.b + h * sdk.h, sdk.n, dka, sm_scale,
+                          row0, nk, kv_len, d, col0);
+    store_wg_bf16<KSTEPS>(dv + b * sdv.b + h * sdv.h, sdv.n, dva, 1.f, row0,
+                          nk, kv_len, d, col0);
+  }
+}
+
+// The dQ kernel's score tile body: P = exp2(c S - LSE2) and dS = P (dP -
+// delta) in place; in a RAGGED tile (the last one, when kv_len is no
+// multiple of 64) keys at or past kv_len get P = 0.
+template <bool RAGGED>
+__device__ __forceinline__ void dq_tile(float (&s)[32], float (&dp)[32],
+                                        const float (&lse2)[2],
+                                        const float (&dl)[2], float c,
+                                        int key0, int kv_len) {
+  #pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    float p = ex2(fmaf(s[i], c, -lse2[(i >> 1) & 1]));
+    if (RAGGED && key0 + (i >> 2) * 8 + (i & 1) >= kv_len) p = 0.f;
+    s[i] = p;
+    dp[i] = p * (dp[i] - dl[(i >> 1) & 1]);
+  }
+}
+
+template <int KSTEPS>   // k16 steps over the head dim: ceil(d / 16)
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attn_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
+                             const __grid_constant__ CUtensorMap map_k,
+                             const __grid_constant__ CUtensorMap map_v,
+                             const __grid_constant__ CUtensorMap map_do,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             bf16* __restrict__ dq, int nq, int kv_len, int d,
+                             float sm_scale, Strides sdq) {
+  extern __shared__ uint8_t smem_raw[];
+  const WgSmem sm(smem_raw);
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.res_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(sm.full + s, 1);    // the producer's arrive; TMA adds bytes
+      mbar_init(sm.empty + s, 2);   // one thread of each consumer warpgroup
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int q0 = blockIdx.x * kWgRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_tiles = (kv_len + kWgStream - 1) / kWgStream;
+  const int wg = threadIdx.x >> 7;
+
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 2 * 128)
+      produce(sm, &map_q, &map_do, &map_k, &map_v, q0, n_tiles, h, b);
+  } else {
+    // ----------------------------------------------------------- consumers
+    setmaxnreg_inc<232>();
+    const int lane = threadIdx.x & 31;
+    // per thread: query rows row0 and row0 + 8; in each 8-wide column tile,
+    // key columns col0 and col0 + 1 (the accumulator layout, sm90.cuh)
+    const int row0 = q0 + wg * 64 + ((threadIdx.x >> 5) & 3) * 16 +
+                     (lane >> 2);
+    const int col0 = 2 * (lane & 3);
+    const bool elected = (threadIdx.x & 127) == 0;
+    const float c = sm_scale * kLog2e;
+    const bf16* qw = sm.res0 + wg * 64 * 64;   // this warpgroup's rows
+    const bf16* dow = sm.res1 + wg * 64 * 64;
+
+    const long long stat0 = ((long long)b * gridDim.y + h) * nq;
+    float lse2[2], dl[2];
+    #pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + r * 8;   // rows past nq are never stored
+      lse2[r] = row < nq ? lse[stat0 + row] * kLog2e : 0.f;
+      dl[r] = row < nq ? delta[stat0 + row] : 0.f;
+    }
+    float acc[8 * KSTEPS];
+    #pragma unroll
+    for (int i = 0; i < 8 * KSTEPS; ++i) acc[i] = 0.f;
+    uint32_t dsf[4][4];   // the tile before's dS, bf16
+
+    // Tile t's S = Q K^T and dP = dO V^T go out together with tile t-1's
+    // dQ += dS K, so that tile t's exponentials run under that product
+    // (the registers allow it here, unlike in the dK/dV kernel).
+    if (wg == 1) turn_pass(wg);   // warpgroup 0 goes first
+    mbar_wait(sm.res_full, 0);
+    const auto tile = [&](float (&s)[32], float (&dp)[32], int t) {
+      if ((t + 1) * kWgStream > kv_len)
+        dq_tile<true>(s, dp, lse2, dl, c, t * kWgStream + col0, kv_len);
+      else
+        dq_tile<false>(s, dp, lse2, dl, c, t * kWgStream + col0, kv_len);
+    };
+    {   // tile 0: nothing to overlap with yet
+      float s[32], dp[32];
+      mbar_wait(sm.full, 0);
+      turn_wait(wg);
+      wgmma_fence();
+      scores<KSTEPS>(s, qw, sm.str0);
+      wgmma_commit();
+      scores<KSTEPS>(dp, dow, sm.str1);
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<0>();
+      wgmma_pin(s);
+      wgmma_pin(dp);
+      tile(s, dp, 0);
+      pack_a(dsf, dp);
+    }
+    int prev = 0, stage = 1 % kWgStages;
+    uint32_t phase = kWgStages == 1;
+    for (int t = 1; t < n_tiles; ++t) {
+      float s[32], dp[32];
+      mbar_wait(sm.full + stage, phase);
+      turn_wait(wg);
+      wgmma_fence();   // dsf was written by ordinary code
+      scores<KSTEPS>(s, qw, sm.str0 + stage * kWgTile);
+      wgmma_commit();
+      scores<KSTEPS>(dp, dow, sm.str1 + stage * kWgTile);
+      wgmma_commit();
+      accumulate<KSTEPS>(acc, dsf, sm.str0 + prev * kWgTile);
+      wgmma_commit();
+      turn_pass(wg);
+
+      wgmma_wait<1>();   // S and dP are complete, dS K may still run
+      wgmma_pin(s);
+      wgmma_pin(dp);
+      tile(s, dp, t);
+      wgmma_wait<0>();   // tile t-1's dS K: its stage is free
+      wgmma_pin(acc);
+      if (elected) mbar_arrive(sm.empty + prev);
+      pack_a(dsf, dp);
+      prev = stage;
+      if (++stage == kWgStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    turn_wait(wg);   // the last tile's dS K
+    wgmma_fence();
+    accumulate<KSTEPS>(acc, dsf, sm.str0 + prev * kWgTile);
+    wgmma_commit();
+    turn_pass(wg);
+    wgmma_wait<0>();
+    wgmma_pin(acc);
+
+    store_wg_bf16<KSTEPS>(dq + b * sdq.b + h * sdq.h, sdq.n, acc, sm_scale,
+                          row0, nq, nq, d, col0);
+  }
+}
+
+// ---------------------------------------------------------------- launches
 
 Strides strides_at(const long long* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
 }
 
+// above 48 KB of dynamic shared memory only after opting in (per device)
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  void *dq, *dk, *dv;
+  int batch, heads, nq, nk, q_len, kv_len, d;
+  float sm_scale;
+  Strides sq, sk, sv, sdo, so0, so1;   // so0: dq or dk; so1: dv
+};
+
+template <int DPAD>
+cudaError_t launch_dq(int dtype, const Args& a, cudaStream_t s) {
+  const dim3 grid((a.nq + kBM - 1) / kBM, a.heads, a.batch);
+  if (dtype == 0) {
+    constexpr int smem = BwdF32<DPAD>::kDqSmemBytes;
+    const cudaError_t err = allow_smem(flash_attn_bwd_dq_f32<DPAD>, smem);
+    if (err != cudaSuccess) return err;
+    flash_attn_bwd_dq_f32<DPAD><<<grid, kF32Threads, smem, s>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.delta, static_cast<float*>(a.dq), a.nq, a.kv_len, a.d,
+        a.sm_scale, a.sq, a.sk, a.sv, a.sdo, a.so0);
+  } else if constexpr (DPAD > 64) {
+    constexpr int smem = kDqMmaSmemBytes<DPAD>;
+    const cudaError_t err = allow_smem(flash_attn_bwd_dq_bf16<DPAD>, smem);
+    if (err != cudaSuccess) return err;
+    flash_attn_bwd_dq_bf16<DPAD><<<grid, kBf16Threads, smem, s>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        a.lse, a.delta, static_cast<bf16*>(a.dq), a.nq, a.kv_len, a.d,
+        a.sm_scale, a.sq, a.sk, a.sv, a.sdo, a.so0);
+  } else {
+    return cudaErrorInvalidValue;   // bf16 at d <= 64 is the wgmma kernel's
+  }
+  return cudaGetLastError();
+}
+
+template <int DPAD>
+cudaError_t launch_dkv(int dtype, const Args& a, cudaStream_t s) {
+  const dim3 grid((a.nk + kBN - 1) / kBN, a.heads, a.batch);
+  if (dtype == 0) {
+    constexpr int smem = BwdF32<DPAD>::kDkvSmemBytes;
+    const cudaError_t err = allow_smem(flash_attn_bwd_dkv_f32<DPAD>, smem);
+    if (err != cudaSuccess) return err;
+    flash_attn_bwd_dkv_f32<DPAD><<<grid, kF32Threads, smem, s>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+        a.nq, a.nk, a.q_len, a.kv_len, a.d, a.sm_scale, a.sq, a.sk, a.sv,
+        a.sdo, a.so0, a.so1);
+  } else if constexpr (DPAD > 64) {
+    constexpr int smem = kDkvMmaSmemBytes<DPAD>;
+    const cudaError_t err = allow_smem(flash_attn_bwd_dkv_bf16<DPAD>, smem);
+    if (err != cudaSuccess) return err;
+    flash_attn_bwd_dkv_bf16<DPAD><<<grid, kDkvMmaThreads, smem, s>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+        a.nq, a.nk, a.q_len, a.kv_len, a.d, a.sm_scale, a.sq, a.sk, a.sv,
+        a.sdo, a.so0, a.so1);
+  } else {
+    return cudaErrorInvalidValue;   // bf16 at d <= 64 is the wgmma kernel's
+  }
+  return cudaGetLastError();
+}
+
+// One operand's tensor map: (d, token, head, batch), the tokens ending at
+// `tokens`, in boxes of 64 columns x `rows` tokens of one head.
+bool attention_map(CUtensorMap* map, const void* base, int d, int tokens,
+                   int heads, int batch, const Strides& st, int rows) {
+  const long long dims[4] = {d, tokens, heads, batch};
+  const long long strides[3] = {st.n, st.h, st.b};
+  const int box[4] = {64, rows, 1, 1};
+  return encode_tensor_map_bf16(map, base, 4, dims, strides, box);
+}
+
+// The four maps of a wgmma launch: resident boxes of 128 rows, streamed
+// boxes of 64; dQ: Q, dO resident (ending at nq), K, V streamed (ending at
+// kv_len); dK/dV: K, V resident (ending at kv_len), Q, dO streamed (ending
+// at q_len).
+bool wgmma_maps(const Args& a, bool dq, CUtensorMap (&maps)[4]) {
+  const int q_rows = dq ? kWgRows : kWgStream;
+  const int kv_rows = dq ? kWgStream : kWgRows;
+  const int q_end = dq ? a.nq : a.q_len;
+  return attention_map(&maps[0], a.q, a.d, q_end, a.heads, a.batch, a.sq,
+                       q_rows) &&
+         attention_map(&maps[1], a.k, a.d, a.kv_len, a.heads, a.batch, a.sk,
+                       kv_rows) &&
+         attention_map(&maps[2], a.v, a.d, a.kv_len, a.heads, a.batch, a.sv,
+                       kv_rows) &&
+         attention_map(&maps[3], a.dout, a.d, q_end, a.heads, a.batch, a.sdo,
+                       q_rows);
+}
+
+template <int KSTEPS>
+cudaError_t launch_dq_wgmma(const Args& a, const CUtensorMap (&m)[4],
+                            cudaStream_t s) {
+  const cudaError_t err =
+      allow_smem(flash_attn_bwd_dq_bf16_wgmma<KSTEPS>, kWgSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.nq + kWgRows - 1) / kWgRows, a.heads, a.batch);
+  flash_attn_bwd_dq_bf16_wgmma<KSTEPS><<<grid, kWgThreads, kWgSmemBytes, s>>>(
+      m[0], m[1], m[2], m[3], a.lse, a.delta, static_cast<bf16*>(a.dq), a.nq,
+      a.kv_len, a.d, a.sm_scale, a.so0);
+  return cudaGetLastError();
+}
+
+template <int KSTEPS>
+cudaError_t launch_dkv_wgmma(const Args& a, const CUtensorMap (&m)[4],
+                             cudaStream_t s) {
+  const cudaError_t err =
+      allow_smem(flash_attn_bwd_dkv_bf16_wgmma<KSTEPS>, kWgSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.nk + kWgRows - 1) / kWgRows, a.heads, a.batch);
+  flash_attn_bwd_dkv_bf16_wgmma<KSTEPS><<<grid, kWgThreads, kWgSmemBytes,
+                                          s>>>(
+      m[0], m[1], m[2], m[3], a.lse, a.delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.nq, a.nk, a.q_len, a.kv_len, a.d,
+      a.sm_scale, a.so0, a.so1);
+  return cudaGetLastError();
+}
+
+template <int DPAD>
+cudaError_t launch_padded(int dtype, bool dq, const Args& a, cudaStream_t s) {
+  return dq ? launch_dq<DPAD>(dtype, a, s) : launch_dkv<DPAD>(dtype, a, s);
+}
+
+template <int KSTEPS>
+cudaError_t launch_wgmma(bool dq, const Args& a, const CUtensorMap (&m)[4],
+                         cudaStream_t s) {
+  return dq ? launch_dq_wgmma<KSTEPS>(a, m, s)
+            : launch_dkv_wgmma<KSTEPS>(a, m, s);
+}
+
+// The fixed table of the header note
+cudaError_t dispatch(int dtype, bool dq, const Args& a, cudaStream_t s) {
+  const int d = a.d;
+  if ((dtype != 0 && dtype != 1) || d < 1 || d > 160 ||
+      d % (dtype == 0 ? 4 : 8) != 0)
+    return cudaErrorInvalidValue;
+  if (dtype == 1 && d <= 64) {
+    CUtensorMap m[4];
+    if (!wgmma_maps(a, dq, m)) return cudaErrorInvalidValue;
+    if (d <= 16) return launch_wgmma<1>(dq, a, m, s);
+    if (d <= 32) return launch_wgmma<2>(dq, a, m, s);
+    if (d <= 48) return launch_wgmma<3>(dq, a, m, s);
+    return launch_wgmma<4>(dq, a, m, s);
+  }
+  if (d <= 16) return launch_padded<16>(dtype, dq, a, s);
+  if (d <= 32) return launch_padded<32>(dtype, dq, a, s);
+  if (d <= 48) return launch_padded<48>(dtype, dq, a, s);
+  if (d <= 64) return launch_padded<64>(dtype, dq, a, s);
+  if (d <= 80) return launch_padded<80>(dtype, dq, a, s);
+  return launch_padded<160>(dtype, dq, a, s);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q, dout, dq: [B, H, Nq, 64]; k, v:
-// [B, H, Nk, 64]; strides: 15 values, (batch, head, token) for q, k, v, dout,
-// dq in elements (the head dim is contiguous). lse, delta: contiguous
-// [B, H, Nq] float32. Returns the cudaError_t of the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. q, dout, dq: [B, H, Nq, d]; k, v:
+// [B, H, Nk, d]; d <= 160 and a multiple of 4 (float32) or 8 (bfloat16).
+// strides: 15 values, (batch, head, token) for q, k, v, dout, dq in
+// elements (the head dim is contiguous), multiples of the 16-byte vector.
+// lse, delta: contiguous [B, H, Nq] float32. Returns the cudaError_t of the
+// tensor-map encode or the launch (0 on success).
 extern "C" int flash_attn_bwd_dq(int dtype, const void* q, const void* k,
                                  const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq,
                                  int batch, int heads, int nq, int kv_len,
-                                 float sm_scale, const long long* st,
+                                 int d, float sm_scale, const long long* st,
                                  void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((nq + kBM - 1) / kBM, heads, batch);
-  const Strides sq = strides_at(st, 0), sk = strides_at(st, 1),
-                sv = strides_at(st, 2), sdo = strides_at(st, 3),
-                sdq = strides_at(st, 4);
-  const float* l = static_cast<const float*>(lse);
-  const float* d = static_cast<const float*>(delta);
-  if (dtype == 0) {
-    // above 48 KB of dynamic shared memory only after opting in (per device)
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attn_bwd_dq_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kDqF32SmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    flash_attn_bwd_dq_f32<<<grid, kF32Threads, kDqF32SmemBytes, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), l, d,
-        static_cast<float*>(dq), nq, kv_len, sm_scale, sq, sk, sv, sdo, sdq);
-  } else if (dtype == 1) {
-    flash_attn_bwd_dq_bf16<<<grid, kBf16Threads, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, d,
-        static_cast<bf16*>(dq), nq, kv_len, sm_scale, sq, sk, sv, sdo, sdq);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  Args a{q, k, v, dout, static_cast<const float*>(lse),
+         static_cast<const float*>(delta), dq, nullptr, nullptr,
+         batch, heads, nq, kv_len, nq, kv_len, d, sm_scale,
+         strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+         strides_at(st, 3), strides_at(st, 4), Strides{0, 0, 0}};
+  return (int)dispatch(dtype, true, a, static_cast<cudaStream_t>(stream));
 }
 
-// As flash_attn_bwd_dq, with dk, dv: [B, H, Nk, 64] and 18 strides: q, k, v,
+// As flash_attn_bwd_dq, with dk, dv: [B, H, Nk, d] and 18 strides: q, k, v,
 // dout, dk, dv. Rows of dk and dv in [kv_len, nk) are written as zero;
 // query rows at or past q_len are left out of the sums.
 extern "C" int flash_attn_bwd_dkv(int dtype, const void* q, const void* k,
@@ -604,33 +1302,12 @@ extern "C" int flash_attn_bwd_dkv(int dtype, const void* q, const void* k,
                                   const void* lse, const void* delta,
                                   void* dk, void* dv, int batch, int heads,
                                   int nq, int nk, int q_len, int kv_len,
-                                  float sm_scale, const long long* st,
+                                  int d, float sm_scale, const long long* st,
                                   void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((nk + kBN - 1) / kBN, heads, batch);
-  const Strides sq = strides_at(st, 0), sk = strides_at(st, 1),
-                sv = strides_at(st, 2), sdo = strides_at(st, 3),
-                sdk = strides_at(st, 4), sdv = strides_at(st, 5);
-  const float* l = static_cast<const float*>(lse);
-  const float* d = static_cast<const float*>(delta);
-  if (dtype == 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attn_bwd_dkv_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kDkvF32SmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    flash_attn_bwd_dkv_f32<<<grid, kF32Threads, kDkvF32SmemBytes, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), l, d,
-        static_cast<float*>(dk), static_cast<float*>(dv), nq, nk, q_len,
-        kv_len, sm_scale, sq, sk, sv, sdo, sdk, sdv);
-  } else if (dtype == 1) {
-    flash_attn_bwd_dkv_bf16<<<grid, kBf16Threads, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, d,
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), nq, nk, q_len, kv_len,
-        sm_scale, sq, sk, sv, sdo, sdk, sdv);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  Args a{q, k, v, dout, static_cast<const float*>(lse),
+         static_cast<const float*>(delta), nullptr, dk, dv,
+         batch, heads, nq, nk, q_len, kv_len, d, sm_scale,
+         strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+         strides_at(st, 3), strides_at(st, 4), strides_at(st, 5)};
+  return (int)dispatch(dtype, false, a, static_cast<cudaStream_t>(stream));
 }

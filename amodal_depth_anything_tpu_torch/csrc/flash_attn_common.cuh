@@ -12,8 +12,6 @@
 
 namespace {
 
-constexpr int kD = 64;          // head dim of the backward kernels; the
-                                // forward is templated on a padded head dim
 constexpr int kBM = 64;         // query rows per block
 constexpr int kBN = 64;         // key rows per K/V tile
 constexpr float kLn2 = 0.6931471805599453f;
@@ -27,18 +25,16 @@ struct Strides {
 // ------------------------------------------------------------ float32 path
 
 constexpr int kF32Threads = 256;     // 16 x 16 threads, each a 4x4 patch
-constexpr int kF32Ld = kD + 4;       // padded smem rows: float4-aligned,
-                                     // conflict-free broadcast reads
+constexpr int kPLd = kBN + 4;        // padded rows of a 64 x 64 f32 score tile
 
 // Stage rows [row0, row0 + 64) of one (b, h) slice into smem (row stride
 // `ld` floats, DPAD columns), times `mul`, zero-filling rows at or past
 // `rows` and the columns from the head dim `d` (a multiple of 4) to DPAD.
-template <int DPAD = kD>
+template <int DPAD>
 __device__ __forceinline__ void stage_tile_f32(float* dst, int ld,
                                                const float* src,
                                                long long row_stride, int row0,
-                                               int rows, float mul,
-                                               int d = DPAD) {
+                                               int rows, float mul, int d) {
   for (int i = threadIdx.x; i < 64 * (DPAD / 4); i += kF32Threads) {
     const int r = i / (DPAD / 4);
     const int c = (i % (DPAD / 4)) * 4;
@@ -49,6 +45,44 @@ __device__ __forceinline__ void stage_tile_f32(float* dst, int ld,
       v.x *= mul; v.y *= mul; v.z *= mul; v.w *= mul;
     }
     *reinterpret_cast<float4*>(dst + r * ld + c) = v;
+  }
+}
+
+// The float32 kernels' output columns: a thread (tx of 16) holds kCols of
+// the DPAD, in groups of kVec contiguous ones:
+// column(g, e) = g * 16 * kVec + tx * kVec + e
+template <int DPAD>
+struct F32Cols {
+  static constexpr int kLd = DPAD + 4;   // Q/K rows: float4-aligned,
+                                         // conflict-free broadcast reads
+  static constexpr int kCols = DPAD / 16;
+  static constexpr int kVec = DPAD % 64 == 0 ? 4 : DPAD % 32 == 0 ? 2 : 1;
+  static constexpr int kGroups = kCols / kVec;
+};
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(float* dst, const float* src) {
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    dst[0] = t.x; dst[1] = t.y;
+  } else {
+    dst[0] = *src;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* dst, const float* src,
+                                          float mul) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(src[0] * mul, src[1] * mul, src[2] * mul, src[3] * mul);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(src[0] * mul, src[1] * mul);
+  } else {
+    *dst = src[0] * mul;
   }
 }
 
@@ -70,8 +104,6 @@ __device__ __forceinline__ float lanes16_sum(float x) {
 
 using bf16 = __nv_bfloat16;
 constexpr int kBf16Threads = 128;    // 4 warps x 16 query rows
-constexpr int kBf16Ld = kD + 8;      // 144-byte smem rows: ldmatrix reads
-                                     // 8 rows without bank conflicts
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -128,13 +160,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Start the cp.async copies of rows [row0, row0 + 64) of one (b, h) slice
-// into a [64][DPAD + 8] smem tile, zero-filling rows at or past `rows` and
-// the columns from the head dim `d` (a multiple of 8) to DPAD.
-template <int DPAD = kD>
+// into a [64][DPAD + 8] smem tile (rows of an odd number of 16-byte chunks:
+// ldmatrix reads 8 of them without bank conflicts), zero-filling rows at or
+// past `rows` and the columns from the head dim `d` (a multiple of 8) to
+// DPAD; THREADS threads of the block take part.
+template <int DPAD, int THREADS = kBf16Threads>
 __device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
                                                long long row_stride, int row0,
-                                               int rows, int d = DPAD) {
-  for (int i = threadIdx.x; i < 64 * (DPAD / 8); i += kBf16Threads) {
+                                               int rows, int d) {
+  for (int i = threadIdx.x; i < 64 * (DPAD / 8); i += THREADS) {
     const int r = i / (DPAD / 8);
     const int c = (i % (DPAD / 8)) * 8;
     const bool valid = row0 + r < rows && c < d;

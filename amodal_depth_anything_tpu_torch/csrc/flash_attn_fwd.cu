@@ -80,48 +80,14 @@ namespace {
 
 // ------------------------------------------------------------ float32 path
 
-constexpr int kPLd = kBN + 4;   // padded rows of the 64 x 64 P tile
-
 template <int DPAD>
-struct F32Tile {
-  static constexpr int kLd = DPAD + 4;   // Q and K rows: float4-aligned,
-                                         // conflict-free broadcast reads
-  // output columns per thread, in groups of kVec contiguous ones:
-  // column(g, e) = g * 16 * kVec + tx * kVec + e
-  static constexpr int kCols = DPAD / 16;
-  static constexpr int kVec = DPAD % 64 == 0 ? 4 : DPAD % 32 == 0 ? 2 : 1;
-  static constexpr int kGroups = kCols / kVec;
+struct F32Tile : F32Cols<DPAD> {
+  static constexpr int kLd = F32Cols<DPAD>::kLd;
   static constexpr int kSmemBytes = 4 * (kBM * kLd      // Q (pre-scaled)
                                          + kBN * kLd    // K
                                          + kBN * DPAD   // V
                                          + kBM * kPLd); // P
 };
-
-template <int VEC>
-__device__ __forceinline__ void load_vec(float* dst, const float* src) {
-  if constexpr (VEC == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(src);
-    dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
-  } else if constexpr (VEC == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(src);
-    dst[0] = t.x; dst[1] = t.y;
-  } else {
-    dst[0] = *src;
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_vec(float* dst, const float* src,
-                                          float mul) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(dst) =
-        make_float4(src[0] * mul, src[1] * mul, src[2] * mul, src[3] * mul);
-  } else if constexpr (VEC == 2) {
-    *reinterpret_cast<float2*>(dst) = make_float2(src[0] * mul, src[1] * mul);
-  } else {
-    *dst = src[0] * mul;
-  }
-}
 
 template <int DPAD>
 __global__ void __launch_bounds__(kF32Threads)

@@ -3,7 +3,7 @@
 // CUtensorMap, the wgmma shared-memory matrix descriptor and the
 // wgmma.mma_async wrappers (bf16 in, f32 accumulate), setmaxnreg,
 // named-barrier turn-taking and the host helper that encodes a tensor map.
-// Included by fused_epilogue.cu and flash_attn_fwd.cu.
+// Included by fused_epilogue.cu, flash_attn_fwd.cu and flash_attn_bwd.cu.
 //
 // Conventions. Every tile that wgmma reads is written by TMA with the
 // 128-byte swizzle: rows of 64 bf16 (128 bytes), 8 rows to a 1024-byte
@@ -212,6 +212,33 @@ __device__ __forceinline__ void fence_proxy_async() {
 // warpgroup holds rows 16w .. 16w+15; d[4j + e] is row 16w + lane/4 +
 // 8*(e/2), column 8j + 2*(lane%4) + (e%2) (the mma.sync C fragment, tiled
 // along N).
+
+// d[64 x 64] (+)= A[64 x 16] * B[16 x 64], both operands in shared memory
+// (A K-major; B K-major when TRANS_B = 0, MN-major when 1)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
 
 // d[64 x 128] (+)= A[64 x 16] * B[16 x 128], both operands in shared memory
 // (A K-major; B K-major when TRANS_B = 0, MN-major when 1)

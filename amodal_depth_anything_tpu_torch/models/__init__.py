@@ -20,7 +20,7 @@ def _build_amodal_dav2(*, encoder: str = "vitl",
                        loss_stategy: str | None = None,
                        loss_strategy: str | None = None,
                        embed_dim: int | None = None,
-                       depth: int | None = None, device=None,
+                       depth: int | None = None, device="cuda",
                        **_ignored) -> torch.nn.Module:
     # Accept both the reference's (misspelled, load-bearing) config key
     # `loss_stategy` (dav2.py:22, yaml files) and the corrected spelling.
@@ -30,7 +30,7 @@ def _build_amodal_dav2(*, encoder: str = "vitl",
         raw=False, embed_dim=embed_dim, depth=depth), device=device)
 
 
-def _build_raw_dav2(*, encoder: str = "vitg", device=None,
+def _build_raw_dav2(*, encoder: str = "vitg", device="cuda",
                     **_ignored) -> torch.nn.Module:
     return build_model(DAV2Config(encoder=encoder, guide_type="none",
                                   raw=True), device=device)
@@ -69,8 +69,8 @@ MODEL_REGISTRY = {
 def get_model(name: str, **kwargs) -> torch.nn.Module:
     """The module a config names, allocated on `device` with uninitialised
     float32 parameters; the trainer or the pipeline draws or loads them.
-    The discriminative models default to the CPU (their trainer moves
-    them), the DepthFM family to the card."""
+    Every model is allocated on the card unless `device` says otherwise
+    (`device="cpu"` for the CPU)."""
     if name not in MODEL_REGISTRY:
         raise ValueError(
             f"unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}")

@@ -17,10 +17,10 @@ launches.
 
 Layout [B, H, N, D] as in the JAX package. The kernels take any Nq and Nk
 (they mask the ragged edges and keys >= `kv_len` themselves) and float32 or
-bfloat16. The forward kernel takes any head dim up to 160 that is a multiple
-of 4 (float32) or 8 (bfloat16), the 16-byte vector loads' rule: the DINOv2
-trunks' 64 and the SD-1.5 UNet's 40, 80 and 160 among them. The two backward
-kernels take head dim 64 only.
+bfloat16. All three take any head dim up to 160 that is a multiple of 4
+(float32) or 8 (bfloat16), the 16-byte vector loads' rule: the DINOv2
+trunks' 64 and the SD-1.5 UNet's 40, 80 and 160 among them;
+`bwd_instantiations` names the backward kernels a dtype and head dim run.
 """
 
 from __future__ import annotations
@@ -30,12 +30,11 @@ import ctypes
 import torch
 
 __all__ = ["mha", "mha_reference", "mha_bwd_reference", "flash_attn_bwd_dq",
-           "flash_attn_bwd_dkv", "entry_argtypes", "MAX_HEAD_DIM",
-           "BWD_HEAD_DIM", "NEG_INF"]
+           "flash_attn_bwd_dkv", "entry_argtypes", "check_head_dim",
+           "bwd_instantiations", "MAX_HEAD_DIM", "NEG_INF"]
 
 NEG_INF = -1e30  # the JAX package's mask value (avoids inf - inf NaNs)
-MAX_HEAD_DIM = 160   # the forward kernel's widest instantiation
-BWD_HEAD_DIM = 64    # the backward kernels: every DINOv2 preset
+MAX_HEAD_DIM = 160   # the kernels' widest instantiation
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -87,6 +86,30 @@ def mha_bwd_reference(q, k, v, o, lse, do, *, sm_scale: float | None = None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def check_head_dim(d: int, dtype) -> None:
+    """Raise unless the kernels take head dim `d` for `dtype`: at most
+    MAX_HEAD_DIM and a multiple of the 16-byte vector (4 float32, 8
+    bfloat16 elements)."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    if d % vec or not vec <= d <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"the attention kernels take a head dim that is a multiple of "
+            f"{vec} for {dtype} (16-byte vector loads) and at most "
+            f"{MAX_HEAD_DIM}, got {d}")
+
+
+def bwd_instantiations(dtype, d: int) -> tuple[str, str]:
+    """The (dQ, dK/dV) kernel instantiations `csrc/flash_attn_bwd.cu` runs
+    for `dtype` and head dim `d` (its fixed table)."""
+    check_head_dim(d, dtype)
+    if dtype == torch.bfloat16 and d <= 64:
+        kind = f"bf16_wgmma<{-(-d // 16)}>"
+    else:
+        pad = next(p for p in (16, 32, 48, 64, 80, 160) if d <= p)
+        kind = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}<{pad}>"
+    return f"flash_attn_bwd_dq_{kind}", f"flash_attn_bwd_dkv_{kind}"
+
+
 def _check(q, k, v, kv_len):
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k, v must lie on one CUDA device")
@@ -102,12 +125,7 @@ def _check(q, k, v, kv_len):
     if k.shape[0] != b or k.shape[1] != h or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
                          f"in batch, heads or head dim")
-    vec = 16 // q.element_size()
-    if d % vec or not vec <= d <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"the forward attention kernel takes a head dim that is a "
-            f"multiple of {vec} for {q.dtype} (16-byte vector loads) and at "
-            f"most {MAX_HEAD_DIM}, got {d}")
+    check_head_dim(d, q.dtype)
     if not 1 <= kv_len <= k.shape[2]:
         raise ValueError(f"kv_len {kv_len} outside [1, {k.shape[2]}]")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -127,8 +145,8 @@ def _vector_ready(t) -> bool:
 
 # C entry point -> (library under csrc/, pointer arguments, int arguments)
 _ENTRIES = {"flash_attn_fwd": ("flash_attn_fwd", 5, 5),
-            "flash_attn_bwd_dq": ("flash_attn_bwd", 7, 4),
-            "flash_attn_bwd_dkv": ("flash_attn_bwd", 8, 6)}
+            "flash_attn_bwd_dq": ("flash_attn_bwd", 7, 5),
+            "flash_attn_bwd_dkv": ("flash_attn_bwd", 8, 7)}
 
 
 def entry_argtypes(name: str) -> list:
@@ -188,11 +206,6 @@ def _launch_fwd(q, k, v, sm_scale: float, kv_len: int | None, need_lse: bool):
 
 def _check_bwd(q, k, v, do, lse, delta, kv_len: int):
     _check(q, k, v, kv_len)
-    if q.shape[3] != BWD_HEAD_DIM:
-        raise ValueError(
-            f"the backward attention kernels take head dim {BWD_HEAD_DIM} "
-            f"only (the forward kernel is the one widened to other head "
-            f"dims), got {q.shape[3]}")
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"dO must match q: got {tuple(do.shape)} {do.dtype} "
                          f"on {do.device}")
@@ -219,7 +232,7 @@ def flash_attn_bwd_dq(q, k, v, do, lse, delta, *, sm_scale: float,
     with torch.cuda.device(q.device):
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                 dq.data_ptr(), b, h, nq, kv_len, float(sm_scale),
+                 dq.data_ptr(), b, h, nq, kv_len, d, float(sm_scale),
                  _strides(q, k, v, do, dq),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -246,7 +259,7 @@ def flash_attn_bwd_dkv(q, k, v, do, lse, delta, *, sm_scale: float,
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, q_len, kv_len,
-                 float(sm_scale), _strides(q, k, v, do, dk, dv),
+                 d, float(sm_scale), _strides(q, k, v, do, dk, dv),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(

@@ -14,9 +14,19 @@ What the ablations say:
                   no_exp: the softmax with a multiply-add in place of each
                   exponential (the FP32 work without the MUFU unit);
                   no_products: the softmax path alone.
+  flash_attn_bwd  the same three for the dQ and the dK/dV kernels: no P
+                  and dS rebuild (no_softmax), no exponentials (no_exp),
+                  no wgmma (no_products), each timed for both kernels; and
+                  two alternatives the design turned down: a ring of three
+                  stages instead of four (three_stages), and dK/dV with
+                  tile t's score products in flight beside tile t-1's
+                  accumulating products, as dQ does (dkv_pipelined: ptxas
+                  then serialises its wgmmas at KSTEPS 3 and 4, C7512).
   fused_epilogue  product_only: no residual load, no epilogue arithmetic,
                   no store; epilogue_only: one k tile per output tile.
 A part that is hidden behind another costs nothing when it is taken out.
+Each build's ptxas C75xx advisories are printed beside the times (C7510-C7515:
+wgmmas serialised; C7519, an injected warpgroup.arrive, is informational).
 """
 
 from __future__ import annotations
@@ -26,7 +36,120 @@ import subprocess
 import sys
 
 ATTN_SHAPES = [(4, 24, 1370, 64), (1, 24, 5330, 64), (4, 8, 4096, 40)]
+BWD_SHAPES = [(8, 16, 1370, 64), (1, 24, 5330, 64), (4, 8, 4096, 40)]
 GEMM_SHAPES = [(42640, 1536, 1536), (42640, 1024, 1024), (5480, 4096, 1536)]
+
+# the dK/dV consumer loop of csrc/flash_attn_bwd.cu, and the same loop with
+# tile t's score products issued beside tile t-1's accumulating products
+DKV_LOOP = """\
+    if (wg == 1) turn_pass(wg);   // warpgroup 0 goes first
+    mbar_wait(sm.res_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      float st[32], dpt[32];
+      mbar_wait(sm.full + stage, phase);
+      turn_wait(wg);
+      wgmma_fence();
+      scores<KSTEPS>(st, kw, sm.str0 + stage * kWgTile);
+      wgmma_commit();
+      scores<KSTEPS>(dpt, vw, sm.str1 + stage * kWgTile);
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<1>();   // S^T is complete, dP^T may still run
+      wgmma_pin(st);
+      dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);
+      wgmma_wait<0>();
+      wgmma_pin(dpt);
+      dkv_tile_ds(dpt, st, sm.dl + stage * 64, col0);
+      uint32_t pf[4][4], dsf[4][4];   // P^T and dS^T in bf16
+      pack_a(pf, st);
+      pack_a(dsf, dpt);
+
+      turn_wait(wg);
+      wgmma_fence();   // pf, dsf were written by ordinary code
+      accumulate<KSTEPS>(dva, pf, sm.str1 + stage * kWgTile);
+      accumulate<KSTEPS>(dka, dsf, sm.str0 + stage * kWgTile);
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<0>();   // the stage is free
+      wgmma_pin(dka);
+      wgmma_pin(dva);
+      if (elected) mbar_arrive(sm.empty + stage);
+      if (++stage == kWgStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+"""
+DKV_PIPELINED = """\
+    if (wg == 1) turn_pass(wg);
+    mbar_wait(sm.res_full, 0);
+    uint32_t pf[4][4], dsf[4][4];
+    {
+      float st[32], dpt[32];
+      mbar_wait(sm.full, 0);
+      turn_wait(wg);
+      wgmma_fence();
+      scores<KSTEPS>(st, kw, sm.str0);
+      wgmma_commit();
+      scores<KSTEPS>(dpt, vw, sm.str1);
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<1>();
+      wgmma_pin(st);
+      dkv_tile_p(st, sm.lse2, c, col0);
+      wgmma_wait<0>();
+      wgmma_pin(dpt);
+      dkv_tile_ds(dpt, st, sm.dl, col0);
+      pack_a(pf, st);
+      pack_a(dsf, dpt);
+    }
+    int prev = 0, stage = 1 % kWgStages;
+    uint32_t phase = kWgStages == 1;
+    for (int t = 1; t < n_tiles; ++t) {
+      float st[32], dpt[32];
+      mbar_wait(sm.full + stage, phase);
+      turn_wait(wg);
+      wgmma_fence();
+      scores<KSTEPS>(st, kw, sm.str0 + stage * kWgTile);
+      wgmma_commit();
+      scores<KSTEPS>(dpt, vw, sm.str1 + stage * kWgTile);
+      wgmma_commit();
+      accumulate<KSTEPS>(dva, pf, sm.str1 + prev * kWgTile);
+      accumulate<KSTEPS>(dka, dsf, sm.str0 + prev * kWgTile);
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<2>();
+      wgmma_pin(st);
+      dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);
+      wgmma_wait<1>();
+      wgmma_pin(dpt);
+      dkv_tile_ds(dpt, st, sm.dl + stage * 64, col0);
+      wgmma_wait<0>();
+      wgmma_pin(dka);
+      wgmma_pin(dva);
+      if (elected) mbar_arrive(sm.empty + prev);
+      pack_a(pf, st);
+      pack_a(dsf, dpt);
+      prev = stage;
+      if (++stage == kWgStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    turn_wait(wg);
+    wgmma_fence();
+    accumulate<KSTEPS>(dva, pf, sm.str1 + prev * kWgTile);
+    accumulate<KSTEPS>(dka, dsf, sm.str0 + prev * kWgTile);
+    wgmma_commit();
+    turn_pass(wg);
+    wgmma_wait<0>();
+    wgmma_pin(dka);
+    wgmma_pin(dva);
+
+"""
 
 # library -> {ablation: [(text in the source, its replacement), ...]}
 ABLATIONS = {
@@ -47,6 +170,27 @@ ABLATIONS = {
             ("        wgmma_rs(acc, pf[kk], wgmma_desc_advance(dv, kk * 16 * "
              "kSwizzleRow));\n",
              "        acc[kk] += __uint_as_float(pf[kk][0] ^ (uint32_t)dv);\n")],
+    },
+    "flash_attn_bwd": {
+        "full": [],
+        "no_softmax": [
+            ("      dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);\n", ""),
+            ("      dkv_tile_ds(dpt, st, sm.dl + stage * 64, col0);\n", ""),
+            ("      tile(s, dp, t);\n", "")],
+        "no_exp": [(
+            'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
+            "y = x * 0.001f + 1.f;")],
+        "no_products": [
+            ("    wgmma_ss<0>(s, wgmma_desc_advance(da, kk * 32),\n"
+             "                wgmma_desc_advance(db, kk * 32), kk != 0);\n",
+             "    s[kk] = __uint_as_float((uint32_t)(da + db) & "
+             "0x3fffffffu);\n"),
+            ("    wgmma_rs(acc, f[kk], wgmma_desc_advance(db, kk * "
+             "kWgKStepBytes));\n",
+             "    acc[kk] += __uint_as_float(f[kk][0] ^ (uint32_t)db);\n")],
+        "three_stages": [("constexpr int kWgStages = 4;",
+                          "constexpr int kWgStages = 3;")],
+        "dkv_pipelined": [(DKV_LOOP, DKV_PIPELINED)],
     },
     "fused_epilogue": {
         "full": [],
@@ -97,7 +241,8 @@ def main() -> int:
     import torch
 
     from ..ops import _build
-    from ..ops.flash_attention import mha
+    from ..ops.flash_attention import (flash_attn_bwd_dkv, flash_attn_bwd_dq,
+                                       mha, mha_reference)
     from ..ops.fused_epilogue import matmul_scale_residual
 
     if not torch.cuda.is_available():
@@ -117,6 +262,13 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     qkvs = [torch.randn((b, n, 3, h, d), generator=gen, device="cuda",
                         dtype=torch.bfloat16) for b, h, n, d in ATTN_SHAPES]
+    bwds = []   # (q, k, v, dO, LSE, delta); the forward by the plain version
+    for b, h, n, d in BWD_SHAPES:
+        q, k, v, do = (torch.randn((b, h, n, d), generator=gen, device="cuda",
+                                   dtype=torch.bfloat16) for _ in range(4))
+        o, lse = mha_reference(q, k, v, return_lse=True)
+        bwds.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
+        del o
     gemms = []
     for m, k, n in GEMM_SHAPES:
         x, r = (torch.randn((m, c), generator=gen, device="cuda")
@@ -137,9 +289,22 @@ def main() -> int:
                 text = text.replace(old, new)
             (_build.CSRC / f"{name}.cu").write_text(text)
             _build._loaded.clear()
-            _build.build((name,))
+            report = _build.build((name,)).get(name, "")
+            for line in report.splitlines():
+                if "(C75" in line:   # ptxas serialised a wgmma pipeline
+                    print(f"{name} {label}: {line.strip()[:120]} ...",
+                          flush=True)
             times = []
-            if name == "flash_attn_fwd":
+            if name == "flash_attn_bwd":
+                for shape, args in zip(BWD_SHAPES, bwds):
+                    scale = shape[3] ** -0.5
+                    dq_ms = cuda_ms(lambda: flash_attn_bwd_dq(
+                        *args, sm_scale=scale))
+                    dkv_ms = cuda_ms(lambda: flash_attn_bwd_dkv(
+                        *args, sm_scale=scale))
+                    times.append(f"{list(shape)} dq {dq_ms:.4f} ms, dk/dv "
+                                 f"{dkv_ms:.4f} ms")
+            elif name == "flash_attn_fwd":
                 for shape, qkv in zip(ATTN_SHAPES, qkvs):
                     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
                     times.append(f"{list(shape)} "

@@ -9,9 +9,8 @@ plain PyTorch version on the card:
 
   1. device and flags: `nvidia-smi` name and power limit, the TF32 flags;
   2. build: nvcc compiles the three kernel libraries from `csrc/` (all at
-     once); where `cuobjdump` is found, the forward and the epilogue
-     libraries' SASS must hold HGMMA (wgmma) and UTMALDG (TMA load)
-     opcodes;
+     once); where `cuobjdump` is found, each library's SASS must hold
+     HGMMA (wgmma) and UTMALDG (TMA load) opcodes;
   3. kernel vs plain version at the main paths' attention shapes and
      more, float32 (max abs <= 2e-5) and bfloat16 (<= 2e-2, plain version
      on the bf16-rounded inputs in float32), with kernel, plain and
@@ -23,7 +22,13 @@ plain PyTorch version on the card:
      one short of N and in the middle of a tile, 77 keys under 4096 rows,
      strided views of one qkv buffer, with and without the LSE), then the
      two backward kernels (dQ; dK and dV) against `mha_bwd_reference`,
-     tolerances relative to the reference's max abs, and `mha` under
+     tolerances relative to the reference's max abs, at the trunks' shapes
+     and the UNet's (head dims 40/80/160, self-attention and onto 77
+     keys), each timed beside SDPA's backward (CUDA events, and the
+     kernels' device time from torch.profiler, which launch-bound shapes
+     need), and on the edges of their
+     tiles (the forward's sweep: N from 1 to 257, kv_len inside a tile,
+     dead dK/dV rows exactly 0, head dims 64/40/24/8), and `mha` under
      autograd on strided CUDA views; then the fused matmul + LayerScale +
      residual epilogue against `matmul_scale_residual_reference` at the
      trunks' proj / fc2 shapes, and its path: a chain of four blocks at
@@ -61,7 +66,9 @@ plain PyTorch version on the card:
      per call (4 steps x (16 self + 16 cross)), images/s, p50 latency,
      peak memory and a torch.profiler breakdown of one call.
 
-Prints a `{"kernels": [...]}` line, the card's name and power limit, and as
+Prints a `{"kernels": [...]}` line (the backward entries also list every
+instantiation that ran, with its cases, worst error and times), the card's
+name and power limit, and as
 its last line `{"ok": true, "device": {...}}`. Exits non-zero without that
 line when there is no CUDA device or any check fails.
 """
@@ -140,12 +147,16 @@ CHAIN_BLOCKS = 4
 DEPTHFM_PROXY = os.path.join("checkpoints", "proxy", "depthfm.npz")
 DEPTHFM_SIZE, DEPTHFM_STEPS, DEPTHFM_BATCH, DEPTHFM_CALLS = 512, 4, 4, 3
 DEPTHFM_LAUNCHES = DEPTHFM_STEPS * 32   # 16 self + 16 cross per UNet call
-# the backward kernels: the training main path (vitl, batch 8, 518 px)
-# first, then batch 1, a ragged N, vitg at 1022 px and kv_len < N
-BWD_CASES = [((8, 16, 1370, 64), None), ((1, 16, 1370, 64), None),
-             ((2, 16, 777, 64), None), ((1, 24, 5330, 64), None),
-             ((1, 16, 1408, 64), 1370)]
-BWD_MAIN_CASE = ((8, 16, 1370, 64), None, "bfloat16")
+# the backward kernels, (q shape, Nk, kv_len): the training main path (vitl,
+# batch 8, 518 px) first, then batch 1, a ragged N, vitg at 1022 px and
+# kv_len < N; then the SD-1.5 UNet's self-attention at head dims 40/80/160
+# and each onto the 77 context keys (DepthFM training's shapes)
+BWD_CASES = [((8, 16, 1370, 64), 1370, None), ((1, 16, 1370, 64), 1370, None),
+             ((2, 16, 777, 64), 777, None), ((1, 24, 5330, 64), 5330, None),
+             ((1, 16, 1408, 64), 1408, 1370)] + [
+                 (shape, nk, None) for shape, nk in UNET_ATTN_CASES
+                 if shape[2] > 64]
+BWD_MAIN_CASE = ((8, 16, 1370, 64), 1370, None, "bfloat16")
 FULL_BATCH, FULL_CALLS, SIZE = 4, 3, 518
 TRAIN_CONFIG = "configs/train_discriminative_vitl.yaml"
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_BLOCKS = 8, 5, 24
@@ -321,7 +332,8 @@ def host_cost_phase(gpu: str) -> None:
 
 
 def sass_check() -> None:
-    """The two redesigned libraries' SASS holds wgmma and TMA-load opcodes."""
+    """The three redesigned libraries' SASS holds wgmma and TMA-load
+    opcodes."""
     import shutil
 
     from amodal_depth_anything_tpu_torch.ops import _build
@@ -331,7 +343,7 @@ def sass_check() -> None:
     if not os.path.exists(tool):
         print("  cuobjdump not found: SASS not inspected", flush=True)
         return
-    for name in ("flash_attn_fwd", "fused_epilogue"):
+    for name in ("flash_attn_fwd", "flash_attn_bwd", "fused_epilogue"):
         sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
                               capture_output=True, text=True).stdout
         counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
@@ -468,25 +480,56 @@ def roofline(flops: float, nbytes: float, dt_name: str):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def device_ms(fn, names, calls: int = 5) -> dict:
+    """Device time per call of `fn` of each kernel whose name holds one of
+    `names`, from the device-side events of a torch.profiler trace (None
+    where the profiler recorded none): event timing of a launch-bound
+    shape reads the host's launch rate instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    found = {name: [] for name in names}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for name in names:
+                if name + "_" in e.name:
+                    found[name].append(e.time_range.elapsed_us() / 1e3)
+    return {name: sum(t) / calls if t else None for name, t in found.items()}
+
+
+def as_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
 def attention_bwd_phase(gpu: str) -> dict:
     """The two backward kernels against `mha_bwd_reference` on the same
-    inputs (the kernels' own forward output and LSE among them)."""
+    inputs (the kernels' own forward output and LSE among them): the main
+    paths' and the UNet's shapes, timed, then the tile-edge sweep."""
     import torch
     import torch.nn.functional as F
 
     from amodal_depth_anything_tpu_torch.ops.flash_attention import (
-        flash_attn_bwd_dkv, flash_attn_bwd_dq, mha, mha_bwd_reference)
+        bwd_instantiations, flash_attn_bwd_dkv, flash_attn_bwd_dq, mha,
+        mha_bwd_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    main = {}
-    for shape, kv_len in BWD_CASES:
+    main, runs = {}, {}
+    for shape, nk, kv_len in BWD_CASES:
         for dt_name in ("float32", "bfloat16"):
             dtype = getattr(torch, dt_name)
             b, h, n, d = shape
-            kv = n if kv_len is None else kv_len
+            kv = nk if kv_len is None else kv_len
             scale = d ** -0.5
-            q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
-                           .to(dtype) for _ in range(4))
+            q, do = (torch.randn(shape, generator=gen, device="cuda")
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn((b, h, nk, d), generator=gen, device="cuda")
+                    .to(dtype) for _ in range(2))
             if kv_len is not None:
                 do[:, :, kv_len:] = 0   # padded query rows carry no cotangent
             o, lse = mha(q, k, v, kv_len=kv_len, return_lse=True)
@@ -503,37 +546,40 @@ def attention_bwd_phase(gpu: str) -> dict:
                 errs[name] = (out.float() - ref).abs().max().item()
                 rels[name] = errs[name] / ref.abs().max().item()
             del refs
+            what = f"{dt_name} q {list(shape)} Nk={nk} kv_len={kv}"
             for name in ("dq", "dk", "dv"):
                 check(rels[name] <= TOL[dt_name],
-                      f"flash_attn_bwd {name} {dt_name} {list(shape)} "
-                      f"kv_len={kv}: max abs {errs[name]:.3e} = "
-                      f"{rels[name]:.3e} of the reference's max abs <= "
-                      f"{TOL[dt_name]}")
+                      f"flash_attn_bwd {name} {what}: max abs "
+                      f"{errs[name]:.3e} = {rels[name]:.3e} of the "
+                      f"reference's max abs <= {TOL[dt_name]}")
             if kv_len is not None:
                 dead = max(dk[:, :, kv_len:].abs().max().item(),
                            dv[:, :, kv_len:].abs().max().item())
                 check(dead == 0.0, f"flash_attn_bwd {dt_name} rows >= kv_len "
                                    f"of dK and dV exactly 0 (max {dead})")
             es = q.element_size()
-            io = 2 * b * h * n * d + 2 * b * h * kv * d   # q, dO, k, v
+            io = 2 * b * h * n * d + 2 * b * h * nk * d   # q, dO, k, v
             stats = 2 * b * h * n * 4                      # LSE, delta
-            q_len = kv if kv_len is not None else n
+            q_len = kv if n == nk else n
             dq_flops = 6 * b * h * n * kv * d
             dkv_flops = 8 * b * h * q_len * kv * d
             dq_bound = roofline(dq_flops, (io + b * h * n * d) * es + stats,
                                 dt_name)
             dkv_bound = roofline(dkv_flops,
-                                 (io + 2 * b * h * n * d) * es + stats,
+                                 (io + 2 * b * h * nk * d) * es + stats,
                                  dt_name)
             iters = max(3, min(30, int(1e11 / dq_flops)))
             dq_ms = cuda_ms(lambda: flash_attn_bwd_dq(*args, **kw), iters)
             dkv_ms = cuda_ms(lambda: flash_attn_bwd_dkv(*args, **kw), iters)
+            dev = device_ms(lambda: (flash_attn_bwd_dq(*args, **kw),
+                                     flash_attn_bwd_dkv(*args, **kw)),
+                            ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"))
             plain_ms = cuda_ms(lambda: mha_bwd_reference(
                 q, k, v, o, lse, do, **kw), 2, warmup=1)
             # yardstick only: the library's backward, as the time of its
             # forward plus backward less the time of its forward
             mask = None if kv_len is None else (
-                torch.arange(n, device="cuda") < kv_len)[None, None, None]
+                torch.arange(nk, device="cuda") < kv_len)[None, None, None]
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
 
             def sdpa_fwd_bwd():
@@ -545,16 +591,32 @@ def attention_bwd_phase(gpu: str) -> dict:
             lib_ms = cuda_ms(sdpa_fwd_bwd, iters) - cuda_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v,
                                                        attn_mask=mask), iters)
-            print(f"  attn bwd {dt_name:8s} {str(list(shape)):20s} "
-                  f"kv_len={kv} rel err dq {rels['dq']:.2e} dk "
+            print(f"  attn bwd {what} rel err dq {rels['dq']:.2e} dk "
                   f"{rels['dk']:.2e} dv {rels['dv']:.2e}; dq kernel "
                   f"{dq_ms:.4f} ms (bound {dq_bound[0]:.4f} ms, "
                   f"{dq_bound[1]}, {dq_flops / dq_ms / 1e9:.1f} TFLOP/s), "
                   f"dk/dv kernel {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f} "
                   f"ms, {dkv_bound[1]}, {dkv_flops / dkv_ms / 1e9:.1f} "
-                  f"TFLOP/s); plain dq+dk+dv {plain_ms:.4f} ms; sdpa "
-                  f"backward (dq+dk+dv) {lib_ms:.4f} ms [{gpu}]", flush=True)
-            if (shape, kv_len, dt_name) == BWD_MAIN_CASE:
+                  f"TFLOP/s); device (profiler) dq "
+                  f"{as_ms(dev['flash_attn_bwd_dq'])}, dk/dv "
+                  f"{as_ms(dev['flash_attn_bwd_dkv'])}; plain "
+                  f"dq+dk+dv {plain_ms:.4f} ms; sdpa backward (dq+dk+dv) "
+                  f"{lib_ms:.4f} ms [{gpu}]", flush=True)
+            for kernel, ms, dms, bound, flops, err in zip(
+                    bwd_instantiations(dtype, d), (dq_ms, dkv_ms),
+                    dev.values(), (dq_bound, dkv_bound),
+                    (dq_flops, dkv_flops),
+                    (rels["dq"], max(rels["dk"], rels["dv"]))):
+                run = runs.setdefault(kernel, {"cases": 0, "max_rel_err": 0.0,
+                                               "timed": []})
+                run["cases"] += 1
+                run["max_rel_err"] = max(run["max_rel_err"], err)
+                run["timed"].append({"q": list(shape), "nk": nk, "kv_len": kv,
+                                     "ms": ms, "device_ms": dms,
+                                     "bound_ms": bound[0],
+                                     "tflops": flops / ms / 1e9,
+                                     "library_ms": lib_ms})
+            if (shape, nk, kv_len, dt_name) == BWD_MAIN_CASE:
                 # the plain version and the library compute all three
                 # gradients in one call: both kernels carry that one time
                 main["flash_attn_bwd_dq"] = {
@@ -567,8 +629,78 @@ def attention_bwd_phase(gpu: str) -> dict:
                     "bound_by": dkv_bound[1], "library_ms": lib_ms}
             del q, k, v, do, o, lse, delta, dq, dk, dv, args, leaves
             torch.cuda.empty_cache()
+    attention_bwd_edge_cases(runs)
     autograd_check()
+    for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        main[name]["instantiations"] = [
+            {"name": kernel, **run} for kernel, run in sorted(runs.items())
+            if kernel.startswith(name + "_")]
     return main
+
+
+def attention_bwd_edge_cases(runs: dict) -> None:
+    """Both backward kernels on the edges of their tiles (128 resident rows
+    a block, 64 a warpgroup, 64-row streamed tiles), through strided views
+    of one qkv buffer as the models hand them over, against
+    `mha_bwd_reference`. The error is relative to the largest of the three
+    reference gradients' max abs: at N = 1, dQ and dK are zero up to
+    rounding (P = 1, dP = delta), so a ratio to their own max abs would
+    measure only that rounding."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import (
+        bwd_instantiations, flash_attn_bwd_dkv, flash_attn_bwd_dq, mha,
+        mha_bwd_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = [(n, n, kv) for n in EDGE_NS for kv in (None, n - 1, n - 70)
+             if kv is None or kv >= 1] + [(4096, 77, None)]
+    b, h = 2, 2
+    for dt_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt_name)
+        for d in EDGE_HEAD_DIMS:
+            worst, bad, dead = 0.0, [], 0.0
+            for nq, nk, kv_len in cases:
+                qkv = torch.randn((b, nk, 3, h, d), generator=gen,
+                                  device="cuda").to(dtype)
+                q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+                if nq != nk:
+                    q = torch.randn((b, nq, h, d), generator=gen,
+                                    device="cuda").to(dtype).transpose(1, 2)
+                do = torch.randn((b, nq, h, d), generator=gen,
+                                 device="cuda").to(dtype).transpose(1, 2)
+                if kv_len is not None:
+                    do[:, :, kv_len:] = 0
+                o, lse = mha(q, k, v, kv_len=kv_len, return_lse=True)
+                delta = (do.float() * o.float()).sum(-1)
+                args = (q, k, v, do, lse, delta)
+                kw = {"sm_scale": d ** -0.5, "kv_len": kv_len}
+                outs = (flash_attn_bwd_dq(*args, **kw),
+                        *flash_attn_bwd_dkv(*args, **kw))
+                torch.cuda.synchronize()
+                refs = mha_bwd_reference(q.float(), k.float(), v.float(),
+                                         o.float(), lse, do.float(), **kw)
+                top = max(r.abs().max().item() for r in refs)
+                err = max((a.float() - r).abs().max().item()
+                          for a, r in zip(outs, refs)) / top
+                if kv_len is not None:
+                    dead = max(dead, outs[1][:, :, kv_len:].abs().max().item(),
+                               outs[2][:, :, kv_len:].abs().max().item())
+                if not err <= TOL[dt_name]:
+                    bad.append((nq, nk, kv_len, err))
+                worst = max(worst, err)
+            for kernel in bwd_instantiations(dtype, d):
+                run = runs.setdefault(kernel, {"cases": 0, "max_rel_err": 0.0,
+                                               "timed": []})
+                run["cases"] += len(cases)
+                run["max_rel_err"] = max(run["max_rel_err"], worst)
+            check(not bad and dead == 0.0,
+                  f"flash_attn_bwd {dt_name} d={d} on {len(cases)} tile-edge "
+                  f"cases (N in {list(EDGE_NS)}, kv_len N-1 and N-70, 4096 x "
+                  f"77): max abs {worst:.3e} of the largest reference "
+                  f"gradient <= {TOL[dt_name]}; rows >= kv_len of dK and dV "
+                  f"exactly 0 (max {dead})"
+                  + (f"; failing (Nq, Nk, kv_len, err): {bad}" if bad else ""))
 
 
 def autograd_check() -> None:

@@ -15,7 +15,7 @@ from amodal_depth_anything_tpu.ops.flash_attention import \
     mha_reference as jax_mha_reference
 from amodal_depth_anything_tpu_torch.ops.attention import multi_head_attention
 from amodal_depth_anything_tpu_torch.ops.flash_attention import (
-    _check, flash_attn_bwd_dq, mha, mha_reference)
+    _check, _check_bwd, mha, mha_reference)
 from tests.test_torch_models import few_torch_threads  # noqa: F401
 
 TOL = 1e-5
@@ -180,6 +180,9 @@ class _OnCard:
     def data_ptr(self):
         return 0
 
+    def is_contiguous(self):
+        return True
+
 
 @pytest.mark.parametrize("dtype,d,ok", [
     (torch.float32, 12, True), (torch.float32, 40, True),
@@ -200,7 +203,10 @@ def test_check_head_dim_rule(dtype, d, ok):
 
 
 def test_backward_kernels_keep_head_dim_64():
-    q = _OnCard((1, 2, 8, 40), torch.float32)
+    """The backward wrappers take head dim 64 and, like the forward, the
+    UNet's 40, 80 and 160: no rule of their own."""
     stat = _OnCard((1, 2, 8), torch.float32)
-    with pytest.raises(ValueError, match="head dim 64"):
-        flash_attn_bwd_dq(q, q, q, q, stat, stat, sm_scale=1.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (64, 40, 80, 160):
+            q = _OnCard((1, 2, 8, d), dtype)
+            _check_bwd(q, q, q, q, stat, stat, 8)

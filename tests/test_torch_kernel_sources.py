@@ -2,8 +2,9 @@
 
 Every kernel library has its source, each C entry point takes as many
 arguments as its Python wrapper declares, the build targets `sm_90a`, the
-two tensor-core kernels redesigned for Hopper are built from wgmma and TMA,
-and no source leans on a library's kernels."""
+three tensor-core kernel libraries redesigned for Hopper (the forward, the
+backward pair, the fused epilogue) are built from wgmma and TMA, and no
+source leans on a library's kernels."""
 
 import re
 
@@ -72,7 +73,8 @@ def test_build_targets_sm_90a():
     assert "arch=compute_90a,code=sm_90a" in flags
 
 
-@pytest.mark.parametrize("name", ["flash_attn_fwd.cu", "fused_epilogue.cu"])
+@pytest.mark.parametrize("name", ["flash_attn_fwd.cu", "flash_attn_bwd.cu",
+                                  "fused_epilogue.cu"])
 @pytest.mark.parametrize("ptx", [
     "wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait.parity",
     "setmaxnreg"])

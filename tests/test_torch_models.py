@@ -239,3 +239,18 @@ def test_init_weights_is_seeded():
     assert not a[guidance].any()               # zero-init guidance embed
     assert torch.equal(a["encoder.pretrained.blocks.0.ls1.gamma"],
                        torch.ones(cfg.vit.embed_dim))
+
+
+@pytest.mark.parametrize("name", ["AmodalDAv2", "DepthAnythingV2Raw"])
+def test_registry_builds_on_the_card_unless_asked_for_the_cpu(name):
+    """The discriminative builders default to "cuda", as DepthFM's does;
+    `device="cpu"` puts every parameter on the CPU."""
+    import inspect
+
+    from amodal_depth_anything_tpu_torch.models import (MODEL_REGISTRY,
+                                                        get_model)
+
+    default = inspect.signature(MODEL_REGISTRY[name]).parameters["device"]
+    assert default.default == "cuda"
+    model = get_model(name, encoder="vitt", device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}

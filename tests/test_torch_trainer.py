@@ -71,8 +71,8 @@ def _cfg(**kw):
 
 
 def _trainer(cfg, train_loader, **kw):
-    return DiscriminativeTrainer(cfg, get_model("AmodalDAv2", encoder="vitt"),
-                                 train_loader, device="cpu", **kw)
+    model = get_model("AmodalDAv2", encoder="vitt", device="cpu")
+    return DiscriminativeTrainer(cfg, model, train_loader, device="cpu", **kw)
 
 
 def _batches(sam_tree, n):
@@ -165,7 +165,7 @@ def test_train_step_matches_jax(sam_tree):
     batches = _batches(sam_tree, 3)
     jmodel = jax_get_model("AmodalDAv2", encoder="vitt")
     jparams = _noisy_jax_params(jmodel)
-    model = get_model("AmodalDAv2", encoder="vitt")
+    model = get_model("AmodalDAv2", encoder="vitt", device="cpu")
     trainer = DiscriminativeTrainer(
         cfg, model, None, device="cpu",
         params=params_from_jax(jparams, model.cfg))
