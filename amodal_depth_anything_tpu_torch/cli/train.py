@@ -54,6 +54,23 @@ def _metric_names():
     return METRIC_FNS
 
 
+def _loss_kwargs(name: str, kwargs: dict) -> dict:
+    """The loss kwargs the named loss takes. A child config that names
+    another loss with `kwargs: {}` still inherits its base's kwargs (the
+    merge is deep: `train_depthfm_base.yaml` names `l1_loss` over the
+    discriminative base's `silog_loss` with `beta`), so keys the loss does
+    not take are dropped, with a warning."""
+    import inspect
+
+    from ..utils.loss import get_loss
+    params = inspect.signature(get_loss(name)).parameters
+    kept = {k: v for k, v in kwargs.items() if k in params}
+    if kept != kwargs:
+        logging.warning("loss %s takes no %s; dropped", name,
+                        sorted(set(kwargs) - set(kept)))
+    return kept
+
+
 def trainer_config_from_cfg(cfg, accumulation_steps: int):
     from ..train import TrainerConfig
     from ..utils.config import find_value
@@ -67,11 +84,13 @@ def trainer_config_from_cfg(cfg, accumulation_steps: int):
     logg = cfg.get("logging")
     strategy = find_value(cfg, "loss_stategy") or \
         find_value(cfg, "loss_strategy") or "entire_target_object"
+    loss_name = loss_cfg.name if loss_cfg else "silog_loss"
     return TrainerConfig(
         loss_strategy=strategy,
-        loss_name=loss_cfg.name if loss_cfg else "silog_loss",
-        loss_kwargs=loss_cfg.kwargs.to_dict() if loss_cfg and
-        loss_cfg.get("kwargs") else {},
+        loss_name=loss_name,
+        loss_kwargs=_loss_kwargs(loss_name, loss_cfg.kwargs.to_dict()
+                                 if loss_cfg and loss_cfg.get("kwargs")
+                                 else {}),
         lr=float(cfg.get("lr", 3e-5)) * float(cfg.get("scale_lr", 1.0)),
         lr_total_iter=int(kw.total_iter) if kw else 50000,
         lr_final_ratio=float(kw.final_ratio) if kw else 0.01,
@@ -112,6 +131,28 @@ def trainer_config_from_cfg(cfg, accumulation_steps: int):
         optimizer=cfg.get("optimizer", tcfg.get("optimizer", "adam")
                           if tcfg else "adam"),
     )
+
+
+def trainer_kwargs_from_cfg(cfg) -> dict:
+    """Trainer-class-specific kwargs from the config tree."""
+    extra = {}
+    name = cfg.trainer.name
+    if name == "AmodalSynthDriveTrainer" and \
+            cfg.trainer.get("w_occ") is not None:
+        extra["w_occ"] = float(cfg.trainer.w_occ)
+    if name == "DepthFMTrainer":
+        # DDPM finetune settings (the reference reads the diffusers
+        # scheduler dir, `depthfm_trainer.py:93-105`; these are explicit
+        # keys)
+        for key in ("prediction_type", "num_train_timesteps",
+                    "beta_start", "beta_end"):
+            val = cfg.trainer.get(key)
+            if val is not None:
+                extra[key] = val
+        mrn = cfg.get("multi_res_noise")
+        if mrn is not None:
+            extra["multi_res_noise"] = mrn.to_dict()
+    return extra
 
 
 def main(argv=None) -> None:
@@ -232,7 +273,7 @@ def main(argv=None) -> None:
     trainer = trainer_cls(tcfg, model, train_loader, val_loaders, vis_loaders,
                           device=args.device, out_dir_ckpt=out_ckpt,
                           out_dir_eval=out_eval, out_dir_vis=out_vis,
-                          seed=seed)
+                          seed=seed, **trainer_kwargs_from_cfg(cfg))
     if args.resume_run:
         trainer.load_checkpoint(args.resume_run, resume_training=True)
     trainer.train(t_end=t_end)

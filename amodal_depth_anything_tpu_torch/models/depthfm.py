@@ -1,6 +1,6 @@
-"""DepthFM / DepthFMAmodal inference: flow-matching depth in SD latent space.
+"""DepthFM / DepthFMAmodal: flow-matching depth in SD latent space.
 
-Port of the inference half of the JAX package's `models/depthfm.py`
+Port of the JAX package's `models/depthfm.py`
 (reference `src/models/depthfm/dfm.py:17-159`, `dfm_amodal.py:34-346`):
 
   * the SD-1.5 VAE (`models.vae`) encodes the image (and a guide image)
@@ -9,16 +9,19 @@ Port of the inference half of the JAX package's `models/depthfm.py`
   * the LDM UNet (`models.unet_ldm`) takes x_t with the conditioning
     latents concatenated on channels and the empty-text embedding through
     cross-attention; conv-in is widened by `additional_dim` channels;
-  * inference: x_0 = the cosine-noised image latent at `noising_step`, a
-    fixed-step Euler solve of the flow ODE over `num_steps` (a Python loop
-    where the JAX package scans), decode, channel mean, depth =
-    1 - clamp((d + 1) / 2) (`dfm_amodal.py:246-265`).
+  * training (`depthfm_train_outputs`): x_0 = the cosine-noised image latent
+    at `noising_step`, x_1 = the depth latent, x_t their linear
+    interpolation at a random t; the target is x_1 - x_0
+    (`dfm_amodal.py:225-244`);
+  * inference: x_0 as in training, a fixed-step Euler solve of the flow ODE
+    over `num_steps` (a Python loop where the JAX package scans), decode,
+    channel mean, depth = 1 - clamp((d + 1) / 2) (`dfm_amodal.py:246-265`).
 
 Randomness is explicit: every function that noises takes `rng`, either a
 `torch.Generator` (the noise is drawn on the generator's device in float32
 and moved to the latents' device and dtype, so a CPU generator gives one
 result on the card and on the CPU) or a ready noise tensor of the latents'
-shape. The training outputs (`depthfm_train_outputs`) are not ported yet.
+shape.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from .vae import AutoencoderKL, VAEConfig
 
 __all__ = ["GUIDE_LATENT_DIMS", "DepthFMConfig", "DepthFM", "build_depthfm",
            "init_depthfm_", "cosine_alpha_bar", "q_sample",
-           "depthfm_generate", "depthfm_predict_depth"]
+           "depthfm_train_outputs", "depthfm_generate",
+           "depthfm_predict_depth"]
 
 # guide latent channels: VAE latent (4) for image; 1 each for mask/obs
 GUIDE_LATENT_DIMS = {
@@ -127,12 +131,20 @@ class DepthFM(nn.Module):
             torch.zeros(1, cfg.context_len, cfg.context_dim))
 
     def forward(self, x: torch.Tensor, rng=None, mode: str = "eval",
-                guide_rgb=None, guide_mask=None, observation=None,
-                num_steps: int = 4, attn_impl: str | None = None,
-                deep_cache=None) -> torch.Tensor:
+                depth=None, guide_rgb=None, guide_mask=None,
+                observation=None, num_steps: int = 4,
+                attn_impl: str | None = None, deep_cache=None, t=None,
+                remat: bool = False):
+        """mode "eval": `depthfm_generate` -> depth [B,H,W,1]; mode "train":
+        `depthfm_train_outputs` (needs `depth`; `t` and `remat` are its)
+        -> (model_pred, target) latents."""
         if mode == "train":
-            raise NotImplementedError(
-                "DepthFM training outputs (mode='train') are not ported yet")
+            if depth is None:
+                raise ValueError("mode='train' needs the target depth")
+            return depthfm_train_outputs(
+                self, rng, x, depth, t=t, guide_rgb=guide_rgb,
+                guide_mask=guide_mask, observation=observation,
+                attn_impl=attn_impl, remat=remat)
         if mode != "eval":
             raise ValueError(f"unknown mode: {mode!r}")
         return depthfm_generate(
@@ -201,6 +213,45 @@ def _guide_latents(model: DepthFM, rgb_latent, guide_rgb, guide_mask,
 def _conditioning(model: DepthFM, batch_size: int, dtype) -> torch.Tensor:
     e = model.empty_text_embed.to(dtype)
     return e.expand(batch_size, *e.shape[1:])
+
+
+def depthfm_train_outputs(model: DepthFM, rng, ims: torch.Tensor,
+                          depth: torch.Tensor, *, t=None, guide_rgb=None,
+                          guide_mask=None, observation=None,
+                          attn_impl: str | None = None,
+                          remat: bool = False):
+    """ims: [B,H,W,3] in [-1,1]; depth: [B,H,W,1] in [0,1].
+
+    Returns (model_pred, target) latents [B,h,w,4]. `rng`: a generator, or
+    the q_sample noise of the latents' shape; `t`: the integer flow steps
+    [B] in [0, noising_step), or None to draw them from `rng` (a generator;
+    noise first, then t). The VAE, the guide latents and the empty-text
+    embedding run without gradient: training moves the UNet only."""
+    cfg = model.cfg
+    with torch.no_grad():
+        rgb_latent = model.vae.encode_mode(ims)
+        cond_latent = _guide_latents(model, rgb_latent, guide_rgb,
+                                     guide_mask, observation)
+        conditioning = _conditioning(model, ims.shape[0], ims.dtype)
+        depth_in = (1.0 - depth) * 2.0 - 1.0
+        x_1 = model.vae.encode_mode(depth_in.expand(*depth_in.shape[:3], 3))
+    noise = _noise(rng, rgb_latent)
+    x_0 = q_sample(rgb_latent, cfg.noising_step, noise,
+                   cfg.n_diffusion_timesteps)
+    if t is None:
+        if not isinstance(rng, torch.Generator):
+            raise ValueError("pass t with a noise tensor, or a generator to "
+                             "draw both")
+        t = torch.randint(0, cfg.noising_step, (ims.shape[0],),
+                          generator=rng, device=rng.device)
+    # the flow time in the compute dtype, as the JAX package rounds it
+    t = t.to(device=ims.device, dtype=ims.dtype).view(-1, 1, 1, 1) \
+        / cfg.noising_step
+    x_t = (1.0 - t) * x_0 + t * x_1
+    model_pred = model.unet(x_t, t[:, 0, 0, 0], context=cond_latent,
+                            context_ca=conditioning, attn_impl=attn_impl,
+                            remat=remat)
+    return model_pred, x_1 - x_0
 
 
 def _euler_depth(model: DepthFM, rng, rgb_latent, cond_latent, conditioning,

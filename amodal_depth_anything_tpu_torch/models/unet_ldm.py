@@ -16,10 +16,12 @@ this module and the weight bridge walk.
 
 Tensors are NHWC as in the JAX package; GroupNorm runs in float32 with the
 JAX package's group rule; both attentions go through `ops.attention`
-(on CUDA tensors the flash-attention forward kernel at head dims 40, 80 and
-160, self-attention over 64-4096 latent tokens and cross-attention onto the
-77 context tokens alike). Left out, raising `NotImplementedError`: token
-merging (`tome`), `remat`, and the quantised linears and convolutions.
+(on CUDA tensors the flash-attention kernels, forward and backward, at head
+dims 40, 80 and 160, self-attention over 64-4096 latent tokens and
+cross-attention onto the 77 context tokens alike). `remat=True` recomputes
+each level in the backward pass (the DepthFM trainers' option). Left out,
+raising `NotImplementedError`: token merging (`tome`) and the quantised
+linears and convolutions.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import multi_head_attention
 from ..ops.conv import Conv2dNHWC, fused_upsample2x_conv
@@ -362,14 +365,25 @@ class UNetModel(nn.Module):
         output groups, with the cached feature in place of everything
         deeper. With identical (x, t) the spliced pass reproduces the full
         pass exactly; across nearby solver steps it is an approximation,
-        so it is opt-in."""
+        so it is opt-in.
+
+        `remat=True` recomputes each input, middle and output level in the
+        backward pass (`torch.utils.checkpoint` per level; the reference
+        trains the SD UNet with `use_checkpoint=True`). The skip tensors
+        `hs` stay live: they are consumed far from where they are made, so
+        recomputing them would cascade. The time embedding and the output
+        head are not recomputed."""
         if tome is not None:
             raise NotImplementedError(
                 "token merging (tome) is not ported to the torch UNet")
-        if remat:
-            raise NotImplementedError(
-                "remat belongs to the DepthFM trainers, which are not "
-                "ported yet")
+        remat = remat and torch.is_grad_enabled()
+
+        def run(level, h):
+            if remat:
+                return checkpoint(level, h, emb, context_ca, attn_impl,
+                                  use_reentrant=False)
+            return level(h, emb, context_ca, attn_impl)
+
         n_inp, n_out = len(self.input_blocks), len(self.output_blocks)
         if deep_cache_groups is not None:
             if not 1 <= deep_cache_groups < n_inp or n_inp != n_out:
@@ -383,21 +397,21 @@ class UNetModel(nn.Module):
         hs = []
         shallow = cached_deep is not None
         for i in range(deep_cache_groups if shallow else n_inp):
-            h = self.input_blocks[i](h, emb, context_ca, attn_impl)
+            h = run(self.input_blocks[i], h)
             hs.append(h)
         deep = None
         if shallow:
             h = cached_deep
             out_start = n_out - deep_cache_groups
         else:
-            h = self.middle_block(h, emb, context_ca, attn_impl)
+            h = run(self.middle_block, h)
             out_start = 0
         for i in range(out_start, n_out):
             if deep_cache_groups is not None and not shallow \
                     and i == n_out - deep_cache_groups:
                 deep = h
             h = torch.cat([h, hs.pop()], dim=-1)
-            h = self.output_blocks[i](h, emb, context_ca, attn_impl)
+            h = run(self.output_blocks[i], h)
         y = self.out[2](F.silu(self.out[0](h)))
         if deep_cache_groups is not None and not shallow:
             return y, deep

@@ -2,14 +2,16 @@
 
 from .state import (Optimizer, TrainState, create_train_state,
                     make_optimizer)
+from .depthfm_trainer import DepthFMAmodalTrainer, DepthFMTrainer
 from .trainer import DiscriminativeTrainer, TrainerConfig
 
 TRAINER_REGISTRY = {
     "DiscriminativeTrainer": DiscriminativeTrainer,
+    "DepthFMAmodalTrainer": DepthFMAmodalTrainer,
+    "DepthFMTrainer": DepthFMTrainer,
 }
 # trainers of the JAX package that this port does not have yet
-UNPORTED_TRAINERS = ("InvisibleStitchTrainer", "AmodalSynthDriveTrainer",
-                     "DepthFMAmodalTrainer", "DepthFMTrainer")
+UNPORTED_TRAINERS = ("InvisibleStitchTrainer", "AmodalSynthDriveTrainer")
 
 
 def get_trainer_cls(name: str):
@@ -22,5 +24,6 @@ def get_trainer_cls(name: str):
 
 
 __all__ = ["TrainState", "Optimizer", "create_train_state", "make_optimizer",
-           "DiscriminativeTrainer", "TrainerConfig", "get_trainer_cls",
+           "DiscriminativeTrainer", "DepthFMAmodalTrainer", "DepthFMTrainer",
+           "TrainerConfig", "get_trainer_cls",
            "TRAINER_REGISTRY"]

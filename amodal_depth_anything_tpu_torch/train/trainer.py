@@ -140,6 +140,10 @@ class DiscriminativeTrainer:
     to `device` in float32 and owns it from then on. Without `params` (a
     state dict) the weights are drawn from `seed`."""
 
+    # the submodule the optimizer moves (None: every parameter); the others
+    # keep requires_grad=False and stay out of the optimizer state
+    trainable: str | None = None
+
     def __init__(self, cfg: TrainerConfig, model: torch.nn.Module,
                  train_loader, val_loaders=None, vis_loaders=None, *,
                  device="cuda", out_dir_ckpt=None, out_dir_eval=None,
@@ -170,11 +174,13 @@ class DiscriminativeTrainer:
             optimizer=cfg.optimizer)
         self.model = model.to(device=self.device, dtype=torch.float32)
         if params is None:
-            from ..models.amodal_dav2 import init_weights_
-            init_weights_(self.model, torch.Generator(
+            self._init_weights(torch.Generator(
                 device=self.device).manual_seed(seed))
         else:
             self.model.load_state_dict(params, strict=True)
+        if self.trainable is not None:
+            for name, p in self.model.named_parameters():
+                p.requires_grad_(name.startswith(self.trainable + "."))
         self.state = create_train_state(self.model, self.tx)
         self.loss_fn = get_loss(cfg.loss_name, **(cfg.loss_kwargs or {}))
 
@@ -199,6 +205,11 @@ class DiscriminativeTrainer:
         self.step_timer = StepTimer()
         self._micro_step_count = 0
         self._trace = None
+
+    def _init_weights(self, generator: torch.Generator) -> None:
+        """Seeded random weights for a run without `params`."""
+        from ..models.amodal_dav2 import init_weights_
+        init_weights_(self.model, generator)
 
     # ----------------------------------------------------------- the steps
 
@@ -487,14 +498,16 @@ class DiscriminativeTrainer:
     # ----------------------------------------------------------- checkpoint
 
     def save_checkpoint(self, tag: str) -> None:
-        """Write `<out_dir_ckpt>/<tag>/state.pt`: parameters, optimizer
-        state, step and the resume metadata."""
+        """Write `<out_dir_ckpt>/<tag>/state.pt`: every parameter of the
+        model (the frozen ones too), optimizer state, step and the resume
+        metadata."""
         if not self.out_dir_ckpt:
             return
         path = os.path.abspath(os.path.join(self.out_dir_ckpt, tag))
         os.makedirs(path, exist_ok=True)
         tree = {
-            "params": {k: v.detach() for k, v in self.state.params.items()},
+            "params": {k: v.detach()
+                       for k, v in self.model.named_parameters()},
             "opt_state": self.state.opt_state,
             "step": self.state.step,
             "meta": {
@@ -515,7 +528,7 @@ class DiscriminativeTrainer:
         """Restore a `save_checkpoint` directory, exactly."""
         tree = torch.load(os.path.join(os.path.abspath(path), CHECKPOINT_FILE),
                           map_location=self.device, weights_only=True)
-        params = self.state.params
+        params = dict(self.model.named_parameters())
         if set(tree["params"]) != set(params):
             raise ValueError("checkpoint parameters do not match the model")
         with torch.no_grad():

@@ -38,8 +38,10 @@ plain PyTorch version on the card:
   4. the trained in-repo proxies on the card (f32, TF32 off, kernels)
      against the CPU (plain): the pipeline's maps, max abs <= 1e-4, one
      train step's loss and every parameter's gradient, <= 1e-4 of each
-     gradient's max abs, and the DepthFM proxy through
-     `DepthFMPipeline.__call__` at 64 px, max abs <= 1e-4;
+     gradient's max abs, the DepthFM proxy through
+     `DepthFMPipeline.__call__` at 64 px, max abs <= 1e-4, and one
+     `DepthFMAmodalTrainer` step on it (128 px, the same draws on both
+     sides): the loss and every UNet gradient within 1e-4 of its max abs;
   5. inference at full width: seeded random vitg raw base + vitl
      AmodalDAv2 at 518 px, one float32 image through the kernel and the
      plain path, then bfloat16 batch 4 through
@@ -64,7 +66,23 @@ plain PyTorch version on the card:
      through `DepthFMPipeline.__call__` from host arrays: finite
      [4, 512, 512] outputs in [0, 1], exactly 128 forward-kernel launches
      per call (4 steps x (16 self + 16 cross)), images/s, p50 latency,
-     peak memory and a torch.profiler breakdown of one call.
+     peak memory and a torch.profiler breakdown of one call;
+  8. DepthFM training at full width: a seeded random DepthFMAmodal at the
+     SD-1.5 widths under `DepthFMAmodalTrainer` with the shipped recipe
+     (`configs/train_depthfm_base.yaml`: bfloat16, l1 on the target object,
+     remat "attn", so no UNet recompute), fed batches of 8 synthetic scenes
+     at 518 px (64 x 64 latents) from memory. Five steps through
+     `trainer.train()`: finite losses, a moved UNet, a bit-identical frozen
+     VAE and text embedding, exactly 32 forward, 32 dQ and 32 dK/dV
+     launches per step; one step with `remat=True` (64 forward launches)
+     beside the recipe's, with peak memory; steps/s, p50 step time, peak
+     memory and a torch.profiler breakdown of one step (each attention
+     instantiation, GroupNorm's plain ops, device busy against wall); one
+     `validate()`; one float32 step at batch 1 with the kernels against
+     plain attention (loss and UNet gradient norm within 1e-3); then two
+     `DepthFMTrainer` steps under `configs/train_depthfm_ddpm_finetune.yaml`
+     (v-prediction, annealed multi-resolution noise) on the plain DepthFM
+     and its `validate()` (DDIM, 4 steps).
 
 Prints a `{"kernels": [...]}` line (the backward entries also list every
 instantiation that ran, with its cases, worst error and times), the card's
@@ -160,6 +178,16 @@ BWD_MAIN_CASE = ((8, 16, 1370, 64), 1370, None, "bfloat16")
 FULL_BATCH, FULL_CALLS, SIZE = 4, 3, 518
 TRAIN_CONFIG = "configs/train_discriminative_vitl.yaml"
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_BLOCKS = 8, 5, 24
+# DepthFM training: the shipped recipes, batches of 8 synthetic scenes at
+# 518 px (the recipe's max_train_batch_size and resize_to_hw; the VAE floors
+# 518 to 64 x 64 latents); 16 self + 16 cross attentions per UNet call
+DEPTHFM_TRAIN_CONFIG = "configs/train_depthfm_base.yaml"
+DDPM_TRAIN_CONFIG = "configs/train_depthfm_ddpm_finetune.yaml"
+DEPTHFM_TRAIN_STEPS, DDPM_TRAIN_STEPS, UNET_ATTN = 5, 2, 32
+# kernel device time and launches of the profiled DepthFM train step, and the
+# share of GroupNorm's plain ops (forward var_mean / addcmul, their backward)
+GROUP_NORM_OPS = ("aten::var_mean", "aten::addcmul", "VarMeanBackward",
+                  "AddcmulBackward")
 
 # a kernel's name, and its padded head dim if it is a template, in the
 # mangled name ptxas reports
@@ -821,10 +849,11 @@ def depthfm_proxy_phase() -> None:
           f"cross))")
 
 
-def profile_call(fn, what: str, gpu: str) -> None:
+def profile_call(fn, what: str, gpu: str):
     """Where the device time of one call of `fn` goes: the device-side
     (kernel and copy) events of a torch.profiler trace, summed by name. `fn`
-    must end synchronised."""
+    must end synchronised. Returns the profile, or None when it recorded no
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -842,7 +871,7 @@ def profile_call(fn, what: str, gpu: str) -> None:
     if not by_name:
         print("  profiler recorded no device time: breakdown not measured",
               flush=True)
-        return
+        return None
     busy_ms = sum(ms for ms, _ in by_name.values())
     print(f"  one profiled {what}: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall) "
@@ -851,6 +880,7 @@ def profile_call(fn, what: str, gpu: str) -> None:
                                     key=lambda kv: -kv[1][0])[:14]:
         print(f"    {ms:8.2f} ms {100 * ms / busy_ms:5.1f}% x{count:<5d} "
               f"{name[:100]}", flush=True)
+    return prof
 
 
 def full_width_phase(gpu: str) -> int:
@@ -1110,6 +1140,68 @@ def proxy_grad_phase() -> None:
           f"({worst_name}) <= {PROXY_GRAD_TOL}")
 
 
+def depthfm_proxy_grad_phase() -> None:
+    """One `DepthFMAmodalTrainer` step's loss and UNet gradients on the
+    trained DepthFM proxy, float32 (TF32 off): the card (kernels, forward
+    and backward, at head dims 12/24/48) against the CPU (plain), with the
+    CPU trainer's draws on both sides. 128 px, so that the deepest level
+    attends over 2 x 2 latents (at the proxy's 64 px it is one token, and
+    the gradients of its queries and keys are zero up to rounding); the
+    proxy's empty-text embedding, all zeros (frozen while it was trained),
+    is replaced by a seeded normal draw, or every key of the cross-attention
+    is the same and the gradients of its queries are zero up to rounding
+    too."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.convert.weights import \
+        load_depthfm_proxy
+    from amodal_depth_anything_tpu_torch.data import collate
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.train import (DepthFMAmodalTrainer,
+                                                       TrainerConfig)
+
+    scenes = SceneDataset(2, 128, seed=8)
+    batch = collate([scenes[0], scenes[1]])
+    tcfg = TrainerConfig(compute_dtype="float32", loss_name="l1_loss",
+                         loss_kwargs={}, remat="attn")
+    params = load_depthfm_proxy(DEPTHFM_PROXY, device="cpu").state_dict()
+    params["empty_text_embed"] = torch.randn(
+        params["empty_text_embed"].shape,
+        generator=torch.Generator().manual_seed(0))
+    cpu, gpu = (DepthFMAmodalTrainer(
+        tcfg, load_depthfm_proxy(DEPTHFM_PROXY, device=device), None,
+        device=device, params=params) for device in ("cpu", "cuda"))
+    gpu._draws = lambda specs, step=None: {
+        k: v.cuda() for k, v in cpu._draws(specs, step=step).items()}
+    out = {}
+    for device, trainer in (("cpu", cpu), ("cuda", gpu)):
+        mha.launches = mha.bwd_dq_launches = mha.bwd_dkv_launches = 0
+        loss, grads = trainer.loss_and_grads(trainer._device_batch(batch))
+        out[device] = (loss.item(), {k: g.cpu() for k, g in grads.items()})
+    launches = (mha.launches, mha.bwd_dq_launches, mha.bwd_dkv_launches)
+    check(launches == (UNET_ATTN,) * 3,
+          f"DepthFM proxy train step on the card launched fwd, dq, dkv "
+          f"{launches} times ({UNET_ATTN} each: 16 self + 16 cross)")
+    (cpu_loss, cpu_grads), (gpu_loss, gpu_grads) = out["cpu"], out["cuda"]
+    check(np.isfinite(gpu_loss) and abs(gpu_loss - cpu_loss) <=
+          PROXY_GRAD_TOL * abs(cpu_loss),
+          f"DepthFM proxy train loss, card {gpu_loss:.6f} vs CPU "
+          f"{cpu_loss:.6f}")
+    worst, worst_name, live = 0.0, "", 0
+    for name, ref in cpu_grads.items():
+        scale = ref.abs().max().item()
+        err = (gpu_grads[name] - ref).abs().max().item()
+        rel = err / scale if scale else (0.0 if err == 0.0 else float("inf"))
+        live += scale > 0
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(all(k.startswith("unet.") for k in cpu_grads)
+          and worst <= PROXY_GRAD_TOL and live == len(cpu_grads),
+          f"DepthFM proxy UNet gradients, card (kernels) vs CPU (plain), "
+          f"{live} of {len(cpu_grads)} non-zero: worst {worst:.3e} of its "
+          f"max abs ({worst_name}) <= {PROXY_GRAD_TOL}")
+
+
 def train_phase(gpu: str) -> dict:
     import torch
 
@@ -1252,6 +1344,248 @@ def train_phase(gpu: str) -> dict:
     return launches
 
 
+def step_breakdown(prof) -> None:
+    """From one profiled train step: the device time and launches of each
+    attention kernel instantiation, and the device time under GroupNorm's
+    plain ops (the forward's var_mean and addcmul, the autograd nodes of
+    their backward; the casts around them are not told apart from others)."""
+    import torch
+
+    attn: dict[str, list] = {}
+    busy = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3
+            busy += ms
+            if "flash_attn" in e.name:
+                acc = attn.setdefault(e.name, [0.0, 0])
+                acc[0] += ms
+                acc[1] += 1
+    for name, (ms, count) in sorted(attn.items()):
+        print(f"    attention {ms:8.3f} ms x{count:<3d} {name[:100]}",
+              flush=True)
+    gn_us = 0.0
+    for avg in prof.key_averages():
+        key = avg.key
+        if key in GROUP_NORM_OPS[:2] or (
+                key.startswith("autograd::engine::evaluate_function:")
+                and any(op in key for op in GROUP_NORM_OPS[2:])):
+            gn_us += getattr(avg, "device_time_total",
+                             getattr(avg, "cuda_time_total", 0.0))
+    attn_ms = sum(ms for ms, _ in attn.values())
+    print(f"    attention kernels {attn_ms:.2f} ms "
+          f"({100 * attn_ms / busy:.1f}% of device busy); GroupNorm's plain "
+          f"ops {gn_us / 1e3:.2f} ms ({100 * gn_us / 1e3 / busy:.1f}%)",
+          flush=True)
+
+
+def depthfm_train_phase(gpu: str) -> dict:
+    """DepthFM training at the SD-1.5 widths under the shipped recipes, fed
+    synthetic scenes at 518 px from memory: DepthFMAmodalTrainer (five
+    steps through `train()`, remat, a float32 step against plain attention,
+    `validate()`), then DepthFMTrainer (two steps, `validate()`)."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.cli.train import (
+        trainer_config_from_cfg, trainer_kwargs_from_cfg)
+    from amodal_depth_anything_tpu_torch.data import DataLoader
+    from amodal_depth_anything_tpu_torch.models import get_model
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.train import get_trainer_cls
+    from amodal_depth_anything_tpu_torch.train.state import global_norm
+    from amodal_depth_anything_tpu_torch.utils.config import \
+        recursive_load_config
+    from amodal_depth_anything_tpu_torch.utils.profiling import StepTimer
+
+    def counts():
+        return (mha.launches, mha.bwd_dq_launches, mha.bwd_dkv_launches)
+
+    def zero_counts():
+        mha.launches = mha.bwd_dq_launches = mha.bwd_dkv_launches = 0
+
+    def build(path, steps, loader, val_loader):
+        cfg = recursive_load_config(path)
+        # one card and batches of 8: no accumulation; no warm-up, so that
+        # no step has a learning rate of 0; no periodic callbacks
+        tcfg = dataclasses.replace(
+            trainer_config_from_cfg(cfg, accumulation_steps=1),
+            lr_warmup_steps=0, max_iter=steps, log_interval=1,
+            validation_period=0, save_period=0, visualization_period=0)
+        model = get_model(cfg.model.name, device="cuda",
+                          **cfg.model.kwargs.to_dict())
+        trainer = get_trainer_cls(cfg.trainer.name)(
+            tcfg, model, loader, [val_loader], device="cuda", seed=0,
+            **trainer_kwargs_from_cfg(cfg))
+        trainer.step_timer = StepTimer(warmup=1)   # the first loads cuDNN
+        return cfg, tcfg, trainer
+
+    def run(trainer):
+        """`trainer.train()`, the main path: its losses, launches, peak."""
+        losses, step = [], trainer._train_step
+
+        def recording_step(batch):
+            loss = step(batch)
+            losses.append(float(loss))
+            return loss
+
+        trainer._train_step = recording_step
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()                     # the main path starts here
+        trainer.train()
+        launches = counts()               # ... and ends here
+        del trainer._train_step           # no trainer <-> closure cycle
+        return losses, launches, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    t0 = time.time()
+    scenes = SceneDataset(TRAIN_BATCH, SIZE, seed=9)
+    loader = DataLoader(scenes, batch_size=TRAIN_BATCH, shuffle=True,
+                        drop_last=True, seed=0)
+    val_loader = DataLoader(scenes, batch_size=TRAIN_BATCH, pad_last=True)
+    cfg, tcfg, trainer = build(DEPTHFM_TRAIN_CONFIG, DEPTHFM_TRAIN_STEPS,
+                               loader, val_loader)
+    mcfg = trainer.model.cfg
+    n_unet = sum(p.numel() for p in trainer.state.params.values())
+    torch.cuda.synchronize()
+    print(f"  {len(scenes)} scenes at {SIZE} px rendered and seeded "
+          f"DepthFMAmodal (UNet {n_unet / 1e6:.1f} M trained parameters) "
+          f"built on the card in {time.time() - t0:.1f} s", flush=True)
+    check((tcfg.compute_dtype, tcfg.remat, tcfg.optimizer, tcfg.max_grad_norm,
+           tcfg.loss_name, tcfg.loss_kwargs, tcfg.loss_strategy, tcfg.lr,
+           type(trainer).__name__) ==
+          ("bfloat16", "attn", "adam", 0.01, "l1_loss", {},
+           "entire_target_object", 3e-5, "DepthFMAmodalTrainer"),
+          f"recipe {DEPTHFM_TRAIN_CONFIG}: DepthFMAmodalTrainer, bfloat16, "
+          f"remat attn (no UNet recompute), adam, clip 0.01, l1_loss on "
+          f"entire_target_object, lr 3e-5")
+    check((mcfg.guide_type, mcfg.model_channels, tuple(mcfg.channel_mult),
+           mcfg.num_heads, mcfg.context_len, mcfg.context_dim,
+           tuple(mcfg.vae_channels), mcfg.vae_layers) ==
+          ("mask+observation", 320, (1, 2, 4, 4), 8, 77, 1024,
+           (128, 256, 512, 512), 2),
+          "DepthFMAmodal at the SD-1.5 widths: UNet 320 x (1,2,4,4), 8 "
+          "heads, context 77 x 1024, VAE (128,256,512,512) x 2")
+    unet = {k: trainer.state.params[k].detach().clone() for k in (
+        "unet.input_blocks.1.0.in_layers.2.weight",
+        "unet.middle_block.1.transformer_blocks.0.attn1.to_q.weight",
+        "unet.out.2.weight")}
+    frozen = {k: p.detach().clone() for k, p in
+              trainer.model.named_parameters() if not p.requires_grad}
+
+    losses, launches, peak = run(trainer)
+    check(trainer.effective_iter == DEPTHFM_TRAIN_STEPS
+          and len(losses) == DEPTHFM_TRAIN_STEPS
+          and bool(np.isfinite(losses).all()) and min(losses) > 0,
+          f"{DEPTHFM_TRAIN_STEPS} DepthFMAmodal train steps, losses finite "
+          f"and positive: {[round(x, 5) for x in losses]}")
+    check(launches == (UNET_ATTN * DEPTHFM_TRAIN_STEPS,) * 3,
+          f"DepthFM training launched fwd, dq, dkv {launches} times "
+          f"({UNET_ATTN} each per step: 16 self + 16 cross)")
+    for k, old in unet.items():
+        new = trainer.state.params[k]
+        check(bool(torch.isfinite(new).all()) and not torch.equal(new, old),
+              f"UNet parameter {k} finite and moved (max abs change "
+              f"{(new - old).abs().max().item():.3e})")
+    check(len(frozen) > 0 and all(torch.equal(p, frozen[k]) for k, p in
+                                  trainer.model.named_parameters()
+                                  if k in frozen),
+          f"the {len(frozen)} frozen VAE and text-embedding parameters "
+          f"bit-identical after {DEPTHFM_TRAIN_STEPS} steps")
+    del frozen
+    timing = trainer.step_timer.summary()
+    print(f"  DepthFM training bf16 batch {TRAIN_BATCH} at {SIZE} px "
+          f"({SIZE // 8} x {SIZE // 8} latents), remat='attn': "
+          f"{timing['steps_per_sec']:.4f} steps/s "
+          f"({TRAIN_BATCH * timing['steps_per_sec']:.3f} images/s), p50 "
+          f"{timing['p50_s'] * 1e3:.1f} ms per step over {timing['steps']} "
+          f"steps {[round(x * 1e3, 1) for x in trainer.step_timer.durations]} "
+          f"ms, peak memory {peak:.2f} GiB [{gpu}]", flush=True)
+
+    # UNet recompute on the card, forward + backward without the update:
+    # forward launches per step, time and peak memory beside the default's
+    batch8 = trainer._device_batch(next(iter(val_loader)))
+    for remat, want in ((True, 2), ("attn", 1)):   # ends at the recipe's
+        trainer.cfg.remat = remat
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        ms = cuda_ms(lambda: trainer.loss_and_grads(batch8), 1, warmup=0)
+        got = counts()
+        check(got == (want * UNET_ATTN, UNET_ATTN, UNET_ATTN),
+              f"DepthFM remat={remat!r}: fwd, dq, dkv launches {got} per step "
+              f"({want * UNET_ATTN}, {UNET_ATTN}, {UNET_ATTN})")
+        print(f"  DepthFM remat={remat!r}: forward + backward {ms:.1f} ms, "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+              f"GiB [{gpu}]", flush=True)
+    prof = profile_call(lambda: float(trainer._train_step(batch8)),
+                        "bf16 DepthFM train step", gpu)
+    if prof is not None:
+        step_breakdown(prof)
+    del batch8, prof
+
+    results = trainer.validate()
+    bank = results[scenes.disp_name]
+    values = [bank[b][m] for b in ("overall", "align_overall")
+              for m in tcfg.eval_metrics]
+    check(len(values) == 20 and bool(np.isfinite(values).all()),
+          f"DepthFMAmodal validate() over 1 batch of {TRAIN_BATCH} (4 Euler "
+          f"steps): 10 metrics x (raw, aligned) finite; abs_rel raw "
+          f"{bank['overall']['abs_relative_difference']:.4f}, aligned "
+          f"{bank['align_overall']['abs_relative_difference']:.4f}")
+
+    # one float32 step at batch 1: the kernels against plain attention
+    model, cls = trainer.model, type(trainer)
+    del trainer                       # its optimizer state
+    torch.cuda.empty_cache()
+    t32 = cls(dataclasses.replace(tcfg, compute_dtype="float32"), model, None,
+              device="cuda", params=model.state_dict())
+    batch1 = t32._device_batch({k: v[:1] for k, v in
+                                next(iter(val_loader)).items()
+                                if isinstance(v, np.ndarray)})
+    got = {}
+    for impl in (None, "plain"):
+        t32.cfg.attn_impl = impl
+        loss, grads = t32.loss_and_grads(batch1)
+        got[impl] = (loss.item(), global_norm(list(grads.values())).item())
+        del grads
+    (k_loss, k_norm), (p_loss, p_norm) = got[None], got["plain"]
+    check(abs(k_loss - p_loss) <= TRAIN_F32_TOL * abs(p_loss) and
+          abs(k_norm - p_norm) <= TRAIN_F32_TOL * p_norm and p_norm > 0,
+          f"DepthFM f32 step at batch 1, kernels vs plain attention: loss "
+          f"{k_loss:.6f} vs {p_loss:.6f}, UNet gradient norm {k_norm:.6e} vs "
+          f"{p_norm:.6e} (within {TRAIN_F32_TOL} relative)")
+    del t32, model, batch1
+    torch.cuda.empty_cache()
+
+    # the DDPM finetune (v-prediction, annealed multi-resolution noise) on
+    # the plain DepthFM at the same widths
+    cfg, tcfg, trainer = build(DDPM_TRAIN_CONFIG, DDPM_TRAIN_STEPS, loader,
+                               val_loader)
+    check((type(trainer).__name__, trainer.model.cfg.guide_type,
+           trainer.prediction_type, trainer.multi_res_noise, tcfg.loss_name)
+          == ("DepthFMTrainer", "none", "v_prediction",
+              {"strength": 0.9, "annealed": True,
+               "downscale_strategy": "original"}, "mse_loss"),
+          f"recipe {DDPM_TRAIN_CONFIG}: DepthFMTrainer on DepthFM (guide "
+          f"none), v-prediction, annealed multi-resolution noise, mse_loss")
+    ddpm_losses, ddpm_launches, ddpm_peak = run(trainer)
+    check(len(ddpm_losses) == DDPM_TRAIN_STEPS
+          and bool(np.isfinite(ddpm_losses).all()) and min(ddpm_losses) > 0
+          and ddpm_launches == (UNET_ATTN * DDPM_TRAIN_STEPS,) * 3,
+          f"{DDPM_TRAIN_STEPS} DDPM train steps: losses "
+          f"{[round(x, 5) for x in ddpm_losses]} finite and positive, fwd, "
+          f"dq, dkv launches {ddpm_launches} ({UNET_ATTN} each per step); "
+          f"peak memory {ddpm_peak:.2f} GiB [{gpu}]")
+    results = trainer.validate()
+    bank = results[scenes.disp_name]
+    values = [bank[b][m] for b in ("overall", "align_overall")
+              for m in tcfg.eval_metrics]
+    check(len(values) == 20 and bool(np.isfinite(values).all()),
+          f"DepthFMTrainer validate() over 1 batch of {TRAIN_BATCH} (DDIM, 4 "
+          f"steps): 10 metrics x (raw, aligned) finite; abs_rel aligned "
+          f"{bank['align_overall']['abs_relative_difference']:.4f}")
+    return {"flash_attn_fwd": launches[0], "flash_attn_bwd_dq": launches[1],
+            "flash_attn_bwd_dkv": launches[2], "ddpm": ddpm_launches}
+
+
 def main() -> int:
     import torch
 
@@ -1302,6 +1636,7 @@ def main() -> int:
     proxy_phase()
     proxy_grad_phase()
     depthfm_proxy_phase()
+    depthfm_proxy_grad_phase()
 
     phase("[5] inference at full width: vitg base + vitl AmodalDAv2")
     infer_launches = full_width_phase(gpu)
@@ -1313,21 +1648,30 @@ def main() -> int:
 
     phase("[7] DepthFM inference at full width: SD-1.5 UNet + VAE")
     depthfm_launches = depthfm_phase(gpu)
+    torch.cuda.empty_cache()
+
+    phase("[8] DepthFM training at full width: SD-1.5 UNet + VAE")
+    dfm_train = depthfm_train_phase(gpu)
 
     # launches: over the main paths, each counted from 0; the forward
-    # kernel runs on three (inference [5], training [6], DepthFM [7]), the
+    # kernel runs on five (inference [5], training [6], DepthFM [7], DepthFM
+    # training and its DDPM finetune [8]), the backward pair on three, the
     # fused epilogue on its chain [3]
     launches["fused_epilogue"] = measured["fused_epilogue"]["launches"]
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, **measured[name],
                 "launches": launches[name]}
                for name, (source, replaces) in KERNELS.items()]
+    for i, name in enumerate(("flash_attn_fwd", "flash_attn_bwd_dq",
+                              "flash_attn_bwd_dkv")):
+        kernels[i].update(
+            launches=launches[name] + dfm_train[name] + dfm_train["ddpm"][i],
+            launches_training=launches[name],
+            launches_depthfm_training=dfm_train[name],
+            launches_ddpm_training=dfm_train["ddpm"][i])
     kernels[0].update(
-        launches=infer_launches + launches["flash_attn_fwd"]
-        + depthfm_launches,
-        launches_inference=infer_launches,
-        launches_training=launches["flash_attn_fwd"],
-        launches_depthfm=depthfm_launches)
+        launches=kernels[0]["launches"] + infer_launches + depthfm_launches,
+        launches_inference=infer_launches, launches_depthfm=depthfm_launches)
     print(f"  all phases took {time.time() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     if failures:

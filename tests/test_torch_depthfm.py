@@ -238,8 +238,19 @@ def test_unet_rejects_bad_deep_cache_groups_and_left_out_options(amodal):
             model.unet(x, t, deep_cache_groups=groups, **kw)
     with pytest.raises(NotImplementedError, match="tome"):
         model.unet(x, t, tome=(0.5, 4), **kw)
-    with pytest.raises(NotImplementedError, match="remat"):
-        model.unet(x, t, remat=True, **kw)
+    # remat (per-level recompute) runs: the same output, and under grad the
+    # same gradients as without it
+    with torch.no_grad():
+        torch.testing.assert_close(model.unet(x, t, remat=True, **kw),
+                                   model.unet(x, t, **kw), rtol=0, atol=0)
+    grads = []
+    for remat in (False, True):
+        model.unet.zero_grad()
+        model.unet(x, t, remat=remat, **kw).square().sum().backward()
+        grads.append(model.unet.out[2].weight.grad.clone())
+    model.unet.zero_grad(set_to_none=True)
+    assert grads[0].abs().max() > 0
+    torch.testing.assert_close(grads[1], grads[0], rtol=0, atol=1e-6)
 
 
 def test_group_norm_gcd_rule():
@@ -306,7 +317,7 @@ def test_depthfm_generate_through_the_registry_entry(amodal):
                   observation=obs, num_steps=2)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     torch.testing.assert_close(a, c, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="train"):
+    with pytest.raises(ValueError, match="mode='train' needs the target"):
         model(ims, noise, mode="train")
     with pytest.raises(ValueError, match="guide_mask required"):
         model(ims, noise, observation=obs)

@@ -401,9 +401,13 @@ def test_deferred_trainer_config_fields_raise(field, value):
 
 
 def test_unknown_and_unported_trainers():
+    from amodal_depth_anything_tpu_torch.train import (DepthFMAmodalTrainer,
+                                                       DepthFMTrainer)
     assert get_trainer_cls("DiscriminativeTrainer") is DiscriminativeTrainer
-    with pytest.raises(NotImplementedError, match="DepthFMTrainer"):
-        get_trainer_cls("DepthFMTrainer")
+    assert get_trainer_cls("DepthFMAmodalTrainer") is DepthFMAmodalTrainer
+    assert get_trainer_cls("DepthFMTrainer") is DepthFMTrainer
+    with pytest.raises(NotImplementedError, match="InvisibleStitchTrainer"):
+        get_trainer_cls("InvisibleStitchTrainer")
     with pytest.raises(ValueError, match="unknown trainer"):
         get_trainer_cls("nope")
     with pytest.raises(ValueError, match="unknown loss strategy"):
