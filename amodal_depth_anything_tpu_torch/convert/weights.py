@@ -106,15 +106,35 @@ def load_params_npz(path: str) -> dict:
     return tree
 
 
-# torch layout <- JAX layout, per kind of leaf, and back
-_TO_TORCH = {"same": lambda a: a,
-             "linear": lambda a: a.T,                        # [in,out] -> [out,in]
-             "conv": lambda a: a.transpose(3, 2, 0, 1),      # HWIO -> OIHW
-             "convt": lambda a: a.transpose(0, 3, 1, 2)}     # [Ci,k,k,Co] -> [Ci,Co,k,k]
-_TO_JAX = {"same": lambda a: a,
-           "linear": lambda a: a.T,
-           "conv": lambda a: a.transpose(2, 3, 1, 0),
-           "convt": lambda a: a.transpose(0, 2, 3, 1)}
+# torch layout <- JAX layout, per kind of leaf, as dimension orders (None:
+# as it is); the way back is the inverse order
+_TO_TORCH = {"same": None,
+             "linear": (1, 0),          # [in,out] -> [out,in]
+             "conv": (3, 2, 0, 1),      # HWIO -> OIHW
+             "convt": (0, 3, 1, 2)}     # [Ci,k,k,Co] -> [Ci,Co,k,k]
+_TO_JAX = {kind: None if dims is None else tuple(int(i) for i in
+                                                   np.argsort(dims))
+           for kind, dims in _TO_TORCH.items()}
+
+
+def _permuted(leaf, dims, layer=None) -> torch.Tensor:
+    """`leaf` (numpy array or tensor; block `layer` of a stack) in the
+    dimension order `dims`, in a fresh contiguous allocation of its own
+    dtype and device."""
+    if not isinstance(leaf, torch.Tensor):
+        leaf = torch.from_numpy(np.asarray(leaf))
+    if layer is not None:
+        leaf = leaf[layer]
+    if dims is not None:
+        leaf = leaf.permute(*dims)
+    return leaf.detach().clone(memory_format=torch.contiguous_format)
+
+
+def _jax_out(leaf: torch.Tensor, tensors: bool):
+    """A JAX-layout leaf as the `*_to_jax` functions return it: float32
+    numpy, or with `tensors` the tensor itself (a bfloat16 leaf has no numpy
+    dtype)."""
+    return leaf if tensors else leaf.cpu().float().numpy()
 
 
 def _leaf_map(cfg: DAV2Config):
@@ -186,35 +206,33 @@ def _leaf_map(cfg: DAV2Config):
 
 
 def params_from_jax(params: dict, cfg: DAV2Config) -> dict[str, torch.Tensor]:
-    """JAX-layout parameter pytree (numpy leaves) -> the port's state dict
-    for `cfg` ("encoder." keys for AmodalDAv2, bare keys for the raw base)."""
+    """JAX-layout parameter pytree (numpy or tensor leaves) -> the port's
+    state dict for `cfg` ("encoder." keys for AmodalDAv2, bare keys for the
+    raw base); each leaf keeps its dtype and device."""
     sd = {}
     for key, path, kind, layer in _leaf_map(cfg):
         leaf = params
         for part in path:
             leaf = leaf[part]
-        leaf = np.asarray(leaf)
-        if layer is not None:
-            leaf = leaf[layer]
-        sd[key] = torch.from_numpy(np.ascontiguousarray(
-            _TO_TORCH[kind](leaf), dtype=np.float32))
+        sd[key] = _permuted(leaf, _TO_TORCH[kind], layer)
     return sd
 
 
-def params_to_jax(sd: dict, cfg: DAV2Config) -> dict:
+def params_to_jax(sd: dict, cfg: DAV2Config, *, tensors: bool = False) -> dict:
     """The inverse of `params_from_jax`: a {state-dict key: tensor} tree of
     the port (parameters, or gradients under the parameters' names) -> the
-    JAX-layout pytree as float32 numpy arrays, blocks stacked [L, ...]."""
+    JAX-layout pytree as float32 numpy arrays, blocks stacked [L, ...]; with
+    `tensors`, as tensors of the state dict's dtypes and device."""
     tree: dict = {}
     stacks: dict[tuple, list] = {}
     for key, path, kind, layer in _leaf_map(cfg):
-        leaf = _TO_JAX[kind](sd[key].detach().cpu().float().numpy())
+        leaf = _permuted(sd[key], _TO_JAX[kind])
         if layer is not None:
             stacks.setdefault(path, []).append(leaf)
             continue
-        _set_path(tree, path, np.ascontiguousarray(leaf))
+        _set_path(tree, path, _jax_out(leaf, tensors))
     for path, layers in stacks.items():
-        _set_path(tree, path, np.stack(layers))
+        _set_path(tree, path, _jax_out(torch.stack(layers), tensors))
     return tree
 
 
@@ -375,24 +393,26 @@ def _depthfm_leaf_map(cfg: DepthFMConfig) -> list:
 
 def depthfm_params_from_jax(params: dict,
                             cfg: DepthFMConfig) -> dict[str, torch.Tensor]:
-    """The JAX package's DepthFM parameter pytree (numpy leaves: linears
-    [in, out], convs HWIO) -> the state dict of `models.depthfm.DepthFM`."""
+    """The JAX package's DepthFM parameter pytree (numpy or tensor leaves:
+    linears [in, out], convs HWIO) -> the state dict of
+    `models.depthfm.DepthFM`; each leaf keeps its dtype and device."""
     sd = {}
     for key, path, kind in _depthfm_leaf_map(cfg):
         leaf = params
         for part in path:
             leaf = leaf[part]
-        sd[key] = torch.from_numpy(np.ascontiguousarray(
-            _TO_TORCH[kind](np.asarray(leaf)), dtype=np.float32))
+        sd[key] = _permuted(leaf, _TO_TORCH[kind])
     return sd
 
 
-def depthfm_params_to_jax(sd: dict, cfg: DepthFMConfig) -> dict:
-    """The inverse of `depthfm_params_from_jax`, as float32 numpy arrays."""
+def depthfm_params_to_jax(sd: dict, cfg: DepthFMConfig, *,
+                          tensors: bool = False) -> dict:
+    """The inverse of `depthfm_params_from_jax`, as float32 numpy arrays
+    (`tensors` as in `params_to_jax`)."""
     tree: dict = {}
     for key, path, kind in _depthfm_leaf_map(cfg):
-        leaf = _TO_JAX[kind](sd[key].detach().cpu().float().numpy())
-        _set_path(tree, path, np.ascontiguousarray(leaf))
+        _set_path(tree, path, _jax_out(_permuted(sd[key], _TO_JAX[kind]),
+                                       tensors))
     return tree
 
 

@@ -95,8 +95,14 @@ def cosine_alpha_bar(t: torch.Tensor) -> torch.Tensor:
 
 def q_sample(x_start: torch.Tensor, t, noise: torch.Tensor,
              n_diffusion_timesteps: int = 1000) -> torch.Tensor:
-    """Cosine-schedule forward noising q(x_t | x_0); t in diffusion steps."""
-    t = torch.as_tensor(t, dtype=torch.float32, device=x_start.device)
+    """Cosine-schedule forward noising q(x_t | x_0); t in diffusion steps.
+
+    A Python number becomes a device scalar by a fill, not a copy from the
+    host, so the noising can sit inside a captured CUDA graph."""
+    if isinstance(t, torch.Tensor):
+        t = t.to(device=x_start.device, dtype=torch.float32)
+    else:
+        t = torch.full((), t, dtype=torch.float32, device=x_start.device)
     ab = cosine_alpha_bar(t / n_diffusion_timesteps).to(x_start.dtype)
     return torch.sqrt(ab) * x_start + torch.sqrt(1.0 - ab) * noise
 

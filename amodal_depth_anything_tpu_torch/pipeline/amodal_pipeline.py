@@ -12,6 +12,10 @@ Behaviour parity with the reference `infer.py:16-121`:
     when `base_image` is passed, as `infer_single_image` does).
   * Guided inputs: nearest resize (`infer.py:84-86`); the model gets
     `mask*2-1` and `depth*2-1` (`infer.py:88-93`).
+
+`save_serving` / `load_serving` write and read the JAX package's
+serving-state format (`pipeline.serving_ckpt`, kind "amodal_dav2"), so a
+state saved by either package serves in the other.
 """
 
 from __future__ import annotations
@@ -113,6 +117,68 @@ class AmodalDepthPipeline:
             models.append(model)
         return cls(*models, **kw)
 
+    def save_serving(self, path: str) -> None:
+        """Persist the READY-TO-SERVE state: both models' weights in their
+        serving dtype and what builds the pipeline, in the JAX package's
+        format (kind "amodal_dav2"), which its
+        `AmodalDepthPipeline.load_serving` restores too (see
+        pipeline/serving_ckpt.py)."""
+        import dataclasses
+
+        from ..convert.weights import params_to_jax
+        from .serving_ckpt import (attn_impl_to_jax, dtype_name,
+                                   save_serving_state)
+        save_serving_state(path, {
+            "raw": params_to_jax(self.raw_model.state_dict(), self.raw_cfg,
+                                 tensors=True),
+            "amodal": params_to_jax(self.amodal_model.state_dict(),
+                                    self.amodal_cfg, tensors=True),
+        }, {
+            "kind": "amodal_dav2",
+            "raw_cfg": dataclasses.asdict(self.raw_cfg),
+            "amodal_cfg": dataclasses.asdict(self.amodal_cfg),
+            "size": self.size,
+            "attn_impl": attn_impl_to_jax(self.attn_impl),
+            "dtype": dtype_name(self.dtype),
+            "base_token_merge": None,
+            "amodal_token_merge": None,
+            "head_batch_tile": None,
+        })
+
+    @classmethod
+    def load_serving(cls, path: str, *, attn_impl: str | None = None,
+                     device="cuda"):
+        """Restore a pipeline saved by `save_serving` of either package on
+        `device`, the weights in their saved dtype (no cast). `attn_impl`
+        overrides the saved one. Refuses int8, ToMe and head_batch_tile
+        states."""
+        from ..convert.weights import params_from_jax
+        from .serving_ckpt import (attn_impl_from_jax, cfg_from_dict,
+                                   restore_serving_state, serving_dtype)
+        trees, meta = restore_serving_state(path, expect_kind="amodal_dav2",
+                                            device=device)
+        dtype = serving_dtype(meta, trees)
+        models = []
+        for name in ("raw", "amodal"):
+            cfg = cfg_from_dict(DAV2Config, meta[f"{name}_cfg"])
+            model = build_model(cfg, device=device, dtype=dtype)
+            model.load_state_dict(params_from_jax(trees[name], cfg),
+                                  strict=True, assign=True)
+            models.append(model)
+        return cls(*models, size=int(meta["size"]),
+                   attn_impl=attn_impl or attn_impl_from_jax(
+                       meta["attn_impl"]),
+                   device=device, dtype=dtype)
+
+    def _graph(self, img: torch.Tensor, msk: torch.Tensor,
+               base_image: torch.Tensor | None = None):
+        """The device program on batched device tensors (image [B,H,W,3],
+        mask [B,H,W,1]): (base, blended) [B,S,S] float32 on the device."""
+        base, blended = amodal_depth_graph(
+            self.raw_model, self.amodal_model, img, msk, size=self.size,
+            attn_impl=self.attn_impl, base_image=base_image)
+        return base.float(), blended.float()
+
     @torch.inference_mode()
     def __call__(self, image: np.ndarray, mask: np.ndarray,
                  base_image: np.ndarray | None = None):
@@ -134,12 +200,9 @@ class AmodalDepthPipeline:
             return torch.as_tensor(np.asarray(a, np.float32)).to(
                 device=self.device, dtype=self.dtype)
 
-        base, blended = amodal_depth_graph(
-            self.raw_model, self.amodal_model, dev(img), dev(msk[..., None]),
-            size=self.size, attn_impl=self.attn_impl,
-            base_image=None if base_image is None else dev(base_image))
-        base = base.float().cpu().numpy()
-        blended = blended.float().cpu().numpy()
+        base, blended = (t.cpu().numpy() for t in self._graph(
+            dev(img), dev(msk[..., None]),
+            None if base_image is None else dev(base_image)))
         if squeeze:
             base, blended = base[0], blended[0]
         return base, blended

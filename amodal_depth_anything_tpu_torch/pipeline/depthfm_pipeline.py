@@ -12,10 +12,16 @@ trainers (`depthfm_amodal_trainer.py:197-199`): rgb / guide_rgb scaled to
 The q_sample noise is drawn per call from a CPU generator seeded with
 `seed` and moved to the device, so one seed gives one result on the card
 and on the CPU, call after call (the JAX class folds the same key into
-every call); `noise=` hands in a ready tensor instead.
+every call); `noise=` hands in a ready array or device tensor instead.
+`seeded_noise` draws that same noise once, as a device tensor, so that a
+captured CUDA graph (`pipeline.aot`) holds no host generator and no copy
+from pageable host memory, and replays what the eager call computes.
+
+`save_serving` / `load_serving` write and read the JAX package's
+serving-state format (`pipeline.serving_ckpt`, kind "depthfm").
 
 Not ported (each raises `NotImplementedError`): `mesh`, `tome`,
-`quantize_int8`, `save_serving` / `load_serving`.
+`quantize_int8`.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.depthfm import (DepthFM, depthfm_generate,
+from ..models.depthfm import (DepthFM, DepthFMConfig, _noise,
+                              build_depthfm, depthfm_generate,
                               depthfm_predict_depth, init_depthfm_)
 from ..ops.ddim import parse_deep_cache
 from ..ops.precision import apply_precision_policy
@@ -98,11 +105,52 @@ class DepthFMPipeline:
         return cls(model, device=device, **kw)
 
     def save_serving(self, path: str) -> None:
-        raise NotImplementedError("serving-state checkpoints are not ported")
+        """Persist the READY-TO-SERVE state: the weights in their serving
+        dtype and what builds the pipeline, in the JAX package's format
+        (kind "depthfm"), which its `DepthFMPipeline.load_serving` restores
+        too (see pipeline/serving_ckpt.py)."""
+        import dataclasses
+
+        from ..convert.weights import depthfm_params_to_jax
+        from .serving_ckpt import (attn_impl_to_jax, dtype_name,
+                                   save_serving_state)
+        save_serving_state(path, {"params": depthfm_params_to_jax(
+            self.model.state_dict(), self.cfg, tensors=True)}, {
+            "kind": "depthfm",
+            "cfg": dataclasses.asdict(self.cfg),
+            "size": self.size,
+            "num_steps": self.num_steps,
+            "attn_impl": attn_impl_to_jax(self.attn_impl),
+            "seed": self.seed,
+            "tome": None,
+            "deep_cache": list(self.deep_cache) if self.deep_cache else None,
+            "dtype": dtype_name(self.dtype),
+        })
 
     @classmethod
-    def load_serving(cls, path: str, **kw):
-        raise NotImplementedError("serving-state checkpoints are not ported")
+    def load_serving(cls, path: str, *, attn_impl: str | None = None,
+                     device="cuda"):
+        """Restore a pipeline saved by `save_serving` of either package on
+        `device`, the weights in their saved dtype (no cast). `attn_impl`
+        overrides the saved one. Refuses int8 and ToMe states."""
+        from ..convert.weights import depthfm_params_from_jax
+        from .serving_ckpt import (attn_impl_from_jax, cfg_from_dict,
+                                   restore_serving_state, serving_dtype)
+        trees, meta = restore_serving_state(path, expect_kind="depthfm",
+                                            device=device)
+        dtype = serving_dtype(meta, trees)
+        cfg = cfg_from_dict(DepthFMConfig, meta["cfg"])
+        model = build_depthfm(cfg, device=device, dtype=dtype)
+        model.load_state_dict(depthfm_params_from_jax(trees["params"], cfg),
+                              strict=True, assign=True)
+        deep_cache = meta.get("deep_cache")
+        return cls(model, size=int(meta["size"]),
+                   num_steps=int(meta["num_steps"]), dtype=dtype,
+                   attn_impl=attn_impl or attn_impl_from_jax(
+                       meta["attn_impl"]),
+                   seed=int(meta["seed"]),
+                   deep_cache=tuple(deep_cache) if deep_cache else None,
+                   device=device)
 
     def quantize_int8(self, calibration=None, **kw) -> None:
         raise NotImplementedError("int8 serving is not ported")
@@ -136,9 +184,41 @@ class DepthFMPipeline:
                                         dtype=self.dtype), squeeze
 
     def _rng(self, noise):
+        if isinstance(noise, torch.Tensor):
+            return noise
         if noise is not None:
             return torch.from_numpy(np.array(noise, np.float32))
         return torch.Generator(device="cpu").manual_seed(self.seed)
+
+    def latent_size(self) -> int:
+        """The side of the latents at `size`: each VAE downsampler pads
+        (0, 1) and takes a 3x3 conv at stride 2."""
+        n = self.size
+        for _ in range(len(self.cfg.vae_channels) - 1):
+            n = (n - 2) // 2 + 1
+        return n
+
+    def seeded_noise(self, batch: int) -> torch.Tensor:
+        """The q_sample noise a call of `batch` images draws from `seed`,
+        [B, s, s, 4] on the device in the compute dtype (s =
+        `latent_size()`). Passed as `noise=`, it gives the seeded call's
+        output."""
+        s = self.latent_size()
+        like = torch.empty((batch, s, s, self.cfg.vae.latent_channels),
+                           device=self.device, dtype=self.dtype)
+        return _noise(self._rng(None), like)
+
+    def _generate(self, img, msk, obs, grgb, rng) -> torch.Tensor:
+        """The device program: preprocess, VAE encode, Euler solve, decode.
+        Batched [B,H,W,c] device tensors in (None for a guide the config
+        does not take); depth [B,S,S] float32 on the device out. `rng`: a
+        generator or the noise tensor."""
+        rgb, m, o, gr = self._prep(img, msk, obs, grgb)
+        out = depthfm_generate(
+            self.model, rng, rgb, num_steps=self.num_steps, guide_rgb=gr,
+            guide_mask=m, observation=o, attn_impl=self.attn_impl,
+            deep_cache=self.deep_cache)
+        return out[..., 0].float()
 
     @torch.inference_mode()
     def __call__(self, image: np.ndarray, mask: np.ndarray | None = None,
@@ -149,8 +229,8 @@ class DepthFMPipeline:
         [B,H,W] (> 0 = amodal object); observation: same shape in [0,1]
         (the normalised base depth); guide_rgb: the un-occluded render in
         [0,255] for guide types including "image". `noise`: the q_sample
-        noise, [B, size/f, size/f, 4] with f the VAE's factor, instead of
-        the seeded draw.
+        noise, [B, s, s, 4] with s = `latent_size()` (an array, or a tensor
+        such as `seeded_noise`'s), instead of the seeded draw.
 
         Returns amodal depth [H,W] (or [B,H,W]) in [0,1], far = 0 (the
         1-x flip of `dfm_amodal.py:261-262`), float32."""
@@ -165,12 +245,8 @@ class DepthFMPipeline:
         msk, _ = self._batch(mask if "mask" in g else None, 1)
         obs, _ = self._batch(observation if "observation" in g else None, 1)
         grgb, _ = self._batch(guide_rgb if "image" in g else None, 3)
-        rgb, m, o, gr = self._prep(img, msk, obs, grgb)
-        out = depthfm_generate(
-            self.model, self._rng(noise), rgb, num_steps=self.num_steps,
-            guide_rgb=gr, guide_mask=m, observation=o,
-            attn_impl=self.attn_impl, deep_cache=self.deep_cache)
-        out = out[..., 0].float().cpu().numpy()
+        out = self._generate(img, msk, obs, grgb,
+                             self._rng(noise)).cpu().numpy()
         return out[0] if squeeze else out
 
     @torch.inference_mode()

@@ -42,6 +42,8 @@ plain PyTorch version on the card:
      `DepthFMPipeline.__call__` at 64 px, max abs <= 1e-4, and one
      `DepthFMAmodalTrainer` step on it (128 px, the same draws on both
      sides): the loss and every UNet gradient within 1e-4 of its max abs;
+     both proxy pipelines also captured as CUDA graphs (`pipeline.aot`)
+     and replayed against the CPU, max abs <= 1e-4;
   5. inference at full width: seeded random vitg raw base + vitl
      AmodalDAv2 at 518 px, one float32 image through the kernel and the
      plain path, then bfloat16 batch 4 through
@@ -82,7 +84,23 @@ plain PyTorch version on the card:
      plain attention (loss and UNet gradient norm within 1e-3); then two
      `DepthFMTrainer` steps under `configs/train_depthfm_ddpm_finetune.yaml`
      (v-prediction, annealed multi-resolution noise) on the plain DepthFM
-     and its `validate()` (DDIM, 4 steps).
+     and its `validate()` (DDIM, 4 steps);
+  9. serving at full width: (a) the phase-5 pipeline (vitg + vitl, 518 px,
+     bf16, batch 4) captured by `capture_amodal_program` and (b) the
+     phase-7 one (DepthFMAmodal, 512 px, 4 steps, bf16, batch 4) by
+     `capture_depthfm_program`, each replay against its eager call (max
+     abs <= 1e-3), exactly 64 / 128 forward-kernel launches in a profiled
+     replay (the Python counters count only warm-up and capture), images/s,
+     p50, device busy against wall and peak memory for eager and replay;
+     DeepCache (2, 2) captured and replayed with its `quality` delta and
+     gate verdict against the exact replay; (c) `cli.serve.build_server`
+     over the amodal program captured at the server's square input, 16
+     POSTs from 8 threads over loopback, all 200, dispatches, per-request
+     p50, depth within one uint16 step + 1e-3 of a direct call, and
+     `python -m ...cli.serve --random` as a subprocess (it must say that it
+     serves a CUDA graph; one POST, then it is stopped); (d) the
+     phase-(a) pipeline's serving state saved and restored (under
+     build/, deleted after), its replay bit-identical, bytes and seconds.
 
 Prints a `{"kernels": [...]}` line (the backward entries also list every
 instantiation that ran, with its cases, worst error and times), the card's
@@ -94,6 +112,7 @@ line when there is no CUDA device or any check fails.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -176,6 +195,11 @@ BWD_CASES = [((8, 16, 1370, 64), 1370, None), ((1, 16, 1370, 64), 1370, None),
                  if shape[2] > 64]
 BWD_MAIN_CASE = ((8, 16, 1370, 64), 1370, None, "bfloat16")
 FULL_BATCH, FULL_CALLS, SIZE = 4, 3, 518
+# serving (phase 9): timed calls of each eager call and replay, the replay's
+# tolerance against the eager call (bf16), the HTTP load, DeepCache's point
+SERVE_CALLS, REPLAY_TOL = 10, 1e-3
+SERVE_REQUESTS, SERVE_CLIENTS = 16, 8
+DEEP_CACHE = (2, 2)
 TRAIN_CONFIG = "configs/train_discriminative_vitl.yaml"
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_BLOCKS = 8, 5, 24
 # DepthFM training: the shipped recipes, batches of 8 synthetic scenes at
@@ -779,6 +803,8 @@ def proxy_phase() -> None:
     from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
     from amodal_depth_anything_tpu_torch.pipeline.amodal_pipeline import \
         AmodalDepthPipeline
+    from amodal_depth_anything_tpu_torch.pipeline.aot import \
+        capture_amodal_program
 
     cfgs = {"raw_base": DAV2Config(encoder="vitp", guide_type="none",
                                    raw=True),
@@ -801,8 +827,9 @@ def proxy_phase() -> None:
     mask = np.zeros((2, 90, 130), np.float32)
     mask[:, 20:70, 40:90] = 1.0
     cpu_base, cpu_blended = pipe("cpu")(img, mask)
+    gpu_pipe = pipe("cuda")
     mha.launches = 0
-    gpu_base, gpu_blended = pipe("cuda")(img, mask)
+    gpu_base, gpu_blended = gpu_pipe(img, mask)
     launches = mha.launches
     for name, a, b in (("base", gpu_base, cpu_base),
                        ("blended", gpu_blended, cpu_blended)):
@@ -812,6 +839,14 @@ def proxy_phase() -> None:
               f"{err:.3e} <= {PROXY_TOL}")
     check(launches == 24, f"proxy call launched flash_attn_fwd {launches} "
                           f"times (12 + 12 blocks)")
+    served = capture_amodal_program(gpu_pipe, batch=img.shape[0],
+                                    hw=img.shape[1:3])
+    for name, a, b in zip(("base", "blended"), served(img, mask),
+                          (cpu_base, cpu_blended)):
+        err = float(np.abs(a - b).max())
+        check(np.isfinite(a).all() and err <= PROXY_TOL,
+              f"proxy {name} map, captured replay on the card vs CPU "
+              f"(plain): max abs {err:.3e} <= {PROXY_TOL}")
 
 
 def depthfm_proxy_phase() -> None:
@@ -822,6 +857,8 @@ def depthfm_proxy_phase() -> None:
     from amodal_depth_anything_tpu_torch.convert.weights import \
         load_depthfm_proxy
     from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.pipeline.aot import \
+        capture_depthfm_program
     from amodal_depth_anything_tpu_torch.pipeline.depthfm_pipeline import \
         DepthFMPipeline
 
@@ -838,6 +875,12 @@ def depthfm_proxy_phase() -> None:
         mha.launches = 0
         out[device] = pipe(img, mask, obs)
     launches = mha.launches
+    replay = capture_depthfm_program(pipe, batch=img.shape[0],
+                                     hw=img.shape[1:3])(img, mask, obs)
+    err = float(np.abs(replay - out["cpu"]).max())
+    check(np.isfinite(replay).all() and err <= PROXY_TOL,
+          f"DepthFM proxy depth, captured replay on the card vs CPU (plain): "
+          f"max abs {err:.3e} <= {PROXY_TOL}")
     err = float(np.abs(out["cuda"] - out["cpu"]).max())
     check(out["cuda"].shape == (2, 64, 64) and np.isfinite(out["cuda"]).all()
           and out["cuda"].std() > MIN_STD and err <= PROXY_TOL,
@@ -1586,6 +1629,392 @@ def depthfm_train_phase(gpu: str) -> dict:
             "flash_attn_bwd_dkv": launches[2], "ddpm": ddpm_launches}
 
 
+def trace_call(fn, names=("flash_attn_fwd",)):
+    """One call of `fn` (which must end synchronised) under torch.profiler:
+    (wall ms, device-busy ms, {name: launches}) with device busy the sum of
+    every kernel and copy event (None when the profiler recorded no device
+    time) and the launches those of each kernel whose name holds `name`;
+    the kernel nodes of a replayed CUDA graph count as launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    busy, seen, counts = 0.0, False, {name: 0 for name in names}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            seen = True
+            busy += e.time_range.elapsed_us() / 1e3
+            for name in names:
+                counts[name] += name + "_" in e.name
+    return wall_ms, busy if seen else None, counts
+
+
+def eager_against_replay(what: str, eager, replay, batch: int,
+                         launches: int, gpu: str) -> dict:
+    """A captured handle against the eager call on the same host arrays:
+    the max abs of every output (<= REPLAY_TOL), then for each of the two
+    images/s and p50 over SERVE_CALLS calls, peak allocated memory, and
+    device busy against the wall of one profiled call, whose trace must
+    show `launches` forward-kernel launches for the replay. `eager` and
+    `replay` return tuples of numpy arrays."""
+    import torch
+
+    out_e, out_r = eager(), replay()
+    err = max(float(np.abs(a - b).max()) for a, b in zip(out_e, out_r))
+    check(all(np.isfinite(b).all() and b.std() > MIN_STD for b in out_r)
+          and err <= REPLAY_TOL,
+          f"{what}: replay vs eager max abs {err:.3e} <= {REPLAY_TOL}, "
+          f"finite, not constant")
+    rows = {"max_abs": err}
+    for label, fn in (("eager", eager), ("replay", replay)):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lat = []
+        for _ in range(SERVE_CALLS):
+            t = time.perf_counter()
+            fn()                              # returns numpy: synchronised
+            lat.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        wall, busy, counts = trace_call(fn)
+        row = {"images_per_s": batch * SERVE_CALLS / sum(lat),
+               "p50_ms": float(np.median(lat)) * 1e3, "peak_gib": peak,
+               "wall_ms": wall, "busy_ms": busy,
+               "launches": counts["flash_attn_fwd"]}
+        rows[label] = row
+        share = "not measured" if busy is None else \
+            f"{busy:.1f} ms ({100 * busy / wall:.1f}% of the wall)"
+        print(f"  {what} {label}: {row['images_per_s']:.3f} images/s, p50 "
+              f"{row['p50_ms']:.1f} ms, latencies "
+              f"{[round(x * 1e3, 1) for x in lat]} ms, peak allocated "
+              f"{peak:.2f} GiB; one profiled call: wall {wall:.1f} ms, "
+              f"device busy {share}, {row['launches']} flash_attn_fwd "
+              f"launches [{gpu}]", flush=True)
+    check(rows["replay"]["launches"] == launches,
+          f"{what}: a profiled replay holds {rows['replay']['launches']} "
+          f"flash_attn_fwd launches ({launches})")
+    return rows
+
+
+def capture(make, what: str):
+    """Capture with `make()`; prints the seconds, the forward-kernel count
+    of the warm-up and the capture, and the device memory the handle holds
+    beyond what was held before (static buffers and the graph pool)."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    counted, t0 = mha.launches, time.time()
+    served = make()
+    seconds = time.time() - t0
+    torch.cuda.empty_cache()
+    pool = (torch.cuda.memory_reserved() - held) / 2 ** 30
+    print(f"  {what} captured at batches {served.batches}, hw {served.hw} "
+          f"in {seconds:.1f} s ({mha.launches - counted} flash_attn_fwd "
+          f"launches counted over the warm-up and the capture); static "
+          f"buffers + graph pool {pool:.2f} GiB", flush=True)
+    return served
+
+
+def serve_cli_check(gpu: str, state: str, body: bytes, want) -> None:
+    """`python -m amodal_depth_anything_tpu_torch.cli.serve --serving_state
+    STATE --max_batch 4` on the card as a subprocess, as a user starts the
+    server: it restores the full-width state of phase (d), captures its
+    CUDA graph at batch 4 and must say so at startup. One POST of `body`
+    must answer 200 with depth maps within one uint16 step + 1e-3 of `want`
+    (base, blended: a direct call of the in-process handle with the request
+    in row 0, where the batcher puts a lone request). The process is
+    stopped after."""
+    import base64
+    import select
+    import urllib.request
+
+    from amodal_depth_anything_tpu_torch.utils.host_image import decode_png
+
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "amodal_depth_anything_tpu_torch.cli.serve",
+         "--serving_state", state, "--port", "0",
+         "--max_batch", str(FULL_BATCH)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        line, deadline = "", time.time() + 300
+        while time.time() < deadline and "serving on" not in line:
+            ready, _, _ = select.select([proc.stdout], [], [], 5.0)
+            if ready:
+                line = proc.stdout.readline()
+            if proc.poll() is not None:
+                break
+        up = time.time() - t0
+        check("serving on" in line and "CUDA graph" in line,
+              f"cli.serve --serving_state on the card serves a CUDA graph: "
+              f"{line.strip()!r}")
+        if "serving on" not in line:
+            return
+        port = re.search(r":(\d+) ", line).group(1)
+        t = time.perf_counter()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/amodal_depth", data=body,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            code, res = r.status, json.loads(r.read())
+        ms = (time.perf_counter() - t) * 1e3
+        got = [decode_png(base64.b64decode(res[key])).astype(np.float64)
+               / 65535.0 for key in ("base_depth", "blended_depth")]
+        err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        check(code == 200 and err <= 1.0 / 65535 + 1e-3,
+              f"cli.serve POST answered {code}; depth vs the direct call "
+              f"max abs {err:.3e} <= one uint16 step + 1e-3")
+        print(f"  cli.serve --serving_state subprocess: up in {up:.1f} s "
+              f"(process start, state read, capture), one POST in "
+              f"{ms:.1f} ms [{gpu}]", flush=True)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+
+
+def serving_phase(gpu: str) -> dict:
+    """Serving at full width: (a) vitg + vitl at 518 px and (b) DepthFM at
+    512 px, 4 steps, each bf16 batch 4 captured as a CUDA graph and held
+    against its eager call; (b) also DeepCache (2, 2) replayed, with its
+    quality delta against the exact replay; (c) HTTP: the captured amodal
+    handle behind `cli.serve.build_server`, 16 POSTs from 8 threads of
+    textured PNGs filtered as PIL filters them (Paeth rows); (d) the
+    phase-(a) pipeline's serving state saved, served by `cli.serve
+    --serving_state` in a subprocess (one POST), restored and captured
+    again, bit-identical. Returns the replays' traced launch counts."""
+    import base64
+    import shutil
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from amodal_depth_anything_tpu_torch.cli.serve import (
+        _b64_png_to_array, _depth_to_b64_png, _prep, build_server)
+    from amodal_depth_anything_tpu_torch.pipeline.amodal_pipeline import \
+        AmodalDepthPipeline
+    from amodal_depth_anything_tpu_torch.pipeline.aot import (
+        capture_amodal_program, capture_depthfm_program)
+    from amodal_depth_anything_tpu_torch.pipeline.depthfm_pipeline import \
+        DepthFMPipeline
+    from amodal_depth_anything_tpu_torch.pipeline.quality import (
+        blended_depth_delta, check_gate)
+    from amodal_depth_anything_tpu_torch.utils.host_image import (
+        _filter_rows, decode_png, encode_png)
+
+    rng = np.random.default_rng(9)
+    hw = (600, 800)
+    img = (rng.random((FULL_BATCH, *hw, 3)) * 255).astype(np.float32)
+    mask = np.zeros((FULL_BATCH, *hw), np.float32)
+    mask[:, 150:450, 250:600] = 1.0
+    obs = rng.random((FULL_BATCH, *hw)).astype(np.float32)
+
+    print("  (a) amodal capture", flush=True)
+    pipe = AmodalDepthPipeline.init_random(
+        0, encoder="vitl", base_encoder="vitg", size=SIZE, device="cuda",
+        dtype=torch.bfloat16)
+    served = capture(lambda: capture_amodal_program(
+        pipe, batch=FULL_BATCH, hw=hw), "vitg + vitl bf16")
+    amodal = eager_against_replay(
+        f"vitg + vitl bf16 batch {FULL_BATCH} at {SIZE} px", lambda: pipe(
+            img, mask), lambda: served(img, mask), FULL_BATCH, 64, gpu)
+
+    print("  (b) DepthFM capture", flush=True)
+    dfm = DepthFMPipeline.init_random(
+        0, tiny=False, size=DEPTHFM_SIZE, num_steps=DEPTHFM_STEPS,
+        device="cuda", dtype=torch.bfloat16)
+    dfm_served = capture(lambda: capture_depthfm_program(
+        dfm, batch=DEPTHFM_BATCH, hw=hw), "DepthFMAmodal bf16")
+    depthfm = eager_against_replay(
+        f"DepthFM bf16 batch {DEPTHFM_BATCH} at {DEPTHFM_SIZE} px, "
+        f"{DEPTHFM_STEPS} steps", lambda: (dfm(img, mask, obs),),
+        lambda: (dfm_served(img, mask, obs),), DEPTHFM_BATCH,
+        DEPTHFM_LAUNCHES, gpu)
+    exact = dfm_served(img, mask, obs)
+    dfm.deep_cache = DEEP_CACHE
+    cached = capture(lambda: capture_depthfm_program(
+        dfm, batch=DEPTHFM_BATCH, hw=hw), f"DepthFM DeepCache {DEEP_CACHE}")
+    dfm.deep_cache = None
+    approx = cached(img, mask, obs)
+    lat = []
+    for _ in range(SERVE_CALLS):
+        t = time.perf_counter()
+        cached(img, mask, obs)
+        lat.append(time.perf_counter() - t)
+    wall, busy, counts = trace_call(lambda: cached(img, mask, obs))
+    delta = blended_depth_delta(exact, exact, approx, approx)
+    gate = check_gate(delta)
+    check(np.isfinite(approx).all() and approx.shape == exact.shape,
+          f"DeepCache {DEEP_CACHE} replay finite, {list(approx.shape)}")
+    rate = DEPTHFM_BATCH * SERVE_CALLS / sum(lat)
+    print(f"  DeepCache {DEEP_CACHE} replay: {rate:.3f} images/s, p50 "
+          f"{np.median(lat) * 1e3:.1f} ms, "
+          f"device busy {as_ms(busy)} of a {wall:.1f} ms profiled wall, "
+          f"{counts['flash_attn_fwd']} flash_attn_fwd launches; against the "
+          f"exact replay: depth max abs {delta['blended_max_abs']:.4f}, mean "
+          f"abs {delta['blended_mean_abs']:.4f}; gate {gate['limits']}: "
+          f"{'pass' if gate['pass'] else 'fail'} (random weights; recorded, "
+          f"not a check) [{gpu}]", flush=True)
+    del dfm, dfm_served, cached
+    torch.cuda.empty_cache()
+
+    print("  (c) HTTP over the captured amodal handle", flush=True)
+    # the server resizes every request to the square size on the host, so
+    # its handle is captured there, as `cli.serve` captures it
+    square = capture(lambda: capture_amodal_program(
+        pipe, batch=FULL_BATCH, hw=(SIZE, SIZE)), "vitg + vitl bf16 square")
+    server = build_server(square, port=0, max_batch=FULL_BATCH,
+                          max_delay_ms=5.0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/v1/amodal_depth"
+    # photograph-like request images: smooth shading under a texture whose
+    # neighbouring pixels correlate, which PIL's encoder (and encode_png,
+    # which filters as it does) writes as Paeth rows
+    yy, xx = np.mgrid[0:hw[0], 0:hw[1]] / 100.0
+    grain = rng.normal(0, 8, (4, hw[0] + 2, hw[1] + 2, 3))
+    grain = sum(grain[:, i:i + hw[0], j:j + hw[1]]
+                for i in range(3) for j in range(3)) / 3
+    images = np.stack([np.stack([np.sin(xx * (2 + k) + c)
+                                 * np.cos(yy * 1.5 - c) for c in range(3)],
+                                -1) for k in range(4)]) * 90 + 128 + grain
+    images = images.clip(0, 255).astype(np.uint8)
+    masks = (mask[:4] * 255).astype(np.uint8)
+    masks[1:, :100] = 255           # four different requests
+
+    def b64(a):
+        return base64.b64encode(encode_png(a)).decode("ascii")
+
+    bodies = [json.dumps({"image": b64(images[i]),
+                          "mask": b64(masks[i])}).encode() for i in range(4)]
+    rows = np.bincount(np.concatenate(
+        [_filter_rows(a.reshape(hw[0], -1), 3)[:, 0] for a in images]),
+        minlength=5)
+    png = encode_png(images[0])
+    t = time.perf_counter()
+    decode_png(png)
+    decode_ms = (time.perf_counter() - t) * 1e3
+    print(f"  request images {hw[1]}x{hw[0]} RGB, rows filtered None/Sub/Up/"
+          f"Average/Paeth {rows.tolist()}; one image PNG ({len(png)} bytes) "
+          f"decoded on the host in {decode_ms:.1f} ms", flush=True)
+    results: list = [None] * SERVE_REQUESTS
+
+    def client(k):
+        for i in range(k, SERVE_REQUESTS, SERVE_CLIENTS):
+            t = time.perf_counter()
+            try:
+                req = urllib.request.Request(
+                    url, data=bodies[i % 4],
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    code, res = r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                code, res = e.code, None
+            results[i] = (code, res, time.perf_counter() - t)
+
+    try:
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        server.shutdown()
+        server.batcher.close()
+    codes = [r[0] if r else None for r in results]
+    check(codes == [200] * SERVE_REQUESTS,
+          f"HTTP: {SERVE_REQUESTS} POSTs from {SERVE_CLIENTS} threads all "
+          f"answered 200 ({codes})")
+    # a direct call with the request in every row of the batch: in bf16 a
+    # row's result depends on its position in the batch (not on the other
+    # rows), and the batcher may have put the request in any position
+    worst = spread = 0.0
+    for i in range(4):
+        img_p, msk_p = _prep(images[i], masks[i], SIZE)
+        want = square(np.stack([img_p] * FULL_BATCH),
+                      np.stack([msk_p] * FULL_BATCH))
+        if i == 0:
+            first = [w[0] for w in want]    # request 0 at row 0
+        spread = max(spread, max(float(np.abs(w - w[:1]).max())
+                                 for w in want))
+        for code, res, _ in results[i::4]:
+            if code != 200:
+                continue
+            got = [decode_png(base64.b64decode(res[key])).astype(np.float64)
+                   / 65535.0 for key in ("base_depth", "blended_depth")]
+            worst = max(worst, min(
+                max(float(np.abs(g - w[p]).max()) for g, w in zip(got, want))
+                for p in range(FULL_BATCH)))
+    check(worst <= 1.0 / 65535 + 1e-3,
+          f"HTTP depth vs a direct call of the handle at the same batch "
+          f"position: max abs {worst:.3e} <= one uint16 step + 1e-3 (the "
+          f"positions of one input differ by up to {spread:.3e} in bf16)")
+    lat = [r[2] for r in results if r]
+    del square
+    print(f"  HTTP: {SERVE_REQUESTS} requests, {server.batcher.dispatches} "
+          f"dispatches, per-request p50 {np.median(lat) * 1e3:.1f} ms (min "
+          f"{min(lat) * 1e3:.1f}, max {max(lat) * 1e3:.1f}) [{gpu}]",
+          flush=True)
+    # one request's host work alone, stage by stage, as the handler does it
+    req, stages = json.loads(bodies[0]), {}
+    t = time.perf_counter()
+    for name, fn in (
+            ("json", lambda: json.loads(bodies[0])),
+            ("image decode", lambda: _b64_png_to_array(req["image"])),
+            ("mask decode", lambda: _b64_png_to_array(req["mask"])),
+            ("resize", lambda: _prep(images[0], masks[0], SIZE)),
+            ("two depth encodes", lambda: [_depth_to_b64_png(d)
+                                           for d in first])):
+        fn()
+        stages[name] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+    print("  one request's host work alone: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in stages.items())
+        + f"; {sum(stages.values()):.1f} ms in all [{gpu}]", flush=True)
+
+    print("  (d) serving state", flush=True)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "serving_state_smoke")
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        t0 = time.time()
+        pipe.save_serving(path)
+        write_s = time.time() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, files in os.walk(path) for f in files)
+        serve_cli_check(gpu, path, bodies[0], first)
+        t0 = time.time()
+        restored = AmodalDepthPipeline.load_serving(path, device="cuda")
+        torch.cuda.synchronize()
+        read_s = time.time() - t0
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    check(restored.dtype == torch.bfloat16 and all(
+        p.dtype == torch.bfloat16 for m in (restored.raw_model,
+                                            restored.amodal_model)
+        for p in m.parameters()), "restored serving state is bfloat16")
+    again = capture_amodal_program(restored, batch=FULL_BATCH, hw=hw)
+    same = all(np.array_equal(a, b) for a, b in zip(again(img, mask),
+                                                    served(img, mask)))
+    check(same, "restored pipeline's replay bit-identical to the saved "
+                "pipeline's")
+    print(f"  serving state: {nbytes / 1e9:.3f} GB, written in {write_s:.2f} "
+          f"s ({nbytes / 1e9 / write_s:.2f} GB/s), read to the card in "
+          f"{read_s:.2f} s ({nbytes / 1e9 / read_s:.2f} GB/s) [{gpu}]",
+          flush=True)
+    return {"amodal": amodal["replay"]["launches"],
+            "depthfm": depthfm["replay"]["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -1594,6 +2023,7 @@ def main() -> int:
               "on the card", file=sys.stderr)
         return 1
     from amodal_depth_anything_tpu_torch.ops import _build
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
     from amodal_depth_anything_tpu_torch.ops.precision import \
         apply_precision_policy
 
@@ -1652,6 +2082,13 @@ def main() -> int:
 
     phase("[8] DepthFM training at full width: SD-1.5 UNet + VAE")
     dfm_train = depthfm_train_phase(gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("[9] serving at full width: both inference programs captured")
+    mha.launches = 0                      # the serving path starts here
+    per_replay = serving_phase(gpu)
+    serve_launches = mha.launches         # ... and ends here
 
     # launches: over the main paths, each counted from 0; the forward
     # kernel runs on five (inference [5], training [6], DepthFM [7], DepthFM
@@ -1669,9 +2106,14 @@ def main() -> int:
             launches_training=launches[name],
             launches_depthfm_training=dfm_train[name],
             launches_ddpm_training=dfm_train["ddpm"][i])
+    # serving: the Python counter counts the eager calls, warm-ups and
+    # captures; a replay's launches are read from its trace
     kernels[0].update(
-        launches=kernels[0]["launches"] + infer_launches + depthfm_launches,
-        launches_inference=infer_launches, launches_depthfm=depthfm_launches)
+        launches=kernels[0]["launches"] + infer_launches + depthfm_launches
+        + serve_launches,
+        launches_inference=infer_launches, launches_depthfm=depthfm_launches,
+        launches_serving=serve_launches,
+        launches_per_replay_traced=per_replay)
     print(f"  all phases took {time.time() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     if failures:

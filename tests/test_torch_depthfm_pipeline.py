@@ -218,16 +218,33 @@ def test_device_cpu_is_honoured_and_bf16_runs():
 
 @pytest.mark.parametrize("option", ["tome", "mesh", "quantize_int8",
                                     "save_serving", "load_serving"])
-def test_left_out_options_raise_not_implemented(amodal_pair, option):
+def test_left_out_options_raise_not_implemented(amodal_pair, option,
+                                                tmp_path):
+    """ToMe, the mesh and int8 are left out of the port, asked for directly
+    or carried in by a serving state: `save_serving` and `load_serving` are
+    ported, and a state saved with ToMe on ("save_serving") or holding int8
+    leaves ("load_serving") is refused."""
+    import json
+
+    from amodal_depth_anything_tpu.pipeline.serving_ckpt import \
+        save_serving_state as jax_save_serving_state
     _, _, pipe = amodal_pair
+    state = tmp_path / "state"
+    if option in ("save_serving", "load_serving"):
+        pipe.save_serving(str(state))
+        meta = json.loads((state / "serving_meta.json").read_text())
+    if option == "save_serving":
+        meta["tome"] = [0.5, 16]
+        (state / "serving_meta.json").write_text(json.dumps(meta))
+    elif option == "load_serving":   # as the JAX package writes W8A8
+        jax_save_serving_state(str(state), {"params": {
+            "unet": {"w": np.zeros(4, np.int8)}}}, meta)
     with pytest.raises(NotImplementedError):
         if option in ("tome", "mesh"):
             DepthFMPipeline(pipe.model, device="cpu",
                             **{option: (0.5, 16) if option == "tome"
                                else object()})
-        elif option == "load_serving":
-            DepthFMPipeline.load_serving("state")
-        elif option == "save_serving":
-            pipe.save_serving("state")
+        elif option in ("save_serving", "load_serving"):
+            DepthFMPipeline.load_serving(str(state), device="cpu")
         else:
             pipe.quantize_int8()

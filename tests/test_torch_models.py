@@ -38,9 +38,15 @@ GUIDED = dict(guide_type="mask+observation")
 @pytest.fixture(autouse=True, scope="module")
 def few_torch_threads():
     """Two intra-op threads: the suite runs in several worker processes,
-    and torch's default of one thread per core oversubscribes the CPU."""
+    and torch's default of one thread per core oversubscribes the CPU.
+    One parallel op then brings those threads up before any test computes:
+    on a loaded machine the first parallel op of a process can compute one
+    thread's share with other bits (seen on `torch.logsumexp` inside
+    `mha_reference`: half the rows off by up to 4.2e-5, in about one fresh
+    process in seven), enough to fail a 1e-5 parity check."""
     n = torch.get_num_threads()
     torch.set_num_threads(min(n, 2))
+    torch.ones(1 << 17).exp_().sum()
     yield
     torch.set_num_threads(n)
 
