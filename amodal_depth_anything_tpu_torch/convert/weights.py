@@ -22,6 +22,13 @@ and `load_depthfm_checkpoints` for the reference artifacts: the
 empty-text embedding; conv-in widened with zeros for the guidance channels)
 and a diffusers `AutoencoderKL` state dict whose topology is read off its
 keys.
+
+The heuristics stack has the same pairs (`sam_params_from_jax` /
+`_to_jax`, `clip_params_*`, `rmbg_params_*`, `p2g_params_*`: the JAX trees
+of `models/{sam,clip_vit,rmbg}.py` and the pix2gestalt tree {"unet",
+"vae", "clip", "uncond_ctx"[, "cc_projection"]}) and `load_p2g_proxy` for
+`checkpoints/proxy/p2g.npz`; the reference checkpoints are read by
+`convert/heuristics.py`.
 """
 
 from __future__ import annotations
@@ -36,7 +43,10 @@ from ..models.unet_ldm import UNetConfig, build_plan
 __all__ = ["load_state_dict", "infer_dav2_config", "params_from_jax",
            "params_to_jax", "load_params_npz", "depthfm_params_from_jax",
            "depthfm_params_to_jax", "load_depthfm_proxy",
-           "load_depthfm_checkpoints"]
+           "load_depthfm_checkpoints", "sam_params_from_jax",
+           "sam_params_to_jax", "clip_params_from_jax", "clip_params_to_jax",
+           "rmbg_params_from_jax", "rmbg_params_to_jax",
+           "p2g_params_from_jax", "p2g_params_to_jax", "load_p2g_proxy"]
 
 
 def load_state_dict(path: str) -> dict[str, torch.Tensor]:
@@ -109,6 +119,7 @@ def load_params_npz(path: str) -> dict:
 # torch layout <- JAX layout, per kind of leaf, as dimension orders (None:
 # as it is); the way back is the inverse order
 _TO_TORCH = {"same": None,
+             "row": None,               # a table's row, kept [1, D]
              "linear": (1, 0),          # [in,out] -> [out,in]
              "conv": (3, 2, 0, 1),      # HWIO -> OIHW
              "convt": (0, 3, 1, 2)}     # [Ci,k,k,Co] -> [Ci,Co,k,k]
@@ -503,4 +514,300 @@ def load_depthfm_checkpoints(depthfm_ckpt, vae_ckpt, *,
                               strict=True)
     with torch.no_grad():
         model.empty_text_embed.copy_(empty)
+    return model
+
+
+# ------------------------------------------------------------- heuristics
+#
+# Entries (state-dict key, path in the JAX tree, kind, index, part): `index`
+# takes block `index` of a stacked JAX leaf (None: the leaf itself); `part`
+# = (j, n) takes the j-th of n equal slices of the JAX leaf's last axis (the
+# CLIP tower's fused qkv against HF's q/k/v projections); kind "row" is one
+# row of a JAX table kept [1, D] on the torch side (SAM's point
+# embeddings).
+
+def _entries_lin(out, key, path, *, bias=True, index=None, part=None):
+    out.append((f"{key}.weight", path + ("w",), "linear", index, part))
+    if bias:
+        out.append((f"{key}.bias", path + ("b",), "same", index, part))
+
+
+def _entries_conv(out, key, path, *, kind="conv", bias=True):
+    out.append((f"{key}.weight", path + ("w",), kind, None, None))
+    if bias:
+        out.append((f"{key}.bias", path + ("b",), "same", None, None))
+
+
+def _entries_ln(out, key, path, index=None):
+    out.append((f"{key}.weight", path + ("scale",), "same", index, None))
+    out.append((f"{key}.bias", path + ("bias",), "same", index, None))
+
+
+def _sam_entries(cfg) -> list:
+    out = []
+    e, ep = "image_encoder.", ("encoder",)
+    _entries_conv(out, f"{e}patch_embed.proj", ep + ("patch_embed", "proj"))
+    out.append((f"{e}pos_embed", ep + ("pos_embed",), "same", None, None))
+    for i in range(cfg.depth):
+        b, bp = f"{e}blocks.{i}.", ep + ("blocks", str(i))
+        _entries_ln(out, f"{b}norm1", bp + ("norm1",))
+        _entries_lin(out, f"{b}attn.qkv", bp + ("attn", "qkv"))
+        _entries_lin(out, f"{b}attn.proj", bp + ("attn", "proj"))
+        for axis in ("h", "w"):
+            out.append((f"{b}attn.rel_pos_{axis}",
+                        bp + ("attn", f"rel_pos_{axis}"), "same", None, None))
+        _entries_ln(out, f"{b}norm2", bp + ("norm2",))
+        _entries_lin(out, f"{b}mlp.lin1", bp + ("mlp", "fc1"))
+        _entries_lin(out, f"{b}mlp.lin2", bp + ("mlp", "fc2"))
+    neck = ep + ("neck",)
+    _entries_conv(out, f"{e}neck.0", neck + ("conv1",), bias=False)
+    _entries_ln(out, f"{e}neck.1", neck + ("ln1",))
+    _entries_conv(out, f"{e}neck.2", neck + ("conv2",), bias=False)
+    _entries_ln(out, f"{e}neck.3", neck + ("ln2",))
+
+    p, pp = "prompt_encoder.", ("prompt",)
+    out.append((f"{p}pe_layer.positional_encoding_gaussian_matrix",
+                pp + ("pe_gaussian",), "same", None, None))
+    for i in range(4):
+        out.append((f"{p}point_embeddings.{i}.weight",
+                    pp + ("point_embeddings",), "row", i, None))
+    out.append((f"{p}not_a_point_embed.weight", pp + ("not_a_point",),
+                "same", None, None))
+    out.append((f"{p}no_mask_embed.weight", pp + ("no_mask",), "same", None,
+                None))
+
+    d, dp = "mask_decoder.", ("decoder",)
+    out.append((f"{d}iou_token.weight", dp + ("iou_token",), "same", None,
+                None))
+    out.append((f"{d}mask_tokens.weight", dp + ("mask_tokens",), "same",
+                None, None))
+
+    def attn4(key, path):
+        for name, jname in (("q_proj", "q"), ("k_proj", "k"),
+                            ("v_proj", "v"), ("out_proj", "out")):
+            _entries_lin(out, f"{key}.{name}", path + (jname,))
+
+    t = f"{d}transformer."
+    for i in range(cfg.decoder_layers):
+        lk, lp = f"{t}layers.{i}.", dp + ("layers", str(i))
+        attn4(f"{lk}self_attn", lp + ("self_attn",))
+        attn4(f"{lk}cross_attn_token_to_image", lp + ("cross_t2i",))
+        attn4(f"{lk}cross_attn_image_to_token", lp + ("cross_i2t",))
+        for n in range(1, 5):
+            _entries_ln(out, f"{lk}norm{n}", lp + (f"norm{n}",))
+        _entries_lin(out, f"{lk}mlp.lin1", lp + ("mlp", "fc1"))
+        _entries_lin(out, f"{lk}mlp.lin2", lp + ("mlp", "fc2"))
+    attn4(f"{t}final_attn_token_to_image", dp + ("final_attn",))
+    _entries_ln(out, f"{t}norm_final_attn", dp + ("norm_final",))
+    _entries_conv(out, f"{d}output_upscaling.0", dp + ("upscale_conv1",),
+                  kind="convt")
+    _entries_ln(out, f"{d}output_upscaling.1", dp + ("upscale_ln",))
+    _entries_conv(out, f"{d}output_upscaling.3", dp + ("upscale_conv2",),
+                  kind="convt")
+    for i in range(cfg.num_multimask + 1):
+        for j in range(3):
+            _entries_lin(out, f"{d}output_hypernetworks_mlps.{i}.layers.{j}",
+                         dp + ("hyper_mlps", str(i), str(j)))
+    for j in range(3):
+        _entries_lin(out, f"{d}iou_prediction_head.layers.{j}",
+                     dp + ("iou_head", str(j)))
+    return out
+
+
+def _clip_entries(cfg, prefix: str = "", root: tuple = ()) -> list:
+    out = []
+    v, e = f"{prefix}vision_model.", f"{prefix}vision_model.embeddings."
+    out.append((f"{e}patch_embedding.weight", root + ("patch_embed", "w"),
+                "conv", None, None))
+    out.append((f"{e}class_embedding", root + ("class_embedding",), "same",
+                None, None))
+    out.append((f"{e}position_embedding.weight", root + ("pos_embed",),
+                "same", None, None))
+    _entries_ln(out, f"{v}pre_layrnorm", root + ("pre_ln",))
+    blk = root + ("blocks",)
+    for i in range(cfg.depth):
+        b = f"{v}encoder.layers.{i}."
+        _entries_ln(out, f"{b}layer_norm1", blk + ("ln1",), i)
+        for j, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            _entries_lin(out, f"{b}self_attn.{name}", blk + ("attn", "qkv"),
+                         index=i, part=(j, 3))
+        _entries_lin(out, f"{b}self_attn.out_proj", blk + ("attn", "proj"),
+                     index=i)
+        _entries_ln(out, f"{b}layer_norm2", blk + ("ln2",), i)
+        _entries_lin(out, f"{b}mlp.fc1", blk + ("mlp", "fc1"), index=i)
+        _entries_lin(out, f"{b}mlp.fc2", blk + ("mlp", "fc2"), index=i)
+    _entries_ln(out, f"{v}post_layernorm", root + ("post_ln",))
+    out.append((f"{prefix}visual_projection.weight", root + ("proj", "w"),
+                "linear", None, None))
+    return out
+
+
+def _rmbg_entries(cfg) -> list:
+    out = []
+
+    def rebn(key, path):
+        _entries_conv(out, f"{key}.conv_s1", path)
+        out.append((f"{key}.bn_s1.scale", path + ("bn_scale",), "same", None,
+                    None))
+        out.append((f"{key}.bn_s1.shift", path + ("bn_bias",), "same", None,
+                    None))
+
+    def rsu(key, path, height):
+        rebn(f"{key}.rebnconvin", path + ("in",))
+        for i in range(1, height + 1):
+            rebn(f"{key}.rebnconv{i}", path + (f"enc{i}",))
+        for i in range(height - 1, 0, -1):
+            rebn(f"{key}.rebnconv{i}d", path + (f"dec{i}",))
+
+    _entries_conv(out, "conv_in", ("conv_in",))
+    for s in range(1, 7):
+        rsu(f"stage{s}", (f"stage{s}",), cfg.heights[s - 1])
+    for s in range(5, 0, -1):
+        rsu(f"stage{s}d", (f"stage{s}d",), cfg.heights[s - 1])
+    for i in range(1, 7):
+        _entries_conv(out, f"side{i}", (f"side{i}",))
+    return out
+
+
+def _p2g_entries(cfg, clip_cfg, vae_cfg, cc_bias: bool | None) -> list:
+    out = [(k, p, kind, None, None) for k, p, kind in
+           _unet_leaf_map(cfg.unet, "unet.", ("unet",))
+           + _vae_leaf_map(vae_cfg, "vae.", ("vae",))]
+    out += _clip_entries(clip_cfg, "clip.", ("clip",))
+    out.append(("uncond_ctx", ("uncond_ctx",), "same", None, None))
+    if cc_bias is not None:
+        _entries_lin(out, "cc_projection", ("cc_projection",), bias=cc_bias)
+    return out
+
+
+def _get_path(tree, path):
+    for part in path:
+        tree = tree[part]
+    return tree
+
+
+def _from_jax(tree: dict, entries: list) -> dict[str, torch.Tensor]:
+    sd = {}
+    for key, path, kind, index, part in entries:
+        leaf = _get_path(tree, path)
+        if not isinstance(leaf, torch.Tensor):
+            leaf = torch.from_numpy(np.asarray(leaf))
+        if index is not None:
+            leaf = leaf[index]
+        if part is not None:
+            j, n = part
+            size = leaf.shape[-1] // n
+            leaf = leaf[..., j * size:(j + 1) * size]
+        if kind == "row":
+            leaf = leaf[None]
+        sd[key] = _permuted(leaf, _TO_TORCH[kind])
+    return sd
+
+
+def _to_jax(sd: dict, entries: list, tensors: bool) -> dict:
+    # path -> {index: {part: leaf}}; parts join on the last axis, indices
+    # stack on a new first one
+    groups: dict[tuple, dict] = {}
+    for key, path, kind, index, part in entries:
+        leaf = sd[key]
+        leaf = leaf[0] if kind == "row" else _permuted(leaf, _TO_JAX[kind])
+        groups.setdefault(path, {}).setdefault(index, {})[
+            0 if part is None else part[0]] = leaf
+    tree: dict = {}
+    for path, by_index in groups.items():
+        joined = {i: torch.cat([parts[j] for j in sorted(parts)], dim=-1)
+                  if len(parts) > 1 else parts[0]
+                  for i, parts in by_index.items()}
+        leaf = (joined[None] if None in joined else
+                torch.stack([joined[i] for i in sorted(joined)]))
+        _set_path(tree, path, _jax_out(leaf, tensors))
+    return tree
+
+
+def sam_params_from_jax(params: dict, cfg) -> dict[str, torch.Tensor]:
+    """The JAX package's SAM tree (`models/sam.py::init_sam` layout, numpy
+    or tensor leaves) -> the state dict of `models.sam.SAM`."""
+    return _from_jax(params, _sam_entries(cfg))
+
+
+def sam_params_to_jax(sd: dict, cfg, *, tensors: bool = False) -> dict:
+    """The inverse of `sam_params_from_jax` (`tensors` as in
+    `params_to_jax`)."""
+    return _to_jax(sd, _sam_entries(cfg), tensors)
+
+
+def clip_params_from_jax(params: dict, cfg) -> dict[str, torch.Tensor]:
+    """The JAX package's CLIP vision tree (blocks stacked [L, ...], qkv
+    fused) -> the state dict of `models.clip_vit.
+    CLIPVisionModelWithProjection` (HF keys, q/k/v apart)."""
+    return _from_jax(params, _clip_entries(cfg))
+
+
+def clip_params_to_jax(sd: dict, cfg, *, tensors: bool = False) -> dict:
+    return _to_jax(sd, _clip_entries(cfg), tensors)
+
+
+def rmbg_params_from_jax(params: dict, cfg) -> dict[str, torch.Tensor]:
+    """The JAX package's RMBG tree (BatchNorm folded into `bn_scale` /
+    `bn_bias`) -> the state dict of `models.rmbg.ISNet`."""
+    return _from_jax(params, _rmbg_entries(cfg))
+
+
+def rmbg_params_to_jax(sd: dict, cfg, *, tensors: bool = False) -> dict:
+    return _to_jax(sd, _rmbg_entries(cfg), tensors)
+
+
+def _cc_bias(tree_or_sd: dict, jax_side: bool) -> bool | None:
+    if jax_side:
+        cc = tree_or_sd.get("cc_projection")
+        return None if cc is None else "b" in cc
+    if "cc_projection.weight" not in tree_or_sd:
+        return None
+    return "cc_projection.bias" in tree_or_sd
+
+
+def p2g_params_from_jax(params: dict, cfg, clip_cfg,
+                        vae_cfg) -> dict[str, torch.Tensor]:
+    """The JAX package's pix2gestalt tree {"unet", "vae", "clip",
+    "uncond_ctx"[, "cc_projection"]} -> the state dict of
+    `models.pix2gestalt.Pix2Gestalt`."""
+    return _from_jax(params, _p2g_entries(cfg, clip_cfg, vae_cfg,
+                                          _cc_bias(params, True)))
+
+
+def p2g_params_to_jax(sd: dict, cfg, clip_cfg, vae_cfg, *,
+                      tensors: bool = False) -> dict:
+    return _to_jax(sd, _p2g_entries(cfg, clip_cfg, vae_cfg,
+                                    _cc_bias(sd, False)), tensors)
+
+
+def load_p2g_proxy(npz_path: str, meta_path: str | None = None, *,
+                   device="cuda"):
+    """The trained in-repo pix2gestalt proxy (`checkpoints/proxy/p2g.npz`
+    with `p2g_meta.json`: UNet 48 channels, 4 heads, CLIP 64 wide, VAE
+    (32, 64, 96, 96)) as a `Pix2Gestalt` module on `device`, its configs
+    those the meta records."""
+    import json
+
+    from ..models.clip_vit import CLIPVisionConfig
+    from ..models.pix2gestalt import Pix2Gestalt, Pix2GestaltConfig
+    from ..models.vae import VAEConfig
+    from ..pipeline.serving_ckpt import cfg_from_dict
+
+    if meta_path is None:
+        meta_path = str(npz_path)[:-len(".npz")] + "_meta.json"
+    with open(meta_path) as f:
+        meta = json.load(f)
+    cfg = cfg_from_dict(Pix2GestaltConfig, meta["p2g_cfg"])
+    clip_cfg = cfg_from_dict(CLIPVisionConfig, meta["clip_cfg"])
+    vae_cfg = cfg_from_dict(VAEConfig, meta["vae_cfg"])
+    params = load_params_npz(npz_path)
+    cc = params.get("cc_projection")
+    with torch.device("meta"):
+        model = Pix2Gestalt(cfg, clip_cfg, vae_cfg,
+                            cc_in=0 if cc is None else cc["w"].shape[0],
+                            cc_bias=cc is not None and "b" in cc)
+    model = model.to_empty(device=device)
+    model.load_state_dict(p2g_params_from_jax(params, cfg, clip_cfg, vae_cfg),
+                          strict=True)
     return model

@@ -31,6 +31,7 @@ import torch
 
 __all__ = ["mha", "mha_reference", "mha_bwd_reference", "flash_attn_bwd_dq",
            "flash_attn_bwd_dkv", "entry_argtypes", "check_head_dim",
+           "kernel_strides",
            "bwd_instantiations", "MAX_HEAD_DIM", "NEG_INF"]
 
 NEG_INF = -1e30  # the JAX package's mask value (avoids inf - inf NaNs)
@@ -136,10 +137,23 @@ def _check(q, k, v, kv_len):
                 f"16-byte alignment, got strides {t.stride()}")
 
 
+def kernel_strides(t) -> tuple[int, int, int]:
+    """The (batch, head, token) strides of a [B,H,N,D] tensor as the kernels
+    take them. A dimension of size 1 is never stepped along, and torch may
+    give it any stride (k and v made from a one-token context, for one);
+    the TMA tensor maps still need every stride a multiple of 16 bytes, so
+    such a stride is replaced by the extent of the other dimensions (a
+    multiple of 16 bytes whenever their strides and the head dim are). The
+    other strides are passed as they are."""
+    dims = list(zip(t.stride()[:3], t.shape[:3]))
+    extent = max([t.shape[-1]] + [st * n for st, n in dims if n > 1])
+    return tuple(st if n > 1 else extent for st, n in dims)
+
+
 def _vector_ready(t) -> bool:
     """The kernels move 16-byte vectors along a contiguous head dim."""
     vec = 16 // t.element_size()
-    return (t.stride(-1) == 1 and not any(s % vec for s in t.stride()[:3])
+    return (t.stride(-1) == 1 and not any(s % vec for s in kernel_strides(t))
             and t.data_ptr() % 16 == 0)
 
 
@@ -173,7 +187,7 @@ def _entry(name: str):
 
 def _strides(*tensors):
     return (ctypes.c_longlong * (3 * len(tensors)))(
-        *(s for t in tensors for s in t.stride()[:3]))
+        *(s for t in tensors for s in kernel_strides(t)))
 
 
 def _token_major(b, h, n, d, like):

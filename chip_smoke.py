@@ -100,7 +100,29 @@ plain PyTorch version on the card:
      `python -m ...cli.serve --random` as a subprocess (it must say that it
      serves a CUDA graph; one POST, then it is stopped); (d) the
      phase-(a) pipeline's serving state saved and restored (under
-     build/, deleted after), its replay bit-identical, bytes and seconds.
+     build/, deleted after), its replay bit-identical, bytes and seconds;
+ 10. the heuristics demo: (a) the forward kernel at pix2gestalt's UNet
+     shapes (batch 2 at 256 px: self-attention over 1024/256/64/16 tokens
+     at d 40/80/160, and onto ONE context token, where the output must be
+     V exactly) and at CLIP ViT-L/14's [1,16,257,64], in f32 and bf16,
+     with and without the LSE, k/v from a one-token context and as views
+     whose size-1 token dimension has an odd stride; the device time of
+     the kernel and of SDPA at [1,16,257,64] and [2,8,1024,40] onto one
+     key; (b) the trained pix2gestalt proxy in f32 with TF32 off, card
+     (kernels) against CPU (plain): one UNet call (<= 1e-4) and
+     `MaskHeuristics.pix2gestalt_completion` at 64 px after 10 and 100
+     DDIM steps on the same noise (<= 1e-3, with the error per step);
+     (c) seeded SAM ViT-H, pix2gestalt (SD-1.5 UNet, 12-channel conv-in,
+     768-wide context; CLIP ViT-L/14; SD VAE) and RMBG-1.4 at full width,
+     (d) one f32 UNet step with the kernels against plain attention, then
+     in bf16 `cli.app.AmodalDepthApp.predict_arrays` in "prompt_points"
+     mode on a 600 x 800 scene with point hints (amodal_mask_from_points:
+     SAM at 1024 px, 100 guided DDIM steps at 256 px, RMBG at 1024 px;
+     then vitg + vitl depth at 518 px on the derived mask): one warm-up,
+     three timed calls with exactly 24 + 3,200 + 64 launches each, a
+     staged call timed stage by stage, peak memory, the mask (binary,
+     covering the visible mask, its area) and one call under
+     torch.profiler (device busy against wall).
 
 Prints a `{"kernels": [...]}` line (the backward entries also list every
 instantiation that ran, with its cases, worst error and times), the card's
@@ -155,10 +177,23 @@ MAIN_CASE = ((4, 24, 1370, 64), None, "bfloat16")   # the kernels-line shape
 # (q shape, Nk): the SD-1.5 UNet at 512 px, batch 4 (8 heads over 320 / 640
 # / 1280 channels): self-attention over 4096 / 1024 / 256 / 64 latent
 # tokens, cross-attention onto the 77 context tokens
-UNET_ATTN_CASES = [((4, 8, 4096, 40), 4096), ((4, 8, 1024, 80), 1024),
-                   ((4, 8, 256, 160), 256), ((4, 8, 64, 160), 64),
-                   ((4, 8, 4096, 40), 77), ((4, 8, 1024, 80), 77),
-                   ((4, 8, 256, 160), 77)]
+DEPTHFM_ATTN_CASES = [((4, 8, 4096, 40), 4096), ((4, 8, 1024, 80), 1024),
+                      ((4, 8, 256, 160), 256), ((4, 8, 64, 160), 64),
+                      ((4, 8, 4096, 40), 77), ((4, 8, 1024, 80), 77),
+                      ((4, 8, 256, 160), 77)]
+# pix2gestalt's UNet (the same body) at 256 px with both guidance halves in
+# one call, batch 2: self-attention over 1024 / 256 / 64 / 16 latent tokens
+# and cross-attention onto ONE context token (the CLIP embedding)
+P2G_ATTN_CASES = [((2, 8, 1024, 40), 1024), ((2, 8, 256, 80), 256),
+                  ((2, 8, 64, 160), 64), ((2, 8, 16, 160), 16),
+                  ((2, 8, 1024, 40), 1), ((2, 8, 256, 80), 1),
+                  ((2, 8, 64, 160), 1), ((2, 8, 16, 160), 1)]
+UNET_ATTN_CASES = DEPTHFM_ATTN_CASES + P2G_ATTN_CASES
+# the CLIP ViT-L/14 tower at 224 px: 16 heads of 64 over 257 tokens
+CLIP_ATTN_CASE = ((1, 16, 257, 64), 257)
+# the heuristics' rows of the kernels line: CLIP's shape and the p2g UNet's
+# largest cross-attention onto one key
+HEUR_MAIN_CASES = (CLIP_ATTN_CASE, ((2, 8, 1024, 40), 1))
 # N = Nq = Nk on the edges of the bf16 kernel's tiles (128 query rows a
 # block, 64 a warpgroup, 128 keys a tile); each also with kv_len = N - 1 and,
 # where it fits, N - 70; head dims 64 and 40 (the main paths') and 24 and 8,
@@ -191,7 +226,7 @@ DEPTHFM_LAUNCHES = DEPTHFM_STEPS * 32   # 16 self + 16 cross per UNet call
 BWD_CASES = [((8, 16, 1370, 64), 1370, None), ((1, 16, 1370, 64), 1370, None),
              ((2, 16, 777, 64), 777, None), ((1, 24, 5330, 64), 5330, None),
              ((1, 16, 1408, 64), 1408, 1370)] + [
-                 (shape, nk, None) for shape, nk in UNET_ATTN_CASES
+                 (shape, nk, None) for shape, nk in DEPTHFM_ATTN_CASES
                  if shape[2] > 64]
 BWD_MAIN_CASE = ((8, 16, 1370, 64), 1370, None, "bfloat16")
 FULL_BATCH, FULL_CALLS, SIZE = 4, 3, 518
@@ -208,6 +243,16 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_BLOCKS = 8, 5, 24
 DEPTHFM_TRAIN_CONFIG = "configs/train_depthfm_base.yaml"
 DDPM_TRAIN_CONFIG = "configs/train_depthfm_ddpm_finetune.yaml"
 DEPTHFM_TRAIN_STEPS, DDPM_TRAIN_STEPS, UNET_ATTN = 5, 2, 32
+# heuristics (phase 10): the trained pix2gestalt proxy card vs CPU at 64 px
+# (one UNet call at the proxies' bar; the 100-step completion at a bar of
+# its own, set before its first run, since a loop can grow an error), then
+# the full-width stack
+P2G_PROXY = os.path.join("checkpoints", "proxy", "p2g.npz")
+P2G_PROXY_SIZE, P2G_COMPLETION_TOL = 64, 1e-3
+HEUR_CALLS, HEUR_HW = 3, (600, 800)
+HEUR_STEPS = 100
+HEUR_LAUNCHES = 24 + 32 * HEUR_STEPS   # CLIP's 24 blocks, 16 + 16 a step
+DEPTH_LAUNCHES = 64                    # vitg 40 + vitl 24 blocks
 # kernel device time and launches of the profiled DepthFM train step, and the
 # share of GroupNorm's plain ops (forward var_mean / addcmul, their backward)
 GROUP_NORM_OPS = ("aten::var_mean", "aten::addcmul", "VarMeanBackward",
@@ -341,6 +386,87 @@ def attention_edge_cases() -> None:
                      if bad else ""))
 
 
+def heuristics_device_ms(shape, nk: int, gpu: str) -> dict:
+    """Device time of the forward kernel and of SDPA at one of the
+    heuristics' launch-bound shapes (bf16), where event timing reads the
+    host's launch rate instead."""
+    import torch
+    import torch.nn.functional as F
+
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    b, h, _, d = shape
+    q = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, h, nk, d), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    kernel = device_ms(lambda: mha(q, k, v), ["flash_attn_fwd"])[
+        "flash_attn_fwd"]
+    sdpa = all_device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    print(f"  device time bf16 q {list(shape)} Nk={nk}: flash_attn_fwd "
+          f"{as_ms(kernel)}, SDPA {as_ms(sdpa)} [{gpu}]", flush=True)
+    return {"device_ms": kernel, "library_device_ms": sdpa}
+
+
+def heuristics_attention_cases() -> None:
+    """The forward kernel at the heuristics' shapes with k and v made as
+    pix2gestalt's UNet makes them: projections of a one-token context
+    [B, 1, 768], viewed [B, H, 1, d]; and the same k, v as views whose
+    token dimension (size 1) has a stride of 3 elements, which the kernels
+    never step along and the wrapper must not hand to a TMA map. With and
+    without the LSE, float32 and bfloat16, against the plain version; onto
+    one key the output must be that key's value exactly (P = 1)."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import (
+        mha, mha_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for dt_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt_name)
+        worst, worst_lse, bad, one_key = 0.0, 0.0, [], 0.0
+        for (b, h, nq, d), nk in P2G_ATTN_CASES + [CLIP_ATTN_CASE]:
+            q = torch.randn((b, nq, h, d), generator=gen, device="cuda").to(
+                dtype).transpose(1, 2)
+            ctx = torch.randn((b, nk, 768), generator=gen, device="cuda")
+            w = torch.randn((768, 2 * h * d), generator=gen,
+                            device="cuda") * 768 ** -0.5
+            kv = (ctx @ w).to(dtype).view(b, nk, 2, h, d)
+            k, v = (kv[:, :, i].transpose(1, 2) for i in range(2))
+            views = [(k, v)]
+            if nk == 1:
+                odd = (k.stride(0), k.stride(1), 3, 1)
+                views.append((k.as_strided(k.shape, odd),
+                              v.as_strided(v.shape, odd)))
+            for kk, vv in views:
+                out, lse = mha(q, kk, vv, return_lse=True)
+                alone = mha(q, kk, vv)
+                torch.cuda.synchronize()
+                ref, ref_lse = mha_reference(q.float(), kk.float(),
+                                             vv.float(), return_lse=True)
+                err = max((out.float() - ref).abs().max().item(),
+                          (alone.float() - ref).abs().max().item())
+                lse_err = (lse - ref_lse).abs().max().item()
+                if nk == 1:
+                    exact = max((o - vv.expand_as(o)).abs().max().item()
+                                for o in (out, alone))
+                    one_key = max(one_key, exact)
+                    err = max(err, exact)
+                if not (err <= TOL[dt_name] and lse_err <= LSE_TOL):
+                    bad.append(((b, h, nq, d), nk, kk.stride(), err,
+                                lse_err))
+                worst, worst_lse = max(worst, err), max(worst_lse, lse_err)
+        check(not bad and one_key == 0.0,
+              f"flash_attn_fwd {dt_name} at the heuristics' shapes (p2g "
+              f"self and onto 1 key at d 40/80/160, CLIP [1,16,257,64]), "
+              f"k/v from a one-token context and as odd-strided views, "
+              f"with and without LSE: max abs {worst:.3e} <= "
+              f"{TOL[dt_name]}, LSE {worst_lse:.3e} <= {LSE_TOL}, onto one "
+              f"key output - v = {one_key:.1e} (exactly 0)"
+              + (f"; failing (q, Nk, k strides, err, lse err): {bad}"
+                 if bad else ""))
+
+
 def host_cost_phase(gpu: str) -> None:
     """What one launch of each redesigned kernel costs the host, wrapper
     and tensor-map encodes included: many launches of a tiny case, no
@@ -414,16 +540,22 @@ def attention_phase(gpu: str) -> dict:
             got = attention_case(gen, shape, shape[2], kv_len, dt_name, gpu)
             if (shape, kv_len, dt_name) == MAIN_CASE:
                 main = got
-    unet = []
-    for shape, nk in UNET_ATTN_CASES:
+    unet, heur = [], []
+    for shape, nk in UNET_ATTN_CASES + [CLIP_ATTN_CASE]:
         for dt_name in ("float32", "bfloat16"):
             got = attention_case(gen, shape, nk, None, dt_name, gpu)
-            if dt_name == "bfloat16":   # the DepthFM main path's dtype
-                unet.append({"q": list(shape), "nk": nk, **got})
+            if dt_name == "bfloat16":   # the main paths' dtype
+                rows = unet if (shape, nk) in DEPTHFM_ATTN_CASES else heur
+                rows.append({"q": list(shape), "nk": nk, **got})
     for shape, nk in PROXY_ATTN_CASES:
         attention_case(gen, shape, nk, None, "float32", gpu)
     attention_edge_cases()
+    heuristics_attention_cases()
     main["depthfm_shapes"] = unet
+    main["heuristics_shapes"] = heur
+    for row in heur:
+        if (tuple(row["q"]), row["nk"]) in HEUR_MAIN_CASES:
+            row.update(heuristics_device_ms(row["q"], row["nk"], gpu))
     torch.cuda.empty_cache()
     return main
 
@@ -553,6 +685,23 @@ def device_ms(fn, names, calls: int = 5) -> dict:
                 if name + "_" in e.name:
                     found[name].append(e.time_range.elapsed_us() / 1e3)
     return {name: sum(t) / calls if t else None for name, t in found.items()}
+
+
+def all_device_ms(fn, calls: int = 5) -> float | None:
+    """Device time per call of `fn`, every kernel it launches summed (a
+    torch.profiler trace; None where it recorded none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(times) / calls if times else None
 
 
 def as_ms(x) -> str:
@@ -2015,6 +2164,270 @@ def serving_phase(gpu: str) -> dict:
             "depthfm": depthfm["replay"]["launches"]}
 
 
+def p2g_proxy_phase() -> None:
+    """The trained pix2gestalt proxy (UNet 48 channels, CLIP 64 wide) in
+    float32 with TF32 off: the card (kernels) against the CPU (plain), one
+    UNet call on the same inputs, then `MaskHeuristics.
+    pix2gestalt_completion` at 64 px on the same initial noise after 10 and
+    100 guided DDIM steps."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.convert.weights import \
+        load_p2g_proxy
+    from amodal_depth_anything_tpu_torch.heuristics import MaskHeuristics
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+
+    stacks = {}
+    for device in ("cuda", "cpu"):
+        p2g = load_p2g_proxy(P2G_PROXY, device=device).eval()
+        sam = MaskHeuristics.init_random(0, tiny=True, device=device).sam
+        stacks[device] = MaskHeuristics(sam, p2g)
+    cfg = dataclasses.replace(stacks["cuda"].p2g_cfg,
+                              image_size=P2G_PROXY_SIZE)
+    hw = P2G_PROXY_SIZE // 8
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn((2, hw, hw, 4), generator=gen)
+    cond = torch.randn((2, hw, hw, 8), generator=gen)
+    ctx = torch.randn((2, 1, cfg.context_dim), generator=gen)
+    t = torch.tensor([999.0, 499.0])
+    outs = {}
+    for device, mh in stacks.items():
+        mha.launches = 0
+        with torch.inference_mode():
+            outs[device] = mh.p2g.unet(
+                x.to(device), t.to(device), context=cond.to(device),
+                context_ca=ctx.to(device)).cpu()
+        if device == "cuda":
+            launches = mha.launches
+    err_call = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    check(launches == 32 and err_call <= PROXY_TOL,
+          f"p2g proxy UNet call at {P2G_PROXY_SIZE} px: card (kernels, "
+          f"{launches} launches, 32) vs CPU (plain) max abs {err_call:.3e} "
+          f"<= {PROXY_TOL}")
+
+    rng = np.random.default_rng(8)
+    image = (rng.random((96, 128, 3)) * 255).astype(np.uint8)
+    visible = np.zeros((96, 128), bool)
+    visible[24:80, 30:100] = True
+    noise = torch.randn((1, hw, hw, 4), generator=gen)
+    errs = {}
+    for steps in (10, HEUR_STEPS):
+        got = {}
+        for device, mh in stacks.items():
+            mh.p2g_cfg = dataclasses.replace(cfg, ddim_steps=steps)
+            mha.launches = 0
+            got[device] = mh.pix2gestalt_completion(image, visible,
+                                                    noise=noise)
+            if device == "cuda":
+                launches = mha.launches
+        errs[steps] = float(np.abs(got["cuda"] - got["cpu"]).max())
+        want = 2 + 32 * steps    # the proxy's CLIP has 2 blocks
+        check(launches == want and np.isfinite(got["cuda"]).all(),
+              f"p2g proxy completion, {steps} steps: {launches} launches "
+              f"({want}), finite")
+    growth = (errs[HEUR_STEPS] / max(err_call, 1e-12)) ** (1 / HEUR_STEPS)
+    print(f"  p2g proxy card vs CPU: one UNet call {err_call:.3e}, "
+          f"completion after 10 steps {errs[10]:.3e}, after {HEUR_STEPS} "
+          f"{errs[HEUR_STEPS]:.3e}: a factor {growth:.4f} per step over the "
+          f"one call's error", flush=True)
+    check(errs[HEUR_STEPS] <= P2G_COMPLETION_TOL,
+          f"p2g proxy {HEUR_STEPS}-step completion at {P2G_PROXY_SIZE} px, "
+          f"card vs CPU: max abs {errs[HEUR_STEPS]:.3e} <= "
+          f"{P2G_COMPLETION_TOL}")
+
+
+def synthetic_scene(hw):
+    """A 600 x 800 scene: a textured background, a lit disc (the target)
+    half behind a dark bar, and the user's point hints on the visible part
+    of the disc: a small blob (< 100 px, its centroid) and a stroke (> 100
+    px, a 10 px grid of prompts)."""
+    h, w = hw
+    rng = np.random.default_rng(11)
+    yy, xx = np.mgrid[:h, :w]
+    img = np.stack([60 + 40 * np.sin(xx / 23.0), 90 + 30 * np.cos(yy / 17.0),
+                    np.full((h, w), 120.0)], -1)
+    disc = (yy - 300) ** 2 + (xx - 400) ** 2 < 160 ** 2
+    img[disc] = (220, 170, 60)
+    img[:, 380:470] = (25, 25, 30)                   # the occluder
+    img += rng.normal(0, 6, img.shape)
+    hint = np.zeros((h, w), np.float32)
+    hint[296:302, 300:306] = 1.0                     # 36 px: a centroid
+    hint[250:270, 260:340] = 1.0                     # 1600 px: a grid
+    return np.clip(img, 0, 255).astype(np.uint8), hint
+
+
+def heuristics_phase(gpu: str) -> int:
+    """The demo's heuristics at full width: a seeded SAM ViT-H, pix2gestalt
+    (SD-1.5 UNet, 12-channel conv-in, 768-wide context) with CLIP ViT-L/14
+    and the SD VAE, RMBG-1.4 at 1024 px, and vitg + vitl at 518 px. One
+    float32 UNet step with the kernels against plain attention; then, cast
+    to bfloat16, `cli.app.AmodalDepthApp.predict_arrays` in "prompt_points"
+    mode (`MaskHeuristics.amodal_mask_from_points`, then
+    `AmodalDepthPipeline.__call__` on its mask): one warm-up, timed calls,
+    the launches, the mask; a staged call, each stage timed; one call under
+    torch.profiler. Returns the forward kernel's launches over the timed
+    calls."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.cli.app import AmodalDepthApp
+    from amodal_depth_anything_tpu_torch.heuristics import (
+        MaskHeuristics, get_points_from_components, host_ops,
+        init_heuristics_, make_rmbg_matting_fn)
+    from amodal_depth_anything_tpu_torch.models.rmbg import ISNet, RMBGConfig
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.pipeline.amodal_pipeline import \
+        AmodalDepthPipeline
+
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mh = MaskHeuristics.init_random(gen, device="cuda")
+    with torch.device("meta"):
+        rmbg = ISNet(RMBGConfig())
+    rmbg = init_heuristics_(rmbg.to_empty(device="cuda"), gen)
+    torch.cuda.synchronize()
+    p2g, sam = mh.p2g_cfg, mh.sam_cfg
+    n_params = {name: sum(p.numel() for p in m.parameters()) / 1e6
+                for name, m in (("SAM", mh.sam), ("UNet", mh.p2g.unet),
+                                ("CLIP", mh.p2g.clip), ("VAE", mh.p2g.vae),
+                                ("RMBG", rmbg))}
+    print(f"  seeded heuristics stack built on the card in "
+          f"{time.time() - t0:.1f} s: "
+          + ", ".join(f"{k} {v:.1f} M" for k, v in n_params.items()),
+          flush=True)
+    check((sam.embed_dim, sam.depth, sam.img_size, p2g.model_channels,
+           tuple(p2g.channel_mult), p2g.context_dim, p2g.image_size,
+           p2g.ddim_steps, p2g.guidance_scale, mh.p2g.cfg.unet.in_channels,
+           mh.clip_cfg.width, mh.clip_cfg.depth, mh.clip_cfg.image_size)
+          == (1280, 32, 1024, 320, (1, 2, 4, 4), 768, 256, HEUR_STEPS, 1.5,
+              12, 1024, 24, 224),
+          "full width: SAM ViT-H at 1024 px, pix2gestalt UNet 320 x "
+          "(1,2,4,4) with 12-channel conv-in and 768-wide context at 256 "
+          "px, 100 DDIM steps, guidance 1.5, CLIP ViT-L/14 at 224 px")
+
+    # (d) one full-width float32 UNet step: the kernels against plain
+    tg = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn((2, 32, 32, 4), generator=tg, device="cuda")
+    cond = torch.randn((2, 32, 32, 8), generator=tg, device="cuda")
+    ctx = torch.randn((2, 1, 768), generator=tg, device="cuda")
+    t = torch.full((2,), 999.0, device="cuda")
+    with torch.inference_mode():
+        mha.launches = 0
+        eps_k = mh.p2g.unet(x, t, context=cond, context_ca=ctx)
+        step_launches = mha.launches
+        eps_p = mh.p2g.unet(x, t, context=cond, context_ca=ctx,
+                            attn_impl="plain")
+    err = (eps_k - eps_p).abs().max().item()
+    check(step_launches == 32 and err <= FULL_F32_TOL
+          and torch.isfinite(eps_k).all().item(),
+          f"full-width f32 p2g UNet step (batch 2 at 256 px): {step_launches}"
+          f" launches (32), kernels vs plain attention max abs {err:.3e} <= "
+          f"{FULL_F32_TOL}")
+
+    # (c) the demo's path in bfloat16
+    mh.cast_to(torch.bfloat16)
+    mh.matting_fn = make_rmbg_matting_fn(rmbg, input_size=1024)
+    pipe = AmodalDepthPipeline.init_random(
+        0, encoder="vitl", base_encoder="vitg", size=SIZE, device="cuda",
+        dtype=torch.bfloat16)
+    app = AmodalDepthApp(pipe, mh)
+    img, hint = synthetic_scene(HEUR_HW)
+    app.predict_arrays(img, hint, "prompt_points", seed=0)   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    latencies = []
+    mha.launches = 0                      # the main path starts here
+    for i in range(HEUR_CALLS):
+        t1 = time.perf_counter()
+        out = app.predict_arrays(img, hint, "prompt_points", seed=i)
+        latencies.append(time.perf_counter() - t1)
+    launches = mha.launches               # ... and ends here
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_call = HEUR_LAUNCHES + DEPTH_LAUNCHES
+    check(launches == HEUR_CALLS * per_call,
+          f"heuristics main path launched flash_attn_fwd {launches} times "
+          f"({HEUR_CALLS} x ({HEUR_LAUNCHES} completion + {DEPTH_LAUNCHES} "
+          f"depth))")
+
+    # one call stage by stage (seed 0 again), each stage synchronised
+    stages, counts = {}, {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        mha.launches = 0
+        t1 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t1) * 1e3
+        counts[name] = mha.launches
+        return r
+
+    with torch.inference_mode():
+        hint_u8 = (hint > 0).astype(np.uint8) * 255
+        pts = stage("host: point prompts",
+                    lambda: get_points_from_components(hint_u8))
+        visible = stage("SAM encode + decode (+ host resizes)",
+                        lambda: mh.sam_visible_mask(img, pts))
+        img01, m01 = stage("host: p2g inputs",
+                           lambda: mh.p2g_inputs(img, visible))
+        ctx, cond = stage("VAE encode x2 + CLIP",
+                          lambda: mh.p2g.context(img01, m01, mh.p2g_cfg))
+        clip_in = torch.zeros((1, 224, 224, 3), device="cuda",
+                              dtype=torch.bfloat16)
+        stage("CLIP alone", lambda: mh.p2g.clip(clip_in))
+        x_sam = torch.zeros((1, sam.img_size, sam.img_size, 3),
+                            device="cuda", dtype=torch.bfloat16)
+        p_sam = torch.full((1, mh.max_points, 2), 0.5, device="cuda")
+        l_sam = torch.ones((1, mh.max_points), device="cuda")
+        stage("SAM forward alone", lambda: mh.sam(x_sam, p_sam, l_sam))
+        x_rmbg = torch.zeros((1, 1024, 1024, 3), device="cuda")
+        stage("RMBG forward alone", lambda: rmbg(x_rmbg))
+        noise = torch.Generator(device="cuda").manual_seed(0)
+        z = stage(f"{HEUR_STEPS} DDIM steps (UNet at batch 2)",
+                  lambda: mh.p2g.sample(ctx, cond, noise, cfg=mh.p2g_cfg))
+        comp = stage("VAE decode",
+                     lambda: mh.p2g.render(z).float()[0].cpu().numpy())
+        amodal = stage("RMBG at 1024 px (f32, + host resizes)",
+                       lambda: mh.matting_fn(comp))
+        mask = stage("host: resize + union", lambda: np.maximum(
+            host_ops.resize_nearest(amodal, HEUR_HW[::-1]),
+            visible.astype(np.float32)))
+        stage("depth: vitg + vitl at 518 px", lambda: pipe(img, mask))
+    total = sum(v for k, v in stages.items() if not k.endswith(" alone"))
+    for name, ms in stages.items():
+        print(f"    {ms:9.1f} ms {100 * ms / total:5.1f}%  {counts[name]:5d} "
+              f"launches  {name}", flush=True)
+    comp_launches = counts["VAE encode x2 + CLIP"] + counts[
+        f"{HEUR_STEPS} DDIM steps (UNet at batch 2)"]
+    check(comp_launches == HEUR_LAUNCHES and counts["CLIP alone"] == 24,
+          f"one completion launched flash_attn_fwd {comp_launches} times "
+          f"({HEUR_LAUNCHES} = 24 CLIP + 32 x {HEUR_STEPS})")
+    m = out["mask"]
+    area = float(m.sum())
+    check(m.shape == HEUR_HW and np.isfinite(m).all()
+          and set(np.unique(m)) <= {0.0, 1.0}
+          and (m >= visible).all(),
+          f"prompt_points mask [{HEUR_HW[0]},{HEUR_HW[1]}] binary, covers "
+          f"the visible mask ({int(visible.sum())} px); area {area:.0f} px "
+          f"({100 * area / m.size:.1f}%)")
+    for name in ("base", "blended"):
+        a = out[name]
+        check(a.shape == (SIZE, SIZE) and np.isfinite(a).all()
+              and a.std() > MIN_STD,
+              f"prompt_points {name} depth finite, [{SIZE},{SIZE}], not "
+              f"constant (std {a.std():.4f})")
+    a = out["aligned"]
+    check(np.isfinite(a).all() and a.min() >= 0.0 and a.max() <= 1.0,
+          "prompt_points aligned depth finite, in [0, 1]")
+    profile_call(lambda: app.predict_arrays(img, hint, "prompt_points",
+                                            seed=0),
+                 "heuristics + depth call (bf16)", gpu)
+    p50 = float(np.median(latencies)) * 1e3
+    print(f"  heuristics + depth bf16 at full width, {HEUR_HW[0]} x "
+          f"{HEUR_HW[1]} scene: p50 {p50:.1f} ms per call, latencies "
+          f"{[round(v * 1e3, 1) for v in latencies]} ms, staged total "
+          f"{total:.1f} ms, peak memory {peak:.2f} GiB [{gpu}]", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2089,11 +2502,18 @@ def main() -> int:
     mha.launches = 0                      # the serving path starts here
     per_replay = serving_phase(gpu)
     serve_launches = mha.launches         # ... and ends here
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("[10] heuristics at full width: SAM ViT-H, pix2gestalt, CLIP "
+          "ViT-L/14, RMBG-1.4, then vitg + vitl depth")
+    p2g_proxy_phase()
+    heur_launches = heuristics_phase(gpu)
 
     # launches: over the main paths, each counted from 0; the forward
-    # kernel runs on five (inference [5], training [6], DepthFM [7], DepthFM
-    # training and its DDPM finetune [8]), the backward pair on three, the
-    # fused epilogue on its chain [3]
+    # kernel runs on seven (inference [5], training [6], DepthFM [7], DepthFM
+    # training and its DDPM finetune [8], serving [9], heuristics [10]), the
+    # backward pair on three, the fused epilogue on its chain [3]
     launches["fused_epilogue"] = measured["fused_epilogue"]["launches"]
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, **measured[name],
@@ -2110,9 +2530,9 @@ def main() -> int:
     # captures; a replay's launches are read from its trace
     kernels[0].update(
         launches=kernels[0]["launches"] + infer_launches + depthfm_launches
-        + serve_launches,
+        + serve_launches + heur_launches,
         launches_inference=infer_launches, launches_depthfm=depthfm_launches,
-        launches_serving=serve_launches,
+        launches_serving=serve_launches, launches_heuristics=heur_launches,
         launches_per_replay_traced=per_replay)
     print(f"  all phases took {time.time() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -129,9 +129,15 @@ UNET_CASES = [(2, 64, 64, 12, None), (2, 100, 100, 40, None),
               (2, 70, 70, 80, None), (1, 64, 64, 160, None),
               (2, 100, 77, 40, None), (1, 64, 77, 160, None),
               (2, 64, 64, 40, 0.11)]
+# pix2gestalt's UNet at 256 px: self-attention and cross-attention onto ONE
+# context token (the CLIP embedding) at head dims 40/80/160, and the CLIP
+# tower's 257 tokens at 64: (heads, n_q, n_k, d, sm_scale)
+P2G_CASES = [(2, 1024, 1, 40, None), (2, 256, 1, 80, None),
+             (2, 64, 1, 160, None), (2, 16, 1, 160, None),
+             (2, 16, 16, 160, None), (2, 257, 257, 64, None)]
 
 
-@pytest.mark.parametrize("h,nq,nk,d,scale", UNET_CASES)
+@pytest.mark.parametrize("h,nq,nk,d,scale", UNET_CASES + P2G_CASES)
 def test_mha_reference_matches_jax_reference_at_unet_head_dims(h, nq, nk, d,
                                                                scale):
     q, k, v = _qkv(2, h, nq, nk, d=d, seed=6)
@@ -144,7 +150,7 @@ def test_mha_reference_matches_jax_reference_at_unet_head_dims(h, nq, nk, d,
 
 
 @pytest.mark.parametrize("h,nq,nk,d,scale", [UNET_CASES[1], UNET_CASES[4],
-                                             UNET_CASES[5]])
+                                             UNET_CASES[5], P2G_CASES[3]])
 def test_mha_matches_jax_pallas_interpret_at_unet_head_dims(h, nq, nk, d,
                                                             scale):
     # the Pallas kernel lane-pads d; the port's kernel pads it to a
@@ -210,3 +216,27 @@ def test_backward_kernels_keep_head_dim_64():
         for d in (64, 40, 80, 160):
             q = _OnCard((1, 2, 8, d), dtype)
             _check_bwd(q, q, q, q, stat, stat, 8)
+
+
+def test_one_key_gives_v_broadcast():
+    # P = 1 on the only key: every query row's output is that key's value
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 3, 50, 1, d=40, seed=9))
+    out = mha(q, k, v)
+    torch.testing.assert_close(out, v.expand_as(out), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_size_one_dims_take_a_valid_stride(dtype):
+    """k, v of a one-token context: the token dimension's stride is never
+    read, so whatever torch gave it, the kernels get an aligned one; the
+    other strides are checked as they are."""
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import (
+        _vector_ready, kernel_strides)
+    base = torch.zeros(2 * 8 * 40 + 64, dtype=dtype)
+    k = base.as_strided((2, 8, 1, 40), (320, 40, 3, 1))   # odd stride, size 1
+    assert kernel_strides(k) == (320, 40, 640)
+    assert _vector_ready(k)
+    one = base.as_strided((1, 1, 1, 40), (7, 5, 3, 1))
+    assert kernel_strides(one) == (40, 40, 40) and _vector_ready(one)
+    bad = base.as_strided((2, 8, 2, 40), (320, 41, 40, 1))  # a real stride
+    assert not _vector_ready(bad)
