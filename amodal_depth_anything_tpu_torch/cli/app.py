@@ -279,7 +279,7 @@ def _build_heuristics(args):
                     or args.clip_ckpt)
     if args.p2g_int8:
         raise SystemExit("--p2g_int8 is not ported to the torch heuristics "
-                         "(ROADMAP queue 1, item 5: compression)")
+                         "(ROADMAP queue 1, item 3: compression)")
     if args.heur_serving is None and not has_ckpt and not args.random:
         if args.p2g_deep_cache is not None:
             raise SystemExit("--p2g_deep_cache requires the heuristics "

@@ -811,3 +811,129 @@ def load_p2g_proxy(npz_path: str, meta_path: str | None = None, *,
     model.load_state_dict(p2g_params_from_jax(params, cfg, clip_cfg, vae_cfg),
                           strict=True)
     return model
+
+
+# ------------------------------------------------------------- baselines
+# The baselines' modules are named after the JAX trees (ADDeepLab,
+# PartialCompletionContentDPT, InvisibleStitch, JoUNet), so their entries
+# are read off the module: the module path is the tree path, the leaf name
+# follows the module's kind (linear / conv / transposed-conv weights "w"
+# in the JAX layout, biases "b", norm scales and shifts "scale" / "bias",
+# running statistics "mean" / "var"), stacked blocks carry their index, and
+# the trees with BatchNorm state are {"params": ..., "bn": ...}.
+
+_NORM_LEAVES = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+                "running_var": "var"}
+
+
+def _baseline_entries(model: torch.nn.Module, *, stacked: tuple = (),
+                      bn_root: tuple | None = None, rename=None) -> list:
+    """(key, path, kind, index, None) for every state-dict entry of
+    `model`. `stacked`: module-path prefixes whose next part is a block
+    index stacked on the JAX leaf's first axis. `bn_root`: the path prefix
+    the running statistics drop when they move under "bn" (the parameters
+    then go under "params"); None for a tree without BatchNorm state.
+    `rename(path)`: a last per-model rewrite of a path."""
+    mods = dict(model.named_modules())
+    out = []
+    for key in model.state_dict():
+        mod_name, _, leaf = key.rpartition(".")
+        mod = mods[mod_name]
+        if isinstance(mod, (torch.nn.Linear, torch.nn.Conv2d,
+                            torch.nn.ConvTranspose2d)):
+            kind = "same" if leaf == "bias" else (
+                "linear" if isinstance(mod, torch.nn.Linear) else
+                "convt" if isinstance(mod, torch.nn.ConvTranspose2d)
+                else "conv")
+            jleaf = "b" if leaf == "bias" else "w"
+        else:
+            kind, jleaf = "same", _NORM_LEAVES.get(leaf, leaf)
+        parts = mod_name.split(".") if mod_name else []
+        index = None
+        for prefix in stacked:
+            n = len(prefix)
+            if tuple(parts[:n]) == prefix and len(parts) > n:
+                index = int(parts[n])
+                parts = parts[:n] + parts[n + 1:]
+        path = tuple(parts) + (jleaf,)
+        if rename is not None:
+            path = rename(path)
+        if bn_root is not None:
+            if jleaf in ("mean", "var"):
+                path = ("bn",) + path[len(bn_root):]
+            else:
+                path = ("params",) + path
+        out.append((key, path, kind, index, None))
+    return out
+
+
+def _resnet_rename(path: tuple) -> tuple:
+    # torchvision's downsample.0 / .1 are the JAX tree's downsample /
+    # downsample_bn
+    if "downsample" in path:
+        i = path.index("downsample")
+        sub = path[i + 1]
+        path = path[:i] + ("downsample" if sub == "0" else "downsample_bn",) \
+            + path[i + 2:]
+    return path
+
+
+def _jo_dpt_rename(path: tuple) -> tuple:
+    # spade.N.param_free_norm.{mean,var} -> bn state N; the JAX tree keeps
+    # the refinenets and the output convs under "scratch" as the port does
+    if path[0] == "spade" and path[2] == "param_free_norm":
+        return ("spade", path[1]) + path[3:]
+    return path
+
+
+def _zoe_rename(path: tuple) -> tuple:
+    # BEiT's fused qkv has no bias: the JAX leaf is attn.qkv_w
+    if path[-2:] == ("qkv", "w"):
+        return path[:-2] + ("qkv_w",)
+    if path[-1] == "relative_position_bias_table":
+        return path[:-1] + ("rel_pos_table",)
+    return path
+
+
+def _baseline_spec(name: str, cfg):
+    """(module class, entries kwargs) of a baseline by registry name."""
+    from ..models.deeplab import ADDeepLab
+    from ..models.jo_dpt import JoDPT
+    from ..models.jo_unet import JoUNet
+    from ..models.zoedepth import InvisibleStitch
+    if name == "ADDeepLab":
+        return ADDeepLab, dict(bn_root=("encoder",), rename=_resnet_rename)
+    if name == "PartialCompletionContentDPT":
+        return JoDPT, dict(stacked=(("blocks",),), bn_root=("spade",),
+                           rename=_jo_dpt_rename)
+    if name == "InvisibleStitch":
+        return InvisibleStitch, dict(rename=_zoe_rename)
+    if name == "JoUNet":
+        return JoUNet, dict(bn_root=())
+    raise ValueError(f"not a baseline: {name!r}")
+
+
+def baseline_entries(name: str, cfg) -> list:
+    """The bridge entries of baseline `name` ("ADDeepLab",
+    "PartialCompletionContentDPT", "InvisibleStitch", "JoUNet") at `cfg`."""
+    cls, kw = _baseline_spec(name, cfg)
+    with torch.device("meta"):
+        model = cls(cfg)
+    return _baseline_entries(model, **kw)
+
+
+def baseline_params_from_jax(name: str, tree: dict, cfg
+                             ) -> dict[str, torch.Tensor]:
+    """The JAX registry's tree of baseline `name` (`Model.init`: {"params",
+    "bn"} for the three with BatchNorm state, the bare parameters for
+    InvisibleStitch) -> the port module's state dict, running statistics
+    included."""
+    return _from_jax(tree, baseline_entries(name, cfg))
+
+
+def baseline_params_to_jax(name: str, sd: dict, cfg, *,
+                           tensors: bool = False) -> dict:
+    """The inverse of `baseline_params_from_jax` (`tensors` as in
+    `params_to_jax`; gradients under the parameters' names map too)."""
+    entries = [e for e in baseline_entries(name, cfg) if e[0] in sd]
+    return _to_jax(sd, entries, tensors)

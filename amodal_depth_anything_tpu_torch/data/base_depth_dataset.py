@@ -29,6 +29,7 @@ from typing import Sequence
 import numpy as np
 
 from ..ops.resize import _nearest_indices
+from ..utils.host_image import PNG_SIGNATURE, decode_png
 
 __all__ = ["DatasetMode", "DepthFileNameMode", "BaseDepthDataset",
            "resize_nearest_exact_np"]
@@ -115,16 +116,23 @@ class BaseDepthDataset:
 
     # ------------------------------------------------------------------- io
 
-    def _read_image(self, img_rel_path: str) -> np.ndarray:
+    def _read_bytes(self, rel_path: str) -> bytes:
         if self.is_tar:
             if self._tar is None:
                 self._tar = tarfile.open(self.dataset_dir)
-            data = self._tar.extractfile("./" + img_rel_path).read()
-        else:
-            with open(os.path.join(self.dataset_dir, img_rel_path), "rb") as f:
-                data = f.read()
-        # PIL decode (the JAX package's fallback branch; its native codec
-        # is not ported)
+            return self._tar.extractfile("./" + rel_path).read()
+        with open(os.path.join(self.dataset_dir, rel_path), "rb") as f:
+            return f.read()
+
+    def _read_image(self, img_rel_path: str) -> np.ndarray:
+        """The decoded image as `np.asarray(PIL.Image.open(...))` gives it.
+        PNGs (8-bit RGB and masks, the zero-shot sets' 16-bit grey depth)
+        decode in numpy (`utils/host_image.decode_png`), so the loaders run
+        where PIL is not installed; PIL is imported only for other formats
+        (the JAX package's native codec is not ported)."""
+        data = self._read_bytes(img_rel_path)
+        if data.startswith(PNG_SIGNATURE):
+            return decode_png(data)
         from PIL import Image
         return np.asarray(Image.open(io.BytesIO(data)))
 

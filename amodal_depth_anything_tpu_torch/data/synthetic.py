@@ -6,7 +6,10 @@ samples) is external and its train split is a missing LFS blob
 This writes a miniature on-disk tree with the exact directory layout the
 SAMAmodalDataset expects (occlusion/ whole/ whole_mask/
 visible_object_mask/ depth_da_update_occ/ depth_da_update_combine/ and a
-filename list), with geometrically consistent masks/depths.
+filename list), with geometrically consistent masks/depths. The PNGs are
+written by the port's numpy codec (`utils/host_image.encode_png`), which
+PIL and the datasets read back as the same arrays, so the tree can be
+written where PIL is not installed.
 """
 
 from __future__ import annotations
@@ -15,7 +18,17 @@ import os
 
 import numpy as np
 
+from ..utils.host_image import encode_png
+
 __all__ = ["make_synthetic_sam_tree"]
+
+
+def _save_png(arr: np.ndarray, path: str) -> None:
+    """Write `arr` (uint8 grey / RGB or uint16 grey) as a PNG with the
+    numpy codec, which reads back as PIL reads it, so the tree is written
+    and read where PIL is not installed."""
+    with open(path, "wb") as f:
+        f.write(encode_png(arr))
 
 
 def _silhouette(rng, hw: int) -> np.ndarray:
@@ -100,8 +113,6 @@ def make_synthetic_sam_tree(root: str, n: int = 4, hw: int = 64,
     scenes (`_render_scene`) — a learnable amodal-depth task for
     training the structured-weight quality proxy
     (scripts/train_proxy.py)."""
-    from PIL import Image
-
     rng = np.random.default_rng(seed)
     dirs = ["occlusion", "whole", "whole_mask", "visible_object_mask",
             "depth", "depth_da_update_occ", "depth_da_update_combine"]
@@ -129,20 +140,18 @@ def make_synthetic_sam_tree(root: str, n: int = 4, hw: int = 64,
             rgb = (np.clip(rgb_f, 0, 1) * 255).astype(np.uint8)
             whole_rgb = (np.clip(whole_f, 0, 1) * 255).astype(np.uint8)
             stem = f"{i:04d}"
-            Image.fromarray(rgb).save(
-                os.path.join(root, "occlusion", f"{stem}_occlusion.png"))
-            Image.fromarray(whole_rgb).save(
-                os.path.join(root, "whole", f"{stem}_whole.png"))
-            Image.fromarray((wm * 255).astype(np.uint8)).save(
-                os.path.join(root, "whole_mask", f"{stem}_occlusion.png"))
-            Image.fromarray((vm * 255).astype(np.uint8)).save(os.path.join(
+            _save_png(rgb, os.path.join(root, "occlusion",
+                                        f"{stem}_occlusion.png"))
+            _save_png(whole_rgb, os.path.join(root, "whole",
+                                              f"{stem}_whole.png"))
+            _save_png((wm * 255).astype(np.uint8), os.path.join(
+                root, "whole_mask", f"{stem}_occlusion.png"))
+            _save_png((vm * 255).astype(np.uint8), os.path.join(
                 root, "visible_object_mask", f"{stem}_occlusion.png"))
-            Image.fromarray((sdep * 65535).astype(np.uint16)).save(
-                os.path.join(root, "depth_da_update_occ",
-                             f"{stem}_occlusion.png"))
-            Image.fromarray((adep * 65535).astype(np.uint16)).save(
-                os.path.join(root, "depth_da_update_combine",
-                             f"{stem}_occlusion.png"))
+            _save_png((sdep * 65535).astype(np.uint16), os.path.join(
+                root, "depth_da_update_occ", f"{stem}_occlusion.png"))
+            _save_png((adep * 65535).astype(np.uint16), os.path.join(
+                root, "depth_da_update_combine", f"{stem}_occlusion.png"))
             lines.append(f"occlusion/{stem}_occlusion.png "
                          f"depth/{stem}_occlusion.png")
         list_path = os.path.join(root, "train.txt")
@@ -169,20 +178,20 @@ def make_synthetic_sam_tree(root: str, n: int = 4, hw: int = 64,
                          * 65535).astype(np.uint16)
 
         stem = f"{i:04d}"
-        Image.fromarray(rgb).save(os.path.join(root, "occlusion",
-                                               f"{stem}_occlusion.png"))
+        _save_png(rgb, os.path.join(root, "occlusion",
+                                    f"{stem}_occlusion.png"))
         # the dataset derives the whole-RGB path by replacing "occlusion" ->
         # "whole" in the FULL relative path (directory AND filename), and the
         # visible mask keeps the depth entry's basename — mirror that here.
-        Image.fromarray(whole_rgb).save(os.path.join(root, "whole",
-                                                     f"{stem}_whole.png"))
-        Image.fromarray(whole_mask).save(os.path.join(root, "whole_mask",
-                                                      f"{stem}_occlusion.png"))
-        Image.fromarray(visible).save(os.path.join(
+        _save_png(whole_rgb, os.path.join(root, "whole",
+                                          f"{stem}_whole.png"))
+        _save_png(whole_mask, os.path.join(root, "whole_mask",
+                                           f"{stem}_occlusion.png"))
+        _save_png(visible, os.path.join(
             root, "visible_object_mask", f"{stem}_occlusion.png"))
-        Image.fromarray(depth_occ).save(os.path.join(
+        _save_png(depth_occ, os.path.join(
             root, "depth_da_update_occ", f"{stem}_occlusion.png"))
-        Image.fromarray(depth_combine).save(os.path.join(
+        _save_png(depth_combine, os.path.join(
             root, "depth_da_update_combine", f"{stem}_occlusion.png"))
         # the filename list references rgb + depth/ entries; loaders rewrite
         # "depth" into the sibling dirs (sam_amodal_dataset path derivation)

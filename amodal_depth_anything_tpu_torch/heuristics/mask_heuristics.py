@@ -51,7 +51,7 @@ __all__ = ["Pix2GestaltConfig", "MaskHeuristics", "make_rmbg_matting_fn",
 SAM_PIXEL_MEAN = (123.675, 116.28, 103.53)
 SAM_PIXEL_STD = (58.395, 57.12, 57.375)
 _INT8 = ("int8 weights are not ported to the torch heuristics: ROADMAP "
-         "queue 1, item 5 (compression) ports ops/quant.py first")
+         "queue 1, item 3 (compression) ports ops/quant.py first")
 
 
 @torch.no_grad()

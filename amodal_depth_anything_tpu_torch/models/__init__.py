@@ -1,5 +1,7 @@
 """DINOv2 trunk, DPT head and the AmodalDAv2 / raw DAV2 models, the LDM
-UNet, SD VAE and DepthFM as torch modules, and the model registry
+UNet, SD VAE and DepthFM, the baselines (ADDeepLab, the jo_dpt
+PartialCompletionContentDPT, InvisibleStitch, JoUNet) as torch modules,
+and the model registry
 (reference `src/models/__init__.py:13-31` equivalent) that the training CLI
 reads model names from."""
 
@@ -58,11 +60,99 @@ def _build_plain_depthfm(**kwargs) -> torch.nn.Module:
                              "guide_type": kwargs.get("guide_type", "none")})
 
 
+def _built(module_cls, cfg, device) -> torch.nn.Module:
+    """`module_cls(cfg)` with float32 parameters allocated on `device` and
+    left uninitialised (the trainer draws or loads them)."""
+    with torch.device("meta"):
+        model = module_cls(cfg)
+    model = model.to_empty(device=device).float()
+    if hasattr(model, "reset_constants_"):
+        model.reset_constants_()
+    return model
+
+
+def _build_addeeplab(*, encoder_name: str = "resnet50",
+                     channels=(256, 512, 1024, 2048),
+                     up_sample_channels=(128, 256, 512, 1024),
+                     tiny: bool = False, device="cuda",
+                     **_ignored) -> torch.nn.Module:
+    """ADDeepLab baseline (reference `deeplab.py:203`). `tiny=True`: the
+    JAX tests' miniature (ResNet width 8, one block a stage, one mViT
+    layer at 2 heads)."""
+    from .deeplab import ADDeepLab, ADDeepLabConfig
+    from .resnet import ResNetConfig
+
+    if encoder_name != "resnet50":
+        raise ValueError("only resnet50 encoder is implemented "
+                         f"(got {encoder_name!r})")
+    if tiny:
+        cfg = ADDeepLabConfig(
+            channels=(32, 64, 128, 256), up_sample_channels=(16, 32, 64, 128),
+            aspp_channels=32, mvit_heads=2, mvit_layers=1, mvit_ff=32,
+            resnet=ResNetConfig(in_channels=4, width=8, layers=(1, 1, 1, 1)))
+    else:
+        cfg = ADDeepLabConfig(channels=tuple(channels),
+                              up_sample_channels=tuple(up_sample_channels))
+    return _built(ADDeepLab, cfg, device)
+
+
+def _build_jo_dpt(*, tiny: bool = False, device="cuda",
+                  **_ignored) -> torch.nn.Module:
+    """PartialCompletionContentDPT baseline (reference
+    `jo_amodal/PartialCompletionContentDPT.py:26`); the loss-strategy keys
+    of its config are ignored (its head is always a sigmoid)."""
+    from .jo_dpt import JoDPT, JoDPTConfig
+
+    cfg = JoDPTConfig(embed_dim=64, depth=4, num_heads=2, hooks=(0, 1, 2, 3),
+                      tap_channels=(8, 16, 32, 32), features=16,
+                      spade_hidden=8, img_size=64) if tiny else JoDPTConfig()
+    return _built(JoDPT, cfg, device)
+
+
+def _build_invisible_stitch(*, tiny: bool = False, device="cuda",
+                            **_ignored) -> torch.nn.Module:
+    """InvisibleStitch baseline (reference `invisible_stitch.py:77-110`):
+    ZoeDepth-N (MiDaS DPT_BEiT_L_384) with depth-completion channels; its
+    forward takes `invisible_mask=` and `observation=`."""
+    from .beit import BEiTConfig
+    from .zoedepth import InvisibleStitch, ZoeDepthConfig
+
+    if tiny:
+        cfg = ZoeDepthConfig(
+            backbone=BEiTConfig(embed_dim=64, depth=4, num_heads=2,
+                                img_size=64, in_chans=5),
+            hooks=(0, 1, 2, 3), tap_channels=(8, 16, 32, 32), features=16,
+            n_bins=8, bin_embedding_dim=16, n_attractors=(4, 2, 2, 1),
+            midas_out=8)
+    else:
+        cfg = ZoeDepthConfig()
+    return _built(InvisibleStitch, cfg, device)
+
+
+def _build_jo_unet(*, w: float = 4.0, depth: int = 4, in_channels: int = 3,
+                   n_classes: int = 2, tiny: bool = False, device="cuda",
+                   **_ignored) -> torch.nn.Module:
+    """jo_amodal plain U-Net family (reference `jo_amodal/unet/
+    unet_model.py` UNet/UNetD2/UNetD3 and the `unet025..unet4` width
+    factories, here `w`)."""
+    from .jo_unet import JoUNet, JoUNetConfig
+
+    if tiny:
+        w, depth = 0.25, 2
+    return _built(JoUNet, JoUNetConfig(in_channels=in_channels,
+                                       n_classes=n_classes, w=w, depth=depth),
+                  device)
+
+
 MODEL_REGISTRY = {
     "AmodalDAv2": _build_amodal_dav2,
     "DepthAnythingV2Raw": _build_raw_dav2,
     "DepthFMAmodal": _build_depthfm,
     "DepthFM": _build_plain_depthfm,
+    "ADDeepLab": _build_addeeplab,
+    "PartialCompletionContentDPT": _build_jo_dpt,
+    "InvisibleStitch": _build_invisible_stitch,
+    "JoUNet": _build_jo_unet,
 }
 
 

@@ -116,11 +116,13 @@ class Attention(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, *, mlp_ratio: float = 4.0,
-                 ffn: str = "mlp", init_values: float = 1.0):
+                 ffn: str = "mlp", init_values: float | None = 1.0):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=DEFAULT_LN_EPS)
         self.attn = Attention(dim, num_heads)
-        self.ls1 = LayerScale(dim, init_values)
+        # init_values=None: no LayerScale (timm's ViT blocks, jo_dpt)
+        self.ls1 = (nn.Identity() if init_values is None
+                    else LayerScale(dim, init_values))
         self.norm2 = LayerNorm(dim, eps=DEFAULT_LN_EPS)
         if ffn == "mlp":
             self.mlp = Mlp(dim, int(dim * mlp_ratio))
@@ -128,7 +130,8 @@ class Block(nn.Module):
             self.mlp = SwiGLUFFNFused(dim, swiglu_hidden_dim(dim, mlp_ratio))
         else:
             raise ValueError(f"unknown ffn: {ffn}")
-        self.ls2 = LayerScale(dim, init_values)
+        self.ls2 = (nn.Identity() if init_values is None
+                    else LayerScale(dim, init_values))
 
     def _forward(self, x: torch.Tensor, attn_impl: str | None,
                  residuals: dict | None) -> torch.Tensor:

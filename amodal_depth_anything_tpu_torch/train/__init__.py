@@ -2,21 +2,21 @@
 
 from .state import (Optimizer, TrainState, create_train_state,
                     make_optimizer)
+from .amodalsynthdrive_trainer import AmodalSynthDriveTrainer
 from .depthfm_trainer import DepthFMAmodalTrainer, DepthFMTrainer
+from .invisible_stitch_trainer import InvisibleStitchTrainer
 from .trainer import DiscriminativeTrainer, TrainerConfig
 
 TRAINER_REGISTRY = {
     "DiscriminativeTrainer": DiscriminativeTrainer,
+    "InvisibleStitchTrainer": InvisibleStitchTrainer,
+    "AmodalSynthDriveTrainer": AmodalSynthDriveTrainer,
     "DepthFMAmodalTrainer": DepthFMAmodalTrainer,
     "DepthFMTrainer": DepthFMTrainer,
 }
-# trainers of the JAX package that this port does not have yet
-UNPORTED_TRAINERS = ("InvisibleStitchTrainer", "AmodalSynthDriveTrainer")
 
 
 def get_trainer_cls(name: str):
-    if name in UNPORTED_TRAINERS:
-        raise NotImplementedError(f"trainer {name!r} is not ported yet")
     if name not in TRAINER_REGISTRY:
         raise ValueError(
             f"unknown trainer {name!r}; available: {sorted(TRAINER_REGISTRY)}")
@@ -24,6 +24,7 @@ def get_trainer_cls(name: str):
 
 
 __all__ = ["TrainState", "Optimizer", "create_train_state", "make_optimizer",
-           "DiscriminativeTrainer", "DepthFMAmodalTrainer", "DepthFMTrainer",
+           "DiscriminativeTrainer", "AmodalSynthDriveTrainer",
+           "InvisibleStitchTrainer", "DepthFMAmodalTrainer", "DepthFMTrainer",
            "TrainerConfig", "get_trainer_cls",
            "TRAINER_REGISTRY"]

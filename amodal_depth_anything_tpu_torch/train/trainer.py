@@ -207,7 +207,11 @@ class DiscriminativeTrainer:
         self._trace = None
 
     def _init_weights(self, generator: torch.Generator) -> None:
-        """Seeded random weights for a run without `params`."""
+        """Seeded random weights for a run without `params`: the model's own
+        `init_weights_` (the baselines), else the DAV2 scheme."""
+        if hasattr(self.model, "init_weights_"):
+            self.model.init_weights_(generator)
+            return
         from ..models.amodal_dav2 import init_weights_
         init_weights_(self.model, generator)
 
@@ -218,15 +222,20 @@ class DiscriminativeTrainer:
                 for k, v in batch.items()
                 if isinstance(v, np.ndarray) and v.dtype != object}
 
-    def _predict(self, batch: dict, remat) -> torch.Tensor:
-        """Float32 prediction at the ground truth's size."""
+    def _forward(self, batch: dict, remat) -> torch.Tensor:
+        """The model's prediction on one device batch (the baselines'
+        trainers call their models their own way)."""
         dtype = self.dtype
-        pred = self.model(
+        return self.model(
             (batch["rgb_int"] / 255.0).to(dtype),
             guide_rgb=batch["guide_rgb_norm"].to(dtype),
             guide_mask=(batch["guide"] * 2.0 - 1.0).to(dtype),
             observation=(batch["depth_observation"] * 2.0 - 1.0).to(dtype),
-            attn_impl=self.cfg.attn_impl, remat=remat).float()
+            attn_impl=self.cfg.attn_impl, remat=remat)
+
+    def _predict(self, batch: dict, remat) -> torch.Tensor:
+        """Float32 prediction at the ground truth's size."""
+        pred = self._forward(batch, remat).float()
         gt = batch[self.cfg.gt_depth_type]
         if pred.shape[1:3] != gt.shape[1:3]:
             pred = resize_nearest(pred, size=tuple(gt.shape[1:3]))
@@ -498,8 +507,9 @@ class DiscriminativeTrainer:
     # ----------------------------------------------------------- checkpoint
 
     def save_checkpoint(self, tag: str) -> None:
-        """Write `<out_dir_ckpt>/<tag>/state.pt`: every parameter of the
-        model (the frozen ones too), optimizer state, step and the resume
+        """Write `<out_dir_ckpt>/<tag>/state.pt`: the model's state dict
+        (every parameter, the frozen ones too, and the BatchNorm running
+        statistics of the baselines), optimizer state, step and the resume
         metadata."""
         if not self.out_dir_ckpt:
             return
@@ -507,7 +517,7 @@ class DiscriminativeTrainer:
         os.makedirs(path, exist_ok=True)
         tree = {
             "params": {k: v.detach()
-                       for k, v in self.model.named_parameters()},
+                       for k, v in self.model.state_dict().items()},
             "opt_state": self.state.opt_state,
             "step": self.state.step,
             "meta": {
@@ -528,7 +538,7 @@ class DiscriminativeTrainer:
         """Restore a `save_checkpoint` directory, exactly."""
         tree = torch.load(os.path.join(os.path.abspath(path), CHECKPOINT_FILE),
                           map_location=self.device, weights_only=True)
-        params = dict(self.model.named_parameters())
+        params = self.model.state_dict()
         if set(tree["params"]) != set(params):
             raise ValueError("checkpoint parameters do not match the model")
         with torch.no_grad():

@@ -32,9 +32,10 @@ import zlib
 
 import numpy as np
 
-__all__ = ["decode_png", "encode_png", "resize_bilinear", "resize_nearest"]
+__all__ = ["PNG_SIGNATURE", "decode_png", "encode_png", "resize_bilinear",
+           "resize_nearest"]
 
-_SIG = b"\x89PNG\r\n\x1a\n"
+PNG_SIGNATURE = _SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # PNG colour type -> samples
 _PRECISION_BITS = 32 - 8 - 2                 # PIL's fixed-point coefficients
 

@@ -10,9 +10,9 @@ from __future__ import annotations
 import logging
 import os
 
-__all__ = ["config_logging", "TrainingLogger", "tb_logger", "init_wandb",
-           "load_wandb_job_id", "save_wandb_job_id",
-           "log_slurm_job_id"]
+__all__ = ["config_logging", "eval_dic_to_text", "TrainingLogger",
+           "tb_logger", "init_wandb", "load_wandb_job_id",
+           "save_wandb_job_id", "log_slurm_job_id"]
 
 
 def config_logging(cfg=None, out_dir: str | None = None) -> None:
@@ -106,3 +106,15 @@ def log_slurm_job_id(step: int = 0) -> None:
         except ValueError:
             pass
 
+
+def eval_dic_to_text(val_metrics: dict, dataset_name: str,
+                     sample_list_path: str | None = None) -> str:
+    """A metric table as the reference's eval.txt holds it (header line,
+    optional sample-list line, names, values)."""
+    lines = [f"Evaluation metrics: on dataset {dataset_name}"]
+    if sample_list_path:
+        lines.append(f"over samples in {sample_list_path}")
+    keys = list(val_metrics)
+    lines.append("  ".join(f"{k:>26}" for k in keys))
+    lines.append("  ".join(f"{float(val_metrics[k]):>26.5f}" for k in keys))
+    return "\n".join(lines)

@@ -122,7 +122,27 @@ plain PyTorch version on the card:
      three timed calls with exactly 24 + 3,200 + 64 launches each, a
      staged call timed stage by stage, peak memory, the mask (binary,
      covering the visible mask, its area) and one call under
-     torch.profiler (device busy against wall).
+     torch.profiler (device busy against wall);
+ 11. evaluation and the baselines: (a) ADDeepLab, the jo_dpt
+     PartialCompletionContentDPT and InvisibleStitch, each seeded at full
+     width from its own config (`configs/deeplab.yaml`, `jo_baseline.yaml`,
+     `invisible_stitch.yaml`: its trainer, loss and strategy, bf16, batch
+     8, 518 px) on a synthetic SAM tree written to disk by
+     `data/synthetic.py`: three steps through `trainer.train()` (finite
+     losses, moved parameters and running statistics, exactly 8 + 8 + 8
+     attention launches a step at head dim 16 for ADDeepLab, 24 + 24 + 24 at
+     64 for jo_dpt, none for InvisibleStitch's plain BEiT attention),
+     steps/s, p50, peak memory, one profiled step, then
+     `validate_single_dataset`; (b) `cli.eval.main` on the checkpoint phase
+     6 saves, `scripts.zero_shot_eval` with a seeded vitg raw base over a
+     NYU-layout split of 16-bit PNGs, and `infer_image` on a 480 x 640
+     image (keep-aspect input 518 x 686, output at the input's size); (c)
+     the forward, dQ and dK/dV at [8,8,256,16] and [8,16,1025,64] against
+     their plain versions in f32 and bf16, device times from CUDA graphs of
+     20 calls beside the bound and SDPA's, and one mViT decoder layer at
+     full width, kernels on strided self / cross views against plain
+     attention (output and gradients); (d) each baseline at its tiny preset
+     card (kernels) against CPU (plain) in f32, <= 1e-4.
 
 Prints a `{"kernels": [...]}` line (the backward entries also list every
 instantiation that ran, with its cases, worst error and times), the card's
@@ -138,6 +158,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -708,10 +729,12 @@ def as_ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
-def attention_bwd_phase(gpu: str) -> dict:
-    """The two backward kernels against `mha_bwd_reference` on the same
-    inputs (the kernels' own forward output and LSE among them): the main
-    paths' and the UNet's shapes, timed, then the tile-edge sweep."""
+def bwd_case(gen, shape, nk, kv_len, dt_name: str, gpu: str,
+             runs: dict) -> dict:
+    """One backward case: dQ and dK/dV of q `shape` [B,H,Nq,D] against
+    `nk` keys (`kv_len` live) against `mha_bwd_reference`, timed beside the
+    plain version and SDPA's backward, each run added to `runs` under its
+    instantiation. Returns the two kernels' entries."""
     import torch
     import torch.nn.functional as F
 
@@ -719,117 +742,129 @@ def attention_bwd_phase(gpu: str) -> dict:
         bwd_instantiations, flash_attn_bwd_dkv, flash_attn_bwd_dq, mha,
         mha_bwd_reference)
 
+    dtype = getattr(torch, dt_name)
+    b, h, n, d = shape
+    kv = nk if kv_len is None else kv_len
+    scale = d ** -0.5
+    q, do = (torch.randn(shape, generator=gen, device="cuda")
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, h, nk, d), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    if kv_len is not None:
+        do[:, :, kv_len:] = 0   # padded query rows carry no cotangent
+    o, lse = mha(q, k, v, kv_len=kv_len, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    kw = {"sm_scale": scale, "kv_len": kv_len}
+    dq = flash_attn_bwd_dq(*args, **kw)
+    dk, dv = flash_attn_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    refs = mha_bwd_reference(q.float(), k.float(), v.float(),
+                             o.float(), lse, do.float(), **kw)
+    errs, rels = {}, {}
+    for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        errs[name] = (out.float() - ref).abs().max().item()
+        rels[name] = errs[name] / ref.abs().max().item()
+    del refs
+    what = f"{dt_name} q {list(shape)} Nk={nk} kv_len={kv}"
+    for name in ("dq", "dk", "dv"):
+        check(rels[name] <= TOL[dt_name],
+              f"flash_attn_bwd {name} {what}: max abs "
+              f"{errs[name]:.3e} = {rels[name]:.3e} of the "
+              f"reference's max abs <= {TOL[dt_name]}")
+    if kv_len is not None:
+        dead = max(dk[:, :, kv_len:].abs().max().item(),
+                   dv[:, :, kv_len:].abs().max().item())
+        check(dead == 0.0, f"flash_attn_bwd {dt_name} rows >= kv_len "
+                           f"of dK and dV exactly 0 (max {dead})")
+    es = q.element_size()
+    io = 2 * b * h * n * d + 2 * b * h * nk * d   # q, dO, k, v
+    stats = 2 * b * h * n * 4                      # LSE, delta
+    q_len = kv if n == nk else n
+    dq_flops = 6 * b * h * n * kv * d
+    dkv_flops = 8 * b * h * q_len * kv * d
+    dq_bound = roofline(dq_flops, (io + b * h * n * d) * es + stats,
+                        dt_name)
+    dkv_bound = roofline(dkv_flops,
+                         (io + 2 * b * h * nk * d) * es + stats,
+                         dt_name)
+    iters = max(3, min(30, int(1e11 / dq_flops)))
+    dq_ms = cuda_ms(lambda: flash_attn_bwd_dq(*args, **kw), iters)
+    dkv_ms = cuda_ms(lambda: flash_attn_bwd_dkv(*args, **kw), iters)
+    dev = device_ms(lambda: (flash_attn_bwd_dq(*args, **kw),
+                             flash_attn_bwd_dkv(*args, **kw)),
+                    ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"))
+    plain_ms = cuda_ms(lambda: mha_bwd_reference(
+        q, k, v, o, lse, do, **kw), 2, warmup=1)
+    # yardstick only: the library's backward, as the time of its
+    # forward plus backward less the time of its forward
+    mask = None if kv_len is None else (
+        torch.arange(nk, device="cuda") < kv_len)[None, None, None]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask).backward(do)
+        for t in leaves:
+            t.grad = None
+
+    lib_ms = cuda_ms(sdpa_fwd_bwd, iters) - cuda_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v,
+                                               attn_mask=mask), iters)
+    print(f"  attn bwd {what} rel err dq {rels['dq']:.2e} dk "
+          f"{rels['dk']:.2e} dv {rels['dv']:.2e}; dq kernel "
+          f"{dq_ms:.4f} ms (bound {dq_bound[0]:.4f} ms, "
+          f"{dq_bound[1]}, {dq_flops / dq_ms / 1e9:.1f} TFLOP/s), "
+          f"dk/dv kernel {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f} "
+          f"ms, {dkv_bound[1]}, {dkv_flops / dkv_ms / 1e9:.1f} "
+          f"TFLOP/s); device (profiler) dq "
+          f"{as_ms(dev['flash_attn_bwd_dq'])}, dk/dv "
+          f"{as_ms(dev['flash_attn_bwd_dkv'])}; plain "
+          f"dq+dk+dv {plain_ms:.4f} ms; sdpa backward (dq+dk+dv) "
+          f"{lib_ms:.4f} ms [{gpu}]", flush=True)
+    for kernel, ms, dms, bound, flops, err in zip(
+            bwd_instantiations(dtype, d), (dq_ms, dkv_ms),
+            dev.values(), (dq_bound, dkv_bound),
+            (dq_flops, dkv_flops),
+            (rels["dq"], max(rels["dk"], rels["dv"]))):
+        run = runs.setdefault(kernel, {"cases": 0, "max_rel_err": 0.0,
+                                       "timed": []})
+        run["cases"] += 1
+        run["max_rel_err"] = max(run["max_rel_err"], err)
+        run["timed"].append({"q": list(shape), "nk": nk, "kv_len": kv,
+                             "ms": ms, "device_ms": dms,
+                             "bound_ms": bound[0],
+                             "tflops": flops / ms / 1e9,
+                             "library_ms": lib_ms})
+    # the plain version and the library compute all three gradients in one
+    # call: both kernels carry that one time
+    out = {"flash_attn_bwd_dq": {
+        "max_abs_err": errs["dq"], "ms": dq_ms, "device_ms":
+        dev["flash_attn_bwd_dq"], "plain_ms": plain_ms, "bound_ms": dq_bound[0],
+        "bound_by": dq_bound[1], "library_ms": lib_ms},
+        "flash_attn_bwd_dkv": {
+        "max_abs_err": max(errs["dk"], errs["dv"]), "ms": dkv_ms,
+        "device_ms": dev["flash_attn_bwd_dkv"], "plain_ms": plain_ms,
+        "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1],
+        "library_ms": lib_ms}}
+    del q, k, v, do, o, lse, delta, dq, dk, dv, args, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_bwd_phase(gpu: str) -> dict:
+    """The two backward kernels against `mha_bwd_reference` on the same
+    inputs (the kernels' own forward output and LSE among them): the main
+    paths' and the UNet's shapes, timed, then the tile-edge sweep."""
+    import torch
+
     gen = torch.Generator(device="cuda").manual_seed(1)
     main, runs = {}, {}
     for shape, nk, kv_len in BWD_CASES:
         for dt_name in ("float32", "bfloat16"):
-            dtype = getattr(torch, dt_name)
-            b, h, n, d = shape
-            kv = nk if kv_len is None else kv_len
-            scale = d ** -0.5
-            q, do = (torch.randn(shape, generator=gen, device="cuda")
-                     .to(dtype) for _ in range(2))
-            k, v = (torch.randn((b, h, nk, d), generator=gen, device="cuda")
-                    .to(dtype) for _ in range(2))
-            if kv_len is not None:
-                do[:, :, kv_len:] = 0   # padded query rows carry no cotangent
-            o, lse = mha(q, k, v, kv_len=kv_len, return_lse=True)
-            delta = (do.float() * o.float()).sum(-1)
-            args = (q, k, v, do, lse, delta)
-            kw = {"sm_scale": scale, "kv_len": kv_len}
-            dq = flash_attn_bwd_dq(*args, **kw)
-            dk, dv = flash_attn_bwd_dkv(*args, **kw)
-            torch.cuda.synchronize()
-            refs = mha_bwd_reference(q.float(), k.float(), v.float(),
-                                     o.float(), lse, do.float(), **kw)
-            errs, rels = {}, {}
-            for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
-                errs[name] = (out.float() - ref).abs().max().item()
-                rels[name] = errs[name] / ref.abs().max().item()
-            del refs
-            what = f"{dt_name} q {list(shape)} Nk={nk} kv_len={kv}"
-            for name in ("dq", "dk", "dv"):
-                check(rels[name] <= TOL[dt_name],
-                      f"flash_attn_bwd {name} {what}: max abs "
-                      f"{errs[name]:.3e} = {rels[name]:.3e} of the "
-                      f"reference's max abs <= {TOL[dt_name]}")
-            if kv_len is not None:
-                dead = max(dk[:, :, kv_len:].abs().max().item(),
-                           dv[:, :, kv_len:].abs().max().item())
-                check(dead == 0.0, f"flash_attn_bwd {dt_name} rows >= kv_len "
-                                   f"of dK and dV exactly 0 (max {dead})")
-            es = q.element_size()
-            io = 2 * b * h * n * d + 2 * b * h * nk * d   # q, dO, k, v
-            stats = 2 * b * h * n * 4                      # LSE, delta
-            q_len = kv if n == nk else n
-            dq_flops = 6 * b * h * n * kv * d
-            dkv_flops = 8 * b * h * q_len * kv * d
-            dq_bound = roofline(dq_flops, (io + b * h * n * d) * es + stats,
-                                dt_name)
-            dkv_bound = roofline(dkv_flops,
-                                 (io + 2 * b * h * nk * d) * es + stats,
-                                 dt_name)
-            iters = max(3, min(30, int(1e11 / dq_flops)))
-            dq_ms = cuda_ms(lambda: flash_attn_bwd_dq(*args, **kw), iters)
-            dkv_ms = cuda_ms(lambda: flash_attn_bwd_dkv(*args, **kw), iters)
-            dev = device_ms(lambda: (flash_attn_bwd_dq(*args, **kw),
-                                     flash_attn_bwd_dkv(*args, **kw)),
-                            ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"))
-            plain_ms = cuda_ms(lambda: mha_bwd_reference(
-                q, k, v, o, lse, do, **kw), 2, warmup=1)
-            # yardstick only: the library's backward, as the time of its
-            # forward plus backward less the time of its forward
-            mask = None if kv_len is None else (
-                torch.arange(nk, device="cuda") < kv_len)[None, None, None]
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-
-            def sdpa_fwd_bwd():
-                F.scaled_dot_product_attention(
-                    *leaves, attn_mask=mask).backward(do)
-                for t in leaves:
-                    t.grad = None
-
-            lib_ms = cuda_ms(sdpa_fwd_bwd, iters) - cuda_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v,
-                                                       attn_mask=mask), iters)
-            print(f"  attn bwd {what} rel err dq {rels['dq']:.2e} dk "
-                  f"{rels['dk']:.2e} dv {rels['dv']:.2e}; dq kernel "
-                  f"{dq_ms:.4f} ms (bound {dq_bound[0]:.4f} ms, "
-                  f"{dq_bound[1]}, {dq_flops / dq_ms / 1e9:.1f} TFLOP/s), "
-                  f"dk/dv kernel {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f} "
-                  f"ms, {dkv_bound[1]}, {dkv_flops / dkv_ms / 1e9:.1f} "
-                  f"TFLOP/s); device (profiler) dq "
-                  f"{as_ms(dev['flash_attn_bwd_dq'])}, dk/dv "
-                  f"{as_ms(dev['flash_attn_bwd_dkv'])}; plain "
-                  f"dq+dk+dv {plain_ms:.4f} ms; sdpa backward (dq+dk+dv) "
-                  f"{lib_ms:.4f} ms [{gpu}]", flush=True)
-            for kernel, ms, dms, bound, flops, err in zip(
-                    bwd_instantiations(dtype, d), (dq_ms, dkv_ms),
-                    dev.values(), (dq_bound, dkv_bound),
-                    (dq_flops, dkv_flops),
-                    (rels["dq"], max(rels["dk"], rels["dv"]))):
-                run = runs.setdefault(kernel, {"cases": 0, "max_rel_err": 0.0,
-                                               "timed": []})
-                run["cases"] += 1
-                run["max_rel_err"] = max(run["max_rel_err"], err)
-                run["timed"].append({"q": list(shape), "nk": nk, "kv_len": kv,
-                                     "ms": ms, "device_ms": dms,
-                                     "bound_ms": bound[0],
-                                     "tflops": flops / ms / 1e9,
-                                     "library_ms": lib_ms})
+            got = bwd_case(gen, shape, nk, kv_len, dt_name, gpu, runs)
             if (shape, nk, kv_len, dt_name) == BWD_MAIN_CASE:
-                # the plain version and the library compute all three
-                # gradients in one call: both kernels carry that one time
-                main["flash_attn_bwd_dq"] = {
-                    "max_abs_err": errs["dq"], "ms": dq_ms,
-                    "plain_ms": plain_ms, "bound_ms": dq_bound[0],
-                    "bound_by": dq_bound[1], "library_ms": lib_ms}
-                main["flash_attn_bwd_dkv"] = {
-                    "max_abs_err": max(errs["dk"], errs["dv"]), "ms": dkv_ms,
-                    "plain_ms": plain_ms, "bound_ms": dkv_bound[0],
-                    "bound_by": dkv_bound[1], "library_ms": lib_ms}
-            del q, k, v, do, o, lse, delta, dq, dk, dv, args, leaves
-            torch.cuda.empty_cache()
+                main.update(got)
     attention_bwd_edge_cases(runs)
     autograd_check()
     for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
@@ -1500,6 +1535,12 @@ def train_phase(gpu: str) -> dict:
               f"GiB [{gpu}]", flush=True)
     profile_call(lambda: float(trainer._train_step(batch8)),
                  "bf16 train step", gpu)
+    # the checkpoint phase 11 evaluates through `cli.eval`
+    trainer.out_dir_ckpt = EVAL_CKPT
+    t0 = time.time()
+    trainer.save_checkpoint("latest")
+    print(f"  saved the trainer's checkpoint for phase 11 in "
+          f"{time.time() - t0:.1f} s", flush=True)
 
     results = trainer.validate()
     banks = results[scenes.disp_name]
@@ -2428,6 +2469,521 @@ def heuristics_phase(gpu: str) -> int:
     return launches
 
 
+# evaluation and baselines (phase 11): each baseline trained from its own
+# config for a few steps at the recipe's batch and size on a synthetic SAM
+# tree written to disk, then validated; launches a step of each attention
+# kernel and the head dim they run at (InvisibleStitch's BEiT attention
+# carries a relative-position bias and stays plain tensor ops, as in the
+# JAX package)
+BASELINE_RUNS = (("configs/deeplab.yaml", "ADDeepLab", 16, 8),
+                 ("configs/jo_baseline.yaml", "PartialCompletionContentDPT",
+                  64, 24),
+                 ("configs/invisible_stitch.yaml", "InvisibleStitch", None, 0))
+BASELINE_STEPS, BASELINE_TREE = 3, 8
+EVAL_CONFIG = TRAIN_CONFIG
+BUILD = "build"
+EVAL_CKPT = os.path.join(BUILD, "smoke_eval_ckpt")
+# the mViT's self- and cross-attention (8 heads of 16 over 16 x 16 tokens at
+# 518 px, batch 8) and jo_dpt's ViT-L/16 trunk (16 heads of 64 over 32 x 32
+# + cls), q shape and keys
+BASELINE_ATTN_CASES = [((8, 8, 256, 16), 256), ((8, 16, 1025, 64), 1025)]
+ZERO_SHOT_HW, ZERO_SHOT_N, ZERO_SHOT_BATCH = (480, 640), 4, 2
+BASELINE_TINY_TOL = 1e-4
+
+
+class HeadDims:
+    """Records the head dims the models' attention dispatch is called with
+    while it is installed (`models.deeplab` and `models.layers` import
+    `multi_head_attention` by name)."""
+
+    def __init__(self):
+        from amodal_depth_anything_tpu_torch.models import deeplab, layers
+        self.modules = (deeplab, layers)
+        self.seen: set = set()
+
+    def __enter__(self):
+        orig = self.modules[0].multi_head_attention
+        self.orig = orig
+
+        def recording(q, *args, **kw):
+            self.seen.add(int(q.shape[-1]))
+            return orig(q, *args, **kw)
+
+        for mod in self.modules:
+            mod.multi_head_attention = recording
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.modules:
+            mod.multi_head_attention = self.orig
+
+
+def write_sam_tree(n: int, hw: int) -> tuple[str, str]:
+    """A synthetic SAM tree of `n` scenes at `hw` px under build/, written
+    by the port's `data/synthetic.py` (numpy PNG codec)."""
+    from amodal_depth_anything_tpu_torch.data.synthetic import \
+        make_synthetic_sam_tree
+
+    root = os.path.join(BUILD, "smoke_sam_tree")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.time()
+    list_path = make_synthetic_sam_tree(root, n=n, hw=hw, style="scenes")
+    print(f"  wrote a synthetic SAM tree of {n} scenes at {hw} px in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return root, list_path
+
+
+def baseline_train_case(config: str, name: str, head_dim, per_step: int,
+                        root: str, list_path: str, gpu: str) -> dict:
+    """Train baseline `name` from `config` (its recipe: bf16, the config's
+    trainer, loss and strategy) for BASELINE_STEPS steps at batch 8 on the
+    SAM tree through `trainer.train()`, then `validate_single_dataset` over
+    the tree; launches of each attention kernel, steps/s, p50, peak memory
+    and one profiled step."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.cli.train import (
+        trainer_config_from_cfg, trainer_kwargs_from_cfg)
+    from amodal_depth_anything_tpu_torch.data import (DataLoader, DatasetMode,
+                                                      get_dataset)
+    from amodal_depth_anything_tpu_torch.models import get_model
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.train import get_trainer_cls
+    from amodal_depth_anything_tpu_torch.utils.config import \
+        recursive_load_config
+    from amodal_depth_anything_tpu_torch.utils.depth_transform import \
+        get_depth_normalizer
+    from amodal_depth_anything_tpu_torch.utils.profiling import StepTimer
+
+    cfg = recursive_load_config(config)
+    batch = int(cfg.dataloader.max_train_batch_size)
+    tcfg = dataclasses.replace(
+        trainer_config_from_cfg(cfg, accumulation_steps=1),
+        lr_warmup_steps=0, max_iter=BASELINE_STEPS, log_interval=1,
+        validation_period=0, save_period=0, visualization_period=0)
+    check(cfg.model.name == name and tcfg.compute_dtype == "bfloat16"
+          and batch == TRAIN_BATCH,
+          f"{config}: {name} under {cfg.trainer.name}, bfloat16, batch "
+          f"{batch}, {tcfg.loss_name} on {tcfg.loss_strategy}")
+    normalizer = get_depth_normalizer(cfg.get("depth_normalization"))
+    splits = {}
+    for key, mode in (("train", DatasetMode.TRAIN), ("val", DatasetMode.EVAL)):
+        split = getattr(cfg.dataset, key).to_dict()
+        split["filenames"] = list_path   # the recipe's split, on this tree
+        splits[key] = get_dataset(split, root, mode,
+                                  depth_transform=normalizer)
+    workers = int(cfg.dataloader.get("num_workers", 0) or 0)
+    train_loader = DataLoader(splits["train"], batch_size=batch, shuffle=True,
+                              drop_last=True, seed=0, num_workers=workers)
+    val_loader = DataLoader(splits["val"], batch_size=batch, pad_last=True,
+                            num_workers=workers)
+    t0 = time.time()
+    model = get_model(name, device="cuda", **cfg.model.kwargs.to_dict())
+    trainer = get_trainer_cls(cfg.trainer.name)(
+        tcfg, model, train_loader, [val_loader], device="cuda", seed=0,
+        **trainer_kwargs_from_cfg(cfg))
+    n_params = sum(p.numel() for p in trainer.state.params.values())
+    torch.cuda.synchronize()
+    print(f"  {name}: {n_params / 1e6:.1f} M trained parameters, built and "
+          f"seeded on the card in {time.time() - t0:.1f} s", flush=True)
+    watched = next(iter(trainer.state.params))
+    before = trainer.state.params[watched].detach().clone()
+    buffers = {k: v.clone() for k, v in model.named_buffers()
+               if "running" in k}
+    losses = []
+    step = trainer._train_step
+
+    def recording_step(b):
+        loss = step(b)
+        losses.append(float(loss))
+        return loss
+
+    trainer._train_step = recording_step
+    trainer.step_timer = StepTimer(warmup=1)   # the first step loads cuDNN
+    torch.cuda.reset_peak_memory_stats()
+    with HeadDims() as dims:
+        mha.launches = mha.bwd_dq_launches = mha.bwd_dkv_launches = 0
+        t_train = time.time()
+        trainer.train()                            # the main path
+        t_train = time.time() - t_train
+        launches = {"flash_attn_fwd": mha.launches,
+                    "flash_attn_bwd_dq": mha.bwd_dq_launches,
+                    "flash_attn_bwd_dkv": mha.bwd_dkv_launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer._train_step = step
+    check(len(losses) == BASELINE_STEPS and bool(np.isfinite(losses).all()),
+          f"{name}: {BASELINE_STEPS} steps, finite losses "
+          f"{[round(x, 5) for x in losses]}")
+    new = trainer.state.params[watched]
+    check(bool(torch.isfinite(new).all()) and not torch.equal(new, before),
+          f"{name}: parameter {watched} finite and moved")
+    if buffers:
+        moved = [k for k, v in model.named_buffers() if k in buffers
+                 and not torch.equal(v, buffers[k])]
+        check(len(moved) == len(buffers),
+              f"{name}: {len(moved)} of {len(buffers)} BatchNorm running "
+              f"statistics moved by the train-mode steps")
+    for kernel, count in launches.items():
+        check(count == per_step * BASELINE_STEPS,
+              f"{name}: {kernel} launched {count} times ({per_step} a step)")
+    check(dims.seen == ({head_dim} if head_dim else set()),
+          f"{name}: attention head dims {sorted(dims.seen)}")
+    timing = trainer.step_timer.summary()
+    print(f"  {name} bf16 batch {batch} at {SIZE} px: "
+          f"{timing['steps_per_sec']:.4f} steps/s, p50 "
+          f"{timing['p50_s'] * 1e3:.1f} ms per step "
+          f"{[round(x * 1e3, 1) for x in trainer.step_timer.durations]} ms, "
+          f"train() wall {t_train:.1f} s ({workers} loader threads decode "
+          f"the PNGs in numpy), "
+          f"peak memory {peak:.2f} GiB, launches a step: "
+          f"{ {k: v // BASELINE_STEPS for k, v in launches.items()} } at "
+          f"head dim {head_dim} [{gpu}]", flush=True)
+    b8 = trainer._device_batch(next(iter(val_loader)))
+    profile_call(lambda: float(trainer._train_step(b8)),
+                 f"{name} bf16 train step", gpu)
+    results = trainer.validate_single_dataset(val_loader, eval=True)
+    vals = [results[bank][m] for bank in ("overall", "align_overall")
+            for m in tcfg.eval_metrics]
+    check(bool(np.isfinite(vals).all()),
+          f"{name}: validate_single_dataset over {len(splits['val'])} "
+          f"scenes, 10 metrics x (raw, aligned) finite; abs_rel aligned "
+          f"{results['align_overall']['abs_relative_difference']:.4f}")
+    del trainer, model, b8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def zero_shot_tree(root: str) -> str:
+    """A NYU-layout split of ZERO_SHOT_N scenes at 480 x 640: 8-bit RGB and
+    16-bit millimetre depth PNGs (numpy codec), the filled depth the raw
+    one."""
+    from amodal_depth_anything_tpu_torch.utils.host_image import encode_png
+
+    rng = np.random.default_rng(11)
+    os.makedirs(root, exist_ok=True)
+    lines = []
+    h, w = ZERO_SHOT_HW
+    yy, xx = np.mgrid[:h, :w]
+    for i in range(ZERO_SHOT_N):
+        rgb = (np.stack([xx / w, yy / h, rng.random((h, w)) * 0.3], -1)
+               * 255).astype(np.uint8)
+        depth = (1000 + 4000 * yy / h + 500 * rng.random((h, w))
+                 ).astype(np.uint16)
+        for stem, arr in ((f"rgb_{i:04d}.png", rgb),
+                          (f"depth_{i:04d}.png", depth)):
+            with open(os.path.join(root, stem), "wb") as f:
+                f.write(encode_png(arr))
+        lines.append(f"rgb_{i:04d}.png depth_{i:04d}.png depth_{i:04d}.png")
+    list_path = os.path.join(root, "list.txt")
+    with open(list_path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return list_path
+
+
+def eval_phase(root: str, list_path: str, gpu: str) -> int:
+    """(b): `cli.eval.main` on the phase-6 vitl checkpoint over the SAM
+    tree, `scripts.zero_shot_eval` with a seeded vitg raw base over a
+    NYU-layout split, and `infer_image` on a 480 x 640 image. Returns the
+    forward launches."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.cli import eval as eval_cli
+    from amodal_depth_anything_tpu_torch.models import get_model
+    from amodal_depth_anything_tpu_torch.models.amodal_dav2 import \
+        init_weights_
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.pipeline.raw_infer import (
+        image2tensor_np, infer_image)
+    from amodal_depth_anything_tpu_torch.scripts import zero_shot_eval
+
+    overlay = os.path.join(BUILD, "smoke_eval.yaml")
+    with open(overlay, "w") as f:
+        f.write(f"base_config:\n- {os.path.abspath(EVAL_CONFIG)}\n"
+                "dataset:\n  val: {name: sam, disp_name: smoke_val, "
+                f"filenames: {os.path.abspath(list_path)}, "
+                "resize_to_hw: [518, 518]}\n"
+                "dataloader: {num_workers: 0}\n")
+    out = os.path.join(BUILD, "smoke_eval_out")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.time()
+    mha.launches = 0
+    eval_cli.main(["--config", overlay, "--trained_checkpoint",
+                   os.path.join(EVAL_CKPT, "latest"), "--base_data_dir",
+                   root, "--output_dir", out, "--device", "cuda"])
+    eval_launches = mha.launches
+    with open(os.path.join(out, "evaluation", "eval.txt")) as f:
+        text = f.read()
+    lines = text.splitlines()
+    tables = {lines[i].rsplit("/", 1)[-1]: [float(v) for v in
+                                             lines[i + 2].split()]
+              for i in range(0, len(lines), 3)}
+    check(len(tables) == 8 and all(
+              len(tables[k]) == 10 and bool(np.isfinite(tables[k]).all())
+              for k in ("overall", "align_overall"))
+          and eval_launches == TRAIN_BLOCKS * BASELINE_TREE,
+          f"cli.eval on the phase-6 vitl checkpoint: eval.txt with 8 bucket "
+          f"tables, overall and align_overall 10 finite metrics each, in "
+          f"{time.time() - t0:.1f} s, {eval_launches} forward launches "
+          f"({TRAIN_BLOCKS} an image)")
+    print("  " + "\n  ".join(text.splitlines()[:4]), flush=True)
+
+    zs_root = os.path.join(BUILD, "smoke_nyu")
+    zs_list = zero_shot_tree(zs_root)
+    raw = get_model("DepthAnythingV2Raw", encoder="vitg", device="cuda")
+    init_weights_(raw, torch.Generator(device="cuda").manual_seed(5))
+    ckpt = os.path.join(BUILD, "smoke_vitg_raw.pth")
+    torch.save({k: v.to(torch.bfloat16) for k, v in
+                raw.state_dict().items()}, ckpt)
+    t0 = time.time()
+    mha.launches = 0
+    res = zero_shot_eval.main([
+        "--dataset", "nyu_v2", "--base_data_dir", zs_root, "--filenames",
+        zs_list, "--checkpoint", ckpt, "--encoder", "vitg", "--size",
+        str(SIZE), "--batch", str(ZERO_SHOT_BATCH), "--dtype", "bfloat16",
+        "--align",
+        "disparity", "--device", "cuda"])
+    zs_launches = mha.launches
+    os.remove(ckpt)
+    zs_calls = -(-ZERO_SHOT_N // ZERO_SHOT_BATCH)
+    check(bool(np.isfinite(list(res.values())).all()) and
+          zs_launches == 40 * zs_calls,
+          f"scripts.zero_shot_eval, vitg raw bf16 over {ZERO_SHOT_N} "
+          f"NYU-layout scenes: 10 finite metrics (abs_rel "
+          f"{res['abs_relative_difference']:.4f}) in "
+          f"{time.time() - t0:.1f} s, {zs_launches} forward launches (40 "
+          f"a call of {ZERO_SHOT_BATCH})")
+
+    raw = raw.to(torch.bfloat16)
+    bgr = np.ascontiguousarray(
+        (np.random.default_rng(3).random(ZERO_SHOT_HW + (3,)) * 255)
+        .astype(np.uint8))
+    x, _ = image2tensor_np(bgr, SIZE)
+    mha.launches = 0
+    t0 = time.time()
+    depth = infer_image(raw, bgr, SIZE, dtype=torch.bfloat16)
+    ms = (time.time() - t0) * 1e3
+    check(x.shape == (1, 518, 686, 3) and depth.shape == ZERO_SHOT_HW
+          and bool(np.isfinite(depth).all()) and mha.launches == 40,
+          f"infer_image on a 480 x 640 image: keep-aspect input "
+          f"{list(x.shape[1:3])}, depth {list(depth.shape)} finite, "
+          f"{mha.launches} launches, {ms:.1f} ms with the host resize "
+          f"[{gpu}]")
+    del raw
+    gc.collect()
+    torch.cuda.empty_cache()
+    return eval_launches + zs_launches + 40
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one call of `fn`: `reps` calls captured as one CUDA
+    graph and replayed, timed with events, so the host's launch cost (which
+    an event pair around eager launches reads at launch-bound shapes) is
+    paid once a replay and not once a call."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(graph.replay, replays, warmup=1) / reps
+    del graph
+    return ms
+
+
+def baseline_attention_phase(gpu: str) -> dict:
+    """(c): the forward, dQ and dK/dV at the baselines' shapes against
+    their plain versions, bf16 and f32, with device times beside the bound
+    and SDPA's."""
+    import torch
+    import torch.nn.functional as F
+
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import (
+        flash_attn_bwd_dkv, flash_attn_bwd_dq, mha)
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows, runs = [], {}
+    for shape, nk in BASELINE_ATTN_CASES:
+        for dt_name in ("float32", "bfloat16"):
+            fwd = attention_case(gen, shape, nk, None, dt_name, gpu)
+            bwd = bwd_case(gen, shape, nk, None, dt_name, gpu, runs)
+            # device times from CUDA graphs of 20 calls (the profiler's
+            # traces lose events in a process that has traced before)
+            dtype = getattr(torch, dt_name)
+            q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                           .to(dtype) for _ in range(4))
+            o, lse = mha(q, k, v, return_lse=True)
+            delta = (do.float() * o.float()).sum(-1)
+            args = (q, k, v, do, lse, delta)
+            kw = {"sm_scale": shape[-1] ** -0.5}
+            fwd["graph_ms"] = graph_ms(lambda: mha(q, k, v))
+            fwd["library_graph_ms"] = graph_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v))
+            bwd["flash_attn_bwd_dq"]["graph_ms"] = graph_ms(
+                lambda: flash_attn_bwd_dq(*args, **kw))
+            bwd["flash_attn_bwd_dkv"]["graph_ms"] = graph_ms(
+                lambda: flash_attn_bwd_dkv(*args, **kw))
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+            def sdpa_bwd():
+                F.scaled_dot_product_attention(*leaves).backward(do)
+
+            lib_bwd = graph_ms(sdpa_bwd) - fwd["library_graph_ms"]
+            for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+                bwd[name]["library_graph_ms"] = lib_bwd
+            del q, k, v, do, o, lse, delta, args, leaves
+            print(f"  baseline shape {list(shape)} {dt_name}: device time "
+                  f"(graphs of 20) fwd {fwd['graph_ms']:.4f} ms (bound "
+                  f"{fwd['bound_ms']:.4f} ms, sdpa "
+                  f"{fwd['library_graph_ms']:.4f} ms), dq "
+                  f"{bwd['flash_attn_bwd_dq']['graph_ms']:.4f} ms (bound "
+                  f"{bwd['flash_attn_bwd_dq']['bound_ms']:.4f} ms), dk/dv "
+                  f"{bwd['flash_attn_bwd_dkv']['graph_ms']:.4f} ms (bound "
+                  f"{bwd['flash_attn_bwd_dkv']['bound_ms']:.4f} ms), sdpa "
+                  f"backward {lib_bwd:.4f} ms [{gpu}]", flush=True)
+            rows.append({"q": list(shape), "nk": nk, "dtype": dt_name,
+                         "flash_attn_fwd": fwd, **bwd})
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mvit_layer_check() -> None:
+    """One of ADDeepLab's mViT decoder layers at full width (128 wide, 8
+    heads of 16, 16 x 16 tokens, batch 8): self-attention on strided views
+    of one qkv buffer and cross-attention onto strided views of the memory's
+    kv buffer, kernels against plain attention, output and every gradient.
+    float32: each tensor within 2e-5 of the plain path's max abs. bfloat16:
+    both paths against the float32 plain one, the kernels' error on each
+    tensor no more than twice the plain bf16 path's or 2e-2 (the whole layer
+    rounds to bf16, so two bf16 paths part by more than one kernel does)."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.models.deeplab import DecoderLayer
+    from amodal_depth_anything_tpu_torch.ops.precision import \
+        apply_precision_policy
+
+    apply_precision_policy(torch.float32)   # TF32 off
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    layer = DecoderLayer(128, 8, 1024).cuda()
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.uniform_(-0.1, 0.1, generator=gen)
+    tgt, mem = (torch.randn((TRAIN_BATCH, 256, 128), generator=gen,
+                            device="cuda") for _ in range(2))
+    names = ["output", "d tgt", "d memory"] + [
+        f"d {n}" for n, _ in layer.named_parameters()]
+    got = {}
+    for dt_name in ("float32", "bfloat16"):
+        for impl in (None, "plain"):
+            leaves = [t.detach().to(getattr(torch, dt_name))
+                      .requires_grad_() for t in (tgt, mem)]
+            layer.zero_grad()
+            out = layer(*leaves, impl)
+            out.float().square().sum().backward()
+            got[dt_name, impl] = [out.detach().float()] + [
+                t.grad.float() for t in leaves] + [
+                p.grad.float() for p in layer.parameters()]
+
+    def errs(case):
+        return [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(got[case], got["float32", "plain"])]
+
+    f32 = errs(("float32", None))
+    check(max(f32) <= TOL["float32"],
+          f"ADDeepLab mViT layer at full width, f32, kernels on strided self "
+          f"/ cross views vs plain: output and {len(f32) - 1} gradients "
+          f"within {max(f32):.2e} of each reference's max abs <= "
+          f"{TOL['float32']}")
+    kern, plain = errs(("bfloat16", None)), errs(("bfloat16", "plain"))
+    worst = max(range(len(kern)), key=lambda i: kern[i] / max(plain[i], 1e-30))
+    check(all(k <= max(2 * p, TOL["bfloat16"]) for k, p in zip(kern, plain)),
+          f"ADDeepLab mViT layer at full width, bf16, against the f32 plain "
+          f"one: kernels {max(kern):.2e}, plain attention {max(plain):.2e} "
+          f"at worst; the largest ratio at {names[worst]}: {kern[worst]:.2e} "
+          f"vs {plain[worst]:.2e} (<= twice the plain path's or "
+          f"{TOL['bfloat16']})")
+
+
+def baseline_tiny_phase() -> None:
+    """(d): each baseline at its tiny preset, seeded, card (kernels)
+    against CPU (plain) in float32 with TF32 off: eval outputs and, for the
+    BatchNorm models, the train-mode outputs and running statistics."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.models import get_model
+    from amodal_depth_anything_tpu_torch.ops.precision import \
+        apply_precision_policy
+
+    apply_precision_policy(torch.float32)
+    rng = np.random.default_rng(12)
+    hw = 64
+    x = torch.from_numpy(rng.random((2, hw, hw, 3), dtype=np.float32))
+    mask = torch.from_numpy((rng.random((2, hw, hw, 1)) > 0.5)
+                            .astype(np.float32))
+    obs = torch.from_numpy(rng.random((2, hw, hw, 1), dtype=np.float32))
+
+    def call(name, model, dev, train):
+        a, m, o = (t.to(dev) for t in (x, mask, obs))
+        if name == "ADDeepLab":
+            return torch.cat(model(a, m, train=train), dim=-1)
+        if name == "PartialCompletionContentDPT":
+            return model(a, guide_mask=m, train=train)
+        if name == "InvisibleStitch":
+            return model(a, invisible_mask=m, observation=o)
+        return model(a, train=train)
+
+    for name in ("ADDeepLab", "PartialCompletionContentDPT",
+                 "InvisibleStitch", "JoUNet"):
+        cpu = get_model(name, tiny=True, device="cpu")
+        cpu.init_weights_(torch.Generator().manual_seed(3))
+        gpu_model = get_model(name, tiny=True, device="cuda")
+        gpu_model.load_state_dict(cpu.state_dict())
+        for train in ((False, True) if name != "InvisibleStitch"
+                      else (False,)):
+            with torch.no_grad():
+                ref = call(name, cpu, "cpu", train)
+                got = call(name, gpu_model, "cuda", train).cpu()
+            err = (got - ref).abs().max().item()
+            scale = max(1.0, ref.abs().max().item())
+            stats = max([(a.cpu() - b).abs().max().item() for (ka, a), (_, b)
+                         in zip(gpu_model.named_buffers(),
+                                cpu.named_buffers()) if "running" in ka]
+                        or [0.0])
+            check(err <= BASELINE_TINY_TOL * scale
+                  and stats <= BASELINE_TINY_TOL,
+                  f"{name} tiny, card vs CPU in f32 "
+                  f"({'train' if train else 'eval'} mode): max abs {err:.2e}"
+                  f" <= {BASELINE_TINY_TOL} x {scale:.2f}, running stats "
+                  f"{stats:.2e}")
+
+
+def baselines_phase(gpu: str) -> dict:
+    """Phase 11: the baselines' training and evaluation, the eval CLIs and
+    the attention kernels at the baselines' shapes. Returns the launches of
+    each attention kernel on its main paths and the measured rows."""
+    launches = {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
+                "flash_attn_bwd_dkv": 0}
+    root, list_path = write_sam_tree(BASELINE_TREE, SIZE)
+    for config, name, head_dim, per_step in BASELINE_RUNS:
+        got = baseline_train_case(config, name, head_dim, per_step, root,
+                                  list_path, gpu)
+        for kernel, count in got.items():
+            launches[kernel] += count
+    launches["flash_attn_fwd"] += eval_phase(root, list_path, gpu)
+    shutil.rmtree(EVAL_CKPT, ignore_errors=True)
+    rows = baseline_attention_phase(gpu)
+    mvit_layer_check()
+    baseline_tiny_phase()
+    return {"launches": launches, "rows": rows}
+
+
+
 def main() -> int:
     import torch
 
@@ -2509,6 +3065,12 @@ def main() -> int:
           "ViT-L/14, RMBG-1.4, then vitg + vitl depth")
     p2g_proxy_phase()
     heur_launches = heuristics_phase(gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("[11] evaluation and baselines at full width: ADDeepLab, jo_dpt, "
+          "InvisibleStitch; cli.eval, zero-shot eval, infer_image")
+    base = baselines_phase(gpu)
 
     # launches: over the main paths, each counted from 0; the forward
     # kernel runs on seven (inference [5], training [6], DepthFM [7], DepthFM
@@ -2522,10 +3084,15 @@ def main() -> int:
     for i, name in enumerate(("flash_attn_fwd", "flash_attn_bwd_dq",
                               "flash_attn_bwd_dkv")):
         kernels[i].update(
-            launches=launches[name] + dfm_train[name] + dfm_train["ddpm"][i],
+            launches=launches[name] + dfm_train[name] + dfm_train["ddpm"][i]
+            + base["launches"][name],
             launches_training=launches[name],
             launches_depthfm_training=dfm_train[name],
-            launches_ddpm_training=dfm_train["ddpm"][i])
+            launches_ddpm_training=dfm_train["ddpm"][i],
+            launches_baselines_and_eval=base["launches"][name],
+            baseline_shapes=[{"q": row["q"], "nk": row["nk"],
+                              "dtype": row["dtype"], **row[name]}
+                             for row in base["rows"]])
     # serving: the Python counter counts the eager calls, warm-ups and
     # captures; a replay's launches are read from its trace
     kernels[0].update(

@@ -373,7 +373,7 @@ def test_int8_serving_state_is_refused(stack, tmp_path):
 @pytest.mark.parametrize("knob", ["quantize_p2g_int8", "quantize_sam_int8"])
 def test_int8_knobs_are_not_ported(stack, knob):
     _, th, _ = stack
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
         getattr(th, knob)()
 
 

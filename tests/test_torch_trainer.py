@@ -401,13 +401,16 @@ def test_deferred_trainer_config_fields_raise(field, value):
 
 
 def test_unknown_and_unported_trainers():
-    from amodal_depth_anything_tpu_torch.train import (DepthFMAmodalTrainer,
-                                                       DepthFMTrainer)
+    from amodal_depth_anything_tpu_torch.train import (
+        AmodalSynthDriveTrainer, DepthFMAmodalTrainer, DepthFMTrainer,
+        InvisibleStitchTrainer)
     assert get_trainer_cls("DiscriminativeTrainer") is DiscriminativeTrainer
     assert get_trainer_cls("DepthFMAmodalTrainer") is DepthFMAmodalTrainer
     assert get_trainer_cls("DepthFMTrainer") is DepthFMTrainer
-    with pytest.raises(NotImplementedError, match="InvisibleStitchTrainer"):
-        get_trainer_cls("InvisibleStitchTrainer")
+    # every trainer of the JAX package is ported
+    assert get_trainer_cls("InvisibleStitchTrainer") is InvisibleStitchTrainer
+    assert get_trainer_cls("AmodalSynthDriveTrainer") is \
+        AmodalSynthDriveTrainer
     with pytest.raises(ValueError, match="unknown trainer"):
         get_trainer_cls("nope")
     with pytest.raises(ValueError, match="unknown loss strategy"):
