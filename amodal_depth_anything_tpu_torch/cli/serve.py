@@ -39,8 +39,13 @@ Inputs are host-resized to the pipeline's square `size` (image bilinear,
 mask nearest: the reference's own preprocessing geometry), so every request
 rides the same captured program.
 
-Not ported (each exits with a message): `--int8`, `--artifact`,
-`--export_artifact`.
+`--int8 {wo,dynamic,ln}` compresses the pipeline at startup, before the
+capture, as the JAX CLI does: `wo` (weight-only int8 UNet + VAE) and
+`dynamic` (W8A8 with run-time scales) for `--family depthfm`, `ln`
+(calibration-free LayerNorm-bound W8A8 on both trunks) for the amodal
+family.
+
+Not ported (each exits with a message): `--artifact`, `--export_artifact`.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ from ..utils.host_image import (decode_png, encode_png, resize_bilinear,
 
 __all__ = ["build_parser", "build_server", "main"]
 
-_NOT_PORTED = ("int8", "artifact", "export_artifact")
+_NOT_PORTED = ("artifact", "export_artifact")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,7 +99,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "it off (overrides a --serving_state saved with "
                         "caching on).")
     p.add_argument("--int8", default=None, choices=["wo", "dynamic", "ln"],
-                   help="not ported: int8 serving")
+                   help="opt-in int8 at startup (applied after load, before "
+                        "the capture; parity-breaking): depthfm 'wo' = "
+                        "weight-only int8 UNet+VAE, 'dynamic' = W8A8 with "
+                        "run-time scales; amodal 'ln' = calibration-free "
+                        "LN-bound W8A8 on both trunks")
     p.add_argument("--size", type=int, default=None,
                    help="input square size (default: 518 amodal / 512 "
                         "depthfm; the depthfm size must be divisible by "
@@ -254,9 +263,8 @@ def main(argv=None) -> None:
     for flag in _NOT_PORTED:
         if getattr(args, flag) is not None:
             raise SystemExit(
-                f"--{flag} is not ported to the torch server yet (int8 "
-                f"serving and torch.export artifacts are queued in "
-                f"ROADMAP.md)")
+                f"--{flag} is not ported to the torch server yet "
+                f"(torch.export artifacts are queued in ROADMAP.md)")
     if args.size is None:
         if args.random:
             args.size = 32 if args.family == "depthfm" else 56
@@ -267,6 +275,12 @@ def main(argv=None) -> None:
                          f"factor 8 for --family depthfm")
     if args.deep_cache is not None and args.family != "depthfm":
         raise SystemExit("--deep_cache is a depthfm-family knob")
+    if args.int8 in ("wo", "dynamic") and args.family != "depthfm":
+        raise SystemExit(f"--int8 {args.int8} is a depthfm-family mode; "
+                         "the amodal family's data-free mode is 'ln'")
+    if args.int8 == "ln" and args.family != "amodal":
+        raise SystemExit("--int8 ln (LN-bound scales) is an amodal-family "
+                         "mode; depthfm modes are 'wo'/'dynamic'")
 
     import torch
 
@@ -278,6 +292,19 @@ def main(argv=None) -> None:
         # before capture: the graph is recorded with the pipeline's knobs
         from ..ops.ddim import parse_deep_cache
         pipe.deep_cache = parse_deep_cache(args.deep_cache)
+    if args.int8:
+        from ..ops.quant import is_quantized
+        models = [getattr(pipe, n) for n in ("model", "raw_model",
+                                             "amodal_model")
+                  if hasattr(pipe, n)]
+        if any(is_quantized(m) for model in models
+               for m in model.modules()):
+            raise SystemExit(f"--int8 {args.int8}: the serving state is "
+                             f"already quantised; serve it without --int8")
+    if args.int8 in ("wo", "dynamic"):
+        pipe.quantize_int8(weight_only=(args.int8 == "wo"))
+    elif args.int8 == "ln":
+        pipe.quantize_int8(base=True, amodal=True)
 
     served, how = pipe, "eager on the CPU"
     if args.device == "cuda":

@@ -29,6 +29,12 @@ of `models/{sam,clip_vit,rmbg}.py` and the pix2gestalt tree {"unet",
 "vae", "clip", "uncond_ctx"[, "cc_projection"]}) and `load_p2g_proxy` for
 `checkpoints/proxy/p2g.npz`; the reference checkpoints are read by
 `convert/heuristics.py`.
+
+Quantised layers (`ops.quant`: W8A8, w8, w4, SmoothQuant) cross the bridge
+leaf for leaf in both directions under their JAX leaf names (`w` int8,
+`w_scale`, `act_scale`, `smooth`, `use_q`, `w_orig`, `w8`, `w4`,
+`w4_scale`, `w4_group`); `dav2_layer_paths` / `depthfm_layer_paths` name
+each layer's JAX tree path, by which the JAX quantisers pick their sites.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ from ..models.depthfm import DepthFM, DepthFMConfig, build_depthfm
 from ..models.unet_ldm import UNetConfig, build_plan
 
 __all__ = ["load_state_dict", "infer_dav2_config", "params_from_jax",
-           "params_to_jax", "load_params_npz", "depthfm_params_from_jax",
+           "params_to_jax", "load_params_npz", "dav2_layer_paths",
+           "depthfm_layer_paths", "depthfm_params_from_jax",
            "depthfm_params_to_jax", "load_depthfm_proxy",
            "load_depthfm_checkpoints", "sam_params_from_jax",
            "sam_params_to_jax", "clip_params_from_jax", "clip_params_to_jax",
@@ -143,9 +150,80 @@ def _permuted(leaf, dims, layer=None) -> torch.Tensor:
 
 def _jax_out(leaf: torch.Tensor, tensors: bool):
     """A JAX-layout leaf as the `*_to_jax` functions return it: float32
-    numpy, or with `tensors` the tensor itself (a bfloat16 leaf has no numpy
-    dtype)."""
-    return leaf if tensors else leaf.cpu().float().numpy()
+    numpy (an integer or bool leaf keeps its dtype), or with `tensors` the
+    tensor itself (a bfloat16 leaf has no numpy dtype)."""
+    if tensors:
+        return leaf
+    leaf = leaf.cpu()
+    return (leaf.float() if leaf.is_floating_point() else leaf).numpy()
+
+
+# The leaves of a quantised layer (`ops.quant`): the port's buffer name ->
+# (the JAX leaf, its kind of layout; None: the layer's weight kind). W8A8:
+# `w` int8, `w_scale`, `act_scale`, `smooth`, `use_q`, `w_orig`; w8: `w8`,
+# `w_scale`; w4: `w4` (packed), `w4_scale` ([in/g, out] in JAX, [out,
+# in/g] here), `w4_group`; a SmoothQuant-migrated float weight adds
+# `smooth`. A stacked trunk's leaves are sliced per block like the rest.
+_QUANT_LEAVES = {"weight": ("w", None), "w_scale": ("w_scale", "same"),
+                 "act_scale": ("act_scale", "same"),
+                 "smooth": ("smooth", "same"), "use_q": ("use_q", "same"),
+                 "w_orig": ("w_orig", None), "w8": ("w8", None),
+                 "w4": ("w4", None), "w4_scale": ("w4_scale", "linear"),
+                 "w4_group": ("w4_group", "same")}
+_WEIGHT_KINDS = ("linear", "conv", "convt")
+
+
+def _expand_quant(entries: list, has) -> list:
+    """`entries` of a leaf map with each quantised layer's weight entry
+    replaced by the entries of the leaves it holds. `has(key, path)` says
+    whether the source holds the leaf of state-dict `key` at JAX `path`."""
+    out = []
+    for key, path, kind, *rest in entries:
+        if kind in _WEIGHT_KINDS and key.endswith(".weight"):
+            name, parent = key[:-len(".weight")], path[:-1]
+            held = [(f"{name}.{s}", parent + (jl,), k or kind)
+                    for s, (jl, k) in _QUANT_LEAVES.items()
+                    if has(f"{name}.{s}", parent + (jl,))]
+            if [h[0] for h in held] != [key]:
+                out += [(k, p, kd, *rest) for k, p, kd in held]
+                continue
+        out.append((key, path, kind, *rest))
+    return out
+
+
+def _layer_paths(entries: list) -> dict:
+    """{module name: "/"-joined JAX path of its parameter container} for
+    every linear and conv of a leaf map."""
+    return {key[:-len(".weight")]: "/".join(path[:-1])
+            for key, path, kind, *_ in entries
+            if kind in _WEIGHT_KINDS and key.endswith(".weight")}
+
+
+def dav2_layer_paths(cfg: DAV2Config) -> dict:
+    """Every linear and conv of `cfg`'s model: {state-dict module name:
+    JAX tree path}, the names the JAX package's quantisers choose sites by
+    (`ops.quant.quantize_diffusion_modules`)."""
+    return _layer_paths(_leaf_map(cfg))
+
+
+def depthfm_layer_paths(cfg: DepthFMConfig) -> dict:
+    """`dav2_layer_paths` of a DepthFM model ("unet/...", "vae/...")."""
+    return _layer_paths(_depthfm_leaf_map(cfg))
+
+
+def _in_tree(tree: dict):
+    def has(_key, path):
+        node = tree
+        for part in path:
+            if not isinstance(node, dict) or part not in node:
+                return False
+            node = node[part]
+        return True
+    return has
+
+
+def _in_sd(sd: dict):
+    return lambda key, _path: key in sd
 
 
 def _leaf_map(cfg: DAV2Config):
@@ -221,7 +299,8 @@ def params_from_jax(params: dict, cfg: DAV2Config) -> dict[str, torch.Tensor]:
     state dict for `cfg` ("encoder." keys for AmodalDAv2, bare keys for the
     raw base); each leaf keeps its dtype and device."""
     sd = {}
-    for key, path, kind, layer in _leaf_map(cfg):
+    for key, path, kind, layer in _expand_quant(_leaf_map(cfg),
+                                                _in_tree(params)):
         leaf = params
         for part in path:
             leaf = leaf[part]
@@ -236,7 +315,7 @@ def params_to_jax(sd: dict, cfg: DAV2Config, *, tensors: bool = False) -> dict:
     `tensors`, as tensors of the state dict's dtypes and device."""
     tree: dict = {}
     stacks: dict[tuple, list] = {}
-    for key, path, kind, layer in _leaf_map(cfg):
+    for key, path, kind, layer in _expand_quant(_leaf_map(cfg), _in_sd(sd)):
         leaf = _permuted(sd[key], _TO_JAX[kind])
         if layer is not None:
             stacks.setdefault(path, []).append(leaf)
@@ -408,7 +487,8 @@ def depthfm_params_from_jax(params: dict,
     linears [in, out], convs HWIO) -> the state dict of
     `models.depthfm.DepthFM`; each leaf keeps its dtype and device."""
     sd = {}
-    for key, path, kind in _depthfm_leaf_map(cfg):
+    for key, path, kind in _expand_quant(_depthfm_leaf_map(cfg),
+                                         _in_tree(params)):
         leaf = params
         for part in path:
             leaf = leaf[part]
@@ -421,7 +501,8 @@ def depthfm_params_to_jax(sd: dict, cfg: DepthFMConfig, *,
     """The inverse of `depthfm_params_from_jax`, as float32 numpy arrays
     (`tensors` as in `params_to_jax`)."""
     tree: dict = {}
-    for key, path, kind in _depthfm_leaf_map(cfg):
+    for key, path, kind in _expand_quant(_depthfm_leaf_map(cfg),
+                                         _in_sd(sd)):
         _set_path(tree, path, _jax_out(_permuted(sd[key], _TO_JAX[kind]),
                                        tensors))
     return tree

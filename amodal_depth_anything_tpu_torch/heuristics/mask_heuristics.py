@@ -51,7 +51,7 @@ __all__ = ["Pix2GestaltConfig", "MaskHeuristics", "make_rmbg_matting_fn",
 SAM_PIXEL_MEAN = (123.675, 116.28, 103.53)
 SAM_PIXEL_STD = (58.395, 57.12, 57.375)
 _INT8 = ("int8 weights are not ported to the torch heuristics: ROADMAP "
-         "queue 1, item 3 (compression) ports ops/quant.py first")
+         "queue 1, item 3 (the heuristics' int8 knobs)")
 
 
 @torch.no_grad()
@@ -410,10 +410,12 @@ class MaskHeuristics:
                                        rmbg_params_from_jax,
                                        sam_params_from_jax)
         from ..pipeline.serving_ckpt import (cfg_from_dict,
+                                             refuse_quantized,
                                              restore_serving_state)
 
         trees, meta = restore_serving_state(
             path, expect_kind="mask_heuristics", device=device)
+        refuse_quantized(path, trees, _INT8)
         sam_cfg = cfg_from_dict(SAMConfig, meta["sam_cfg"])
         p2g_cfg = cfg_from_dict(Pix2GestaltConfig, meta["p2g_cfg"])
         clip_cfg = cfg_from_dict(CLIPVisionConfig, meta["clip_cfg"])

@@ -144,13 +144,19 @@ class DepthAnythingV2(nn.Module):
                              persistent=False)
 
     def forward(self, x: torch.Tensor, guide: torch.Tensor | None = None, *,
-                attn_impl: str | None = None,
-                remat: bool | str = False) -> torch.Tensor:
+                attn_impl: str | None = None, remat: bool | str = False,
+                token_merge: tuple[int, int] | None = None,
+                head_batch_tile: int | None = None) -> torch.Tensor:
+        """`token_merge=(after_layer, r)`: ToMe in the trunk
+        (`DinoVisionTransformer.get_intermediate_layers`);
+        `head_batch_tile`: the head over batch chunks (`DPTHead`). Both
+        opt-in serving knobs of the JAX `apply_amodal_dav2`."""
         x = (x - self.mean.to(x.dtype)) / self.std.to(x.dtype)
         ph, pw = x.shape[1] // 14, x.shape[2] // 14
         feats = self.pretrained.get_intermediate_layers(
-            x, guide, self.cfg.taps, attn_impl=attn_impl, remat=remat)
-        return self.depth_head(feats, (ph, pw))
+            x, guide, self.cfg.taps, attn_impl=attn_impl, remat=remat,
+            token_merge=token_merge)
+        return self.depth_head(feats, (ph, pw), batch_tile=head_batch_tile)
 
 
 class AmodalDAv2(nn.Module):
@@ -163,12 +169,17 @@ class AmodalDAv2(nn.Module):
 
     def forward(self, x: torch.Tensor, *, guide_rgb=None, guide_mask=None,
                 observation=None, attn_impl: str | None = None,
-                remat: bool | str = False):
+                remat: bool | str = False,
+                token_merge: tuple[int, int] | None = None,
+                head_batch_tile: int | None = None):
         """x: [B,H,W,3] RGB in [0,1] -> depth [B,H',W',1], in x's dtype
         whatever the parameters' dtype. `remat`: False | True | "attn",
-        what the trunk's blocks keep for the backward pass."""
+        what the trunk's blocks keep for the backward pass;
+        `token_merge` / `head_batch_tile` as in `DepthAnythingV2`."""
         guide = build_guide(self.cfg, guide_rgb, guide_mask, observation)
-        return self.encoder(x, guide, attn_impl=attn_impl, remat=remat)
+        return self.encoder(x, guide, attn_impl=attn_impl, remat=remat,
+                            token_merge=token_merge,
+                            head_batch_tile=head_batch_tile)
 
 
 class RawDAV2(DepthAnythingV2):
@@ -182,9 +193,12 @@ class RawDAV2(DepthAnythingV2):
             raise ValueError("RawDAV2 needs DAV2Config(raw=True)")
         super().__init__(cfg)
 
-    def forward(self, x: torch.Tensor, *,
-                attn_impl: str | None = None) -> torch.Tensor:
-        return super().forward(x, attn_impl=attn_impl)[..., 0]
+    def forward(self, x: torch.Tensor, *, attn_impl: str | None = None,
+                token_merge: tuple[int, int] | None = None,
+                head_batch_tile: int | None = None) -> torch.Tensor:
+        return super().forward(x, attn_impl=attn_impl,
+                               token_merge=token_merge,
+                               head_batch_tile=head_batch_tile)[..., 0]
 
 
 def build_model(cfg: DAV2Config, *, device=None,

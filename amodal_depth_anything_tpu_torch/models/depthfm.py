@@ -140,8 +140,9 @@ class DepthFM(nn.Module):
                 depth=None, guide_rgb=None, guide_mask=None,
                 observation=None, num_steps: int = 4,
                 attn_impl: str | None = None, deep_cache=None, t=None,
-                remat: bool = False):
-        """mode "eval": `depthfm_generate` -> depth [B,H,W,1]; mode "train":
+                remat: bool = False, tome=None):
+        """mode "eval": `depthfm_generate` (`tome`: ToMe-SD, as there) ->
+        depth [B,H,W,1]; mode "train":
         `depthfm_train_outputs` (needs `depth`; `t` and `remat` are its)
         -> (model_pred, target) latents."""
         if mode == "train":
@@ -156,7 +157,7 @@ class DepthFM(nn.Module):
         return depthfm_generate(
             self, rng, x, num_steps=num_steps, guide_rgb=guide_rgb,
             guide_mask=guide_mask, observation=observation,
-            attn_impl=attn_impl, deep_cache=deep_cache)
+            attn_impl=attn_impl, tome=tome, deep_cache=deep_cache)
 
 
 def build_depthfm(cfg: DepthFMConfig, *, device="cuda",
@@ -261,7 +262,7 @@ def depthfm_train_outputs(model: DepthFM, rng, ims: torch.Tensor,
 
 
 def _euler_depth(model: DepthFM, rng, rgb_latent, cond_latent, conditioning,
-                 num_steps: int, dtype, attn_impl,
+                 num_steps: int, dtype, attn_impl, tome=None,
                  deep_cache=None) -> torch.Tensor:
     """q_sample -> fixed-step Euler ODE -> decode -> channel-mean depth
     (shared by the amodal eval and the plain predict paths).
@@ -270,7 +271,8 @@ def _euler_depth(model: DepthFM, rng, rgb_latent, cond_latent, conditioning,
     the full UNet and keeps the deep feature; the N-1 steps in between run
     only the G shallowest input/output groups around it (see
     `UNetModel.forward`). N = 1 is identical to the plain path. Opt-in:
-    for N > 1 it is an approximation."""
+    for N > 1 it is an approximation. `tome=(ratio, min_tokens)`: ToMe-SD
+    in every UNet call (opt-in, an approximation)."""
     cfg = model.cfg
     z = q_sample(rgb_latent, cfg.noising_step, _noise(rng, rgb_latent),
                  cfg.n_diffusion_timesteps)
@@ -281,7 +283,7 @@ def _euler_depth(model: DepthFM, rng, rgb_latent, cond_latent, conditioning,
     def vfield(z, t, **kw):
         return model.unet(z, t.expand(b), context=cond_latent,
                           context_ca=conditioning, attn_impl=attn_impl,
-                          **kw)
+                          tome=tome, **kw)
 
     if deep_cache is None:
         for t in ts:
@@ -304,7 +306,7 @@ def _euler_depth(model: DepthFM, rng, rgb_latent, cond_latent, conditioning,
 def depthfm_generate(model: DepthFM, rng, ims: torch.Tensor, *,
                      num_steps: int = 4, guide_rgb=None, guide_mask=None,
                      observation=None, attn_impl: str | None = None,
-                     deep_cache=None) -> torch.Tensor:
+                     tome=None, deep_cache=None) -> torch.Tensor:
     """Euler ODE from the noised image latent to the depth latent. ims:
     [B,H,W,3] in [-1,1]; returns depth [B,H,W,1] in [0,1] (far = 0 after
     the 1-x flip, dfm_amodal.py:261-262)."""
@@ -313,14 +315,14 @@ def depthfm_generate(model: DepthFM, rng, ims: torch.Tensor, *,
                                  observation)
     conditioning = _conditioning(model, ims.shape[0], ims.dtype)
     depth = _euler_depth(model, rng, rgb_latent, cond_latent, conditioning,
-                         num_steps, ims.dtype, attn_impl,
+                         num_steps, ims.dtype, attn_impl, tome=tome,
                          deep_cache=deep_cache)
     return 1.0 - torch.clamp((depth + 1.0) / 2.0, 0.0, 1.0)
 
 
 def depthfm_predict_depth(model: DepthFM, rng, ims: torch.Tensor, *,
                           num_steps: int = 4, ensemble_size: int = 1,
-                          attn_impl: str | None = None,
+                          attn_impl: str | None = None, tome=None,
                           deep_cache=None) -> torch.Tensor:
     """Plain (unguided) DepthFM inference (reference `dfm.py:59-94`, the
     pseudo-label factory's labeler): `ensemble_size` copies of the image
@@ -343,7 +345,7 @@ def depthfm_predict_depth(model: DepthFM, rng, ims: torch.Tensor, *,
         rgb_latent = rgb_latent.repeat_interleave(ensemble_size, dim=0)
     conditioning = _conditioning(model, rgb_latent.shape[0], ims.dtype)
     depth = _euler_depth(model, rng, rgb_latent, rgb_latent, conditioning,
-                         num_steps, ims.dtype, attn_impl,
+                         num_steps, ims.dtype, attn_impl, tome=tome,
                          deep_cache=deep_cache)
     if ensemble_size > 1:
         depth = depth.mean(dim=0, keepdim=True)

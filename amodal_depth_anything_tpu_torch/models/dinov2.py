@@ -9,6 +9,9 @@ final-LayerNormed tokens at the DPT tap depths.
 
 The JAX package pads the token stream to 1408 for its TPU kernel; this port
 does not, because the CUDA kernel masks the ragged edge itself.
+
+`token_merge=(after_layer, r)` is the opt-in ToMe serving mode
+(`ops.token_merge`): the blocks after `after_layer` run on N - r tokens.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import resize2d
+from ..ops.token_merge import tome_merge, tome_unmerge
 from .layers import DEFAULT_LN_EPS, Block, LayerNorm
 
 __all__ = ["GUIDE_CHANNELS", "VIT_PRESETS", "INTERMEDIATE_LAYER_IDX",
@@ -166,20 +170,33 @@ class DinoVisionTransformer(nn.Module):
     def get_intermediate_layers(
             self, x: torch.Tensor, guide: torch.Tensor | None = None,
             taps: Sequence[int] | None = None, *,
-            attn_impl: str | None = None, remat: bool | str = False
+            attn_impl: str | None = None, remat: bool | str = False,
+            token_merge: tuple[int, int] | None = None
     ) -> list[tuple[torch.Tensor, torch.Tensor]]:
         """[(patch_tokens [B,N,D], cls [B,D])] per tap, final-LayerNormed
         (reference `get_intermediate_layers(norm=True,
         return_class_token=True)`). x: [B,H,W,3]; guide: [B,H,W,Cg].
-        `remat`: False | True | "attn", per block (see `layers.Block`)."""
+        `remat`: False | True | "attn", per block (see `layers.Block`).
+
+        `token_merge=(after_layer, r)` (JAX `dinov2_intermediate_layers`):
+        after block `after_layer` the r best-matched tokens are merged
+        (`ops.token_merge.tome_merge`, cls protected), the later blocks
+        run on the N - r tokens, and their taps are un-merged back to the
+        full grid before the final norm; taps up to `after_layer` are those
+        of the unmerged forward."""
         taps = set((self.cfg.depth - 1,) if taps is None else taps)
+        merge_after, r = token_merge if token_merge is not None \
+            else (None, 0)
         t = self.prepare_tokens(x, guide)
+        idx = None
         out = []
         for i, blk in enumerate(self.blocks):
             t = blk(t, attn_impl=attn_impl, remat=remat)
             if i in taps:
-                n = self.norm(t)
+                n = self.norm(t if idx is None else tome_unmerge(t, idx))
                 out.append((n[:, 1:], n[:, 0]))
             if len(out) == len(taps):
                 break
+            if i == merge_after:
+                t, idx = tome_merge(t, r)
         return out

@@ -12,7 +12,8 @@ Attribute names give the reference state-dict keys (`projects.N`,
 `resize_layers.{0,1,3}`, `input_projection.N.{0,1}`, `scratch.layerN_rn`,
 `scratch.refinenetN.resConfUnit1.conv1`, `scratch.output_conv2.{0,2}`).
 Activations stay NHWC, as in the JAX package; each convolution runs on the
-NCHW view of the same memory.
+NCHW view of the same memory. The convolutions may be quantised modules
+(`ops.quant`: W8A8 with calibrated or dynamic scales) under the same names.
 """
 
 from __future__ import annotations
@@ -106,9 +107,24 @@ class DPTHead(nn.Module):
         self.scratch = scratch
 
     def forward(self, features: Sequence[tuple[torch.Tensor, torch.Tensor]],
-                patch_hw: tuple[int, int]) -> torch.Tensor:
+                patch_hw: tuple[int, int], *,
+                batch_tile: int | None = None) -> torch.Tensor:
         """features: [(patch_tokens [B,N,D], cls [B,D])] x4 ->
-        depth [B, 14*ph, 14*pw, 1]."""
+        depth [B, 14*ph, 14*pw, 1].
+
+        `batch_tile`: run the head over batch chunks of this size, one after
+        the other (JAX `dpt_head(batch_tile=)`, a serving knob; exact, the
+        convolutions are independent per batch row): the full-grid fusion
+        pyramid's activations then peak at one chunk's worth."""
+        b = features[0][0].shape[0]
+        if batch_tile is not None and b > batch_tile:
+            if b % batch_tile:
+                raise ValueError(f"batch {b} not divisible by batch_tile "
+                                 f"{batch_tile}")
+            return torch.cat([
+                self.forward([(tok[i:i + batch_tile], cls[i:i + batch_tile])
+                              for tok, cls in features], patch_hw)
+                for i in range(0, b, batch_tile)])
         cfg, sc = self.cfg, self.scratch
         ph, pw = patch_hw
         taps = []

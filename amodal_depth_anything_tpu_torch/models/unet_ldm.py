@@ -19,9 +19,13 @@ JAX package's group rule; both attentions go through `ops.attention`
 (on CUDA tensors the flash-attention kernels, forward and backward, at head
 dims 40, 80 and 160, self-attention over 64-4096 latent tokens and
 cross-attention onto the 77 context tokens alike). `remat=True` recomputes
-each level in the backward pass (the DepthFM trainers' option). Left out,
-raising `NotImplementedError`: token merging (`tome`) and the quantised
-linears and convolutions.
+each level in the backward pass (the DepthFM trainers' option).
+
+Serving compression (opt-in, `ops.quant` / `ops.token_merge`): the linears
+and convolutions may be quantised modules (W8A8, w8, w4) under the same
+names; a W8A8 upsampling conv runs unfused (nearest 2x, then the int8
+conv), a weight-only one dequantises before the fold. `tome=(ratio,
+min_tokens)` is ToMe-SD in the spatial transformers.
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import multi_head_attention
-from ..ops.conv import Conv2dNHWC, fused_upsample2x_conv
+from ..ops.conv import Conv2dNHWC, upsample2x_conv
+from ..ops.token_merge import tome_apply, tome_merge, tome_unmerge
 from .layers import LayerNorm, Linear
 
 __all__ = ["UNetConfig", "DEPTHFM_UNET", "build_plan", "timestep_embedding",
@@ -231,11 +236,18 @@ class BasicTransformerBlock(nn.Module):
         self.norm2 = LayerNorm(dim, eps=1e-5)
         self.norm3 = LayerNorm(dim, eps=1e-5)
 
+    def parts(self, context_ca, attn_impl, self_scale):
+        """The block's three residual branches, in order."""
+        return (lambda y: self.attn1(self.norm1(y), None, attn_impl=attn_impl,
+                                     sm_scale=self_scale),
+                lambda y: self.attn2(self.norm2(y), context_ca,
+                                     attn_impl=attn_impl),
+                lambda y: self.ff(self.norm3(y)))
+
     def forward(self, y, context_ca, attn_impl, self_scale):
-        y = y + self.attn1(self.norm1(y), None, attn_impl=attn_impl,
-                           sm_scale=self_scale)
-        y = y + self.attn2(self.norm2(y), context_ca, attn_impl=attn_impl)
-        return y + self.ff(self.norm3(y))
+        for part in self.parts(context_ca, attn_impl, self_scale):
+            y = y + part(y)
+        return y
 
 
 class SpatialTransformer(nn.Module):
@@ -257,7 +269,13 @@ class SpatialTransformer(nn.Module):
             for _ in range(cfg.transformer_depth))
 
     def forward(self, x: torch.Tensor, context_ca: torch.Tensor | None, *,
-                attn_impl: str | None = None) -> torch.Tensor:
+                attn_impl: str | None = None, tome=None) -> torch.Tensor:
+        """`tome=(ratio, min_tokens)`: ToMe-SD (Bolya & Hoffman) at levels
+        of at least `min_tokens` tokens: one bipartite match per call on the
+        projected tokens, r = min(int(n * ratio), n // 2 - 1); each branch
+        of each block runs on the merged [B, n - r, C] stream and its output
+        is un-merged into the full-resolution residual, which is re-merged
+        for the next branch (JAX `_spatial_transformer`)."""
         b, h, w, c = x.shape
         linear = self.cfg.use_linear_in_transformer
         y = self.norm(x)
@@ -270,8 +288,23 @@ class SpatialTransformer(nn.Module):
         if self.cfg.rescale_self_attention:
             n, dh = h * w, c // self.cfg.num_heads
             self_scale = (math.log(n) / math.log(n * 4) / dh) ** 0.5
-        for block in self.transformer_blocks:
-            y = block(y, context_ca, attn_impl, self_scale)
+        n_tok, r = h * w, 0
+        if tome is not None:
+            ratio, min_tokens = tome
+            if n_tok >= min_tokens:
+                r = min(int(n_tok * ratio), n_tok // 2 - 1)
+        if r > 0:
+            merged, idx = tome_merge(y, r)
+            parts = [part for block in self.transformer_blocks
+                     for part in block.parts(context_ca, attn_impl,
+                                             self_scale)]
+            for i, part in enumerate(parts):
+                y = y + tome_unmerge(part(merged), idx)
+                if i + 1 < len(parts):
+                    merged = tome_apply(y, idx, n_tok - r)
+        else:
+            for block in self.transformer_blocks:
+                y = block(y, context_ca, attn_impl, self_scale)
         if linear:
             y = self.proj_out(y).view(b, h, w, c)
         else:
@@ -290,26 +323,26 @@ class Downsample(nn.Module):
 
 class Upsample(nn.Module):
     """Nearest 2x then a 3x3 conv, run as one low-resolution conv
-    (`ops.conv.fused_upsample2x_conv`)."""
+    (`ops.conv.upsample2x_conv`)."""
 
     def __init__(self, ch: int):
         super().__init__()
         self.conv = Conv2dNHWC(ch, ch, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return fused_upsample2x_conv(x, self.conv.weight, self.conv.bias)
+        return upsample2x_conv(x, self.conv)
 
 
 class Level(nn.ModuleList):
     """One block of the plan: its layers in order, indexed as the
     reference's TimestepEmbedSequential."""
 
-    def forward(self, x, emb, context_ca, attn_impl):
+    def forward(self, x, emb, context_ca, attn_impl, tome=None):
         for layer in self:
             if isinstance(layer, ResBlock):
                 x = layer(x, emb)
             elif isinstance(layer, SpatialTransformer):
-                x = layer(x, context_ca, attn_impl=attn_impl)
+                x = layer(x, context_ca, attn_impl=attn_impl, tome=tome)
             else:
                 x = layer(x)
         return x
@@ -372,17 +405,15 @@ class UNetModel(nn.Module):
         trains the SD UNet with `use_checkpoint=True`). The skip tensors
         `hs` stay live: they are consumed far from where they are made, so
         recomputing them would cascade. The time embedding and the output
-        head are not recomputed."""
-        if tome is not None:
-            raise NotImplementedError(
-                "token merging (tome) is not ported to the torch UNet")
+        head are not recomputed. `tome=(ratio, min_tokens)`: ToMe-SD in
+        the spatial transformers (`SpatialTransformer.forward`)."""
         remat = remat and torch.is_grad_enabled()
 
         def run(level, h):
             if remat:
-                return checkpoint(level, h, emb, context_ca, attn_impl,
+                return checkpoint(level, h, emb, context_ca, attn_impl, tome,
                                   use_reentrant=False)
-            return level(h, emb, context_ca, attn_impl)
+            return level(h, emb, context_ca, attn_impl, tome)
 
         n_inp, n_out = len(self.input_blocks), len(self.output_blocks)
         if deep_cache_groups is not None:

@@ -32,7 +32,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import multi_head_attention
-from ..ops.conv import Conv2dNHWC, conv2d, fused_upsample2x_conv
+from ..ops.conv import Conv2dNHWC, conv2d, upsample2x_conv
+from ..ops.quant import is_quantized
 from .layers import Linear
 from .unet_ldm import GroupNorm
 
@@ -113,6 +114,8 @@ class Downsampler(nn.Module):
         self.conv = Conv2dNHWC(ch, ch, 3, stride=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if is_quantized(self.conv):   # pad, then the quantised conv
+            return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
         return conv2d(x, self.conv.weight, self.conv.bias, stride=2,
                       padding=((0, 1), (0, 1)))
 
@@ -123,7 +126,7 @@ class Upsampler(nn.Module):
         self.conv = Conv2dNHWC(ch, ch, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return fused_upsample2x_conv(x, self.conv.weight, self.conv.bias)
+        return upsample2x_conv(x, self.conv)
 
 
 class ResBlocks(nn.Module):

@@ -14,7 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 __all__ = ["conv2d", "conv_transpose_same_stride", "fused_upsample2x_conv",
-           "layer_norm_2d", "Conv2dNHWC", "ConvTranspose2dNHWC",
+           "upsample2x_conv", "layer_norm_2d", "Conv2dNHWC", "ConvTranspose2dNHWC",
            "LayerNorm2d"]
 
 
@@ -77,6 +77,22 @@ def fused_upsample2x_conv(x: torch.Tensor, weight: torch.Tensor,
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
+
+
+def upsample2x_conv(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
+    """Nearest 2x upsample then `conv` (a 3x3 SAME conv module, float or
+    quantised, `ops.quant`). A float or weight-only (w8 / w4) kernel takes
+    the fused path, the weight-only one dequantised to float32 before the
+    fold; a W8A8 kernel cannot fold and runs the two steps (as the JAX
+    package's UNet and VAE do)."""
+    from .quant import is_quantized
+    if not is_quantized(conv):
+        return fused_upsample2x_conv(x, conv.weight, conv.bias)
+    if conv.mode == "int8":
+        from .resize import resize_nearest
+        return conv(resize_nearest(x, scale_factor=2.0))
+    return fused_upsample2x_conv(x, conv.dense_weight(torch.float32),
+                                 conv._get("bias"))
 
 
 def conv_transpose_same_stride(x: torch.Tensor, weight: torch.Tensor,

@@ -15,7 +15,12 @@ Behaviour parity with the reference `infer.py:16-121`:
 
 `save_serving` / `load_serving` write and read the JAX package's
 serving-state format (`pipeline.serving_ckpt`, kind "amodal_dav2"), so a
-state saved by either package serves in the other.
+state saved by either package serves in the other, compressed or not.
+
+Serving compression, opt-in and parity-breaking as in the JAX package:
+`quantize_int8` (W8A8 trunks and heads, `ops.quant`), `base_token_merge` /
+`amodal_token_merge` (ToMe in the trunks, `ops.token_merge`) and
+`head_batch_tile` (the DPT heads over batch chunks; exact).
 """
 
 from __future__ import annotations
@@ -25,8 +30,9 @@ import os
 import numpy as np
 import torch
 
-from ..models.amodal_dav2 import (AmodalDAv2, DAV2Config, RawDAV2,
-                                  build_model, init_weights_)
+from ..models.amodal_dav2 import (AmodalDAv2, DAV2Config, DepthAnythingV2,
+                                  RawDAV2, build_guide, build_model,
+                                  init_weights_)
 from ..ops.blend import median_filter_blend
 from ..ops.precision import apply_precision_policy
 from ..ops.resize import resize2d, resize_nearest
@@ -34,22 +40,56 @@ from ..ops.resize import resize2d, resize_nearest
 __all__ = ["amodal_depth_graph", "AmodalDepthPipeline"]
 
 
+def _pair(v) -> tuple[int, int] | None:
+    return tuple(int(x) for x in v) if v else None
+
+
+def _dav2(model) -> DepthAnythingV2:
+    """The DINOv2 + DPT module of an AmodalDAv2 or a RawDAV2."""
+    return model.encoder if isinstance(model, AmodalDAv2) else model
+
+
+def _trunk_inputs(model, x: torch.Tensor, **guides):
+    """(normalised image, guide) as the model's trunk takes them."""
+    enc = _dav2(model)
+    xn = (x - enc.mean.to(x.dtype)) / enc.std.to(x.dtype)
+    guide = None if enc.cfg.raw else build_guide(enc.cfg, **guides)
+    return xn, guide
+
+
+def _head_sites(model) -> dict:
+    """{head module name: JAX path under "depth_head"} of `model`'s head."""
+    from ..convert.weights import dav2_layer_paths
+    prefix = "" if isinstance(model, RawDAV2) else "encoder."
+    head = f"{prefix}depth_head."
+    return {name[len(head):]: path[len("depth_head/"):]
+            for name, path in dav2_layer_paths(_dav2(model).cfg).items()
+            if name.startswith(head)}
+
+
 def amodal_depth_graph(raw_model: RawDAV2, amodal_model: AmodalDAv2,
                        image: torch.Tensor, mask: torch.Tensor, *,
                        size: int = 518, attn_impl: str | None = None,
-                       base_image: torch.Tensor | None = None):
+                       base_image: torch.Tensor | None = None,
+                       base_token_merge: tuple[int, int] | None = None,
+                       amodal_token_merge: tuple[int, int] | None = None,
+                       head_batch_tile: int | None = None):
     """image: [B,h,w,3] float in [0,255]; mask: [B,h,w,1] float (>0 = on).
 
     Returns (base_depth [B,S,S], blended_depth [B,S,S]) in [0,1].
 
     `base_image`: optional [B,S,S,3] float in [0,255], a host-resized input
-    for the base branch (the reference resizes with cv2 on uint8)."""
+    for the base branch (the reference resizes with cv2 on uint8).
+    `base_token_merge` / `amodal_token_merge`: ToMe `(after_layer, r)` per
+    trunk; `head_batch_tile`: both heads over batch chunks."""
     img01 = image / 255.0
     if base_image is not None:
         base_in = base_image / 255.0
     else:
         base_in = resize2d(img01, size=(size, size), method="bilinear")
-    base_depth = raw_model(base_in, attn_impl=attn_impl)  # [B,S,S]
+    base_depth = raw_model(base_in, attn_impl=attn_impl,
+                           token_merge=base_token_merge,
+                           head_batch_tile=head_batch_tile)  # [B,S,S]
     lo = base_depth.amin(dim=(-1, -2), keepdim=True)
     hi = base_depth.amax(dim=(-1, -2), keepdim=True)
     base_depth = (base_depth - lo) / torch.clamp(hi - lo, min=1e-8)
@@ -59,7 +99,8 @@ def amodal_depth_graph(raw_model: RawDAV2, amodal_model: AmodalDAv2,
     obs = base_depth[..., None]
     pred = amodal_model(rgb, guide_mask=m * 2.0 - 1.0,
                         observation=obs * 2.0 - 1.0,
-                        attn_impl=attn_impl)  # [B,S,S,1]
+                        attn_impl=attn_impl, token_merge=amodal_token_merge,
+                        head_batch_tile=head_batch_tile)  # [B,S,S,1]
     blended = median_filter_blend(pred, obs, m)
     return base_depth, blended[..., 0]
 
@@ -70,11 +111,19 @@ class AmodalDepthPipeline:
     The reference CLI's contract (`infer.py:59-121`): an image and an
     amodal mask in; base and amodal depth maps (and colourised renders) out.
     Runs on `device` ("cuda" unless the caller asks for "cpu") in `dtype`;
-    a float32 pipeline turns TF32 off (`ops.precision`)."""
+    a float32 pipeline turns TF32 off (`ops.precision`).
+
+    `base_token_merge` / `amodal_token_merge`: opt-in ToMe `(after_layer,
+    r)` per trunk; `head_batch_tile`: the DPT heads over batch chunks of
+    this size (exact). A model that is already quantised keeps its
+    quantised layers' dtypes (`ops.quant`)."""
 
     def __init__(self, raw_model: RawDAV2, amodal_model: AmodalDAv2, *,
                  size: int = 518, attn_impl: str | None = None,
-                 device="cuda", dtype: torch.dtype = torch.float32):
+                 device="cuda", dtype: torch.dtype = torch.float32,
+                 base_token_merge: tuple[int, int] | None = None,
+                 amodal_token_merge: tuple[int, int] | None = None,
+                 head_batch_tile: int | None = None):
         self.device = torch.device(device)
         self.dtype = dtype
         apply_precision_policy(dtype)
@@ -85,6 +134,10 @@ class AmodalDepthPipeline:
         self.amodal_cfg: DAV2Config = amodal_model.cfg
         self.size = size
         self.attn_impl = attn_impl
+        self.base_token_merge = _pair(base_token_merge)
+        self.amodal_token_merge = _pair(amodal_token_merge)
+        self.head_batch_tile = int(head_batch_tile) if head_batch_tile \
+            else None
 
     @classmethod
     def init_random(cls, seed: int = 0, *, encoder: str = "vitt",
@@ -140,19 +193,23 @@ class AmodalDepthPipeline:
             "size": self.size,
             "attn_impl": attn_impl_to_jax(self.attn_impl),
             "dtype": dtype_name(self.dtype),
-            "base_token_merge": None,
-            "amodal_token_merge": None,
-            "head_batch_tile": None,
+            "base_token_merge": list(self.base_token_merge)
+            if self.base_token_merge else None,
+            "amodal_token_merge": list(self.amodal_token_merge)
+            if self.amodal_token_merge else None,
+            "head_batch_tile": self.head_batch_tile,
         })
 
     @classmethod
     def load_serving(cls, path: str, *, attn_impl: str | None = None,
                      device="cuda"):
         """Restore a pipeline saved by `save_serving` of either package on
-        `device`, the weights in their saved dtype (no cast). `attn_impl`
-        overrides the saved one. Refuses int8, ToMe and head_batch_tile
-        states."""
+        `device`, the weights in their saved dtype (no cast, no
+        re-quantisation: int8 codes stay int8, scales float32) and the
+        ToMe / head_batch_tile knobs it was saved with. `attn_impl`
+        overrides the saved one."""
         from ..convert.weights import params_from_jax
+        from ..ops.quant import apply_quantized_
         from .serving_ckpt import (attn_impl_from_jax, cfg_from_dict,
                                    restore_serving_state, serving_dtype)
         trees, meta = restore_serving_state(path, expect_kind="amodal_dav2",
@@ -162,13 +219,150 @@ class AmodalDepthPipeline:
         for name in ("raw", "amodal"):
             cfg = cfg_from_dict(DAV2Config, meta[f"{name}_cfg"])
             model = build_model(cfg, device=device, dtype=dtype)
-            model.load_state_dict(params_from_jax(trees[name], cfg),
-                                  strict=True, assign=True)
+            sd = params_from_jax(trees[name], cfg)
+            apply_quantized_(model, sd)
+            model.load_state_dict(sd, strict=True, assign=True)
             models.append(model)
         return cls(*models, size=int(meta["size"]),
                    attn_impl=attn_impl or attn_impl_from_jax(
                        meta["attn_impl"]),
-                   device=device, dtype=dtype)
+                   device=device, dtype=dtype,
+                   base_token_merge=meta.get("base_token_merge"),
+                   amodal_token_merge=meta.get("amodal_token_merge"),
+                   head_batch_tile=meta.get("head_batch_tile"))
+
+    @torch.no_grad()
+    def quantize_int8(self, *, base: bool = True, amodal: bool = False,
+                      head: bool = False, calibration=None,
+                      margin: float = 1.25, dynamic: bool = False,
+                      smooth_alpha: float | None = None,
+                      families: tuple | None = None, mixed: bool = False,
+                      base_layer_mask=None, amodal_layer_mask=None) -> None:
+        """Opt-in W8A8 int8 serving of the frozen models, in place (JAX
+        `AmodalDepthPipeline.quantize_int8`, the same options, checks and
+        order; `ops.quant`).
+
+        Without `calibration`: LayerNorm-bound static scales on the LN-fed
+        qkv and first FFN matmuls. `calibration=(image, mask)` (as
+        `__call__` takes them): one forward per model records per-block
+        activation maxima and all four trunk families quantise with static
+        scales (x `margin`); `head=True` also quantises the DPT-head convs
+        from maxima recorded on the quantised trunks. `dynamic=True`: all
+        four families (and with `head` the head convs the JAX diffusion
+        rule picks) with run-time scales, no calibration. `smooth_alpha`:
+        SmoothQuant on proj / ffn2 first (calibrated only); `families`
+        restricts the trunk families; `mixed`: LN-bound scales on qkv /
+        ffn1 and calibrated ones on proj / ffn2; `base_layer_mask` /
+        `amodal_layer_mask` ([depth] bools) restrict it to those blocks."""
+        from ..ops import quant as Q
+
+        if families is None:
+            families = Q.FAMILIES
+        families = tuple(families)
+        if smooth_alpha is not None and calibration is None:
+            raise ValueError("smooth_alpha requires calibration=(image, "
+                             "mask) — it needs per-channel act stats")
+        models = []
+        if base:
+            models.append((self.raw_model, base_layer_mask))
+        if amodal:
+            models.append((self.amodal_model, amodal_layer_mask))
+
+        if dynamic:
+            if calibration is not None:
+                raise ValueError("dynamic=True needs no calibration")
+            if mixed or smooth_alpha is not None or families != Q.FAMILIES:
+                raise ValueError("dynamic=True is incompatible with "
+                                 "families/smooth_alpha/mixed")
+            for model, mask in models:
+                enc = _dav2(model)
+                Q.quantize_vit_trunk_int8(enc.pretrained, dynamic=True,
+                                          layer_mask=mask)
+                if head:
+                    Q.quantize_diffusion_modules(
+                        enc.depth_head, _head_sites(model),
+                        skip_suffixes=("output_conv2/conv2",))
+            return
+
+        if head and calibration is None:
+            raise ValueError("head=True requires calibration=(image, mask)")
+        if head and not (base or amodal):
+            raise ValueError("head=True quantizes the heads of the models "
+                             "selected by base=/amodal= — enable at least one")
+
+        stats = {}
+        base_in = rgb = guides = None
+        if calibration is not None:
+            image, mask = calibration
+            img = np.asarray(image, np.float32)
+            msk = np.asarray(mask, np.float32)
+            if img.ndim == 3:
+                img, msk = img[None], msk[None]
+            img_t, msk_t = self._device(img), self._device(msk[..., None])
+            img01 = img_t / 255.0
+            size = (self.size, self.size)
+            if base:
+                base_in = resize2d(img01, size=size, method="bilinear")
+                stats["raw"] = Q.collect_trunk_act_stats(
+                    _dav2(self.raw_model).pretrained,
+                    *_trunk_inputs(self.raw_model, base_in),
+                    attn_impl=self.attn_impl)
+            if amodal:
+                m = (resize_nearest(msk_t, size=size) > 0).to(self.dtype)
+                base_d, _ = amodal_depth_graph(
+                    self.raw_model, self.amodal_model, img_t, msk_t,
+                    size=self.size, attn_impl=self.attn_impl)
+                guides = {"guide_mask": m * 2.0 - 1.0,
+                          "observation": base_d[..., None] * 2.0 - 1.0}
+                rgb = resize_nearest(img01, size=size)
+                stats["amodal"] = Q.collect_trunk_act_stats(
+                    _dav2(self.amodal_model).pretrained,
+                    *_trunk_inputs(self.amodal_model, rgb, **guides),
+                    attn_impl=self.attn_impl)
+
+        def quantize_trunk(vit, st, lm):
+            if mixed:
+                if st is None:
+                    raise ValueError("mixed=True requires calibration")
+                Q.quantize_vit_trunk_int8(
+                    vit, act_stats=st, margin=margin,
+                    smooth_alpha=smooth_alpha, layer_mask=lm,
+                    families=tuple(f for f in ("proj", "ffn2")
+                                   if f in families))
+                Q.quantize_vit_trunk_int8(
+                    vit, layer_mask=lm,
+                    families=tuple(f for f in ("qkv", "ffn1")
+                                   if f in families))
+                return
+            Q.quantize_vit_trunk_int8(vit, act_stats=st, margin=margin,
+                                      families=families,
+                                      smooth_alpha=smooth_alpha,
+                                      layer_mask=lm)
+
+        if base:
+            quantize_trunk(_dav2(self.raw_model).pretrained,
+                           stats.get("raw"), base_layer_mask)
+        if amodal:
+            quantize_trunk(_dav2(self.amodal_model).pretrained,
+                           stats.get("amodal"), amodal_layer_mask)
+        if head:
+            # head maxima recorded on the quantised trunks, as they serve
+            for model, x, kw in ((self.raw_model, base_in, {}),
+                                 (self.amodal_model, rgb, guides)):
+                if x is None:
+                    continue
+                enc = _dav2(model)
+                xn, guide = _trunk_inputs(model, x, **kw)
+                feats = enc.pretrained.get_intermediate_layers(
+                    xn, guide, enc.cfg.taps, attn_impl=self.attn_impl)
+                hs, _ = Q.collect_dpt_head_act_stats(
+                    enc.depth_head, feats,
+                    (x.shape[1] // 14, x.shape[2] // 14))
+                Q.quantize_dpt_head_int8(enc.depth_head, hs, margin=margin)
+
+    def _device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32)).to(
+            device=self.device, dtype=self.dtype)
 
     def _graph(self, img: torch.Tensor, msk: torch.Tensor,
                base_image: torch.Tensor | None = None):
@@ -176,7 +370,10 @@ class AmodalDepthPipeline:
         mask [B,H,W,1]): (base, blended) [B,S,S] float32 on the device."""
         base, blended = amodal_depth_graph(
             self.raw_model, self.amodal_model, img, msk, size=self.size,
-            attn_impl=self.attn_impl, base_image=base_image)
+            attn_impl=self.attn_impl, base_image=base_image,
+            base_token_merge=self.base_token_merge,
+            amodal_token_merge=self.amodal_token_merge,
+            head_batch_tile=self.head_batch_tile)
         return base.float(), blended.float()
 
     @torch.inference_mode()
@@ -196,10 +393,7 @@ class AmodalDepthPipeline:
             if base_image is not None and base_image.ndim == 3:
                 base_image = base_image[None]
 
-        def dev(a):
-            return torch.as_tensor(np.asarray(a, np.float32)).to(
-                device=self.device, dtype=self.dtype)
-
+        dev = self._device
         base, blended = (t.cpu().numpy() for t in self._graph(
             dev(img), dev(msk[..., None]),
             None if base_image is None else dev(base_image)))

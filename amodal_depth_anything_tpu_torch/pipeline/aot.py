@@ -36,6 +36,12 @@ The kernel wrappers count launches in Python (`mha.launches`), so they
 count at warm-up and capture, never at a replay; the graph's kernel nodes
 show in a `torch.profiler` trace.
 
+A compressed pipeline (`quantize_int8`, ToMe, `head_batch_tile`) captures
+as it stands: the int8 products, the dynamic scales (device reductions, no
+host sync) and the token merges (fixed shapes, a sorted accumulating
+`index_put_` in place of an atomic scatter-add) are ordinary stream work,
+so a replay equals its eager call bit for bit.
+
 Not ported: the serialised programs (`save_*_artifact`,
 `Exported*Serving.load`), a `torch.export` job.
 """

@@ -18,10 +18,15 @@ captured CUDA graph (`pipeline.aot`) holds no host generator and no copy
 from pageable host memory, and replays what the eager call computes.
 
 `save_serving` / `load_serving` write and read the JAX package's
-serving-state format (`pipeline.serving_ckpt`, kind "depthfm").
+serving-state format (`pipeline.serving_ckpt`, kind "depthfm"), compressed
+or not.
 
-Not ported (each raises `NotImplementedError`): `mesh`, `tome`,
-`quantize_int8`.
+Serving compression, opt-in and parity-breaking as in the JAX package:
+`quantize_int8` (W8A8 with dynamic or calibrated scales, or weight-only w8 /
+w4, over the UNet and the VAE; `ops.quant`) and `tome` (ToMe-SD in the
+UNet's transformers; `ops.token_merge`).
+
+Not ported (raises `NotImplementedError`): `mesh`.
 """
 
 from __future__ import annotations
@@ -48,15 +53,14 @@ class DepthFMPipeline:
     caller asks for "cpu") in `dtype`; a float32 pipeline turns TF32 off
     (`ops.precision`). `deep_cache`: (interval N, shallow groups G), an int
     or "N" (G = 3: the whole highest-resolution level of the SD topology)
-    or "N,G"; N must divide `num_steps`; opt-in, an approximation."""
+    or "N,G"; N must divide `num_steps`; opt-in, an approximation.
+    `tome`: ToMe-SD, a ratio (then `(ratio, 4096)`) or `(ratio,
+    min_tokens)`; opt-in, an approximation."""
 
     def __init__(self, model: DepthFM, *, size: int = 512, num_steps: int = 4,
                  dtype: torch.dtype = torch.float32,
                  attn_impl: str | None = None, seed: int = 2024,
                  deep_cache=None, device="cuda", tome=None, mesh=None):
-        if tome is not None:
-            raise NotImplementedError(
-                "token merging (tome) is not ported to the torch pipeline")
         if mesh is not None:
             raise NotImplementedError(
                 "data-parallel serving over a mesh is not ported; run one "
@@ -71,6 +75,9 @@ class DepthFMPipeline:
         self.attn_impl = attn_impl
         self.seed = seed
         self.deep_cache = parse_deep_cache(deep_cache)
+        # a ratio or (ratio, min_tokens): ToMe-SD in the UNet transformers
+        self.tome = (float(tome), 4096) if isinstance(tome, (int, float)) \
+            else (None if tome is None else (float(tome[0]), int(tome[1])))
 
     @classmethod
     def init_random(cls, seed: int = 0, *, size: int = 32, num_steps: int = 2,
@@ -122,7 +129,7 @@ class DepthFMPipeline:
             "num_steps": self.num_steps,
             "attn_impl": attn_impl_to_jax(self.attn_impl),
             "seed": self.seed,
-            "tome": None,
+            "tome": list(self.tome) if self.tome else None,
             "deep_cache": list(self.deep_cache) if self.deep_cache else None,
             "dtype": dtype_name(self.dtype),
         })
@@ -132,8 +139,10 @@ class DepthFMPipeline:
                      device="cuda"):
         """Restore a pipeline saved by `save_serving` of either package on
         `device`, the weights in their saved dtype (no cast). `attn_impl`
-        overrides the saved one. Refuses int8 and ToMe states."""
+        overrides the saved one. Quantised layers keep their saved dtypes
+        (no re-quantisation); ToMe comes back as it was saved."""
         from ..convert.weights import depthfm_params_from_jax
+        from ..ops.quant import apply_quantized_
         from .serving_ckpt import (attn_impl_from_jax, cfg_from_dict,
                                    restore_serving_state, serving_dtype)
         trees, meta = restore_serving_state(path, expect_kind="depthfm",
@@ -141,19 +150,55 @@ class DepthFMPipeline:
         dtype = serving_dtype(meta, trees)
         cfg = cfg_from_dict(DepthFMConfig, meta["cfg"])
         model = build_depthfm(cfg, device=device, dtype=dtype)
-        model.load_state_dict(depthfm_params_from_jax(trees["params"], cfg),
-                              strict=True, assign=True)
+        sd = depthfm_params_from_jax(trees["params"], cfg)
+        apply_quantized_(model, sd)
+        model.load_state_dict(sd, strict=True, assign=True)
         deep_cache = meta.get("deep_cache")
+        tome = meta.get("tome")
         return cls(model, size=int(meta["size"]),
                    num_steps=int(meta["num_steps"]), dtype=dtype,
                    attn_impl=attn_impl or attn_impl_from_jax(
                        meta["attn_impl"]),
                    seed=int(meta["seed"]),
                    deep_cache=tuple(deep_cache) if deep_cache else None,
-                   device=device)
+                   tome=tuple(tome) if tome else None, device=device)
 
-    def quantize_int8(self, calibration=None, **kw) -> None:
-        raise NotImplementedError("int8 serving is not ported")
+    @torch.no_grad()
+    def quantize_int8(self, calibration=None, margin: float = 1.1, *,
+                      noise=None, **kw) -> None:
+        """Opt-in compression of the UNet + VAE, in place (JAX
+        `DepthFMPipeline.quantize_int8`; `ops.quant`): the wide convs and
+        linears the JAX rule picks (`kw`: `min_conv_fan`, `min_lin_dim`,
+        `skip_suffixes`, `weight_only`, `bits`) as W8A8 with dynamic
+        scales, or with `weight_only=True` as w8 (`bits=8`) or w4
+        (`bits=4`).
+
+        `calibration=(image, mask, observation[, guide_rgb])` (as
+        `__call__` takes them) promotes every W8A8 site to a static scale:
+        one run of the whole program (VAE encode, the Euler steps, VAE
+        decode; without ToMe and DeepCache, as the JAX calibration runs)
+        records each site's largest dynamic scale and bakes in that x
+        `margin`. `noise`: the q_sample noise of that run, as in
+        `__call__`."""
+        from ..convert.weights import depthfm_layer_paths
+        from ..ops import quant as Q
+
+        Q.quantize_diffusion_modules(self.model,
+                                     depthfm_layer_paths(self.cfg), **kw)
+        if calibration is None:
+            return
+        image, mask, observation, *rest = tuple(calibration) + (None,)
+        guide_rgb = rest[0] if rest else None
+        g = self.cfg.guide_type
+        img, _ = self._batch(image, 3)
+        msk, _ = self._batch(mask if "mask" in g else None, 1)
+        obs, _ = self._batch(observation if "observation" in g else None, 1)
+        grgb, _ = self._batch(guide_rgb if "image" in g else None, 3)
+        rgb, m, o, gr = self._prep(img, msk, obs, grgb)
+        Q.calibrate_dynamic_scales(self.model, lambda: depthfm_generate(
+            self.model, self._rng(noise), rgb, num_steps=self.num_steps,
+            guide_rgb=gr, guide_mask=m, observation=o,
+            attn_impl=self.attn_impl), margin)
 
     def _prep(self, image, mask, observation, guide_rgb):
         s = (self.size, self.size)
@@ -217,7 +262,7 @@ class DepthFMPipeline:
         out = depthfm_generate(
             self.model, rng, rgb, num_steps=self.num_steps, guide_rgb=gr,
             guide_mask=m, observation=o, attn_impl=self.attn_impl,
-            deep_cache=self.deep_cache)
+            tome=self.tome, deep_cache=self.deep_cache)
         return out[..., 0].float()
 
     @torch.inference_mode()
@@ -262,6 +307,6 @@ class DepthFMPipeline:
         out = depthfm_predict_depth(
             self.model, self._rng(noise), rgb, num_steps=num_steps,
             ensemble_size=ensemble_size, attn_impl=self.attn_impl,
-            deep_cache=self.deep_cache)
+            tome=self.tome, deep_cache=self.deep_cache)
         out = out[..., 0].float().cpu().numpy()
         return out[0] if squeeze else out

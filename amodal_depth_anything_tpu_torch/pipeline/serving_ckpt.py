@@ -15,9 +15,11 @@ the port writes no Orbax `params/` directory, and reads only the flat
 sidecar. numpy and torch only: a bfloat16 chunk is read as uint16 and
 viewed as `torch.bfloat16`. Dtypes are kept exactly, with no cast.
 
-Not ported: int8 serving states (W8A8 kernels and scale leaves) and ToMe
-/ `head_batch_tile` runtime knobs. A state that holds any of them is
-refused with `NotImplementedError`.
+Compressed states (`quantize_int8` of either package) hold int8 codes,
+int32 `w4_group` and bool `use_q` leaves beside float32 scale leaves
+(`w_scale`, `act_scale`, `smooth`, `w4_scale`) in a state of another
+compute dtype; the ToMe and `head_batch_tile` knobs ride in the meta. Both
+packages read both.
 
 On the card, `restore_serving_state` copies each chunk to the device
 through two pinned host buffers that take turns (the next chunk is read
@@ -37,7 +39,7 @@ import torch
 __all__ = ["save_serving_state", "restore_serving_state", "cfg_from_dict",
            "flatten_tree", "unflatten_tree", "attn_impl_to_jax",
            "attn_impl_from_jax", "dtype_name", "serving_dtype",
-           "CHUNK_BYTES"]
+           "refuse_quantized", "CHUNK_BYTES"]
 
 _META = "serving_meta.json"
 _FLAT = "flat"
@@ -47,10 +49,15 @@ CHUNK_BYTES = 64 * 1024 * 1024
 _STAGE_BYTES = 64 * 1024 * 1024
 
 # dtype name in plan.json (numpy's, and ml_dtypes' for bfloat16) <-> torch:
-# the floating dtypes a pipeline serves in
-_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+# the floating dtypes a pipeline serves in, and the quantised layers'
+# codes, group sizes and per-layer masks
+_FLOATS = {"float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16}
+_DTYPES = {**_FLOATS, "int8": torch.int8, "int32": torch.int32,
+           "int64": torch.int64, "bool": torch.bool}
 _NAMES = {v: k for k, v in _DTYPES.items()}
+# float32 leaves of a quantised layer, in a state of any compute dtype
+_SCALE_LEAVES = ("w_scale", "act_scale", "smooth", "w4_scale")
 
 # attention impl names: the port's <-> the JAX package's
 _IMPL_TO_JAX = {None: None, "kernel": "pallas", "plain": "xla"}
@@ -77,9 +84,12 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 def serving_dtype(meta: dict, trees: dict) -> torch.dtype:
     """The compute dtype of a restored state: its meta's, which every
-    floating leaf must have (a pipeline casts nothing it restores)."""
-    dtype = _DTYPES[meta["dtype"]]
+    floating leaf but a quantised layer's scales must have (a pipeline
+    casts nothing it restores)."""
+    dtype = _FLOATS[meta["dtype"]]
     for key, leaf in flatten_tree(trees).items():
+        if key.rpartition("/")[2] in _SCALE_LEAVES:
+            continue
         if leaf.is_floating_point() and leaf.dtype != dtype:
             raise ValueError(f"leaf {key!r} is {leaf.dtype} in a "
                              f"{meta['dtype']} serving state")
@@ -186,20 +196,14 @@ def _write_json(path: str, doc: dict, indent=None) -> None:
     os.replace(tmp, path)
 
 
-def _refuse_unported(path: str, meta: dict, doc: dict) -> None:
-    # int8 is the quantised kernels' dtype (int4 the weight-only w4's)
-    quant = [(le["key"], le["dtype"]) for le in doc["leaves"]
-             if le["dtype"] not in _DTYPES]
+def refuse_quantized(path: str, trees: dict, why: str) -> None:
+    """NotImplementedError if `trees` hold a quantised layer's int8 codes
+    (for a consumer whose compression is not ported; `why` says so)."""
+    quant = [k for k, v in flatten_tree(trees).items()
+             if v.dtype == torch.int8]
     if quant:
-        raise NotImplementedError(
-            f"{path} holds quantised leaves ({quant[0]}, ...): int8 serving "
-            f"states are not ported to the torch pipelines")
-    knobs = [k for k in ("tome", "base_token_merge", "amodal_token_merge",
-                         "head_batch_tile") if meta.get(k)]
-    if knobs:
-        raise NotImplementedError(
-            f"{path} was saved with {knobs}: ToMe token merging and "
-            f"head_batch_tile are not ported to the torch pipelines")
+        raise NotImplementedError(f"{path} holds quantised leaves "
+                                  f"({quant[0]}, ...): {why}")
 
 
 def _read_chunks(flat_dir: str, doc: dict, device: torch.device) -> list:
@@ -243,8 +247,7 @@ def _read_chunks(flat_dir: str, doc: dict, device: torch.device) -> list:
 def restore_serving_state(path: str, *, expect_kind: str, device="cuda"):
     """-> (trees, meta): trees as nested dicts of tensors on `device` in the
     JAX layout, each leaf in its own allocation with its saved dtype (no
-    cast). Refuses a state of another kind (ValueError) and int8 or ToMe
-    states (NotImplementedError)."""
+    cast). Refuses a state of another kind (ValueError)."""
     path = os.path.abspath(path)
     with open(os.path.join(path, _META)) as f:
         meta = json.load(f)
@@ -260,7 +263,10 @@ def restore_serving_state(path: str, *, expect_kind: str, device="cuda"):
             f"pipelines read only that format")
     with open(plan) as f:
         doc = json.load(f)
-    _refuse_unported(path, meta, doc)
+    for le in doc["leaves"]:
+        if le["dtype"] not in _DTYPES:
+            raise ValueError(f"leaf {le['key']!r} has dtype {le['dtype']}, "
+                             f"which the port does not read")
     chunks = _read_chunks(flat_dir, doc, torch.device(device))
     flat = {}
     for le in doc["leaves"]:

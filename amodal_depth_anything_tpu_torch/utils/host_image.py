@@ -262,14 +262,21 @@ def resize_bilinear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     return out if out is not img else img.copy()
 
 
-def _nearest_source(in_size: int, out_size: int) -> np.ndarray:
+def _nearest_source(in_size: int, out_size: int, *,
+                    direct: bool = False) -> np.ndarray:
     """PIL's affine nearest scaling: x0 = scale / 2, then += scale per
-    pixel, summed in double precision step by step, truncated."""
+    pixel, summed in double precision step by step, truncated. PIL's
+    16-bit ("I;16") images take another path, which computes each source
+    directly, (x + 0.5) * scale in double, truncated (`direct`); the two
+    part where the running sum's rounding crosses an integer."""
     scale = in_size / out_size
-    steps = np.full(out_size, scale)
-    steps[0] = scale * 0.5
-    return np.minimum(np.add.accumulate(steps).astype(np.int64),
-                      in_size - 1)
+    if direct:
+        src = ((np.arange(out_size) + 0.5) * scale).astype(np.int64)
+    else:
+        steps = np.full(out_size, scale)
+        steps[0] = scale * 0.5
+        src = np.add.accumulate(steps).astype(np.int64)
+    return np.minimum(src, in_size - 1)
 
 
 def resize_nearest(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
@@ -278,5 +285,6 @@ def resize_nearest(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     w, h = size
     if (h, w) == img.shape[:2]:
         return img.copy()
-    return img[_nearest_source(img.shape[0], h)][
-        :, _nearest_source(img.shape[1], w)]
+    direct = img.dtype == np.uint16 and img.ndim == 2   # PIL mode "I;16"
+    return img[_nearest_source(img.shape[0], h, direct=direct)][
+        :, _nearest_source(img.shape[1], w, direct=direct)]

@@ -142,7 +142,33 @@ plain PyTorch version on the card:
      20 calls beside the bound and SDPA's, and one mViT decoder layer at
      full width, kernels on strided self / cross views against plain
      attention (output and gradients); (d) each baseline at its tiny preset
-     card (kernels) against CPU (plain) in f32, <= 1e-4.
+     card (kernels) against CPU (plain) in f32, <= 1e-4;
+ 12. serving compression (`ops/quant.py`, `ops/token_merge.py`): (a) the
+     int8 products on `torch._int_mm` at the vitg / vitl trunks' qkv,
+     proj, fc1 and fc2 shapes (batch 4 at 518 px, and at the ToMe'd
+     length) and the UNet's, and the im2col int8 convolution at the DPT
+     heads', the UNet's and the VAE's shapes: int32 sums equal to the exact
+     product (float64), times beside the bf16 product's; (b) the forward
+     kernel at the merged lengths (ToMe (4, 658) on both trunks: 712
+     tokens; (9, 2560) at 1022 px: 2770; ToMe-SD 0.75: 2049 of 4096
+     tokens, self and onto 77 keys) against its plain version with phase
+     3's bars; (c) vitg + vitl at 518 px, bf16 batch 4, at six points
+     (exact, int8 LN-bound, calibrated + heads, dynamic + heads, ToMe
+     (4, 658) on both trunks, int8 + ToMe), each eager and captured by
+     `pipeline.aot`: 64 launches an eager call and a call's worth in the
+     capture (checked; a profiled replay's count is printed, not checked),
+     the replay bit-identical to the eager call, p50 of both, device busy,
+     peak memory, the blended depth delta to the exact point; (f) the
+     int8 + ToMe state saved and restored bit-identical (under build/,
+     deleted after), `cli.serve --serving_state ... --int8 ln` (full width)
+     and `cli.serve --family depthfm --random --int8 wo` as subprocesses
+     that capture and answer three POSTs each; (d) DepthFM at 512 px, 4
+     steps, bf16 batch 4, at six points (exact, w8, w4, dynamic W8A8,
+     calibrated W8A8, ToMe-SD 0.75): 128 launches a call, the same
+     numbers; (e) `scripts.proxy_gate_v2` over the trained proxies (f32,
+     224 px, 8 held-out scenes): its gate table. The kernels line counts
+     the forward kernel's launches over (c) and over (d), each from 0.
+     `python3 chip_smoke.py --only 12` runs the build and phase 12 alone.
 
 Prints a `{"kernels": [...]}` line (the backward entries also list every
 instantiation that ran, with its cases, worst error and times), the card's
@@ -2984,6 +3010,464 @@ def baselines_phase(gpu: str) -> dict:
 
 
 
+# compression (phase 12): the trunks' and the UNet's int8 products (M, K, N):
+# vitg and vitl qkv, proj, fc1 / w12, fc2 / w3 at 518 px batch 4 (M = 4 x
+# 1370), vitg qkv at the ToMe'd length (M = 4 x 712), the UNet's 320-wide
+# linears over 4096 tokens and its time-embedding linear (M = 4 rows)
+INT8_MM_CASES = [(5480, 1536, 4608), (5480, 1536, 1536), (5480, 1536, 8192),
+                 (5480, 4096, 1536), (5480, 1024, 3072), (5480, 1024, 1024),
+                 (5480, 1024, 4096), (5480, 4096, 1024), (2848, 1536, 4608),
+                 (16384, 320, 320), (16384, 320, 2560), (4, 320, 1280)]
+# (x [B,H,W,C], C_out, k, stride): the DPT heads' convs at 518 px batch 4
+# (vitl 3x3 256 -> 256 over 148 / 296 px, vitg 1x1 1536 -> 1536 over 37,
+# vitg 3x3 384 -> 384 over 74, the 3x3 stride-2 resize conv), the UNet's
+# 3x3 convs at 64 x 64 and 8 x 8 latents, a 1x1 skip, and the VAE's
+# 512 -> 512 at 64 x 64
+INT8_CONV_CASES = [((4, 148, 148, 256), 256, 3, 1),
+                   ((4, 296, 296, 256), 256, 3, 1),
+                   ((4, 37, 37, 1536), 1536, 1, 1),
+                   ((4, 74, 74, 384), 384, 3, 1),
+                   ((4, 37, 37, 1536), 1536, 3, 2),
+                   ((4, 64, 64, 320), 320, 3, 1),
+                   ((4, 8, 8, 1280), 1280, 3, 1),
+                   ((4, 32, 32, 960), 640, 1, 1),
+                   ((4, 64, 64, 512), 512, 3, 1)]
+# the forward kernel at the compression paths' merged lengths: ToMe (4, 658)
+# on both trunks at 518 px (1370 - 658 = 712 tokens), (9, 2560) at 1022 px
+# (5330 - 2560 = 2770), ToMe-SD 0.75 at the UNet's 4096-token level (2049
+# tokens) self and onto the 77 context keys
+TOME = (4, 658)
+TOME_ATTN_CASES = [((4, 24, 712, 64), 712), ((4, 16, 712, 64), 712),
+                   ((1, 24, 2770, 64), 2770), ((4, 8, 2049, 40), 2049),
+                   ((4, 8, 2049, 40), 77)]
+TOME_SD = 0.75
+COMP_CALLS = 3
+
+
+def int8_products_phase(gpu: str) -> None:
+    """(a) `ops.quant.int8_matmul` (torch._int_mm) and the im2col int8 conv
+    at the trunks', heads' and UNet's shapes: int32 sums equal to the exact
+    plain product (float64, exact below 2^53), and their times beside the
+    bf16 product's."""
+    import torch
+    import torch.nn.functional as F
+
+    from amodal_depth_anything_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen,
+                             device="cuda", dtype=torch.int8)
+
+    for m, k, n in INT8_MM_CASES:
+        a, w = codes(m, k), codes(n, k)
+        acc = Q.int8_matmul(a, w)
+        exact = a.double() @ w.double().t()
+        same = bool((acc.double() == exact).all())
+        check(acc.dtype == torch.int32 and same,
+              f"int8_matmul [{m},{k}] x [{k},{n}] equals the exact product")
+        ab, wb = a.bfloat16(), w.bfloat16()
+        it = max(3, min(50, int(2e10 / (m * k * n))))
+        ms = cuda_ms(lambda: Q.int8_matmul(a, w), it)
+        bf_ms = cuda_ms(lambda: F.linear(ab, wb), it)
+        print(f"  int8 mm [{m},{k}]x[{k},{n}]: exact {same}; int8 {ms:.4f} "
+              f"ms ({2 * m * k * n / ms / 1e9:.1f} TOP/s), bf16 {bf_ms:.4f} "
+              f"ms [{gpu}]", flush=True)
+    for shape, co, ks, stride in INT8_CONV_CASES:
+        b, h, wd, c = shape
+        x, w = codes(*shape), codes(co, c, ks, ks)
+        pad = ks // 2
+        acc = Q._int8_conv_acc(x, w, stride, pad)
+        exact = F.conv2d(x.permute(0, 3, 1, 2).double(), w.double(),
+                         stride=stride, padding=pad).permute(0, 2, 3, 1)
+        same = bool((acc.double() == exact).all())
+        del exact
+        check(same, f"int8 conv {list(shape)} -> {co} k{ks} s{stride} "
+                    f"equals the exact convolution")
+        xb = x.bfloat16().permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        wb = w.bfloat16().contiguous(memory_format=torch.channels_last)
+        ms = cuda_ms(lambda: Q._int8_conv_acc(x, w, stride, pad), 5)
+        bf_ms = cuda_ms(lambda: F.conv2d(xb, wb, stride=stride, padding=pad),
+                        5)
+        print(f"  int8 conv {list(shape)} -> {co} k{ks} s{stride}: exact "
+              f"{same} (fan {ks * ks * c}, |sum| up to "
+              f"{int(acc.abs().max())}); im2col int8 {ms:.4f} ms, cuDNN "
+              f"bf16 {bf_ms:.4f} ms [{gpu}]", flush=True)
+        del acc, x, xb
+
+
+def tome_attention_phase(gpu: str) -> list:
+    """(b) the forward kernel at the merged lengths, f32 and bf16, against
+    its plain version with the phase-3 bars. Returns the bf16 rows."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for shape, nk in TOME_ATTN_CASES:
+        for dt_name in ("float32", "bfloat16"):
+            row = attention_case(gen, shape, nk, None, dt_name, gpu)
+            if dt_name == "bfloat16":
+                rows.append({"q": list(shape), "nk": nk, **row})
+    return rows
+
+
+def compressed_point(what, pipe, capture_fn, eager, args, launches: int,
+                     exact, gpu: str, breakdown: bool = False) -> dict:
+    """One compression point: the eager call's forward-kernel launches
+    (`launches` a call) and those recorded into the graph (`launches` a
+    call over the warm-up calls and the capture), the captured replay bit
+    for bit against the eager call, p50 of each over COMP_CALLS, device
+    busy and the launches a profiled replay shows (a reading: the profiler
+    can drop an event of a replay in a process that has traced many times),
+    peak memory, and the depth delta to `exact`; with `breakdown`, where a
+    profiled replay's device time goes, by kernel."""
+    from amodal_depth_anything_tpu_torch.pipeline.aot import WARMUP_CALLS
+    import torch
+
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.pipeline.quality import \
+        blended_depth_delta
+
+    counted = mha.launches
+    out_e = eager(*args)
+    per_call = mha.launches - counted
+    check(per_call == launches, f"{what}: eager call launched "
+                                f"flash_attn_fwd {per_call} times ({launches})")
+    counted = mha.launches
+    served = capture_fn()
+    captured = (mha.launches - counted) / (WARMUP_CALLS + 1)
+    check(captured == launches,
+          f"{what}: {captured:g} flash_attn_fwd launches a call over the "
+          f"warm-up and the capture, so in the graph ({launches})")
+    out_r = served(*args)
+    out_e, out_r = (o if isinstance(o, tuple) else (o,)
+                    for o in (out_e, out_r))
+    same = all(np.array_equal(a, b) for a, b in zip(out_e, out_r))
+    check(same and all(np.isfinite(a).all() and a.std() > MIN_STD
+                       for a in out_e),
+          f"{what}: replay bit-identical to the eager call, finite, not "
+          f"constant")
+    row = {}
+    for label, fn in (("eager", eager), ("replay", served)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lat = []
+        for _ in range(COMP_CALLS):
+            t = time.perf_counter()
+            fn(*args)
+            lat.append(time.perf_counter() - t)
+        row[label] = {"p50_ms": float(np.median(lat)) * 1e3,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    wall, busy, counts = trace_call(lambda: served(*args))
+    if breakdown:
+        profile_call(lambda: served(*args), f"{what} replay", gpu)
+    ex = exact if isinstance(exact, tuple) else (exact,)
+    delta = blended_depth_delta(ex[0], ex[-1], out_e[0], out_e[-1]) \
+        if exact is not None else None
+    print(f"  {what}: eager p50 {row['eager']['p50_ms']:.1f} ms, replay p50 "
+          f"{row['replay']['p50_ms']:.1f} ms, replay device busy "
+          f"{as_ms(busy)} of {wall:.1f} ms, peak allocated "
+          f"{row['eager']['peak_gib']:.2f} / {row['replay']['peak_gib']:.2f} "
+          f"GiB (eager / replay), {per_call} launches eager, "
+          f"{captured:g} captured, {counts['flash_attn_fwd']} in a profiled "
+          f"replay, replay == eager {same}; against exact: "
+          + ("-" if delta is None else
+             f"blended max abs {delta['blended_max_abs']:.4f} mean abs "
+             f"{delta['blended_mean_abs']:.5f}") + f" [{gpu}]", flush=True)
+    del served
+    return {"outputs": out_e, "delta": delta, **row}
+
+
+def amodal_compression_phase(gpu: str):
+    """(c) vitg + vitl at 518 px, bf16 batch 4, at six points: exact, LN-
+    bound int8 on both trunks, calibrated with the heads, dynamic, ToMe
+    (4, 658) on both trunks, LN int8 + ToMe. Returns the exact pipeline,
+    the int8 + ToMe one and the inputs, for (f)."""
+    import copy
+
+    import torch
+
+    from amodal_depth_anything_tpu_torch.pipeline.amodal_pipeline import \
+        AmodalDepthPipeline
+    from amodal_depth_anything_tpu_torch.pipeline.aot import \
+        capture_amodal_program
+
+    rng = np.random.default_rng(21)
+    hw = (600, 800)
+    img = (rng.random((FULL_BATCH, *hw, 3)) * 255).astype(np.float32)
+    mask = np.zeros((FULL_BATCH, *hw), np.float32)
+    mask[:, 150:450, 250:600] = 1.0
+    t0 = time.time()
+    base = AmodalDepthPipeline.init_random(
+        0, encoder="vitl", base_encoder="vitg", size=SIZE, device="cuda",
+        dtype=torch.bfloat16)
+    print(f"  seeded vitg + vitl bf16 built in {time.time() - t0:.1f} s",
+          flush=True)
+    points = [("exact", {}, {}),
+              ("int8 ln", dict(base=True, amodal=True), {}),
+              ("int8 calibrated + head",
+               dict(base=True, amodal=True, head=True,
+                    calibration=(img[:1], mask[:1])), {}),
+              ("int8 dynamic + head", dict(base=True, amodal=True, head=True,
+                                           dynamic=True), {}),
+              (f"ToMe {TOME} both", {},
+               dict(base_token_merge=TOME, amodal_token_merge=TOME)),
+              (f"int8 ln + ToMe {TOME} both", dict(base=True, amodal=True),
+               dict(base_token_merge=TOME, amodal_token_merge=TOME))]
+    exact = None
+    keep = None
+    for name, q, knobs in points:
+        pipe = AmodalDepthPipeline(
+            copy.deepcopy(base.raw_model), copy.deepcopy(base.amodal_model),
+            size=SIZE, device="cuda", dtype=torch.bfloat16, **knobs)
+        if q:
+            t0 = time.time()
+            pipe.quantize_int8(**q)
+            torch.cuda.synchronize()
+            print(f"  {name}: quantize_int8 in {time.time() - t0:.1f} s",
+                  flush=True)
+        res = compressed_point(
+            f"amodal {name}", pipe,
+            lambda: capture_amodal_program(pipe, batch=FULL_BATCH, hw=hw),
+            pipe, (img, mask), DEPTH_LAUNCHES, exact, gpu)
+        if exact is None:
+            exact = res["outputs"]
+        if q and knobs:                   # the last point: int8 + ToMe
+            keep = pipe
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return base, keep, (img, mask)
+
+
+def serving_state_phase(gpu: str, state_dir: str, base, keep, inputs
+                        ) -> None:
+    """(f) the int8 + ToMe pipeline's serving state saved and restored on
+    the card, bit-identical; `cli.serve --int8 ln` on the exact state and
+    `cli.serve --family depthfm --random --int8 wo` answering requests."""
+    from amodal_depth_anything_tpu_torch.pipeline.amodal_pipeline import \
+        AmodalDepthPipeline
+
+    img, mask = inputs
+    path = os.path.join(state_dir, "serving_state_int8_tome")
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        want = keep(img, mask)
+        t0 = time.time()
+        keep.save_serving(path)
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, files in os.walk(path) for f in files)
+        back = AmodalDepthPipeline.load_serving(path, device="cuda")
+        read_s = time.time() - t0
+        same = all(np.array_equal(a, b) for a, b in zip(back(img, mask),
+                                                        want))
+        check(same and back.base_token_merge == TOME,
+              "int8 + ToMe serving state restored on the card: knobs kept, "
+              "outputs bit-identical")
+        print(f"  int8 + ToMe state: {nbytes / 1e9:.3f} GB, written and read "
+              f"back in {read_s:.1f} s, bit-identical {same} [{gpu}]",
+              flush=True)
+        exact_path = os.path.join(state_dir, "serving_state_exact")
+        shutil.rmtree(exact_path, ignore_errors=True)
+        base.save_serving(exact_path)
+        serve_int8_cli_check(gpu, ["--serving_state", exact_path,
+                                   "--int8", "ln"], "amodal")
+        serve_int8_cli_check(gpu, ["--family", "depthfm", "--random",
+                                   "--int8", "wo"], "depthfm")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+        shutil.rmtree(os.path.join(state_dir, "serving_state_exact"),
+                      ignore_errors=True)
+
+
+def serve_int8_cli_check(gpu: str, argv: list, family: str) -> None:
+    """`python -m amodal_depth_anything_tpu_torch.cli.serve ... --int8 MODE`
+    as a subprocess on the card: it quantises, captures a CUDA graph, says
+    so, and answers three POSTs with 200 and finite depth; then it is
+    stopped."""
+    import base64
+    import select
+    import urllib.request
+
+    from amodal_depth_anything_tpu_torch.utils.host_image import (decode_png,
+                                                                  encode_png)
+
+    rng = np.random.default_rng(5)
+    image = (rng.random((120, 160, 3)) * 255).astype(np.uint8)
+    mask = np.zeros((120, 160), np.uint8)
+    mask[30:90, 40:120] = 255
+    payload = {"image": base64.b64encode(encode_png(image)).decode(),
+               "mask": base64.b64encode(encode_png(mask)).decode()}
+    route, keys = "/v1/amodal_depth", ("base_depth", "blended_depth")
+    if family == "depthfm":
+        obs = (rng.random((120, 160)) * 65535).astype(np.uint16)
+        payload["observation"] = base64.b64encode(encode_png(obs)).decode()
+        route, keys = "/v1/depthfm_depth", ("depth",)
+    body = json.dumps(payload).encode()
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "amodal_depth_anything_tpu_torch.cli.serve",
+         *argv, "--port", "0", "--max_batch", "2"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    what = f"cli.serve {' '.join(argv)}"
+    try:
+        line, deadline = "", time.time() + 300
+        while time.time() < deadline and "serving on" not in line:
+            ready, _, _ = select.select([proc.stdout], [], [], 5.0)
+            if ready:
+                line = proc.stdout.readline()
+            if proc.poll() is not None:
+                break
+        up = time.time() - t0
+        check("serving on" in line and "CUDA graph" in line,
+              f"{what} serves a CUDA graph: {line.strip()!r}")
+        if "serving on" not in line:
+            return
+        port = re.search(r":(\d+) ", line).group(1)
+        lat, ok = [], True
+        for _ in range(3):
+            t = time.perf_counter()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}{route}", data=body,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                code, res = r.status, json.loads(r.read())
+            lat.append((time.perf_counter() - t) * 1e3)
+            maps = [decode_png(base64.b64decode(res[k])) for k in keys]
+            ok &= code == 200 and all(np.isfinite(m).all() and m.std() > 0
+                                      for m in maps)
+        check(ok, f"{what}: three POSTs answered 200 with varying depth")
+        print(f"  {what}: up in {up:.1f} s (start, quantise, capture), POSTs "
+              f"{[round(x, 1) for x in lat]} ms [{gpu}]", flush=True)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+
+
+def depthfm_compression_phase(gpu: str) -> None:
+    """(d) DepthFMAmodal at 512 px, 4 Euler steps, bf16 batch 4, at six
+    points: exact, w8 ("wo"), w4, dynamic W8A8, calibrated W8A8, ToMe-SD
+    0.75."""
+    import copy
+
+    import torch
+
+    from amodal_depth_anything_tpu_torch.pipeline.aot import \
+        capture_depthfm_program
+    from amodal_depth_anything_tpu_torch.pipeline.depthfm_pipeline import \
+        DepthFMPipeline
+
+    rng = np.random.default_rng(22)
+    hw = (600, 800)
+    img = (rng.random((DEPTHFM_BATCH, *hw, 3)) * 255).astype(np.float32)
+    mask = np.zeros((DEPTHFM_BATCH, *hw), np.float32)
+    mask[:, 150:450, 250:600] = 1.0
+    obs = rng.random((DEPTHFM_BATCH, *hw)).astype(np.float32)
+    base = DepthFMPipeline.init_random(
+        0, tiny=False, size=DEPTHFM_SIZE, num_steps=DEPTHFM_STEPS,
+        device="cuda", dtype=torch.bfloat16)
+    points = [("exact", None, None),
+              ("w8 (wo)", dict(weight_only=True), None),
+              ("w4", dict(weight_only=True, bits=4), None),
+              ("int8 dynamic", dict(), None),
+              ("int8 calibrated", dict(calibration=(img[:1], mask[:1],
+                                                    obs[:1])), None),
+              (f"ToMe-SD {TOME_SD}", None, TOME_SD)]
+    exact = None
+    for name, q, tome in points:
+        pipe = DepthFMPipeline(copy.deepcopy(base.model), size=DEPTHFM_SIZE,
+                               num_steps=DEPTHFM_STEPS, device="cuda",
+                               dtype=torch.bfloat16, tome=tome)
+        if q is not None:
+            t0 = time.time()
+            pipe.quantize_int8(**q)
+            torch.cuda.synchronize()
+            kinds = {}
+            for m in pipe.model.modules():
+                if type(m).__name__.startswith("Quant"):
+                    kinds[m.mode] = kinds.get(m.mode, 0) + 1
+            print(f"  DepthFM {name}: quantize_int8 in "
+                  f"{time.time() - t0:.1f} s, layers {kinds}", flush=True)
+        res = compressed_point(
+            f"DepthFM {name}", pipe,
+            lambda: capture_depthfm_program(pipe, batch=DEPTHFM_BATCH,
+                                            hw=hw),
+            pipe, (img, mask, obs), DEPTHFM_LAUNCHES, exact, gpu,
+            breakdown=q is None)
+        if exact is None:
+            exact = res["outputs"]
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def proxy_gate_phase(gpu: str, state_dir: str) -> None:
+    """(e) the JAX package's quality ladder over the trained proxies on the
+    card (`scripts.proxy_gate_v2`, float32, 224 px, 8 held-out scenes)."""
+    from amodal_depth_anything_tpu_torch.scripts import proxy_gate_v2
+
+    t0 = time.time()
+    corpus = os.path.join(state_dir, "proxy_gate_scenes")
+    try:
+        rows = proxy_gate_v2.main(["--size", "224", "--eval-n", "8",
+                                   "--device", "cuda", "--corpus-dir",
+                                   corpus])
+    finally:
+        shutil.rmtree(corpus, ignore_errors=True)
+    check(rows[0]["blended_max_abs"] == 0.0 and all(
+        np.isfinite(r["blended_max_abs"]) for r in rows),
+        "proxy_gate_v2: the control row is exact, every point finite")
+    print(f"  proxy_gate_v2: {len(rows)} points, "
+          f"{sum(r['pass'] for r in rows)} pass, in "
+          f"{time.time() - t0:.1f} s [{gpu}]", flush=True)
+
+
+def compression_phase(gpu: str):
+    """Phase 12: the serving compression at full width. Returns the forward
+    kernel's rows at the merged lengths (bf16) and its launches on the two
+    compression paths, (c) and (d), each counted from 0 (the checks of (a)
+    and (b), the quality ladder (e) and the serving checks (f) are not
+    counted)."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+
+    state_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+    os.makedirs(state_dir, exist_ok=True)
+    t0 = time.time()
+
+    def step(what):
+        print(f"  {what} (at +{time.time() - t0:.1f} s)", flush=True)
+
+    step("(a) int8 products")
+    int8_products_phase(gpu)
+    step("(b) the forward kernel at the merged lengths")
+    rows = tome_attention_phase(gpu)
+    step("(c) vitg + vitl at six compression points")
+    mha.launches = 0                      # the amodal path starts here
+    base, keep, inputs = amodal_compression_phase(gpu)
+    launches = {"amodal": mha.launches}   # ... and ends here
+    step("(f) compressed serving state and cli.serve --int8")
+    serving_state_phase(gpu, state_dir, base, keep, inputs)
+    del base, keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    step("(d) DepthFM at six compression points")
+    mha.launches = 0                      # the DepthFM path starts here
+    depthfm_compression_phase(gpu)
+    launches["depthfm"] = mha.launches    # ... and ends here
+    step("(e) proxy_gate_v2 on the trained proxies")
+    proxy_gate_phase(gpu, state_dir)
+    step("phase 12 done")
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -3009,6 +3493,9 @@ def main() -> int:
     print(f"  allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
 
+    only = sys.argv[sys.argv.index("--only") + 1] \
+        if "--only" in sys.argv else None
+
     phase("[2] build")
     t0 = time.time()
     reports = _build.build()
@@ -3024,6 +3511,12 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"  {name}:   {line.strip()}", flush=True)
     sass_check()
+    if only == "12":                      # iterate on phase 12 alone
+        phase("[12] serving compression at full width (alone)")
+        compression_phase(gpu)
+        for what in failures:
+            print(f"FAILED: {what}", flush=True)
+        return 1 if failures else 0
 
     phase("[3] kernels against their plain versions")
     measured = {"flash_attn_fwd": attention_phase(gpu)}
@@ -3071,10 +3564,17 @@ def main() -> int:
     phase("[11] evaluation and baselines at full width: ADDeepLab, jo_dpt, "
           "InvisibleStitch; cli.eval, zero-shot eval, infer_image")
     base = baselines_phase(gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("[12] serving compression at full width: int8 W8A8 / w8 / w4, "
+          "ToMe, ToMe-SD, captured; proxy_gate_v2; cli.serve --int8")
+    tome_rows, comp_launches = compression_phase(gpu)
 
     # launches: over the main paths, each counted from 0; the forward
-    # kernel runs on seven (inference [5], training [6], DepthFM [7], DepthFM
-    # training and its DDPM finetune [8], serving [9], heuristics [10]), the
+    # kernel runs on eight (inference [5], training [6], DepthFM [7], DepthFM
+    # training and its DDPM finetune [8], serving [9], heuristics [10],
+    # compression [12]), the
     # backward pair on three, the fused epilogue on its chain [3]
     launches["fused_epilogue"] = measured["fused_epilogue"]["launches"]
     kernels = [{"name": name, "route": "cuda", "source": source,
@@ -3097,10 +3597,14 @@ def main() -> int:
     # captures; a replay's launches are read from its trace
     kernels[0].update(
         launches=kernels[0]["launches"] + infer_launches + depthfm_launches
-        + serve_launches + heur_launches,
+        + serve_launches + heur_launches + comp_launches["amodal"]
+        + comp_launches["depthfm"],
         launches_inference=infer_launches, launches_depthfm=depthfm_launches,
         launches_serving=serve_launches, launches_heuristics=heur_launches,
-        launches_per_replay_traced=per_replay)
+        launches_compression_amodal=comp_launches["amodal"],
+        launches_compression_depthfm=comp_launches["depthfm"],
+        launches_per_replay_traced=per_replay,
+        compression_shapes=tome_rows)
     print(f"  all phases took {time.time() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     if failures:

@@ -116,6 +116,36 @@ def test_depthfm_static_noise_equals_the_per_call_draw(depthfm):
     np.testing.assert_array_equal(served(img, msk[..., None], obs), want)
 
 
+@pytest.mark.parametrize("family", ["amodal", "depthfm"])
+def test_compressed_pipelines_capture_as_they_stand(family):
+    """A compressed pipeline's handle (W8A8 with run-time scales + ToMe /
+    ToMe-SD + head tiling) runs the compressed program: on a "cpu"
+    pipeline the handle's eager run equals the pipeline's call bit for bit
+    and differs from the uncompressed one."""
+    if family == "amodal":
+        pipe = AmodalDepthPipeline.init_random(
+            3, device="cpu", amodal_token_merge=(1, 6), head_batch_tile=1)
+        plain = capture_amodal_program(
+            AmodalDepthPipeline.init_random(3, device="cpu"), batch=2,
+            hw=HW)
+        pipe.quantize_int8(base=True, amodal=True, dynamic=True, head=True)
+        served = capture_amodal_program(pipe, batch=2, hw=HW)
+        args = _amodal_inputs(2, seed=4)
+    else:
+        pipe = DepthFMPipeline.init_random(3, device="cpu", tome=(0.5, 16))
+        plain = capture_depthfm_program(
+            DepthFMPipeline.init_random(3, device="cpu"), batch=2, hw=HW)
+        pipe.quantize_int8(weight_only=True, bits=4)
+        served = capture_depthfm_program(pipe, batch=2, hw=HW)
+        args = _depthfm_inputs(2, seed=4)
+    got, want, base = (tuple(np.atleast_3d(a) for a in (
+        out if isinstance(out, tuple) else (out,)))
+        for out in (served(*args), pipe(*args), plain(*args)))
+    for g, w, b in zip(got, want, base):
+        np.testing.assert_array_equal(g, w)
+        assert np.abs(g - b).max() > 0
+
+
 def test_depthfm_latent_size_follows_the_vae():
     pipe = DepthFMPipeline.init_random(1, device="cpu", size=40)
     rgb = torch.zeros(1, 40, 40, 3)

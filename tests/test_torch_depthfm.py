@@ -230,14 +230,26 @@ def test_unet_deep_cache_groups(amodal, groups):
 
 
 def test_unet_rejects_bad_deep_cache_groups_and_left_out_options(amodal):
-    cfg, _, model = amodal
+    cfg, params, model = amodal
     x, t, context, ca = map(_t, _unet_inputs(cfg))
     kw = {"context": context, "context_ca": ca}
     for groups in (0, 6):
         with pytest.raises(ValueError, match="deep_cache_groups"):
             model.unet(x, t, deep_cache_groups=groups, **kw)
-    with pytest.raises(NotImplementedError, match="tome"):
-        model.unet(x, t, tome=(0.5, 4), **kw)
+    # token merging (ToMe-SD) is ported: the JAX UNet's output under the
+    # same (ratio, min_tokens), at both levels (64 and 16 tokens), and
+    # an approximation of the plain output
+    tome = (0.5, 16)
+    ref = np.asarray(jax.jit(lambda p, *a: junet.apply_unet(
+        p, cfg.unet, a[0], a[1], context=a[2], context_ca=a[3],
+        attn_impl="xla", tome=tome))(
+            params["unet"], *(jnp.asarray(v.numpy())
+                              for v in (x, t, context, ca))))
+    with torch.no_grad():
+        ours = model.unet(x, t, tome=tome, **kw).numpy()
+        plain = model.unet(x, t, **kw).numpy()
+    assert np.abs(ours - ref).max() <= TOL
+    assert np.abs(ours - plain).max() > TOL
     # remat (per-level recompute) runs: the same output, and under grad the
     # same gradients as without it
     with torch.no_grad():

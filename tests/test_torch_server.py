@@ -294,17 +294,65 @@ def test_serve_cli_random_subprocess_on_the_cpu():
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--random", "--int8", "wo"], "--int8 is not ported"),
+    (["--random", "--int8", "wo"], "--int8 wo is a depthfm-family mode"),
     (["--random", "--artifact", "/nonexistent"], "--artifact is not ported"),
     (["--random", "--export_artifact", "/tmp/x"],
      "--export_artifact is not ported"),
     (["--family", "amodal", "--random", "--deep_cache", "2,2"],
      "depthfm-family knob"),
     (["--family", "depthfm", "--random", "--size", "36"], "divisible"),
-], ids=["int8", "artifact", "export_artifact", "deep_cache", "size"])
+    (["--family", "depthfm", "--random", "--int8", "ln"],
+     "amodal-family mode"),
+], ids=["int8", "artifact", "export_artifact", "deep_cache", "size",
+        "int8-ln"])
 def test_serve_cli_knob_validation(argv, message, capsys):
     with pytest.raises(SystemExit, match=message):
         serve.main(argv)
+
+
+@pytest.mark.parametrize("family, mode, scheme", [
+    ("amodal", "ln", "int8"), ("depthfm", "wo", "w8"),
+    ("depthfm", "dynamic", "int8")])
+def test_serve_cli_int8_compresses_before_serving(family, mode, scheme,
+                                                  monkeypatch):
+    """`--int8` quantises the pipeline before it is served (as the JAX CLI
+    does); the served pipeline's layers carry the mode's scheme, with
+    run-time scales for 'dynamic' and LN-bound static ones for 'ln'."""
+    seen = {}
+
+    def stop(served, *args, **kwargs):
+        seen["pipe"] = served
+        raise SystemExit("stop before serving")
+
+    monkeypatch.setattr(serve, "build_server", stop)
+    with pytest.raises(SystemExit, match="stop before serving"):
+        serve.main(["--family", family, "--random", "--int8", mode,
+                    "--device", "cpu"])
+    pipe = seen["pipe"]
+    models = ([pipe.raw_model, pipe.amodal_model] if family == "amodal"
+              else [pipe.model])
+    quant = [m for model in models for m in model.modules()
+             if type(m).__name__.startswith("Quant")]
+    assert quant and {m.mode for m in quant} == {scheme}
+    if scheme == "int8":
+        static = {m._get("act_scale") is not None for m in quant}
+        assert static == {mode == "ln"}
+
+
+def test_serve_cli_int8_refuses_a_quantised_state(tmp_path):
+    """A serving state that is already quantised is served as it is:
+    `--int8` on it exits instead of quantising the int8 codes again."""
+    from amodal_depth_anything_tpu_torch.pipeline.depthfm_pipeline import \
+        DepthFMPipeline
+    pipe = DepthFMPipeline.init_random(0, device="cpu")
+    pipe.quantize_int8(weight_only=True)
+    pipe.save_serving(str(tmp_path / "state"))
+    with pytest.raises(SystemExit, match="already quantised"):
+        serve.main(["--family", "depthfm", "--serving_state",
+                    str(tmp_path / "state"), "--int8", "dynamic",
+                    "--device", "cpu"])
+    with pytest.raises(ValueError, match="already quantised"):
+        pipe.quantize_int8()
 
 
 def test_serve_cli_on_cuda_without_a_card_exits(monkeypatch):
@@ -326,13 +374,15 @@ def test_host_resizes_equal_pil(hw, out, rng):
     gray = rgb[..., 1].copy()
     flt = rng.random(hw).astype(np.float32)
     mask = (rng.random(hw) > 0.5).astype(np.uint8)
+    depth16 = (rng.random(hw) * 65535).astype(np.uint16)   # PIL "I;16"
     for arr in (rgb, gray, flt):
         np.testing.assert_array_equal(
             resize_bilinear(arr, out),
             np.asarray(Image.fromarray(arr).resize(out, Image.BILINEAR)))
-    np.testing.assert_array_equal(
-        resize_nearest(mask, out),
-        np.asarray(Image.fromarray(mask).resize(out, Image.NEAREST)))
+    for arr in (mask, rgb, flt, depth16):
+        np.testing.assert_array_equal(
+            resize_nearest(arr, out),
+            np.asarray(Image.fromarray(arr).resize(out, Image.NEAREST)))
 
 
 @pytest.mark.parametrize("mode", ["RGB", "L", "RGBA", "LA", "P", "1",

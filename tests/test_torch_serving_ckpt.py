@@ -243,24 +243,61 @@ def test_restore_gives_the_saved_leaves_and_dtypes(tmp_path):
 
 
 def test_wrong_kind_int8_and_tome_states_are_refused(amodal_pipes, tmp_path):
-    _, _, pipe = amodal_pipes
+    """A state of another kind is refused. int8 and ToMe / head_batch_tile
+    states, refused until the port had them, now cross between the
+    packages: a W8A8 + ToMe + head-tiled state the JAX package writes
+    serves in the port (<= 1e-4 of the JAX output, with the JAX package's
+    activation codes replayed, see tests/test_torch_quant.py), and one the
+    port writes restores in the JAX package leaf for leaf and in the port
+    bit for bit."""
+    from tests.test_torch_quant import jax_code_tape, replayed
+    params, _, pipe = amodal_pipes
     path = str(tmp_path / "amodal")
     pipe.save_serving(path)
     with pytest.raises(ValueError, match="expected 'depthfm'"):
         DepthFMPipeline.load_serving(path, device="cpu")
 
-    meta_path = os.path.join(path, "serving_meta.json")
-    meta = json.load(open(meta_path))
-    for knob, value in (("base_token_merge", [2, 8]), ("head_batch_tile", 2)):
-        json.dump(dict(meta, **{knob: value}), open(meta_path, "w"))
-        with pytest.raises(NotImplementedError, match="ToMe"):
-            AmodalDepthPipeline.load_serving(path, device="cpu")
+    img, msk = amodal_inputs(batch=2, seed=3)
+    knobs = dict(base_token_merge=(1, 4), amodal_token_merge=(0, 6),
+                 head_batch_tile=1)
+    jp = jax_amodal(params)
+    jp.quantize_int8(base=True, amodal=True)
+    for k, v in knobs.items():
+        setattr(jp, k, v)
+    with jax_code_tape() as tape:
+        ref = jp(img, msk)
+    jpath = str(tmp_path / "jax_int8")
+    jp.save_serving(jpath)
+    back = AmodalDepthPipeline.load_serving(jpath, device="cpu")
+    for k, v in knobs.items():
+        assert getattr(back, k) == v, k
+    with replayed(tape):
+        for ours, theirs in zip(back(img, msk), ref):
+            _close(ours, theirs)
 
-    int8 = str(tmp_path / "int8")   # as the JAX package writes a W8A8 state
-    jax_save_serving_state(int8, {"raw": {"w": np.zeros(4, np.int8),
-                                          "s": np.ones(1, np.float32)}}, meta)
-    with pytest.raises(NotImplementedError, match="int8"):
-        AmodalDepthPipeline.load_serving(int8, device="cpu")
+    ours = port_amodal(params)
+    ours.quantize_int8(base=True, amodal=True)
+    for k, v in knobs.items():
+        setattr(ours, k, v)
+    ppath = str(tmp_path / "port_int8")
+    ours.save_serving(ppath)
+    jback = JaxAmodalDepthPipeline.load_serving(ppath)
+    assert (jback.base_token_merge, jback.amodal_token_merge,
+            jback.head_batch_tile) == tuple(knobs.values())
+    for model, cfg, tree in ((ours.raw_model, RAW_CFG, jback.params_raw),
+                             (ours.amodal_model, AMODAL_CFG,
+                              jback.params_amodal)):
+        mine = flatten_tree(params_to_jax(model.state_dict(), cfg,
+                                          tensors=True))
+        theirs = flatten_tree(jax.tree.map(np.asarray, tree))
+        assert sorted(mine) == sorted(theirs)
+        assert any(v.dtype == torch.int8 for v in mine.values())
+        for key, leaf in mine.items():
+            assert str(leaf.dtype).split(".")[1] == str(theirs[key].dtype)
+            np.testing.assert_array_equal(leaf.numpy(), theirs[key])
+    again = AmodalDepthPipeline.load_serving(ppath, device="cpu")
+    for a, b in zip(again(img, msk), ours(img, msk)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_bridge_keeps_dtype_and_round_trips():
