@@ -271,10 +271,30 @@ def build_http_demo(app: AmodalDepthApp, *, host="127.0.0.1", port=7860):
     return ThreadingHTTPServer((host, port), Handler)
 
 
+def _p2g_steps(args) -> int:
+    """The DDIM step count the stack will run, known before any weight is
+    read: a serving state's `serving_meta.json` says it; the released
+    checkpoints and --random run `Pix2GestaltConfig`'s."""
+    if args.heur_serving is not None:
+        import json
+        import os
+        with open(os.path.join(args.heur_serving, "serving_meta.json")) as f:
+            return int(json.load(f)["p2g_cfg"]["ddim_steps"])
+    from ..models.pix2gestalt import Pix2GestaltConfig
+    return Pix2GestaltConfig().ddim_steps
+
+
+def _check_deep_cache(deep_cache, steps: int) -> None:
+    if deep_cache is not None and steps % deep_cache[0]:
+        raise SystemExit(f"--p2g_deep_cache interval {deep_cache[0]} must "
+                         f"divide the pix2gestalt DDIM steps ({steps})")
+
+
 def _build_heuristics(args):
     """The heuristics stack for prompt_points mode, or None. Flag checks
-    come first, before any checkpoint is read; DeepCache is set before the
-    first call."""
+    come first, before any checkpoint is read: the DeepCache spec is parsed
+    and its interval held against the step count before the stack loads;
+    DeepCache is set before the first call."""
     has_ckpt = bool(args.sam_ckpt or args.p2g_ckpt or args.vae_ckpt
                     or args.clip_ckpt)
     if args.p2g_int8:
@@ -286,17 +306,26 @@ def _build_heuristics(args):
                              "stack (--sam_ckpt/--p2g_ckpt/--vae_ckpt/"
                              "--clip_ckpt, --heur_serving or --random)")
         return None
+    deep_cache = None
+    if args.p2g_deep_cache is not None:
+        from ..ops.ddim import parse_deep_cache
+        try:
+            deep_cache = parse_deep_cache(args.p2g_deep_cache)
+        except ValueError as e:
+            raise SystemExit(f"--p2g_deep_cache: {e}") from None
+        _check_deep_cache(deep_cache, _p2g_steps(args))
+    if has_ckpt:
+        missing = [f for f in ("sam_ckpt", "p2g_ckpt", "vae_ckpt",
+                               "clip_ckpt") if getattr(args, f) is None]
+        if missing:
+            raise SystemExit("prompt_points mode needs all four stack "
+                             f"checkpoints; missing --{' --'.join(missing)}")
     from ..heuristics import MaskHeuristics
 
     if args.heur_serving is not None:
         mh = MaskHeuristics.load_serving(args.heur_serving,
                                          device=args.device)
     elif has_ckpt:
-        missing = [f for f in ("sam_ckpt", "p2g_ckpt", "vae_ckpt",
-                               "clip_ckpt") if getattr(args, f) is None]
-        if missing:
-            raise SystemExit("prompt_points mode needs all four stack "
-                             f"checkpoints; missing --{' --'.join(missing)}")
         mh = MaskHeuristics.from_checkpoints(
             args.sam_ckpt, args.p2g_ckpt, args.vae_ckpt, args.clip_ckpt,
             rmbg_ckpt=args.rmbg_ckpt, device=args.device)
@@ -305,9 +334,9 @@ def _build_heuristics(args):
     if args.p2g_deep_cache is not None:
         import dataclasses
 
-        from ..ops.ddim import parse_deep_cache
-        mh.p2g_cfg = dataclasses.replace(
-            mh.p2g_cfg, ddim_deep_cache=parse_deep_cache(args.p2g_deep_cache))
+        _check_deep_cache(deep_cache, mh.p2g_cfg.ddim_steps)
+        mh.p2g_cfg = dataclasses.replace(mh.p2g_cfg,
+                                         ddim_deep_cache=deep_cache)
     return mh
 
 

@@ -45,7 +45,19 @@ capture, as the JAX CLI does: `wo` (weight-only int8 UNet + VAE) and
 (calibration-free LayerNorm-bound W8A8 on both trunks) for the amodal
 family.
 
-Not ported (each exits with a message): `--artifact`, `--export_artifact`.
+Serialised programs (`pipeline.aot`, `torch.export`), as the JAX CLI:
+`--export_artifact DIR` writes the program at (`--max_batch`, size, size)
+-- after `--int8` / `--deep_cache`, so a compressed point exports as it
+serves -- and exits; `--artifact DIR` serves such a directory on a replica,
+its weights bound from `--serving_state` (or `--random`'s seeded ones), each
+bucket's loaded program captured as a CUDA graph on the card.
+`--int8` / `--deep_cache` with `--artifact` are refused: they belong to the
+export.
+
+    python -m amodal_depth_anything_tpu_torch.cli.serve --serving_state S \
+        --max_batch 4 --export_artifact /art
+    python -m amodal_depth_anything_tpu_torch.cli.serve --serving_state S \
+        --max_batch 4 --artifact /art
 """
 
 from __future__ import annotations
@@ -63,9 +75,6 @@ from ..utils.host_image import (decode_png, encode_png, resize_bilinear,
 
 __all__ = ["build_parser", "build_server", "main"]
 
-_NOT_PORTED = ("artifact", "export_artifact")
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="amodal-depth HTTP server on the "
                                             "PyTorch/CUDA port")
@@ -77,11 +86,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Dir from <pipeline>.save_serving of either package "
                         "(restores the exact serving state).")
     p.add_argument("--artifact", type=str, default=None,
-                   help="not ported: serialised programs (torch.export) "
-                        "come later")
+                   help="Serve a --export_artifact directory (torch.export "
+                        "programs, one per batch bucket), its weights bound "
+                        "from --serving_state (or --random)")
     p.add_argument("--export_artifact", type=str, default=None,
-                   help="not ported: serialised programs (torch.export) "
-                        "come later")
+                   help="Write the serving program at (--max_batch, size, "
+                        "size) to this directory and exit")
     p.add_argument("--random", action="store_true",
                    help="Seeded random tiny-preset weights: serve without "
                         "checkpoints (demo/smoke mode)")
@@ -258,13 +268,44 @@ def _pipeline(args, torch):
     raise SystemExit("need --serving_state or --base_ckpt/--amodal_ckpt")
 
 
+def _artifact_handle(args, torch):
+    """The `--artifact` replica: the loaded programs, bound to the weights
+    of `--serving_state` (or `--random`'s seeded pipeline) on
+    `--device`."""
+    from ..pipeline.aot import ExportedAmodalServing, ExportedDepthFMServing
+
+    amodal = args.family == "amodal"
+    served = (ExportedAmodalServing if amodal
+              else ExportedDepthFMServing).load(args.artifact)
+    if served.hw != (served.size, served.size):
+        raise SystemExit(f"artifact hw {served.hw} != (size, size): serve-CLI "
+                         f"artifacts must be exported at the serve input "
+                         f"shape (use --export_artifact)")
+    if args.max_batch not in served.batches:
+        raise SystemExit(f"--max_batch {args.max_batch} not among the "
+                         f"artifact's compiled buckets {served.batches}")
+    args.size = served.size
+    pipe = _pipeline(args, torch)
+    if amodal:
+        served.bind(pipe.raw_model.state_dict(), pipe.amodal_model.state_dict())
+    else:
+        served.bind(pipe.model.state_dict())
+    return served
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    for flag in _NOT_PORTED:
-        if getattr(args, flag) is not None:
-            raise SystemExit(
-                f"--{flag} is not ported to the torch server yet "
-                f"(torch.export artifacts are queued in ROADMAP.md)")
+    if args.artifact is not None:
+        if args.deep_cache is not None or args.int8:
+            raise SystemExit("--deep_cache/--int8 cannot be applied to a "
+                             "pre-compiled --artifact program: pass them to "
+                             "the --export_artifact build instead")
+        if not (args.serving_state or args.random):
+            raise SystemExit("--artifact needs --serving_state (or --random "
+                             "for smoke mode)")
+        if args.export_artifact is not None:
+            raise SystemExit("--artifact serves a program; --export_artifact "
+                             "writes one: pass one of them")
     if args.size is None:
         if args.random:
             args.size = 32 if args.family == "depthfm" else 56
@@ -287,6 +328,12 @@ def main(argv=None) -> None:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but no CUDA device is available; "
                          "--device cpu serves the eager pipeline on the CPU")
+    if args.artifact is not None:
+        served = _artifact_handle(args, torch)
+        _serve(args, served, f"artifact {args.artifact}, "
+               f"{'CUDA graph' if args.device == 'cuda' else 'eager'} at "
+               f"batch {args.max_batch}")
+        return
     pipe = _pipeline(args, torch)
     if args.deep_cache is not None:
         # before capture: the graph is recorded with the pipeline's knobs
@@ -306,6 +353,16 @@ def main(argv=None) -> None:
     elif args.int8 == "ln":
         pipe.quantize_int8(base=True, amodal=True)
 
+    if args.export_artifact is not None:
+        from ..pipeline.aot import save_amodal_artifact, save_depthfm_artifact
+        save = (save_amodal_artifact if args.family == "amodal"
+                else save_depthfm_artifact)
+        meta = save(pipe, args.export_artifact, batches=(args.max_batch,),
+                    hw=(pipe.size, pipe.size))
+        print(f"artifact written to {args.export_artifact} (device "
+              f"{meta['device']}, batches {meta['batches']}, "
+              f"{sum(meta['export_seconds'].values()):.1f} s)", flush=True)
+        return
     served, how = pipe, "eager on the CPU"
     if args.device == "cuda":
         from ..pipeline.aot import (capture_amodal_program,
@@ -315,11 +372,15 @@ def main(argv=None) -> None:
         served = capture(pipe, batch=args.max_batch,
                          hw=(pipe.size, pipe.size))
         how = f"CUDA graph at batch {args.max_batch}"
+    _serve(args, served, how)
+
+
+def _serve(args, served, how: str) -> None:
     server = build_server(served, args.host, args.port,
                           max_batch=args.max_batch,
                           max_delay_ms=args.max_delay_ms, family=args.family)
     print(f"serving on http://{args.host}:{server.server_address[1]} "
-          f"(size={pipe.size}, max_batch={args.max_batch}, {how})",
+          f"(size={served.size}, max_batch={args.max_batch}, {how})",
           flush=True)
     try:
         server.serve_forever()

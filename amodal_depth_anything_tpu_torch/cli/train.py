@@ -13,6 +13,8 @@ default "cuda"):
   * `--resume_run` actually restores (the reference raises
     NotImplementedError, `train.py:94-95`).
   * `--mesh_model` is accepted and must be 1 until the scale-out port.
+  * on the card each train step is one captured CUDA graph
+    (`train/trainer.py`), as the JAX trainer jits its step.
   * run-dir scaffolding, config snapshot, tb logging preserved; wandb is
     optional and no-ops when not installed.
 """

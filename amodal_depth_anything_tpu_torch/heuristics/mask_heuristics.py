@@ -18,6 +18,16 @@ stays float32, as in the JAX package. The noise of a completion comes from
 a `torch.Generator` seeded with `seed` on the modules' device, or is
 handed over as `noise` (the tests hand over the JAX package's draws).
 
+The completion is one program, as the JAX package jits it: on the card it
+is captured whole -- the CLIP context, the DDIM loop and the VAE render --
+as one CUDA graph per (`p2g_cfg`, compute dtype), so steps, guidance,
+`clip_input` and DeepCache each get their own, over static inputs (the
+image, the visible mask and the initial noise, drawn outside the graph
+from the seeded generator as the eager call draws it), and each call
+replays it; at most `MAX_COMPLETION_GRAPHS` are kept. The replay is
+bitwise the eager call. `captured=False` runs the completion eagerly (the
+CPU's only way, and what a comparison on the card asks for).
+
 `save_serving` / `load_serving` write and read the JAX package's
 serving-state format (kind "mask_heuristics": trees "sam", "p2g" and the
 optional "rmbg" in the JAX layout), so a state saved by either package
@@ -42,6 +52,7 @@ from ..models.unet_ldm import GroupNorm
 from ..models.vae import SD_VAE, VAEConfig
 from ..ops.conv import LayerNorm2d
 from ..ops.precision import apply_precision_policy
+from ..utils.graphs import capture
 from . import host_ops
 
 __all__ = ["Pix2GestaltConfig", "MaskHeuristics", "make_rmbg_matting_fn",
@@ -50,6 +61,8 @@ __all__ = ["Pix2GestaltConfig", "MaskHeuristics", "make_rmbg_matting_fn",
 
 SAM_PIXEL_MEAN = (123.675, 116.28, 103.53)
 SAM_PIXEL_STD = (58.395, 57.12, 57.375)
+MAX_COMPLETION_GRAPHS = 4
+COMPLETION_WARMUP = 1   # eager completions before a capture
 _INT8 = ("int8 weights are not ported to the torch heuristics: ROADMAP "
          "queue 1, item 3 (the heuristics' int8 knobs)")
 
@@ -183,6 +196,7 @@ class MaskHeuristics:
         self.device = next(sam.parameters()).device
         self.compute_dtype = _dtype_of(p2g)
         apply_precision_policy(self.compute_dtype)
+        self._completions: dict = {}   # captured completions by key
 
     def cast_to(self, dtype: torch.dtype) -> None:
         """Cast the SAM and pix2gestalt modules (in place) and the image
@@ -191,6 +205,7 @@ class MaskHeuristics:
         self.sam.to(dtype)
         self.p2g.to(dtype)
         self.compute_dtype = dtype
+        self._completions.clear()   # their graphs read the old weights
         apply_precision_policy(dtype)
 
     # -------------------------------------------------------- constructors
@@ -311,22 +326,62 @@ class MaskHeuristics:
 
         return dev(img), dev(m01)
 
+    def p2g_noise(self, seed: int = 0) -> torch.Tensor:
+        """The completion's initial latents [1, S/8, S/8, 4] float32, drawn
+        on the modules' device from a generator seeded with `seed`."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return torch.randn(self.p2g.latent_shape(1, self.p2g_cfg.image_size),
+                           generator=gen, device=self.device,
+                           dtype=torch.float32)
+
     @torch.inference_mode()
     def pix2gestalt_completion(self, image_rgb: np.ndarray,
                                visible_mask: np.ndarray, seed: int = 0, *,
-                               noise=None) -> np.ndarray:
+                               noise=None,
+                               captured: bool | None = None) -> np.ndarray:
         """The amodal completion render [S,S,3] float32 in [0, 1] (S =
         `p2g_cfg.image_size`). `noise`: the initial latents [1, S/8, S/8, 4]
-        (numpy or tensor); else drawn from a generator seeded with `seed`."""
+        (numpy or tensor); else drawn from a generator seeded with `seed`.
+        `captured`: replay the completion's CUDA graph (default on the
+        card) or run it eagerly."""
         img, m01 = self.p2g_inputs(image_rgb, visible_mask)
         if noise is None:
-            rng = torch.Generator(device=self.device).manual_seed(seed)
+            z = self.p2g_noise(seed)
         else:
-            rng = (noise if isinstance(noise, torch.Tensor)
-                   else torch.from_numpy(np.array(noise, np.float32)))
-            rng = rng.to(self.device, torch.float32)
-        out = self.p2g.complete(img, m01, rng, cfg=self.p2g_cfg)
+            z = (noise if isinstance(noise, torch.Tensor)
+                 else torch.from_numpy(np.array(noise, np.float32)))
+            z = z.to(self.device, torch.float32)
+        if captured is None:
+            captured = self.device.type == "cuda"
+        if captured:
+            out = self._captured_completion(img, m01, z)
+        else:
+            out = self.p2g.complete(img, m01, z, cfg=self.p2g_cfg)
         return out.float()[0].cpu().numpy()
+
+    def _captured_completion(self, img, m01, z) -> torch.Tensor:
+        """`Pix2Gestalt.complete` replayed from its CUDA graph for the
+        current `p2g_cfg` and dtype (captured at the first call)."""
+        if self.device.type != "cuda":
+            raise RuntimeError("a captured completion needs the modules on a "
+                               "CUDA device; captured=False runs it eagerly")
+        cfg = self.p2g_cfg
+        key = (cfg, self.compute_dtype, tuple(img.shape))
+        entry = self._completions.pop(key, None)
+        if entry is None:
+            statics = [t.clone() for t in (img, m01, z)]
+            graph, out = capture(
+                lambda: self.p2g.complete(*statics, cfg=cfg),
+                device=self.device, warmup=COMPLETION_WARMUP)
+            entry = (statics, graph, out)
+            while len(self._completions) >= MAX_COMPLETION_GRAPHS:
+                self._completions.pop(next(iter(self._completions)))
+        self._completions[key] = entry
+        statics, graph, out = entry
+        for static, t in zip(statics, (img, m01, z)):
+            static.copy_(t)
+        graph.replay()
+        return out
 
     # -------------------------------------------------------------- public
 

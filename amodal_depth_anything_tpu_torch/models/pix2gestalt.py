@@ -23,11 +23,17 @@ At 256 px a UNet call makes 32 attention calls (16 self, 16 cross onto the
 one token); with the joint batch they run at [2, 8, 1024, 40],
 [2, 8, 256, 80], [2, 8, 64, 160] and [2, 8, 16, 160], so a completion
 launches the forward kernel 24 (CLIP) + 32 x `ddim_steps` times.
+
+`complete` is one device program (the JAX package jits it whole, its DDIM
+loop a `lax.scan`): given the initial noise as a tensor it reads no host
+value and copies nothing from host memory, so
+`heuristics.MaskHeuristics` captures it whole as one CUDA graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn as nn
@@ -45,6 +51,14 @@ __all__ = ["Pix2GestaltConfig", "Pix2Gestalt", "CLIP_MEAN", "CLIP_STD",
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 CLIP_INPUTS = ("auto", "occluded", "masked_object")
+
+
+@functools.lru_cache(maxsize=8)
+def _clip_norm(device: torch.device, dtype: torch.dtype):
+    """CLIP's (mean, std) on `device`, made once: a capture may not copy
+    them from host memory (the warm-up before it fills the cache)."""
+    return (torch.tensor(CLIP_MEAN, dtype=dtype, device=device),
+            torch.tensor(CLIP_STD, dtype=dtype, device=device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,10 +129,7 @@ class Pix2Gestalt(nn.Module):
         clip_in = image01 if choice == "occluded" else image01 * mask01
         size = self.clip_cfg.image_size
         clip_in = resize2d(clip_in, size=(size, size), method="bilinear")
-        mean = torch.tensor(CLIP_MEAN, dtype=image01.dtype,
-                            device=image01.device)
-        std = torch.tensor(CLIP_STD, dtype=image01.dtype,
-                           device=image01.device)
+        mean, std = _clip_norm(image01.device, image01.dtype)
         ctx = self.clip((clip_in - mean) / std)[:, None]
         if self.cc_projection is not None:
             # zero123-lineage: [CLIP ++ pose] -> context; no pose here
@@ -155,6 +166,11 @@ class Pix2Gestalt(nn.Module):
     def render(self, z: torch.Tensor) -> torch.Tensor:
         """Latents -> renders [B,S,S,3] in [0, 1]."""
         return torch.clamp((self.vae.decode(z) + 1.0) / 2.0, 0.0, 1.0)
+
+    def latent_shape(self, batch: int, size: int) -> tuple[int, int, int, int]:
+        """The shape of the DDIM latents of `batch` images of `size` px."""
+        s = size // 2 ** (len(self.vae_cfg.block_out_channels) - 1)
+        return (batch, s, s, 4)
 
     def complete(self, image01: torch.Tensor, mask01: torch.Tensor, rng, *,
                  cfg: Pix2GestaltConfig | None = None) -> torch.Tensor:

@@ -411,8 +411,10 @@ class UNetModel(nn.Module):
 
         def run(level, h):
             if remat:
+                # no random op in a level: nothing to replay, and capturable
                 return checkpoint(level, h, emb, context_ca, attn_impl, tome,
-                                  use_reentrant=False)
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
             return level(h, emb, context_ca, attn_impl, tome)
 
         n_inp, n_out = len(self.input_blocks), len(self.output_blocks)

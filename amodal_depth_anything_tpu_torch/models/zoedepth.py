@@ -96,7 +96,8 @@ def _log_binomial(p, t, n_classes: int, eps: float = 1e-4):
                      device=p.device).reshape(1, 1, 1, -1)
     big_k = float(n_classes - 1)
     e7 = 1e-7
-    n_ = torch.tensor(big_k + e7, dtype=torch.float32, device=p.device)
+    # a fill on the device, not a copy from host memory: capturable
+    n_ = torch.full((), big_k + e7, dtype=torch.float32, device=p.device)
     k_ = k + e7
     nk = (n_ - k_).clamp_min(0.0)
     log_coef = (n_ * torch.log(n_) - k_ * torch.log(k_)

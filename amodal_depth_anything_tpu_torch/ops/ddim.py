@@ -7,7 +7,10 @@ are the forward process and the v-prediction target the DDPM trainer
 (`train/depthfm_trainer.py::DepthFMTrainer`) trains on; `ddim_sample` is the
 deterministic (eta = 0) DDIM loop its evaluation samples with, with
 classifier-free guidance and DeepCache for the pix2gestalt path. The JAX loop
-is a `lax.scan`; here it is a Python loop over the same steps.
+is a `lax.scan`; here it is a Python loop over the same steps, which reads
+no host value once the initial noise is a tensor (the timesteps are device
+fills, the schedule a device gather), so the pix2gestalt completion
+captures it whole into one CUDA graph (`heuristics.MaskHeuristics`).
 """
 
 from __future__ import annotations

@@ -1,19 +1,25 @@
 """Flash attention, forward and backward: the hand-written Hopper kernels
-and their plain versions.
+and their plain versions, as `torch.library` custom ops.
 
-`mha` runs `csrc/flash_attn_fwd.cu` (the port of the Pallas TPU kernel
-`amodal_depth_anything_tpu/ops/flash_attention.py::_attn_fwd_kernel`) on
-CUDA tensors and `mha_reference`, plain PyTorch with an f32 softmax, on CPU
-tensors. When an input needs a gradient it is a `torch.autograd.Function`
-(the JAX `mha` is a `custom_vjp`): the forward keeps the LSE, and the
-backward runs the two kernels of `csrc/flash_attn_bwd.cu` (the ports of
-`_attn_bwd_dq_kernel` and `_attn_bwd_dkv_kernel`) on CUDA tensors and
-`mha_bwd_reference`, the same arithmetic step by step in f32, on CPU
-tensors. Nothing else picks between them: a CUDA tensor gets the kernels or
-an exception, in both directions. Each backward kernel has its own wrapper
-(`flash_attn_bwd_dq`, `flash_attn_bwd_dkv`); `mha.launches`,
-`mha.bwd_dq_launches` and `mha.bwd_dkv_launches` count the three kernels'
-launches.
+Three ops of the `adat` namespace carry the kernels:
+`adat::flash_attn_fwd` runs `csrc/flash_attn_fwd.cu` (the port of the Pallas
+TPU kernel `amodal_depth_anything_tpu/ops/flash_attention.py::
+_attn_fwd_kernel`), `adat::flash_attn_bwd_dq` and `adat::flash_attn_bwd_dkv`
+the two kernels of `csrc/flash_attn_bwd.cu` (the ports of
+`_attn_bwd_dq_kernel` and `_attn_bwd_dkv_kernel`). Each op's CUDA
+implementation is its kernel and its CPU implementation the plain version
+(`mha_reference`, and the backward's arithmetic step by step in f32): the
+dispatcher picks by the tensors' device, so a CUDA tensor gets the kernel or
+an exception. Each op has a fake implementation, so `torch.export` and
+CUDA-graph capture trace through it. The forward op's gradient is
+registered with `register_autograd` and runs the two backward ops (the JAX
+`mha` is a `custom_vjp`). `mha.launches`, `mha.bwd_dq_launches` and
+`mha.bwd_dkv_launches` count the three kernels' launches from Python: at
+eager calls, warm-ups and captures, never at a graph's replay.
+
+The ops return their outputs token-major, [B,N,H,D] contiguous; the Python
+wrappers (`mha`, `flash_attn_bwd_dq`, `flash_attn_bwd_dkv`) hand out the
+[B,H,N,D] views, so `o.transpose(1, 2).reshape(B, N, H*D)` is free.
 
 Layout [B, H, N, D] as in the JAX package. The kernels take any Nq and Nk
 (they mask the ragged edges and keys >= `kv_len` themselves) and float32 or
@@ -58,6 +64,32 @@ def mha_reference(q, k, v, *, sm_scale: float | None = None,
     return o
 
 
+def _bwd_plain(q, k, v, do, lse, delta, sm_scale: float, kv_len: int,
+               want_dq: bool, want_dkv: bool):
+    """The backward kernels' arithmetic step by step in f32: (dq or None,
+    dk or None, dv or None) in q's, k's and v's dtypes."""
+    nq, nk = q.shape[2], k.shape[2]
+    q_len = kv_len if nq == nk else nq
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    # scaled as the forward scales it, so that S and the LSE round alike
+    s = torch.einsum("bhqd,bhkd->bhqk", (q * sm_scale).float(), kf)
+    p = torch.exp(s - lse.float()[..., None])
+    p = p * (torch.arange(nk, device=p.device) < kv_len)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = dk = dv = None
+    if want_dq:
+        dq = (torch.einsum("bhqk,bhkd->bhqd", ds, kf) * sm_scale).to(q.dtype)
+    if want_dkv:
+        live_q = (torch.arange(nq, device=p.device) < q_len)[:, None]
+        live_k = (torch.arange(nk, device=p.device) < kv_len)[:, None]
+        dv = torch.einsum("bhqk,bhqd->bhkd", p * live_q, dof) * live_k
+        dk = torch.einsum("bhqk,bhqd->bhkd", ds * live_q,
+                          qf) * sm_scale * live_k
+        dk, dv = dk.to(k.dtype), dv.to(v.dtype)
+    return dq, dk, dv
+
+
 def mha_bwd_reference(q, k, v, o, lse, do, *, sm_scale: float | None = None,
                       kv_len: int | None = None):
     """Plain attention backward, the kernels' arithmetic step by step in f32.
@@ -68,23 +100,9 @@ def mha_bwd_reference(q, k, v, o, lse, do, *, sm_scale: float | None = None,
     rows at index >= `kv_len` are padding as well and add nothing to dk, dv."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    nq, nk = q.shape[2], k.shape[2]
-    kv_len = nk if kv_len is None else kv_len
-    q_len = kv_len if nq == nk else nq
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    # scaled as the forward scales it, so that S and the LSE round alike
-    s = torch.einsum("bhqd,bhkd->bhqk", (q * sm_scale).float(), kf)
-    p = torch.exp(s - lse.float()[..., None])
-    p = p * (torch.arange(nk, device=p.device) < kv_len)
-    delta = (dof * o.float()).sum(-1)
-    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
-    ds = p * (dp - delta[..., None])
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * sm_scale
-    live_q = (torch.arange(nq, device=p.device) < q_len)[:, None]
-    live_k = (torch.arange(nk, device=p.device) < kv_len)[:, None]
-    dv = torch.einsum("bhqk,bhqd->bhkd", p * live_q, dof) * live_k
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds * live_q, qf) * sm_scale * live_k
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    kv_len = k.shape[2] if kv_len is None else kv_len
+    delta = (do.float() * o.float()).sum(-1)
+    return _bwd_plain(q, k, v, do, lse, delta, sm_scale, kv_len, True, True)
 
 
 def check_head_dim(d: int, dtype) -> None:
@@ -197,8 +215,8 @@ def _token_major(b, h, n, d, like):
                        device=like.device).transpose(1, 2)
 
 
-def _launch_fwd(q, k, v, sm_scale: float, kv_len: int | None, need_lse: bool):
-    kv_len = k.shape[2] if kv_len is None else int(kv_len)
+def _launch_fwd(q, k, v, sm_scale: float, kv_len: int, need_lse: bool):
+    """The forward kernel: (o [B,Nq,H,D], lse [B,H,Nq] or empty)."""
     _check(q, k, v, kv_len)
     b, h, nq, d = q.shape
     o = _token_major(b, h, nq, d, q)
@@ -215,7 +233,9 @@ def _launch_fwd(q, k, v, sm_scale: float, kv_len: int | None, need_lse: bool):
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {err}")
     mha.launches += 1
-    return o, lse
+    if lse is None:
+        lse = _no_lse(q)
+    return o.transpose(1, 2), lse
 
 
 def _check_bwd(q, k, v, do, lse, delta, kv_len: int):
@@ -233,12 +253,8 @@ def _check_bwd(q, k, v, do, lse, delta, kv_len: int):
                              f"q's device, got {tuple(t.shape)} {t.dtype}")
 
 
-def flash_attn_bwd_dq(q, k, v, do, lse, delta, *, sm_scale: float,
-                      kv_len: int | None = None):
-    """dQ = sm_scale * dS K by the `flash_attn_bwd_dq` kernel (CUDA tensors
-    only). `lse`: the forward's natural-log LSE; `delta` = rowsum(dO * O);
-    both contiguous float32 [B,H,Nq]."""
-    kv_len = k.shape[2] if kv_len is None else int(kv_len)
+def _launch_bwd_dq(q, k, v, do, lse, delta, sm_scale: float, kv_len: int):
+    """The dQ kernel: dq [B,Nq,H,D]."""
     _check_bwd(q, k, v, do, lse, delta, kv_len)
     b, h, nq, d = q.shape
     dq = _token_major(b, h, nq, d, q)
@@ -252,17 +268,12 @@ def flash_attn_bwd_dq(q, k, v, do, lse, delta, *, sm_scale: float,
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd_dq launch failed: cudaError {err}")
     mha.bwd_dq_launches += 1
-    return dq
+    return dq.transpose(1, 2)
 
 
-def flash_attn_bwd_dkv(q, k, v, do, lse, delta, *, sm_scale: float,
-                       kv_len: int | None = None):
-    """dV = P^T dO and dK = sm_scale * dS^T Q by the `flash_attn_bwd_dkv`
-    kernel (CUDA tensors only); arguments as `flash_attn_bwd_dq`. Rows at
-    index >= kv_len come back as zeros, and when Nq == Nk the query rows
-    at index >= kv_len are left out of the sums."""
+def _launch_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float, kv_len: int):
+    """The dK/dV kernel: (dk, dv) [B,Nk,H,D]."""
     nq, nk = q.shape[2], k.shape[2]
-    kv_len = nk if kv_len is None else int(kv_len)
     q_len = kv_len if nq == nk else nq
     _check_bwd(q, k, v, do, lse, delta, kv_len)
     b, h, _, d = q.shape
@@ -279,11 +290,122 @@ def flash_attn_bwd_dkv(q, k, v, do, lse, delta, *, sm_scale: float,
         raise RuntimeError(
             f"flash_attn_bwd_dkv launch failed: cudaError {err}")
     mha.bwd_dkv_launches += 1
-    return dk, dv
+    return dk.transpose(1, 2), dv.transpose(1, 2)
 
 
-def _launch_bwd(q, k, v, o, lse, do, sm_scale: float, kv_len: int | None):
-    if not _vector_ready(do):
+# --------------------------------------------------------------- the ops
+# Each op: the plain version as its CPU implementation, the kernel as its
+# CUDA one, a fake implementation for tracing. Ops return token-major
+# [B,N,H,D] buffers; the wrappers below view them as [B,H,N,D].
+
+def _no_lse(q):
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+def _tokens(t):
+    """[B,H,N,D] -> the [B,N,H,D] buffer an op returns (contiguous)."""
+    return t.transpose(1, 2).contiguous()
+
+
+@torch.library.custom_op("adat::flash_attn_fwd", mutates_args=(),
+                         device_types="cpu")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            sm_scale: float, kv_len: int,
+            need_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    if need_lse:
+        o, lse = mha_reference(q, k, v, sm_scale=sm_scale, kv_len=kv_len,
+                               return_lse=True)
+    else:
+        o = mha_reference(q, k, v, sm_scale=sm_scale, kv_len=kv_len)
+        lse = _no_lse(q)
+    return _tokens(o), lse
+
+
+@_fwd_op.register_kernel("cuda")
+def _(q, k, v, sm_scale, kv_len, need_lse):
+    return _launch_fwd(q, k, v, sm_scale, kv_len, need_lse)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, sm_scale, kv_len, need_lse):
+    b, h, nq, d = q.shape
+    lse = (q.new_empty((b, h, nq), dtype=torch.float32) if need_lse
+           else _no_lse(q))
+    return q.new_empty((b, nq, h, d)), lse
+
+
+@torch.library.custom_op("adat::flash_attn_bwd_dq", mutates_args=(),
+                         device_types="cpu")
+def _bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+               sm_scale: float, kv_len: int) -> torch.Tensor:
+    dq, _, _ = _bwd_plain(q, k, v, do, lse, delta, sm_scale, kv_len,
+                          True, False)
+    return _tokens(dq)
+
+
+@_bwd_dq_op.register_kernel("cuda")
+def _(q, k, v, do, lse, delta, sm_scale, kv_len):
+    return _launch_bwd_dq(q, k, v, do, lse, delta, sm_scale, kv_len)
+
+
+@_bwd_dq_op.register_fake
+def _(q, k, v, do, lse, delta, sm_scale, kv_len):
+    b, h, nq, d = q.shape
+    return q.new_empty((b, nq, h, d))
+
+
+@torch.library.custom_op("adat::flash_attn_bwd_dkv", mutates_args=(),
+                         device_types="cpu")
+def _bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                sm_scale: float,
+                kv_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    _, dk, dv = _bwd_plain(q, k, v, do, lse, delta, sm_scale, kv_len,
+                           False, True)
+    return _tokens(dk), _tokens(dv)
+
+
+@_bwd_dkv_op.register_kernel("cuda")
+def _(q, k, v, do, lse, delta, sm_scale, kv_len):
+    return _launch_bwd_dkv(q, k, v, do, lse, delta, sm_scale, kv_len)
+
+
+@_bwd_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, sm_scale, kv_len):
+    b, h, nk, d = k.shape
+    return k.new_empty((b, nk, h, d)), v.new_empty((b, nk, h, d))
+
+
+def _kv_len(k, kv_len) -> int:
+    return k.shape[2] if kv_len is None else int(kv_len)
+
+
+def flash_attn_bwd_dq(q, k, v, do, lse, delta, *, sm_scale: float,
+                      kv_len: int | None = None):
+    """dQ = sm_scale * dS K, `adat::flash_attn_bwd_dq`: the kernel on CUDA
+    tensors, the plain version on CPU tensors. `lse`: the forward's
+    natural-log LSE; `delta` = rowsum(dO * O); both contiguous float32
+    [B,H,Nq]. Returns a [B,H,Nq,D] view of a [B,Nq,H,D] buffer."""
+    return torch.ops.adat.flash_attn_bwd_dq(
+        q, k, v, do, lse, delta, float(sm_scale),
+        _kv_len(k, kv_len)).transpose(1, 2)
+
+
+def flash_attn_bwd_dkv(q, k, v, do, lse, delta, *, sm_scale: float,
+                       kv_len: int | None = None):
+    """dV = P^T dO and dK = sm_scale * dS^T Q, `adat::flash_attn_bwd_dkv`;
+    arguments as `flash_attn_bwd_dq`. Rows at index >= kv_len come back as
+    zeros, and when Nq == Nk the query rows at index >= kv_len are left out
+    of the sums."""
+    dk, dv = torch.ops.adat.flash_attn_bwd_dkv(
+        q, k, v, do, lse, delta, float(sm_scale), _kv_len(k, kv_len))
+    return dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def _attn_backward(q, k, v, o, lse, do, sm_scale: float, kv_len: int):
+    """(dq, dk, dv) through the two backward ops."""
+    if q.is_cuda and not _vector_ready(do):
         # whatever view autograd handed over: an explicit copy, never the
         # plain version
         do = do.contiguous()
@@ -297,43 +419,50 @@ def _launch_bwd(q, k, v, o, lse, do, sm_scale: float, kv_len: int | None):
     return dq, dk, dv
 
 
-class _Mha(torch.autograd.Function):
-    """Differentiable attention: kernels for CUDA tensors, the plain
-    versions (`mha_reference`, `mha_bwd_reference`) for CPU tensors."""
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, sm_scale, kv_len, need_lse = inputs
+    if not need_lse:
+        raise RuntimeError("adat::flash_attn_fwd differentiates only with "
+                           "need_lse=True (the backward reads the LSE)")
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.sm_scale, ctx.kv_len = sm_scale, kv_len
+
+
+def _fwd_backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = _attn_backward(q, k, v, o.transpose(1, 2), lse,
+                                do.transpose(1, 2), ctx.sm_scale, ctx.kv_len)
+    return dq, dk, dv, None, None, None
+
+
+_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+
+
+class _Kept(torch.autograd.Function):
+    """The recompute pass of a block that kept its attention output and LSE
+    (`residuals`): the forward is not run again, and the gradient flows
+    through the kept pair by the same two backward ops. It saves what the
+    forward op saved (the token-major output among them), as the recompute
+    of `torch.utils.checkpoint` requires."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale, kv_len, residuals):
-        if residuals:  # a recompute pass: the forward ran already
-            o, lse = residuals["o"].detach(), residuals["lse"].detach()
-        else:
-            if q.is_cuda:
-                o, lse = _launch_fwd(q, k, v, sm_scale, kv_len, True)
-            else:
-                o, lse = mha_reference(q, k, v, sm_scale=sm_scale,
-                                       kv_len=kv_len, return_lse=True)
-            if residuals is not None:
-                residuals.update(o=o.detach(), lse=lse.detach())
+        o, lse = residuals["o"], residuals["lse"]
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.sm_scale, ctx.kv_len = sm_scale, kv_len
-        ctx.mark_non_differentiable(lse)
-        return o, lse
+        return o
 
     @staticmethod
-    def backward(ctx, do, _dlse):
-        q, k, v, o, lse = ctx.saved_tensors
-        if q.is_cuda:
-            dq, dk, dv = _launch_bwd(q, k, v, o, lse, do, ctx.sm_scale,
-                                     ctx.kv_len)
-        else:
-            dq, dk, dv = mha_bwd_reference(q, k, v, o, lse, do,
-                                           sm_scale=ctx.sm_scale,
-                                           kv_len=ctx.kv_len)
-        return dq, dk, dv, None, None, None
+    def backward(ctx, do):
+        return _fwd_backward(ctx, do, None)
 
 
 def mha(q, k, v, *, sm_scale: float | None = None, kv_len: int | None = None,
         return_lse: bool = False, residuals: dict | None = None):
-    """Multi-head attention, q: [B,H,Nq,D], k/v: [B,H,Nk,D] -> [B,H,Nq,D].
+    """Multi-head attention, q: [B,H,Nq,D], k/v: [B,H,Nk,D] -> [B,H,Nq,D],
+    through `adat::flash_attn_fwd` (the kernel on CUDA tensors, the plain
+    version on CPU tensors), differentiable through the two backward ops.
 
     `kv_len`: keys at index >= kv_len are excluded (default Nk); their dk
     and dv are zero, and when Nq == Nk the query rows at index >= kv_len
@@ -345,20 +474,22 @@ def mha(q, k, v, *, sm_scale: float | None = None, kv_len: int | None = None,
     through the kept pair (the JAX package's "attn_out"/"attn_lse"
     checkpoint names). Only read when a gradient is needed.
 
-    CUDA tensors launch the kernels; the output is a [B,H,Nq,D] view of a
-    [B,Nq,H,D] buffer, so `o.transpose(1, 2).reshape(B, Nq, H*D)` is free.
-    CPU tensors take the plain versions. When no input needs a gradient the
-    forward skips the LSE unless `return_lse` asks for it."""
+    The output is a [B,H,Nq,D] view of a [B,Nq,H,D] buffer, so
+    `o.transpose(1, 2).reshape(B, Nq, H*D)` is free. When no input needs a
+    gradient the forward skips the LSE unless `return_lse` asks for it."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        o, lse = _Mha.apply(q, k, v, float(sm_scale), kv_len, residuals)
-    elif q.is_cuda:
-        o, lse = _launch_fwd(q, k, v, sm_scale, kv_len, return_lse)
-    else:
-        return mha_reference(q, k, v, sm_scale=sm_scale, kv_len=kv_len,
-                             return_lse=return_lse)
+    sm_scale, kv_len = float(sm_scale), _kv_len(k, kv_len)
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    if grad and residuals:   # a recompute pass: the forward ran already
+        o = _Kept.apply(q, k, v, sm_scale, kv_len, residuals).transpose(1, 2)
+        return (o, residuals["lse"]) if return_lse else o
+    o, lse = torch.ops.adat.flash_attn_fwd(q, k, v, sm_scale, kv_len,
+                                           grad or return_lse)
+    if grad and residuals is not None:
+        residuals.update(o=o.detach(), lse=lse.detach())
+    o = o.transpose(1, 2)
     return (o, lse) if return_lse else o
 
 

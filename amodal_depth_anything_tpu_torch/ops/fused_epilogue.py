@@ -7,8 +7,11 @@ its plain version.
 the Pallas TPU kernel `amodal_depth_anything_tpu/ops/fused_epilogue.py::
 _kernel`): the product, bias, gamma and the residual in one kernel, float32
 accumulation, one rounding to x's dtype. On CPU tensors it takes
-`matmul_scale_residual_reference`, the chain in plain PyTorch. Nothing else
-picks between them: a CUDA tensor gets the kernel or an exception.
+`matmul_scale_residual_reference`, the chain in plain PyTorch. The two are
+the CUDA and CPU implementations of one `torch.library` custom op,
+`adat::fused_epilogue` (with a fake implementation, so `torch.export` and
+CUDA-graph capture trace through it): the dispatcher picks by device, and a
+CUDA tensor gets the kernel or an exception.
 `matmul_scale_residual.launches` counts the kernel's launches.
 
 As in the JAX package the kernel is wired into no model: its path is the A/B
@@ -97,14 +100,30 @@ def fused_epilogue_kernel(x, w, b, gamma, resid):
     return out
 
 
+@torch.library.custom_op("adat::fused_epilogue", mutates_args=(),
+                         device_types="cpu")
+def _op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+        gamma: torch.Tensor, resid: torch.Tensor) -> torch.Tensor:
+    return matmul_scale_residual_reference(x, w, b, gamma, resid)
+
+
+@_op.register_kernel("cuda")
+def _(x, w, b, gamma, resid):
+    return fused_epilogue_kernel(x, w, b, gamma, resid)
+
+
+@_op.register_fake
+def _(x, w, b, gamma, resid):
+    return x.new_empty((x.shape[0], w.shape[1]))
+
+
 def matmul_scale_residual(x, w, b, gamma, resid):
-    """x: [M,K]; w: [K,N]; b, gamma: [N]; resid: [M,N] -> [M,N] in x's dtype.
+    """x: [M,K]; w: [K,N]; b, gamma: [N]; resid: [M,N] -> [M,N] in x's dtype,
+    by `adat::fused_epilogue`.
 
     CUDA tensors launch the kernel (any M; K and N multiples of 8; float32
     or bfloat16); CPU tensors take the plain version."""
-    if x.is_cuda:
-        return fused_epilogue_kernel(x, w, b, gamma, resid)
-    return matmul_scale_residual_reference(x, w, b, gamma, resid)
+    return torch.ops.adat.fused_epilogue(x, w, b, gamma, resid)
 
 
 matmul_scale_residual.launches = 0

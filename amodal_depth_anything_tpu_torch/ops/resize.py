@@ -6,6 +6,16 @@ choice of scale, clamping of negative linear indices). Here the original is
 at hand, so these are thin NHWC wrappers that keep the JAX functions'
 signatures: the channel axis moves to the NCHW position as a view and back.
 Antialiasing stays off, as in the reference.
+
+On the card the gradient of a bilinear or bicubic resize is taken by two
+products with the resize's own weight matrices (read off `F.interpolate`
+of an identity, once per geometry; float32 for a float32 gradient, the
+gradient's dtype on the tensor cores otherwise) instead of
+`F.interpolate`'s backward,
+which sums with float atomics in an order that changes from run to run: so
+a train step gives the same bits every time, eagerly or replayed from a
+CUDA graph. The forward is `F.interpolate` either way; on the CPU both
+directions are torch's (its backward adds in a fixed order there).
 """
 
 from __future__ import annotations
@@ -34,16 +44,67 @@ def _out_size(in_size: int, size, scale_factor) -> int:
     return int(math.floor(in_size * scale_factor))  # torch: floor(in * s)
 
 
+def _resize4(x4, size, scale_factor, mode: str, align_corners):
+    if scale_factor is not None:
+        return F.interpolate(x4, scale_factor=_split2(scale_factor),
+                             mode=mode, align_corners=align_corners)
+    return F.interpolate(x4, size=_split2(size), mode=mode,
+                         align_corners=align_corners)
+
+
+@functools.lru_cache(maxsize=64)
+def _weights(n: int, out: int, axis: int, scale, mode: str, align_corners,
+             device: torch.device) -> torch.Tensor:
+    """[out, n] float32: the weights `F.interpolate` gives along one axis
+    (`axis` 0 for height, 1 for width) of an n-long input, read off the
+    resize of an identity whose other axis keeps its length."""
+    eye = torch.eye(n, dtype=torch.float32, device=device)[None, None]
+    if axis == 0:
+        size, sf = (out, n), None if scale is None else (scale, 1.0)
+        w = _resize4(eye, size if sf is None else None, sf, mode,
+                     align_corners)[0, 0]
+    else:
+        size, sf = (n, out), None if scale is None else (1.0, scale)
+        w = _resize4(eye, size if sf is None else None, sf, mode,
+                     align_corners)[0, 0].T
+    return w.contiguous()
+
+
+class _DeterministicResize(torch.autograd.Function):
+    """`F.interpolate` forward; the backward as Wy^T dY Wx: in float32 for a
+    float32 gradient, on the tensor cores in the gradient's own dtype (f32
+    accumulation) for a bfloat16 one, about as precise as the atomic
+    backward's rounding to bfloat16 at every add."""
+
+    @staticmethod
+    def forward(ctx, x4, size, scale_factor, mode, align_corners):
+        y = _resize4(x4, size, scale_factor, mode, align_corners)
+        sh, sw = _split2(scale_factor)
+        ctx.wy = _weights(x4.shape[2], y.shape[2], 0, sh, mode,
+                          align_corners, x4.device)
+        ctx.wx = _weights(x4.shape[3], y.shape[3], 1, sw, mode,
+                          align_corners, x4.device)
+        ctx.dtype = x4.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        dt = torch.float32 if dy.dtype == torch.float32 else dy.dtype
+        g = torch.einsum("ip,ncij->ncpj", ctx.wy.to(dt), dy.to(dt))
+        g = torch.einsum("jq,ncpj->ncpq", ctx.wx.to(dt), g)
+        return g.to(ctx.dtype), None, None, None, None
+
+
 def _interpolate(x: torch.Tensor, size, scale_factor, mode: str,
                  align_corners: bool | None) -> torch.Tensor:
     *lead, h, w, c = x.shape
     x4 = x.reshape(-1, h, w, c).permute(0, 3, 1, 2)
-    if scale_factor is not None:
-        y = F.interpolate(x4, scale_factor=_split2(scale_factor), mode=mode,
-                          align_corners=align_corners)
+    if (x.is_cuda and mode in ("bilinear", "bicubic") and x.requires_grad
+            and torch.is_grad_enabled()):
+        y = _DeterministicResize.apply(x4, size, scale_factor, mode,
+                                       align_corners)
     else:
-        y = F.interpolate(x4, size=_split2(size), mode=mode,
-                          align_corners=align_corners)
+        y = _resize4(x4, size, scale_factor, mode, align_corners)
     return y.permute(0, 2, 3, 1).reshape(*lead, y.shape[2], y.shape[3], c)
 
 

@@ -21,6 +21,11 @@ Serving compression, opt-in and parity-breaking as in the JAX package:
 `quantize_int8` (W8A8 trunks and heads, `ops.quant`), `base_token_merge` /
 `amodal_token_merge` (ToMe in the trunks, `ops.token_merge`) and
 `head_batch_tile` (the DPT heads over batch chunks; exact).
+
+Batch invariance: on the card the DPT heads always run one batch row at a
+time (`served_head_tile`), so that a served request gets the same bits in
+every row of every batch bucket (the trunks' products and attention are
+row-invariant there; cuDNN's head convolutions are not).
 """
 
 from __future__ import annotations
@@ -364,6 +369,15 @@ class AmodalDepthPipeline:
         return torch.as_tensor(np.asarray(a, np.float32)).to(
             device=self.device, dtype=self.dtype)
 
+    @property
+    def served_head_tile(self) -> int | None:
+        """The DPT heads' batch tile the program runs: 1 on the card, so a
+        row's result is the same in every row of every batch (cuDNN's 3x3
+        convolutions at the heads' 37 x 37 level round a repeated bf16
+        input differently in the two halves of a batch of 4,
+        `tools/batch_position_probe.py`); `head_batch_tile` elsewhere."""
+        return 1 if self.device.type == "cuda" else self.head_batch_tile
+
     def _graph(self, img: torch.Tensor, msk: torch.Tensor,
                base_image: torch.Tensor | None = None):
         """The device program on batched device tensors (image [B,H,W,3],
@@ -373,7 +387,7 @@ class AmodalDepthPipeline:
             attn_impl=self.attn_impl, base_image=base_image,
             base_token_merge=self.base_token_merge,
             amodal_token_merge=self.amodal_token_merge,
-            head_batch_tile=self.head_batch_tile)
+            head_batch_tile=self.served_head_tile)
         return base.float(), blended.float()
 
     @torch.inference_mode()

@@ -13,12 +13,16 @@ while callers block on futures.
 replays on that thread's current stream, and one thread means its replays
 never overlap.
 
-Contract (tests/test_torch_server.py): outputs are bit-identical to direct
-pipeline calls that hold the request at the same position in the batch.
-No model here mixes batch rows, so the other rows never change a result.
-On the card in bfloat16 a row's result can depend on its position, though:
-cuDNN's convolutions may round one input differently in different rows
-(`tools/batch_position_probe.py` finds where).
+Contract (tests/test_torch_server.py; on the card `chip_smoke.py` phase 9):
+batching and padding never change a result. No model here mixes batch
+rows, and every row of a bucket gives the same bits for the same input, so
+a served request is bit-identical to a direct pipeline call at any
+position of the batch and, for the amodal family on the card, to a direct
+call at batch 1. On the card that needs the DPT heads run one row at a time
+(`AmodalDepthPipeline.served_head_tile`): cuDNN's 3x3 convolutions at the
+heads' 37 x 37 level round one bf16 input differently in the two halves of
+a batch of 4 (`tools/batch_position_probe.py`); the trunks' products and
+the attention kernel are row-invariant there.
 """
 
 from __future__ import annotations

@@ -39,7 +39,7 @@ class AmodalSynthDriveTrainer(DiscriminativeTrainer):
                           batch["guide"].to(dtype), train=train,
                           attn_impl=self.cfg.attn_impl)
 
-    def loss_of(self, batch: dict) -> torch.Tensor:
+    def loss_of(self, batch: dict, draws: dict | None = None) -> torch.Tensor:
         cfg = self.cfg
         vis, invis = self._heads(batch, True)
         gt = batch[cfg.gt_depth_type]

@@ -125,13 +125,18 @@ class DepthFMAmodalTrainer(DiscriminativeTrainer):
                 "observation": batch["depth_observation"].to(dtype),
                 "attn_impl": self.cfg.attn_impl}
 
-    def loss_of(self, batch: dict) -> torch.Tensor:
-        cfg = self.cfg
+    def _step_draws(self, batch: dict) -> dict:
+        """The flow step's noise and timesteps, drawn for `state.step`."""
         shape = self._latent_shape(batch)
-        draws = self._draws({"noise": ("normal", shape),
-                             "t": ("randint", shape[:1],
-                                   self.model.cfg.noising_step)},
-                            step=self.state.step)
+        return self._draws({"noise": ("normal", shape),
+                            "t": ("randint", shape[:1],
+                                  self.model.cfg.noising_step)},
+                           step=self.state.step)
+
+    def loss_of(self, batch: dict, draws: dict | None = None) -> torch.Tensor:
+        cfg = self.cfg
+        if draws is None:
+            draws = self._step_draws(batch)
         pred, target = self.model(
             batch["rgb_norm"].to(self.dtype), draws["noise"], mode="train",
             depth=batch[cfg.gt_depth_type].to(self.dtype), t=draws["t"],
@@ -216,20 +221,28 @@ class DepthFMTrainer(DepthFMAmodalTrainer):
             return (self.model.vae.encode_mode(rgb),
                     _conditioning(self.model, rgb.shape[0], self.dtype))
 
-    def loss_of(self, batch: dict) -> torch.Tensor:
+    def _step_draws(self, batch: dict) -> dict:
+        """The DDPM step's timesteps and (pyramid) noise, drawn for
+        `state.step` at the depth latents' shape."""
+        mrn = self.multi_res_noise
+        shape = self._latent_shape(batch)
+        noise_shape = shape if mrn is None else multi_res_noise_shapes(
+            shape, mrn.get("downscale_strategy", "original"))
+        return self._draws({"t": ("randint", shape[:1],
+                                  self.num_train_timesteps),
+                            "noise": ("normal", noise_shape)},
+                           step=self.state.step)
+
+    def loss_of(self, batch: dict, draws: dict | None = None) -> torch.Tensor:
         cfg, model, mrn = self.cfg, self.model, self.multi_res_noise
         T = self.num_train_timesteps
+        if draws is None:
+            draws = self._step_draws(batch)
         rgb_latent, cond = self._encode(batch)
         with torch.no_grad():
             depth3 = batch[cfg.gt_depth_type].to(self.dtype)
             gt_latent = model.vae.encode_mode(
                 depth3.expand(*depth3.shape[:3], 3))
-        shape = tuple(gt_latent.shape)
-        noise_shape = shape if mrn is None else multi_res_noise_shapes(
-            shape, mrn.get("downscale_strategy", "original"))
-        draws = self._draws({"t": ("randint", shape[:1], T),
-                             "noise": ("normal", noise_shape)},
-                            step=self.state.step)
         t = draws["t"]
         if mrn is None:
             noise = draws["noise"].to(gt_latent.dtype)

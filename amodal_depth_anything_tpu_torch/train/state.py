@@ -18,6 +18,17 @@ counterparts differ where it matters at this recipe's settings:
 
 Parameters, moments and the accumulator stay float32 whatever the compute
 dtype. The update is applied in place.
+
+The update reads nothing of the step from the host: the update count and
+the micro-step within an accumulation live in device scalars
+(`Optimizer.scalars`), updated in place, and the learning rate and Adam's
+float32 bias corrections are gathered from device tables of the host
+formulas' values (`Optimizer.tables`: the schedule's float32 values and
+1 - b ** count for every count up to where all three stay constant). So the
+same device program serves every step, eagerly or replayed as a CUDA graph
+(`train/trainer.py`), and the two are bitwise equal. The state keeps its
+host integers "count" and "mini_step" (the checkpoint format), advanced by
+`advance` beside the device scalars.
 """
 
 from __future__ import annotations
@@ -62,15 +73,20 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
 class Optimizer:
     """clip_by_global_norm -> Adam(schedule), under MultiSteps when
     `accumulation_steps > 1`. State is a plain dict of ints and tensor
-    lists, so it checkpoints with `torch.save`."""
+    lists, so it checkpoints with `torch.save`. `schedule_constant_from`:
+    the count from which `schedule` no longer changes."""
 
     def __init__(self, schedule, max_grad_norm: float,
                  accumulation_steps: int = 1, *, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+                 b2: float = 0.999, eps: float = 1e-8,
+                 schedule_constant_from: int):
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
         self.accumulation_steps = int(accumulation_steps)
         self.b1, self.b2, self.eps = b1, b2, eps
+        # the schedule's value no longer changes from this count on
+        self.schedule_constant_from = int(schedule_constant_from)
+        self._tables: dict = {}
 
     def init(self, params: list[torch.Tensor]) -> dict[str, Any]:
         state = {"count": 0, "mini_step": 0,
@@ -80,22 +96,69 @@ class Optimizer:
             state["acc_grads"] = [torch.zeros_like(p) for p in params]
         return state
 
-    @torch.no_grad()
-    def update(self, params: list[torch.Tensor], grads: list[torch.Tensor],
-               state: dict[str, Any]) -> bool:
-        """One micro-step. `grads` (already guarded against non-finite
-        entries) may be overwritten. Returns whether the parameters moved
-        (always, without accumulation; every k-th call with it)."""
+    def tables(self, device) -> torch.Tensor:
+        """[3, L] float32 on `device`: row 0 the schedule at count i, rows
+        1-2 the bias corrections 1 - b1 ** i and 1 - b2 ** i in float32, as
+        optax takes them (at count 1, 1 - float32(0.999) is 1.3e-5 off
+        0.001). L is where all three have stopped changing; a count past
+        the end reads the last column."""
+        key = str(torch.device(device))
+        if key not in self._tables:
+            f32 = np.float32
+            bs = (f32(self.b1), f32(self.b2))
+
+            def correction(b, i):
+                return float(f32(1.0) - b ** f32(i))
+
+            n = self.schedule_constant_from + 1
+            while any(correction(b, n) != 1.0 for b in bs):
+                n += 64
+            cols = [[self.schedule(i)] + [correction(b, i) for b in bs]
+                    for i in range(n + 1)]
+            self._tables[key] = torch.tensor(
+                np.asarray(cols, np.float32).T.copy(), device=device)
+        return self._tables[key]
+
+    def scalars(self, state: dict, device) -> dict[str, torch.Tensor]:
+        """The device scalars of `state`'s host integers: "count" (int64)
+        and "mini_step" (float32), updated in place by `step_`."""
+        return {"count": torch.full((), state["count"], dtype=torch.int64,
+                                    device=device),
+                "mini_step": torch.full((), state["mini_step"],
+                                        dtype=torch.float32, device=device)}
+
+    def applies(self, state: dict) -> bool:
+        """Whether the next micro-step moves the parameters (always, without
+        accumulation; every k-th call with it)."""
         k = self.accumulation_steps
-        if k > 1:
-            acc, n = state["acc_grads"], state["mini_step"]
+        return k == 1 or state["mini_step"] == k - 1
+
+    def advance(self, state: dict, applied: bool) -> None:
+        """The host integers after one micro-step."""
+        if self.accumulation_steps > 1:
+            state["mini_step"] = (state["mini_step"] + 1) % \
+                self.accumulation_steps
+        if applied:
+            state["count"] += 1
+
+    @torch.no_grad()
+    def step_(self, params: list[torch.Tensor], grads: list[torch.Tensor],
+              state: dict[str, Any], scalars: dict[str, torch.Tensor],
+              apply: bool) -> None:
+        """One micro-step on the device alone (`apply`: whether it is the
+        last of an accumulation, `applies`). `grads` (already guarded
+        against non-finite entries) may be overwritten. Reads no host
+        integer of `state`: capturable."""
+        if self.accumulation_steps > 1:
+            acc, mini = state["acc_grads"], scalars["mini_step"]
             # running mean: acc + (g - acc) / (n + 1)
             torch._foreach_sub_(grads, acc)
-            torch._foreach_div_(grads, float(n + 1))
+            torch._foreach_div_(grads, mini + 1.0)
             torch._foreach_add_(acc, grads)
-            state["mini_step"] = (n + 1) % k
-            if n != k - 1:
-                return False
+            if not apply:
+                mini.add_(1.0)
+                return
+            mini.zero_()
             grads = [a.clone() for a in acc]
             torch._foreach_zero_(acc)
         clip_by_global_norm(grads, self.max_grad_norm)
@@ -104,21 +167,37 @@ class Optimizer:
         torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
-        count = state["count"] + 1
-        lr = self.schedule(state["count"])
-        # u = (mu / c1) / (sqrt(nu / c2) + eps);  p += -lr * u. The bias
-        # corrections c = 1 - b ** count are taken in float32, as optax takes
-        # them: at count 1, 1 - float32(0.999) is 1.3e-5 off 0.001
-        c1, c2 = (float(np.float32(1.0) - np.float32(b) ** np.float32(count))
-                  for b in (self.b1, self.b2))
-        denom = torch._foreach_div(nu, c2)
+        # the schedule at the count BEFORE the update, the corrections at
+        # the count after it
+        table = self.tables(params[0].device)
+        last = table.shape[1] - 1
+        count = scalars["count"]
+        lr = table[0].index_select(0, count.clamp(max=last).view(1))
+        c1, c2 = table[1:].index_select(
+            1, (count + 1).clamp(max=last).view(1)).unbind(0)
+        # u = (mu / c1) / (sqrt(nu / c2) + eps);  p += -lr * u
+        denom = torch._foreach_div(nu, c2[0])
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        updates = torch._foreach_div(mu, c1)
+        updates = torch._foreach_div(mu, c1[0])
         torch._foreach_div_(updates, denom)
-        torch._foreach_add_(params, updates, alpha=-lr)
-        state["count"] = count
-        return True
+        torch._foreach_mul_(updates, -lr[0])
+        torch._foreach_add_(params, updates)
+        count.add_(1)
+
+    def update(self, params: list[torch.Tensor], grads: list[torch.Tensor],
+               state: dict[str, Any],
+               scalars: dict[str, torch.Tensor] | None = None) -> bool:
+        """One micro-step, eagerly: `step_` then `advance`. `scalars`: the
+        caller's device scalars of `state` (kept in step with it); without
+        them they are made from the host integers for this call. Returns
+        whether the parameters moved."""
+        if scalars is None:
+            scalars = self.scalars(state, params[0].device)
+        apply = self.applies(state)
+        self.step_(params, grads, state, scalars, apply)
+        self.advance(state, apply)
+        return apply
 
 
 def make_optimizer(*, lr: float, total_iter: int, final_ratio: float = 0.01,
@@ -133,7 +212,8 @@ def make_optimizer(*, lr: float, total_iter: int, final_ratio: float = 0.01,
     if optimizer != "adam":
         raise ValueError(f"unknown optimizer: {optimizer!r}")
     schedule = iter_exponential(lr, total_iter, final_ratio, warmup_steps)
-    return Optimizer(schedule, max_grad_norm, accumulation_steps)
+    return Optimizer(schedule, max_grad_norm, accumulation_steps,
+                     schedule_constant_from=max(total_iter, warmup_steps))
 
 
 def create_train_state(model: torch.nn.Module, tx: Optimizer) -> TrainState:

@@ -19,6 +19,17 @@ trainer (`src/trainer/discriminative_trainer.py:36-770`):
   * One device. `fsdp`, `sequence_parallel`, `head_tile` and the
     memory-saving optimizers keep their `TrainerConfig` fields and raise
     NotImplementedError at any value but the default.
+  * One program per step. On the card the step -- forward, backward, the
+    guarded gradients, the clip, Adam and the float32-master update -- is
+    captured as one CUDA graph (`_StepPrograms`), as the JAX trainer jits it
+    whole: the batch and the step's random draws are copied into static
+    buffers, the parameters, the optimizer state and the step's device
+    scalars (`train/state.py`) are updated in place, and a replay launches
+    the whole step. One graph per batch signature and per kind of
+    micro-step (accumulate only, or accumulate and apply), at most
+    `MAX_STEP_PROGRAMS` kept, as `jit` retraces for a new shape. The eager
+    step runs the same device program op by op (`captured=False`, and the
+    default on the CPU), so the two are bitwise equal.
   * Checkpoint/resume via `torch.save`: params, optimizer state, step,
     epoch, batch-in-epoch, best metric, in_evaluation flag -- the reference
     saves the same set (:709-727). Resume is exact: all data randomness is
@@ -36,6 +47,7 @@ tracker banks, best-model selection on the aligned-overall main metric.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import os
@@ -52,6 +64,7 @@ from ..utils.loss import get_loss
 from ..utils.metrics import (METRIC_FNS, MetricTracker,
                              compute_metrics_per_sample)
 from ..utils.profiling import StepTimer, start_trace, stop_trace
+from ..utils.graphs import capture
 from .state import create_train_state, make_optimizer
 
 __all__ = ["DiscriminativeTrainer", "TrainerConfig", "LOSS_STRATEGIES"]
@@ -62,6 +75,7 @@ LOSS_STRATEGIES = ("invisible_part", "entire_target_object", "entire_scene",
                    "ssi invisible_part", "ssi entire_target_object")
 
 CHECKPOINT_FILE = "state.pt"
+MAX_STEP_PROGRAMS = 4   # captured train steps kept per trainer
 # fields of the JAX TrainerConfig whose features are not ported yet: any
 # value but the default raises NotImplementedError
 _DEFERRED_DEFAULTS = {"fsdp": False, "sequence_parallel": False,
@@ -138,7 +152,10 @@ class DiscriminativeTrainer:
 
     `model`: the module to train (`models.get_model`); the trainer moves it
     to `device` in float32 and owns it from then on. Without `params` (a
-    state dict) the weights are drawn from `seed`."""
+    state dict) the weights are drawn from `seed`. `captured`: run each
+    train step as one program over static buffers, captured as a CUDA graph
+    on the card (default: on the card; False runs the same step eagerly; on
+    the CPU, True runs the static-buffer program without a graph)."""
 
     # the submodule the optimizer moves (None: every parameter); the others
     # keep requires_grad=False and stay out of the optimizer state
@@ -147,7 +164,8 @@ class DiscriminativeTrainer:
     def __init__(self, cfg: TrainerConfig, model: torch.nn.Module,
                  train_loader, val_loaders=None, vis_loaders=None, *,
                  device="cuda", out_dir_ckpt=None, out_dir_eval=None,
-                 out_dir_vis=None, params=None, seed: int = 0):
+                 out_dir_vis=None, params=None, seed: int = 0,
+                 captured: bool | None = None):
         for name, default in _DEFERRED_DEFAULTS.items():
             if getattr(cfg, name) != default:
                 raise NotImplementedError(
@@ -159,6 +177,10 @@ class DiscriminativeTrainer:
         self.device = torch.device(device)
         self.dtype = getattr(torch, cfg.compute_dtype)
         apply_precision_policy(self.dtype)
+        if self.device.type == "cuda":
+            # deterministic cuDNN backward algorithms: a step gives the
+            # same bits every time, eagerly or replayed
+            torch.backends.cudnn.deterministic = True
         self.train_loader = train_loader
         self.val_loaders = val_loaders or []
         self.vis_loaders = vis_loaders or []
@@ -205,6 +227,10 @@ class DiscriminativeTrainer:
         self.step_timer = StepTimer()
         self._micro_step_count = 0
         self._trace = None
+        self.captured = (self.device.type == "cuda" if captured is None
+                         else bool(captured))
+        self._scalars = None      # the optimizer's device scalars
+        self._programs = _StepPrograms(self)
 
     def _init_weights(self, generator: torch.Generator) -> None:
         """Seeded random weights for a run without `params`: the model's own
@@ -241,7 +267,12 @@ class DiscriminativeTrainer:
             pred = resize_nearest(pred, size=tuple(gt.shape[1:3]))
         return pred
 
-    def loss_of(self, batch: dict) -> torch.Tensor:
+    def _step_draws(self, batch: dict) -> dict:
+        """The random draws of the next train step, made before it runs
+        (none here; the DepthFM trainers draw their noise and timesteps)."""
+        return {}
+
+    def loss_of(self, batch: dict, draws: dict | None = None) -> torch.Tensor:
         """The guarded scalar loss of one device batch."""
         cfg = self.cfg
         pred = self._predict(batch, cfg.remat)
@@ -252,26 +283,42 @@ class DiscriminativeTrainer:
         # NaN guard (reference zero-loss fallback, :246-251)
         return torch.where(torch.isfinite(loss), loss, 0.0)
 
-    def loss_and_grads(self, batch: dict):
+    def loss_and_grads(self, batch: dict, draws: dict | None = None):
         """(loss, gradients by parameter name), the gradients guarded:
-        non-finite entries are 0, as are those of unused parameters."""
+        non-finite entries are 0, as are those of unused parameters.
+        `draws`: the step's random draws (default: `_step_draws`)."""
+        if draws is None:
+            draws = self._step_draws(batch)
         params = self.state.params
-        for p in params.values():
-            p.grad = None
-        loss = self.loss_of(batch)
-        loss.backward()
-        grads = {}
-        for name, p in params.items():
-            g = torch.zeros_like(p) if p.grad is None else p.grad
-            grads[name] = torch.nan_to_num_(g, nan=0.0, posinf=0.0,
-                                            neginf=0.0)
-            p.grad = None
-        return loss.detach(), grads
+        loss = self.loss_of(batch, draws)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        guarded = {}
+        for (name, p), g in zip(params.items(), grads):
+            g = torch.zeros_like(p) if g is None else g
+            guarded[name] = torch.nan_to_num_(g, nan=0.0, posinf=0.0,
+                                              neginf=0.0)
+        return loss.detach(), guarded
+
+    def _step_body(self, batch: dict, draws: dict, apply: bool):
+        """The device program of one micro-step: loss, guarded gradients
+        and the optimizer's `step_`. Reads no host value of the step."""
+        loss, grads = self.loss_and_grads(batch, draws)
+        self.tx.step_(list(self.state.params.values()), list(grads.values()),
+                      self.state.opt_state, self._scalars, apply)
+        return loss
 
     def _train_step(self, batch: dict) -> torch.Tensor:
-        loss, grads = self.loss_and_grads(batch)
-        self.tx.update(list(self.state.params.values()),
-                       list(grads.values()), self.state.opt_state)
+        opt_state = self.state.opt_state
+        if self._scalars is None:
+            self._scalars = self.tx.scalars(opt_state, self.device)
+        draws = self._step_draws(batch)
+        apply = self.tx.applies(opt_state)
+        if self.captured:
+            loss = self._programs.run(batch, draws, apply)
+        else:
+            loss = self._step_body(batch, draws, apply)
+        self.tx.advance(opt_state, apply)
         self.state.step += 1
         return loss
 
@@ -544,7 +591,7 @@ class DiscriminativeTrainer:
         with torch.no_grad():
             for name, p in params.items():
                 p.copy_(tree["params"][name])
-        self.state.opt_state = tree["opt_state"]
+        self._load_opt_state(tree["opt_state"])
         self.state.step = int(tree["step"])
         if resume_training:
             meta = tree["meta"]
@@ -555,3 +602,95 @@ class DiscriminativeTrainer:
             self.in_evaluation = bool(meta["in_evaluation"])
         LOGGER.info("restored checkpoint %s (iter %d)", path,
                     self.effective_iter)
+
+    @torch.no_grad()
+    def _load_opt_state(self, loaded: dict) -> None:
+        """Restore the optimizer state in place (captured steps keep their
+        addresses), and the device scalars from its host integers."""
+        state = self.state.opt_state
+        if set(loaded) != set(state) or any(
+                len(loaded[k]) != len(v) for k, v in state.items()
+                if isinstance(v, list)):
+            raise ValueError("checkpoint optimizer state does not match the "
+                             "trainer's")
+        for key, value in loaded.items():
+            if isinstance(value, list):
+                for dst, src in zip(state[key], value):
+                    dst.copy_(src)
+            else:
+                state[key] = int(value)
+        if self._scalars is not None:
+            for key, t in self.tx.scalars(state, self.device).items():
+                self._scalars[key].copy_(t)
+
+
+class _StepPrograms:
+    """A trainer's train step as programs over static buffers, one per
+    (micro-step kind, batch signature, draw signature): captured as CUDA
+    graphs on the card, sharing one memory pool (a replay's loss is read
+    before the next replay), and run eagerly over the same buffers on the
+    CPU. At most `MAX_STEP_PROGRAMS` are kept; the oldest goes first."""
+
+    def __init__(self, trainer: DiscriminativeTrainer):
+        self.trainer = trainer
+        self.entries: collections.OrderedDict = collections.OrderedDict()
+        self.pool = None
+
+    @staticmethod
+    def _leaves(tree: dict) -> list:
+        out = []
+        for key in sorted(tree):
+            v = tree[key]
+            out.extend(v if isinstance(v, list) else [v])
+        return out
+
+    def run(self, batch: dict, draws: dict, apply: bool) -> torch.Tensor:
+        leaves = self._leaves(batch) + self._leaves(draws)
+        key = (apply, tuple(sorted(batch)), tuple(sorted(draws)),
+               tuple((tuple(t.shape), t.dtype) for t in leaves))
+        entry = self.entries.get(key)
+        if entry is None:
+            entry = self._make(batch, draws, apply)
+            self.entries[key] = entry
+            while len(self.entries) > MAX_STEP_PROGRAMS:
+                self.entries.popitem(last=False)
+        else:
+            self.entries.move_to_end(key)
+        statics, fn, graph, loss = entry
+        for static, t in zip(statics, leaves):
+            static.copy_(t)
+        if graph is None:
+            return fn()
+        graph.replay()
+        return loss.clone()
+
+    def _make(self, batch: dict, draws: dict, apply: bool):
+        t = self.trainer
+        static_batch = {k: v.clone() for k, v in batch.items()}
+        static_draws = {k: [x.clone() for x in v] if isinstance(v, list)
+                        else v.clone() for k, v in draws.items()}
+        statics = self._leaves(static_batch) + self._leaves(static_draws)
+
+        def fn():
+            return t._step_body(static_batch, static_draws, apply)
+
+        if t.device.type != "cuda":
+            return statics, fn, None, None
+        # the warm-up runs real steps: what they change is put back
+        moved = ([p for p in t.state.params.values()]
+                 + [b for b in t.model.buffers()]
+                 + self._leaves({k: v for k, v in t.state.opt_state.items()
+                                 if isinstance(v, list)})
+                 + list(t._scalars.values()))
+        saved = [x.detach().to("cpu", copy=True) for x in moved]
+
+        def restore():
+            with torch.no_grad():
+                for x, s in zip(moved, saved):
+                    x.copy_(s)
+
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graph, loss = capture(fn, device=t.device, pool=self.pool,
+                              restore=restore)
+        return statics, fn, graph, loss

@@ -55,8 +55,14 @@ plain PyTorch version on the card:
      `DiscriminativeTrainer` with the shipped recipe
      (`configs/train_discriminative_vitl.yaml`: bfloat16, remat "attn",
      Adam, clip 0.01), fed batches of 8 synthetic scenes at 518 px from
-     memory. Five steps through `trainer.train()`: finite losses, moved
-     parameters, exactly 24 forward, 24 dQ and 24 dK/dV launches per step;
+     memory. Five steps through `trainer.train()`, each one captured CUDA
+     graph (the default on the card): finite losses, moved parameters,
+     exactly 24 forward, 24 dQ and 24 dK/dV launches counted at the
+     capture's warm-up steps and the capture itself, and 24 of each in a
+     traced replay; then four eager and four captured steps from one init
+     on the same batches, bit-identical (losses, parameters, optimizer
+     state), a save -> load -> continue under capture bit-identical to the
+     unbroken run, each one's p50, device busy share and peak memory;
      one float32 step at batch 1 with the kernels against the same step
      with plain attention (loss and gradient norm within 1e-3); one
      `validate()` over two batches; steps/s, p50 step time, peak memory
@@ -73,10 +79,10 @@ plain PyTorch version on the card:
      SD-1.5 widths under `DepthFMAmodalTrainer` with the shipped recipe
      (`configs/train_depthfm_base.yaml`: bfloat16, l1 on the target object,
      remat "attn", so no UNet recompute), fed batches of 8 synthetic scenes
-     at 518 px (64 x 64 latents) from memory. Five steps through
+     at 518 px (64 x 64 latents) from memory. Five captured steps through
      `trainer.train()`: finite losses, a moved UNet, a bit-identical frozen
      VAE and text embedding, exactly 32 forward, 32 dQ and 32 dK/dV
-     launches per step; one step with `remat=True` (64 forward launches)
+     launches a step at the capture and in a traced replay; one step with `remat=True` (64 forward launches)
      beside the recipe's, with peak memory; steps/s, p50 step time, peak
      memory and a torch.profiler breakdown of one step (each attention
      instantiation, GroupNorm's plain ops, device busy against wall); one
@@ -84,7 +90,9 @@ plain PyTorch version on the card:
      plain attention (loss and UNet gradient norm within 1e-3); then two
      `DepthFMTrainer` steps under `configs/train_depthfm_ddpm_finetune.yaml`
      (v-prediction, annealed multi-resolution noise) on the plain DepthFM
-     and its `validate()` (DDIM, 4 steps);
+     and its `validate()` (DDIM, 4 steps); for both trainers four eager and
+     four captured steps bit-identical, a resume under capture, p50, busy
+     share and peak memory of each;
   9. serving at full width: (a) the phase-5 pipeline (vitg + vitl, 518 px,
      bf16, batch 4) captured by `capture_amodal_program` and (b) the
      phase-7 one (DepthFMAmodal, 512 px, 4 steps, bf16, batch 4) by
@@ -100,7 +108,16 @@ plain PyTorch version on the card:
      `python -m ...cli.serve --random` as a subprocess (it must say that it
      serves a CUDA graph; one POST, then it is stopped); (d) the
      phase-(a) pipeline's serving state saved and restored (under
-     build/, deleted after), its replay bit-identical, bytes and seconds;
+     build/, deleted after), its replay bit-identical, bytes and seconds,
+     then `cli.serve --export_artifact` on that state and `cli.serve
+     --artifact` serving the artifact over HTTP, as subprocesses; also
+     the bf16 rows of one input in every row of the bucket, eager and
+     replayed, bit-identical to each other and to a direct call at batch 1
+     (the DPT heads run one row at a time), with the replay's p50 against
+     the heads over the whole batch; and (e) both programs exported by
+     `save_*_artifact` at the phase's buckets (meta.json, seconds, bytes),
+     loaded, bound and replayed in a fresh process, bit-identical to the
+     in-process captures;
  10. the heuristics demo: (a) the forward kernel at pix2gestalt's UNet
      shapes (batch 2 at 256 px: self-attention over 1024/256/64/16 tokens
      at d 40/80/160, and onto ONE context token, where the output must be
@@ -118,22 +135,28 @@ plain PyTorch version on the card:
      in bf16 `cli.app.AmodalDepthApp.predict_arrays` in "prompt_points"
      mode on a 600 x 800 scene with point hints (amodal_mask_from_points:
      SAM at 1024 px, 100 guided DDIM steps at 256 px, RMBG at 1024 px;
-     then vitg + vitl depth at 518 px on the derived mask): one warm-up,
-     three timed calls with exactly 24 + 3,200 + 64 launches each, a
-     staged call timed stage by stage, peak memory, the mask (binary,
-     covering the visible mask, its area) and one call under
-     torch.profiler (device busy against wall);
+     then vitg + vitl depth at 518 px on the derived mask): the first call
+     captures the completion as one CUDA graph (24 + 3,200 launches
+     counted at its warm-up and its capture), three timed calls replay it
+     (64 depth launches counted each; a traced call launches 24 + 3,200 +
+     64), the captured completion bit-identical to the eager one with and
+     without DeepCache (2, 2), each timed and traced, a staged call timed
+     stage by stage, peak memory, the mask (binary, covering the visible
+     mask, its area) and one call under torch.profiler (device busy
+     against wall);
  11. evaluation and the baselines: (a) ADDeepLab, the jo_dpt
      PartialCompletionContentDPT and InvisibleStitch, each seeded at full
      width from its own config (`configs/deeplab.yaml`, `jo_baseline.yaml`,
      `invisible_stitch.yaml`: its trainer, loss and strategy, bf16, batch
      8, 518 px) on a synthetic SAM tree written to disk by
-     `data/synthetic.py`: three steps through `trainer.train()` (finite
-     losses, moved parameters and running statistics, exactly 8 + 8 + 8
-     attention launches a step at head dim 16 for ADDeepLab, 24 + 24 + 24 at
-     64 for jo_dpt, none for InvisibleStitch's plain BEiT attention),
-     steps/s, p50, peak memory, one profiled step, then
-     `validate_single_dataset`; (b) `cli.eval.main` on the checkpoint phase
+     `data/synthetic.py`: three captured steps through `trainer.train()`
+     (finite losses, moved parameters and running statistics, exactly 8 +
+     8 + 8 attention launches a step at head dim 16 for ADDeepLab, 24 + 24
+     + 24 at 64 for jo_dpt, none for InvisibleStitch's plain BEiT
+     attention, at the capture and in a traced replay), steps/s, p50, peak
+     memory, one profiled step, then `validate_single_dataset`; then four
+     eager and four captured steps of each, bit-identical, and a resume
+     under capture; (b) `cli.eval.main` on the checkpoint phase
      6 saves, `scripts.zero_shot_eval` with a seeded vitg raw base over a
      NYU-layout split of 16-bit PNGs, and `infer_image` on a 480 x 640
      image (keep-aspect input 518 x 686, output at the input's size); (c)
@@ -168,7 +191,8 @@ plain PyTorch version on the card:
      numbers; (e) `scripts.proxy_gate_v2` over the trained proxies (f32,
      224 px, 8 held-out scenes): its gate table. The kernels line counts
      the forward kernel's launches over (c) and over (d), each from 0.
-     `python3 chip_smoke.py --only 12` runs the build and phase 12 alone.
+     `python3 chip_smoke.py --only 12` runs the build and phase 12 alone
+     (`--only 6,9`: the named phases of 6, 8, 9, 10, 11 and 12).
 
 Prints a `{"kernels": [...]}` line (the backward entries also list every
 instantiation that ran, with its cases, worst error and times), the card's
@@ -279,11 +303,12 @@ BWD_MAIN_CASE = ((8, 16, 1370, 64), 1370, None, "bfloat16")
 FULL_BATCH, FULL_CALLS, SIZE = 4, 3, 518
 # serving (phase 9): timed calls of each eager call and replay, the replay's
 # tolerance against the eager call (bf16), the HTTP load, DeepCache's point
-SERVE_CALLS, REPLAY_TOL = 10, 1e-3
+SERVE_CALLS, REPLAY_TOL = 6, 1e-3
 SERVE_REQUESTS, SERVE_CLIENTS = 16, 8
 DEEP_CACHE = (2, 2)
 TRAIN_CONFIG = "configs/train_discriminative_vitl.yaml"
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_BLOCKS = 8, 5, 24
+CAPTURE_STEPS = 3   # eager and captured steps held bit for bit, per trainer
 # DepthFM training: the shipped recipes, batches of 8 synthetic scenes at
 # 518 px (the recipe's max_train_batch_size and resize_to_hw; the VAE floors
 # 518 to 64 x 64 latents); 16 self + 16 cross attentions per UNet call
@@ -1514,7 +1539,7 @@ def train_phase(gpu: str) -> dict:
         return loss
 
     trainer._train_step = recording_step
-    trainer.step_timer = StepTimer(warmup=1)   # the first step loads cuDNN
+    trainer.step_timer = StepTimer(warmup=1)   # the first captures it
     torch.cuda.reset_peak_memory_stats()
     mha.launches = mha.bwd_dq_launches = mha.bwd_dkv_launches = 0
     trainer.train()                            # the main path
@@ -1528,10 +1553,8 @@ def train_phase(gpu: str) -> dict:
           and min(losses) > 0,
           f"{TRAIN_STEPS} train steps, losses finite and positive: "
           f"{[round(x, 5) for x in losses]}")
-    for name, count in launches.items():
-        check(count == TRAIN_BLOCKS * TRAIN_STEPS,
-              f"training launched {name} {count} times "
-              f"({TRAIN_BLOCKS} per step under remat='attn')")
+    captured_launches(launches, TRAIN_BLOCKS, "training")
+    replay_launches(trainer, train_loader, TRAIN_BLOCKS, "vitl training")
     for k, old in before.items():
         new = trainer.state.params[k]
         check(bool(torch.isfinite(new).all()) and not torch.equal(new, old),
@@ -1545,9 +1568,19 @@ def train_phase(gpu: str) -> dict:
           f"steps {[round(x * 1e3, 1) for x in trainer.step_timer.durations]} "
           f"ms, peak memory {peak:.2f} GiB [{gpu}]", flush=True)
 
+    def make(captured):
+        return get_trainer_cls(cfg.trainer.name)(
+            tcfg, get_model(cfg.model.name, device="cuda",
+                            **cfg.model.kwargs.to_dict()),
+            None, device="cuda", seed=0, captured=captured)
+
+    captured_step_phase("vitl train step", make,
+                        capture_batches(trainer, scenes), gpu, RESUME_CKPT)
+
     # the remat modes on the card, forward + backward without the update:
-    # launches of the forward kernel per step, time and peak memory
-    batch8 = trainer._device_batch(next(iter(val_loader)))
+    # launches of the forward kernel per step, time and peak memory (a
+    # training batch: a step on it replays the captured program)
+    batch8 = trainer._device_batch(next(iter(train_loader)))
     for remat, want in ((False, 1), (True, 2), ("attn", 1)):
         trainer.cfg.remat = remat
         torch.cuda.reset_peak_memory_stats()
@@ -1560,7 +1593,7 @@ def train_phase(gpu: str) -> dict:
               f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
               f"GiB [{gpu}]", flush=True)
     profile_call(lambda: float(trainer._train_step(batch8)),
-                 "bf16 train step", gpu)
+                 "bf16 train step (replayed)", gpu)
     # the checkpoint phase 11 evaluates through `cli.eval`
     trainer.out_dir_ckpt = EVAL_CKPT
     t0 = time.time()
@@ -1601,6 +1634,211 @@ def train_phase(gpu: str) -> dict:
           f"{k_loss:.6f} vs {p_loss:.6f}, gradient norm {k_norm:.6e} vs "
           f"{p_norm:.6e} (within {TRAIN_F32_TOL} relative)")
     return launches
+
+
+def cudnn_reading(trainer, batch, what: str, gpu: str) -> None:
+    """What the trainer's deterministic cuDNN costs and buys: forward +
+    backward without the update, eagerly, with `cudnn.deterministic` on
+    (as the trainer sets it on the card) and off, in turns, and whether two
+    runs off give the same gradients. A reading, printed."""
+    import torch
+
+    ms = {True: [], False: []}
+    same = None
+    for det in (True, False, False, True):
+        torch.backends.cudnn.deterministic = det
+        trainer.loss_and_grads(batch)
+        ms[det].append(cuda_ms(lambda: trainer.loss_and_grads(batch), 2,
+                               warmup=0))
+        if not det and same is None:
+            g1 = trainer.loss_and_grads(batch)[1]
+            g2 = trainer.loss_and_grads(batch)[1]
+            same = all(torch.equal(g1[k], g2[k]) for k in g1)
+            del g1, g2
+    torch.backends.cudnn.deterministic = True
+    print(f"  {what}: eager forward + backward with deterministic cuDNN "
+          f"{[round(x, 1) for x in ms[True]]} ms, without "
+          f"{[round(x, 1) for x in ms[False]]} ms (two runs without give "
+          f"{'the same' if same else 'different'} gradients) [{gpu}]",
+          flush=True)
+
+
+def captured_launches(launches: dict, per_step: int, what: str) -> None:
+    """The counters of a `train()` whose steps are captured: each kernel's
+    launches of one step at the capture's warm-up and the capture itself
+    (the Python counters count those; a replay counts none)."""
+    from amodal_depth_anything_tpu_torch.utils.graphs import WARMUP_CALLS
+
+    for name, count in launches.items():
+        check(count == per_step * (WARMUP_CALLS + 1),
+              f"{what} counted {name} {count} times: {per_step} a step at "
+              f"the capture's {WARMUP_CALLS} warm-up steps and the capture "
+              f"(replays launch it from the graph)")
+
+
+def replay_launches(trainer, loader, per_step: int, what: str) -> None:
+    """One more captured step, traced: the attention kernels' launches in
+    the replay's trace (`per_step` each), printed. A reading, not a check:
+    the profiler has dropped a graph node's event now and then (PR 10)."""
+    batch = trainer._device_batch(next(iter(loader)))
+    _, _, got = trace_call(lambda: float(trainer._train_step(batch)), names=(
+        "flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"))
+    print(f"  {what}: a traced replay of the captured step shows {got} "
+          f"launches ({per_step} each launched)", flush=True)
+
+
+def trainer_like(_loader=None):
+    """What `capture_batches` needs of a trainer: `_device_batch` onto the
+    card."""
+    import torch
+
+    class _Cuda:
+        @staticmethod
+        def _device_batch(batch):
+            return {k: torch.from_numpy(v).cuda() for k, v in batch.items()
+                    if isinstance(v, np.ndarray) and v.dtype != object}
+    return _Cuda()
+
+
+def capture_batches(trainer, dataset, n: int = CAPTURE_STEPS) -> list:
+    """`n` device batches of the training batch size from `dataset`."""
+    from amodal_depth_anything_tpu_torch.data import DataLoader
+
+    loader = DataLoader(dataset, batch_size=TRAIN_BATCH, shuffle=True,
+                        drop_last=True, seed=1)
+    out = []
+    epoch = 0
+    while len(out) < n:
+        loader.set_epoch(epoch)
+        out += [trainer._device_batch(b) for b in loader][:n - len(out)]
+        epoch += 1
+    return out
+
+
+def trainer_state(trainer) -> list:
+    """Every tensor a train step changes, copied to the host in a fixed
+    order: the model's state dict (parameters and BatchNorm statistics),
+    the optimizer state and the step's device scalars."""
+    out = [v.detach().cpu().clone() for v in
+           trainer.model.state_dict().values()]
+    for key in sorted(trainer.state.opt_state):
+        value = trainer.state.opt_state[key]
+        if isinstance(value, list):
+            out += [v.detach().cpu().clone() for v in value]
+    out += [v.cpu().clone() for v in (trainer._scalars or {}).values()]
+    return out
+
+
+def captured_step_phase(what: str, make, batches: list, gpu: str,
+                        ckpt: str, resume: bool = True,
+                        cudnn: bool = False) -> dict:
+    """The captured train step against the eager one: two trainers from one
+    init (`make(captured=...)`), `len(batches)` steps each on the same device
+    batches; losses, parameters, BatchNorm statistics, optimizer state and
+    device scalars bit-identical. Then (`resume`) a resume under capture:
+    the captured trainer saved after two steps, a fresh captured trainer
+    loading it and taking the rest, bit-identical to the unbroken run;
+    (`cudnn`) `cudnn_reading` on the eager trainer. Then the captured
+    step's p50 over the steps after the first, one profiled replay (device
+    busy, launches by kernel) and peak memory. Returns {p50_ms, busy_pct,
+    peak_gib, launches: {kernel: per replay}, eager_p50_ms}."""
+    import torch
+
+    def timed(trainer):
+        losses, ms = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(trainer._train_step(b)))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms
+
+    torch.cuda.reset_peak_memory_stats()
+    eager = make(captured=False)
+    eager_losses, eager_ms = timed(eager)
+    eager_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    eager_state = trainer_state(eager)
+    e_wall, e_busy, _ = trace_call(
+        lambda: float(eager._train_step(batches[-1])))
+    if cudnn:
+        cudnn_reading(eager, batches[0], what, gpu)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cap = make(captured=True)
+    cut = 2
+    losses, ms = [], []
+    for i, b in enumerate(batches):
+        if i == cut and resume:
+            cap.out_dir_ckpt = ckpt
+            cap.save_checkpoint("resume")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(cap._train_step(b)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cap_state = trainer_state(cap)
+    same = [torch.equal(a, b) for a, b in zip(eager_state, cap_state)]
+    check(losses == eager_losses and all(same)
+          and len(same) == len(eager_state),
+          f"{what}: {len(batches)} captured steps bit-identical to eager "
+          f"ones (losses {[round(x, 6) for x in losses]}; {sum(same)} of "
+          f"{len(same)} state tensors equal)")
+    wall, busy, counts = trace_call(
+        lambda: float(cap._train_step(batches[-1])),
+        names=("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+               "*"))
+    total = counts.pop("*")
+    del cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not resume:
+        return _captured_summary(what, ms, eager_ms, wall, busy, e_wall,
+                                 e_busy, total, counts, peak, eager_peak,
+                                 gpu)
+    resumed = make(captured=True)
+    resumed.load_checkpoint(os.path.join(ckpt, "resume"))
+    check(resumed.state.step == cut, f"{what}: resumed at step {cut}")
+    rest = [float(resumed._train_step(b)) for b in batches[cut:]]
+    got = trainer_state(resumed)
+    same = [torch.equal(a, b) for a, b in zip(cap_state, got)]
+    check(rest == losses[cut:] and all(same),
+          f"{what}: save after {cut} captured steps -> load -> "
+          f"{len(batches) - cut} more, bit-identical to the unbroken run "
+          f"({sum(same)} of {len(same)} state tensors equal)")
+    del resumed
+    shutil.rmtree(os.path.join(ckpt, "resume"), ignore_errors=True)
+    return _captured_summary(what, ms, eager_ms, wall, busy, e_wall, e_busy,
+                             total, counts, peak, eager_peak, gpu)
+
+
+def _captured_summary(what, ms, eager_ms, wall, busy, e_wall, e_busy, total,
+                      counts, peak, eager_peak, gpu) -> dict:
+    """`captured_step_phase`'s printed line and returned numbers."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    p50 = float(np.median(ms[1:])) if len(ms) > 1 else ms[0]
+    e50 = float(np.median(eager_ms[1:])) if len(ms) > 1 else eager_ms[0]
+    pct = None if busy is None else 100 * busy / wall
+    e_pct = None if e_busy is None else 100 * e_busy / e_wall
+    print(f"  {what}: captured step p50 {p50:.1f} ms (eager {e50:.1f} ms) "
+          f"over {[round(x, 1) for x in ms]} / "
+          f"{[round(x, 1) for x in eager_ms]} ms; one profiled replay: "
+          f"wall {wall:.1f} ms, device busy {as_ms(busy)} "
+          f"({'not measured' if pct is None else f'{pct:.1f}%'}), {total} "
+          f"device events, attention {counts}; one profiled eager step: "
+          f"wall {e_wall:.1f} ms, busy {as_ms(e_busy)} "
+          f"({'not measured' if e_pct is None else f'{e_pct:.1f}%'}); "
+          f"peak memory "
+          f"{peak:.2f} GiB captured, {eager_peak:.2f} GiB eager [{gpu}]",
+          flush=True)
+    return {"p50_ms": p50, "eager_p50_ms": e50, "busy_pct": pct,
+            "eager_busy_pct": e_pct,
+            "peak_gib": peak, "eager_peak_gib": eager_peak,
+            "launches": counts, "kernels": total}
 
 
 def step_breakdown(prof) -> None:
@@ -1662,7 +1900,7 @@ def depthfm_train_phase(gpu: str) -> dict:
     def zero_counts():
         mha.launches = mha.bwd_dq_launches = mha.bwd_dkv_launches = 0
 
-    def build(path, steps, loader, val_loader):
+    def build(path, steps, loader, val_loader, captured=None):
         cfg = recursive_load_config(path)
         # one card and batches of 8: no accumulation; no warm-up, so that
         # no step has a learning rate of 0; no periodic callbacks
@@ -1674,8 +1912,8 @@ def depthfm_train_phase(gpu: str) -> dict:
                           **cfg.model.kwargs.to_dict())
         trainer = get_trainer_cls(cfg.trainer.name)(
             tcfg, model, loader, [val_loader], device="cuda", seed=0,
-            **trainer_kwargs_from_cfg(cfg))
-        trainer.step_timer = StepTimer(warmup=1)   # the first loads cuDNN
+            captured=captured, **trainer_kwargs_from_cfg(cfg))
+        trainer.step_timer = StepTimer(warmup=1)   # the first captures it
         return cfg, tcfg, trainer
 
     def run(trainer):
@@ -1736,9 +1974,9 @@ def depthfm_train_phase(gpu: str) -> dict:
           and bool(np.isfinite(losses).all()) and min(losses) > 0,
           f"{DEPTHFM_TRAIN_STEPS} DepthFMAmodal train steps, losses finite "
           f"and positive: {[round(x, 5) for x in losses]}")
-    check(launches == (UNET_ATTN * DEPTHFM_TRAIN_STEPS,) * 3,
-          f"DepthFM training launched fwd, dq, dkv {launches} times "
-          f"({UNET_ATTN} each per step: 16 self + 16 cross)")
+    captured_launches(dict(zip(("fwd", "dq", "dkv"), launches)), UNET_ATTN,
+                      "DepthFM training (16 self + 16 cross a step)")
+    replay_launches(trainer, loader, UNET_ATTN, "DepthFM training")
     for k, old in unet.items():
         new = trainer.state.params[k]
         check(bool(torch.isfinite(new).all()) and not torch.equal(new, old),
@@ -1761,7 +1999,8 @@ def depthfm_train_phase(gpu: str) -> dict:
 
     # UNet recompute on the card, forward + backward without the update:
     # forward launches per step, time and peak memory beside the default's
-    batch8 = trainer._device_batch(next(iter(val_loader)))
+    # (a training batch: a step on it replays the captured program)
+    batch8 = trainer._device_batch(next(iter(loader)))
     for remat, want in ((True, 2), ("attn", 1)):   # ends at the recipe's
         trainer.cfg.remat = remat
         torch.cuda.reset_peak_memory_stats()
@@ -1775,7 +2014,7 @@ def depthfm_train_phase(gpu: str) -> dict:
               f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
               f"GiB [{gpu}]", flush=True)
     prof = profile_call(lambda: float(trainer._train_step(batch8)),
-                        "bf16 DepthFM train step", gpu)
+                        "bf16 DepthFM train step (replayed)", gpu)
     if prof is not None:
         step_breakdown(prof)
     del batch8, prof
@@ -1813,6 +2052,11 @@ def depthfm_train_phase(gpu: str) -> dict:
           f"{p_norm:.6e} (within {TRAIN_F32_TOL} relative)")
     del t32, model, batch1
     torch.cuda.empty_cache()
+    captured_step_phase(
+        "DepthFMAmodal train step",
+        lambda captured: build(DEPTHFM_TRAIN_CONFIG, 1, None, None,
+                               captured)[2],
+        capture_batches(trainer_like(loader), scenes), gpu, RESUME_CKPT)
 
     # the DDPM finetune (v-prediction, annealed multi-resolution noise) on
     # the plain DepthFM at the same widths
@@ -1827,12 +2071,12 @@ def depthfm_train_phase(gpu: str) -> dict:
           f"none), v-prediction, annealed multi-resolution noise, mse_loss")
     ddpm_losses, ddpm_launches, ddpm_peak = run(trainer)
     check(len(ddpm_losses) == DDPM_TRAIN_STEPS
-          and bool(np.isfinite(ddpm_losses).all()) and min(ddpm_losses) > 0
-          and ddpm_launches == (UNET_ATTN * DDPM_TRAIN_STEPS,) * 3,
+          and bool(np.isfinite(ddpm_losses).all()) and min(ddpm_losses) > 0,
           f"{DDPM_TRAIN_STEPS} DDPM train steps: losses "
-          f"{[round(x, 5) for x in ddpm_losses]} finite and positive, fwd, "
-          f"dq, dkv launches {ddpm_launches} ({UNET_ATTN} each per step); "
+          f"{[round(x, 5) for x in ddpm_losses]} finite and positive; "
           f"peak memory {ddpm_peak:.2f} GiB [{gpu}]")
+    captured_launches(dict(zip(("fwd", "dq", "dkv"), ddpm_launches)),
+                      UNET_ATTN, "DDPM training")
     results = trainer.validate()
     bank = results[scenes.disp_name]
     values = [bank[b][m] for b in ("overall", "align_overall")
@@ -1841,6 +2085,15 @@ def depthfm_train_phase(gpu: str) -> dict:
           f"DepthFMTrainer validate() over 1 batch of {TRAIN_BATCH} (DDIM, 4 "
           f"steps): 10 metrics x (raw, aligned) finite; abs_rel aligned "
           f"{bank['align_overall']['abs_relative_difference']:.4f}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    captured_step_phase(
+        "DDPM train step",
+        lambda captured: build(DDPM_TRAIN_CONFIG, 1, None, None,
+                               captured)[2],
+        capture_batches(trainer_like(loader), scenes), gpu, RESUME_CKPT,
+        resume=False)
     return {"flash_attn_fwd": launches[0], "flash_attn_bwd_dq": launches[1],
             "flash_attn_bwd_dkv": launches[2], "ddpm": ddpm_launches}
 
@@ -1850,7 +2103,8 @@ def trace_call(fn, names=("flash_attn_fwd",)):
     (wall ms, device-busy ms, {name: launches}) with device busy the sum of
     every kernel and copy event (None when the profiler recorded no device
     time) and the launches those of each kernel whose name holds `name`;
-    the kernel nodes of a replayed CUDA graph count as launches."""
+    the kernel nodes of a replayed CUDA graph count as launches; the name
+    "*" counts every device event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1865,7 +2119,7 @@ def trace_call(fn, names=("flash_attn_fwd",)):
             seen = True
             busy += e.time_range.elapsed_us() / 1e3
             for name in names:
-                counts[name] += name + "_" in e.name
+                counts[name] += name == "*" or name + "_" in e.name
     return wall_ms, busy if seen else None, counts
 
 
@@ -1939,7 +2193,8 @@ def capture(make, what: str):
     return served
 
 
-def serve_cli_check(gpu: str, state: str, body: bytes, want) -> None:
+def serve_cli_check(gpu: str, state: str, body: bytes, want,
+                    extra: tuple = ()) -> None:
     """`python -m amodal_depth_anything_tpu_torch.cli.serve --serving_state
     STATE --max_batch 4` on the card as a subprocess, as a user starts the
     server: it restores the full-width state of phase (d), captures its
@@ -1958,7 +2213,7 @@ def serve_cli_check(gpu: str, state: str, body: bytes, want) -> None:
     proc = subprocess.Popen(
         [sys.executable, "-m", "amodal_depth_anything_tpu_torch.cli.serve",
          "--serving_state", state, "--port", "0",
-         "--max_batch", str(FULL_BATCH)],
+         "--max_batch", str(FULL_BATCH), *extra],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
         line, deadline = "", time.time() + 300
@@ -1969,9 +2224,9 @@ def serve_cli_check(gpu: str, state: str, body: bytes, want) -> None:
             if proc.poll() is not None:
                 break
         up = time.time() - t0
+        what = " ".join(("cli.serve --serving_state",) + extra[:1])
         check("serving on" in line and "CUDA graph" in line,
-              f"cli.serve --serving_state on the card serves a CUDA graph: "
-              f"{line.strip()!r}")
+              f"{what} on the card serves a CUDA graph: {line.strip()!r}")
         if "serving on" not in line:
             return
         port = re.search(r":(\d+) ", line).group(1)
@@ -1988,12 +2243,185 @@ def serve_cli_check(gpu: str, state: str, body: bytes, want) -> None:
         check(code == 200 and err <= 1.0 / 65535 + 1e-3,
               f"cli.serve POST answered {code}; depth vs the direct call "
               f"max abs {err:.3e} <= one uint16 step + 1e-3")
-        print(f"  cli.serve --serving_state subprocess: up in {up:.1f} s "
-              f"(process start, state read, capture), one POST in "
-              f"{ms:.1f} ms [{gpu}]", flush=True)
+        print(f"  {what} subprocess: up in {up:.1f} s (process start, "
+              f"state read, capture), one POST in {ms:.1f} ms [{gpu}]",
+              flush=True)
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+def batch_rows_phase(pipe, served, img, mask, gpu: str) -> None:
+    """Batch-row invariance of the served bf16 program: one input in every
+    row of the bucket gives the same bits in every row, eagerly and
+    replayed, and a direct call at batch 1 gives those bits too (the JAX
+    server's contract). Then the price of the route: the replay's p50 with
+    the DPT heads one row at a time (served) against the heads over the
+    whole batch (a capture of `amodal_depth_graph` with
+    head_batch_tile=None), in turns."""
+    from amodal_depth_anything_tpu_torch.pipeline.amodal_pipeline import \
+        amodal_depth_graph
+    from amodal_depth_anything_tpu_torch.pipeline.aot import \
+        CapturedAmodalServing
+
+    one = np.repeat(img[:1], FULL_BATCH, 0), np.repeat(mask[:1], FULL_BATCH,
+                                                       0)
+    direct = pipe(one[0][:1], one[1][:1])
+    for label, fn in (("eager", pipe), ("replay", served)):
+        outs = fn(*one)
+        rows = [max(float(np.abs(o[b] - o[0]).max()) for o in outs)
+                for b in range(FULL_BATCH)]
+        batch1 = max(float(np.abs(o[0] - d[0]).max())
+                     for o, d in zip(outs, direct))
+        check(max(rows) == 0.0 and batch1 == 0.0,
+              f"bf16 {label} at batch {FULL_BATCH}: one input in every row "
+              f"gives the same bits in every row (max abs to row 0: {rows}) "
+              f"and those of a direct call at batch 1 (max abs {batch1})")
+
+    def untiled(b):
+        def fn(image, m):
+            base, blended = amodal_depth_graph(
+                pipe.raw_model, pipe.amodal_model, image, m, size=pipe.size,
+                attn_impl=pipe.attn_impl, head_batch_tile=None)
+            return base.float(), blended.float()
+        return fn
+
+    before = capture(lambda: CapturedAmodalServing(
+        device=pipe.device, dtype=pipe.dtype, size=pipe.size,
+        batches=FULL_BATCH, hw=served.hw, names=["image", "mask"],
+        make_fn=untiled), "vitg + vitl bf16, heads over the whole batch")
+    lat = {"whole batch": [], "one row": []}
+    for label, fn in (("whole batch", before), ("one row", served),
+                      ("one row", served), ("whole batch", before)):
+        for _ in range(SERVE_CALLS):
+            t = time.perf_counter()
+            fn(img, mask)
+            lat[label].append((time.perf_counter() - t) * 1e3)
+    outs = before(*one)
+    spread = max(float(np.abs(o[b] - o[0]).max()) for o in outs
+                 for b in range(FULL_BATCH))
+    print(f"  batch-row route priced on the replay, bf16 batch "
+          f"{FULL_BATCH}: heads over the whole batch p50 "
+          f"{np.median(lat['whole batch']):.2f} ms (rows of one input "
+          f"differ by up to {spread:.4g}), one row at a time p50 "
+          f"{np.median(lat['one row']):.2f} ms [{gpu}]", flush=True)
+
+
+def depthfm_artifact(dfm, img, mask, obs, hw, gpu: str):
+    """(e) DepthFM's program exported by `save_depthfm_artifact` at the
+    phase's bucket, at ARTIFACT_DFM_STEPS Euler steps (the export's time
+    grows with the program's length; the code path is the same at any
+    count), with meta.json, seconds and bytes; and the in-process capture
+    at that count, whose output on (img, mask, obs) the fresh process must
+    give. Returns (artifact dir, that output)."""
+    from amodal_depth_anything_tpu_torch.pipeline.aot import (
+        capture_depthfm_program, save_depthfm_artifact)
+
+    path = os.path.join(BUILD, "artifact_smoke_depthfm")
+    shutil.rmtree(path, ignore_errors=True)
+    steps, dfm.num_steps = dfm.num_steps, ARTIFACT_DFM_STEPS
+    try:
+        t0 = time.time()
+        meta = save_depthfm_artifact(dfm, path, batches=(DEPTHFM_BATCH,),
+                                     hw=hw)
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        print(f"  DepthFM artifact ({ARTIFACT_DFM_STEPS} Euler step): batch "
+              f"{DEPTHFM_BATCH} at {hw}, exported in "
+              f"{meta['export_seconds']} s ({time.time() - t0:.1f} s with "
+              f"meta), {size / 1e6:.1f} MB on disk; meta "
+              f"{ {k: meta[k] for k in ARTIFACT_META} } csrc "
+              f"{meta['csrc_sha256'][:12]} [{gpu}]", flush=True)
+        want = capture_depthfm_program(dfm, batch=DEPTHFM_BATCH, hw=hw)(
+            img, mask, obs)
+    finally:
+        dfm.num_steps = steps
+    return path, want
+
+
+def replica_start(amodal_dir: str, amodal_in, dfm_dir: str, dfm_in):
+    """(e) Start the fresh process (`ARTIFACT_CHILD`) that loads both
+    artifacts, binds them to the same seeded weights built there, captures
+    and replays them on the same inputs. Returns (process, its I/O dir,
+    start time); `replica_finish` waits for it."""
+    root = os.path.join(BUILD, "artifact_smoke_io")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    for name, a in (("a_img", amodal_in[0]), ("a_mask", amodal_in[1]),
+                    ("d_img", dfm_in[0]), ("d_mask", dfm_in[1]),
+                    ("d_obs", dfm_in[2])):
+        np.save(os.path.join(root, name + ".npy"), a)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", ARTIFACT_CHILD, root, amodal_dir, dfm_dir,
+         str(SIZE), str(DEPTHFM_SIZE)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, root, time.time()
+
+
+def replica_finish(started, amodal_want, dfm_want, gpu: str) -> None:
+    """(e) The fresh process's replays bit-identical to the in-process
+    captures."""
+    proc, root, t0 = started
+    try:
+        out, _ = proc.communicate(timeout=900)
+        seconds = time.time() - t0
+        check(proc.returncode == 0,
+              f"artifact replica process exited {proc.returncode}: "
+              f"{out.strip()[-1500:]}")
+        if proc.returncode != 0:
+            return
+        lines = [ln for ln in out.splitlines() if "artifact:" in ln]
+        print("  " + "; ".join(lines) + f" [{gpu}]", flush=True)
+        for name, want in (("amodal", amodal_want), ("depthfm", dfm_want)):
+            got = np.load(os.path.join(root, f"{name}_out.npz"))
+            same = [np.array_equal(got[f"o{i}"], o)
+                    for i, o in enumerate(want)]
+            check(all(same),
+                  f"{name} artifact loaded, bound and replayed in a fresh "
+                  f"process ({seconds:.1f} s for both): bit-identical to the "
+                  f"in-process capture ({same})")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# the fresh process of `artifact_replica_check`: the seeded pipelines built
+# anew (their weights), the artifacts loaded and bound to them, captured and
+# replayed; outputs written beside the inputs
+ARTIFACT_CHILD = """
+import os, sys, time
+import numpy as np, torch
+from amodal_depth_anything_tpu_torch.pipeline import (
+    AmodalDepthPipeline, DepthFMPipeline, ExportedAmodalServing,
+    ExportedDepthFMServing)
+root, amodal_dir, dfm_dir = sys.argv[1:4]
+size, dsize = map(int, sys.argv[4:6])
+def load(name):
+    return np.load(os.path.join(root, name + ".npy"))
+pipe = AmodalDepthPipeline.init_random(
+    0, encoder="vitl", base_encoder="vitg", size=size, device="cuda",
+    dtype=torch.bfloat16)
+t = time.time()
+h = ExportedAmodalServing.load(amodal_dir).bind(
+    pipe.raw_model.state_dict(), pipe.amodal_model.state_dict())
+print(f"amodal artifact: load + bind + capture {time.time() - t:.1f} s")
+outs = h(load("a_img"), load("a_mask"))
+np.savez(os.path.join(root, "amodal_out.npz"),
+         **{f"o{i}": o for i, o in enumerate(outs)})
+del h, pipe
+torch.cuda.empty_cache()
+dfm = DepthFMPipeline.init_random(0, tiny=False, size=dsize, device="cuda",
+                                  dtype=torch.bfloat16)
+t = time.time()
+h = ExportedDepthFMServing.load(dfm_dir).bind(dfm.model.state_dict())
+print(f"DepthFM artifact: load + bind + capture {time.time() - t:.1f} s")
+np.savez(os.path.join(root, "depthfm_out.npz"),
+         o0=h(load("d_img"), load("d_mask"), load("d_obs")))
+"""
+ARTIFACT_META = ("device", "arch", "torch_version", "cuda_version", "dtype")
+ARTIFACT_DFM_STEPS = 1
 
 
 def serving_phase(gpu: str) -> dict:
@@ -2004,10 +2432,69 @@ def serving_phase(gpu: str) -> dict:
     handle behind `cli.serve.build_server`, 16 POSTs from 8 threads of
     textured PNGs filtered as PIL filters them (Paeth rows); (d) the
     phase-(a) pipeline's serving state saved, served by `cli.serve
-    --serving_state` in a subprocess (one POST), restored and captured
-    again, bit-identical. Returns the replays' traced launch counts."""
+    --serving_state` in a subprocess (one POST), exported by `cli.serve
+    --export_artifact` (a subprocess started after (a)) and served by
+    `cli.serve --artifact` (one POST), restored and captured again,
+    bit-identical; (e) the artifacts replayed in a fresh process. Returns
+    the replays' traced launch counts."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.pipeline.amodal_pipeline import \
+        AmodalDepthPipeline
+    from amodal_depth_anything_tpu_torch.pipeline.aot import \
+        capture_amodal_program
+
+    rng = np.random.default_rng(9)
+    hw = (600, 800)
+    img = (rng.random((FULL_BATCH, *hw, 3)) * 255).astype(np.float32)
+    mask = np.zeros((FULL_BATCH, *hw), np.float32)
+    mask[:, 150:450, 250:600] = 1.0
+    obs = rng.random((FULL_BATCH, *hw)).astype(np.float32)
+
+    print("  (a) amodal capture", flush=True)
+    pipe = AmodalDepthPipeline.init_random(
+        0, encoder="vitl", base_encoder="vitg", size=SIZE, device="cuda",
+        dtype=torch.bfloat16)
+    served = capture(lambda: capture_amodal_program(
+        pipe, batch=FULL_BATCH, hw=hw), "vitg + vitl bf16")
+    amodal = eager_against_replay(
+        f"vitg + vitl bf16 batch {FULL_BATCH} at {SIZE} px", lambda: pipe(
+            img, mask), lambda: served(img, mask), FULL_BATCH, 64, gpu)
+    batch_rows_phase(pipe, served, img, mask, gpu)
+    # the serving state of (d), saved now so that `cli.serve
+    # --export_artifact` on it runs beside (b) and (c)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "serving_state_smoke")
+    art = os.path.join(os.path.dirname(path), "artifact_cli_smoke")
+    for d in (path, art):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.time()
+    pipe.save_serving(path)
+    write_s = time.time() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, files in os.walk(path) for f in files)
+    export_t0 = time.time()
+    export = subprocess.Popen(
+        [sys.executable, "-m", "amodal_depth_anything_tpu_torch.cli.serve",
+         "--serving_state", path, "--max_batch", str(FULL_BATCH),
+         "--export_artifact", art], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        return _serving_rest(gpu, pipe, served, amodal, img, mask, obs, hw,
+                             rng, path, art, write_s, nbytes, export,
+                             export_t0)
+    finally:
+        if export.poll() is None:
+            export.kill()
+            export.wait()
+        for d in (path, art):
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def _serving_rest(gpu, pipe, served, amodal, img, mask, obs, hw, rng, path,
+                  art, write_s, nbytes, export, export_t0) -> dict:
+    """Phase 9 (b)-(e), while `cli.serve --export_artifact` runs."""
     import base64
-    import shutil
     import threading
     import urllib.error
     import urllib.request
@@ -2026,23 +2513,6 @@ def serving_phase(gpu: str) -> dict:
         blended_depth_delta, check_gate)
     from amodal_depth_anything_tpu_torch.utils.host_image import (
         _filter_rows, decode_png, encode_png)
-
-    rng = np.random.default_rng(9)
-    hw = (600, 800)
-    img = (rng.random((FULL_BATCH, *hw, 3)) * 255).astype(np.float32)
-    mask = np.zeros((FULL_BATCH, *hw), np.float32)
-    mask[:, 150:450, 250:600] = 1.0
-    obs = rng.random((FULL_BATCH, *hw)).astype(np.float32)
-
-    print("  (a) amodal capture", flush=True)
-    pipe = AmodalDepthPipeline.init_random(
-        0, encoder="vitl", base_encoder="vitg", size=SIZE, device="cuda",
-        dtype=torch.bfloat16)
-    served = capture(lambda: capture_amodal_program(
-        pipe, batch=FULL_BATCH, hw=hw), "vitg + vitl bf16")
-    amodal = eager_against_replay(
-        f"vitg + vitl bf16 batch {FULL_BATCH} at {SIZE} px", lambda: pipe(
-            img, mask), lambda: served(img, mask), FULL_BATCH, 64, gpu)
 
     print("  (b) DepthFM capture", flush=True)
     dfm = DepthFMPipeline.init_random(
@@ -2080,6 +2550,7 @@ def serving_phase(gpu: str) -> dict:
           f"abs {delta['blended_mean_abs']:.4f}; gate {gate['limits']}: "
           f"{'pass' if gate['pass'] else 'fail'} (random weights; recorded, "
           f"not a check) [{gpu}]", flush=True)
+    dfm_dir, dfm_want = depthfm_artifact(dfm, img, mask, obs, hw, gpu)
     del dfm, dfm_served, cached
     torch.cuda.empty_cache()
 
@@ -2150,9 +2621,8 @@ def serving_phase(gpu: str) -> dict:
     check(codes == [200] * SERVE_REQUESTS,
           f"HTTP: {SERVE_REQUESTS} POSTs from {SERVE_CLIENTS} threads all "
           f"answered 200 ({codes})")
-    # a direct call with the request in every row of the batch: in bf16 a
-    # row's result depends on its position in the batch (not on the other
-    # rows), and the batcher may have put the request in any position
+    # a direct call with the request in every row of the batch: every row
+    # gives the same bits (`batch_rows_phase`); the spread is printed
     worst = spread = 0.0
     for i in range(4):
         img_p, msk_p = _prep(images[i], masks[i], SIZE)
@@ -2170,11 +2640,14 @@ def serving_phase(gpu: str) -> dict:
             worst = max(worst, min(
                 max(float(np.abs(g - w[p]).max()) for g, w in zip(got, want))
                 for p in range(FULL_BATCH)))
-    check(worst <= 1.0 / 65535 + 1e-3,
-          f"HTTP depth vs a direct call of the handle at the same batch "
-          f"position: max abs {worst:.3e} <= one uint16 step + 1e-3 (the "
-          f"positions of one input differ by up to {spread:.3e} in bf16)")
+    check(worst <= 1.0 / 65535 + 1e-3 and spread == 0.0,
+          f"HTTP depth vs a direct call of the handle: max abs {worst:.3e} "
+          f"<= one uint16 step + 1e-3; the rows of one input differ by "
+          f"{spread:.3e} (0)")
     lat = [r[2] for r in results if r]
+    square_in = [np.stack(a) for a in zip(*(
+        _prep(images[i], masks[i], SIZE) for i in range(FULL_BATCH)))]
+    square_want = square(*square_in)
     del square
     print(f"  HTTP: {SERVE_REQUESTS} requests, {server.batcher.dispatches} "
           f"dispatches, per-request p50 {np.median(lat) * 1e3:.1f} ms (min "
@@ -2198,22 +2671,30 @@ def serving_phase(gpu: str) -> dict:
         + f"; {sum(stages.values()):.1f} ms in all [{gpu}]", flush=True)
 
     print("  (d) serving state", flush=True)
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "serving_state_smoke")
-    shutil.rmtree(path, ignore_errors=True)
+    serve_cli_check(gpu, path, bodies[0], first)
+    out, _ = export.communicate(timeout=900)
+    check(export.returncode == 0 and "artifact written" in out,
+          f"cli.serve --export_artifact (beside (b) and (c)) in "
+          f"{time.time() - export_t0:.1f} s: {out.strip()[-300:]!r}")
+    with open(os.path.join(art, "meta.json")) as f:
+        meta = json.load(f)
+    size = sum(os.path.getsize(os.path.join(art, f)) for f in os.listdir(art))
+    print(f"  amodal artifact (cli.serve): batch {meta['batches']} at "
+          f"{meta['hw']}, exported in {meta['export_seconds']} s, "
+          f"{size / 1e6:.1f} MB on disk; meta "
+          f"{ {k: meta[k] for k in ARTIFACT_META} } csrc "
+          f"{meta['csrc_sha256'][:12]} [{gpu}]", flush=True)
+    replica = replica_start(art, square_in, dfm_dir, (img, mask, obs))
     try:
-        t0 = time.time()
-        pipe.save_serving(path)
-        write_s = time.time() - t0
-        nbytes = sum(os.path.getsize(os.path.join(d, f))
-                     for d, _, files in os.walk(path) for f in files)
-        serve_cli_check(gpu, path, bodies[0], first)
-        t0 = time.time()
-        restored = AmodalDepthPipeline.load_serving(path, device="cuda")
-        torch.cuda.synchronize()
-        read_s = time.time() - t0
+        serve_cli_check(gpu, path, bodies[0], first,
+                        extra=("--artifact", art))
     finally:
-        shutil.rmtree(path, ignore_errors=True)
+        replica_finish(replica, square_want, (dfm_want,), gpu)
+        shutil.rmtree(dfm_dir, ignore_errors=True)
+    t0 = time.time()
+    restored = AmodalDepthPipeline.load_serving(path, device="cuda")
+    torch.cuda.synchronize()
+    read_s = time.time() - t0
     check(restored.dtype == torch.bfloat16 and all(
         p.dtype == torch.bfloat16 for m in (restored.raw_model,
                                             restored.amodal_model)
@@ -2242,6 +2723,8 @@ def p2g_proxy_phase() -> None:
     from amodal_depth_anything_tpu_torch.convert.weights import \
         load_p2g_proxy
     from amodal_depth_anything_tpu_torch.heuristics import MaskHeuristics
+    from amodal_depth_anything_tpu_torch.heuristics.mask_heuristics import \
+        COMPLETION_WARMUP
     from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
 
     stacks = {}
@@ -2288,10 +2771,12 @@ def p2g_proxy_phase() -> None:
             if device == "cuda":
                 launches = mha.launches
         errs[steps] = float(np.abs(got["cuda"] - got["cpu"]).max())
-        want = 2 + 32 * steps    # the proxy's CLIP has 2 blocks
+        # the proxy's CLIP has 2 blocks; on the card the completion is
+        # captured: counted at its warm-up and its capture, not the replay
+        want = (2 + 32 * steps) * (COMPLETION_WARMUP + 1)
         check(launches == want and np.isfinite(got["cuda"]).all(),
-              f"p2g proxy completion, {steps} steps: {launches} launches "
-              f"({want}), finite")
+              f"p2g proxy completion, {steps} steps, captured: {launches} "
+              f"launches counted ({want}), finite")
     growth = (errs[HEUR_STEPS] / max(err_call, 1e-12)) ** (1 / HEUR_STEPS)
     print(f"  p2g proxy card vs CPU: one UNet call {err_call:.3e}, "
           f"completion after 10 steps {errs[10]:.3e}, after {HEUR_STEPS} "
@@ -2301,6 +2786,46 @@ def p2g_proxy_phase() -> None:
           f"p2g proxy {HEUR_STEPS}-step completion at {P2G_PROXY_SIZE} px, "
           f"card vs CPU: max abs {errs[HEUR_STEPS]:.3e} <= "
           f"{P2G_COMPLETION_TOL}")
+
+
+def completion_phase(mh, img, hint, gpu: str) -> None:
+    """The captured pix2gestalt completion against the eager one on the
+    prompt_points scene's visible mask, bit for bit, without DeepCache and
+    with DEEP_CACHE; each one's time, and a traced replay's launches and
+    device busy share."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.heuristics import \
+        get_points_from_components
+
+    hint_u8 = (hint > 0).astype(np.uint8) * 255
+    visible = mh.sam_visible_mask(img, get_points_from_components(hint_u8))
+    plain_cfg = mh.p2g_cfg
+    for spec in (None, DEEP_CACHE):
+        mh.p2g_cfg = dataclasses.replace(plain_cfg, ddim_deep_cache=spec)
+        outs, ms = {}, {}
+        for captured in (False, True, True):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            outs[captured] = mh.pix2gestalt_completion(
+                img, visible, seed=3, captured=captured)
+            ms[captured] = (time.perf_counter() - t1) * 1e3
+        wall, busy, got = trace_call(lambda: mh.pix2gestalt_completion(
+            img, visible, seed=3))
+        check(np.array_equal(outs[False], outs[True])
+              and np.isfinite(outs[True]).all(),
+              f"p2g completion, DeepCache {spec}: the captured replay "
+              f"bit-identical to the eager completion (max abs "
+              f"{float(np.abs(outs[False] - outs[True]).max())}); a traced "
+              f"replay shows {got['flash_attn_fwd']} flash_attn_fwd "
+              f"launches")
+        pct = None if busy is None else 100 * busy / wall
+        print(f"  p2g completion, DeepCache {spec}: eager {ms[False]:.1f} "
+              f"ms, replay {ms[True]:.1f} ms; traced replay wall "
+              f"{wall:.1f} ms, device busy {as_ms(busy)} "
+              f"({'not measured' if pct is None else f'{pct:.1f}%'}) "
+              f"[{gpu}]", flush=True)
+    mh.p2g_cfg = plain_cfg
 
 
 def synthetic_scene(hw):
@@ -2340,6 +2865,8 @@ def heuristics_phase(gpu: str) -> int:
     from amodal_depth_anything_tpu_torch.heuristics import (
         MaskHeuristics, get_points_from_components, host_ops,
         init_heuristics_, make_rmbg_matting_fn)
+    from amodal_depth_anything_tpu_torch.heuristics.mask_heuristics import \
+        COMPLETION_WARMUP
     from amodal_depth_anything_tpu_torch.models.rmbg import ISNet, RMBGConfig
     from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
     from amodal_depth_anything_tpu_torch.pipeline.amodal_pipeline import \
@@ -2398,21 +2925,36 @@ def heuristics_phase(gpu: str) -> int:
         dtype=torch.bfloat16)
     app = AmodalDepthApp(pipe, mh)
     img, hint = synthetic_scene(HEUR_HW)
-    app.predict_arrays(img, hint, "prompt_points", seed=0)   # warm-up
     torch.cuda.reset_peak_memory_stats()
     latencies = []
     mha.launches = 0                      # the main path starts here
+    t1 = time.perf_counter()
+    app.predict_arrays(img, hint, "prompt_points", seed=0)  # captures p2g
+    first = time.perf_counter() - t1
     for i in range(HEUR_CALLS):
         t1 = time.perf_counter()
         out = app.predict_arrays(img, hint, "prompt_points", seed=i)
         latencies.append(time.perf_counter() - t1)
     launches = mha.launches               # ... and ends here
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    per_call = HEUR_LAUNCHES + DEPTH_LAUNCHES
-    check(launches == HEUR_CALLS * per_call,
-          f"heuristics main path launched flash_attn_fwd {launches} times "
-          f"({HEUR_CALLS} x ({HEUR_LAUNCHES} completion + {DEPTH_LAUNCHES} "
-          f"depth))")
+    want = ((COMPLETION_WARMUP + 1) * HEUR_LAUNCHES
+            + (1 + HEUR_CALLS) * DEPTH_LAUNCHES)
+    check(launches == want,
+          f"heuristics main path counted flash_attn_fwd {launches} times "
+          f"({want}: the completion's {HEUR_LAUNCHES} at its "
+          f"{COMPLETION_WARMUP} warm-up and its capture in the first call, "
+          f"replays after; {DEPTH_LAUNCHES} depth launches in each of "
+          f"{1 + HEUR_CALLS} calls); the first call took {first:.1f} s")
+    wall, busy, traced = trace_call(lambda: app.predict_arrays(
+        img, hint, "prompt_points", seed=0))
+    print(f"  a traced prompt_points call: wall {wall:.1f} ms, device busy "
+          f"{as_ms(busy)}"
+          + ("" if busy is None else f" ({100 * busy / wall:.1f}%)")
+          + f", flash_attn_fwd launches in the trace "
+          f"{traced['flash_attn_fwd']} ({HEUR_LAUNCHES} from the "
+          f"completion's replay + {DEPTH_LAUNCHES} depth) [{gpu}]",
+          flush=True)
+    completion_phase(mh, img, hint, gpu)
 
     # one call stage by stage (seed 0 again), each stage synchronised
     stages, counts = {}, {}
@@ -2486,7 +3028,7 @@ def heuristics_phase(gpu: str) -> int:
           "prompt_points aligned depth finite, in [0, 1]")
     profile_call(lambda: app.predict_arrays(img, hint, "prompt_points",
                                             seed=0),
-                 "heuristics + depth call (bf16)", gpu)
+                 "heuristics + depth call (bf16, completion replayed)", gpu)
     p50 = float(np.median(latencies)) * 1e3
     print(f"  heuristics + depth bf16 at full width, {HEUR_HW[0]} x "
           f"{HEUR_HW[1]} scene: p50 {p50:.1f} ms per call, latencies "
@@ -2509,6 +3051,7 @@ BASELINE_STEPS, BASELINE_TREE = 3, 8
 EVAL_CONFIG = TRAIN_CONFIG
 BUILD = "build"
 EVAL_CKPT = os.path.join(BUILD, "smoke_eval_ckpt")
+RESUME_CKPT = os.path.join(BUILD, "smoke_resume_ckpt")
 # the mViT's self- and cross-attention (8 heads of 16 over 16 x 16 tokens at
 # 518 px, batch 8) and jo_dpt's ViT-L/16 trunk (16 heads of 64 over 32 x 32
 # + cls), q shape and keys
@@ -2649,9 +3192,8 @@ def baseline_train_case(config: str, name: str, head_dim, per_step: int,
         check(len(moved) == len(buffers),
               f"{name}: {len(moved)} of {len(buffers)} BatchNorm running "
               f"statistics moved by the train-mode steps")
-    for kernel, count in launches.items():
-        check(count == per_step * BASELINE_STEPS,
-              f"{name}: {kernel} launched {count} times ({per_step} a step)")
+    captured_launches(launches, per_step, name)
+    replay_launches(trainer, train_loader, per_step, name)
     check(dims.seen == ({head_dim} if head_dim else set()),
           f"{name}: attention head dims {sorted(dims.seen)}")
     timing = trainer.step_timer.summary()
@@ -2661,12 +3203,12 @@ def baseline_train_case(config: str, name: str, head_dim, per_step: int,
           f"{[round(x * 1e3, 1) for x in trainer.step_timer.durations]} ms, "
           f"train() wall {t_train:.1f} s ({workers} loader threads decode "
           f"the PNGs in numpy), "
-          f"peak memory {peak:.2f} GiB, launches a step: "
-          f"{ {k: v // BASELINE_STEPS for k, v in launches.items()} } at "
-          f"head dim {head_dim} [{gpu}]", flush=True)
-    b8 = trainer._device_batch(next(iter(val_loader)))
+          f"peak memory {peak:.2f} GiB, launches a step: {per_step} of "
+          f"each attention kernel at head dim {head_dim} [{gpu}]",
+          flush=True)
+    b8 = trainer._device_batch(next(iter(train_loader)))
     profile_call(lambda: float(trainer._train_step(b8)),
-                 f"{name} bf16 train step", gpu)
+                 f"{name} bf16 train step (replayed)", gpu)
     results = trainer.validate_single_dataset(val_loader, eval=True)
     vals = [results[bank][m] for bank in ("overall", "align_overall")
             for m in tcfg.eval_metrics]
@@ -2674,9 +3216,21 @@ def baseline_train_case(config: str, name: str, head_dim, per_step: int,
           f"{name}: validate_single_dataset over {len(splits['val'])} "
           f"scenes, 10 metrics x (raw, aligned) finite; abs_rel aligned "
           f"{results['align_overall']['abs_relative_difference']:.4f}")
-    del trainer, model, b8
+    # the trainer's captured step holds its graph pool: free it (the bound
+    # `step` and the closure hold the trainer too)
+    del trainer, model, b8, step, recording_step
     gc.collect()
     torch.cuda.empty_cache()
+
+    def make(captured):
+        return get_trainer_cls(cfg.trainer.name)(
+            tcfg, get_model(name, device="cuda", **cfg.model.kwargs.to_dict()),
+            None, device="cuda", seed=0, captured=captured,
+            **trainer_kwargs_from_cfg(cfg))
+
+    captured_step_phase(f"{name} train step", make,
+                        capture_batches(trainer_like(), splits["train"]), gpu,
+                        RESUME_CKPT, resume=name == "ADDeepLab", cudnn=True)
     return launches
 
 
@@ -3123,7 +3677,7 @@ def compressed_point(what, pipe, capture_fn, eager, args, launches: int,
     can drop an event of a replay in a process that has traced many times),
     peak memory, and the depth delta to `exact`; with `breakdown`, where a
     profiled replay's device time goes, by kernel."""
-    from amodal_depth_anything_tpu_torch.pipeline.aot import WARMUP_CALLS
+    from amodal_depth_anything_tpu_torch.utils.graphs import WARMUP_CALLS
     import torch
 
     from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
@@ -3491,7 +4045,10 @@ def main() -> int:
           f"{torch.cuda.device_count()}", flush=True)
     apply_precision_policy(torch.float32)
     print(f"  allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
+          f"cudnn={torch.backends.cudnn.allow_tf32}; torch.export can skip "
+          f"per-node stack traces: "
+          f"{hasattr(torch.fx.config, 'do_not_emit_stack_traces')}",
+          flush=True)
 
     only = sys.argv[sys.argv.index("--only") + 1] \
         if "--only" in sys.argv else None
@@ -3511,11 +4068,18 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"  {name}:   {line.strip()}", flush=True)
     sass_check()
-    if only == "12":                      # iterate on phase 12 alone
-        phase("[12] serving compression at full width (alone)")
-        compression_phase(gpu)
+    alone = {"6": train_phase, "8": depthfm_train_phase, "9": serving_phase,
+             "10": lambda g: (p2g_proxy_phase(), heuristics_phase(g)),
+             "11": baselines_phase, "12": compression_phase}
+    if only is not None:                  # iterate on some phases alone
+        for name in only.split(","):
+            phase(f"[{name}] alone")
+            alone[name](gpu)
+            gc.collect()
+            torch.cuda.empty_cache()
         for what in failures:
             print(f"FAILED: {what}", flush=True)
+        print(f"  took {time.time() - started:.1f} s", flush=True)
         return 1 if failures else 0
 
     phase("[3] kernels against their plain versions")

@@ -207,6 +207,36 @@ def test_build_heuristics_flag_checks(tmp_path, stack):
     assert _args().device == "cuda"
 
 
+@pytest.mark.parametrize("argv, message", [
+    (["--random", "--p2g_deep_cache", "x,y"], "must hold integers"),
+    (["--random", "--p2g_deep_cache", "3"], "must divide"),
+    (["--sam_ckpt", "s", "--p2g_ckpt", "p", "--vae_ckpt", "v",
+      "--clip_ckpt", "c", "--p2g_deep_cache", "1,2,3"], "'N' or 'N,G'"),
+    (["--heur_serving", "STATE", "--p2g_deep_cache", "4,1"], "must divide"),
+], ids=["malformed", "random-interval", "checkpoints-malformed",
+        "serving-interval"])
+def test_p2g_deep_cache_fails_before_any_io(argv, message, tmp_path,
+                                            monkeypatch):
+    """A malformed --p2g_deep_cache, and an interval that does not divide
+    the DDIM steps (100 for the released stack and --random; a serving
+    state's own, read from its serving_meta.json alone), exit before any
+    checkpoint or serving state is read."""
+    from amodal_depth_anything_tpu_torch.heuristics import MaskHeuristics
+
+    def unreachable(*_a, **_kw):
+        raise AssertionError("weights read before the flag checks")
+
+    for name in ("from_checkpoints", "load_serving", "init_random"):
+        monkeypatch.setattr(MaskHeuristics, name, unreachable)
+    state = tmp_path / "state"
+    state.mkdir()
+    (state / "serving_meta.json").write_text(
+        json.dumps({"p2g_cfg": {"ddim_steps": 10}}))
+    argv = [str(state) if a == "STATE" else a for a in argv]
+    with pytest.raises(SystemExit, match=message):
+        tapp._build_heuristics(_args(*argv))
+
+
 def test_gradio_demo_needs_gradio(apps):
     try:
         import gradio  # noqa: F401

@@ -105,17 +105,20 @@ def test_mha_autograd_matches_jax_reference_grad(b, h, nq, nk, kv_len, scale,
 
 
 def test_mha_cpu_gradient_takes_the_plain_backward(monkeypatch):
-    """On CPU tensors the Function's backward is `mha_bwd_reference`, no
-    kernel is launched, and without a gradient there is no Function."""
+    """On CPU tensors the registered backward runs the two backward ops'
+    CPU implementations, the plain arithmetic (`_bwd_plain`, once for dQ
+    and once for dK/dV), no kernel is launched, and without a gradient
+    there is no autograd node."""
     q, k, v, do = _inputs(1, 2, 40, 40, None, seed=2)
     calls = []
-    monkeypatch.setattr(fa, "mha_bwd_reference",
-                        lambda *a, **kw: calls.append(1)
-                        or mha_bwd_reference(*a, **kw))
+    plain = fa._bwd_plain
+    monkeypatch.setattr(fa, "_bwd_plain",
+                        lambda *a, **kw: calls.append(a[-2:])
+                        or plain(*a, **kw))
     before = (mha.launches, mha.bwd_dq_launches, mha.bwd_dkv_launches)
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     multi_head_attention(tq, tk, tv).backward(torch.from_numpy(do))
-    assert calls == [1] and tq.grad is not None
+    assert calls == [(True, False), (False, True)] and tq.grad is not None
     assert (mha.launches, mha.bwd_dq_launches, mha.bwd_dkv_launches) == before
     with torch.no_grad():
         assert mha(tq, tk, tv).grad_fn is None

@@ -10,7 +10,7 @@ port call. HTTP: both families' endpoints against the JAX package's
 `depthfm_params_from_jax`; the DepthFM noise is JAX's draw, handed to the
 port), decoded uint16 depth within 1e-4 + 1/65535; the 400 and 404 errors;
 `cli.serve --random --device cpu` as a subprocess polled through /healthz;
-the flags that are not ported exit with their message. The codec and the
+flags that do not go together exit with their message. The codec and the
 host resizes equal PIL's, and the server's `_prep` and `_b64_depth_to_array`
 the JAX server's, bit for bit; the quality gate's functions equal the JAX
 package's."""
@@ -295,16 +295,18 @@ def test_serve_cli_random_subprocess_on_the_cpu():
 
 @pytest.mark.parametrize("argv, message", [
     (["--random", "--int8", "wo"], "--int8 wo is a depthfm-family mode"),
-    (["--random", "--artifact", "/nonexistent"], "--artifact is not ported"),
-    (["--random", "--export_artifact", "/tmp/x"],
-     "--export_artifact is not ported"),
+    (["--artifact", "/nonexistent"], "--artifact needs --serving_state"),
+    (["--random", "--artifact", "/nonexistent", "--export_artifact",
+      "/tmp/x"], "pass one of them"),
+    (["--random", "--artifact", "/nonexistent", "--int8", "ln"],
+     "cannot be applied to a pre-compiled --artifact"),
     (["--family", "amodal", "--random", "--deep_cache", "2,2"],
      "depthfm-family knob"),
     (["--family", "depthfm", "--random", "--size", "36"], "divisible"),
     (["--family", "depthfm", "--random", "--int8", "ln"],
      "amodal-family mode"),
-], ids=["int8", "artifact", "export_artifact", "deep_cache", "size",
-        "int8-ln"])
+], ids=["int8", "artifact", "export_artifact", "artifact-int8",
+        "deep_cache", "size", "int8-ln"])
 def test_serve_cli_knob_validation(argv, message, capsys):
     with pytest.raises(SystemExit, match=message):
         serve.main(argv)
