@@ -15,13 +15,17 @@ Then `AmodalDepthPipeline.__call__` predicts base and amodal depth, and the
 prediction is fitted to the base depth by least squares over the visible
 region (`app.py:249-265`).
 
-`AmodalDepthApp.predict_arrays` is that path and returns arrays only; the
-colour render (`predict_amodal_depth`) needs matplotlib and cv2 and stays
-on the CPU's machine, as `infer_single_image` does. `build_http_demo`
-serves the flow from the standard library, its PNGs through
-`utils/host_image.py`; `build_demo` needs gradio. Everything runs on
-`--device` ("cuda" unless told otherwise). `--random` draws seeded weights
-at full width instead of reading checkpoints (smoke runs).
+`AmodalDepthApp.predict_arrays` is that path and returns arrays only;
+`predict_amodal_depth` adds the colour renders (`utils.image`: the
+Spectral_r table and the native contour drawing, bit for bit what
+matplotlib and cv2 give, so they run on the card's machine too).
+`build_http_demo` serves the flow from the standard library, its PNGs
+through `utils/host_image.py` (the native codec where it is built);
+`build_demo` needs gradio. Everything runs on `--device` ("cuda" unless
+told otherwise). `--random` draws seeded weights at full width instead of
+reading checkpoints (smoke runs). `--p2g_int8` stores the pix2gestalt UNet
+weight-only int8 (`MaskHeuristics.quantize_p2g_int8`), as the JAX app
+does.
 """
 
 from __future__ import annotations
@@ -87,7 +91,7 @@ class AmodalDepthApp:
                              mask_type: str = "amodal_mask", **heuristics_kw):
         """`predict_arrays` plus the colour renders, as the JAX app returns
         them: (base render, amodal render with the mask's contour, aligned
-        depth). The renders need matplotlib and cv2."""
+        depth)."""
         out = self.predict_arrays(image_rgb, mask, mask_type, **heuristics_kw)
         return (*self.render(out, image_rgb.shape[:2]), out["aligned"])
 
@@ -96,7 +100,7 @@ class AmodalDepthApp:
         """(base render, amodal render) [H,W,3] uint8 of `predict_arrays`'
         "base", "aligned" and "mask_s" at the image's size `hw`: the
         Spectral colour map, the amodal one with the mask's contour, resized
-        nearest (needs matplotlib and cv2)."""
+        nearest."""
         from ..heuristics.host_ops import resize_nearest
         from ..utils.image import colorize_depth, highlight_target
 
@@ -220,7 +224,7 @@ def build_http_demo(app: AmodalDepthApp, *, host="127.0.0.1", port=7860):
     """The demo behind a stdlib ThreadingHTTPServer. GET / serves a canvas
     mask editor; POST /predict takes JSON {image, mask: base64 PNG,
     mask_type} and returns JSON {base, amodal: base64 PNG} (the colour
-    renders, so it needs matplotlib and cv2). Returns the server; the
+    renders). Returns the server; the
     caller runs `serve_forever` and `shutdown`."""
     import base64
     import json
@@ -297,14 +301,13 @@ def _build_heuristics(args):
     DeepCache is set before the first call."""
     has_ckpt = bool(args.sam_ckpt or args.p2g_ckpt or args.vae_ckpt
                     or args.clip_ckpt)
-    if args.p2g_int8:
-        raise SystemExit("--p2g_int8 is not ported to the torch heuristics "
-                         "(ROADMAP queue 1, item 3: compression)")
     if args.heur_serving is None and not has_ckpt and not args.random:
-        if args.p2g_deep_cache is not None:
-            raise SystemExit("--p2g_deep_cache requires the heuristics "
-                             "stack (--sam_ckpt/--p2g_ckpt/--vae_ckpt/"
-                             "--clip_ckpt, --heur_serving or --random)")
+        for flag, value in (("--p2g_deep_cache", args.p2g_deep_cache),
+                            ("--p2g_int8", args.p2g_int8 or None)):
+            if value is not None:
+                raise SystemExit(f"{flag} requires the heuristics stack "
+                                 "(--sam_ckpt/--p2g_ckpt/--vae_ckpt/"
+                                 "--clip_ckpt, --heur_serving or --random)")
         return None
     deep_cache = None
     if args.p2g_deep_cache is not None:
@@ -337,6 +340,11 @@ def _build_heuristics(args):
         _check_deep_cache(deep_cache, mh.p2g_cfg.ddim_steps)
         mh.p2g_cfg = dataclasses.replace(mh.p2g_cfg,
                                          ddim_deep_cache=deep_cache)
+    if args.p2g_int8:
+        try:
+            mh.quantize_p2g_int8()   # weight_only=True: the JAX app's mode
+        except ValueError as e:      # a serving state already quantised
+            raise SystemExit(f"--p2g_int8: {e}") from None
     return mh
 
 
@@ -370,7 +378,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="DeepCache 'interval[,groups]' over the p2g DDIM "
                         "steps (opt-in, changes the result)")
     p.add_argument("--p2g_int8", action="store_true",
-                   help="not ported: exits")
+                   help="weight-only int8 pix2gestalt UNet (w8, "
+                        "MaskHeuristics.quantize_p2g_int8; changes the "
+                        "result)"),
     return p
 
 

@@ -23,9 +23,12 @@ to eager execution or to the CPU.
 
 Stdlib only (ThreadingHTTPServer): concurrent POSTs are coalesced by
 `pipeline.server.MicroBatcher` into the one captured batch shape. PNG
-decoding, encoding and the host resizes are numpy versions of what the JAX
-server asks PIL for (`utils.host_image`), so the server runs without PIL;
-PIL is imported only to decode a payload that is not a PNG (e.g. JPEG).
+decoding, encoding and the host resizes compute what the JAX server asks
+PIL for (`utils.host_image`: the C++ host library `native` where it is
+built, which releases the GIL, so request threads decode and resize in
+parallel; numpy otherwise), so the server runs without PIL; a JPEG payload
+decodes through the native codec's libjpeg route where it was built, and
+PIL is imported only for what neither takes.
 
 API:
   GET  /healthz              -> {"status": "ok", "dispatches": N, "size": S}
@@ -70,6 +73,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from ..native import imagecodec
 from ..utils.host_image import (decode_png, encode_png, resize_bilinear,
                                 resize_nearest)
 
@@ -135,7 +139,11 @@ def _b64_png_to_array(data: str) -> np.ndarray:
     raw = base64.b64decode(data)
     if raw.startswith(b"\x89PNG"):
         return decode_png(raw)
-    from PIL import Image   # other formats (JPEG, ...) need PIL
+    if imagecodec.available():
+        px = imagecodec.decode(raw)     # JPEG where libjpeg was built
+        if px is not None:
+            return px
+    from PIL import Image   # other formats need PIL
     return np.asarray(Image.open(io.BytesIO(raw)))
 
 

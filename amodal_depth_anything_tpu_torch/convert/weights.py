@@ -33,8 +33,9 @@ of `models/{sam,clip_vit,rmbg}.py` and the pix2gestalt tree {"unet",
 Quantised layers (`ops.quant`: W8A8, w8, w4, SmoothQuant) cross the bridge
 leaf for leaf in both directions under their JAX leaf names (`w` int8,
 `w_scale`, `act_scale`, `smooth`, `use_q`, `w_orig`, `w8`, `w4`,
-`w4_scale`, `w4_group`); `dav2_layer_paths` / `depthfm_layer_paths` name
-each layer's JAX tree path, by which the JAX quantisers pick their sites.
+`w4_scale`, `w4_group`); `dav2_layer_paths` / `depthfm_layer_paths` /
+`sam_layer_paths` / `p2g_unet_layer_paths` name each layer's JAX tree path,
+by which the JAX quantisers pick their sites.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from ..models.unet_ldm import UNetConfig, build_plan
 __all__ = ["load_state_dict", "infer_dav2_config", "params_from_jax",
            "params_to_jax", "load_params_npz", "dav2_layer_paths",
            "depthfm_layer_paths", "depthfm_params_from_jax",
+           "sam_layer_paths", "p2g_unet_layer_paths",
            "depthfm_params_to_jax", "load_depthfm_proxy",
            "load_depthfm_checkpoints", "sam_params_from_jax",
            "sam_params_to_jax", "clip_params_from_jax", "clip_params_to_jax",
@@ -184,7 +186,9 @@ def _expand_quant(entries: list, has) -> list:
             held = [(f"{name}.{s}", parent + (jl,), k or kind)
                     for s, (jl, k) in _QUANT_LEAVES.items()
                     if has(f"{name}.{s}", parent + (jl,))]
-            if [h[0] for h in held] != [key]:
+            # a layer whose weight sits under another JAX name is left as
+            # it is (the baselines' renamed leaves)
+            if held and [h[0] for h in held] != [key]:
                 out += [(k, p, kd, *rest) for k, p, kd in held]
                 continue
         out.append((key, path, kind, *rest))
@@ -769,7 +773,8 @@ def _get_path(tree, path):
 
 def _from_jax(tree: dict, entries: list) -> dict[str, torch.Tensor]:
     sd = {}
-    for key, path, kind, index, part in entries:
+    for key, path, kind, index, part in _expand_quant(entries,
+                                                      _in_tree(tree)):
         leaf = _get_path(tree, path)
         if not isinstance(leaf, torch.Tensor):
             leaf = torch.from_numpy(np.asarray(leaf))
@@ -789,7 +794,7 @@ def _to_jax(sd: dict, entries: list, tensors: bool) -> dict:
     # path -> {index: {part: leaf}}; parts join on the last axis, indices
     # stack on a new first one
     groups: dict[tuple, dict] = {}
-    for key, path, kind, index, part in entries:
+    for key, path, kind, index, part in _expand_quant(entries, _in_sd(sd)):
         leaf = sd[key]
         leaf = leaf[0] if kind == "row" else _permuted(leaf, _TO_JAX[kind])
         groups.setdefault(path, {}).setdefault(index, {})[
@@ -803,6 +808,20 @@ def _to_jax(sd: dict, entries: list, tensors: bool) -> dict:
                 torch.stack([joined[i] for i in sorted(joined)]))
         _set_path(tree, path, _jax_out(leaf, tensors))
     return tree
+
+
+def sam_layer_paths(cfg) -> dict:
+    """Every linear and conv of `models.sam.SAM`: {state-dict module name:
+    JAX tree path}, by which `MaskHeuristics.quantize_sam_int8` picks the
+    JAX package's sites."""
+    return _layer_paths(_sam_entries(cfg))
+
+
+def p2g_unet_layer_paths(cfg) -> dict:
+    """`sam_layer_paths` of the pix2gestalt UNet (names under
+    `Pix2Gestalt.unet`, paths in the JAX package's "unet" tree, which its
+    `quantize_p2g_int8` walks)."""
+    return _layer_paths(_unet_leaf_map(cfg.unet, "", ()))
 
 
 def sam_params_from_jax(params: dict, cfg) -> dict[str, torch.Tensor]:

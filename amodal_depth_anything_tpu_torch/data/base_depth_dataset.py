@@ -29,7 +29,7 @@ from typing import Sequence
 import numpy as np
 
 from ..ops.resize import _nearest_indices
-from ..utils.host_image import PNG_SIGNATURE, decode_png
+from ..utils.host_image import PNG_SIGNATURE, decode_png_plain
 
 __all__ = ["DatasetMode", "DepthFileNameMode", "BaseDepthDataset",
            "resize_nearest_exact_np"]
@@ -49,8 +49,16 @@ class DepthFileNameMode(enum.Enum):
 
 
 def resize_nearest_exact_np(img: np.ndarray, hw: Sequence[int]) -> np.ndarray:
-    """NEAREST_EXACT resize of [H,W,...] numpy array (torch semantics)."""
+    """NEAREST_EXACT resize of [H,W,...] numpy array (torch semantics).
+
+    float32 rasters take the native C++ resize (`..native`, OpenMP, the GIL
+    released) where the library is built, as in the JAX package; the
+    indices are the same either way."""
     h, w = img.shape[:2]
+    if img.dtype == np.float32 and img.ndim in (2, 3):
+        from .. import native
+        if native.available():
+            return native.resize_f32(img, (int(hw[0]), int(hw[1])))
     rows = _nearest_indices(h, int(hw[0]), exact=True)
     cols = _nearest_indices(w, int(hw[1]), exact=True)
     return img[rows][:, cols]
@@ -125,14 +133,21 @@ class BaseDepthDataset:
             return f.read()
 
     def _read_image(self, img_rel_path: str) -> np.ndarray:
-        """The decoded image as `np.asarray(PIL.Image.open(...))` gives it.
-        PNGs (8-bit RGB and masks, the zero-shot sets' 16-bit grey depth)
-        decode in numpy (`utils/host_image.decode_png`), so the loaders run
-        where PIL is not installed; PIL is imported only for other formats
-        (the JAX package's native codec is not ported)."""
+        """The decoded image as the JAX package's loader gives it: the
+        native codec (`native.imagecodec`: PNG, and JPEG where libjpeg is
+        built; the GIL released, so prefetch threads decode in parallel),
+        else for PNGs the numpy decoder (`utils/host_image.decode_png_plain`),
+        so the loaders run where PIL is not installed; PIL is imported only
+        for other formats."""
+        from ..native import imagecodec
+
         data = self._read_bytes(img_rel_path)
+        if imagecodec.available():
+            img = imagecodec.decode(data)
+            if img is not None:
+                return img
         if data.startswith(PNG_SIGNATURE):
-            return decode_png(data)
+            return decode_png_plain(data)
         from PIL import Image
         return np.asarray(Image.open(io.BytesIO(data)))
 

@@ -28,11 +28,16 @@ replays it; at most `MAX_COMPLETION_GRAPHS` are kept. The replay is
 bitwise the eager call. `captured=False` runs the completion eagerly (the
 CPU's only way, and what a comparison on the card asks for).
 
-`save_serving` / `load_serving` write and read the JAX package's
-serving-state format (kind "mask_heuristics": trees "sam", "p2g" and the
-optional "rmbg" in the JAX layout), so a state saved by either package
-restores in the other. Not ported: the int8 knobs (`quantize_p2g_int8`,
-`quantize_sam_int8` raise NotImplementedError).
+`quantize_p2g_int8` (weight-only w8 or w4, or W8A8, over the pix2gestalt
+UNet) and `quantize_sam_int8` (SAM's linears and convs) swap the layers the
+JAX package's `quantize_diffusion_int8` picks for `ops.quant`'s quantised
+modules, with its site rules (the UNet's thresholds scaled with its width;
+SAM's transposed upscaling convs skipped); a quantised completion is
+captured anew. `save_serving` / `load_serving` write and read the JAX
+package's serving-state format (kind "mask_heuristics": trees "sam", "p2g"
+and the optional "rmbg" in the JAX layout, quantised layers under their JAX
+leaf names and dtypes), so a state saved by either package restores in the
+other.
 """
 
 from __future__ import annotations
@@ -63,8 +68,6 @@ SAM_PIXEL_MEAN = (123.675, 116.28, 103.53)
 SAM_PIXEL_STD = (58.395, 57.12, 57.375)
 MAX_COMPLETION_GRAPHS = 4
 COMPLETION_WARMUP = 1   # eager completions before a capture
-_INT8 = ("int8 weights are not ported to the torch heuristics: ROADMAP "
-         "queue 1, item 3 (the heuristics' int8 knobs)")
 
 
 @torch.no_grad()
@@ -408,11 +411,41 @@ class MaskHeuristics:
 
     # ------------------------------------------------------------- knobs
 
-    def quantize_p2g_int8(self, **_kw) -> None:
-        raise NotImplementedError(f"quantize_p2g_int8: {_INT8}")
+    def quantize_p2g_int8(self, *, weight_only: bool = True,
+                          bits: int = 8) -> dict:
+        """Opt-in int8 for the pix2gestalt UNet, in place (JAX
+        `MaskHeuristics.quantize_p2g_int8`; changes the result): weight-only
+        w8 (`bits=8`, the default) or w4 (`bits=4`), or with
+        `weight_only=False` W8A8 with dynamic scales. The JAX rule's wide
+        convs and linears, its thresholds scaled with the UNet's width so
+        that a narrow proxy quantises the same share of sites as the SD-1.5
+        body. The captured completions are dropped: the next call captures
+        the quantised program. Returns {module name: scheme}."""
+        from ..convert.weights import p2g_unet_layer_paths
+        from ..ops.quant import quantize_diffusion_modules
 
-    def quantize_sam_int8(self, **_kw) -> None:
-        raise NotImplementedError(f"quantize_sam_int8: {_INT8}")
+        ws = self.p2g_cfg.model_channels / 320.0
+        done = quantize_diffusion_modules(
+            self.p2g.unet, p2g_unet_layer_paths(self.p2g_cfg),
+            weight_only=weight_only, bits=bits,
+            min_conv_fan=max(64, int(512 * ws)),
+            min_lin_dim=max(32, int(256 * ws)))
+        self._completions.clear()
+        return done
+
+    def quantize_sam_int8(self, *, weight_only: bool = True,
+                          bits: int = 8) -> dict:
+        """Opt-in int8 for SAM's encoder and decoder linears and convs, in
+        place (JAX `MaskHeuristics.quantize_sam_int8`): the JAX rule's sites
+        with the decoder's transposed upscaling convs skipped. It shrinks a
+        serving state's SAM bytes; SAM runs once a call. Returns {module
+        name: scheme}."""
+        from ..convert.weights import sam_layer_paths
+        from ..ops.quant import quantize_diffusion_modules
+
+        return quantize_diffusion_modules(
+            self.sam, sam_layer_paths(self.sam_cfg), weight_only=weight_only,
+            bits=bits, skip_suffixes=("upscale_conv1", "upscale_conv2"))
 
     # ------------------------------------------------------------ serving
 
@@ -460,17 +493,18 @@ class MaskHeuristics:
     @classmethod
     def load_serving(cls, path: str, *, device="cuda") -> "MaskHeuristics":
         """Restore a stack saved by `save_serving` of either package on
-        `device`, every leaf in its saved dtype. Refuses int8 states."""
+        `device`, every leaf in its saved dtype: quantised layers come back
+        as `ops.quant` modules with their int8 codes and float32 scales (no
+        re-quantisation)."""
         from ..convert.weights import (p2g_params_from_jax,
                                        rmbg_params_from_jax,
                                        sam_params_from_jax)
+        from ..ops.quant import apply_quantized_
         from ..pipeline.serving_ckpt import (cfg_from_dict,
-                                             refuse_quantized,
                                              restore_serving_state)
 
         trees, meta = restore_serving_state(
             path, expect_kind="mask_heuristics", device=device)
-        refuse_quantized(path, trees, _INT8)
         sam_cfg = cfg_from_dict(SAMConfig, meta["sam_cfg"])
         p2g_cfg = cfg_from_dict(Pix2GestaltConfig, meta["p2g_cfg"])
         clip_cfg = cfg_from_dict(CLIPVisionConfig, meta["clip_cfg"])
@@ -481,11 +515,13 @@ class MaskHeuristics:
             p2g = Pix2Gestalt(p2g_cfg, clip_cfg, vae_cfg,
                               cc_in=0 if cc is None else cc["w"].shape[0],
                               cc_bias=cc is not None and "b" in cc)
-        sam.load_state_dict(sam_params_from_jax(trees["sam"], sam_cfg),
-                            strict=True, assign=True)
-        p2g.load_state_dict(
-            p2g_params_from_jax(trees["p2g"], p2g_cfg, clip_cfg, vae_cfg),
-            strict=True, assign=True)
+        sam_sd = sam_params_from_jax(trees["sam"], sam_cfg)
+        p2g_sd = p2g_params_from_jax(trees["p2g"], p2g_cfg, clip_cfg,
+                                     vae_cfg)
+        apply_quantized_(sam, sam_sd)
+        apply_quantized_(p2g, p2g_sd)
+        sam.load_state_dict(sam_sd, strict=True, assign=True)
+        p2g.load_state_dict(p2g_sd, strict=True, assign=True)
         matting_fn = None
         if "rmbg" in trees:
             rmbg_cfg = cfg_from_dict(RMBGConfig, meta["rmbg_cfg"])

@@ -418,22 +418,27 @@ class AmodalDepthPipeline:
     def infer_single_image(self, input_image_path: str, input_mask_path: str,
                            output_path: str):
         """Reference-compatible file-in/file-out inference
-        (infer.py:71-121). Needs cv2, PIL and matplotlib."""
-        import cv2
-        from PIL import Image
-
-        from ..utils.image import colorize_depth, highlight_target
+        (infer.py:71-121), without cv2, PIL or matplotlib: the image read
+        as `cv2.imread` reads it (BGR, as the reference feeds it) and the
+        mask as PIL reads it (`utils.image`, the native codec), cv2's
+        INTER_LINEAR and INTER_NEAREST resizes from `heuristics.host_ops`,
+        the Spectral_r render and contour of `utils.image`, written as PNGs
+        whose pixels equal `cv2.imwrite`'s. Returns the two renders as
+        written (BGR, the reference's arrays)."""
+        from ..heuristics import host_ops
+        from ..utils.image import (colorize_depth, highlight_target,
+                                   read_image, read_image_bgr, write_png)
 
         os.makedirs(output_path, exist_ok=True)
         name = os.path.basename(input_image_path).split(".")[0]
-        image = cv2.imread(input_image_path)  # BGR, as the reference feeds it
-        mask = (np.asarray(Image.open(input_mask_path)) > 0).astype(np.float32)
+        image = read_image_bgr(input_image_path)
+        mask = (read_image(input_mask_path) > 0).astype(np.float32)
         if mask.ndim == 3:
             mask = mask[..., 0]
 
         # cv2 uint8 resize on the host for the base branch, as the
         # reference's predict_base_depth (infer.py:17)
-        base_image = cv2.resize(image, (self.size, self.size))
+        base_image = host_ops.resize_linear(image, (self.size, self.size))
         base, blended = self(image, mask, base_image=base_image)
 
         mask_s = resize_nearest(torch.from_numpy(mask[None, :, :, None]),
@@ -445,15 +450,15 @@ class AmodalDepthPipeline:
             colored = (colorize_depth(depth) * 255).astype(np.uint8)
             if highlight:
                 colored = highlight_target(colored, mask_u8)
-            colored = cv2.resize(colored, (w, h),
-                                 interpolation=cv2.INTER_NEAREST)
+            colored = host_ops.resize_nearest(colored, (w, h))
             return colored[:, :, ::-1]  # the reference's BGR->RGB flip
 
         raw_render = render(base, highlight=False)
         amodal_render = render(blended, highlight=True)
-        cv2.imwrite(os.path.join(output_path,
-                                 f"{name}_raw_depth_rendered.png"), raw_render)
-        cv2.imwrite(os.path.join(output_path,
-                                 f"{name}_amodal_depth_rendered.png"),
-                    amodal_render)
+        # cv2.imwrite stores a BGR array as RGB: the file holds the flip back
+        write_png(os.path.join(output_path, f"{name}_raw_depth_rendered.png"),
+                  raw_render[:, :, ::-1])
+        write_png(os.path.join(output_path,
+                               f"{name}_amodal_depth_rendered.png"),
+                  amodal_render[:, :, ::-1])
         return raw_render, amodal_render

@@ -517,20 +517,18 @@ class DiscriminativeTrainer:
                 self.metric_banks[key].update(name, float(val))
 
     def _save_prediction(self, save_to_dir, batch, b, pred) -> None:
-        from PIL import Image
+        from ..utils.image import write_png
         os.makedirs(save_to_dir, exist_ok=True)
         rel = batch["rgb_relative_path"][b].replace("/", "_")
         out = (np.clip(pred[..., 0], 0, 1) * 65535).astype(np.uint16)
-        Image.fromarray(out).save(os.path.join(save_to_dir, f"{rel}.png"))
+        write_png(os.path.join(save_to_dir, f"{rel}.png"), out)
 
     # ------------------------------------------------------------ visualize
 
     def visualize(self) -> None:
         if not (self.out_dir_vis and self.vis_loaders):
             return
-        from PIL import Image
-
-        from ..utils.image import colorize_depth
+        from ..utils.image import colorize_depth, write_png
         out_dir = os.path.join(self.out_dir_vis,
                                f"iter_{self.effective_iter:06d}")
         os.makedirs(out_dir, exist_ok=True)
@@ -548,8 +546,8 @@ class DiscriminativeTrainer:
                         np.concatenate([rgb, masked_rgb], axis=1),
                     ], axis=0)
                     rel = batch["rgb_relative_path"][b].replace("/", "_")
-                    Image.fromarray((panel * 255).astype(np.uint8)).save(
-                        os.path.join(out_dir, f"{rel}.png"))
+                    write_png(os.path.join(out_dir, f"{rel}.png"),
+                              (panel * 255).astype(np.uint8))
 
     # ----------------------------------------------------------- checkpoint
 

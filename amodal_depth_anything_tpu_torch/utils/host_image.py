@@ -20,7 +20,15 @@ are numpy versions of exactly what that code asks PIL for:
   * `resize_nearest`: `Image.resize(size, NEAREST)` (source pixel
     floor((x + 0.5) * scale), the scale summed step by step as PIL does).
 
-tests/test_torch_server.py holds each against PIL, bit for bit.
+Each takes the native route where the host library is built (`native`:
+the C++ codec `native.imagecodec` for the decode and the encoder's row
+filters, `native.resize_bilinear` and `native.gather` for the resizes;
+ctypes releases the GIL, so request threads work in parallel) and its numpy
+plain version otherwise (`decode_png_plain`, `_filter_rows`,
+`resize_bilinear_plain`, `resize_nearest_plain`; `native.plain_route()`
+forces them). Both routes give the same bits. tests/test_torch_server.py
+holds each against PIL, bit for bit, and tests/test_torch_native.py the
+two routes against each other.
 """
 
 from __future__ import annotations
@@ -32,8 +40,12 @@ import zlib
 
 import numpy as np
 
-__all__ = ["PNG_SIGNATURE", "decode_png", "encode_png", "resize_bilinear",
-           "resize_nearest"]
+from .. import native
+from ..native import imagecodec
+
+__all__ = ["PNG_SIGNATURE", "decode_png", "decode_png_plain", "encode_png",
+           "resize_bilinear", "resize_bilinear_plain", "resize_nearest",
+           "resize_nearest_plain"]
 
 PNG_SIGNATURE = _SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # PNG colour type -> samples
@@ -103,7 +115,21 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> the array `np.asarray(PIL.Image.open(...))` gives."""
+    """PNG bytes -> the array `np.asarray(PIL.Image.open(...))` gives: the
+    native codec where it takes the PNG (it rejects palette, sub-8-bit and
+    tRNS files), else `decode_png_plain`."""
+    if imagecodec.available():
+        px = imagecodec.decode_png(data)
+        if px is not None:
+            # PIL keeps 16-bit gray and cuts 16-bit colour to its high byte
+            if px.dtype == np.uint16 and px.ndim == 3:
+                px = (px >> 8).astype(np.uint8)
+            return px
+    return decode_png_plain(data)
+
+
+def decode_png_plain(data: bytes) -> np.ndarray:
+    """`decode_png` in numpy (non-interlaced PNGs)."""
     if not data.startswith(_SIG):
         raise ValueError("not a PNG")
     pos, idat, ihdr = len(_SIG), [], None
@@ -185,7 +211,9 @@ def encode_png(arr: np.ndarray) -> bytes:
         raise ValueError(f"cannot encode {arr.dtype} {arr.shape} as PNG")
     color = {1: 0, 3: 2, 4: 6}[ch]
     h, w = arr.shape[:2]
-    lines = _filter_rows(rows.reshape(h, -1), ch * depth // 8)
+    rows, bpp = rows.reshape(h, -1), ch * depth // 8
+    lines = (imagecodec.filter_rows(rows, bpp) if imagecodec.available()
+             else _filter_rows(rows, bpp))
     return (_SIG
             + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color,
                                           0, 0, 0))
@@ -252,7 +280,17 @@ def _pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
 
 def resize_bilinear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     """`PIL.Image.fromarray(img).resize(size, BILINEAR)` as an array: `img`
-    uint8 [H,W] or [H,W,3], or float32 [H,W]; `size` = (width, height)."""
+    uint8 [H,W] or [H,W,3], or float32 [H,W]; `size` = (width, height).
+    The native resampler where it is built, else
+    `resize_bilinear_plain`."""
+    if native.available() and img.dtype in (np.uint8, np.float32):
+        return native.resize_bilinear(img, size)
+    return resize_bilinear_plain(img, size)
+
+
+def resize_bilinear_plain(img: np.ndarray,
+                          size: tuple[int, int]) -> np.ndarray:
+    """`resize_bilinear` in numpy."""
     w, h = size
     out = img
     if w != img.shape[1]:
@@ -281,10 +319,25 @@ def _nearest_source(in_size: int, out_size: int, *,
 
 def resize_nearest(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     """`PIL.Image.fromarray(img).resize(size, NEAREST)` as an array; `size`
-    = (width, height)."""
+    = (width, height). The gather runs natively where the library is
+    built, else in numpy (`resize_nearest_plain`); the indices are the
+    same."""
+    return _resize_nearest(img, size, native.available())
+
+
+def resize_nearest_plain(img: np.ndarray,
+                         size: tuple[int, int]) -> np.ndarray:
+    """`resize_nearest` in numpy."""
+    return _resize_nearest(img, size, False)
+
+
+def _resize_nearest(img, size, use_native: bool) -> np.ndarray:
     w, h = size
     if (h, w) == img.shape[:2]:
         return img.copy()
     direct = img.dtype == np.uint16 and img.ndim == 2   # PIL mode "I;16"
-    return img[_nearest_source(img.shape[0], h, direct=direct)][
-        :, _nearest_source(img.shape[1], w, direct=direct)]
+    rows = _nearest_source(img.shape[0], h, direct=direct)
+    cols = _nearest_source(img.shape[1], w, direct=direct)
+    if use_native:
+        return native.gather(img, rows, cols)
+    return img[rows][:, cols]

@@ -192,7 +192,26 @@ plain PyTorch version on the card:
      224 px, 8 held-out scenes): its gate table. The kernels line counts
      the forward kernel's launches over (c) and over (d), each from 0.
      `python3 chip_smoke.py --only 12` runs the build and phase 12 alone
-     (`--only 6,9`: the named phases of 6, 8, 9, 10, 11 and 12).
+     (`--only 6,9`: the named phases of 6, 8, 9, 10, 11, 12 and 13);
+ 13. the host codec and the serving tuners (the build of `native/`'s two
+     host libraries by g++ is checked in phase 2, with the codec's routes;
+     phase 9 (c) serves its 16 requests twice, over the native host route
+     and the numpy one, each route's host work by stage and p50, the two
+     answering with the same bytes; phase 11 (a) times `train()`'s loader
+     over an epoch with the codec and in numpy): (d) on the phase-10 app,
+     "prompt_points" exact and with a w8 and a w4 pix2gestalt UNet
+     (`quantize_p2g_int8`): each call, its completion replay (ms, busy
+     share) and its completion / mask / depth delta against exact; a w4 +
+     w8-SAM heuristics state saved and restored bit-identical, its bytes
+     beside the bf16 state's; (a) `python -m ...cli.infer` in a
+     subprocess where importing cv2, PIL or matplotlib fails, on the
+     phase-10 vitg + vitl pipeline's bf16 weights written as .pth files,
+     its two renders equal to the in-process `infer_single_image`'s and 64
+     launches counted in that process; (e) `scripts.autotune_serving
+     --family amodal --random --random_preset full` (bf16 batch 4 at 518
+     px, every candidate captured and timed replayed): its rows and pick;
+     (f) `scripts.int8_layer_walk` on `checkpoints/proxy` at 224 px: the
+     kept set. It runs after phase 10 (`--only 13` runs phase 10 first).
 
 Prints a `{"kernels": [...]}` line (the backward entries also list every
 instantiation that ran, with its cases, worst error and times), the card's
@@ -579,6 +598,29 @@ def host_cost_phase(gpu: str) -> None:
               f"{us[name, torch.bfloat16]:.1f} us; float32, no tensor map: "
               f"{us[name, torch.float32]:.1f} us; over {HOST_LAUNCHES} "
               f"launches each [{gpu}]", flush=True)
+
+
+def native_build_check() -> None:
+    """The host libraries of `native/`, built by g++ from the checkout's
+    sources (the codec's zlib and libjpeg routes where their headers are
+    found); a library that does not build is a failure here, not a quiet
+    return to numpy."""
+    from amodal_depth_anything_tpu_torch import native
+    from amodal_depth_anything_tpu_torch.native import _build, imagecodec
+
+    t0 = time.time()
+    headers = {h: _build.header_found(h)
+               for h in ("zlib.h", "jpeglib.h", "png.h")}
+    try:
+        paths = [native.require(), imagecodec.require()]
+        routes = imagecodec.routes()
+    except _build.BuildError as e:
+        check(False, f"native host libraries build: {e}")
+        return
+    check(native.available() and imagecodec.available(),
+          f"native host libraries built by g++ in {time.time() - t0:.1f} s: "
+          f"{[os.path.basename(p) for p in paths]}; codec routes {routes} "
+          f"(headers {headers})")
 
 
 def sass_check() -> None:
@@ -2499,8 +2541,11 @@ def _serving_rest(gpu, pipe, served, amodal, img, mask, obs, hw, rng, path,
     import urllib.error
     import urllib.request
 
+    import contextlib
+
     import torch
 
+    from amodal_depth_anything_tpu_torch import native
     from amodal_depth_anything_tpu_torch.cli.serve import (
         _b64_png_to_array, _depth_to_b64_png, _prep, build_server)
     from amodal_depth_anything_tpu_torch.pipeline.amodal_pipeline import \
@@ -2586,41 +2631,62 @@ def _serving_rest(gpu, pipe, served, amodal, img, mask, obs, hw, rng, path,
         [_filter_rows(a.reshape(hw[0], -1), 3)[:, 0] for a in images]),
         minlength=5)
     png = encode_png(images[0])
-    t = time.perf_counter()
-    decode_png(png)
-    decode_ms = (time.perf_counter() - t) * 1e3
+    decode_ms = {}
+    for route in ("native", "numpy"):
+        with (native.plain_route() if route == "numpy"
+              else contextlib.nullcontext()):
+            t = time.perf_counter()
+            decode_png(png)
+            decode_ms[route] = (time.perf_counter() - t) * 1e3
     print(f"  request images {hw[1]}x{hw[0]} RGB, rows filtered None/Sub/Up/"
           f"Average/Paeth {rows.tolist()}; one image PNG ({len(png)} bytes) "
-          f"decoded on the host in {decode_ms:.1f} ms", flush=True)
-    results: list = [None] * SERVE_REQUESTS
+          f"decoded on the host in {decode_ms['native']:.1f} ms (native "
+          f"codec), {decode_ms['numpy']:.1f} ms (numpy)", flush=True)
+    def http_run():
+        results: list = [None] * SERVE_REQUESTS
 
-    def client(k):
-        for i in range(k, SERVE_REQUESTS, SERVE_CLIENTS):
-            t = time.perf_counter()
-            try:
-                req = urllib.request.Request(
-                    url, data=bodies[i % 4],
-                    headers={"Content-Type": "application/json"})
-                with urllib.request.urlopen(req, timeout=120) as r:
-                    code, res = r.status, json.loads(r.read())
-            except urllib.error.HTTPError as e:
-                code, res = e.code, None
-            results[i] = (code, res, time.perf_counter() - t)
+        def client(k):
+            for i in range(k, SERVE_REQUESTS, SERVE_CLIENTS):
+                t = time.perf_counter()
+                try:
+                    req = urllib.request.Request(
+                        url, data=bodies[i % 4],
+                        headers={"Content-Type": "application/json"})
+                    with urllib.request.urlopen(req, timeout=120) as r:
+                        code, res = r.status, json.loads(r.read())
+                except urllib.error.HTTPError as e:
+                    code, res = e.code, None
+                results[i] = (code, res, time.perf_counter() - t)
 
-    try:
+        before = server.batcher.dispatches
         threads = [threading.Thread(target=client, args=(k,))
                    for k in range(SERVE_CLIENTS)]
         for t in threads:
             t.start()
         for t in threads:
             t.join()
+        return results, server.batcher.dispatches - before
+
+    # both host routes over one server: the native host library (codec and
+    # resizes in C++, the GIL released) and the numpy plain versions
+    runs = {}
+    try:
+        runs["native"] = http_run()
+        with native.plain_route():
+            runs["numpy"] = http_run()
     finally:
         server.shutdown()
         server.batcher.close()
-    codes = [r[0] if r else None for r in results]
-    check(codes == [200] * SERVE_REQUESTS,
-          f"HTTP: {SERVE_REQUESTS} POSTs from {SERVE_CLIENTS} threads all "
-          f"answered 200 ({codes})")
+    results = runs["native"][0]
+    for route, (res_, _) in runs.items():
+        codes = [r[0] if r else None for r in res_]
+        check(codes == [200] * SERVE_REQUESTS,
+              f"HTTP ({route} host route): {SERVE_REQUESTS} POSTs from "
+              f"{SERVE_CLIENTS} threads all answered 200 ({codes})")
+    same = all(a is not None and b is not None and a[1] == b[1]
+               for a, b in zip(runs["native"][0], runs["numpy"][0]))
+    check(same, "HTTP: the native and the numpy host routes answered every "
+                "request with the same bytes")
     # a direct call with the request in every row of the batch: every row
     # gives the same bits (`batch_rows_phase`); the spread is printed
     worst = spread = 0.0
@@ -2644,31 +2710,37 @@ def _serving_rest(gpu, pipe, served, amodal, img, mask, obs, hw, rng, path,
           f"HTTP depth vs a direct call of the handle: max abs {worst:.3e} "
           f"<= one uint16 step + 1e-3; the rows of one input differ by "
           f"{spread:.3e} (0)")
-    lat = [r[2] for r in results if r]
     square_in = [np.stack(a) for a in zip(*(
         _prep(images[i], masks[i], SIZE) for i in range(FULL_BATCH)))]
     square_want = square(*square_in)
     del square
-    print(f"  HTTP: {SERVE_REQUESTS} requests, {server.batcher.dispatches} "
-          f"dispatches, per-request p50 {np.median(lat) * 1e3:.1f} ms (min "
-          f"{min(lat) * 1e3:.1f}, max {max(lat) * 1e3:.1f}) [{gpu}]",
-          flush=True)
-    # one request's host work alone, stage by stage, as the handler does it
-    req, stages = json.loads(bodies[0]), {}
-    t = time.perf_counter()
-    for name, fn in (
-            ("json", lambda: json.loads(bodies[0])),
-            ("image decode", lambda: _b64_png_to_array(req["image"])),
-            ("mask decode", lambda: _b64_png_to_array(req["mask"])),
-            ("resize", lambda: _prep(images[0], masks[0], SIZE)),
-            ("two depth encodes", lambda: [_depth_to_b64_png(d)
-                                           for d in first])):
-        fn()
-        stages[name] = (time.perf_counter() - t) * 1e3
-        t = time.perf_counter()
-    print("  one request's host work alone: " + ", ".join(
-        f"{k} {v:.1f} ms" for k, v in stages.items())
-        + f"; {sum(stages.values()):.1f} ms in all [{gpu}]", flush=True)
+    req = json.loads(bodies[0])
+    for route, (res_, dispatches) in runs.items():
+        lat = [r[2] for r in res_ if r]
+        print(f"  HTTP, {route} host route: {SERVE_REQUESTS} requests, "
+              f"{dispatches} dispatches, per-request p50 "
+              f"{np.median(lat) * 1e3:.1f} ms (min {min(lat) * 1e3:.1f}, "
+              f"max {max(lat) * 1e3:.1f}) [{gpu}]", flush=True)
+        # one request's host work alone, stage by stage, as the handler
+        # does it
+        stages = {}
+        with (native.plain_route() if route == "numpy"
+              else contextlib.nullcontext()):
+            t = time.perf_counter()
+            for name, fn in (
+                    ("json", lambda: json.loads(bodies[0])),
+                    ("image decode", lambda: _b64_png_to_array(req["image"])),
+                    ("mask decode", lambda: _b64_png_to_array(req["mask"])),
+                    ("resize", lambda: _prep(images[0], masks[0], SIZE)),
+                    ("two depth encodes", lambda: [_depth_to_b64_png(d)
+                                                   for d in first])):
+                fn()
+                stages[name] = (time.perf_counter() - t) * 1e3
+                t = time.perf_counter()
+        print(f"  one request's host work alone, {route} host route: "
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items())
+              + f"; {sum(stages.values()):.1f} ms in all [{gpu}]",
+              flush=True)
 
     print("  (d) serving state", flush=True)
     serve_cli_check(gpu, path, bodies[0], first)
@@ -3034,7 +3106,7 @@ def heuristics_phase(gpu: str) -> int:
           f"{HEUR_HW[1]} scene: p50 {p50:.1f} ms per call, latencies "
           f"{[round(v * 1e3, 1) for v in latencies]} ms, staged total "
           f"{total:.1f} ms, peak memory {peak:.2f} GiB [{gpu}]", flush=True)
-    return launches
+    return launches, [app, img, hint]
 
 
 # evaluation and baselines (phase 11): each baseline trained from its own
@@ -3196,13 +3268,15 @@ def baseline_train_case(config: str, name: str, head_dim, per_step: int,
     replay_launches(trainer, train_loader, per_step, name)
     check(dims.seen == ({head_dim} if head_dim else set()),
           f"{name}: attention head dims {sorted(dims.seen)}")
+    if name == BASELINE_RUNS[0][1]:
+        loader_routes(train_loader, workers, t_train, name, gpu)
     timing = trainer.step_timer.summary()
     print(f"  {name} bf16 batch {batch} at {SIZE} px: "
           f"{timing['steps_per_sec']:.4f} steps/s, p50 "
           f"{timing['p50_s'] * 1e3:.1f} ms per step "
           f"{[round(x * 1e3, 1) for x in trainer.step_timer.durations]} ms, "
           f"train() wall {t_train:.1f} s ({workers} loader threads decode "
-          f"the PNGs in numpy), "
+          f"the PNGs with the native codec), "
           f"peak memory {peak:.2f} GiB, launches a step: {per_step} of "
           f"each attention kernel at head dim {head_dim} [{gpu}]",
           flush=True)
@@ -3232,6 +3306,31 @@ def baseline_train_case(config: str, name: str, head_dim, per_step: int,
                         capture_batches(trainer_like(), splits["train"]), gpu,
                         RESUME_CKPT, resume=name == "ADDeepLab", cudnn=True)
     return launches
+
+
+def loader_routes(loader, workers: int, t_train: float, name: str,
+                  gpu: str) -> None:
+    """(c) of the twelfth slice: `train()`'s loader over one epoch of the
+    SAM tree with the native codec and resizes, then with the numpy plain
+    versions (`native.plain_route()`), beside the train() wall."""
+    import contextlib
+
+    from amodal_depth_anything_tpu_torch import native
+
+    walls, counts = {}, {}
+    for route in ("native", "numpy"):
+        with (native.plain_route() if route == "numpy"
+              else contextlib.nullcontext()):
+            t = time.perf_counter()
+            counts[route] = sum(1 for _ in loader)
+            walls[route] = time.perf_counter() - t
+    check(counts["native"] == counts["numpy"] > 0,
+          f"{name}: the train loader gives {counts['native']} batches an "
+          f"epoch on both host routes")
+    print(f"  {name}: train() loader ({workers} threads), one epoch of "
+          f"{counts['native']} batches: {walls['native']:.2f} s with the "
+          f"native codec, {walls['numpy']:.2f} s decoding in numpy; train() "
+          f"wall {t_train:.1f} s [{gpu}]", flush=True)
 
 
 def zero_shot_tree(root: str) -> str:
@@ -4022,6 +4121,302 @@ def compression_phase(gpu: str):
     return rows, launches
 
 
+# the twelfth slice (phase 13): the host codec on the serving and loader
+# paths ((b) in phase 9, (c) in phase 11), `cli.infer` on the card's
+# machine, int8 for the heuristics, and the serving tuners
+INFER_HW = (480, 640)
+AUTOTUNE_REPS = 3
+HEUR_INT8_POINTS = (("exact", None), ("w8", dict(weight_only=True, bits=8)),
+                    ("w4", dict(weight_only=True, bits=4)))
+
+
+def cli_infer_phase(pipe, gpu: str) -> int:
+    """(a) `python -m ...cli.infer` in a subprocess that cannot import cv2,
+    PIL or matplotlib, on seeded vitg base + vitl amodal state dicts (the
+    phase-10 pipeline's, bf16, written as the reference's .pth files under
+    build/) at 518 px: both renders written, equal to the in-process
+    `infer_single_image` of the same pipeline. Returns the subprocess's
+    forward-kernel launches (its wrapper's count, printed at its end)."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.utils.host_image import (
+        decode_png, encode_png)
+
+    root = os.path.join(BUILD, "smoke_cli_infer")
+    os.makedirs(root, exist_ok=True)
+    try:
+        base = os.path.join(root, "base.pth")
+        amodal = os.path.join(root, "amodal.pth")
+        t0 = time.time()
+        torch.save(pipe.raw_model.state_dict(), base)
+        torch.save(pipe.amodal_model.state_dict(), amodal)
+        nbytes = os.path.getsize(base) + os.path.getsize(amodal)
+        img, _ = synthetic_scene(INFER_HW)
+        mask = np.zeros(INFER_HW, np.uint8)
+        mask[100:380, 200:520] = 255
+        mask[200:260, 300:400] = 0
+        for name, arr in (("scene.png", img), ("scene_mask.png", mask)):
+            with open(os.path.join(root, name), "wb") as f:
+                f.write(encode_png(arr))
+        out = os.path.join(root, "out")
+        argv = ["--input_image_path", os.path.join(root, "scene.png"),
+                "--input_mask_path", os.path.join(root, "scene_mask.png"),
+                "--output_folder", out, "--base_ckpt", base,
+                "--amodal_ckpt", amodal, "--size", str(SIZE),
+                "--dtype", "bfloat16"]
+        code = ("import sys\n"
+                "for m in ('cv2', 'PIL', 'matplotlib'):\n"
+                "    sys.modules[m] = None\n"
+                "from amodal_depth_anything_tpu_torch.cli.infer import main\n"
+                "from amodal_depth_anything_tpu_torch.ops.flash_attention "
+                "import mha\n"
+                "mha.launches = 0\n"
+                f"main({argv!r})\n"
+                "print('flash_attn_fwd launches', mha.launches)\n")
+        t1 = time.time()
+        proc = subprocess.run([sys.executable, "-c", code],
+                              capture_output=True, text=True, timeout=600)
+        wall = time.time() - t1
+        found = re.search(r"flash_attn_fwd launches (\d+)", proc.stdout)
+        launches = int(found.group(1)) if found else 0
+        check(proc.returncode == 0 and launches == DEPTH_LAUNCHES,
+              f"cli.infer without cv2, PIL or matplotlib at {SIZE} px bf16: "
+              f"exit {proc.returncode}, {launches} flash_attn_fwd launches "
+              f"({DEPTH_LAUNCHES}) {proc.stderr.strip()[-400:]!r}")
+        raw, amodal_r = pipe.infer_single_image(
+            os.path.join(root, "scene.png"),
+            os.path.join(root, "scene_mask.png"), os.path.join(root, "in"))
+        same = True
+        for name, want in (("raw", raw), ("amodal", amodal_r)):
+            path = os.path.join(out, f"scene_{name}_depth_rendered.png")
+            if not os.path.exists(path):
+                same = False
+                continue
+            with open(path, "rb") as f:
+                got = decode_png(f.read())
+            same &= got.shape == want.shape and np.array_equal(
+                got, want[:, :, ::-1])
+        check(same, "cli.infer's two renders equal the in-process "
+                    "infer_single_image's, pixel for pixel")
+        print(f"  cli.infer subprocess: {nbytes / 1e9:.2f} GB of bf16 .pth "
+              f"written in {t1 - t0:.1f} s, the CLI took {wall:.1f} s "
+              f"(start, load, one {INFER_HW[0]} x {INFER_HW[1]} image, two "
+              f"renders) [{gpu}]", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def heuristics_int8_phase(app, img, hint, gpu: str) -> int:
+    """(d) "prompt_points" at full width (the phase-10 app: SAM ViT-H,
+    pix2gestalt at 256 px with 100 DDIM steps, RMBG-1.4, then vitg + vitl
+    depth; bf16) exact (the completion phase 10 captured) and with a w8 and
+    a w4 pix2gestalt UNet (`quantize_p2g_int8`; their first call captures
+    the quantised completion): each one's call, its completion replayed
+    (ms, busy share) and its completion / mask / depth delta against exact;
+    then a w4-p2g + w8-SAM state saved and restored bit-identical, its
+    bytes beside the bf16 state's. Returns the forward kernel's launches
+    over the three calls."""
+    import copy
+
+    import torch
+
+    from amodal_depth_anything_tpu_torch.heuristics import (
+        MaskHeuristics, get_points_from_components)
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+
+    mh = app.heuristics
+    float_p2g = mh.p2g
+    hint_u8 = (hint > 0).astype(np.uint8) * 255
+    visible = mh.sam_visible_mask(img, get_points_from_components(hint_u8))
+    outs, comps, launches = {}, {}, 0
+    try:
+        for name, q in HEUR_INT8_POINTS:
+            if q is not None:
+                mh.p2g = copy.deepcopy(float_p2g)
+                t0 = time.time()
+                done = mh.quantize_p2g_int8(**q)   # drops the captured ones
+                print(f"  p2g {name}: quantize_p2g_int8 in "
+                      f"{time.time() - t0:.1f} s, {len(done)} layers "
+                      f"{sorted(set(done.values()))}", flush=True)
+            mha.launches = 0
+            t1 = time.perf_counter()
+            outs[name] = app.predict_arrays(img, hint, "prompt_points",
+                                            seed=0)
+            first = time.perf_counter() - t1
+            launches += mha.launches
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            comps[name] = mh.pix2gestalt_completion(img, visible, seed=0)
+            replay_ms = (time.perf_counter() - t1) * 1e3
+            wall, busy, got = trace_call(
+                lambda: mh.pix2gestalt_completion(img, visible, seed=0))
+            pct = None if busy is None else 100 * busy / wall
+            out, ref = outs[name], outs["exact"]
+            check(all(np.isfinite(out[k]).all() for k in ("mask", "blended"))
+                  and np.isfinite(comps[name]).all()
+                  and got["flash_attn_fwd"] == HEUR_LAUNCHES,
+                  f"prompt_points with the {name} p2g UNet: finite, a traced "
+                  f"completion replay launches flash_attn_fwd "
+                  f"{got['flash_attn_fwd']} times ({HEUR_LAUNCHES})")
+            print(f"  prompt_points, p2g {name}: call {first:.1f} s"
+                  + (" (captures the completion)" if q else "")
+                  + f", completion replay {replay_ms:.1f} ms, traced wall "
+                  f"{wall:.1f} ms, device busy {as_ms(busy)} "
+                  f"({'not measured' if pct is None else f'{pct:.1f}%'}); "
+                  f"against exact: completion max abs "
+                  f"{float(np.abs(comps[name] - comps['exact']).max()):.4f}, "
+                  f"mask {int((out['mask'] != ref['mask']).sum())} px "
+                  f"differ, base depth "
+                  f"{float(np.abs(out['base'] - ref['base']).max()):.4f}, "
+                  f"blended depth "
+                  f"{float(np.abs(out['blended'] - ref['blended']).max()):.4f}"
+                  f" [{gpu}]", flush=True)
+            if name == "w8":
+                mh.p2g = float_p2g
+        # a w4-p2g + w8-SAM serving state against the bf16 one
+        quant = MaskHeuristics(copy.deepcopy(mh.sam), mh.p2g,
+                               matting_fn=mh.matting_fn)
+        quant.quantize_sam_int8()
+        mh.p2g = float_p2g
+        root = os.path.join(BUILD, "smoke_heur_states")
+        sizes, paths = {}, {"bf16": os.path.join(root, "bf16"),
+                            "int8": os.path.join(root, "int8")}
+        try:
+            mh.save_serving(paths["bf16"])
+            t0 = time.time()
+            quant.save_serving(paths["int8"])
+            write_s = time.time() - t0
+            for key, path in paths.items():
+                sizes[key] = sum(os.path.getsize(os.path.join(d, f))
+                                 for d, _, fs in os.walk(path) for f in fs)
+            t0 = time.time()
+            back = MaskHeuristics.load_serving(paths["int8"], device="cuda")
+            torch.cuda.synchronize()
+            read_s = time.time() - t0
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        same = True
+        for a, b in ((quant.sam, back.sam), (quant.p2g, back.p2g),
+                     (quant.matting_fn.rmbg_model,
+                      back.matting_fn.rmbg_model)):
+            sa, sb = a.state_dict(), b.state_dict()
+            same &= sorted(sa) == sorted(sb) and all(
+                sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k])
+                for k in sa)
+        modes = {m.mode for m in back.p2g.unet.modules()
+                 if type(m).__name__.startswith("Quant")}
+        check(same and modes == {"w4"},
+              f"int8 heuristics state (w4 p2g UNet, w8 SAM) restored "
+              f"bit-identical, every leaf in its saved dtype (p2g modes "
+              f"{sorted(modes)})")
+        print(f"  heuristics serving states: bf16 {sizes['bf16'] / 1e9:.3f} "
+              f"GB, int8 (w4 p2g, w8 SAM) {sizes['int8'] / 1e9:.3f} GB "
+              f"({100 * sizes['int8'] / sizes['bf16']:.1f}%), written in "
+              f"{write_s:.1f} s, restored to the card in {read_s:.1f} s "
+              f"[{gpu}]", flush=True)
+        del back, quant
+    finally:
+        mh.p2g = float_p2g
+        mh._completions.clear()
+    return launches
+
+
+def autotune_phase(gpu: str) -> int:
+    """(e) `scripts.autotune_serving --family amodal --random` at full width
+    (vitg + vitl, 518 px, bf16 batch 4), each candidate captured and timed
+    replayed: its rows and its pick. Returns the forward kernel's
+    launches."""
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.scripts import autotune_serving
+
+    t0 = time.time()
+    mha.launches = 0
+    report = autotune_serving.main([
+        "--family", "amodal", "--random", "--random_preset", "full",
+        "--batch", str(FULL_BATCH), "--size", str(SIZE), "--dtype",
+        "bfloat16", "--reps", str(AUTOTUNE_REPS), "--device", "cuda"])
+    launches = mha.launches
+    rows = report["rows"]
+    check([r["config"] for r in rows]
+          == autotune_serving.candidate_configs("amodal")
+          and all(r["img_per_sec"] > 0 for r in rows)
+          and report["best"] is not None and launches > 0,
+          f"autotune_serving at full width: {len(rows)} candidates timed, "
+          f"pick {report['best']}, {launches} flash_attn_fwd launches")
+    for r in rows:
+        print(f"    {r['config']:<24} {r['img_per_sec']:8.3f} img/s, p50 "
+              f"{r['p50_batch_ms']:7.1f} ms a batch of {FULL_BATCH}, delta "
+              f"{r['quality_delta']['max_abs']:.4f} "
+              f"({'within' if r['passes_budget'] else 'over'} the budget "
+              f"{report['quality_budget']})", flush=True)
+    print(f"  autotune_serving (random weights, vitg + vitl at {SIZE} px, "
+          f"bf16 batch {FULL_BATCH}, replayed): pick {report['best']} at "
+          f"{report['best_img_per_sec']} img/s, in {time.time() - t0:.1f} s "
+          f"[{gpu}]", flush=True)
+    return launches
+
+
+def layer_walk_phase(gpu: str) -> int:
+    """(f) `scripts.int8_layer_walk` on the trained proxy
+    (`checkpoints/proxy`, vitp) at 224 px over 8 held-out scenes: the kept
+    set. Returns the forward kernel's launches."""
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.scripts import int8_layer_walk
+
+    t0 = time.time()
+    corpus = os.path.join(BUILD, "layer_walk_scenes")
+    mha.launches = 0
+    try:
+        base, amodal = int8_layer_walk.main([
+            "--ckpt", os.path.join("checkpoints", "proxy"), "--size", "224",
+            "--eval-n", "8", "--device", "cuda", "--corpus-dir", corpus])
+    finally:
+        shutil.rmtree(corpus, ignore_errors=True)
+    launches = mha.launches
+    check(len(base) == len(amodal) == 12 and launches > 0,
+          f"int8_layer_walk on the trained proxy: kept base blocks "
+          f"{np.where(base)[0].tolist()}, amodal blocks "
+          f"{np.where(amodal)[0].tolist()}, {launches} flash_attn_fwd "
+          f"launches")
+    print(f"  int8_layer_walk (trained vitp proxy, 224 px, 8 scenes): "
+          f"{int(base.sum())}/12 base and {int(amodal.sum())}/12 amodal "
+          f"blocks kept in {time.time() - t0:.1f} s [{gpu}]", flush=True)
+    return launches
+
+
+def slice12_phase(heur: list, gpu: str) -> dict:
+    """Phase 13: (d) on the phase-10 app, (a) on its depth pipeline, then
+    (e) and (f); each path's forward-kernel launches counted from 0.
+    `heur`: [the phase-10 app, its scene, its hints], emptied here so that
+    the app is freed before (e)."""
+    import torch
+
+    app, img, hint = heur
+    heur.clear()
+    t0 = time.time()
+
+    def step(what):
+        print(f"  {what} (at +{time.time() - t0:.1f} s)", flush=True)
+
+    launches = {}
+    step("(d) prompt_points exact / w8 / w4, an int8 heuristics state")
+    launches["heuristics_int8"] = heuristics_int8_phase(app, img, hint, gpu)
+    step("(a) cli.infer without cv2, PIL or matplotlib")
+    launches["cli_infer"] = cli_infer_phase(app.pipeline, gpu)
+    del app
+    gc.collect()
+    torch.cuda.empty_cache()
+    step("(e) autotune_serving at full width")
+    launches["autotune"] = autotune_phase(gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    step("(f) int8_layer_walk on the trained proxy")
+    launches["layer_walk"] = layer_walk_phase(gpu)
+    print(f"  phase 13 done in {time.time() - t0:.1f} s [{gpu}]", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4068,9 +4463,11 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"  {name}:   {line.strip()}", flush=True)
     sass_check()
+    native_build_check()
     alone = {"6": train_phase, "8": depthfm_train_phase, "9": serving_phase,
              "10": lambda g: (p2g_proxy_phase(), heuristics_phase(g)),
-             "11": baselines_phase, "12": compression_phase}
+             "11": baselines_phase, "12": compression_phase,
+             "13": lambda g: slice12_phase(heuristics_phase(g)[1], g)}
     if only is not None:                  # iterate on some phases alone
         for name in only.split(","):
             phase(f"[{name}] alone")
@@ -4121,7 +4518,13 @@ def main() -> int:
     phase("[10] heuristics at full width: SAM ViT-H, pix2gestalt, CLIP "
           "ViT-L/14, RMBG-1.4, then vitg + vitl depth")
     p2g_proxy_phase()
-    heur_launches = heuristics_phase(gpu)
+    heur_launches, heur = heuristics_phase(gpu)
+    gc.collect()
+
+    phase("[13] the twelfth slice: int8 heuristics at full width, cli.infer "
+          "without cv2 / PIL / matplotlib, autotune_serving, "
+          "int8_layer_walk")
+    s12_launches = slice12_phase(heur, gpu)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4136,9 +4539,10 @@ def main() -> int:
     tome_rows, comp_launches = compression_phase(gpu)
 
     # launches: over the main paths, each counted from 0; the forward
-    # kernel runs on eight (inference [5], training [6], DepthFM [7], DepthFM
-    # training and its DDPM finetune [8], serving [9], heuristics [10],
-    # compression [12]), the
+    # kernel runs on twelve (inference [5], training [6], DepthFM [7],
+    # DepthFM training and its DDPM finetune [8], serving [9], heuristics
+    # [10], compression [12], and [13]'s int8 heuristics, cli.infer (its
+    # process's count), autotuner and layer walk), the
     # backward pair on three, the fused epilogue on its chain [3]
     launches["fused_epilogue"] = measured["fused_epilogue"]["launches"]
     kernels = [{"name": name, "route": "cuda", "source": source,
@@ -4162,11 +4566,12 @@ def main() -> int:
     kernels[0].update(
         launches=kernels[0]["launches"] + infer_launches + depthfm_launches
         + serve_launches + heur_launches + comp_launches["amodal"]
-        + comp_launches["depthfm"],
+        + comp_launches["depthfm"] + sum(s12_launches.values()),
         launches_inference=infer_launches, launches_depthfm=depthfm_launches,
         launches_serving=serve_launches, launches_heuristics=heur_launches,
         launches_compression_amodal=comp_launches["amodal"],
         launches_compression_depthfm=comp_launches["depthfm"],
+        **{f"launches_{k}": v for k, v in s12_launches.items()},
         launches_per_replay_traced=per_replay,
         compression_shapes=tome_rows)
     print(f"  all phases took {time.time() - started:.1f} s", flush=True)

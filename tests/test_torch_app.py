@@ -188,8 +188,6 @@ def _args(*argv):
 
 def test_build_heuristics_flag_checks(tmp_path, stack):
     assert tapp._build_heuristics(_args()) is None
-    with pytest.raises(SystemExit, match="not ported"):
-        tapp._build_heuristics(_args("--p2g_int8", "--random"))
     with pytest.raises(SystemExit, match="requires the heuristics stack"):
         tapp._build_heuristics(_args("--p2g_deep_cache", "5"))
     with pytest.raises(SystemExit, match="missing --p2g_ckpt --vae_ckpt"):
@@ -205,6 +203,42 @@ def test_build_heuristics_flag_checks(tmp_path, stack):
     assert dataclasses.replace(mh.p2g_cfg, ddim_deep_cache=None) == \
         th.p2g_cfg
     assert _args().device == "cuda"
+
+
+def test_p2g_int8_flag_quantises_the_pix2gestalt_unet(tmp_path, stack):
+    """`--p2g_int8` (weight-only w8, the JAX app's mode) on a restored
+    stack: every site the JAX rule picks is w8, SAM stays float, and a
+    "prompt_points" call through the app runs on it; a state that is
+    already quantised exits, and so does the flag without a stack."""
+    from amodal_depth_anything_tpu_torch.convert.weights import \
+        p2g_unet_layer_paths
+
+    with pytest.raises(SystemExit, match="--p2g_int8 requires the "
+                                         "heuristics stack"):
+        tapp._build_heuristics(_args("--p2g_int8"))
+    _, th, _ = stack
+    path = str(tmp_path / "heur")
+    th.save_serving(path)
+    mh = tapp._build_heuristics(_args("--heur_serving", path, "--device",
+                                      "cpu", "--p2g_int8"))
+    quant = {n: m.mode for n, m in mh.p2g.unet.named_modules()
+             if type(m).__name__.startswith("Quant")}
+    assert quant and set(quant.values()) == {"w8"}
+    assert set(quant) <= set(p2g_unet_layer_paths(mh.p2g_cfg))
+    assert not any(type(m).__name__.startswith("Quant")
+                   for m in mh.sam.modules())
+    img = (np.random.default_rng(3).random((40, 52, 3)) * 255).astype(
+        np.uint8)
+    hint = np.zeros((40, 52), np.float32)
+    hint[18:30, 6:28] = 1.0
+    mask = mh.amodal_mask_from_points(img, hint, noise=_jax_noise(
+        0, mh.p2g_cfg.image_size))
+    assert mask.shape == (40, 52) and set(np.unique(mask)) <= {0.0, 1.0}
+    again = str(tmp_path / "heur_int8")
+    mh.save_serving(again)
+    with pytest.raises(SystemExit, match="--p2g_int8: .*already quantised"):
+        tapp._build_heuristics(_args("--heur_serving", again, "--device",
+                                     "cpu", "--p2g_int8"))
 
 
 @pytest.mark.parametrize("argv, message", [
