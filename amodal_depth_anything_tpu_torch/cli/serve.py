@@ -67,7 +67,6 @@ from __future__ import annotations
 
 import argparse
 import base64
-import io
 import json
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -76,6 +75,7 @@ import numpy as np
 from ..native import imagecodec
 from ..utils.host_image import (decode_png, encode_png, resize_bilinear,
                                 resize_nearest)
+from ..utils.image import decode_with_pil
 
 __all__ = ["build_parser", "build_server", "main"]
 
@@ -140,11 +140,10 @@ def _b64_png_to_array(data: str) -> np.ndarray:
     if raw.startswith(b"\x89PNG"):
         return decode_png(raw)
     if imagecodec.available():
-        px = imagecodec.decode(raw)     # JPEG where libjpeg was built
+        px = imagecodec.decode(raw)     # baseline JPEG
         if px is not None:
             return px
-    from PIL import Image   # other formats need PIL
-    return np.asarray(Image.open(io.BytesIO(raw)))
+    return decode_with_pil(raw)     # other formats need PIL
 
 
 def _depth_to_b64_png(depth: np.ndarray) -> str:

@@ -129,9 +129,12 @@ def trainer_config_from_cfg(cfg, accumulation_steps: int):
             tcfg.get("sequence_parallel", False) if tcfg else False)),
         remat=cfg.get("remat", tcfg.get("remat", "attn") if tcfg
                       else "attn"),
-        # update rule (train/state.py): adam
+        # update rule (train/state.py): adam | adam-bf16mu | adafactor
         optimizer=cfg.get("optimizer", tcfg.get("optimizer", "adam")
                           if tcfg else "adam"),
+        # DPT head over batch chunks, recomputed in the backward
+        head_tile=cfg.get("head_tile", tcfg.get("head_tile") if tcfg
+                          else None),
     )
 
 
@@ -278,7 +281,12 @@ def main(argv=None) -> None:
                           seed=seed, **trainer_kwargs_from_cfg(cfg))
     if args.resume_run:
         trainer.load_checkpoint(args.resume_run, resume_training=True)
-    trainer.train(t_end=t_end)
+    try:
+        trainer.train(t_end=t_end)
+    finally:
+        # the run's event file is complete; a later run in this process
+        # (or its directory's removal) must not find the writer open
+        tb_logger.close()
     logging.info("training finished at iter %d", trainer.effective_iter)
 
 

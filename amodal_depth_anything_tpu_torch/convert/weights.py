@@ -48,7 +48,8 @@ from ..models.depthfm import DepthFM, DepthFMConfig, build_depthfm
 from ..models.unet_ldm import UNetConfig, build_plan
 
 __all__ = ["load_state_dict", "infer_dav2_config", "params_from_jax",
-           "params_to_jax", "load_params_npz", "dav2_layer_paths",
+           "params_to_jax", "load_params_npz", "jax_param_layout",
+           "dav2_layer_paths",
            "depthfm_layer_paths", "depthfm_params_from_jax",
            "sam_layer_paths", "p2g_unet_layer_paths",
            "depthfm_params_to_jax", "load_depthfm_proxy",
@@ -59,10 +60,11 @@ __all__ = ["load_state_dict", "infer_dav2_config", "params_from_jax",
 
 
 def load_state_dict(path: str) -> dict[str, torch.Tensor]:
-    """A reference checkpoint as {key: tensor} (.pth or .safetensors)."""
+    """A reference checkpoint as {key: tensor} (.pth, or .safetensors read
+    by the port's own reader, `convert/safetensors.py`)."""
     if str(path).endswith(".safetensors"):
-        from safetensors.torch import load_file
-        return dict(load_file(path))
+        from .safetensors import load_file
+        return load_file(path)
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
@@ -328,6 +330,27 @@ def params_to_jax(sd: dict, cfg: DAV2Config, *, tensors: bool = False) -> dict:
     for path, layers in stacks.items():
         _set_path(tree, path, _jax_out(torch.stack(layers), tensors))
     return tree
+
+
+def jax_param_layout(model: torch.nn.Module) -> dict[str, tuple]:
+    """{state-dict key: (dims, stack)} of `model`, as the JAX package lays
+    the same parameter out: `dims` the dimension order that takes the
+    port's tensor to the JAX leaf's layout (None: the same), `stack` the
+    JAX path of the stacked leaf the tensor is one block of (None: a leaf
+    of its own). The DAV2 family from its leaf map, PartialCompletion-
+    ContentDPT from its bridge entries, any other model by the kind of each
+    module (linear, conv, transposed conv). `train.state.Adafactor` factors
+    and normalises per JAX leaf by it."""
+    cfg = getattr(model, "cfg", None)
+    if isinstance(cfg, DAV2Config):
+        entries = _leaf_map(cfg)
+    else:
+        from ..models.jo_dpt import JoDPT
+        kw = _baseline_spec("PartialCompletionContentDPT", cfg)[1] \
+            if isinstance(model, JoDPT) else {}
+        entries = [e[:4] for e in _baseline_entries(model, **kw)]
+    return {key: (_TO_JAX[kind], path if layer is not None else None)
+            for key, path, kind, layer in entries}
 
 
 def _set_path(tree: dict, path: tuple, leaf) -> None:

@@ -21,7 +21,6 @@ Semantics preserved from the reference:
 from __future__ import annotations
 
 import enum
-import io
 import os
 import tarfile
 from typing import Sequence
@@ -30,6 +29,7 @@ import numpy as np
 
 from ..ops.resize import _nearest_indices
 from ..utils.host_image import PNG_SIGNATURE, decode_png_plain
+from ..utils.image import decode_with_pil
 
 __all__ = ["DatasetMode", "DepthFileNameMode", "BaseDepthDataset",
            "resize_nearest_exact_np"]
@@ -134,11 +134,11 @@ class BaseDepthDataset:
 
     def _read_image(self, img_rel_path: str) -> np.ndarray:
         """The decoded image as the JAX package's loader gives it: the
-        native codec (`native.imagecodec`: PNG, and JPEG where libjpeg is
-        built; the GIL released, so prefetch threads decode in parallel),
-        else for PNGs the numpy decoder (`utils/host_image.decode_png_plain`),
-        so the loaders run where PIL is not installed; PIL is imported only
-        for other formats."""
+        native codec (`native.imagecodec`: PNG, and baseline JPEG; the GIL
+        released, so prefetch threads decode in parallel), else for PNGs
+        the numpy decoder (`utils/host_image.decode_png_plain`), so the
+        loaders run where PIL is not installed; PIL is imported only for
+        other formats (`utils.image.decode_with_pil`)."""
         from ..native import imagecodec
 
         data = self._read_bytes(img_rel_path)
@@ -148,8 +148,7 @@ class BaseDepthDataset:
                 return img
         if data.startswith(PNG_SIGNATURE):
             return decode_png_plain(data)
-        from PIL import Image
-        return np.asarray(Image.open(io.BytesIO(data)))
+        return decode_with_pil(data)
 
     def _read_rgb_file(self, rel_path: str) -> np.ndarray:
         return self._read_image(rel_path)  # [H,W,3] uint8 (kept HWC)

@@ -22,6 +22,7 @@ import dataclasses
 from typing import Sequence
 
 import torch
+import torch.utils.checkpoint
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -113,18 +114,36 @@ class DPTHead(nn.Module):
         depth [B, 14*ph, 14*pw, 1].
 
         `batch_tile`: run the head over batch chunks of this size, one after
-        the other (JAX `dpt_head(batch_tile=)`, a serving knob; exact, the
-        convolutions are independent per batch row): the full-grid fusion
-        pyramid's activations then peak at one chunk's worth."""
+        the other (JAX `dpt_head(batch_tile=)`; exact, the convolutions are
+        independent per batch row): the full-grid fusion pyramid's
+        activations then peak at one chunk's worth. Under grad each chunk
+        is checkpointed, as the JAX head's `jax.checkpoint`ed `lax.map`
+        body: only the chunk's inputs are kept and the backward recomputes
+        one chunk's forward at a time (without that, tiling saves no
+        memory)."""
         b = features[0][0].shape[0]
         if batch_tile is not None and b > batch_tile:
             if b % batch_tile:
                 raise ValueError(f"batch {b} not divisible by batch_tile "
                                  f"{batch_tile}")
-            return torch.cat([
-                self.forward([(tok[i:i + batch_tile], cls[i:i + batch_tile])
-                              for tok, cls in features], patch_hw)
-                for i in range(0, b, batch_tile)])
+
+            def chunk(*flat):
+                return self.forward(list(zip(flat[::2], flat[1::2])),
+                                    patch_hw)
+
+            outs = []
+            for i in range(0, b, batch_tile):
+                flat = [t[i:i + batch_tile] for pair in features
+                        for t in pair]
+                if torch.is_grad_enabled():
+                    # no random op in the head: no RNG state to stash
+                    # (which a CUDA graph capture would refuse)
+                    outs.append(torch.utils.checkpoint.checkpoint(
+                        chunk, *flat, use_reentrant=False,
+                        preserve_rng_state=False))
+                else:
+                    outs.append(chunk(*flat))
+            return torch.cat(outs)
         cfg, sc = self.cfg, self.scratch
         ph, pw = patch_hw
         taps = []

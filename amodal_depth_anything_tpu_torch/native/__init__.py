@@ -10,6 +10,8 @@ port's host paths ask numpy or a library for in the same library:
     computed (`utils.host_image.resize_nearest`: PIL's NEAREST indices);
   * `resize_bilinear`: PIL's BILINEAR `Image.resize` of a uint8 or float32
     image (`utils.host_image.resize_bilinear_plain` is its numpy version);
+  * `resize_bicubic`: PIL's BICUBIC `Image.resize` of a uint8 or an "I;16"
+    uint16 image (`utils.host_image.resize_bicubic_plain`);
   * `find_contours`, `draw_contours`, `draw_mask_contours`: OpenCV's
     `findContours(RETR_TREE, CHAIN_APPROX_SIMPLE)` and `drawContours` with
     8-connected lines (`utils.image.highlight_target`).
@@ -37,8 +39,8 @@ from . import _build
 
 __all__ = ["available", "require", "plain_route", "enabled",
            "resize_u8_to_f32", "resize_u16_to_f32", "resize_f32", "gather",
-           "resize_bilinear", "find_contours", "draw_contours",
-           "draw_mask_contours"]
+           "resize_bilinear", "resize_bicubic", "find_contours",
+           "draw_contours", "draw_mask_contours"]
 
 _VARIANTS = [(("-fopenmp",), ()), ((), ())]
 _lib = None
@@ -83,6 +85,8 @@ def _bind(lib) -> None:
                                      u8p]
     lib.resize_bilinear_u8.argtypes = [u8p, i32, i32, i32, u8p, i32, i32]
     lib.resize_bilinear_f32.argtypes = [f32p, i32, i32, i32, f32p, i32, i32]
+    lib.resize_bicubic_u8.argtypes = [u8p, i32, i32, i32, u8p, i32, i32]
+    lib.resize_bicubic_u16.argtypes = [u16p, i32, i32, u16p, i32, i32]
     lib.contours_find.argtypes = [u8p, i32, i32]
     lib.contours_find.restype = ctypes.c_void_p
     lib.contours_size.argtypes = [ctypes.c_void_p, ctypes.POINTER(i64),
@@ -94,7 +98,8 @@ def _bind(lib) -> None:
     lib.draw_mask_contours.argtypes = [u8p, i32, i32, i32, u8p, u8p, i32]
     for name in ("resize_u8_to_f32", "resize_u16_to_f32", "resize_f32",
                  "gather_rows_cols", "resize_bilinear_u8",
-                 "resize_bilinear_f32", "contours_size", "contours_copy",
+                 "resize_bilinear_f32", "resize_bicubic_u8",
+                 "resize_bicubic_u16", "contours_size", "contours_copy",
                  "contours_free", "draw_contours", "draw_mask_contours"):
         getattr(lib, name).restype = None
 
@@ -204,6 +209,25 @@ def resize_bilinear(img: np.ndarray, size) -> np.ndarray:
     else:
         raise ValueError(f"resize_bilinear takes uint8 or float32, got "
                          f"{img.dtype}")
+    return out
+
+
+def resize_bicubic(img: np.ndarray, size) -> np.ndarray:
+    """PIL's `Image.resize(size, BICUBIC)` of uint8 [H,W] / [H,W,C] or of
+    uint16 [H,W] (mode "I;16"); `size` = (width, height)."""
+    lib = _load()
+    w, h = int(size[0]), int(size[1])
+    img = np.ascontiguousarray(img)
+    ih, iw, ch = _hwc(img)
+    out = np.empty((h, w) + img.shape[2:], img.dtype)
+    if img.dtype == np.uint8:
+        lib.resize_bicubic_u8(img.reshape(-1), ih, iw, ch, out.reshape(-1),
+                              h, w)
+    elif img.dtype == np.uint16 and img.ndim == 2:
+        lib.resize_bicubic_u16(img.reshape(-1), ih, iw, out.reshape(-1), h, w)
+    else:
+        raise ValueError(f"resize_bicubic takes uint8 or 2-D uint16, got "
+                         f"{img.dtype} {img.shape}")
     return out
 
 

@@ -10,14 +10,16 @@ other route. Interlaced PNGs decode.
 
 The JAX codec links libpng and libjpeg. This one needs g++ alone for PNG:
 the chunks, the row filters and Adam7 are written here, and the stream is
-inflated by zlib where `zlib.h` is found, else by Python's
-`zlib.decompress` between two calls (it releases the GIL too). JPEG goes
-through libjpeg only where `jpeglib.h` is found; `routes()` says which
-routes were built. The library is built at first use into
-`build/torch_native/` (`native/_build.py`); ctypes releases the GIL for each
-call, so request and loader threads decode in parallel. `available()` is
-false where it does not build and under `native.plain_route()`; `require()`
-raises the build's error.
+inflated by zlib where `zlib.h` is found, else by Python's `zlib.decompress`
+between two calls (it releases the GIL too). JPEG goes through libjpeg where
+`jpeglib.h` is found, else through the baseline decoder written in
+`imagecodec.cpp` (`decode_jpeg_baseline`: the same pixels as PIL's
+libjpeg-turbo; progressive and arithmetic-coded files are refused by name);
+`routes()` says which routes were built. The library is built at first use
+into `build/torch_native/` (`native/_build.py`); ctypes releases the GIL for
+each call, so request and loader threads decode in parallel. `available()`
+is false where it does not build and under `native.plain_route()`;
+`require()` raises the build's error.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from . import _build
 from . import enabled as _native_enabled
 
 __all__ = ["available", "require", "routes", "decode", "decode_png",
-           "filter_rows", "PNG_SIGNATURE"]
+           "decode_jpeg_baseline", "filter_rows", "PNG_SIGNATURE"]
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 ROUTE_ZLIB, ROUTE_JPEG = 1, 2
@@ -95,8 +97,11 @@ def bind(lib) -> ctypes.CDLL:
     lib.png_filter_rows.restype = None
     lib.jpeg_probe.argtypes = [u8p, sz, ip, ip, ip]
     lib.jpeg_decode.argtypes = [u8p, sz, u8p]
+    lib.jpeg_baseline_probe.argtypes = [u8p, sz, ip, ip, ip]
+    lib.jpeg_baseline_decode.argtypes = [u8p, sz, u8p]
     for name in ("png_probe", "png_idat", "png_unfilter", "png_decode",
-                 "jpeg_probe", "jpeg_decode"):
+                 "jpeg_probe", "jpeg_decode", "jpeg_baseline_probe",
+                 "jpeg_baseline_decode"):
         getattr(lib, name).restype = ctypes.c_int
     return lib
 
@@ -168,14 +173,21 @@ def decode_png(buf: bytes) -> np.ndarray | None:
 
 def decode(buf: bytes) -> np.ndarray | None:
     """PNG or JPEG bytes -> [H,W] / [H,W,C] uint8 (or uint16 PNG), as the
-    JAX package's codec gives them; None where the library is missing, the
-    format is rejected or unknown, or JPEG has no libjpeg here."""
+    JAX package's codec gives them (JPEG through libjpeg where it was
+    built, else through the baseline decoder); None where the library is
+    missing or the format is rejected or unknown, so that the caller can
+    take another route (`decode_jpeg_baseline` names a JPEG's refusal)."""
     lib = _load()
     if lib is None or len(buf) < 8:
         return None
     if buf[:8] == PNG_SIGNATURE:
         return decode_png(buf)
     if buf[:2] == b"\xff\xd8":
+        if not lib.codec_routes() & ROUTE_JPEG:
+            try:
+                return decode_jpeg_baseline(buf)
+            except ValueError:
+                return None
         buf = bytes(buf)
         h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         src = _ptr(buf)
@@ -187,6 +199,38 @@ def decode(buf: bytes) -> np.ndarray | None:
             return None
         return out[..., 0] if c.value == 1 else out
     return None
+
+
+# jpeg_baseline_probe's refusals, by code
+_JPEG_REFUSALS = {
+    1: "not a JPEG", 3: "malformed JPEG",
+    4: "JPEG with other than 1 or 3 components (CMYK / YCCK)",
+    6: "progressive JPEG", 7: "arithmetic-coded JPEG",
+    8: "lossless or hierarchical JPEG", 9: "JPEG with other than 8-bit "
+    "samples", 10: "JPEG subsampling other than 4:4:4, 4:2:2 and 4:2:0"}
+
+
+def decode_jpeg_baseline(buf: bytes) -> np.ndarray:
+    """Baseline JPEG bytes -> [H,W] / [H,W,3] uint8 through the decoder
+    written in `imagecodec.cpp` (libjpeg's islow IDCT, fancy upsampling and
+    YCbCr tables: PIL's pixels bit for bit), whether or not libjpeg is
+    linked. Raises ValueError naming what it refuses (progressive,
+    arithmetic-coded, ...): `decode` turns that into None, and a caller
+    with no other route (no PIL) calls this to say why."""
+    lib = _load()
+    if lib is None:
+        raise _build.BuildError(_error)
+    buf = bytes(buf)
+    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    src = _ptr(buf)
+    rc = lib.jpeg_baseline_probe(src, len(buf), ctypes.byref(h),
+                                 ctypes.byref(w), ctypes.byref(c))
+    if rc == 0:
+        out = np.empty((h.value, w.value, c.value), np.uint8)
+        rc = lib.jpeg_baseline_decode(src, len(buf), _out_ptr(out))
+    if rc:
+        raise ValueError(f"unsupported: {_JPEG_REFUSALS.get(rc, rc)}")
+    return out[..., 0] if c.value == 1 else out
 
 
 def filter_rows(rows: np.ndarray, bpp: int) -> np.ndarray:

@@ -15,6 +15,12 @@
 //     `Image.resize` (its convolution resampler: a triangle filter widened
 //     by the scale when downsizing, 22-bit fixed-point coefficients for
 //     8-bit images and double ones for "F" images, horizontal pass first);
+//   * resize_bicubic_u8 / resize_bicubic_u16: PIL's BICUBIC `Image.resize`
+//     (the same resampler with the cubic filter, a = -0.5, support 2) of an
+//     8-bit image and of an "I;16" image (double coefficients, each pass
+//     rounded half away from zero, then the low byte and the high byte
+//     each clipped to 0..255 on their own, as Pillow stores a 16-bit
+//     sample);
 //   * contours_find / draw_contours: OpenCV's findContours(RETR_TREE,
 //     CHAIN_APPROX_SIMPLE) (Suzuki-Abe border following on a zero-padded
 //     copy of the mask, the chain compressed to its corners) and
@@ -47,13 +53,36 @@ void nearest_indices(int in_size, int out_size, int32_t* idx) {
 
 constexpr int kPrecisionBits = 32 - 8 - 2;
 
-// PIL's precompute_coeffs for the triangle filter: per output pixel the
-// first source pixel, the tap count and `ksize` normalised weights.
+// PIL's filters (Resample.c): the triangle (support 1) and the cubic
+// convolution with a = -0.5 (support 2)
+double bilinear_filter(double x) {
+  if (x < 0.0) x = -x;
+  return x < 1.0 ? 1.0 - x : 0.0;
+}
+
+double bicubic_filter(double x) {
+  const double a = -0.5;
+  if (x < 0.0) x = -x;
+  if (x < 1.0) return ((a + 2.0) * x - (a + 3.0)) * x * x + 1;
+  if (x < 2.0) return (((x - 5) * x + 8) * x - 4) * a;
+  return 0.0;
+}
+
+struct Filter {
+  double (*fn)(double);
+  double support;
+};
+const Filter kBilinear = {bilinear_filter, 1.0};
+const Filter kBicubic = {bicubic_filter, 2.0};
+
+// PIL's precompute_coeffs: per output pixel the first source pixel, the
+// tap count and `ksize` normalised weights.
 int precompute_coeffs(int in_size, int out_size, std::vector<int>* bounds,
-                      std::vector<double>* kk) {
+                      std::vector<double>* kk,
+                      const Filter& filter = kBilinear) {
   const double scale = static_cast<double>(in_size) / out_size;
   const double filterscale = scale < 1.0 ? 1.0 : scale;
-  const double support = filterscale;   // the bilinear filter's support 1
+  const double support = filter.support * filterscale;
   const int ksize = static_cast<int>(std::ceil(support)) * 2 + 1;
   bounds->assign(2 * static_cast<size_t>(out_size), 0);
   kk->assign(static_cast<size_t>(out_size) * ksize, 0.0);
@@ -68,9 +97,7 @@ int precompute_coeffs(int in_size, int out_size, std::vector<int>* bounds,
     double* k = kk->data() + static_cast<size_t>(xx) * ksize;
     double ww = 0.0;
     for (int x = 0; x < xmax; ++x) {
-      double t = (x + xmin - center + 0.5) * ss;
-      if (t < 0.0) t = -t;
-      const double w = t < 1.0 ? 1.0 - t : 0.0;
+      const double w = filter.fn((x + xmin - center + 0.5) * ss);
       k[x] = w;
       ww += w;
     }
@@ -100,12 +127,13 @@ inline uint8_t clip8(int32_t ss) {
 // One pass over `n_lines` lines of `in_len` pixels, `ch` channels each:
 // `src_tap` elements between a line's pixels, `src_line` between lines
 // (`dst_px` and `dst_line` in the output).
+template <const Filter& F>
 void pass_u8(const uint8_t* src, uint8_t* dst, int n_lines, int in_len,
              int out_len, int ch, int64_t src_line, int64_t src_tap,
              int64_t dst_line, int64_t dst_px) {
   std::vector<int> bounds;
   std::vector<double> kk;
-  const int ksize = precompute_coeffs(in_len, out_len, &bounds, &kk);
+  const int ksize = precompute_coeffs(in_len, out_len, &bounds, &kk, F);
   const std::vector<int32_t> k = fixed_coeffs(kk);
 #pragma omp parallel for schedule(static) if (static_cast<int64_t>(n_lines) * out_len > 65536)
   for (int line = 0; line < n_lines; ++line) {
@@ -149,8 +177,47 @@ void pass_f32(const float* src, float* dst, int n_lines, int in_len,
   }
 }
 
+// Pillow's ROUND_UP (half away from zero) and its store of a 16-bit
+// sample: the low byte (C remainder) and the high byte (arithmetic shift)
+// each clipped to 0..255 on their own
+inline uint16_t store_u16(double ss) {
+  const int v = static_cast<int>(ss >= 0.0 ? std::floor(ss + 0.5)
+                                           : -std::floor(std::fabs(ss) + 0.5));
+  const int lo = v % 256, hi = v >> 8;
+  const int l = lo <= 0 ? 0 : (lo < 256 ? lo : 255);
+  const int h = hi <= 0 ? 0 : (hi < 256 ? hi : 255);
+  return static_cast<uint16_t>(l | (h << 8));
+}
+
+void pass_u16(const uint16_t* src, uint16_t* dst, int n_lines, int in_len,
+              int out_len, int ch, int64_t src_line, int64_t src_tap,
+              int64_t dst_line, int64_t dst_px) {
+  std::vector<int> bounds;
+  std::vector<double> kk;
+  const int ksize = precompute_coeffs(in_len, out_len, &bounds, &kk,
+                                      kBicubic);
+#pragma omp parallel for schedule(static) if (static_cast<int64_t>(n_lines) * out_len > 65536)
+  for (int line = 0; line < n_lines; ++line) {
+    const uint16_t* s = src + line * src_line;
+    uint16_t* d = dst + line * dst_line;
+    for (int xx = 0; xx < out_len; ++xx) {
+      const int xmin = bounds[2 * xx], xmax = bounds[2 * xx + 1];
+      const double* kx = kk.data() + static_cast<size_t>(xx) * ksize;
+      for (int c = 0; c < ch; ++c) {
+        double ss = 0.0;
+        for (int x = 0; x < xmax; ++x) {
+          ss += static_cast<double>(s[(x + xmin) * src_tap + c]) * kx[x];
+        }
+        d[xx * dst_px + c] = store_u16(ss);
+      }
+    }
+  }
+}
+
+// the two passes of a PIL resize: horizontal (if the width changes) then
+// vertical
 template <typename T, typename Pass>
-void resize_bilinear(const T* src, int in_h, int in_w, int ch, T* dst,
+void resample(const T* src, int in_h, int in_w, int ch, T* dst,
                      int out_h, int out_w, Pass pass) {
   // horizontal pass (if the width changes) into `mid`, then vertical
   const T* cur = src;
@@ -612,13 +679,27 @@ void gather_rows_cols(const uint8_t* src, int in_w, int px_bytes,
 // PIL BILINEAR Image.resize of a uint8 image with `ch` interleaved channels.
 void resize_bilinear_u8(const uint8_t* src, int in_h, int in_w, int ch,
                         uint8_t* dst, int out_h, int out_w) {
-  resize_bilinear<uint8_t>(src, in_h, in_w, ch, dst, out_h, out_w, pass_u8);
+  resample<uint8_t>(src, in_h, in_w, ch, dst, out_h, out_w,
+                           pass_u8<kBilinear>);
+}
+
+// PIL BICUBIC Image.resize of a uint8 image with `ch` interleaved channels.
+void resize_bicubic_u8(const uint8_t* src, int in_h, int in_w, int ch,
+                       uint8_t* dst, int out_h, int out_w) {
+  resample<uint8_t>(src, in_h, in_w, ch, dst, out_h, out_w,
+                           pass_u8<kBicubic>);
+}
+
+// PIL BICUBIC Image.resize of an "I;16" image (one uint16 channel).
+void resize_bicubic_u16(const uint16_t* src, int in_h, int in_w,
+                        uint16_t* dst, int out_h, int out_w) {
+  resample<uint16_t>(src, in_h, in_w, 1, dst, out_h, out_w, pass_u16);
 }
 
 // PIL BILINEAR Image.resize of a float32 ("F") image.
 void resize_bilinear_f32(const float* src, int in_h, int in_w, int ch,
                          float* dst, int out_h, int out_w) {
-  resize_bilinear<float>(src, in_h, in_w, ch, dst, out_h, out_w, pass_f32);
+  resample<float>(src, in_h, in_w, ch, dst, out_h, out_w, pass_f32);
 }
 
 // findContours(RETR_TREE, CHAIN_APPROX_SIMPLE) of a mask (nonzero =

@@ -29,6 +29,26 @@ same device program serves every step, eagerly or replayed as a CUDA graph
 (`train/trainer.py`), and the two are bitwise equal. The state keeps its
 host integers "count" and "mini_step" (the checkpoint format), advanced by
 `advance` beside the device scalars.
+
+The JAX package's two memory-saving rules are here too:
+
+  * "adam-bf16mu" (`optax.adam(mu_dtype=bfloat16)`): the first moment is
+    stored bfloat16. optax multiplies the stored moment by b1 as a
+    bfloat16 constant (the Python float takes the moment's dtype: 0.9 ->
+    0.8984375) and, jitted, adds the float32 0.1 * g in one rounding (a
+    fused multiply-add); the port computes that sum in float64 and rounds
+    it once to float32. The update reads that float32 moment, and the
+    stored moment is its bfloat16 rounding.
+  * "adafactor" (`optax.adafactor(clipping_threshold=None,
+    min_dim_size_to_factor=128)`, `Adafactor`): the factored second moment,
+    its decay 1 - (count + 1) ** -0.8 computed on the device from the
+    count, the schedule's learning rate, and the update scaled by
+    max(rms(p), 1e-3) over each JAX leaf. optax picks the factored axes
+    and the RMS blocks on the JAX package's layout (linear kernels
+    [in, out], convolutions HWIO, the ViT blocks stacked [L, ...]); the
+    port's tensors are [out, in] / OIHW, one per block, so `Adafactor` is
+    made with the layout (`convert.weights.jax_param_layout`), factors the
+    same logical axes, and takes a stacked leaf's RMS over all its blocks.
 """
 
 from __future__ import annotations
@@ -41,10 +61,10 @@ import torch
 
 from ..utils.lr_schedule import iter_exponential
 
-__all__ = ["TrainState", "Optimizer", "make_optimizer", "create_train_state",
-           "global_norm", "clip_by_global_norm"]
+__all__ = ["TrainState", "Optimizer", "Adafactor", "make_optimizer",
+           "create_train_state", "global_norm", "clip_by_global_norm"]
 
-DEFERRED_OPTIMIZERS = ("adam-bf16mu", "adafactor")
+OPTIMIZERS = ("adam", "adam-bf16mu", "adafactor")
 
 
 @dataclasses.dataclass
@@ -55,46 +75,56 @@ class TrainState:
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares over every tensor), float32 scalar."""
-    return torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(tensors)))
+    """sqrt(sum of squares over every tensor), float32 scalar: optax's
+    sqrt of the summed per-leaf sums of squares (a sum of per-tensor
+    norms squared would round each norm first)."""
+    flat = [t.reshape(-1) for t in tensors]
+    return torch.stack([torch.dot(t, t) for t in flat]).sum().sqrt()
 
 
 def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
                         norm: torch.Tensor | None = None) -> None:
-    """optax.clip_by_global_norm, in place: g / norm * max_norm when the
+    """optax.clip_by_global_norm, in place: (g / norm) * max_norm when the
     norm reaches max_norm, untouched below it."""
     norm = global_norm(grads) if norm is None else norm
-    divisor = torch.where(norm < max_norm, torch.ones_like(norm),
-                          norm / max_norm)
+    clip = norm >= max_norm
+    divisor = torch.where(clip, norm, torch.ones_like(norm))
     torch._foreach_div_(grads, divisor)
+    torch._foreach_mul_(grads, torch.where(
+        clip, torch.full_like(norm, max_norm), torch.ones_like(norm)))
 
 
 class Optimizer:
     """clip_by_global_norm -> Adam(schedule), under MultiSteps when
     `accumulation_steps > 1`. State is a plain dict of ints and tensor
     lists, so it checkpoints with `torch.save`. `schedule_constant_from`:
-    the count from which `schedule` no longer changes."""
+    the count from which `schedule` no longer changes. `mu_dtype`: the
+    stored first moment's dtype (bfloat16 for "adam-bf16mu")."""
 
     def __init__(self, schedule, max_grad_norm: float,
                  accumulation_steps: int = 1, *, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
-                 schedule_constant_from: int):
+                 schedule_constant_from: int,
+                 mu_dtype: torch.dtype = torch.float32):
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
         self.accumulation_steps = int(accumulation_steps)
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.mu_dtype = mu_dtype
         # the schedule's value no longer changes from this count on
         self.schedule_constant_from = int(schedule_constant_from)
         self._tables: dict = {}
 
     def init(self, params: list[torch.Tensor]) -> dict[str, Any]:
-        state = {"count": 0, "mini_step": 0,
-                 "mu": [torch.zeros_like(p) for p in params],
-                 "nu": [torch.zeros_like(p) for p in params]}
+        state = {"count": 0, "mini_step": 0, **self._init_rule(params)}
         if self.accumulation_steps > 1:
             state["acc_grads"] = [torch.zeros_like(p) for p in params]
         return state
+
+    def _init_rule(self, params) -> dict[str, list]:
+        return {"mu": [torch.zeros_like(p, dtype=self.mu_dtype)
+                       for p in params],
+                "nu": [torch.zeros_like(p) for p in params]}
 
     def tables(self, device) -> torch.Tensor:
         """[3, L] float32 on `device`: row 0 the schedule at count i, rows
@@ -162,19 +192,31 @@ class Optimizer:
             grads = [a.clone() for a in acc]
             torch._foreach_zero_(acc)
         clip_by_global_norm(grads, self.max_grad_norm)
+        self._rule_(params, grads, state, scalars["count"])
+        scalars["count"].add_(1)
+
+    def _lr(self, table: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+        """[1]: the schedule at the count BEFORE the update."""
+        last = table.shape[1] - 1
+        return table[0].index_select(0, count.clamp(max=last).view(1))
+
+    def _rule_(self, params, grads, state, count) -> None:
+        """Adam on the clipped gradients, in place."""
         mu, nu = state["mu"], state["nu"]
-        torch._foreach_mul_(mu, self.b1)
-        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
         # the schedule at the count BEFORE the update, the corrections at
         # the count after it
         table = self.tables(params[0].device)
         last = table.shape[1] - 1
-        count = scalars["count"]
-        lr = table[0].index_select(0, count.clamp(max=last).view(1))
+        lr = self._lr(table, count)
         c1, c2 = table[1:].index_select(
             1, (count + 1).clamp(max=last).view(1)).unbind(0)
+        if self.mu_dtype != torch.float32:
+            self._low_mu_rule_(params, grads, mu, nu, lr[0], c1[0], c2[0])
+            return
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
         # u = (mu / c1) / (sqrt(nu / c2) + eps);  p += -lr * u
         denom = torch._foreach_div(nu, c2[0])
         torch._foreach_sqrt_(denom)
@@ -183,7 +225,20 @@ class Optimizer:
         torch._foreach_div_(updates, denom)
         torch._foreach_mul_(updates, -lr[0])
         torch._foreach_add_(params, updates)
-        count.add_(1)
+
+    def _low_mu_rule_(self, params, grads, mu, nu, lr, c1, c2) -> None:
+        """Adam's moment and update with a low-precision stored first
+        moment, one tensor at a time (the float32 moment of one tensor
+        alive at once). optax: b1 takes the stored moment's dtype, and the
+        jitted 0.1 * g + b1 * mu rounds once (an FMA): exact in float64,
+        then rounded to float32."""
+        b1 = float(torch.tensor(self.b1, dtype=self.mu_dtype))
+        a = float(np.float32(1.0 - self.b1))
+        for p, g, m, v in zip(params, grads, mu, nu):
+            m32 = (g.double() * a + m.double() * b1).float()
+            u = (m32 / c1).div_((v / c2).sqrt_().add_(self.eps))
+            p.add_(u.mul_(-lr))
+            m.copy_(m32)
 
     def update(self, params: list[torch.Tensor], grads: list[torch.Tensor],
                state: dict[str, Any],
@@ -200,20 +255,124 @@ class Optimizer:
         return apply
 
 
+class Adafactor(Optimizer):
+    """clip_by_global_norm -> optax.adafactor(schedule,
+    clipping_threshold=None, min_dim_size_to_factor=128) (decay rate 0.8,
+    eps 1e-30 on g ** 2, update scaled by max(rms(p), 1e-3)), under
+    MultiSteps when `accumulation_steps > 1`. The state holds optax's
+    FactoredState leaves per parameter: "v_row" and "v_col" for a factored
+    one, "v" for the others, [1] placeholders where a leaf is unused.
+    `layout`: one (dims, stack) per parameter, in the order of the
+    parameter lists it is given (`convert.weights.jax_param_layout`); None
+    takes each parameter as a JAX leaf of its own, laid out as in the
+    port."""
+
+    # the JAX recipe's `optax.adafactor` arguments
+    DECAY_RATE, FACTOR_EPS, MIN_DIM_SIZE_TO_FACTOR, MIN_SCALE = \
+        0.8, 1e-30, 128, 1e-3
+
+    def __init__(self, *args, layout: list | None = None, **kw):
+        super().__init__(*args, **kw)
+        self.layout = None if layout is None else list(layout)
+
+    def factored_dims(self, shape, dims=None) -> tuple[int, int] | None:
+        """optax's `_factored_dims` on the JAX layout's shape (`dims`: the
+        permutation that takes the tensor to it), returned as the tensor's
+        own axes (d1, d0): d0 the largest, reduced for the row moment."""
+        jshape = tuple(shape) if dims is None else \
+            tuple(shape[d] for d in dims)
+        if len(jshape) < 2:
+            return None
+        order = np.argsort(jshape)
+        if jshape[order[-2]] < self.MIN_DIM_SIZE_TO_FACTOR:
+            return None
+        d1, d0 = int(order[-2]), int(order[-1])
+        return (d1, d0) if dims is None else (dims[d1], dims[d0])
+
+    def plan(self, params) -> tuple[list, int]:
+        """([(factored dims or None, RMS group)] per parameter, the number
+        of groups): a stacked JAX leaf's blocks share one group."""
+        layout = self.layout or [(None, None)] * len(params)
+        if len(layout) != len(params):
+            raise ValueError(f"{len(layout)} layout entries for "
+                             f"{len(params)} parameters")
+        stacks: dict = {}
+        plan = []
+        for i, (p, (dims, stack)) in enumerate(zip(params, layout)):
+            group = stacks.setdefault(i if stack is None else ("s", stack),
+                                      len(stacks))
+            plan.append((self.factored_dims(p.shape, dims), group))
+        return plan, len(stacks)
+
+    def _init_rule(self, params) -> dict[str, list]:
+        v_row, v_col, v = [], [], []
+        for p, (fd, _) in zip(params, self.plan(params)[0]):
+            if fd is None:
+                v_row.append(p.new_zeros(1))
+                v_col.append(p.new_zeros(1))
+                v.append(torch.zeros_like(p))
+                continue
+            shape = list(p.shape)
+            v_row.append(p.new_zeros(shape[:fd[1]] + shape[fd[1] + 1:]))
+            v_col.append(p.new_zeros(shape[:fd[0]] + shape[fd[0] + 1:]))
+            v.append(p.new_zeros(1))
+        return {"v_row": v_row, "v_col": v_col, "v": v}
+
+    def _rule_(self, params, grads, state, count) -> None:
+        device = params[0].device
+        lr = self._lr(self.tables(device), count)[0]
+        t = (count + 1).to(torch.float32)
+        decay = 1.0 - t.pow(-self.DECAY_RATE)
+        keep = 1.0 - decay
+        # max(rms, min_scale) of each parameter block (a stacked JAX leaf
+        # is one block), from the parameters before the update
+        # (summed in a fixed order: no atomics, the same bits every replay)
+        plan, n_groups = self.plan(params)
+        sq: list = [None] * n_groups
+        numel = [0] * n_groups
+        for p, (_, group) in zip(params, plan):
+            s = p.square().sum()
+            sq[group] = s if sq[group] is None else sq[group] + s
+            numel[group] += p.numel()
+        rms = [(s / n).sqrt().clamp_min(self.MIN_SCALE)
+               for s, n in zip(sq, numel)]
+        for i, (p, g, (fd, group)) in enumerate(zip(params, grads, plan)):
+            g2 = g.square().add_(self.FACTOR_EPS)
+            if fd is None:
+                v = state["v"][i]
+                v.mul_(decay).add_(g2.mul_(keep))
+                u = g * v.pow(-0.5)
+            else:
+                d1, d0 = fd
+                v_row, v_col = state["v_row"][i], state["v_col"][i]
+                v_row.mul_(decay).add_(g2.mean(d0).mul_(keep))
+                v_col.mul_(decay).add_(g2.mean(d1).mul_(keep))
+                rd1 = d1 - 1 if d1 > d0 else d1
+                row = (v_row / v_row.mean(rd1, keepdim=True)).pow(-0.5)
+                u = g * row.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
+            u.mul_(lr).mul_(rms[group])
+            p.sub_(u)
+
+
 def make_optimizer(*, lr: float, total_iter: int, final_ratio: float = 0.01,
                    warmup_steps: int = 100, max_grad_norm: float = 0.01,
-                   accumulation_steps: int = 1,
-                   optimizer: str = "adam") -> Optimizer:
-    """`optimizer`: "adam", the reference recipe. The JAX package's
-    memory-saving rules "adam-bf16mu" and "adafactor" are not ported yet."""
-    if optimizer in DEFERRED_OPTIMIZERS:
-        raise NotImplementedError(
-            f"optimizer={optimizer!r} is not ported yet; use 'adam'")
-    if optimizer != "adam":
+                   accumulation_steps: int = 1, optimizer: str = "adam",
+                   layout: list | None = None) -> Optimizer:
+    """`optimizer`: "adam" (the reference recipe), "adam-bf16mu" (Adam with
+    a bfloat16 first moment) or "adafactor" (factored second moment, no
+    first moment), as the JAX package's `make_optimizer`. `layout`: the
+    trained parameters' JAX layout, which only "adafactor" reads
+    (`Adafactor`)."""
+    if optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer: {optimizer!r}")
     schedule = iter_exponential(lr, total_iter, final_ratio, warmup_steps)
-    return Optimizer(schedule, max_grad_norm, accumulation_steps,
-                     schedule_constant_from=max(total_iter, warmup_steps))
+    kw = dict(schedule_constant_from=max(total_iter, warmup_steps))
+    if optimizer == "adafactor":
+        return Adafactor(schedule, max_grad_norm, accumulation_steps,
+                         layout=layout, **kw)
+    if optimizer == "adam-bf16mu":
+        kw["mu_dtype"] = torch.bfloat16
+    return Optimizer(schedule, max_grad_norm, accumulation_steps, **kw)
 
 
 def create_train_state(model: torch.nn.Module, tx: Optimizer) -> TrainState:

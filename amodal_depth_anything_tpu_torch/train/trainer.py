@@ -16,9 +16,13 @@ trainer (`src/trainer/discriminative_trainer.py:36-770`):
   * Order in the step: non-finite loss -> 0; non-finite gradient entries
     -> 0; the mean over `accumulation_steps` micro-batches; the clip (on
     the averaged gradient); Adam; `params += update` (`train/state.py`).
-  * One device. `fsdp`, `sequence_parallel`, `head_tile` and the
-    memory-saving optimizers keep their `TrainerConfig` fields and raise
-    NotImplementedError at any value but the default.
+  * One device, with the JAX trainer's single-device memory knobs: the
+    optimizer ("adam", "adam-bf16mu", "adafactor", `train/state.py`) and
+    `head_tile`, the DPT head run over batch chunks with each chunk's
+    forward recomputed in the backward (`models/dpt.py`; a model whose
+    forward has no `head_batch_tile` raises ValueError, as in the JAX
+    trainer). `fsdp` and `sequence_parallel` keep their `TrainerConfig`
+    fields and raise NotImplementedError at any value but the default.
   * One program per step. On the card the step -- forward, backward, the
     guarded gradients, the clip, Adam and the float32-master update -- is
     captured as one CUDA graph (`_StepPrograms`), as the JAX trainer jits it
@@ -49,6 +53,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import inspect
 import logging
 import os
 import time
@@ -78,8 +83,7 @@ CHECKPOINT_FILE = "state.pt"
 MAX_STEP_PROGRAMS = 4   # captured train steps kept per trainer
 # fields of the JAX TrainerConfig whose features are not ported yet: any
 # value but the default raises NotImplementedError
-_DEFERRED_DEFAULTS = {"fsdp": False, "sequence_parallel": False,
-                      "head_tile": None}
+_DEFERRED_DEFAULTS = {"fsdp": False, "sequence_parallel": False}
 
 
 @dataclasses.dataclass
@@ -108,8 +112,7 @@ class TrainerConfig:
     visualization_period: int = 10000
     log_interval: int = 200
     compute_dtype: str = "float32"  # 'bfloat16' for speed on the card
-    # update rule: "adam" (reference recipe); "adam-bf16mu" and "adafactor"
-    # are not ported yet
+    # update rule: "adam" (reference recipe), "adam-bf16mu", "adafactor"
     optimizer: str = "adam"
     # False | True (full per-block recompute) | "attn" (keep the attention
     # output and LSE, so the backward never re-runs the forward kernel)
@@ -122,7 +125,9 @@ class TrainerConfig:
     profile_dir: str | None = None
     profile_start: int = 50
     profile_steps: int = 5
-    head_tile: int | None = None     # not ported yet
+    # run the DPT head over batch chunks of this size, each chunk's
+    # forward recomputed in the backward: caps the head's activations
+    head_tile: int | None = None
 
 
 def _strategy_loss(loss_fn, strategy: str, pred, gt, valid, guide, invisible,
@@ -173,6 +178,12 @@ class DiscriminativeTrainer:
                     f"ported yet; leave it at {default!r}")
         if cfg.loss_strategy not in LOSS_STRATEGIES:
             raise ValueError(f"unknown loss strategy: {cfg.loss_strategy}")
+        if cfg.head_tile and "head_batch_tile" not in inspect.signature(
+                model.forward).parameters:
+            raise ValueError(
+                f"TrainerConfig.head_tile is not supported by model "
+                f"{type(model).__name__!r} (forward() has no "
+                f"head_batch_tile)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = getattr(torch, cfg.compute_dtype)
@@ -188,12 +199,6 @@ class DiscriminativeTrainer:
         self.out_dir_eval = out_dir_eval
         self.out_dir_vis = out_dir_vis
 
-        self.tx = make_optimizer(
-            lr=cfg.lr, total_iter=cfg.lr_total_iter,
-            final_ratio=cfg.lr_final_ratio, warmup_steps=cfg.lr_warmup_steps,
-            max_grad_norm=cfg.max_grad_norm,
-            accumulation_steps=cfg.accumulation_steps,
-            optimizer=cfg.optimizer)
         self.model = model.to(device=self.device, dtype=torch.float32)
         if params is None:
             self._init_weights(torch.Generator(
@@ -203,6 +208,20 @@ class DiscriminativeTrainer:
         if self.trainable is not None:
             for name, p in self.model.named_parameters():
                 p.requires_grad_(name.startswith(self.trainable + "."))
+        layout = None
+        if cfg.optimizer == "adafactor":
+            # adafactor factors and normalises on the JAX package's layout
+            from ..convert.weights import jax_param_layout
+            table = jax_param_layout(self.model)
+            layout = [table.get(name, (None, None))
+                      for name, p in self.model.named_parameters()
+                      if p.requires_grad]
+        self.tx = make_optimizer(
+            lr=cfg.lr, total_iter=cfg.lr_total_iter,
+            final_ratio=cfg.lr_final_ratio, warmup_steps=cfg.lr_warmup_steps,
+            max_grad_norm=cfg.max_grad_norm,
+            accumulation_steps=cfg.accumulation_steps,
+            optimizer=cfg.optimizer, layout=layout)
         self.state = create_train_state(self.model, self.tx)
         self.loss_fn = get_loss(cfg.loss_name, **(cfg.loss_kwargs or {}))
 
@@ -257,7 +276,9 @@ class DiscriminativeTrainer:
             guide_rgb=batch["guide_rgb_norm"].to(dtype),
             guide_mask=(batch["guide"] * 2.0 - 1.0).to(dtype),
             observation=(batch["depth_observation"] * 2.0 - 1.0).to(dtype),
-            attn_impl=self.cfg.attn_impl, remat=remat)
+            attn_impl=self.cfg.attn_impl, remat=remat,
+            **({"head_batch_tile": self.cfg.head_tile}
+               if self.cfg.head_tile else {}))
 
     def _predict(self, batch: dict, remat) -> torch.Tensor:
         """Float32 prediction at the ground truth's size."""

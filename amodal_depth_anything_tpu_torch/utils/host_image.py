@@ -17,15 +17,23 @@ are numpy versions of exactly what that code asks PIL for:
     scale when downsizing, 22-bit fixed-point coefficients, horizontal pass
     then vertical) or of a float32 "F" image (double coefficients, each
     pass rounded to float32);
+  * `resize_bicubic`: `Image.resize(size, BICUBIC)`, PIL's default filter,
+    of a uint8 L / RGB image (the same resampler with the cubic filter,
+    a = -0.5, support 2; 22-bit fixed point) or of a uint16 "I;16" image
+    (double coefficients, each pass rounded half away from zero and stored
+    as Pillow stores a 16-bit sample: the low and the high byte each
+    clipped to 0..255 on their own, so an overshoot past 65535 keeps its
+    low byte under a high byte of 255, and any negative value is 0);
   * `resize_nearest`: `Image.resize(size, NEAREST)` (source pixel
     floor((x + 0.5) * scale), the scale summed step by step as PIL does).
 
 Each takes the native route where the host library is built (`native`:
 the C++ codec `native.imagecodec` for the decode and the encoder's row
-filters, `native.resize_bilinear` and `native.gather` for the resizes;
-ctypes releases the GIL, so request threads work in parallel) and its numpy
-plain version otherwise (`decode_png_plain`, `_filter_rows`,
-`resize_bilinear_plain`, `resize_nearest_plain`; `native.plain_route()`
+filters, `native.resize_bilinear`, `native.resize_bicubic` and
+`native.gather` for the resizes; ctypes releases the GIL, so request
+threads work in parallel) and its numpy plain version otherwise
+(`decode_png_plain`, `_filter_rows`, `resize_bilinear_plain`,
+`resize_bicubic_plain`, `resize_nearest_plain`; `native.plain_route()`
 forces them). Both routes give the same bits. tests/test_torch_server.py
 holds each against PIL, bit for bit, and tests/test_torch_native.py the
 two routes against each other.
@@ -44,7 +52,8 @@ from .. import native
 from ..native import imagecodec
 
 __all__ = ["PNG_SIGNATURE", "decode_png", "decode_png_plain", "encode_png",
-           "resize_bilinear", "resize_bilinear_plain", "resize_nearest",
+           "resize_bilinear", "resize_bilinear_plain", "resize_bicubic",
+           "resize_bicubic_plain", "resize_nearest",
            "resize_nearest_plain"]
 
 PNG_SIGNATURE = _SIG = b"\x89PNG\r\n\x1a\n"
@@ -223,15 +232,35 @@ def encode_png(arr: np.ndarray) -> bytes:
 
 # -------------------------------------------------------------- resizes
 
+def _triangle(t: float) -> float:
+    t = abs(t)
+    return 1.0 - t if t < 1.0 else 0.0
+
+
+def _cubic(x: float) -> float:
+    """PIL's bicubic_filter (a = -0.5)."""
+    a = -0.5
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+_FILTERS = {"bilinear": (_triangle, 1.0), "bicubic": (_cubic, 2.0)}
+
+
 @functools.lru_cache(maxsize=64)
-def _coefficients(in_size: int, out_size: int):
-    """PIL's `precompute_coeffs` for the bilinear (triangle) filter: per
-    output pixel the first source pixel and the normalised weights, padded
-    with zeros to one width. Returns (first [out], weights [out, k]), kept
-    per size pair (read only)."""
+def _coefficients(in_size: int, out_size: int, kind: str = "bilinear"):
+    """PIL's `precompute_coeffs` for the `kind` filter: per output pixel
+    the first source pixel and the normalised weights, padded with zeros to
+    one width. Returns (first [out], weights [out, k]), kept per size pair
+    (read only)."""
+    fn, filter_support = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = filterscale
+    support = filter_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     first = np.zeros(out_size, np.int64)
     weights = np.zeros((out_size, ksize), np.float64)
@@ -241,8 +270,7 @@ def _coefficients(in_size: int, out_size: int):
         xmax = min(int(center + support + 0.5), in_size) - xmin
         ww, ss = 0.0, 1.0 / filterscale
         for x in range(xmax):
-            t = abs((x + xmin - center + 0.5) * ss)
-            wt = 1.0 - t if t < 1.0 else 0.0
+            wt = fn((x + xmin - center + 0.5) * ss)
             weights[xx, x] = wt
             ww += wt
         if ww != 0.0:
@@ -252,10 +280,11 @@ def _coefficients(in_size: int, out_size: int):
     return first, weights
 
 
-def _pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _pass(img: np.ndarray, out_size: int, axis: int,
+          kind: str = "bilinear") -> np.ndarray:
     """One PIL resampling pass along `axis` (0 rows, 1 columns), tap after
     tap over every output pixel at once."""
-    first, weights = _coefficients(img.shape[axis], out_size)
+    first, weights = _coefficients(img.shape[axis], out_size, kind)
     idx = np.minimum(first[:, None] + np.arange(weights.shape[1]),
                      img.shape[axis] - 1)
     shape = [1] * img.ndim
@@ -270,11 +299,18 @@ def _pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
             tap = np.take(img, idx[:, j], axis=axis).astype(np.int32)
             ss = ss + tap * fixed[:, j].reshape(shape)
         return np.clip(ss >> _PRECISION_BITS, 0, 255).astype(np.uint8)
-    # "F" images: double accumulation tap after tap, stored as float32
+    # "F" and "I;16" images: double accumulation tap after tap
     ss = 0.0
     for j in range(weights.shape[1]):
         tap = np.take(img, idx[:, j], axis=axis).astype(np.float64)
         ss = ss + tap * weights[:, j].reshape(shape)
+    if img.dtype == np.uint16:
+        # ROUND_UP, then the low and the high byte clipped on their own
+        v = np.where(ss >= 0, np.floor(ss + 0.5),
+                     -np.floor(np.abs(ss) + 0.5)).astype(np.int64)
+        lo = np.clip(np.fmod(v, 256), 0, 255)
+        hi = np.clip(v >> 8, 0, 255)
+        return (lo | (hi << 8)).astype(np.uint16)
     return np.asarray(ss, np.float32)
 
 
@@ -291,13 +327,38 @@ def resize_bilinear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
 def resize_bilinear_plain(img: np.ndarray,
                           size: tuple[int, int]) -> np.ndarray:
     """`resize_bilinear` in numpy."""
+    return _resample(img, size, "bilinear")
+
+
+def _resample(img: np.ndarray, size: tuple[int, int],
+              kind: str) -> np.ndarray:
     w, h = size
     out = img
     if w != img.shape[1]:
-        out = _pass(out, w, axis=1)
+        out = _pass(out, w, axis=1, kind=kind)
     if h != img.shape[0]:
-        out = _pass(out, h, axis=0)
+        out = _pass(out, h, axis=0, kind=kind)
     return out if out is not img else img.copy()
+
+
+def resize_bicubic(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """`PIL.Image.fromarray(img).resize(size)` (BICUBIC, PIL's default
+    filter) as an array: `img` uint8 [H,W] or [H,W,3], or uint16 [H,W]
+    (mode "I;16"); `size` = (width, height). The native resampler where it
+    is built, else `resize_bicubic_plain`."""
+    if native.available():
+        return native.resize_bicubic(img, size)
+    return resize_bicubic_plain(img, size)
+
+
+def resize_bicubic_plain(img: np.ndarray,
+                         size: tuple[int, int]) -> np.ndarray:
+    """`resize_bicubic` in numpy."""
+    if not (img.dtype == np.uint8 or (img.dtype == np.uint16
+                                      and img.ndim == 2)):
+        raise ValueError(f"resize_bicubic takes uint8 or 2-D uint16, got "
+                         f"{img.dtype} {img.shape}")
+    return _resample(img, size, "bicubic")
 
 
 def _nearest_source(in_size: int, out_size: int, *,

@@ -14,7 +14,8 @@ contour overlay, `infer.py:46-57`), bit for bit, without matplotlib or cv2
     build);
   * `read_image` / `read_image_bgr` read a file as `np.asarray(PIL.Image.
     open(path))` and as `cv2.imread(path)` give it, through the native
-    codec (PNG; JPEG where libjpeg was built) or the numpy PNG decoder;
+    codec (PNG; JPEG through libjpeg where it was built, else its baseline
+    decoder) or the numpy PNG decoder, PIL for the rest;
     `write_png` writes an RGB array whose decoded pixels equal those of
     `cv2.imwrite(path, rgb[..., ::-1])`.
 
@@ -26,7 +27,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["colorize_depth", "highlight_target", "read_image",
-           "read_image_bgr", "write_png"]
+           "decode_with_pil", "read_image_bgr", "read_rgb", "to_rgb", "resize_default",
+           "write_png"]
 
 
 def _spectral_r(x: np.ndarray) -> np.ndarray:
@@ -93,7 +95,7 @@ def _decode(data: bytes) -> np.ndarray | None:
 def read_image(path: str) -> np.ndarray:
     """The file as `np.asarray(PIL.Image.open(path))` gives it: PNGs by
     `host_image.decode_png` (palette and 1-bit included), JPEGs by the
-    native codec where libjpeg was built; PIL for the rest."""
+    native codec; PIL for the rest (`decode_with_pil`)."""
     from .host_image import PNG_SIGNATURE, decode_png
 
     with open(path, "rb") as f:
@@ -103,9 +105,22 @@ def read_image(path: str) -> np.ndarray:
     px = _decode(data)
     if px is not None:
         return px
-    import io
+    return decode_with_pil(data)
 
-    from PIL import Image
+
+def decode_with_pil(data: bytes) -> np.ndarray:
+    """`np.asarray(PIL.Image.open(...))` of what the native codec did not
+    take. Where PIL is not installed, a JPEG goes to the baseline decoder
+    once more, which raises naming what it refuses (progressive,
+    arithmetic-coded, ...)."""
+    import io
+    try:
+        from PIL import Image
+    except ImportError:
+        from ..native import imagecodec
+        if data[:2] == b"\xff\xd8" and imagecodec.available():
+            return imagecodec.decode_jpeg_baseline(data)
+        raise
     return np.asarray(Image.open(io.BytesIO(data)))
 
 
@@ -139,6 +154,34 @@ def read_image_bgr(path: str) -> np.ndarray:
     if px.shape[-1] in (1, 2):
         return np.ascontiguousarray(np.repeat(px[..., :1], 3, axis=-1))
     return np.ascontiguousarray(px[..., 2::-1])
+
+
+def to_rgb(px: np.ndarray) -> np.ndarray:
+    """An image array as PIL's `.convert("RGB")` gives it, for the arrays
+    `read_image` returns: grey repeated, grey + alpha and RGBA without
+    their alpha (8-bit samples)."""
+    if px.dtype == bool:
+        px = px.astype(np.uint8) * 255
+    if px.ndim == 2:
+        px = px[..., None]
+    if px.shape[-1] in (1, 2):
+        return np.ascontiguousarray(np.repeat(px[..., :1], 3, axis=-1))
+    return np.ascontiguousarray(px[..., :3])
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """`np.asarray(PIL.Image.open(path).convert("RGB"))`: [H,W,3] uint8."""
+    return to_rgb(read_image(path))
+
+
+def resize_default(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """`PIL.Image.fromarray(img).resize(size)` with PIL's default filter:
+    BICUBIC for uint8 L / RGB and uint16 "I;16" images, NEAREST for 1-bit
+    (bool) ones; `size` = (width, height)."""
+    from .host_image import resize_bicubic, resize_nearest
+    if img.dtype == bool:
+        return resize_nearest(img, size)
+    return resize_bicubic(img, size)
 
 
 def write_png(path: str, rgb: np.ndarray) -> None:

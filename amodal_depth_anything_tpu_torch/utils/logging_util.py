@@ -61,6 +61,12 @@ class TrainingLogger:
         if self._writer is not None:
             self._writer.flush()
 
+    def close(self) -> None:
+        """Flush and close the writer; logging no-ops until `set_dir`."""
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None
+
 
 tb_logger = TrainingLogger()
 

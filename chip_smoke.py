@@ -59,10 +59,10 @@ plain PyTorch version on the card:
      graph (the default on the card): finite losses, moved parameters,
      exactly 24 forward, 24 dQ and 24 dK/dV launches counted at the
      capture's warm-up steps and the capture itself, and 24 of each in a
-     traced replay; then four eager and four captured steps from one init
-     on the same batches, bit-identical (losses, parameters, optimizer
-     state), a save -> load -> continue under capture bit-identical to the
-     unbroken run, each one's p50, device busy share and peak memory;
+     traced replay; then two eager and two captured steps from one init
+     on the same batches, bit-identical (losses, parameters, Adam state),
+     the captured step's p50, busy share and peak memory (the resume is
+     phase 14's, on the same trainer);
      one float32 step at batch 1 with the kernels against the same step
      with plain attention (loss and gradient norm within 1e-3); one
      `validate()` over two batches; steps/s, p50 step time, peak memory
@@ -90,9 +90,9 @@ plain PyTorch version on the card:
      plain attention (loss and UNet gradient norm within 1e-3); then two
      `DepthFMTrainer` steps under `configs/train_depthfm_ddpm_finetune.yaml`
      (v-prediction, annealed multi-resolution noise) on the plain DepthFM
-     and its `validate()` (DDIM, 4 steps); for both trainers four eager and
-     four captured steps bit-identical, a resume under capture, p50, busy
-     share and peak memory of each;
+     and its `validate()` (DDIM, 4 steps); for DepthFMAmodalTrainer three
+     eager and three captured steps bit-identical, a resume under capture,
+     p50, busy share and peak memory;
   9. serving at full width: (a) the phase-5 pipeline (vitg + vitl, 518 px,
      bf16, batch 4) captured by `capture_amodal_program` and (b) the
      phase-7 one (DepthFMAmodal, 512 px, 4 steps, bf16, batch 4) by
@@ -110,7 +110,8 @@ plain PyTorch version on the card:
      phase-(a) pipeline's serving state saved and restored (under
      build/, deleted after), its replay bit-identical, bytes and seconds,
      then `cli.serve --export_artifact` on that state and `cli.serve
-     --artifact` serving the artifact over HTTP, as subprocesses; also
+     --artifact` serving the artifact over HTTP, as subprocesses (the
+     state's own server starts beside the artifact's); also
      the bf16 rows of one input in every row of the bucket, eager and
      replayed, bit-identical to each other and to a direct call at batch 1
      (the DPT heads run one row at a time), with the replay's p50 against
@@ -154,9 +155,9 @@ plain PyTorch version on the card:
      8 + 8 attention launches a step at head dim 16 for ADDeepLab, 24 + 24
      + 24 at 64 for jo_dpt, none for InvisibleStitch's plain BEiT
      attention, at the capture and in a traced replay), steps/s, p50, peak
-     memory, one profiled step, then `validate_single_dataset`; then four
-     eager and four captured steps of each, bit-identical, and a resume
-     under capture; (b) `cli.eval.main` on the checkpoint phase
+     memory, one profiled step, then `validate_single_dataset`; then three
+     eager and three captured steps of each, bit-identical, and a resume
+     under capture (ADDeepLab's, with its deterministic cuDNN's price); (b) `cli.eval.main` on the checkpoint phase
      6 saves, `scripts.zero_shot_eval` with a seeded vitg raw base over a
      NYU-layout split of 16-bit PNGs, and `infer_image` on a 480 x 640
      image (keep-aspect input 518 x 686, output at the input's size); (c)
@@ -189,7 +190,7 @@ plain PyTorch version on the card:
      steps, bf16 batch 4, at six points (exact, w8, w4, dynamic W8A8,
      calibrated W8A8, ToMe-SD 0.75): 128 launches a call, the same
      numbers; (e) `scripts.proxy_gate_v2` over the trained proxies (f32,
-     224 px, 8 held-out scenes): its gate table. The kernels line counts
+     224 px, 4 held-out scenes): its gate table. The kernels line counts
      the forward kernel's launches over (c) and over (d), each from 0.
      `python3 chip_smoke.py --only 12` runs the build and phase 12 alone
      (`--only 6,9`: the named phases of 6, 8, 9, 10, 11, 12 and 13);
@@ -199,9 +200,11 @@ plain PyTorch version on the card:
      and the numpy one, each route's host work by stage and p50, the two
      answering with the same bytes; phase 11 (a) times `train()`'s loader
      over an epoch with the codec and in numpy): (d) on the phase-10 app,
-     "prompt_points" exact and with a w8 and a w4 pix2gestalt UNet
-     (`quantize_p2g_int8`): each call, its completion replay (ms, busy
-     share) and its completion / mask / depth delta against exact; a w4 +
+     "prompt_points" exact (the call, its completion replayed and traced)
+     and with a w8 and a w4 pix2gestalt UNet (`quantize_p2g_int8`): each
+     one's call, which captures the quantised completion (launches counted
+     over the warm-up and the capture), the completion replayed once, and
+     its completion / mask / depth delta against exact; a w4 +
      w8-SAM heuristics state saved and restored bit-identical, its bytes
      beside the bf16 state's; (a) `python -m ...cli.infer` in a
      subprocess where importing cv2, PIL or matplotlib fails, on the
@@ -210,8 +213,35 @@ plain PyTorch version on the card:
      launches counted in that process; (e) `scripts.autotune_serving
      --family amodal --random --random_preset full` (bf16 batch 4 at 518
      px, every candidate captured and timed replayed): its rows and pick;
-     (f) `scripts.int8_layer_walk` on `checkpoints/proxy` at 224 px: the
-     kept set. It runs after phase 10 (`--only 13` runs phase 10 first).
+     (f) `scripts.int8_layer_walk` on `checkpoints/proxy` at 224 px,
+     beside (a)'s subprocess: the kept set. It runs after phase 10 (`--only 13` runs phase 10 first).
+ 14. the single-card training knobs and the scripts (after phase 13,
+     whose .pth files and heuristics it reuses; `--only 14` runs phase 10
+     first): (b) `scripts.sam_pl_gen` over an 8-sample pix2gestalt tree
+     with the phase-10 vitg (`.pth`, bf16, batch 4), (c)
+     `scripts.sam_pl_gen_depthfm` on the `tests/data/` JPEG fixtures
+     (decoded natively against PIL's recorded sha256) with a seeded SD-1.5
+     UNet + VAE written as `depthfm-v1.ckpt` and `vae.safetensors`,
+     ensemble 10, 2 steps, 512 px, (d) `scripts.pix2gestalt_eval_single`
+     on one JPEG reconstruction and `pix2gestalt_inpainting.run` over 2
+     entries on the phase-10 heuristics (its captured 100-step
+     completion), (e) `scripts.batch_inference` with the vitl guided
+     `.pth` on the SAM tree, batch 8, (f) `scripts.verify_checkpoints
+     --rehearse --skip_chain` (no FAIL row); (b), (c), (d)'s single
+     reconstruction and (f) also in one process where PIL, cv2, matplotlib
+     and safetensors cannot be imported, their maps equal to the
+     in-process calls'; then (a) `cli.train --config
+     configs/train_discriminative_vitg_singlechip.yaml` (vitg, adafactor,
+     remat "attn", bf16, batch 4 at 518 px) on the SAM tree (one
+     iteration: 8 micro-steps of 4, the accumulate and the apply programs
+     each captured, 40 + 40 + 40 launches at each one's warm-up and
+     capture), the captured adafactor step against the eager one and a
+     resume, bit for bit, and adam and adam-bf16mu for two eager steps
+     each and adafactor + `head_tile=1` for two captured steps (peak
+     memory, optimizer-state bytes); then the forward kernel at
+     [1,24,362,64] (vitg at 266 px) and DepthFM's batch-10 shapes and the
+     backward pair at [4,24,1370,64], against their plain versions, beside
+     SDPA. Capped at 150 s.
 
 Prints a `{"kernels": [...]}` line (the backward entries also list every
 instantiation that ran, with its cases, worst error and times), the card's
@@ -361,6 +391,23 @@ def check(ok: bool, what: str) -> None:
     print(f"  [{'ok' if ok else 'FAIL'}] {what}", flush=True)
     if not ok:
         failures.append(what)
+
+
+def beside(fn, *args):
+    """`fn(*args)` in a started thread, joined by the caller; an exception
+    there is a failure."""
+    import threading
+
+    def run():
+        try:
+            fn(*args)
+        except Exception as e:
+            check(False, f"{getattr(fn, '__name__', fn)}: "
+                         f"{type(e).__name__}: {e}")
+
+    t = threading.Thread(target=run)
+    t.start()
+    return t
 
 
 def card() -> str:
@@ -1610,14 +1657,17 @@ def train_phase(gpu: str) -> dict:
           f"steps {[round(x * 1e3, 1) for x in trainer.step_timer.durations]} "
           f"ms, peak memory {peak:.2f} GiB [{gpu}]", flush=True)
 
+    # the captured Adam step against its eager twin, two steps (the resume
+    # is phase 14's, on the same trainer with adafactor)
     def make(captured):
         return get_trainer_cls(cfg.trainer.name)(
             tcfg, get_model(cfg.model.name, device="cuda",
                             **cfg.model.kwargs.to_dict()),
             None, device="cuda", seed=0, captured=captured)
 
-    captured_step_phase("vitl train step", make,
-                        capture_batches(trainer, scenes), gpu, RESUME_CKPT)
+    captured_step_phase("vitl adam train step", make,
+                        capture_batches(trainer, scenes, n=2), gpu,
+                        RESUME_CKPT, resume=False)
 
     # the remat modes on the card, forward + backward without the update:
     # launches of the forward kernel per step, time and peak memory (a
@@ -1742,11 +1792,12 @@ def trainer_like(_loader=None):
     return _Cuda()
 
 
-def capture_batches(trainer, dataset, n: int = CAPTURE_STEPS) -> list:
-    """`n` device batches of the training batch size from `dataset`."""
+def capture_batches(trainer, dataset, n: int = CAPTURE_STEPS,
+                    batch_size: int = TRAIN_BATCH) -> list:
+    """`n` device batches of `batch_size` from `dataset`."""
     from amodal_depth_anything_tpu_torch.data import DataLoader
 
-    loader = DataLoader(dataset, batch_size=TRAIN_BATCH, shuffle=True,
+    loader = DataLoader(dataset, batch_size=batch_size, shuffle=True,
                         drop_last=True, seed=1)
     out = []
     epoch = 0
@@ -1783,7 +1834,7 @@ def captured_step_phase(what: str, make, batches: list, gpu: str,
     (`cudnn`) `cudnn_reading` on the eager trainer. Then the captured
     step's p50 over the steps after the first, one profiled replay (device
     busy, launches by kernel) and peak memory. Returns {p50_ms, busy_pct,
-    peak_gib, launches: {kernel: per replay}, eager_p50_ms}."""
+    peak_gib, launches: {kernel: per replay}, eager_p50_ms, eager_peak_gib}."""
     import torch
 
     def timed(trainer):
@@ -1800,8 +1851,6 @@ def captured_step_phase(what: str, make, batches: list, gpu: str,
     eager_losses, eager_ms = timed(eager)
     eager_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     eager_state = trainer_state(eager)
-    e_wall, e_busy, _ = trace_call(
-        lambda: float(eager._train_step(batches[-1])))
     if cudnn:
         cudnn_reading(eager, batches[0], what, gpu)
     del eager
@@ -1836,9 +1885,8 @@ def captured_step_phase(what: str, make, batches: list, gpu: str,
     gc.collect()
     torch.cuda.empty_cache()
     if not resume:
-        return _captured_summary(what, ms, eager_ms, wall, busy, e_wall,
-                                 e_busy, total, counts, peak, eager_peak,
-                                 gpu)
+        return _captured_summary(what, ms, eager_ms, wall, busy, total,
+                                 counts, peak, eager_peak, gpu)
     resumed = make(captured=True)
     resumed.load_checkpoint(os.path.join(ckpt, "resume"))
     check(resumed.state.step == cut, f"{what}: resumed at step {cut}")
@@ -1851,12 +1899,12 @@ def captured_step_phase(what: str, make, batches: list, gpu: str,
           f"({sum(same)} of {len(same)} state tensors equal)")
     del resumed
     shutil.rmtree(os.path.join(ckpt, "resume"), ignore_errors=True)
-    return _captured_summary(what, ms, eager_ms, wall, busy, e_wall, e_busy,
-                             total, counts, peak, eager_peak, gpu)
+    return _captured_summary(what, ms, eager_ms, wall, busy, total, counts,
+                             peak, eager_peak, gpu)
 
 
-def _captured_summary(what, ms, eager_ms, wall, busy, e_wall, e_busy, total,
-                      counts, peak, eager_peak, gpu) -> dict:
+def _captured_summary(what, ms, eager_ms, wall, busy, total, counts, peak,
+                      eager_peak, gpu) -> dict:
     """`captured_step_phase`'s printed line and returned numbers."""
     import torch
 
@@ -1865,20 +1913,15 @@ def _captured_summary(what, ms, eager_ms, wall, busy, e_wall, e_busy, total,
     p50 = float(np.median(ms[1:])) if len(ms) > 1 else ms[0]
     e50 = float(np.median(eager_ms[1:])) if len(ms) > 1 else eager_ms[0]
     pct = None if busy is None else 100 * busy / wall
-    e_pct = None if e_busy is None else 100 * e_busy / e_wall
     print(f"  {what}: captured step p50 {p50:.1f} ms (eager {e50:.1f} ms) "
           f"over {[round(x, 1) for x in ms]} / "
           f"{[round(x, 1) for x in eager_ms]} ms; one profiled replay: "
           f"wall {wall:.1f} ms, device busy {as_ms(busy)} "
           f"({'not measured' if pct is None else f'{pct:.1f}%'}), {total} "
-          f"device events, attention {counts}; one profiled eager step: "
-          f"wall {e_wall:.1f} ms, busy {as_ms(e_busy)} "
-          f"({'not measured' if e_pct is None else f'{e_pct:.1f}%'}); "
-          f"peak memory "
+          f"device events, attention {counts}; peak memory "
           f"{peak:.2f} GiB captured, {eager_peak:.2f} GiB eager [{gpu}]",
           flush=True)
     return {"p50_ms": p50, "eager_p50_ms": e50, "busy_pct": pct,
-            "eager_busy_pct": e_pct,
             "peak_gib": peak, "eager_peak_gib": eager_peak,
             "launches": counts, "kernels": total}
 
@@ -2094,11 +2137,14 @@ def depthfm_train_phase(gpu: str) -> dict:
           f"{p_norm:.6e} (within {TRAIN_F32_TOL} relative)")
     del t32, model, batch1
     torch.cuda.empty_cache()
+    # (the resume under capture is phase 14's vitg and phase 11's
+    # ADDeepLab, whose trainer keeps Adam's state as this one does)
     captured_step_phase(
         "DepthFMAmodal train step",
         lambda captured: build(DEPTHFM_TRAIN_CONFIG, 1, None, None,
                                captured)[2],
-        capture_batches(trainer_like(loader), scenes), gpu, RESUME_CKPT)
+        capture_batches(trainer_like(loader), scenes), gpu, RESUME_CKPT,
+        resume=False)
 
     # the DDPM finetune (v-prediction, annealed multi-resolution noise) on
     # the plain DepthFM at the same widths
@@ -2127,15 +2173,11 @@ def depthfm_train_phase(gpu: str) -> dict:
           f"DepthFMTrainer validate() over 1 batch of {TRAIN_BATCH} (DDIM, 4 "
           f"steps): 10 metrics x (raw, aligned) finite; abs_rel aligned "
           f"{bank['align_overall']['abs_relative_difference']:.4f}")
+    # its captured step against an eager twin: the DepthFMAmodal step above
+    # holds the same UNet update's
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
-    captured_step_phase(
-        "DDPM train step",
-        lambda captured: build(DDPM_TRAIN_CONFIG, 1, None, None,
-                               captured)[2],
-        capture_batches(trainer_like(loader), scenes), gpu, RESUME_CKPT,
-        resume=False)
     return {"flash_attn_fwd": launches[0], "flash_attn_bwd_dq": launches[1],
             "flash_attn_bwd_dkv": launches[2], "ddpm": ddpm_launches}
 
@@ -2743,26 +2785,15 @@ def _serving_rest(gpu, pipe, served, amodal, img, mask, obs, hw, rng, path,
               flush=True)
 
     print("  (d) serving state", flush=True)
-    serve_cli_check(gpu, path, bodies[0], first)
-    out, _ = export.communicate(timeout=900)
-    check(export.returncode == 0 and "artifact written" in out,
-          f"cli.serve --export_artifact (beside (b) and (c)) in "
-          f"{time.time() - export_t0:.1f} s: {out.strip()[-300:]!r}")
-    with open(os.path.join(art, "meta.json")) as f:
-        meta = json.load(f)
-    size = sum(os.path.getsize(os.path.join(art, f)) for f in os.listdir(art))
-    print(f"  amodal artifact (cli.serve): batch {meta['batches']} at "
-          f"{meta['hw']}, exported in {meta['export_seconds']} s, "
-          f"{size / 1e6:.1f} MB on disk; meta "
-          f"{ {k: meta[k] for k in ARTIFACT_META} } csrc "
-          f"{meta['csrc_sha256'][:12]} [{gpu}]", flush=True)
-    replica = replica_start(art, square_in, dfm_dir, (img, mask, obs))
+    # the plain server starts beside the wait for the export and the
+    # artifact's server
+    plain = beside(serve_cli_check, gpu, path, bodies[0], first)
     try:
-        serve_cli_check(gpu, path, bodies[0], first,
-                        extra=("--artifact", art))
+        _serving_artifact(gpu, path, bodies, first, export, export_t0, art,
+                          square_in, square_want, dfm_dir, img, mask, obs,
+                          dfm_want)
     finally:
-        replica_finish(replica, square_want, (dfm_want,), gpu)
-        shutil.rmtree(dfm_dir, ignore_errors=True)
+        plain.join()
     t0 = time.time()
     restored = AmodalDepthPipeline.load_serving(path, device="cuda")
     torch.cuda.synchronize()
@@ -2782,6 +2813,32 @@ def _serving_rest(gpu, pipe, served, amodal, img, mask, obs, hw, rng, path,
           flush=True)
     return {"amodal": amodal["replay"]["launches"],
             "depthfm": depthfm["replay"]["launches"]}
+
+
+def _serving_artifact(gpu, path, bodies, first, export, export_t0, art,
+                      square_in, square_want, dfm_dir, img, mask, obs,
+                      dfm_want) -> None:
+    """Phase 9 (d)-(e) once the export has ended: the artifact's meta,
+    `cli.serve --artifact` and, beside it, the fresh replica process."""
+    out, _ = export.communicate(timeout=900)
+    check(export.returncode == 0 and "artifact written" in out,
+          f"cli.serve --export_artifact (beside (b) and (c)) in "
+          f"{time.time() - export_t0:.1f} s: {out.strip()[-300:]!r}")
+    with open(os.path.join(art, "meta.json")) as f:
+        meta = json.load(f)
+    size = sum(os.path.getsize(os.path.join(art, f)) for f in os.listdir(art))
+    print(f"  amodal artifact (cli.serve): batch {meta['batches']} at "
+          f"{meta['hw']}, exported in {meta['export_seconds']} s, "
+          f"{size / 1e6:.1f} MB on disk; meta "
+          f"{ {k: meta[k] for k in ARTIFACT_META} } csrc "
+          f"{meta['csrc_sha256'][:12]} [{gpu}]", flush=True)
+    replica = replica_start(art, square_in, dfm_dir, (img, mask, obs))
+    try:
+        serve_cli_check(gpu, path, bodies[0], first,
+                        extra=("--artifact", art))
+    finally:
+        replica_finish(replica, square_want, (dfm_want,), gpu)
+        shutil.rmtree(dfm_dir, ignore_errors=True)
 
 
 def p2g_proxy_phase() -> None:
@@ -3304,7 +3361,8 @@ def baseline_train_case(config: str, name: str, head_dim, per_step: int,
 
     captured_step_phase(f"{name} train step", make,
                         capture_batches(trainer_like(), splits["train"]), gpu,
-                        RESUME_CKPT, resume=name == "ADDeepLab", cudnn=True)
+                        RESUME_CKPT, resume=name == "ADDeepLab",
+                        cudnn=name == "ADDeepLab")
     return launches
 
 
@@ -3648,17 +3706,27 @@ def baselines_phase(gpu: str) -> dict:
     each attention kernel on its main paths and the measured rows."""
     launches = {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
                 "flash_attn_bwd_dkv": 0}
+    t0 = time.time()
+
+    def step(what):
+        print(f"  {what} (at +{time.time() - t0:.1f} s)", flush=True)
+
     root, list_path = write_sam_tree(BASELINE_TREE, SIZE)
     for config, name, head_dim, per_step in BASELINE_RUNS:
+        step(f"(a) {name}")
         got = baseline_train_case(config, name, head_dim, per_step, root,
                                   list_path, gpu)
         for kernel, count in got.items():
             launches[kernel] += count
+    step("(b) cli.eval, zero_shot_eval, infer_image")
     launches["flash_attn_fwd"] += eval_phase(root, list_path, gpu)
     shutil.rmtree(EVAL_CKPT, ignore_errors=True)
+    step("(c) the kernels at the baselines' shapes, the mViT layer")
     rows = baseline_attention_phase(gpu)
     mvit_layer_check()
+    step("(d) the tiny baselines, card vs CPU")
     baseline_tiny_phase()
+    step("phase 11 done")
     return {"launches": launches, "rows": rows}
 
 
@@ -3771,7 +3839,8 @@ def compressed_point(what, pipe, capture_fn, eager, args, launches: int,
     """One compression point: the eager call's forward-kernel launches
     (`launches` a call) and those recorded into the graph (`launches` a
     call over the warm-up calls and the capture), the captured replay bit
-    for bit against the eager call, p50 of each over COMP_CALLS, device
+    for bit against the eager call, the eager call's time and the replay's
+    p50 over COMP_CALLS, device
     busy and the launches a profiled replay shows (a reading: the profiler
     can drop an event of a replay in a process that has traced many times),
     peak memory, and the depth delta to `exact`; with `breakdown`, where a
@@ -3784,7 +3853,12 @@ def compressed_point(what, pipe, capture_fn, eager, args, launches: int,
         blended_depth_delta
 
     counted = mha.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_e = time.perf_counter()
     out_e = eager(*args)
+    eager_ms = (time.perf_counter() - t_e) * 1e3
+    eager_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     per_call = mha.launches - counted
     check(per_call == launches, f"{what}: eager call launched "
                                 f"flash_attn_fwd {per_call} times ({launches})")
@@ -3802,24 +3876,25 @@ def compressed_point(what, pipe, capture_fn, eager, args, launches: int,
                        for a in out_e),
           f"{what}: replay bit-identical to the eager call, finite, not "
           f"constant")
-    row = {}
-    for label, fn in (("eager", eager), ("replay", served)):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        lat = []
-        for _ in range(COMP_CALLS):
-            t = time.perf_counter()
-            fn(*args)
-            lat.append(time.perf_counter() - t)
-        row[label] = {"p50_ms": float(np.median(lat)) * 1e3,
-                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    # the eager call timed once (the one held against the replay), the
+    # replay over COMP_CALLS
+    row = {"eager": {"p50_ms": eager_ms, "peak_gib": eager_peak}}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    for _ in range(COMP_CALLS):
+        t = time.perf_counter()
+        served(*args)
+        lat.append(time.perf_counter() - t)
+    row["replay"] = {"p50_ms": float(np.median(lat)) * 1e3,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     wall, busy, counts = trace_call(lambda: served(*args))
     if breakdown:
         profile_call(lambda: served(*args), f"{what} replay", gpu)
     ex = exact if isinstance(exact, tuple) else (exact,)
     delta = blended_depth_delta(ex[0], ex[-1], out_e[0], out_e[-1]) \
         if exact is not None else None
-    print(f"  {what}: eager p50 {row['eager']['p50_ms']:.1f} ms, replay p50 "
+    print(f"  {what}: eager call {row['eager']['p50_ms']:.1f} ms, replay p50 "
           f"{row['replay']['p50_ms']:.1f} ms, replay device busy "
           f"{as_ms(busy)} of {wall:.1f} ms, peak allocated "
           f"{row['eager']['peak_gib']:.2f} / {row['replay']['peak_gib']:.2f} "
@@ -3925,10 +4000,17 @@ def serving_state_phase(gpu: str, state_dir: str, base, keep, inputs
         exact_path = os.path.join(state_dir, "serving_state_exact")
         shutil.rmtree(exact_path, ignore_errors=True)
         base.save_serving(exact_path)
-        serve_int8_cli_check(gpu, ["--serving_state", exact_path,
-                                   "--int8", "ln"], "amodal")
-        serve_int8_cli_check(gpu, ["--family", "depthfm", "--random",
-                                   "--int8", "wo"], "depthfm")
+        # the two servers start, quantise and capture side by side
+        import threading
+        servers = [threading.Thread(target=serve_int8_cli_check, args=(
+            gpu, argv, family)) for argv, family in (
+                (["--serving_state", exact_path, "--int8", "ln"], "amodal"),
+                (["--family", "depthfm", "--random", "--int8", "wo"],
+                 "depthfm"))]
+        for t in servers:
+            t.start()
+        for t in servers:
+            t.join()
     finally:
         shutil.rmtree(path, ignore_errors=True)
         shutil.rmtree(os.path.join(state_dir, "serving_state_exact"),
@@ -4061,13 +4143,13 @@ def depthfm_compression_phase(gpu: str) -> None:
 
 def proxy_gate_phase(gpu: str, state_dir: str) -> None:
     """(e) the JAX package's quality ladder over the trained proxies on the
-    card (`scripts.proxy_gate_v2`, float32, 224 px, 8 held-out scenes)."""
+    card (`scripts.proxy_gate_v2`, float32, 224 px, 4 held-out scenes)."""
     from amodal_depth_anything_tpu_torch.scripts import proxy_gate_v2
 
     t0 = time.time()
     corpus = os.path.join(state_dir, "proxy_gate_scenes")
     try:
-        rows = proxy_gate_v2.main(["--size", "224", "--eval-n", "8",
+        rows = proxy_gate_v2.main(["--size", "224", "--eval-n", "4",
                                    "--device", "cuda", "--corpus-dir",
                                    corpus])
     finally:
@@ -4126,17 +4208,20 @@ def compression_phase(gpu: str):
 # machine, int8 for the heuristics, and the serving tuners
 INFER_HW = (480, 640)
 AUTOTUNE_REPS = 3
+LAYER_WALK_SCENES = 4   # held-out scenes a pipeline of the walk is scored on
 HEUR_INT8_POINTS = (("exact", None), ("w8", dict(weight_only=True, bits=8)),
                     ("w4", dict(weight_only=True, bits=4)))
 
 
-def cli_infer_phase(pipe, gpu: str) -> int:
+def cli_infer_phase(pipe, gpu: str, meanwhile=None) -> tuple:
     """(a) `python -m ...cli.infer` in a subprocess that cannot import cv2,
     PIL or matplotlib, on seeded vitg base + vitl amodal state dicts (the
     phase-10 pipeline's, bf16, written as the reference's .pth files under
-    build/) at 518 px: both renders written, equal to the in-process
-    `infer_single_image` of the same pipeline. Returns the subprocess's
-    forward-kernel launches (its wrapper's count, printed at its end)."""
+    build/ by `write_depth_weights`, kept for phase 14) at 518 px: both
+    renders written, equal to the in-process `infer_single_image` of the
+    same pipeline. `meanwhile()` runs while the subprocess does. Returns
+    (the subprocess's forward-kernel launches, its wrapper's count printed
+    at its end; what `meanwhile` returned)."""
     import torch
 
     from amodal_depth_anything_tpu_torch.utils.host_image import (
@@ -4145,12 +4230,7 @@ def cli_infer_phase(pipe, gpu: str) -> int:
     root = os.path.join(BUILD, "smoke_cli_infer")
     os.makedirs(root, exist_ok=True)
     try:
-        base = os.path.join(root, "base.pth")
-        amodal = os.path.join(root, "amodal.pth")
-        t0 = time.time()
-        torch.save(pipe.raw_model.state_dict(), base)
-        torch.save(pipe.amodal_model.state_dict(), amodal)
-        nbytes = os.path.getsize(base) + os.path.getsize(amodal)
+        base, amodal, write_s, nbytes = write_depth_weights(pipe)
         img, _ = synthetic_scene(INFER_HW)
         mask = np.zeros(INFER_HW, np.uint8)
         mask[100:380, 200:520] = 255
@@ -4174,15 +4254,23 @@ def cli_infer_phase(pipe, gpu: str) -> int:
                 f"main({argv!r})\n"
                 "print('flash_attn_fwd launches', mha.launches)\n")
         t1 = time.time()
-        proc = subprocess.run([sys.executable, "-c", code],
-                              capture_output=True, text=True, timeout=600)
+        proc = subprocess.Popen([sys.executable, "-c", code],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            beside = meanwhile() if meanwhile is not None else None
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
         wall = time.time() - t1
-        found = re.search(r"flash_attn_fwd launches (\d+)", proc.stdout)
+        found = re.search(r"flash_attn_fwd launches (\d+)", stdout)
         launches = int(found.group(1)) if found else 0
         check(proc.returncode == 0 and launches == DEPTH_LAUNCHES,
               f"cli.infer without cv2, PIL or matplotlib at {SIZE} px bf16: "
               f"exit {proc.returncode}, {launches} flash_attn_fwd launches "
-              f"({DEPTH_LAUNCHES}) {proc.stderr.strip()[-400:]!r}")
+              f"({DEPTH_LAUNCHES}) {stderr.strip()[-400:]!r}")
         raw, amodal_r = pipe.infer_single_image(
             os.path.join(root, "scene.png"),
             os.path.join(root, "scene_mask.png"), os.path.join(root, "in"))
@@ -4199,10 +4287,11 @@ def cli_infer_phase(pipe, gpu: str) -> int:
         check(same, "cli.infer's two renders equal the in-process "
                     "infer_single_image's, pixel for pixel")
         print(f"  cli.infer subprocess: {nbytes / 1e9:.2f} GB of bf16 .pth "
-              f"written in {t1 - t0:.1f} s, the CLI took {wall:.1f} s "
-              f"(start, load, one {INFER_HW[0]} x {INFER_HW[1]} image, two "
-              f"renders) [{gpu}]", flush=True)
-        return launches
+              f"written in {write_s:.1f} s (kept for phase 14), the CLI took "
+              f"{wall:.1f} s (start, load, one {INFER_HW[0]} x {INFER_HW[1]} "
+              f"image, two renders{'; beside it' if meanwhile else ''}) "
+              f"[{gpu}]", flush=True)
+        return launches, beside
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4210,19 +4299,23 @@ def cli_infer_phase(pipe, gpu: str) -> int:
 def heuristics_int8_phase(app, img, hint, gpu: str) -> int:
     """(d) "prompt_points" at full width (the phase-10 app: SAM ViT-H,
     pix2gestalt at 256 px with 100 DDIM steps, RMBG-1.4, then vitg + vitl
-    depth; bf16) exact (the completion phase 10 captured) and with a w8 and
-    a w4 pix2gestalt UNet (`quantize_p2g_int8`; their first call captures
-    the quantised completion): each one's call, its completion replayed
-    (ms, busy share) and its completion / mask / depth delta against exact;
-    then a w4-p2g + w8-SAM state saved and restored bit-identical, its
-    bytes beside the bf16 state's. Returns the forward kernel's launches
-    over the three calls."""
+    depth; bf16) exact (the completion phase 10 captured: the call, the
+    completion replayed and traced) and with a w8 and a w4 pix2gestalt UNet
+    (`quantize_p2g_int8`; their first call captures the quantised
+    completion): each one's call (its launches counted over the capture's
+    warm-up and the capture), its completion replayed once (ms; no launch
+    counted) and its completion / mask / depth delta against exact; then a
+    w4-p2g + w8-SAM state saved and restored bit-identical, its bytes beside
+    the bf16 state's. Returns the forward kernel's launches over the three
+    calls."""
     import copy
 
     import torch
 
     from amodal_depth_anything_tpu_torch.heuristics import (
         MaskHeuristics, get_points_from_components)
+    from amodal_depth_anything_tpu_torch.heuristics.mask_heuristics import \
+        COMPLETION_WARMUP
     from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
 
     mh = app.heuristics
@@ -4230,6 +4323,9 @@ def heuristics_int8_phase(app, img, hint, gpu: str) -> int:
     hint_u8 = (hint > 0).astype(np.uint8) * 255
     visible = mh.sam_visible_mask(img, get_points_from_components(hint_u8))
     outs, comps, launches = {}, {}, 0
+    # the exact completion phase 10 captured: quantising a copy drops the
+    # captures, so they are put back after (phase 14 replays them)
+    exact_graphs = dict(mh._completions)
     try:
         for name, q in HEUR_INT8_POINTS:
             if q is not None:
@@ -4241,37 +4337,61 @@ def heuristics_int8_phase(app, img, hint, gpu: str) -> int:
                       f"{sorted(set(done.values()))}", flush=True)
             mha.launches = 0
             t1 = time.perf_counter()
-            outs[name] = app.predict_arrays(img, hint, "prompt_points",
-                                            seed=0)
+            outs[name] = out = app.predict_arrays(img, hint, "prompt_points",
+                                                  seed=0)
             first = time.perf_counter() - t1
-            launches += mha.launches
+            counted = mha.launches
+            launches += counted
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             comps[name] = mh.pix2gestalt_completion(img, visible, seed=0)
             replay_ms = (time.perf_counter() - t1) * 1e3
-            wall, busy, got = trace_call(
-                lambda: mh.pix2gestalt_completion(img, visible, seed=0))
-            pct = None if busy is None else 100 * busy / wall
-            out, ref = outs[name], outs["exact"]
-            check(all(np.isfinite(out[k]).all() for k in ("mask", "blended"))
-                  and np.isfinite(comps[name]).all()
-                  and got["flash_attn_fwd"] == HEUR_LAUNCHES,
-                  f"prompt_points with the {name} p2g UNet: finite, a traced "
-                  f"completion replay launches flash_attn_fwd "
-                  f"{got['flash_attn_fwd']} times ({HEUR_LAUNCHES})")
-            print(f"  prompt_points, p2g {name}: call {first:.1f} s"
-                  + (" (captures the completion)" if q else "")
-                  + f", completion replay {replay_ms:.1f} ms, traced wall "
-                  f"{wall:.1f} ms, device busy {as_ms(busy)} "
-                  f"({'not measured' if pct is None else f'{pct:.1f}%'}); "
-                  f"against exact: completion max abs "
-                  f"{float(np.abs(comps[name] - comps['exact']).max()):.4f}, "
-                  f"mask {int((out['mask'] != ref['mask']).sum())} px "
-                  f"differ, base depth "
-                  f"{float(np.abs(out['base'] - ref['base']).max()):.4f}, "
-                  f"blended depth "
-                  f"{float(np.abs(out['blended'] - ref['blended']).max()):.4f}"
-                  f" [{gpu}]", flush=True)
+            finite = (all(np.isfinite(out[k]).all()
+                          for k in ("mask", "blended"))
+                      and np.isfinite(comps[name]).all())
+            if q is None:
+                # the exact point's completion, captured in phase 10: a
+                # traced replay shows its launches
+                wall, busy, got = trace_call(
+                    lambda: mh.pix2gestalt_completion(img, visible, seed=0))
+                pct = None if busy is None else 100 * busy / wall
+                check(finite and counted == DEPTH_LAUNCHES
+                      and got["flash_attn_fwd"] == HEUR_LAUNCHES,
+                      f"prompt_points with the exact p2g UNet: finite; the "
+                      f"call counted flash_attn_fwd {counted} times "
+                      f"({DEPTH_LAUNCHES}: depth, the completion replayed), "
+                      f"a traced completion replay launches it "
+                      f"{got['flash_attn_fwd']} times ({HEUR_LAUNCHES})")
+                print(f"  prompt_points, p2g exact: call {first:.1f} s, "
+                      f"completion replay {replay_ms:.1f} ms, traced wall "
+                      f"{wall:.1f} ms, device busy {as_ms(busy)} "
+                      f"({'not measured' if pct is None else f'{pct:.1f}%'})"
+                      f" [{gpu}]", flush=True)
+            else:
+                # the call captured the quantised completion (its warm-up
+                # and capture counted); the replay launches from the graph
+                want = (COMPLETION_WARMUP + 1) * HEUR_LAUNCHES \
+                    + DEPTH_LAUNCHES
+                check(finite and counted == want
+                      and mha.launches == counted,
+                      f"prompt_points with the {name} p2g UNet: finite; the "
+                      f"call counted flash_attn_fwd {counted} times ({want}: "
+                      f"the completion's {HEUR_LAUNCHES} at its "
+                      f"{COMPLETION_WARMUP} warm-up and its capture, "
+                      f"{DEPTH_LAUNCHES} depth), its replay "
+                      f"{mha.launches - counted} more (0)")
+                ref = outs["exact"]
+                print(f"  prompt_points, p2g {name}: call {first:.1f} s "
+                      f"(captures the completion), completion replay "
+                      f"{replay_ms:.1f} ms; against exact: completion max "
+                      f"abs "
+                      f"{float(np.abs(comps[name] - comps['exact']).max()):.4f}"
+                      f", mask {int((out['mask'] != ref['mask']).sum())} px "
+                      f"differ, base depth "
+                      f"{float(np.abs(out['base'] - ref['base']).max()):.4f}"
+                      f", blended depth "
+                      f"{float(np.abs(out['blended'] - ref['blended']).max()):.4f}"
+                      f" [{gpu}]", flush=True)
             if name == "w8":
                 mh.p2g = float_p2g
         # a w4-p2g + w8-SAM serving state against the bf16 one
@@ -4319,6 +4439,7 @@ def heuristics_int8_phase(app, img, hint, gpu: str) -> int:
     finally:
         mh.p2g = float_p2g
         mh._completions.clear()
+        mh._completions.update(exact_graphs)
     return launches
 
 
@@ -4359,8 +4480,8 @@ def autotune_phase(gpu: str) -> int:
 
 def layer_walk_phase(gpu: str) -> int:
     """(f) `scripts.int8_layer_walk` on the trained proxy
-    (`checkpoints/proxy`, vitp) at 224 px over 8 held-out scenes: the kept
-    set. Returns the forward kernel's launches."""
+    (`checkpoints/proxy`, vitp) at 224 px over LAYER_WALK_SCENES held-out
+    scenes: the kept set. Returns the forward kernel's launches."""
     from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
     from amodal_depth_anything_tpu_torch.scripts import int8_layer_walk
 
@@ -4370,7 +4491,8 @@ def layer_walk_phase(gpu: str) -> int:
     try:
         base, amodal = int8_layer_walk.main([
             "--ckpt", os.path.join("checkpoints", "proxy"), "--size", "224",
-            "--eval-n", "8", "--device", "cuda", "--corpus-dir", corpus])
+            "--eval-n", str(LAYER_WALK_SCENES), "--device", "cuda",
+            "--corpus-dir", corpus])
     finally:
         shutil.rmtree(corpus, ignore_errors=True)
     launches = mha.launches
@@ -4379,17 +4501,19 @@ def layer_walk_phase(gpu: str) -> int:
           f"{np.where(base)[0].tolist()}, amodal blocks "
           f"{np.where(amodal)[0].tolist()}, {launches} flash_attn_fwd "
           f"launches")
-    print(f"  int8_layer_walk (trained vitp proxy, 224 px, 8 scenes): "
+    print(f"  int8_layer_walk (trained vitp proxy, 224 px, "
+          f"{LAYER_WALK_SCENES} scenes): "
           f"{int(base.sum())}/12 base and {int(amodal.sum())}/12 amodal "
           f"blocks kept in {time.time() - t0:.1f} s [{gpu}]", flush=True)
     return launches
 
 
 def slice12_phase(heur: list, gpu: str) -> dict:
-    """Phase 13: (d) on the phase-10 app, (a) on its depth pipeline, then
-    (e) and (f); each path's forward-kernel launches counted from 0.
-    `heur`: [the phase-10 app, its scene, its hints], emptied here so that
-    the app is freed before (e)."""
+    """Phase 13: (d) on the phase-10 app, (e), then (a) on its depth
+    pipeline with (f) beside it; each path's forward-kernel launches
+    counted from 0. `heur`: [the phase-10 app, its scene, its hints],
+    emptied here, and left holding the app's heuristics (phase 14 (d)
+    replays its captured completion)."""
     import torch
 
     app, img, hint = heur
@@ -4402,19 +4526,645 @@ def slice12_phase(heur: list, gpu: str) -> dict:
     launches = {}
     step("(d) prompt_points exact / w8 / w4, an int8 heuristics state")
     launches["heuristics_int8"] = heuristics_int8_phase(app, img, hint, gpu)
-    step("(a) cli.infer without cv2, PIL or matplotlib")
-    launches["cli_infer"] = cli_infer_phase(app.pipeline, gpu)
-    del app
     gc.collect()
     torch.cuda.empty_cache()
     step("(e) autotune_serving at full width")
     launches["autotune"] = autotune_phase(gpu)
     gc.collect()
     torch.cuda.empty_cache()
-    step("(f) int8_layer_walk on the trained proxy")
-    launches["layer_walk"] = layer_walk_phase(gpu)
+    step("(a) cli.infer without cv2, PIL or matplotlib, and beside it (f) "
+         "int8_layer_walk on the trained proxy")
+    launches["cli_infer"], launches["layer_walk"] = cli_infer_phase(
+        app.pipeline, gpu, meanwhile=lambda: layer_walk_phase(gpu))
+    heur.append(app.heuristics)   # for phase 14 (d)
+    del app
     print(f"  phase 13 done in {time.time() - t0:.1f} s [{gpu}]", flush=True)
     return launches
+
+
+
+# the thirteenth slice (phase 14): the single-card training knobs on vitg
+# (`configs/train_discriminative_vitg_singlechip.yaml`: adafactor, remat
+# "attn", batch 4) and the data-factory, baseline and checkpoint scripts
+VITG_CONFIG = "configs/train_discriminative_vitg_singlechip.yaml"
+VITG_BATCH, VITG_ITERS, VITG_BLOCKS = 4, 1, 40
+# the knobs compared with the config's adafactor step (whose eager twin in
+# the bit-identity check gives its own row): (optimizer, head_tile)
+VITG_KNOBS = (("adam", None), ("adam-bf16mu", None), ("adafactor", 1))
+P2G_TREE_N, P2G_TREE_HW, P2G_BATCH = 8, 256, 4
+P2G_EVAL_SIZE, P2G_OUT = 266, 256       # pix2gestalt's protocol (266 in)
+DFM_LABEL_SIZE, DFM_ENSEMBLE, DFM_LABEL_STEPS = 512, 10, 2
+JPEG_DIR = os.path.join("tests", "data")   # PIL-made, with PIL's sha256
+NO_HOST_LIBS = ("PIL", "cv2", "matplotlib", "safetensors")
+WEIGHTS_DIR = os.path.join(BUILD, "smoke_weights")
+SLICE13_DIR = os.path.join(BUILD, "smoke_slice13")
+PHASE14_CAP_S = 150.0
+# the new kernel shapes: vitg at 266 px (19 x 19 + 1 = 362 tokens), the
+# SD-1.5 UNet at DepthFM's ensemble batch of 10 at 512 px (self over 4096 /
+# 1024 / 256 / 64 latent tokens at d 40 / 80 / 160, and onto 77 keys), and
+# the backward pair of the vitg single-card step
+SLICE13_FWD_CASES = [((1, 24, 362, 64), 362), ((10, 8, 4096, 40), 4096),
+                     ((10, 8, 1024, 80), 1024), ((10, 8, 256, 160), 256),
+                     ((10, 8, 64, 160), 64), ((10, 8, 4096, 40), 77)]
+SLICE13_BWD_CASE = ((4, 24, 1370, 64), 1370, None)
+
+
+def write_depth_weights(pipe) -> tuple:
+    """The phase-10 pipeline's vitg base and vitl amodal state dicts (bf16)
+    as the reference's .pth files in WEIGHTS_DIR, kept for phase 14:
+    (base path, amodal path, seconds, bytes)."""
+    import torch
+
+    os.makedirs(WEIGHTS_DIR, exist_ok=True)
+    base = os.path.join(WEIGHTS_DIR, "depth_anything_v2_vitg.pth")
+    amodal = os.path.join(WEIGHTS_DIR, "amodal_vitl.pth")
+    t0 = time.time()
+    torch.save(pipe.raw_model.state_dict(), base)
+    torch.save(pipe.amodal_model.state_dict(), amodal)
+    return (base, amodal, time.time() - t0,
+            os.path.getsize(base) + os.path.getsize(amodal))
+
+
+class HostLibsHidden:
+    """Within the block, importing PIL, cv2, matplotlib or safetensors
+    fails (as on a machine without them)."""
+
+    def __enter__(self):
+        self.saved = {m: sys.modules.get(m) for m in NO_HOST_LIBS}
+        for m in NO_HOST_LIBS:
+            sys.modules[m] = None
+        return self
+
+    def __exit__(self, *exc):
+        for m, mod in self.saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+
+
+def write_p2g_tree(root: str) -> list:
+    """The pix2gestalt occlusions layout (whole, occlusion, visible and
+    whole masks) of P2G_TREE_N textured scenes at P2G_TREE_HW px, as PNGs
+    written by the host codec. Returns the stems."""
+    from amodal_depth_anything_tpu_torch.utils.image import write_png
+
+    rng = np.random.default_rng(21)
+    hw = P2G_TREE_HW
+    yy, xx = np.mgrid[:hw, :hw]
+    stems = [f"{i:05d}" for i in range(P2G_TREE_N)]
+    for i, stem in enumerate(stems):
+        img = np.stack([100 + 60 * np.sin(xx / (9.0 + i) + k)
+                        + 40 * np.cos(yy / 13.0 - k) for k in range(3)], -1)
+        obj = (yy - 128) ** 2 + (xx - 100 - 4 * i) ** 2 < 70 ** 2
+        img[obj] = (200, 150 - 5 * i, 70)
+        whole = np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(
+            np.uint8)
+        occ = whole.copy()
+        bar = (xx > 120) & (xx < 170)
+        occ[bar] = (30, 30, 35)
+        if i == 0:   # a 16-bit scene depth (pix2gestalt_eval_single's)
+            write_png(os.path.join(root, "depth_raw.png"),
+                      (20000 + 150 * yy + 40 * xx).astype(np.uint16))
+        for sub, name, arr in (
+                ("whole", "whole", whole), ("occlusion", "occlusion", occ),
+                ("visible_object_mask", "visible_mask",
+                 ((obj & ~bar) * 255).astype(np.uint8)),
+                ("whole_mask", "whole_mask", (obj * 255).astype(np.uint8))):
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+            write_png(os.path.join(root, sub, f"{stem}_{name}.png"), arr)
+    return stems
+
+
+def write_depthfm_label_weights(root: str) -> tuple:
+    """A seeded plain DepthFM at the SD-1.5 widths as the reference's
+    `depthfm-v1.ckpt` (LDM UNet state dict in float16, hparams, noising
+    step, empty-text embedding) and its VAE as `vae.safetensors` (the
+    port's writer): (ckpt, vae, seconds, bytes)."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.convert.safetensors import \
+        save_file
+    from amodal_depth_anything_tpu_torch.models import get_model
+    from amodal_depth_anything_tpu_torch.models.depthfm import init_depthfm_
+
+    t0 = time.time()
+    model = init_depthfm_(get_model("DepthFM", device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(31))
+    cfg = model.cfg
+    ckpt = os.path.join(root, "depthfm-v1.ckpt")
+    vae = os.path.join(root, "vae.safetensors")
+    torch.save({
+        "ldm_hparams": {"context_dim": cfg.context_dim,
+                        "model_channels": cfg.model_channels,
+                        "channel_mult": list(cfg.channel_mult),
+                        "num_heads": cfg.num_heads},
+        "noising_step": cfg.noising_step,
+        "state_dict": {k: v.detach().half().cpu() for k, v in
+                       model.unet.state_dict().items()},
+        "empty_text_embedding":
+            model.empty_text_embed.detach()[0].float().cpu().numpy(),
+    }, ckpt)
+    save_file({k: v.detach().cpu() for k, v in model.vae.state_dict().items()},
+              vae)
+    del model
+    torch.cuda.empty_cache()
+    return ckpt, vae, time.time() - t0, os.path.getsize(ckpt) + \
+        os.path.getsize(vae)
+
+
+def jpeg_fixtures(root: str) -> list:
+    """The checked-in PIL-made JPEGs, each decoded by the native codec (no
+    PIL: the baseline decoder where libjpeg is absent) against the sha256
+    of PIL's pixels recorded beside them, copied as `sa_{id}.jpg`. Returns
+    the ids."""
+    import hashlib
+
+    from amodal_depth_anything_tpu_torch.native import imagecodec
+
+    with open(os.path.join(JPEG_DIR, "jpeg_fixtures.json")) as f:
+        meta = json.load(f)["files"]
+    ids, same = [], True
+    for name, info in sorted(meta.items()):
+        with open(os.path.join(JPEG_DIR, name), "rb") as f:
+            data = f.read()
+        px = np.ascontiguousarray(imagecodec.decode(data))
+        same &= list(px.shape) == info["shape"] and \
+            hashlib.sha256(px.tobytes()).hexdigest() == info["sha256"]
+        sid = name[len("sa_"):-len(".jpg")]
+        shutil.copy(os.path.join(JPEG_DIR, name),
+                    os.path.join(root, f"sa_{sid}.jpg"))
+        ids.append(sid)
+    check(same, f"the native codec decodes the {len(meta)} JPEG fixtures "
+                f"(4:4:4 / 4:2:2 / 4:2:0 / grey, restart markers) to PIL's "
+                f"pixels (sha256), routes {imagecodec.routes()}")
+    return ids
+
+
+def pngs_equal(a_dir: str, b_dir: str) -> tuple:
+    """(files compared, files whose samples differ) of the PNGs in a_dir
+    against the same names in b_dir (host codec)."""
+    from amodal_depth_anything_tpu_torch.utils.image import read_image
+
+    names = sorted(f for f in os.listdir(a_dir) if f.endswith(".png"))
+    differ = [n for n in names
+              if not os.path.exists(os.path.join(b_dir, n))
+              or not np.array_equal(read_image(os.path.join(a_dir, n)),
+                                    read_image(os.path.join(b_dir, n)))]
+    return len(names), differ
+
+
+def scripts_subprocess(argv: dict):
+    """Start the scripts `argv` names ({name: argv}) in one Python process
+    that cannot import PIL, cv2, matplotlib or safetensors; each script's
+    forward-kernel launches counted from 0 and printed. The process exits
+    with `verify_checkpoints`' code where it runs."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {NO_HOST_LIBS!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "torch.backends.cudnn.deterministic = True\n"
+        "from amodal_depth_anything_tpu_torch.ops.flash_attention "
+        "import mha\n"
+        "counts, rc = {}, 0\n"
+        f"for name, args in {argv!r}.items():\n"
+        "    mod = importlib.import_module(\n"
+        "        'amodal_depth_anything_tpu_torch.scripts.' + name)\n"
+        "    mha.launches = 0\n"
+        "    out = mod.main(args)\n"
+        "    counts[name] = mha.launches\n"
+        "    if name == 'verify_checkpoints':\n"
+        "        rc = out\n"
+        "print('LAUNCHES ' + json.dumps(counts), flush=True)\n"
+        "sys.exit(rc)\n")
+    return subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def scripts_phase(mh, tree: str, list_path: str, gpu: str) -> dict:
+    """(b)-(f): the scripts at full width, seeded weights, bf16 (the .pth
+    files are bf16, and the scripts compute in their dtype): (b)
+    `sam_pl_gen` over an 8-sample pix2gestalt tree with the phase-10 vitg
+    (`.pth`), batch 4; (c) `sam_pl_gen_depthfm` on the 4 JPEG fixtures
+    (seeded SD-1.5 UNet + VAE as `depthfm-v1.ckpt` and `vae.safetensors`,
+    ensemble 10, 2 steps, 512 px); (d) `pix2gestalt_eval_single` on one
+    reconstruction (a JPEG) and `pix2gestalt_inpainting.run` over 2 entries
+    on the phase-10 heuristics (100 DDIM steps: the captured completion);
+    (e) `batch_inference` on the SAM tree with the vitl guided `.pth`,
+    batch 8; (f) `verify_checkpoints --rehearse --skip_chain`. (b), (c),
+    (d)'s single reconstruction and (f) run in a subprocess without PIL,
+    cv2, matplotlib and safetensors, and (b)-(d)'s written maps equal an
+    in-process call's; the in-process calls run with those imports hidden
+    too. Returns the forward kernel's launches by script."""
+    import argparse
+
+    import torch
+
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.scripts import (
+        batch_inference, pix2gestalt_eval_single, pix2gestalt_inpainting,
+        sam_pl_gen, sam_pl_gen_depthfm)
+
+    t0 = time.time()
+    base = os.path.join(WEIGHTS_DIR, "depth_anything_v2_vitg.pth")
+    amodal = os.path.join(WEIGHTS_DIR, "amodal_vitl.pth")
+    roots = {k: os.path.join(SLICE13_DIR, k) for k in
+             ("sub", "ours", "jpeg", "dfm", "rehearse", "batch")}
+    for path in roots.values():
+        os.makedirs(path, exist_ok=True)
+    stems = write_p2g_tree(roots["sub"])
+    for sub in ("whole", "occlusion", "visible_object_mask", "whole_mask"):
+        shutil.copytree(os.path.join(roots["sub"], sub),
+                        os.path.join(roots["ours"], sub))
+    ids = jpeg_fixtures(roots["jpeg"])
+    split = os.path.join(roots["jpeg"], "split.txt")
+    with open(split, "w") as f:
+        f.write("\n".join(ids) + "\n")
+    ckpt, vae, w_s, w_bytes = write_depthfm_label_weights(roots["dfm"])
+    rec = os.path.join(roots["jpeg"], f"sa_{ids[0]}.jpg")
+    gt = os.path.join(roots["sub"], "depth_raw.png")
+    vis = os.path.join(roots["sub"], "visible_object_mask",
+                       f"{stems[0]}_visible_mask.png")
+
+    def args_b(tree):
+        return ["--data_root", tree, "--base_ckpt", base, "--batch",
+                str(P2G_BATCH)]
+
+    def args_c(out):
+        return ["--image_dir", roots["jpeg"], "--split", split, "--ckpt",
+                ckpt, "--vae_ckpt", vae, "--out_dir", out, "--ensemble",
+                str(DFM_ENSEMBLE), "--num_steps", str(DFM_LABEL_STEPS),
+                "--size", str(DFM_LABEL_SIZE)]
+
+    def args_d(out):
+        return ["--reconstruction", rec, "--raw_depth", gt,
+                "--visible_mask", vis, "--checkpoint", base,
+                "--output_dir", out]
+
+    t_sub = time.time()
+    # two processes, started together: the rehearsal, and (b) (c) (d)
+    procs = [scripts_subprocess({"verify_checkpoints": [
+                 "--rehearse", roots["rehearse"], "--skip_chain", "--size",
+                 "126", "--device", "cuda"]}),
+             scripts_subprocess({
+                 "sam_pl_gen": args_b(roots["sub"]),
+                 "sam_pl_gen_depthfm": args_c(os.path.join(roots["dfm"],
+                                                           "sub")),
+                 "pix2gestalt_eval_single": args_d(
+                     os.path.join(roots["jpeg"], "sub"))})]
+    launches = {}
+    try:
+        with HostLibsHidden():
+            # (b) in process
+            mha.launches = 0
+            sam_pl_gen.main(args_b(roots["ours"]))
+            launches["sam_pl_gen"] = mha.launches
+            # (c) in process
+            mha.launches = 0
+            sam_pl_gen_depthfm.main(args_c(os.path.join(roots["dfm"],
+                                                        "ours")))
+            launches["sam_pl_gen_depthfm"] = mha.launches
+            # (d) in process: one reconstruction, then the inpainting
+            # baseline over 2 entries on the phase-10 heuristics
+            mha.launches = 0
+            depth, _ = pix2gestalt_eval_single.main(
+                args_d(os.path.join(roots["jpeg"], "ours")))
+            launches["pix2gestalt_eval_single"] = mha.launches
+            p2g_split = os.path.join(roots["ours"], "split.txt")
+            with open(p2g_split, "w") as f:
+                f.write("".join(f"sa_{s}.jpg\n" for s in stems[:2]))
+            check(mh.p2g_cfg.ddim_steps == HEUR_STEPS,
+                  f"pix2gestalt_inpainting at the phase-10 completion's "
+                  f"{HEUR_STEPS} DDIM steps (its capture is reused)")
+            dav2 = sam_pl_gen.load_raw_dav2(base, torch.device("cuda"))
+            mha.launches = 0
+            t1 = time.time()
+            banks, n_done = pix2gestalt_inpainting.run(
+                argparse.Namespace(
+                    data_dir=roots["ours"], split=p2g_split,
+                    output_dir=os.path.join(roots["ours"], "inpainting"),
+                    limit=0, metrics=["rmse_linear", "log10", "delta1_acc"]),
+                mh, pix2gestalt_eval_single.make_dav2_apply(
+                    dav2, P2G_EVAL_SIZE))
+            launches["pix2gestalt_inpainting"] = mha.launches
+            inpaint_s = time.time() - t1
+            del dav2
+            vals = list(banks["align_overall"].result().values())
+            check(n_done == 2 and bool(np.isfinite(vals).all())
+                  and launches["pix2gestalt_inpainting"]
+                  == 2 * VITG_BLOCKS,
+                  f"pix2gestalt_inpainting.run over 2 entries: finite "
+                  f"aligned metrics {[round(v, 4) for v in vals]}, "
+                  f"{launches['pix2gestalt_inpainting']} flash_attn_fwd "
+                  f"launches (2 x 40 vitg blocks; the completions replay)")
+            # (e) in process: the vitl guided model over the SAM tree
+            mha.launches = 0
+            t1 = time.time()
+            results = batch_inference.main([
+                "--checkpoint", amodal, "--base_data_dir", tree,
+                "--filenames", list_path, "--output_dir", roots["batch"],
+                "--batch", str(TRAIN_BATCH)])
+            launches["batch_inference"] = mha.launches
+            batch_s = time.time() - t1
+        vals = [results[b][m] for b in ("overall", "align_overall")
+                for m in results["overall"]]
+        with open(os.path.join(roots["batch"], "metrics.txt")) as f:
+            n_tables = f.read().count("Evaluation metrics")
+        check(bool(np.isfinite(vals).all()) and n_tables == 8
+              and launches["batch_inference"] == 24,
+              f"batch_inference (vitl, bf16, batch {TRAIN_BATCH}) over "
+              f"{BASELINE_TREE} scenes: metrics.txt with {n_tables} bucket "
+              f"tables, finite, {launches['batch_inference']} launches")
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    sub_s = time.time() - t_sub
+    stdout = "".join(o for o, _ in outs)
+    sub_launches = {}
+    for found in re.finditer(r"LAUNCHES (\{.*\})", stdout):
+        sub_launches.update(json.loads(found.group(1)))
+    codes = [p.returncode for p in procs]
+    check(codes == [0, 0] and "FAIL" not in stdout
+          and len(sub_launches) == 4,
+          f"(b), (c), (d), (f) in processes without "
+          f"{', '.join(NO_HOST_LIBS)}: exit {codes}, verify_checkpoints "
+          f"--rehearse --skip_chain without a FAIL row "
+          f"{''.join(e for _, e in outs).strip()[-400:]!r}")
+    rows = [ln for ln in stdout.splitlines()
+            if re.match(r"^\w+ +(PASS|SKIP|FAIL) ", ln)]
+    print(f"  verify_checkpoints --rehearse --skip_chain on the card: "
+          f"{sum(' PASS ' in r for r in rows)} PASS, "
+          f"{sum(' SKIP ' in r for r in rows)} SKIP, "
+          f"{sum(' FAIL ' in r for r in rows)} FAIL", flush=True)
+    for what, a, b, want in (
+            ("sam_pl_gen depth_da_update_occ",
+             os.path.join(roots["sub"], "depth_da_update_occ"),
+             os.path.join(roots["ours"], "depth_da_update_occ"), P2G_TREE_N),
+            ("sam_pl_gen depth_da_update_combine",
+             os.path.join(roots["sub"], "depth_da_update_combine"),
+             os.path.join(roots["ours"], "depth_da_update_combine"),
+             P2G_TREE_N),
+            ("sam_pl_gen_depthfm", os.path.join(roots["dfm"], "sub"),
+             os.path.join(roots["dfm"], "ours"), len(ids)),
+            ("pix2gestalt_eval_single", os.path.join(roots["jpeg"], "sub"),
+             os.path.join(roots["jpeg"], "ours"), 2)):
+        n, differ = pngs_equal(a, b)
+        check(n == want and not differ,
+              f"{what}: the subprocess's {n} maps equal the in-process "
+              f"call's ({len(differ)} differ)")
+    check(sub_launches.get("sam_pl_gen") == launches["sam_pl_gen"]
+          == 2 * (P2G_TREE_N // P2G_BATCH) * VITG_BLOCKS
+          and sub_launches.get("sam_pl_gen_depthfm")
+          == launches["sam_pl_gen_depthfm"]
+          == len(ids) * DFM_LABEL_STEPS * 32,
+          f"launches: sam_pl_gen {launches['sam_pl_gen']} (2 forwards x "
+          f"{P2G_TREE_N // P2G_BATCH} batches x {VITG_BLOCKS}), "
+          f"sam_pl_gen_depthfm {launches['sam_pl_gen_depthfm']} ({len(ids)} "
+          f"images x {DFM_LABEL_STEPS} steps x 32); subprocess "
+          f"{sub_launches}")
+    check(bool(np.isfinite(depth).all()) and depth.shape == (P2G_OUT,
+                                                             P2G_OUT),
+          f"pix2gestalt_eval_single: finite depth {depth.shape}")
+    print(f"  scripts (bf16, seeded): the two subprocesses took {sub_s:.1f} "
+          f"s (start, verify_checkpoints' rehearsal beside three scripts), "
+          f"inpainting 2 entries {inpaint_s:.1f} s, batch_inference "
+          f"{batch_s:.1f} s; DepthFM label weights "
+          f"{w_bytes / 1e9:.2f} GB written in {w_s:.1f} s; phase 14 "
+          f"(b)-(f) {time.time() - t0:.1f} s [{gpu}]", flush=True)
+    shutil.rmtree(SLICE13_DIR, ignore_errors=True)
+    return {**{f"{k}_subprocess": v for k, v in sub_launches.items()},
+            **launches}
+
+
+def vitg_overlay(tree: str, list_path: str) -> str:
+    """The single-card vitg recipe on the synthetic SAM tree: an overlay
+    YAML under build/ (its splits on the tree, no periodic validation,
+    saving or visualisation)."""
+    path = os.path.join(BUILD, "smoke_vitg_singlechip.yaml")
+    split = {"filenames": os.path.abspath(list_path)}
+    with open(path, "w") as f:
+        json.dump({   # JSON is YAML
+            "base_config": [os.path.abspath(VITG_CONFIG)],
+            "dataset": {"train": split, "val": split, "vis": split},
+            "trainer": {"validation_period": 0, "save_period": 0,
+                        "backup_period": 0, "visualization_period": 0}}, f)
+    return path
+
+
+def opt_state_bytes(trainer) -> int:
+    return sum(t.numel() * t.element_size()
+               for v in trainer.state.opt_state.values()
+               if isinstance(v, list) for t in v)
+
+
+def vitg_singlechip_phase(tree: str, list_path: str, gpu: str) -> dict:
+    """(a) `cli.train --config
+    configs/train_discriminative_vitg_singlechip.yaml` on the synthetic SAM
+    tree at 518 px, batch 4, bf16, adafactor, remat "attn": VITG_ITERS
+    update of 8 micro-steps (finite losses; the accumulate and the apply
+    programs each captured, 40 + 40 + 40 attention launches at each one's
+    warm-up steps and capture), then the captured adafactor step against
+    the eager one and a resume, bit for bit (p50, busy share, peak memory),
+    then each of VITG_KNOBS for two steps (the tiled head captured, the
+    optimizers eagerly): its peak memory, optimizer-state bytes and step
+    time. Returns the attention kernels' launches of the CLI run."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.cli import train as train_cli
+    from amodal_depth_anything_tpu_torch.cli.train import \
+        trainer_config_from_cfg
+    from amodal_depth_anything_tpu_torch.data import DatasetMode, get_dataset
+    from amodal_depth_anything_tpu_torch.models import get_model
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.train import get_trainer_cls
+    from amodal_depth_anything_tpu_torch.utils.config import \
+        recursive_load_config
+    from amodal_depth_anything_tpu_torch.utils.depth_transform import \
+        get_depth_normalizer
+    from amodal_depth_anything_tpu_torch.utils.graphs import WARMUP_CALLS
+
+    overlay = vitg_overlay(tree, list_path)
+    cfg = recursive_load_config(overlay)
+    tcfg = trainer_config_from_cfg(cfg, accumulation_steps=round(
+        int(cfg.dataloader.effective_batch_size)
+        / int(cfg.dataloader.max_train_batch_size)))
+    check((cfg.model.kwargs.encoder, tcfg.optimizer, tcfg.remat,
+           tcfg.compute_dtype, int(cfg.dataloader.max_train_batch_size))
+          == ("vitg", "adafactor", "attn", "bfloat16", VITG_BATCH),
+          f"{VITG_CONFIG}: vitg, adafactor, remat attn, bfloat16, batch "
+          f"{VITG_BATCH}")
+    run_dir = os.path.join(BUILD, "smoke_vitg_run")
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    mha.launches = mha.bwd_dq_launches = mha.bwd_dkv_launches = 0
+    try:
+        train_cli.main(["--config", overlay, "--base_data_dir", tree,
+                        "--output_dir", run_dir, "--max_iter",
+                        str(VITG_ITERS), "--no_wandb", "--device", "cuda"])
+        launches = {"flash_attn_fwd": mha.launches,
+                    "flash_attn_bwd_dq": mha.bwd_dq_launches,
+                    "flash_attn_bwd_dkv": mha.bwd_dkv_launches}
+        cli_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        saved = [os.path.join(d, f) for d, _, fs in os.walk(run_dir)
+                 for f in fs if f == "state.pt"]
+        check(len(saved) == 1, f"cli.train wrote its latest checkpoint "
+                               f"({len(saved)} state.pt)")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    # the recipe's effective batch of 32 is 8 micro-batches of 4 on one
+    # card: two programs (accumulate; accumulate and apply), each captured
+    micro = tcfg.accumulation_steps
+    programs = 2 if micro > 1 else 1
+    check(all(n == programs * VITG_BLOCKS * (WARMUP_CALLS + 1)
+              for n in launches.values()),
+          f"cli.train vitg single-card recipe, {VITG_ITERS} iteration of "
+          f"{micro} micro-steps: {launches} launches ({VITG_BLOCKS} of each "
+          f"a step at each of the {programs} programs' {WARMUP_CALLS} "
+          f"warm-up steps and capture)")
+    print(f"  cli.train {VITG_CONFIG} ({VITG_ITERS} iteration = {micro} "
+          f"captured micro-steps of {VITG_BATCH} at {SIZE} px, the latest "
+          f"checkpoint written): {time.time() - t0:.1f} s, peak memory "
+          f"{cli_peak:.2f} GiB [{gpu}]", flush=True)
+
+    normalizer = get_depth_normalizer(cfg.get("depth_normalization"))
+    train_ds = get_dataset(cfg.dataset.train.to_dict(), tree,
+                           DatasetMode.TRAIN, depth_transform=normalizer)
+    # one micro-step an update, no warm-up: every step moves the weights
+    base_cfg = dataclasses.replace(tcfg, accumulation_steps=1,
+                                   lr_warmup_steps=0, validation_period=0,
+                                   save_period=0, visualization_period=0)
+
+    def make(captured, optimizer="adafactor", head_tile=None):
+        return get_trainer_cls(cfg.trainer.name)(
+            dataclasses.replace(base_cfg, optimizer=optimizer,
+                                head_tile=head_tile),
+            get_model(cfg.model.name, device="cuda",
+                      **cfg.model.kwargs.to_dict()),
+            None, device="cuda", seed=0, captured=captured)
+
+    batches = capture_batches(trainer_like(), train_ds,
+                              batch_size=VITG_BATCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = captured_step_phase("vitg adafactor train step", make,
+                                  batches, gpu, RESUME_CKPT)
+    rows = []
+    for optimizer, tile in VITG_KNOBS:
+        # the tiled head captured (its chunks recompute in the backward
+        # inside the graph), the optimizers eagerly: each beside the same
+        # kind of run of the recipe's step
+        captured = tile is not None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = make(captured, optimizer, tile)
+        ms = []
+        for b in batches[:2]:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss = float(trainer._train_step(b))
+            ms.append((time.perf_counter() - t1) * 1e3)
+        rows.append({"optimizer": optimizer, "head_tile": tile,
+                     "captured": captured,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "opt_state_gb": opt_state_bytes(trainer) / 1e9,
+                     "step_ms": ms[-1], "loss": loss})
+        del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    for captured in (False, True):
+        rows.insert(0, {"optimizer": "adafactor", "head_tile": None,
+                        "captured": captured,
+                        "peak_gib": summary["peak_gib" if captured
+                                            else "eager_peak_gib"],
+                        "opt_state_gb": rows[-1]["opt_state_gb"],
+                        "step_ms": summary["p50_ms" if captured
+                                           else "eager_p50_ms"],
+                        "loss": float("nan")})
+    for r in rows:
+        print(f"    vitg {r['optimizer']:<12} head_tile={r['head_tile']} "
+              f"{'captured' if r['captured'] else 'eager'}: peak memory "
+              f"{r['peak_gib']:.2f} GiB, optimizer state "
+              f"{r['opt_state_gb']:.3f} GB, step {r['step_ms']:.1f} ms, "
+              f"loss {r['loss']:.5f} [{gpu}]", flush=True)
+    by = {(r["optimizer"], r["head_tile"]): r for r in rows}
+    check(by[("adafactor", None)]["opt_state_gb"]
+          < by[("adam-bf16mu", None)]["opt_state_gb"]
+          < by[("adam", None)]["opt_state_gb"]
+          and all(np.isfinite(r["loss"]) for r in rows[2:]),
+          "vitg knobs: optimizer state adafactor < adam-bf16mu < adam; the "
+          "tiled head's step captured; finite losses")
+    return {"launches": launches, "summary": summary, "knobs": rows}
+
+
+def slice13_kernel_cases(gpu: str) -> dict:
+    """The kernels at the new shapes against their plain versions (bf16),
+    each timed beside SDPA: the forward at vitg's 266 px and DepthFM's
+    ensemble batch of 10, the backward pair at the vitg step's shape."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = {"flash_attn_fwd": [attention_case(gen, shape, nk, None,
+                                              "bfloat16", gpu)
+                               | {"q": list(shape), "nk": nk}
+                               for shape, nk in SLICE13_FWD_CASES]}
+    shape, nk, kv_len = SLICE13_BWD_CASE
+    bwd = bwd_case(gen, shape, nk, kv_len, "bfloat16", gpu, {})
+    for name, row in bwd.items():
+        rows[name] = [row | {"q": list(shape), "nk": nk}]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def slice13_alone(gpu: str) -> dict:
+    """`--only 14`: phase 10's heuristics and pipeline, their weights
+    written as phase 13 (a) writes them, then phase 14."""
+    _, heur = heuristics_phase(gpu)
+    app = heur[0]
+    write_depth_weights(app.pipeline)
+    heur.clear()
+    mh = app.heuristics
+    del app
+    gc.collect()
+    return slice13_phase(mh, gpu)
+
+
+def slice13_phase(mh, gpu: str) -> dict:
+    """Phase 14: (b)-(f) (the scripts), then (a) (the vitg single-card
+    training knobs), then the kernels at the new shapes; each path's
+    launches counted from 0."""
+    import torch
+
+    t0 = time.time()
+
+    def step(what):
+        print(f"  {what} (at +{time.time() - t0:.1f} s)", flush=True)
+
+    step("(b)-(f) the scripts, (b) (c) (d) (f) also without PIL / cv2 / "
+         "matplotlib / safetensors")
+    tree, list_path = write_sam_tree(BASELINE_TREE, SIZE)
+    scripts = scripts_phase(mh, tree, list_path, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    step("(a) the vitg single-card recipe: cli.train, captured vs eager, "
+         "resume, the knobs")
+    vitg = vitg_singlechip_phase(tree, list_path, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    step("the kernels at the new shapes")
+    rows = slice13_kernel_cases(gpu)
+    took = time.time() - t0
+    print(f"  phase 14 done in {took:.1f} s (cap {PHASE14_CAP_S:.0f} s) "
+          f"[{gpu}]", flush=True)
+    check(took <= PHASE14_CAP_S, f"phase 14 took {took:.1f} s <= "
+                                 f"{PHASE14_CAP_S:.0f} s")
+    shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
+    return {"scripts": scripts, "vitg": vitg, "rows": rows}
 
 
 def main() -> int:
@@ -4467,7 +5217,8 @@ def main() -> int:
     alone = {"6": train_phase, "8": depthfm_train_phase, "9": serving_phase,
              "10": lambda g: (p2g_proxy_phase(), heuristics_phase(g)),
              "11": baselines_phase, "12": compression_phase,
-             "13": lambda g: slice12_phase(heuristics_phase(g)[1], g)}
+             "13": lambda g: slice12_phase(heuristics_phase(g)[1], g),
+             "14": lambda g: slice13_alone(g)}
     if only is not None:                  # iterate on some phases alone
         for name in only.split(","):
             phase(f"[{name}] alone")
@@ -4528,6 +5279,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("[14] the thirteenth slice: the vitg single-card recipe "
+          "(adafactor, adam-bf16mu, head_tile) through cli.train; "
+          "sam_pl_gen, sam_pl_gen_depthfm, the pix2gestalt baseline, "
+          "batch_inference, verify_checkpoints")
+    s13 = slice13_phase(heur.pop(), gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase("[11] evaluation and baselines at full width: ADDeepLab, jo_dpt, "
           "InvisibleStitch; cli.eval, zero-shot eval, infer_image")
     base = baselines_phase(gpu)
@@ -4549,12 +5308,15 @@ def main() -> int:
                 "replaces": replaces, **measured[name],
                 "launches": launches[name]}
                for name, (source, replaces) in KERNELS.items()]
+    vitg = s13["vitg"]["launches"]
     for i, name in enumerate(("flash_attn_fwd", "flash_attn_bwd_dq",
                               "flash_attn_bwd_dkv")):
         kernels[i].update(
             launches=launches[name] + dfm_train[name] + dfm_train["ddpm"][i]
-            + base["launches"][name],
+            + base["launches"][name] + vitg[name],
             launches_training=launches[name],
+            launches_vitg_singlechip_training=vitg[name],
+            slice13_shapes=s13["rows"][name],
             launches_depthfm_training=dfm_train[name],
             launches_ddpm_training=dfm_train["ddpm"][i],
             launches_baselines_and_eval=base["launches"][name],
@@ -4566,12 +5328,14 @@ def main() -> int:
     kernels[0].update(
         launches=kernels[0]["launches"] + infer_launches + depthfm_launches
         + serve_launches + heur_launches + comp_launches["amodal"]
-        + comp_launches["depthfm"] + sum(s12_launches.values()),
+        + comp_launches["depthfm"] + sum(s12_launches.values())
+        + sum(s13["scripts"].values()),
         launches_inference=infer_launches, launches_depthfm=depthfm_launches,
         launches_serving=serve_launches, launches_heuristics=heur_launches,
         launches_compression_amodal=comp_launches["amodal"],
         launches_compression_depthfm=comp_launches["depthfm"],
         **{f"launches_{k}": v for k, v in s12_launches.items()},
+        **{f"launches_{k}": v for k, v in s13["scripts"].items()},
         launches_per_replay_traced=per_replay,
         compression_shapes=tome_rows)
     print(f"  all phases took {time.time() - started:.1f} s", flush=True)

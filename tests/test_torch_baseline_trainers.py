@@ -45,7 +45,7 @@ from amodal_depth_anything_tpu_torch.train import (AmodalSynthDriveTrainer,
                                                    TrainerConfig)
 from tests.test_deeplab import tiny_model as jax_tiny_deeplab
 from tests.test_torch_baselines import noisy_tree
-from tests.test_torch_models import few_torch_threads  # noqa: F401
+from tests.test_torch_models import eager, few_torch_threads  # noqa: F401
 
 HW = 64
 TRAINERS = {"ADDeepLab": (AmodalSynthDriveTrainer, JaxSynthDriveTrainer),
@@ -85,7 +85,7 @@ def _setup(name):
     weights."""
     jmodel = _jax_model(name)
     tree = noisy_tree(jax.tree.map(np.asarray,
-                                   jmodel.init(jax.random.PRNGKey(0))))
+                                   eager(jmodel.init)(jax.random.PRNGKey(0))))
     model = get_model(name, tiny=True, device="cpu")
     cls, jcls = TRAINERS[name]
     trainer = cls(TrainerConfig(**_cfg(name, attn_impl="plain")), model,

@@ -30,7 +30,7 @@ from amodal_depth_anything_tpu_torch.ops.conv import (conv2d,
                                                       fused_upsample2x_conv)
 from amodal_depth_anything_tpu_torch.ops.ddim import parse_deep_cache
 from amodal_depth_anything_tpu_torch.ops.resize import resize_nearest
-from tests.test_torch_models import few_torch_threads  # noqa: F401
+from tests.test_torch_models import eager, few_torch_threads  # noqa: F401
 
 TOL = 1e-4
 OP_TOL = 1e-5
@@ -40,7 +40,7 @@ def seeded_tree(jmodel, seed=0):
     """The JAX init plus seeded numpy noise on every leaf, so that the
     zero-initialised layers carry signal too."""
     rng = np.random.default_rng(seed)
-    init = jmodel.init(jax.random.PRNGKey(0))
+    init = eager(jmodel.init)(jax.random.PRNGKey(0))
     return jax.tree.map(
         lambda a: np.asarray(a) + 0.05 * rng.standard_normal(
             a.shape).astype(np.float32), init)

@@ -38,7 +38,7 @@ from amodal_depth_anything_tpu_torch.data.synthetic import \
 from amodal_depth_anything_tpu_torch.models import get_model
 from amodal_depth_anything_tpu_torch.train import (DiscriminativeTrainer,
                                                    TrainerConfig)
-from tests.test_torch_models import few_torch_threads  # noqa: F401
+from tests.test_torch_models import eager, few_torch_threads  # noqa: F401
 
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                        "configs")
@@ -86,7 +86,7 @@ def test_validate_single_dataset_matches_jax(sam_tree):
     jmodel = jax_get_model("AmodalDAv2", encoder="vitt")
     params = jax.tree.map(
         lambda a: (np.asarray(a) + 0.05 * rng.standard_normal(a.shape))
-        .astype(np.float32), jmodel.init(jax.random.PRNGKey(0)))
+        .astype(np.float32), eager(jmodel.init)(jax.random.PRNGKey(0)))
     kw = dict(filename_ls_path=os.path.join(sam_tree, "train.txt"),
               dataset_dir=sam_tree, resize_to_hw=(56, 56))
     common = dict(validation_period=0, visualization_period=0, save_period=0,
@@ -128,7 +128,8 @@ def test_eval_loader_reads_an_npz_of_the_jax_tree(tmp_path):
             else:
                 flat[prefix + key] = (np.asarray(val) + rng.standard_normal(
                     np.shape(val))).astype(np.float32)
-    walk(jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0))), "")
+    walk(jax.tree.map(np.asarray,
+                      eager(jmodel.init)(jax.random.PRNGKey(0))), "")
     np.savez(tmp_path / "tree.npz", **flat)
     model = get_model("AmodalDAv2", encoder="vitt", device="cpu")
     sd = eval_cli.load_state_any(str(tmp_path / "tree.npz"), model,

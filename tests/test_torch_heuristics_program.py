@@ -60,8 +60,8 @@ def test_p2g_completion_matches_jax(stack, cond_mode, deep_cache):
 
 def _other_layout(jh, cfg, image, visible):
     """The "image" layout (conv-in 8) on its own noisy UNet."""
-    unet = noisy(jax.jit(lambda k: jmh.init_unet(k, cfg.unet))(
-        jax.random.PRNGKey(17)), 18)
+    unet = noisy(jmh.init_unet(
+        jax.random.PRNGKey(17), cfg.unet), 18)
     params = dict(jh.p2g_params, unet=unet)
     saved = jh.p2g_params
     jh.p2g_params = params

@@ -35,6 +35,14 @@ RAW = dict(guide_type="none", raw=True)
 GUIDED = dict(guide_type="mask+observation")
 
 
+def eager(fn):
+    """`fn` without its `jax.jit` (the function it wraps): a JAX init run
+    op by op draws the same threefry bits as the jitted one and skips a
+    compile that costs the CPU tests seconds (the tests compare the port
+    with the JAX package on whichever values it gives)."""
+    return getattr(fn, "__wrapped__", fn)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def few_torch_threads():
     """Two intra-op threads: the suite runs in several worker processes,

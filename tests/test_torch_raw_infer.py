@@ -20,7 +20,7 @@ from amodal_depth_anything_tpu_torch.models import get_model
 from amodal_depth_anything_tpu_torch.pipeline.raw_infer import (
     constrain_to_multiple_of, image2tensor_np, infer_image, keep_aspect_size,
     resize_cubic)
-from tests.test_torch_models import few_torch_threads  # noqa: F401
+from tests.test_torch_models import eager, few_torch_threads  # noqa: F401
 
 SIZES = [(480, 640), (640, 480), (375, 1242), (518, 518), (17, 900),
          (1080, 1920), (100, 101), (3, 5)]
@@ -84,7 +84,7 @@ def test_infer_image_matches_jax():
     jmodel = jax_get_model("DepthAnythingV2Raw", encoder="vitt")
     params = jax.tree.map(
         lambda a: (np.asarray(a) + 0.05 * rng.standard_normal(a.shape))
-        .astype(np.float32), jmodel.init(jax.random.PRNGKey(0)))
+        .astype(np.float32), eager(jmodel.init)(jax.random.PRNGKey(0)))
     bgr = rng.integers(0, 256, (45, 70, 3)).astype(np.uint8)
     with jax.default_matmul_precision("highest"):
         ref = jax_raw_infer.infer_image(params, jmodel.config, bgr, 70,

@@ -254,10 +254,3 @@ def test_clip_is_optax_formula_not_torch_clip_grad_norm():
     clip_by_global_norm(small, 0.01)
     assert torch.equal(small[0], torch.full((3,), 1e-4))
 
-
-@pytest.mark.parametrize("name", ["adam-bf16mu", "adafactor"])
-def test_deferred_optimizers_raise(name):
-    with pytest.raises(NotImplementedError, match=name):
-        make_optimizer(lr=1e-4, total_iter=10, optimizer=name)
-    with pytest.raises(ValueError, match="unknown optimizer"):
-        make_optimizer(lr=1e-4, total_iter=10, optimizer="sgd")
