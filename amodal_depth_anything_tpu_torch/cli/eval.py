@@ -90,12 +90,17 @@ def main(argv=None) -> None:
 
     from ..data import DataLoader, DatasetMode, get_dataset
     from ..models import get_model
+    from ..parallel import initialize, make_mesh
+    from ..parallel.mesh import axis_size
     from ..train import get_trainer_cls
     from ..utils.config import recursive_load_config
     from ..utils.depth_transform import get_depth_normalizer
     from ..utils.logging_util import config_logging, eval_dic_to_text
     from .train import trainer_config_from_cfg, trainer_kwargs_from_cfg
 
+    initialize(device=args.device)
+    # data-parallel evaluation: each data rank scores its rows of a batch
+    mesh = make_mesh()
     cfg = recursive_load_config(args.config)
     base_data_dir = args.base_data_dir or os.environ.get("BASE_DATA_DIR")
     if base_data_dir is None:
@@ -115,12 +120,13 @@ def main(argv=None) -> None:
     val_loaders = [DataLoader(get_dataset(item, base_data_dir,
                                           DatasetMode.EVAL,
                                           depth_transform=normalizer),
-                              batch_size=1, pad_last=True,
+                              batch_size=axis_size(mesh, "data"),
+                              pad_last=True,
                               num_workers=workers) for item in items]
 
     tcfg = trainer_config_from_cfg(cfg, accumulation_steps=1)
     trainer = get_trainer_cls(cfg.trainer.name)(
-        tcfg, model, None, val_loaders, device=args.device,
+        tcfg, model, None, val_loaders, device=args.device, mesh=mesh,
         out_dir_eval=out_dir, params=params, **trainer_kwargs_from_cfg(cfg))
 
     eval_txt = os.path.join(out_dir, "eval.txt")

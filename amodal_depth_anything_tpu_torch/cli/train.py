@@ -5,14 +5,21 @@
         --base_data_dir /data/sam --output_dir work_dir/out [--resume_run DIR]
         [--exit_after MINUTES] [--no_wandb] [--device cuda|cpu]
 
-The JAX package's CLI with the same flags, on one device (`--device`,
-default "cuda"):
+The JAX package's CLI with the same flags (`--device`, default "cuda"):
+  * multi-process launches (the JAX package's `JAX_COORDINATOR_ADDRESS` /
+    `JAX_NUM_PROCESSES` / `JAX_PROCESS_ID`, `torch.distributed.run`'s
+    variables, or a multi-task SLURM job) join the process group before any
+    device is touched (`parallel.initialize`); each rank trains on its
+    card, `cuda:{local rank}`. One process: a 1 x 1 mesh.
+  * the mesh: every rank on ``data``, `--mesh_model` of them on ``model``
+    (tensor parallelism of the trunk, `parallel.make_mesh`).
   * effective batch / grad accumulation: accumulation_steps =
-    eff_batch_size / max_train_batch_size -- the reference's formula
-    (`train.py:104-107`) with one device.
+    round(eff_batch_size / (max_train_batch_size * data ranks)) -- the
+    reference's formula (`train.py:104-107`); the loader yields the global
+    batch of max_train_batch_size * data ranks, of which each data rank
+    trains on its rows.
   * `--resume_run` actually restores (the reference raises
     NotImplementedError, `train.py:94-95`).
-  * `--mesh_model` is accepted and must be 1 until the scale-out port.
   * on the card each train step is one captured CUDA graph
     (`train/trainer.py`), as the JAX trainer jits its step.
   * run-dir scaffolding, config snapshot, tb logging preserved; wandb is
@@ -44,8 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--img_dropout", type=float, default=None)
     p.add_argument("--max_iter", type=int, default=None)
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="Tensor-parallel degree; must be 1 (one device) "
-                        "until the scale-out port")
+                   help="Tensor-parallel degree: ranks on the mesh's model "
+                        "axis")
     p.add_argument("--device", type=str, default="cuda",
                    help="Device to train on: 'cuda' (default) or 'cpu'")
     return p
@@ -165,11 +172,14 @@ def main(argv=None) -> None:
     t_start = time.time()
     t_end = t_start + args.exit_after * 60 if args.exit_after > 0 else None
 
-    if args.mesh_model != 1:
-        raise NotImplementedError(
-            f"--mesh_model {args.mesh_model}: the port trains on one device "
-            f"until the scale-out port; pass 1")
+    from ..parallel import MeshConfig, initialize, make_mesh
+    from ..parallel.mesh import axis_size
+    from ..parallel.multihost import process_count
 
+    # multi-process launches bring up the process group before any device
+    # use; no-op in a single process
+    initialize(device=args.device)
+    mesh = make_mesh(MeshConfig(model=args.mesh_model))
     from ..data import DataLoader, DatasetMode, MixedBatchSampler, \
         ConcatDataset, get_dataset
     from ..models import get_model
@@ -193,6 +203,11 @@ def main(argv=None) -> None:
     # run dir scaffolding (reference train.py:124-149)
     job_name = os.path.splitext(os.path.basename(args.config))[0]
     ts = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+    if process_count() > 1:   # one run directory: rank 0's clock
+        import torch.distributed as dist
+        box = [ts]
+        dist.broadcast_object_list(box, src=0)
+        ts = box[0]
     run_dir = os.path.join(args.output_dir, job_name, ts)
     out_ckpt = os.path.join(run_dir, "checkpoint")
     out_tb = os.path.join(run_dir, "tensorboard")
@@ -232,7 +247,7 @@ def main(argv=None) -> None:
             # silently forking a new wandb run
             save_wandb_job_id(run, run_dir)
 
-    n_data = 1  # one device
+    n_data = axis_size(mesh, "data")
     eff_bs = int(cfg.dataloader.effective_batch_size)
     max_bs = int(cfg.dataloader.max_train_batch_size)
     accumulation_steps = max(1, round(eff_bs / (max_bs * n_data)))
@@ -276,7 +291,8 @@ def main(argv=None) -> None:
     tcfg = trainer_config_from_cfg(cfg, accumulation_steps)
     trainer_cls = get_trainer_cls(cfg.trainer.name)
     trainer = trainer_cls(tcfg, model, train_loader, val_loaders, vis_loaders,
-                          device=args.device, out_dir_ckpt=out_ckpt,
+                          device=args.device, mesh=mesh,
+                          out_dir_ckpt=out_ckpt,
                           out_dir_eval=out_eval, out_dir_vis=out_vis,
                           seed=seed, **trainer_kwargs_from_cfg(cfg))
     if args.resume_run:

@@ -146,16 +146,22 @@ class DepthAnythingV2(nn.Module):
     def forward(self, x: torch.Tensor, guide: torch.Tensor | None = None, *,
                 attn_impl: str | None = None, remat: bool | str = False,
                 token_merge: tuple[int, int] | None = None,
-                head_batch_tile: int | None = None) -> torch.Tensor:
+                head_batch_tile: int | None = None, act_sharding=None,
+                pipeline_mesh=None,
+                pipeline_microbatches: int = 4) -> torch.Tensor:
         """`token_merge=(after_layer, r)`: ToMe in the trunk
         (`DinoVisionTransformer.get_intermediate_layers`);
         `head_batch_tile`: the head over batch chunks (`DPTHead`). Both
-        opt-in serving knobs of the JAX `apply_amodal_dav2`."""
+        opt-in serving knobs of the JAX `apply_amodal_dav2`.
+        `act_sharding` (sequence parallelism) / `pipeline_mesh`,
+        `pipeline_microbatches` (the GPipe trunk): passed to the trunk."""
         x = (x - self.mean.to(x.dtype)) / self.std.to(x.dtype)
         ph, pw = x.shape[1] // 14, x.shape[2] // 14
         feats = self.pretrained.get_intermediate_layers(
             x, guide, self.cfg.taps, attn_impl=attn_impl, remat=remat,
-            token_merge=token_merge)
+            token_merge=token_merge, act_sharding=act_sharding,
+            pipeline_mesh=pipeline_mesh,
+            pipeline_microbatches=pipeline_microbatches)
         return self.depth_head(feats, (ph, pw), batch_tile=head_batch_tile)
 
 
@@ -171,15 +177,17 @@ class AmodalDAv2(nn.Module):
                 observation=None, attn_impl: str | None = None,
                 remat: bool | str = False,
                 token_merge: tuple[int, int] | None = None,
-                head_batch_tile: int | None = None):
+                head_batch_tile: int | None = None, **parallel):
         """x: [B,H,W,3] RGB in [0,1] -> depth [B,H',W',1], in x's dtype
         whatever the parameters' dtype. `remat`: False | True | "attn",
         what the trunk's blocks keep for the backward pass;
-        `token_merge` / `head_batch_tile` as in `DepthAnythingV2`."""
+        `token_merge` / `head_batch_tile` and `parallel` (`act_sharding`,
+        `pipeline_mesh`, `pipeline_microbatches`) as in
+        `DepthAnythingV2`."""
         guide = build_guide(self.cfg, guide_rgb, guide_mask, observation)
         return self.encoder(x, guide, attn_impl=attn_impl, remat=remat,
                             token_merge=token_merge,
-                            head_batch_tile=head_batch_tile)
+                            head_batch_tile=head_batch_tile, **parallel)
 
 
 class RawDAV2(DepthAnythingV2):
@@ -195,10 +203,12 @@ class RawDAV2(DepthAnythingV2):
 
     def forward(self, x: torch.Tensor, *, attn_impl: str | None = None,
                 token_merge: tuple[int, int] | None = None,
-                head_batch_tile: int | None = None) -> torch.Tensor:
+                head_batch_tile: int | None = None,
+                **parallel) -> torch.Tensor:
         return super().forward(x, attn_impl=attn_impl,
                                token_merge=token_merge,
-                               head_batch_tile=head_batch_tile)[..., 0]
+                               head_batch_tile=head_batch_tile,
+                               **parallel)[..., 0]
 
 
 def build_model(cfg: DAV2Config, *, device=None,

@@ -171,7 +171,9 @@ class DinoVisionTransformer(nn.Module):
             self, x: torch.Tensor, guide: torch.Tensor | None = None,
             taps: Sequence[int] | None = None, *,
             attn_impl: str | None = None, remat: bool | str = False,
-            token_merge: tuple[int, int] | None = None
+            token_merge: tuple[int, int] | None = None,
+            act_sharding=None, pipeline_mesh=None,
+            pipeline_microbatches: int = 4
     ) -> list[tuple[torch.Tensor, torch.Tensor]]:
         """[(patch_tokens [B,N,D], cls [B,D])] per tap, final-LayerNormed
         (reference `get_intermediate_layers(norm=True,
@@ -183,20 +185,99 @@ class DinoVisionTransformer(nn.Module):
         (`ops.token_merge.tome_merge`, cls protected), the later blocks
         run on the N - r tokens, and their taps are un-merged back to the
         full grid before the final norm; taps up to `after_layer` are those
-        of the unmerged forward."""
-        taps = set((self.cfg.depth - 1,) if taps is None else taps)
+        of the unmerged forward.
+
+        `act_sharding`: a mesh whose ``model`` axis splits the token stream
+        between the matmuls (sequence parallelism; the JAX
+        `NamedSharding(mesh, P("data", "model", None))`). The blocks must be
+        tensor-parallel over that axis (`parallel.shard_params`). The
+        stream is padded once to a multiple of the model ranks; the padded
+        rows never act as keys (`kv_len`) and are sliced off before the
+        norm.
+
+        `pipeline_mesh`: a mesh with a ``pipe`` axis: the blocks run as a
+        GPipe pipeline over its stages (`parallel.pipeline`) in
+        `pipeline_microbatches` microbatches, the taps collected across
+        stages. Excludes `act_sharding` and `token_merge`, as in JAX."""
+        taps = sorted(set((self.cfg.depth - 1,) if taps is None else taps))
+        if pipeline_mesh is not None:
+            if act_sharding is not None:
+                raise ValueError(
+                    "pipeline_mesh and act_sharding are mutually exclusive")
+            if token_merge is not None:
+                raise ValueError(
+                    "pipeline_mesh and token_merge are mutually exclusive")
+        t = self.prepare_tokens(x, guide)
+        if pipeline_mesh is not None:
+            from ..parallel.pipeline import pipeline_vit_blocks
+
+            def block_fn(blk, h):
+                return blk(h, attn_impl=attn_impl, remat=remat)
+
+            _, raw = pipeline_vit_blocks(
+                self.blocks, t, block_fn, mesh=pipeline_mesh,
+                n_microbatches=pipeline_microbatches, taps=tuple(taps))
+            return [self._tap(r) for r in raw]
+
+        stream = _TokenStream(self, act_sharding)
         merge_after, r = token_merge if token_merge is not None \
             else (None, 0)
-        t = self.prepare_tokens(x, guide)
+        t = stream.enter(t)
         idx = None
         out = []
         for i, blk in enumerate(self.blocks):
-            t = blk(t, attn_impl=attn_impl, remat=remat)
+            t = blk(t, attn_impl=attn_impl, remat=remat,
+                    kv_len=stream.kv_len, seq_group=stream.group)
             if i in taps:
-                n = self.norm(t if idx is None else tome_unmerge(t, idx))
-                out.append((n[:, 1:], n[:, 0]))
+                full = stream.leave(t)
+                out.append(self._tap(full if idx is None
+                                     else tome_unmerge(full, idx)))
             if len(out) == len(taps):
                 break
             if i == merge_after:
-                t, idx = tome_merge(t, r)
+                merged, idx = tome_merge(stream.leave(t), r)
+                t = stream.enter(merged)
         return out
+
+    def _tap(self, t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        n = self.norm(t)
+        return n[:, 1:], n[:, 0]
+
+
+class _TokenStream:
+    """The token stream of one trunk call: the whole stream, or under
+    sequence parallelism this rank's slice of it, padded to a multiple of
+    the model ranks (`kv_len` masks the padded keys)."""
+
+    def __init__(self, vit: DinoVisionTransformer, act_sharding):
+        from ..parallel.mesh import axis_group, axis_size
+        self.group = None if act_sharding is None \
+            else axis_group(act_sharding, "model")
+        self.n_ranks = axis_size(act_sharding, "model")
+        self.n_true = None
+        self.kv_len = None
+        if self.group is not None:
+            attn = vit.blocks[0].attn
+            if attn.tp_group is None:
+                raise ValueError(
+                    "act_sharding needs the blocks tensor-parallel over its "
+                    "model axis (parallel.shard_params)")
+
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """A whole stream [B, N, D] -> what the blocks run on."""
+        if self.group is None:
+            return t
+        from ..parallel import comm
+        self.n_true = t.shape[1]
+        pad = -self.n_true % self.n_ranks
+        if pad:
+            t = F.pad(t, (0, 0, 0, pad))
+        self.kv_len = self.n_true if pad else None
+        return comm.split_seq(t, self.group)
+
+    def leave(self, t: torch.Tensor) -> torch.Tensor:
+        """What the blocks ran on -> the whole stream [B, N, D]."""
+        if self.group is None:
+            return t
+        from ..parallel import comm
+        return comm.gather_seq_replicated(t, self.group)[:, :self.n_true]

@@ -19,6 +19,16 @@ Parity points with the JAX package (`models/layers.py`):
     recomputes the block in the backward pass, `"attn"` recomputes all of
     it except the attention output and LSE, so the backward never runs the
     forward attention kernel again.
+  * Tensor parallelism (`parallel.sharding.shard_params`): `Attention`,
+    `Mlp` and `SwiGLUFFNFused` then hold this rank's heads and hidden
+    units (`tp_group` set), the forward kernel runs on the local heads,
+    and the row-parallel output is summed over the model ranks before its
+    bias (Megatron's f / g pair, `parallel.comm`). Under sequence
+    parallelism (`seq_group`, the same group) the block's input is this
+    rank's token slice: LayerNorm, LayerScale and the residual run on it,
+    the slices are all-gathered before qkv / fc1 / w12 and the partial
+    outputs reduce-scattered after proj / fc2 / w3 (JAX `models/dinov2.py`,
+    `P("data", "model", None)` on the stream).
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import multi_head_attention
+from ..parallel import comm
 
 __all__ = ["DEFAULT_LN_EPS", "REMAT_MODES", "Linear", "LayerNorm",
            "LayerScale", "Mlp", "SwiGLUFFNFused", "Attention", "Block",
@@ -74,14 +85,39 @@ class LayerScale(nn.Module):
         return x * self.gamma.to(x.dtype)
 
 
+def _tp_in(x: torch.Tensor, group, seq_group) -> torch.Tensor:
+    """The input of a column-parallel layer: the gathered token slices
+    under sequence parallelism, else x (its gradient summed over the
+    model ranks)."""
+    if seq_group is not None:
+        return comm.gather_seq(x, seq_group)
+    return comm.copy_to_group(x, group)
+
+
+def _tp_out(linear: Linear, x: torch.Tensor, group,
+            seq_group) -> torch.Tensor:
+    """A row-parallel layer: this rank's partial product, summed over the
+    model ranks (reduce-scattered to the token slices under sequence
+    parallelism), then the bias once."""
+    if group is None:
+        return linear(x)
+    y = F.linear(x, linear.weight.to(x.dtype))
+    y = comm.reduce_scatter_seq(y, seq_group) if seq_group is not None \
+        else comm.reduce_from_group(y, group)
+    return y + linear.bias.to(y.dtype)
+
+
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = Linear(dim, hidden)
         self.fc2 = Linear(hidden, dim)
+        self.tp_group = None    # the model ranks, under tensor parallelism
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor, seq_group=None) -> torch.Tensor:
+        x = _tp_in(x, self.tp_group, seq_group)
+        return _tp_out(self.fc2, F.gelu(self.fc1(x)), self.tp_group,
+                       seq_group)
 
 
 class SwiGLUFFNFused(nn.Module):
@@ -89,29 +125,39 @@ class SwiGLUFFNFused(nn.Module):
         super().__init__()
         self.w12 = Linear(dim, 2 * hidden)
         self.w3 = Linear(hidden, dim)
+        self.tp_group = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq_group=None) -> torch.Tensor:
+        x = _tp_in(x, self.tp_group, seq_group)
         x1, x2 = self.w12(x).chunk(2, dim=-1)
-        return self.w3(F.silu(x1) * x2)
+        return _tp_out(self.w3, F.silu(x1) * x2, self.tp_group, seq_group)
 
 
 class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads = num_heads     # this rank's heads
+        self.head_dim = dim // num_heads
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor, *, attn_impl: str | None = None,
-                residuals: dict | None = None) -> torch.Tensor:
-        b, n, c = x.shape
-        qkv = self.qkv(x).view(b, n, 3, self.num_heads, c // self.num_heads)
+                residuals: dict | None = None, kv_len: int | None = None,
+                seq_group=None) -> torch.Tensor:
+        """`kv_len`: keys at index >= kv_len are padding (masked);
+        `seq_group`: x is this rank's token slice (sequence parallelism)."""
+        x = _tp_in(x, self.tp_group, seq_group)
+        b, n, _ = x.shape
+        h, d = self.num_heads, self.head_dim
+        qkv = self.qkv(x).view(b, n, 3, h, d)
         # [B,H,N,D] strided views of the one qkv buffer: the kernel reads
         # them in place
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        o = multi_head_attention(q, k, v, impl=attn_impl,
+        o = multi_head_attention(q, k, v, impl=attn_impl, kv_len=kv_len,
                                  residuals=residuals)
-        return self.proj(o.transpose(1, 2).reshape(b, n, c))
+        return _tp_out(self.proj, o.transpose(1, 2).reshape(b, n, h * d),
+                       self.tp_group, seq_group)
 
 
 class Block(nn.Module):
@@ -134,22 +180,28 @@ class Block(nn.Module):
                     else LayerScale(dim, init_values))
 
     def _forward(self, x: torch.Tensor, attn_impl: str | None,
-                 residuals: dict | None) -> torch.Tensor:
+                 residuals: dict | None, kv_len: int | None = None,
+                 seq_group=None) -> torch.Tensor:
         x = x + self.ls1(self.attn(self.norm1(x), attn_impl=attn_impl,
-                                   residuals=residuals))
-        return x + self.ls2(self.mlp(self.norm2(x)))
+                                   residuals=residuals, kv_len=kv_len,
+                                   seq_group=seq_group))
+        return x + self.ls2(self.mlp(self.norm2(x), seq_group))
 
     def forward(self, x: torch.Tensor, *, attn_impl: str | None = None,
-                remat: bool | str = False) -> torch.Tensor:
+                remat: bool | str = False, kv_len: int | None = None,
+                seq_group=None) -> torch.Tensor:
+        """`kv_len`: keys at index >= kv_len are padding; `seq_group`: x
+        is this rank's token slice under sequence parallelism."""
         if remat not in REMAT_MODES:
             raise ValueError(f"unknown remat mode: {remat!r} (one of "
                              f"{REMAT_MODES})")
         if not remat or not torch.is_grad_enabled():
-            return self._forward(x, attn_impl, None)
+            return self._forward(x, attn_impl, None, kv_len, seq_group)
         # "attn": this dict keeps the attention output and LSE of the first
         # pass alive until the backward, whose recompute of the block reuses
         # them in place of a second forward kernel. The plain implementation
         # names no residuals, so with it "attn" recomputes the whole block.
         residuals = {} if remat == "attn" and attn_impl != "plain" else None
-        return checkpoint(self._forward, x, attn_impl, residuals,
-                          use_reentrant=False, preserve_rng_state=False)
+        return checkpoint(self._forward, x, attn_impl, residuals, kv_len,
+                          seq_group, use_reentrant=False,
+                          preserve_rng_state=False)

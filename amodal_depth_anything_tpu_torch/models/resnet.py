@@ -27,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv import Conv2dNHWC
+from ..parallel.comm import batch_count, batch_sum, reduction_group
 
 __all__ = ["BN_MOMENTUM", "BN_EPS", "ResNetConfig", "BatchNorm2d",
            "batch_norm", "update_running_stats_", "ResNet"]
@@ -50,10 +51,19 @@ def batch_norm(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, *,
                train: bool, weight=None, bias=None):
     """The JAX package's BatchNorm on NHWC `x`, in float32. With `train`,
     returns (y, batch mean, unbiased batch variance), else (y, None, None)
-    with the given running `mean` / `var`."""
+    with the given running `mean` / `var`. Inside a data reduction
+    (`parallel.comm.data_reduction`) the batch statistics are the global
+    batch's."""
     xf = x.float()
     stats = (None, None)
-    if train:
+    if train and reduction_group() is not None:
+        # data parallelism: the global batch's statistics (SyncBatchNorm)
+        n = batch_count(x, 0) * (x.shape[1] * x.shape[2])
+        mean = batch_sum(xf.sum(dim=(0, 1, 2))) / n
+        var = batch_sum((xf - mean).square().sum(dim=(0, 1, 2))) / n
+        stats = (mean.detach(),
+                 var.detach() * n / torch.clamp(n - 1, min=1))
+    elif train:
         mean = xf.mean(dim=(0, 1, 2))
         var = xf.var(dim=(0, 1, 2), correction=0)
         n = x.shape[0] * x.shape[1] * x.shape[2]

@@ -22,6 +22,12 @@ Serving compression, opt-in and parity-breaking as in the JAX package:
 `amodal_token_merge` (ToMe in the trunks, `ops.token_merge`) and
 `head_batch_tile` (the DPT heads over batch chunks; exact).
 
+Scale-out (`mesh=`, JAX `AmodalDepthPipeline(mesh=)`): with a ``model``
+axis > 1 both trunks run tensor-parallel (`parallel.shard_params`) and
+their token streams sequence-parallel, the DPT heads replicated; with
+``data`` ranks every rank runs its rows of the batch and the maps are
+all-gathered, so every rank returns the whole batch.
+
 Batch invariance: on the card the DPT heads always run one batch row at a
 time (`served_head_tile`), so that a served request gets the same bits in
 every row of every batch bucket (the trunks' products and attention are
@@ -41,6 +47,10 @@ from ..models.amodal_dav2 import (AmodalDAv2, DAV2Config, DepthAnythingV2,
 from ..ops.blend import median_filter_blend
 from ..ops.precision import apply_precision_policy
 from ..ops.resize import resize2d, resize_nearest
+from ..parallel import comm
+from ..parallel.mesh import axis_group, axis_size
+from ..parallel.multihost import local_device
+from ..parallel.sharding import shard_batch, shard_params
 
 __all__ = ["amodal_depth_graph", "AmodalDepthPipeline"]
 
@@ -78,7 +88,8 @@ def amodal_depth_graph(raw_model: RawDAV2, amodal_model: AmodalDAv2,
                        base_image: torch.Tensor | None = None,
                        base_token_merge: tuple[int, int] | None = None,
                        amodal_token_merge: tuple[int, int] | None = None,
-                       head_batch_tile: int | None = None):
+                       head_batch_tile: int | None = None,
+                       act_sharding=None):
     """image: [B,h,w,3] float in [0,255]; mask: [B,h,w,1] float (>0 = on).
 
     Returns (base_depth [B,S,S], blended_depth [B,S,S]) in [0,1].
@@ -86,7 +97,9 @@ def amodal_depth_graph(raw_model: RawDAV2, amodal_model: AmodalDAv2,
     `base_image`: optional [B,S,S,3] float in [0,255], a host-resized input
     for the base branch (the reference resizes with cv2 on uint8).
     `base_token_merge` / `amodal_token_merge`: ToMe `(after_layer, r)` per
-    trunk; `head_batch_tile`: both heads over batch chunks."""
+    trunk; `head_batch_tile`: both heads over batch chunks; `act_sharding`:
+    a mesh whose model axis splits both trunks' token streams (the trunks
+    tensor-parallel over it)."""
     img01 = image / 255.0
     if base_image is not None:
         base_in = base_image / 255.0
@@ -94,7 +107,8 @@ def amodal_depth_graph(raw_model: RawDAV2, amodal_model: AmodalDAv2,
         base_in = resize2d(img01, size=(size, size), method="bilinear")
     base_depth = raw_model(base_in, attn_impl=attn_impl,
                            token_merge=base_token_merge,
-                           head_batch_tile=head_batch_tile)  # [B,S,S]
+                           head_batch_tile=head_batch_tile,
+                           act_sharding=act_sharding)  # [B,S,S]
     lo = base_depth.amin(dim=(-1, -2), keepdim=True)
     hi = base_depth.amax(dim=(-1, -2), keepdim=True)
     base_depth = (base_depth - lo) / torch.clamp(hi - lo, min=1e-8)
@@ -105,7 +119,8 @@ def amodal_depth_graph(raw_model: RawDAV2, amodal_model: AmodalDAv2,
     pred = amodal_model(rgb, guide_mask=m * 2.0 - 1.0,
                         observation=obs * 2.0 - 1.0,
                         attn_impl=attn_impl, token_merge=amodal_token_merge,
-                        head_batch_tile=head_batch_tile)  # [B,S,S,1]
+                        head_batch_tile=head_batch_tile,
+                        act_sharding=act_sharding)  # [B,S,S,1]
     blended = median_filter_blend(pred, obs, m)
     return base_depth, blended[..., 0]
 
@@ -121,15 +136,21 @@ class AmodalDepthPipeline:
     `base_token_merge` / `amodal_token_merge`: opt-in ToMe `(after_layer,
     r)` per trunk; `head_batch_tile`: the DPT heads over batch chunks of
     this size (exact). A model that is already quantised keeps its
-    quantised layers' dtypes (`ops.quant`)."""
+    quantised layers' dtypes (`ops.quant`).
+
+    `mesh` (`parallel.make_mesh`): a ``model`` axis > 1 shards both trunks
+    tensor-parallel over it, in place, and runs their token streams
+    sequence-parallel; ``data`` ranks each run their rows of a batch,
+    which the data size must divide. In a process group, "cuda" is this
+    rank's card."""
 
     def __init__(self, raw_model: RawDAV2, amodal_model: AmodalDAv2, *,
                  size: int = 518, attn_impl: str | None = None,
                  device="cuda", dtype: torch.dtype = torch.float32,
                  base_token_merge: tuple[int, int] | None = None,
                  amodal_token_merge: tuple[int, int] | None = None,
-                 head_batch_tile: int | None = None):
-        self.device = torch.device(device)
+                 head_batch_tile: int | None = None, mesh=None):
+        self.device = local_device(device)
         self.dtype = dtype
         apply_precision_policy(dtype)
         self.raw_model = raw_model.to(device=self.device, dtype=dtype).eval()
@@ -143,6 +164,12 @@ class AmodalDepthPipeline:
         self.amodal_token_merge = _pair(amodal_token_merge)
         self.head_batch_tile = int(head_batch_tile) if head_batch_tile \
             else None
+        self.mesh = mesh
+        self.act_sharding = None
+        if axis_size(mesh, "model") > 1:
+            for model in (self.raw_model, self.amodal_model):
+                shard_params(mesh, model, tensor_parallel=True)
+            self.act_sharding = mesh
 
     @classmethod
     def init_random(cls, seed: int = 0, *, encoder: str = "vitt",
@@ -207,12 +234,12 @@ class AmodalDepthPipeline:
 
     @classmethod
     def load_serving(cls, path: str, *, attn_impl: str | None = None,
-                     device="cuda"):
+                     device="cuda", mesh=None):
         """Restore a pipeline saved by `save_serving` of either package on
         `device`, the weights in their saved dtype (no cast, no
         re-quantisation: int8 codes stay int8, scales float32) and the
         ToMe / head_batch_tile knobs it was saved with. `attn_impl`
-        overrides the saved one."""
+        overrides the saved one; `mesh` as in the constructor."""
         from ..convert.weights import params_from_jax
         from ..ops.quant import apply_quantized_
         from .serving_ckpt import (attn_impl_from_jax, cfg_from_dict,
@@ -234,7 +261,7 @@ class AmodalDepthPipeline:
                    device=device, dtype=dtype,
                    base_token_merge=meta.get("base_token_merge"),
                    amodal_token_merge=meta.get("amodal_token_merge"),
-                   head_batch_tile=meta.get("head_batch_tile"))
+                   head_batch_tile=meta.get("head_batch_tile"), mesh=mesh)
 
     @torch.no_grad()
     def quantize_int8(self, *, base: bool = True, amodal: bool = False,
@@ -381,14 +408,23 @@ class AmodalDepthPipeline:
     def _graph(self, img: torch.Tensor, msk: torch.Tensor,
                base_image: torch.Tensor | None = None):
         """The device program on batched device tensors (image [B,H,W,3],
-        mask [B,H,W,1]): (base, blended) [B,S,S] float32 on the device."""
+        mask [B,H,W,1]): (base, blended) [B,S,S] float32 on the device.
+        Under a mesh this rank runs its rows and the maps are gathered over
+        the data ranks."""
+        group = axis_group(self.mesh, "data")
+        if group is not None:
+            img, msk, base_image = (
+                None if t is None else shard_batch(self.mesh, t)
+                for t in (img, msk, base_image))
         base, blended = amodal_depth_graph(
             self.raw_model, self.amodal_model, img, msk, size=self.size,
             attn_impl=self.attn_impl, base_image=base_image,
             base_token_merge=self.base_token_merge,
             amodal_token_merge=self.amodal_token_merge,
-            head_batch_tile=self.served_head_tile)
-        return base.float(), blended.float()
+            head_batch_tile=self.served_head_tile,
+            act_sharding=self.act_sharding)
+        return tuple(comm.all_gather(t.float(), group)
+                     for t in (base, blended))
 
     @torch.inference_mode()
     def __call__(self, image: np.ndarray, mask: np.ndarray,

@@ -153,6 +153,10 @@ class _CapturedServing:
                 "the program eagerly instead")
         if device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device}")
+        if device.type == "cuda":
+            from ..parallel.mesh import check_capturable
+            check_capturable(getattr(pipeline, "mesh", None),
+                             "the serving program")
         self.pipeline = pipeline
         self.device = device
         self._size = int(size)

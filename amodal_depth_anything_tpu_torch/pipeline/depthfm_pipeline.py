@@ -26,7 +26,10 @@ Serving compression, opt-in and parity-breaking as in the JAX package:
 w4, over the UNet and the VAE; `ops.quant`) and `tome` (ToMe-SD in the
 UNet's transformers; `ops.token_merge`).
 
-Not ported (raises `NotImplementedError`): `mesh`.
+Scale-out (`mesh=`, JAX `DepthFMPipeline(mesh=)`): data-parallel serving.
+Every rank draws the whole batch's noise, runs its rows of the batch (which
+the data size must divide) and the depth maps are all-gathered, so each
+rank returns what one process would.
 """
 
 from __future__ import annotations
@@ -40,6 +43,10 @@ from ..models.depthfm import (DepthFM, DepthFMConfig, _noise,
 from ..ops.ddim import parse_deep_cache
 from ..ops.precision import apply_precision_policy
 from ..ops.resize import resize2d, resize_nearest
+from ..parallel import comm
+from ..parallel.mesh import axis_group
+from ..parallel.multihost import local_device
+from ..parallel.sharding import shard_batch
 
 __all__ = ["DepthFMPipeline"]
 
@@ -55,17 +62,17 @@ class DepthFMPipeline:
     or "N" (G = 3: the whole highest-resolution level of the SD topology)
     or "N,G"; N must divide `num_steps`; opt-in, an approximation.
     `tome`: ToMe-SD, a ratio (then `(ratio, 4096)`) or `(ratio,
-    min_tokens)`; opt-in, an approximation."""
+    min_tokens)`; opt-in, an approximation. `mesh`
+    (`parallel.make_mesh`): data-parallel serving over its ``data`` ranks,
+    the parameters replicated; in a process group "cuda" is this rank's
+    card."""
 
     def __init__(self, model: DepthFM, *, size: int = 512, num_steps: int = 4,
                  dtype: torch.dtype = torch.float32,
                  attn_impl: str | None = None, seed: int = 2024,
                  deep_cache=None, device="cuda", tome=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel serving over a mesh is not ported; run one "
-                "pipeline per card")
-        self.device = torch.device(device)
+        self.device = local_device(device)
+        self.mesh = mesh
         self.dtype = dtype
         apply_precision_policy(dtype)
         self.model = model.to(device=self.device, dtype=dtype).eval()
@@ -136,11 +143,12 @@ class DepthFMPipeline:
 
     @classmethod
     def load_serving(cls, path: str, *, attn_impl: str | None = None,
-                     device="cuda"):
+                     device="cuda", mesh=None):
         """Restore a pipeline saved by `save_serving` of either package on
         `device`, the weights in their saved dtype (no cast). `attn_impl`
         overrides the saved one. Quantised layers keep their saved dtypes
-        (no re-quantisation); ToMe comes back as it was saved."""
+        (no re-quantisation); ToMe comes back as it was saved. `mesh`:
+        data-parallel serving, as in the constructor."""
         from ..convert.weights import depthfm_params_from_jax
         from ..ops.quant import apply_quantized_
         from .serving_ckpt import (attn_impl_from_jax, cfg_from_dict,
@@ -161,7 +169,8 @@ class DepthFMPipeline:
                        meta["attn_impl"]),
                    seed=int(meta["seed"]),
                    deep_cache=tuple(deep_cache) if deep_cache else None,
-                   tome=tuple(tome) if tome else None, device=device)
+                   tome=tuple(tome) if tome else None, device=device,
+                   mesh=mesh)
 
     @torch.no_grad()
     def quantize_int8(self, calibration=None, margin: float = 1.1, *,
@@ -257,13 +266,23 @@ class DepthFMPipeline:
         """The device program: preprocess, VAE encode, Euler solve, decode.
         Batched [B,H,W,c] device tensors in (None for a guide the config
         does not take); depth [B,S,S] float32 on the device out. `rng`: a
-        generator or the noise tensor."""
+        generator or the noise tensor. Under a mesh this rank runs its rows
+        of the batch and of its noise, and the maps are gathered over the
+        data ranks."""
         rgb, m, o, gr = self._prep(img, msk, obs, grgb)
+        group = axis_group(self.mesh, "data")
+        if group is not None:
+            s = self.latent_size()
+            like = rgb.new_empty((rgb.shape[0], s, s,
+                                  self.cfg.vae.latent_channels))
+            rng, rgb, m, o, gr = (
+                None if t is None else shard_batch(self.mesh, t)
+                for t in (_noise(rng, like), rgb, m, o, gr))
         out = depthfm_generate(
             self.model, rng, rgb, num_steps=self.num_steps, guide_rgb=gr,
             guide_mask=m, observation=o, attn_impl=self.attn_impl,
             tome=self.tome, deep_cache=self.deep_cache)
-        return out[..., 0].float()
+        return comm.all_gather(out[..., 0].float(), group)
 
     @torch.inference_mode()
     def __call__(self, image: np.ndarray, mask: np.ndarray | None = None,

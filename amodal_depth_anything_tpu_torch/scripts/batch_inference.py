@@ -3,9 +3,10 @@
 Port of the JAX package's `scripts/batch_inference.py` (the reference's
 `src/scripts/amodel_dav2_inference.py:43-120`): runs the guided model over
 a filename-list split through `DiscriminativeTrainer.
-validate_single_dataset` on one device (bf16, no mesh), optionally writes
-16-bit predictions, and writes the aligned / raw metric suite per
-difficulty bucket to `metrics.txt`.
+validate_single_dataset` (bf16), data-parallel over the process group's
+ranks (`parallel.make_mesh`; one process: one device; `--batch` must
+divide over the ranks), optionally writes 16-bit predictions, and writes
+the aligned / raw metric suite per difficulty bucket to `metrics.txt`.
 
     python -m amodal_depth_anything_tpu_torch.scripts.batch_inference \\
         --model AmodalDAv2 --checkpoint ckpt_dir_or_safetensors \\
@@ -44,9 +45,12 @@ def main(argv=None):
     from ..cli.eval import load_state_any
     from ..data import DataLoader, DatasetMode, SAMAmodalDataset
     from ..models import get_model
+    from ..parallel import initialize, is_main_process, make_mesh
     from ..train import DiscriminativeTrainer, TrainerConfig
     from ..utils.logging_util import eval_dic_to_text
 
+    initialize(device=args.device)
+    mesh = make_mesh()
     model = get_model(args.model, device=args.device)
     params = load_state_any(args.checkpoint, model, args.model)
 
@@ -58,16 +62,18 @@ def main(argv=None):
 
     cfg = TrainerConfig(compute_dtype="bfloat16")
     trainer = DiscriminativeTrainer(cfg, model, train_loader=None,
-                                    device=args.device, params=params)
+                                    device=args.device, params=params,
+                                    mesh=mesh)
     save_dir = args.output_dir if args.save_predictions else None
     os.makedirs(args.output_dir, exist_ok=True)
     results = trainer.validate_single_dataset(loader, save_to_dir=save_dir,
                                               eval=True)
-    with open(os.path.join(args.output_dir, "metrics.txt"), "w") as f:
-        for bucket, metrics in results.items():
-            text = eval_dic_to_text(metrics, bucket)
-            print(text)
-            f.write(text + "\n")
+    if is_main_process():
+        with open(os.path.join(args.output_dir, "metrics.txt"), "w") as f:
+            for bucket, metrics in results.items():
+                text = eval_dic_to_text(metrics, bucket)
+                print(text)
+                f.write(text + "\n")
     return results
 
 

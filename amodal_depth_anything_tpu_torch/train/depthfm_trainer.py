@@ -36,6 +36,7 @@ from ..models.depthfm import _conditioning, init_depthfm_
 from ..ops.ddim import (ddim_sample, ddpm_add_noise, ddpm_velocity,
                         linear_alphas_cumprod)
 from ..ops.resize import resize_nearest
+from ..parallel.sharding import shard_batch
 from ..utils.alignment import fit_scale_shift
 from ..utils.multi_res_noise import (multi_res_noise_like,
                                      multi_res_noise_shapes)
@@ -94,7 +95,9 @@ class DepthFMAmodalTrainer(DiscriminativeTrainer):
         list of tuples (a list of tensors), drawn in order. Train steps
         (`step` given) draw from a generator on the trainer's device seeded
         from (init_seed, step), evaluation from one seeded with
-        val_init_seed. Float draws are float32."""
+        val_init_seed. Float draws are float32. Shapes are this rank's
+        rows: under a mesh the global batch is drawn and the rank keeps its
+        rows, as one process holding the whole batch would draw them."""
         if step is None:
             seed = self.cfg.val_init_seed
         else:
@@ -103,10 +106,14 @@ class DepthFMAmodalTrainer(DiscriminativeTrainer):
         gen = torch.Generator(device=self.device).manual_seed(seed)
 
         def draw(kind, shape, *high):
+            # the global batch's draw, of which this rank keeps its rows
+            shape = (shape[0] * self._n_data,) + tuple(shape[1:])
             if kind == "normal":
-                return torch.randn(shape, generator=gen, device=self.device)
-            return torch.randint(0, *high, shape, generator=gen,
-                                 device=self.device)
+                out = torch.randn(shape, generator=gen, device=self.device)
+            else:
+                out = torch.randint(0, *high, shape, generator=gen,
+                                    device=self.device)
+            return shard_batch(self.mesh, out)
 
         return {name: ([draw(kind, s, *rest) for s in shape]
                        if isinstance(shape, list)

@@ -49,6 +49,13 @@ The JAX package's two memory-saving rules are here too:
     port's tensors are [out, in] / OIHW, one per block, so `Adafactor` is
     made with the layout (`convert.weights.jax_param_layout`), factors the
     same logical axes, and takes a stacked leaf's RMS over all its blocks.
+
+Sharded parameters (`Optimizer.shard_`, the trainer under tensor
+parallelism or FSDP): each rank holds pieces of some tensors. The clip's
+global norm adds the squares of every piece once (a replicated tensor
+counts once, not once a rank); Adafactor picks its factored axes on the
+full shapes, and its row and column statistics and its block RMS sum over
+the pieces, so each equals the unsharded tensor's. Adam is elementwise.
 """
 
 from __future__ import annotations
@@ -74,19 +81,43 @@ class TrainState:
     step: int = 0                     # micro-steps taken
 
 
-def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+def _sum_pieces_(x: torch.Tensor, splits: dict) -> torch.Tensor:
+    """`x`, a sum over this rank's piece of a tensor split along
+    `splits` ({dim: process group}), as the sum over the whole tensor."""
+    from ..parallel.comm import all_reduce_
+    for group in splits.values():
+        all_reduce_(x, group)
+    return x
+
+
+def global_norm(tensors: list[torch.Tensor],
+                splits: list[dict] | None = None) -> torch.Tensor:
     """sqrt(sum of squares over every tensor), float32 scalar: optax's
     sqrt of the summed per-leaf sums of squares (a sum of per-tensor
-    norms squared would round each norm first)."""
+    norms squared would round each norm first). `splits`: per tensor, the
+    {dim: group} it is split along over ranks; the pieces' sums are added
+    up per tensor, split alike ones in one collective."""
     flat = [t.reshape(-1) for t in tensors]
-    return torch.stack([torch.dot(t, t) for t in flat]).sum().sqrt()
+    sums = [torch.dot(t, t) for t in flat]
+    if splits:
+        kinds: dict = {}
+        for i, sp in enumerate(splits):
+            if sp:
+                kinds.setdefault(tuple(sp.items()), []).append(i)
+        for kind, idx in kinds.items():
+            total = _sum_pieces_(torch.stack([sums[i] for i in idx]),
+                                 dict(kind))
+            for i, v in zip(idx, total.unbind(0)):
+                sums[i] = v
+    return torch.stack(sums).sum().sqrt()
 
 
 def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
-                        norm: torch.Tensor | None = None) -> None:
+                        norm: torch.Tensor | None = None,
+                        splits: list[dict] | None = None) -> None:
     """optax.clip_by_global_norm, in place: (g / norm) * max_norm when the
     norm reaches max_norm, untouched below it."""
-    norm = global_norm(grads) if norm is None else norm
+    norm = global_norm(grads, splits) if norm is None else norm
     clip = norm >= max_norm
     divisor = torch.where(clip, norm, torch.ones_like(norm))
     torch._foreach_div_(grads, divisor)
@@ -114,6 +145,14 @@ class Optimizer:
         # the schedule's value no longer changes from this count on
         self.schedule_constant_from = int(schedule_constant_from)
         self._tables: dict = {}
+        self.splits: list[dict] | None = None
+        self.full_shapes: list[tuple] | None = None
+
+    def shard_(self, splits: list[dict], full_shapes: list[tuple]) -> None:
+        """The parameters this optimizer moves are pieces: per parameter,
+        the {dim: process group} it is split along and its full shape."""
+        self.splits = list(splits)
+        self.full_shapes = [tuple(s) for s in full_shapes]
 
     def init(self, params: list[torch.Tensor]) -> dict[str, Any]:
         state = {"count": 0, "mini_step": 0, **self._init_rule(params)}
@@ -191,7 +230,7 @@ class Optimizer:
             mini.zero_()
             grads = [a.clone() for a in acc]
             torch._foreach_zero_(acc)
-        clip_by_global_norm(grads, self.max_grad_norm)
+        clip_by_global_norm(grads, self.max_grad_norm, splits=self.splits)
         self._rule_(params, grads, state, scalars["count"])
         scalars["count"].add_(1)
 
@@ -301,8 +340,20 @@ class Adafactor(Optimizer):
         for i, (p, (dims, stack)) in enumerate(zip(params, layout)):
             group = stacks.setdefault(i if stack is None else ("s", stack),
                                       len(stacks))
-            plan.append((self.factored_dims(p.shape, dims), group))
+            plan.append((self.factored_dims(self._shape(i, p), dims), group))
         return plan, len(stacks)
+
+    def _shape(self, i: int, p: torch.Tensor) -> tuple:
+        return self.full_shapes[i] if self.full_shapes else tuple(p.shape)
+
+    def _mean(self, t: torch.Tensor, dim: int, i: int, full_dim: int):
+        """`t.mean(dim)` over the whole of parameter i's axis `full_dim`,
+        which may be split over ranks."""
+        split = (self.splits[i] if self.splits else {}).get(full_dim)
+        if split is None:
+            return t.mean(dim)
+        from ..parallel.comm import all_reduce_
+        return all_reduce_(t.sum(dim), split) / self.full_shapes[i][full_dim]
 
     def _init_rule(self, params) -> dict[str, list]:
         v_row, v_col, v = [], [], []
@@ -330,10 +381,12 @@ class Adafactor(Optimizer):
         plan, n_groups = self.plan(params)
         sq: list = [None] * n_groups
         numel = [0] * n_groups
-        for p, (_, group) in zip(params, plan):
+        for i, (p, (_, group)) in enumerate(zip(params, plan)):
             s = p.square().sum()
+            if self.splits and self.splits[i]:
+                s = _sum_pieces_(s, self.splits[i])
             sq[group] = s if sq[group] is None else sq[group] + s
-            numel[group] += p.numel()
+            numel[group] += int(np.prod(self._shape(i, p)))
         rms = [(s / n).sqrt().clamp_min(self.MIN_SCALE)
                for s, n in zip(sq, numel)]
         for i, (p, g, (fd, group)) in enumerate(zip(params, grads, plan)):
@@ -345,10 +398,11 @@ class Adafactor(Optimizer):
             else:
                 d1, d0 = fd
                 v_row, v_col = state["v_row"][i], state["v_col"][i]
-                v_row.mul_(decay).add_(g2.mean(d0).mul_(keep))
-                v_col.mul_(decay).add_(g2.mean(d1).mul_(keep))
+                v_row.mul_(decay).add_(self._mean(g2, d0, i, d0).mul_(keep))
+                v_col.mul_(decay).add_(self._mean(g2, d1, i, d1).mul_(keep))
                 rd1 = d1 - 1 if d1 > d0 else d1
-                row = (v_row / v_row.mean(rd1, keepdim=True)).pow(-0.5)
+                row = (v_row / self._mean(v_row, rd1, i, d1).unsqueeze(rd1)
+                       ).pow(-0.5)
                 u = g * row.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
             u.mul_(lr).mul_(rms[group])
             p.sub_(u)

@@ -16,13 +16,26 @@ trainer (`src/trainer/discriminative_trainer.py:36-770`):
   * Order in the step: non-finite loss -> 0; non-finite gradient entries
     -> 0; the mean over `accumulation_steps` micro-batches; the clip (on
     the averaged gradient); Adam; `params += update` (`train/state.py`).
-  * One device, with the JAX trainer's single-device memory knobs: the
-    optimizer ("adam", "adam-bf16mu", "adafactor", `train/state.py`) and
-    `head_tile`, the DPT head run over batch chunks with each chunk's
-    forward recomputed in the backward (`models/dpt.py`; a model whose
-    forward has no `head_batch_tile` raises ValueError, as in the JAX
-    trainer). `fsdp` and `sequence_parallel` keep their `TrainerConfig`
-    fields and raise NotImplementedError at any value but the default.
+  * The JAX trainer's single-device memory knobs: the optimizer ("adam",
+    "adam-bf16mu", "adafactor", `train/state.py`) and `head_tile`, the DPT
+    head run over batch chunks with each chunk's forward recomputed in the
+    backward (`models/dpt.py`; a model whose forward has no
+    `head_batch_tile` raises ValueError, as in the JAX trainer).
+  * Scale-out over `mesh` (`parallel.make_mesh`; default every rank of the
+    process group on ``data``, a 1 x 1 mesh without one). Each data rank
+    takes its rows of the global batch the loader yields (every rank's
+    loader reads the same index-seeded batch, so resume is exact on any
+    mesh). The loss is the global batch's: its sums and counts, and batch
+    norms' statistics, are summed over the data ranks before the division
+    (`parallel.comm.data_reduction`), so a step on D ranks of B / D rows
+    equals one step on B rows; each rank differentiates loss / D and the
+    gradients are summed over ``data``. A ``model`` axis > 1 runs the trunk
+    tensor-parallel, and with `sequence_parallel` its token stream split
+    between the matmuls (the block norms' and biases' gradients then summed
+    over ``model``). `fsdp`: parameters and optimizer state in 1/data
+    pieces, gathered at use, gradients reduce-scattered
+    (`parallel.sharding`). Checkpoints hold the full tensors whatever the
+    mesh; rank 0 writes them and every rank meets at a barrier.
   * One program per step. On the card the step -- forward, backward, the
     guarded gradients, the clip, Adam and the float32-master update -- is
     captured as one CUDA graph (`_StepPrograms`), as the JAX trainer jits it
@@ -53,6 +66,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import inspect
 import logging
 import os
@@ -64,13 +78,20 @@ import torch
 
 from ..ops.precision import apply_precision_policy
 from ..ops.resize import resize_nearest
+from ..parallel.comm import all_gather, all_reduce_, batch_sum, data_reduction
+from ..parallel.mesh import (axis_group, axis_size, capturable,
+                             check_capturable, make_mesh)
+from ..parallel.multihost import (is_main_process, local_device,
+                                  sync_processes)
+from ..parallel.sharding import (Placement, seq_partial, shard_batch,
+                                 shard_params, shard_tensor, unshard_tensor)
 from ..utils.alignment import fit_scale_shift
 from ..utils.loss import get_loss
 from ..utils.metrics import (METRIC_FNS, MetricTracker,
                              compute_metrics_per_sample)
 from ..utils.profiling import StepTimer, start_trace, stop_trace
 from ..utils.graphs import capture
-from .state import create_train_state, make_optimizer
+from .state import Adafactor, create_train_state, make_optimizer
 
 __all__ = ["DiscriminativeTrainer", "TrainerConfig", "LOSS_STRATEGIES"]
 
@@ -81,9 +102,6 @@ LOSS_STRATEGIES = ("invisible_part", "entire_target_object", "entire_scene",
 
 CHECKPOINT_FILE = "state.pt"
 MAX_STEP_PROGRAMS = 4   # captured train steps kept per trainer
-# fields of the JAX TrainerConfig whose features are not ported yet: any
-# value but the default raises NotImplementedError
-_DEFERRED_DEFAULTS = {"fsdp": False, "sequence_parallel": False}
 
 
 @dataclasses.dataclass
@@ -118,8 +136,12 @@ class TrainerConfig:
     # output and LSE, so the backward never re-runs the forward kernel)
     remat: "bool | str" = "attn"
     attn_impl: str | None = None
-    fsdp: bool = False               # not ported yet
-    sequence_parallel: bool = False  # not ported yet
+    # ZeRO-3-style parameter/optimizer sharding over the mesh's data axis
+    # (parallel/sharding.py); composes with the model axis
+    fsdp: bool = False
+    # Megatron-SP: the trunk's token stream split over the model axis
+    # between the matmuls; a no-op unless the mesh's model axis is > 1
+    sequence_parallel: bool = False
     # torch.profiler trace capture: write a Chrome trace of micro steps
     # [profile_start, profile_start + profile_steps) to this dir
     profile_dir: str | None = None
@@ -147,9 +169,19 @@ def _strategy_loss(loss_fn, strategy: str, pred, gt, valid, guide, invisible,
         aligned = pred * scale[:, None, None, None] + shift[:, None, None, None]
         region = valid & (invisible if "invisible" in strategy else guide)
         m = region.to(pred.dtype)
-        n = m.sum().clamp_min(1.0)
-        return ((aligned - gt).abs() * m).sum() / n
+        n = batch_sum(m.sum()).clamp_min(1.0)
+        return batch_sum(((aligned - gt).abs() * m).sum()) / n
     raise ValueError(f"unknown loss strategy: {strategy}")
+
+
+def _resolve_captured(device: torch.device, mesh, captured) -> bool:
+    """Whether the train step runs captured: the caller's choice, else on
+    the card wherever the mesh's collectives can be captured."""
+    if captured is None:
+        return device.type == "cuda" and capturable(mesh)
+    if captured and device.type == "cuda":
+        check_capturable(mesh, "the train step")
+    return bool(captured)
 
 
 class DiscriminativeTrainer:
@@ -159,8 +191,12 @@ class DiscriminativeTrainer:
     to `device` in float32 and owns it from then on. Without `params` (a
     state dict) the weights are drawn from `seed`. `captured`: run each
     train step as one program over static buffers, captured as a CUDA graph
-    on the card (default: on the card; False runs the same step eagerly; on
-    the CPU, True runs the static-buffer program without a graph)."""
+    on the card (default: on the card, unless the mesh's collectives run
+    over gloo, which a graph cannot hold: then eager; False runs the same
+    step eagerly; on the CPU, True runs the static-buffer program without a
+    graph; True over a gloo group on the card raises ValueError, see
+    `parallel.mesh.check_capturable`). `mesh`: see the module docstring;
+    in a process group "cuda" is this rank's card."""
 
     # the submodule the optimizer moves (None: every parameter); the others
     # keep requires_grad=False and stay out of the optimizer state
@@ -170,12 +206,7 @@ class DiscriminativeTrainer:
                  train_loader, val_loaders=None, vis_loaders=None, *,
                  device="cuda", out_dir_ckpt=None, out_dir_eval=None,
                  out_dir_vis=None, params=None, seed: int = 0,
-                 captured: bool | None = None):
-        for name, default in _DEFERRED_DEFAULTS.items():
-            if getattr(cfg, name) != default:
-                raise NotImplementedError(
-                    f"TrainerConfig.{name}={getattr(cfg, name)!r} is not "
-                    f"ported yet; leave it at {default!r}")
+                 captured: bool | None = None, mesh=None):
         if cfg.loss_strategy not in LOSS_STRATEGIES:
             raise ValueError(f"unknown loss strategy: {cfg.loss_strategy}")
         if cfg.head_tile and "head_batch_tile" not in inspect.signature(
@@ -185,7 +216,10 @@ class DiscriminativeTrainer:
                 f"{type(model).__name__!r} (forward() has no "
                 f"head_batch_tile)")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = local_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh()
+        self._data_group = axis_group(self.mesh, "data")
+        self._n_data = axis_size(self.mesh, "data")
         self.dtype = getattr(torch, cfg.compute_dtype)
         apply_precision_policy(self.dtype)
         if self.device.type == "cuda":
@@ -216,12 +250,22 @@ class DiscriminativeTrainer:
             layout = [table.get(name, (None, None))
                       for name, p in self.model.named_parameters()
                       if p.requires_grad]
+        # the full weights, cut down to this rank's pieces
+        full_shapes = {n: tuple(p.shape)
+                       for n, p in self.model.named_parameters()}
+        self.placements = shard_params(self.mesh, self.model, fsdp=cfg.fsdp)
         self.tx = make_optimizer(
             lr=cfg.lr, total_iter=cfg.lr_total_iter,
             final_ratio=cfg.lr_final_ratio, warmup_steps=cfg.lr_warmup_steps,
             max_grad_norm=cfg.max_grad_norm,
             accumulation_steps=cfg.accumulation_steps,
             optimizer=cfg.optimizer, layout=layout)
+        trained = [n for n, p in self.model.named_parameters()
+                   if p.requires_grad]
+        self._grad_sync = self._plan_grad_sync(trained)
+        if any(self._grad_sync["splits"]):
+            self.tx.shard_(self._grad_sync["splits"],
+                           [full_shapes[n] for n in trained])
         self.state = create_train_state(self.model, self.tx)
         self.loss_fn = get_loss(cfg.loss_name, **(cfg.loss_kwargs or {}))
 
@@ -246,8 +290,7 @@ class DiscriminativeTrainer:
         self.step_timer = StepTimer()
         self._micro_step_count = 0
         self._trace = None
-        self.captured = (self.device.type == "cuda" if captured is None
-                         else bool(captured))
+        self.captured = _resolve_captured(self.device, self.mesh, captured)
         self._scalars = None      # the optimizer's device scalars
         self._programs = _StepPrograms(self)
 
@@ -260,10 +303,51 @@ class DiscriminativeTrainer:
         from ..models.amodal_dav2 import init_weights_
         init_weights_(self.model, generator)
 
+    # ------------------------------------------------------------ scale-out
+
+    def _plan_grad_sync(self, names: list[str]) -> dict:
+        """Per trained parameter (`names`): the groups its gradient is
+        summed over ("data" unless FSDP reduce-scattered it already;
+        "model" for the block parameters that see token slices under
+        sequence parallelism) and the {dim: group} it is split along."""
+        data, model = self._data_group, axis_group(self.mesh, "model")
+        sp = self._act_sharding() is not None
+        sums, splits = [], []
+        for name in names:
+            pl = self.placements[name]
+            groups = [] if pl.dim("data") is not None or data is None \
+                else [data]
+            if sp and seq_partial(name):
+                groups.append(model)
+            sums.append(groups)
+            splits.append({pl.dim(a): axis_group(self.mesh, a)
+                           for a in ("model", "data")
+                           if pl.dim(a) is not None})
+        return {"sums": sums, "splits": splits}
+
+    def _act_sharding(self):
+        """The mesh for sequence parallelism when it is asked for and the
+        model axis is > 1, else None (JAX `_act_sharding`)."""
+        if not self.cfg.sequence_parallel or \
+                axis_size(self.mesh, "model") <= 1:
+            return None
+        return self.mesh
+
+    def full_state_dict(self) -> dict:
+        """The model's state dict with every sharded tensor whole (every
+        rank calls it: it gathers)."""
+        sd = self.model.state_dict()
+        return {k: unshard_tensor(v, self.placements[k], self.mesh)
+                if k in self.placements and not self.placements[k].replicated
+                else v for k, v in sd.items()}
+
     # ----------------------------------------------------------- the steps
 
     def _device_batch(self, batch: dict) -> dict:
-        return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
+        """This rank's rows of a host batch, on the device."""
+        return {k: torch.from_numpy(np.ascontiguousarray(
+                    shard_batch(self.mesh, v))).to(self.device,
+                                                   non_blocking=True)
                 for k, v in batch.items()
                 if isinstance(v, np.ndarray) and v.dtype != object}
 
@@ -271,14 +355,17 @@ class DiscriminativeTrainer:
         """The model's prediction on one device batch (the baselines'
         trainers call their models their own way)."""
         dtype = self.dtype
+        extra = {}
+        if self.cfg.head_tile:
+            extra["head_batch_tile"] = self.cfg.head_tile
+        if self._act_sharding() is not None:
+            extra["act_sharding"] = self._act_sharding()
         return self.model(
             (batch["rgb_int"] / 255.0).to(dtype),
             guide_rgb=batch["guide_rgb_norm"].to(dtype),
             guide_mask=(batch["guide"] * 2.0 - 1.0).to(dtype),
             observation=(batch["depth_observation"] * 2.0 - 1.0).to(dtype),
-            attn_impl=self.cfg.attn_impl, remat=remat,
-            **({"head_batch_tile": self.cfg.head_tile}
-               if self.cfg.head_tile else {}))
+            attn_impl=self.cfg.attn_impl, remat=remat, **extra)
 
     def _predict(self, batch: dict, remat) -> torch.Tensor:
         """Float32 prediction at the ground truth's size."""
@@ -307,16 +394,22 @@ class DiscriminativeTrainer:
     def loss_and_grads(self, batch: dict, draws: dict | None = None):
         """(loss, gradients by parameter name), the gradients guarded:
         non-finite entries are 0, as are those of unused parameters.
-        `draws`: the step's random draws (default: `_step_draws`)."""
+        `draws`: the step's random draws (default: `_step_draws`). Under a
+        mesh: the global batch's loss and gradients (module docstring)."""
         if draws is None:
             draws = self._step_draws(batch)
         params = self.state.params
-        loss = self.loss_of(batch, draws)
-        grads = torch.autograd.grad(loss, list(params.values()),
+        with data_reduction(self._data_group):
+            loss = self.loss_of(batch, draws)
+        scaled = loss / self._n_data if self._n_data > 1 else loss
+        grads = torch.autograd.grad(scaled, list(params.values()),
                                     allow_unused=True)
         guarded = {}
-        for (name, p), g in zip(params.items(), grads):
+        for (name, p), g, groups in zip(params.items(), grads,
+                                        self._grad_sync["sums"]):
             g = torch.zeros_like(p) if g is None else g
+            for group in groups:
+                all_reduce_(g, group)
             guarded[name] = torch.nan_to_num_(g, nan=0.0, posinf=0.0,
                                               neginf=0.0)
         return loss.detach(), guarded
@@ -487,6 +580,8 @@ class DiscriminativeTrainer:
         # ((seed, epoch, index), data/base_depth_dataset.py), so replay is
         # deterministic by construction.
         names = list(self.cfg.eval_metrics)
+        # each data rank scores its rows; the rows are gathered in order
+        gather = functools.partial(all_gather, group=self._data_group)
         for batch in data_loader:
             dev_batch = self._device_batch(batch)
             pred_d, aligned_d = self._eval_forward(dev_batch)
@@ -500,8 +595,8 @@ class DiscriminativeTrainer:
                 m_raw, m_al = self._batch_metrics(
                     pred_d[..., 0], aligned_d[..., 0],
                     dev_batch[self.cfg.gt_depth_type][..., 0], mask[..., 0])
-                m_raw, m_al = m_raw.cpu().numpy(), m_al.cpu().numpy()
-            pred = pred_d.cpu().numpy()
+                m_raw, m_al = (gather(m).cpu().numpy() for m in (m_raw, m_al))
+            pred = gather(pred_d).cpu().numpy()
 
             has_buckets = "guide" in batch and "visible_mask" in batch
             for b in range(pred.shape[0]):
@@ -525,7 +620,7 @@ class DiscriminativeTrainer:
                     self._track_sample(m_raw[b], names, raw_keys)
                     self._track_sample(m_al[b], names, al_keys)
 
-                if save_to_dir is not None:
+                if save_to_dir is not None and is_main_process():
                     self._save_prediction(save_to_dir, batch, b, pred[b])
 
         return {k: bank.result() for k, bank in self.metric_banks.items()}
@@ -556,7 +651,9 @@ class DiscriminativeTrainer:
         for loader in self.vis_loaders:
             for batch in loader:
                 pred, _ = self._eval_forward(self._device_batch(batch))
-                pred = pred.cpu().numpy()
+                pred = all_gather(pred, self._data_group).cpu().numpy()
+                if not is_main_process():
+                    continue
                 for b in range(pred.shape[0]):
                     gt = batch[self.cfg.gt_depth_type][b][..., 0]
                     rgb = (batch["rgb_int"][b] / 255.0)
@@ -576,15 +673,16 @@ class DiscriminativeTrainer:
         """Write `<out_dir_ckpt>/<tag>/state.pt`: the model's state dict
         (every parameter, the frozen ones too, and the BatchNorm running
         statistics of the baselines), optimizer state, step and the resume
-        metadata."""
+        metadata. Under a mesh the sharded tensors are gathered whole, rank
+        0 writes, and every rank meets at a barrier: the file is the same
+        whatever the mesh."""
         if not self.out_dir_ckpt:
             return
         path = os.path.abspath(os.path.join(self.out_dir_ckpt, tag))
-        os.makedirs(path, exist_ok=True)
         tree = {
             "params": {k: v.detach()
-                       for k, v in self.model.state_dict().items()},
-            "opt_state": self.state.opt_state,
+                       for k, v in self.full_state_dict().items()},
+            "opt_state": self._opt_state_pieces(unshard_tensor),
             "step": self.state.step,
             "meta": {
                 "epoch": self.epoch,
@@ -594,10 +692,42 @@ class DiscriminativeTrainer:
                 "in_evaluation": self.in_evaluation,
             },
         }
-        tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
-        torch.save(tree, tmp)
-        os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
-        LOGGER.info("saved checkpoint %s", path)
+        if is_main_process():
+            os.makedirs(path, exist_ok=True)
+            tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
+            torch.save(tree, tmp)
+            os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
+            LOGGER.info("saved checkpoint %s", path)
+        sync_processes(f"ckpt_{tag}")
+
+    def _opt_state_pieces(self, fn, state: dict | None = None) -> dict:
+        """The optimizer state with `fn(tensor, placement, mesh)` applied to
+        each tensor of a sharded parameter (`unshard_tensor` to write,
+        `shard_tensor` to read): a moment shaped as its parameter takes the
+        parameter's placement, an Adafactor statistic that placement less
+        the axis it reduced."""
+        state = self.state.opt_state if state is None else state
+        names = list(self.state.params)
+        plan = self.tx.plan(list(self.state.params.values()))[0] \
+            if isinstance(self.tx, Adafactor) else [None] * len(names)
+        out = {}
+        for key, value in state.items():
+            if not isinstance(value, list):
+                out[key] = value
+                continue
+            pieces = []
+            for name, t, fd in zip(names, value, plan):
+                pl = self.placements[name]
+                if pl.replicated or t.numel() == 1:   # Adafactor's [1]
+                    pieces.append(t)
+                    continue
+                if key in ("v_row", "v_col") and fd is not None:
+                    gone = fd[1] if key == "v_row" else fd[0]
+                    pl = Placement(pl.spec[:gone] + pl.spec[gone + 1:],
+                                   pl.parts)
+                pieces.append(fn(t, pl, self.mesh))
+            out[key] = pieces
+        return out
 
     def load_checkpoint(self, path: str, *,
                         resume_training: bool = True) -> None:
@@ -609,8 +739,12 @@ class DiscriminativeTrainer:
             raise ValueError("checkpoint parameters do not match the model")
         with torch.no_grad():
             for name, p in params.items():
-                p.copy_(tree["params"][name])
-        self._load_opt_state(tree["opt_state"])
+                full = tree["params"][name]
+                pl = self.placements.get(name)
+                p.copy_(full if pl is None or pl.replicated
+                        else shard_tensor(full, pl, self.mesh))
+        self._load_opt_state(self._opt_state_pieces(shard_tensor,
+                                                    tree["opt_state"]))
         self.state.step = int(tree["step"])
         if resume_training:
             meta = tree["meta"]

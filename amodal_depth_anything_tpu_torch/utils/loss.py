@@ -9,6 +9,12 @@ masked L1, mean-abs-rel, plain MSE/L1.
 All losses are functions of (pred, gt[, valid_mask]) returning a scalar;
 masking multiplies by the mask (never boolean indexing), as in the JAX
 package, so both sum the same terms.
+
+Data parallelism: inside `parallel.comm.data_reduction(group)` every sum
+and mean over the batch runs over the global batch (`batch_sum`), so each
+data rank computes the loss of the whole batch from its rows, as the JAX
+package's one SPMD program does; outside it the expressions are the
+single-process ones.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+from ..parallel.comm import batch_count, batch_sum, reduction_group
 
 __all__ = ["get_loss", "silog_loss", "silog_mse_loss", "silog_rmse_loss",
            "l1_loss_with_mask", "mean_abs_rel_loss", "mse_loss", "l1_loss",
@@ -32,6 +40,17 @@ def masked_mean(x, mask=None, axis=_HW):
     return (x * m).sum(dim=axis) / m.sum(dim=axis).clamp_min(1.0)
 
 
+def _batch_mean(x, dim=None):
+    """Mean over the batch (`dim=0`) or over every element (None), of the
+    global batch under a data reduction."""
+    if reduction_group() is None:
+        return x.mean() if dim is None else x.mean(dim=dim)
+    if dim is None:
+        n = batch_count(x, 0) * (x.numel() // max(x.shape[0], 1))
+        return batch_sum(x.sum()) / n
+    return batch_sum(x.sum(dim=dim)) / batch_count(x, dim)
+
+
 def silog_loss(pred, gt, valid_mask=None, *, beta: float = 0.15):
     """10*sqrt(var(g) + beta*mean(g)^2), g = log(pred+eps)-log(gt+eps).
 
@@ -39,14 +58,16 @@ def silog_loss(pred, gt, valid_mask=None, *, beta: float = 0.15):
     With a mask, mean and variance run over the masked elements. sqrt has an
     infinite gradient at 0; the trainer's NaN guard covers that case."""
     g = torch.log(pred + _EPS) - torch.log(gt + _EPS)
-    if valid_mask is None:
+    if valid_mask is None and reduction_group() is None:
         mean = g.mean()
         var = g.var(unbiased=True)
     else:
-        m = valid_mask.to(g.dtype)
-        n = m.sum().clamp_min(1.0)
-        mean = (g * m).sum() / n
-        var = ((g - mean).square() * m).sum() / (n - 1.0).clamp_min(1.0)
+        m = torch.ones_like(g) if valid_mask is None \
+            else valid_mask.to(g.dtype)
+        n = batch_sum(m.sum()).clamp_min(1.0)
+        mean = batch_sum((g * m).sum()) / n
+        var = batch_sum(((g - mean).square() * m).sum()) / \
+            (n - 1.0).clamp_min(1.0)
     return 10.0 * torch.sqrt(var + beta * mean.square())
 
 
@@ -68,13 +89,13 @@ def silog_mse_loss(pred, gt, valid_mask=None, *, lamb: float = 0.5,
                    log_pred: bool = True, batch_reduction: bool = True):
     first, second = _masked_log_diff_terms(pred, gt, valid_mask, log_pred)
     loss = first - lamb * second
-    return loss.mean() if batch_reduction else loss
+    return _batch_mean(loss, 0) if batch_reduction else loss
 
 
 def silog_rmse_loss(pred, gt, valid_mask=None, *, lamb: float = 0.5,
                     alpha: float = 1.0, log_pred: bool = True):
     first, second = _masked_log_diff_terms(pred, gt, valid_mask, log_pred)
-    return torch.sqrt(first - lamb * second).mean() * alpha
+    return _batch_mean(torch.sqrt(first - lamb * second), 0) * alpha
 
 
 def l1_loss_with_mask(pred, gt, valid_mask=None, *,
@@ -86,24 +107,24 @@ def l1_loss_with_mask(pred, gt, valid_mask=None, *,
         n = m.sum(dim=_HW)
     else:
         n = float(gt.shape[-1] * gt.shape[-2])
-    loss = diff.abs().sum() / n
-    return loss.mean() if batch_reduction else loss
+    loss = batch_sum(diff.abs().sum()) / n
+    return _batch_mean(loss, 0) if batch_reduction else loss
 
 
 def mean_abs_rel_loss(pred, gt):
-    return ((pred - gt) / gt).abs().mean(dim=0)
+    return _batch_mean(((pred - gt) / gt).abs(), 0)
 
 
 def mse_loss(pred, gt, valid_mask=None):
     if valid_mask is None:
-        return (pred - gt).square().mean()
-    return masked_mean((pred - gt).square(), valid_mask).mean()
+        return _batch_mean((pred - gt).square())
+    return _batch_mean(masked_mean((pred - gt).square(), valid_mask))
 
 
 def l1_loss(pred, gt, valid_mask=None):
     if valid_mask is None:
-        return (pred - gt).abs().mean()
-    return masked_mean((pred - gt).abs(), valid_mask).mean()
+        return _batch_mean((pred - gt).abs())
+    return _batch_mean(masked_mean((pred - gt).abs(), valid_mask))
 
 
 _LOSSES = {

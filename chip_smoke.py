@@ -193,7 +193,7 @@ plain PyTorch version on the card:
      224 px, 4 held-out scenes): its gate table. The kernels line counts
      the forward kernel's launches over (c) and over (d), each from 0.
      `python3 chip_smoke.py --only 12` runs the build and phase 12 alone
-     (`--only 6,9`: the named phases of 6, 8, 9, 10, 11, 12 and 13);
+     (`--only 6,9`: the named phases of 6, 8, 9, 10, 11, 12, 13, 14, 15);
  13. the host codec and the serving tuners (the build of `native/`'s two
      host libraries by g++ is checked in phase 2, with the codec's routes;
      phase 9 (c) serves its 16 requests twice, over the native host route
@@ -242,6 +242,30 @@ plain PyTorch version on the card:
      [1,24,362,64] (vitg at 266 px) and DepthFM's batch-10 shapes and the
      backward pair at [4,24,1370,64], against their plain versions, beside
      SDPA. Capped at 150 s.
+ 15. scale-out on the one card (`parallel/`), after phase 12 and capped at
+     150 s (`--only 15` runs the build and it alone): (a) a one-rank NCCL
+     group (`parallel.initialize` with a store on localhost): the vitl
+     recipe's step under `DiscriminativeTrainer(mesh=make_mesh())`, its
+     data all-reduce inside the captured graph, two steps bit-identical to
+     eager; the vitg + vitl pipeline with a 1 x 1 mesh captured, the replay
+     bit-identical to its eager call; then two ranks sharing the card over
+     gloo (`torch.multiprocessing`, each child's exit code checked), which
+     first print which gloo collectives take CUDA tensors (the rest are
+     staged through pinned host memory): (b) vitg + vitl
+     `AmodalDepthPipeline(mesh=1x2)` at 518 px, tensor- and
+     sequence-parallel: f32 batch 1 against the one-process call (blended
+     max abs <= 1e-3), bf16 batch 4 timed (p50, the delta to one process),
+     64 forward launches a call on each rank at the local heads
+     ([4,12,1370,64] and [4,8,1370,64]); (c) the trained proxy's f32
+     data-parallel step (2 ranks of 4 rows) against one process of 8 (loss
+     and every gradient <= 1e-4 of its max abs), the vitl recipe's bf16
+     step the same way (deltas printed), then one `fsdp` step: each rank's
+     parameter + Adam bytes (< 0.6 of the unsharded run's) and peak; (d)
+     vitg's trunk over pipe = 2 (`get_intermediate_layers(pipeline_mesh=)`,
+     f32 batch 2): the taps against the sequential trunk <= 1e-4, and one
+     pipelined train step on the proxy, its gradients against the
+     sequential step's. The two-rank times are gloo on one card: no
+     measure of scale-out.
 
 Prints a `{"kernels": [...]}` line (the backward entries also list every
 instantiation that ran, with its cases, worst error and times), the card's
@@ -825,6 +849,20 @@ def roofline(flops: float, nbytes: float, dt_name: str):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def device_events(prof) -> list:
+    """(name, ms) of every device-side event (kernel, copy, set) of a
+    finished torch.profiler trace, read from its raw Kineto events: the
+    profiler's own event list builds a Python object and a tree over every
+    host and device event, tens of seconds for a call of some 10^5."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), (e.end_ns() - e.start_ns()) / 1e6)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
 def device_ms(fn, names, calls: int = 5) -> dict:
     """Device time per call of `fn` of each kernel whose name holds one of
     `names`, from the device-side events of a torch.profiler trace (None
@@ -840,11 +878,10 @@ def device_ms(fn, names, calls: int = 5) -> dict:
             fn()
         torch.cuda.synchronize()
     found = {name: [] for name in names}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for name in names:
-                if name + "_" in e.name:
-                    found[name].append(e.time_range.elapsed_us() / 1e3)
+    for event, ms in device_events(prof):
+        for name in names:
+            if name + "_" in event:
+                found[name].append(ms)
     return {name: sum(t) / calls if t else None for name, t in found.items()}
 
 
@@ -860,8 +897,7 @@ def all_device_ms(fn, calls: int = 5) -> float | None:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    times = [ms for _, ms in device_events(prof)]
     return sum(times) / calls if times else None
 
 
@@ -1221,7 +1257,6 @@ def profile_call(fn, what: str, gpu: str):
     (kernel and copy) events of a torch.profiler trace, summed by name. `fn`
     must end synchronised. Returns the profile, or None when it recorded no
     device time."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1230,11 +1265,10 @@ def profile_call(fn, what: str, gpu: str):
         fn()
         wall_ms = (time.perf_counter() - t) * 1e3
     by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            acc = by_name.setdefault(e.name, [0.0, 0])
-            acc[0] += e.time_range.elapsed_us() / 1e3
-            acc[1] += 1
+    for name, ms in device_events(prof):
+        acc = by_name.setdefault(name, [0.0, 0])
+        acc[0] += ms
+        acc[1] += 1
     if not by_name:
         print("  profiler recorded no device time: breakdown not measured",
               flush=True)
@@ -2189,7 +2223,6 @@ def trace_call(fn, names=("flash_attn_fwd",)):
     time) and the launches those of each kernel whose name holds `name`;
     the kernel nodes of a replayed CUDA graph count as launches; the name
     "*" counts every device event."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -2198,12 +2231,11 @@ def trace_call(fn, names=("flash_attn_fwd",)):
         fn()
         wall_ms = (time.perf_counter() - t) * 1e3
     busy, seen, counts = 0.0, False, {name: 0 for name in names}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            seen = True
-            busy += e.time_range.elapsed_us() / 1e3
-            for name in names:
-                counts[name] += name == "*" or name + "_" in e.name
+    for event, ms in device_events(prof):
+        seen = True
+        busy += ms
+        for name in names:
+            counts[name] += name == "*" or name + "_" in event
     return wall_ms, busy if seen else None, counts
 
 
@@ -5167,6 +5199,512 @@ def slice13_phase(mh, gpu: str) -> dict:
     return {"scripts": scripts, "vitg": vitg, "rows": rows}
 
 
+PHASE15_CAP_S = 150.0
+SCALE_DIR = os.path.join(BUILD, "scale_out")
+SCALE_RANKS = 2          # two ranks sharing the one card, over gloo
+SCALE_CALLS = 2          # timed bf16 calls of the tensor-parallel pipeline
+SCALE_TOL = 1e-3         # f32 blended map, two ranks vs one process
+PIPE_TAPS_TOL = 1e-4     # f32 vitg taps, pipe = 2 vs the sequential trunk
+VITG_TAPS = (9, 19, 29, 39)
+
+
+def _grad_summary(grads: dict) -> dict:
+    """Host copies of a few named gradients and the global norm: what the
+    ranks and the one-process run compare at full width."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.train.state import global_norm
+    keep = ("encoder.pretrained.blocks.11.attn.qkv.weight",
+            "encoder.pretrained.blocks.23.mlp.fc2.weight",
+            "encoder.depth_head.scratch.output_conv1.weight")
+    out = {k: grads[k].detach().float().cpu() for k in keep}
+    out["norm"] = torch.as_tensor(global_norm(list(grads.values())).item())
+    return out
+
+
+def _proxy_trainer(mesh, **kw):
+    """A float32 trainer on the trained amodal proxy (vitp, 112 px)."""
+    from amodal_depth_anything_tpu_torch.convert.weights import (
+        load_params_npz, params_from_jax)
+    from amodal_depth_anything_tpu_torch.models.amodal_dav2 import (
+        DAV2Config, build_model)
+    from amodal_depth_anything_tpu_torch.train import (DiscriminativeTrainer,
+                                                       TrainerConfig)
+
+    cfg = DAV2Config(encoder="vitp")
+    params = params_from_jax(load_params_npz(
+        os.path.join("checkpoints", "proxy", "amodal.npz")), cfg)
+    tcfg = TrainerConfig(compute_dtype="float32", remat="attn", **kw)
+    return DiscriminativeTrainer(tcfg, build_model(cfg), None, device="cuda",
+                                 params=params, mesh=mesh, captured=False)
+
+
+def _vitl_trainer(mesh, captured, **kw):
+    """The vitl recipe's trainer (`configs/train_discriminative_vitl.yaml`,
+    as phase 6 makes it) on `mesh`."""
+    from amodal_depth_anything_tpu_torch.cli.train import \
+        trainer_config_from_cfg
+    from amodal_depth_anything_tpu_torch.models import get_model
+    from amodal_depth_anything_tpu_torch.train import get_trainer_cls
+    from amodal_depth_anything_tpu_torch.utils.config import \
+        recursive_load_config
+
+    cfg = recursive_load_config(TRAIN_CONFIG)
+    tcfg = dataclasses.replace(
+        trainer_config_from_cfg(cfg, accumulation_steps=1),
+        lr_warmup_steps=0, validation_period=0, save_period=0,
+        visualization_period=0, **kw)
+    return get_trainer_cls(cfg.trainer.name)(
+        tcfg, get_model(cfg.model.name, device="cuda",
+                        **cfg.model.kwargs.to_dict()),
+        None, device="cuda", seed=0, mesh=mesh, captured=captured)
+
+
+def _scale_inputs():
+    """(image [4,600,800,3], mask [4,600,800]) for the pipelines, the
+    training scenes at 518 px and the proxy's at 112 px (host)."""
+    from amodal_depth_anything_tpu_torch.data import collate
+
+    img, hint = synthetic_scene(HEUR_HW)
+    imgs = np.stack([np.roll(img, 37 * i, axis=1) for i in range(4)])
+    masks = np.stack([np.roll((img[..., 0] > 200).astype(np.float32),
+                              37 * i, axis=1) for i in range(4)])
+    scenes = SceneDataset(TRAIN_BATCH, SIZE, seed=15)
+    proxy = SceneDataset(TRAIN_BATCH, 112, seed=16)
+    return (imgs.astype(np.float32), masks,
+            collate([scenes[i] for i in range(TRAIN_BATCH)]),
+            collate([proxy[i] for i in range(TRAIN_BATCH)]))
+
+
+def _state_bytes(trainer) -> float:
+    """GB of the parameters and optimizer moments this rank holds."""
+    n = sum(p.numel() * p.element_size()
+            for p in trainer.state.params.values())
+    for key in ("mu", "nu"):
+        n += sum(t.numel() * t.element_size()
+                 for t in trainer.state.opt_state.get(key, []))
+    return n / 1e9
+
+
+def scale_out_one_rank(gpu: str) -> dict:
+    """(a) A one-rank NCCL group in this process (`parallel.initialize`
+    with a store on localhost): the vitl recipe's step under
+    `DiscriminativeTrainer(mesh=make_mesh())` captured, its data all-reduce
+    inside the graph, two steps bit-identical to eager; the vitg + vitl
+    pipeline with a 1 x 1 mesh captured, the replay bit-identical to its
+    eager call. Returns the launches of the two paths."""
+    import torch
+    import torch.distributed as dist
+
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.parallel import initialize, make_mesh
+    from amodal_depth_anything_tpu_torch.parallel.multihost import backend
+    from amodal_depth_anything_tpu_torch.pipeline.amodal_pipeline import \
+        AmodalDepthPipeline
+    from amodal_depth_anything_tpu_torch.pipeline.aot import \
+        capture_amodal_program
+
+    made = initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    check(made and backend() == "nccl",
+          f"one-rank group made over {backend()!r} (nccl)")
+    try:
+        mesh = make_mesh()
+        check(tuple(mesh.mesh_dim_names) == ("data", "model")
+              and mesh.get_group("data") is not None,
+              f"make_mesh() over one rank: {mesh}")
+        imgs, masks, train_batch, _ = _scale_inputs()
+        dev = [{k: torch.from_numpy(v).cuda() for k, v in train_batch.items()
+                if isinstance(v, np.ndarray) and v.dtype != object}] * 2
+        mha.launches = mha.bwd_dq_launches = mha.bwd_dkv_launches = 0
+        summary = captured_step_phase(
+            "vitl recipe step on a one-rank NCCL mesh",
+            lambda captured: _vitl_trainer(mesh, captured), dev, gpu,
+            RESUME_CKPT, resume=False)
+        launches = {"flash_attn_fwd": mha.launches,
+                    "flash_attn_bwd_dq": mha.bwd_dq_launches,
+                    "flash_attn_bwd_dkv": mha.bwd_dkv_launches}
+        # two eager steps, then the capture's warm-ups and the capture (a
+        # replay launches from the graph; its trace, printed above, has
+        # dropped a graph node's event now and then)
+        from amodal_depth_anything_tpu_torch.utils.graphs import \
+            WARMUP_CALLS
+        want = TRAIN_BLOCKS * (2 + WARMUP_CALLS + 1)
+        check(set(launches.values()) == {want},
+              f"the vitl step on the mesh counted {launches} attention "
+              f"launches ({want} each: 2 eager steps, {WARMUP_CALLS} "
+              f"warm-ups and the capture)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        pipe = AmodalDepthPipeline.init_random(
+            0, encoder="vitl", base_encoder="vitg", size=SIZE, device="cuda",
+            dtype=torch.bfloat16, mesh=mesh)
+        mha.launches = 0
+        eager = pipe(imgs, masks)
+        served = capture(lambda: capture_amodal_program(
+            pipe, batch=4, hw=HEUR_HW), "vitg + vitl on a one-rank mesh")
+        replay = served(imgs, masks)
+        launches["pipeline"] = mha.launches
+        same = all(np.array_equal(a, b) for a, b in zip(eager, replay))
+        check(same and launches["pipeline"] == 4 * DEPTH_LAUNCHES,
+              f"vitg + vitl with mesh=1x1 captured: replay bit-identical "
+              f"to eager ({same}); {launches['pipeline']} launches over the "
+              f"eager call, 2 warm-ups and the capture "
+              f"({4 * DEPTH_LAUNCHES})")
+        del pipe, served
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _scale_refs() -> None:
+    """The one-process runs the ranks are held against, on the card, saved
+    under SCALE_DIR: the f32 batch-1 and bf16 batch-4 maps of the seeded
+    vitg + vitl pipeline, the vitl recipe's loss and gradients on 8 rows
+    (bf16), the proxy's (f32) and the unsharded state's bytes and peak."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.parallel.mesh import LocalMesh
+    from amodal_depth_anything_tpu_torch.pipeline.amodal_pipeline import \
+        AmodalDepthPipeline
+
+    os.makedirs(SCALE_DIR, exist_ok=True)
+    imgs, masks, train_batch, proxy_batch = _scale_inputs()
+    refs = {}
+    pipe = AmodalDepthPipeline.init_random(
+        0, encoder="vitl", base_encoder="vitg", size=SIZE, device="cuda",
+        dtype=torch.float32)
+    refs["f32"] = pipe(imgs[:1], masks[:1])[1]
+    pipe = AmodalDepthPipeline(pipe.raw_model, pipe.amodal_model, size=SIZE,
+                               device="cuda", dtype=torch.bfloat16)
+    refs["bf16"] = pipe(imgs, masks)[1]
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = _vitl_trainer(LocalMesh(), False)
+    loss, grads = tr.loss_and_grads(tr._device_batch(train_batch))
+    refs["vitl"] = (loss.item(), _grad_summary(grads))
+    tr._train_step(tr._device_batch(train_batch))
+    refs["vitl_bytes"] = _state_bytes(tr)
+    refs["vitl_peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del tr, grads
+    tr = _proxy_trainer(LocalMesh())
+    loss, grads = tr.loss_and_grads(tr._device_batch(proxy_batch))
+    refs["proxy"] = (loss.item(), {k: g.cpu() for k, g in grads.items()})
+    del tr, grads
+    torch.save(refs, os.path.join(SCALE_DIR, "refs.pt"))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _pipelined_proxy_step(pmesh, batch: dict, device) -> tuple:
+    """One train step of the trained proxy with its trunk pipelined over
+    `pmesh`'s pipe ranks (every rank the whole batch): the gradients, summed
+    over the stages (`reduce_stage_grads`), against the sequential step's,
+    then an Adam step. Returns (worst gradient error relative to its max
+    abs, whether the step moved every parameter's first tensor finitely)."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.convert.weights import (
+        load_params_npz, params_from_jax)
+    from amodal_depth_anything_tpu_torch.models.amodal_dav2 import (
+        DAV2Config, build_model)
+    from amodal_depth_anything_tpu_torch.parallel.pipeline import \
+        reduce_stage_grads
+    from amodal_depth_anything_tpu_torch.train.state import make_optimizer
+    from amodal_depth_anything_tpu_torch.utils.loss import get_loss
+
+    cfg = DAV2Config(encoder="vitp")
+    sd = params_from_jax(load_params_npz(
+        os.path.join("checkpoints", "proxy", "amodal.npz")), cfg)
+    b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()
+         if isinstance(v, np.ndarray) and v.dtype != object}
+    grads, moved = {}, False
+    for how in ("seq", "pipe"):
+        model = build_model(cfg, device=device)
+        model.load_state_dict(sd)
+        kw = {"pipeline_mesh": pmesh} if how == "pipe" else {}
+        pred = model(b["rgb_int"] / 255.0, guide_rgb=b["guide_rgb_norm"],
+                     guide_mask=b["guide"] * 2.0 - 1.0,
+                     observation=b["depth_observation"] * 2.0 - 1.0,
+                     pipeline_microbatches=2, **kw)
+        get_loss("silog_loss")(pred, b["depth_gt"], b["guide"] > 0).backward()
+        params = list(model.parameters())
+        if how == "pipe":
+            reduce_stage_grads(model.encoder.pretrained.blocks, pmesh)
+        g = [torch.zeros_like(p) if p.grad is None else p.grad.detach()
+             for p in params]
+        grads[how] = g
+        if how == "pipe":
+            tx = make_optimizer(lr=1e-4, total_iter=10, warmup_steps=0)
+            state = tx.init(params)
+            before = params[0].detach().clone()
+            tx.update(params, [x.clone() for x in g], state)
+            moved = (not torch.equal(before, params[0])
+                     and all(bool(torch.isfinite(p).all()) for p in params))
+    worst = max(float((a - r).abs().max()) / float(r.abs().max())
+                for a, r in zip(grads["pipe"], grads["seq"])
+                if r.abs().max() > 0)
+    return worst, moved
+
+
+def _scale_rank(rank: int, world: int, port: int) -> None:
+    """One of the ranks sharing the card over gloo: (b) the tensor-parallel
+    vitg + vitl pipeline, (c) data parallelism and FSDP in training, (d) the
+    GPipe vitg trunk and a pipelined proxy step. Writes what it measured to
+    SCALE_DIR/rank<r>.json; a failed check raises (a non-zero exit)."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.models import layers
+    from amodal_depth_anything_tpu_torch.models.dinov2 import (
+        DinoVisionTransformer, ViTConfig)
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
+    from amodal_depth_anything_tpu_torch.parallel import (MeshConfig,
+                                                          initialize,
+                                                          make_mesh)
+    from amodal_depth_anything_tpu_torch.parallel.comm import \
+        gloo_cuda_support
+    from amodal_depth_anything_tpu_torch.pipeline.amodal_pipeline import \
+        AmodalDepthPipeline
+
+    t_start = time.time()
+    initialize(f"127.0.0.1:{port}", world, rank, device="cuda")
+    out = {"rank": rank, "failures": [], "seconds": {}}
+
+    def need(ok, what):
+        if not ok:
+            out["failures"].append(what)
+
+    def lap(name, t):
+        out["seconds"][name] = round(time.time() - t, 1)
+
+    out["backend"] = torch.distributed.get_backend()
+    out["gloo_cuda"] = gloo_cuda_support()
+    refs = torch.load(os.path.join(SCALE_DIR, "refs.pt"), weights_only=False)
+    imgs, masks, train_batch, proxy_batch = _scale_inputs()
+
+    # (b) vitg + vitl tensor- and sequence-parallel over model = 2
+    t = time.time()
+    mesh = make_mesh(MeshConfig(data=1, model=world))
+    pipe = AmodalDepthPipeline.init_random(
+        0, encoder="vitl", base_encoder="vitg", size=SIZE, device="cuda",
+        dtype=torch.float32, mesh=mesh)
+    heads = set()
+    orig = layers.multi_head_attention
+
+    def recording(q, *a, **kw):
+        heads.add(tuple(q.shape))
+        return orig(q, *a, **kw)
+    layers.multi_head_attention = recording
+    blended = pipe(imgs[:1], masks[:1])[1]
+    err = float(np.abs(blended - refs["f32"]).max())
+    out["f32_err"] = err
+    need(err <= SCALE_TOL, f"f32 batch 1, model = {world} vs one process: "
+                           f"blended max abs {err:.3e} <= {SCALE_TOL}")
+    pipe = AmodalDepthPipeline(pipe.raw_model, pipe.amodal_model, size=SIZE,
+                               device="cuda", dtype=torch.bfloat16, mesh=mesh)
+    pipe(imgs, masks)
+    heads.clear()
+    lat = []
+    mha.launches = 0                      # the tensor-parallel path
+    for _ in range(SCALE_CALLS):
+        t1 = time.perf_counter()
+        blended = pipe(imgs, masks)[1]
+        lat.append((time.perf_counter() - t1) * 1e3)
+    out["tp_launches"] = mha.launches
+    layers.multi_head_attention = orig
+    out["tp_heads"] = sorted(heads)
+    out["tp_ms"] = lat
+    out["bf16_delta"] = float(np.abs(blended - refs["bf16"]).max())
+    need(mha.launches == DEPTH_LAUNCHES * SCALE_CALLS,
+         f"{mha.launches} forward launches over {SCALE_CALLS} calls "
+         f"({DEPTH_LAUNCHES} a call)")
+    need(sorted(heads) == [(4, 8, 1370, 64), (4, 12, 1370, 64)],
+         f"the kernel ran on the local heads: {sorted(heads)}")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("b", t)
+
+    # (c) data parallelism: 2 ranks of 4 rows against one process of 8
+    t = time.time()
+    dmesh = make_mesh(MeshConfig(data=world))
+    tr = _proxy_trainer(dmesh)
+    mha.launches = mha.bwd_dq_launches = mha.bwd_dkv_launches = 0
+    loss, grads = tr.loss_and_grads(tr._device_batch(proxy_batch))
+    out["dp_launches"] = [mha.launches, mha.bwd_dq_launches,
+                          mha.bwd_dkv_launches]
+    ref_loss, ref_grads = refs["proxy"]
+    worst = max(float((grads[k].cpu() - g).abs().max())
+                / max(float(g.abs().max()), 1e-30)
+                for k, g in ref_grads.items() if g.abs().max() > 0)
+    out["proxy_dp"] = {"loss_delta": abs(loss.item() - ref_loss),
+                       "worst_grad": worst}
+    need(abs(loss.item() - ref_loss) <= PROXY_GRAD_TOL * abs(ref_loss)
+         and worst <= PROXY_GRAD_TOL,
+         f"proxy f32 data-parallel step vs one process: loss "
+         f"{loss.item():.6f} vs {ref_loss:.6f}, worst gradient {worst:.3e} "
+         f"of its max abs <= {PROXY_GRAD_TOL}")
+    del tr, grads
+    tr = _vitl_trainer(dmesh, None)     # the default: eager over gloo
+    need(not tr.captured, "the vitl trainer over gloo on the card defaults "
+                          "to eager steps")
+    loss, grads = tr.loss_and_grads(tr._device_batch(train_batch))
+    got = _grad_summary(grads)
+    ref_loss, ref = refs["vitl"]
+    out["vitl_dp"] = {"loss": loss.item(), "loss_delta":
+                      abs(loss.item() - ref_loss), "grad_delta": {
+                          k: float((got[k] - v).abs().max())
+                          / max(float(v.abs().max()), 1e-30)
+                          for k, v in ref.items()}}
+    del grads
+    torch.cuda.reset_peak_memory_stats()
+    tr._train_step(tr._device_batch(train_batch))
+    out["dp_bytes"] = _state_bytes(tr)
+    out["dp_peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = _vitl_trainer(dmesh, False, fsdp=True)
+    loss = float(tr._train_step(tr._device_batch(train_batch)))
+    out["fsdp"] = {"loss": loss, "bytes": _state_bytes(tr),
+                   "peak": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "sharded": sum(not p.replicated
+                                  for p in tr.placements.values())}
+    need(np.isfinite(loss) and out["fsdp"]["bytes"]
+         < 0.6 * refs["vitl_bytes"],
+         f"fsdp over data = {world}: finite loss {loss:.5f}, parameter + "
+         f"Adam bytes {out['fsdp']['bytes']:.3f} GB a rank against "
+         f"{refs['vitl_bytes']:.3f} GB unsharded")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("c", t)
+
+    # (d) vitg's trunk over pipe = 2: taps against the sequential trunk
+    t = time.time()
+    pmesh = make_mesh(MeshConfig(data=1, model=1, pipe=world))
+    vit = DinoVisionTransformer(ViTConfig.preset("vitg")).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for q in vit.parameters():
+        q.data.normal_(0.0, 0.02, generator=gen)
+    x = torch.rand(2, SIZE, SIZE, 3, device="cuda", generator=gen)
+    with torch.no_grad():
+        seq = vit.get_intermediate_layers(x, None, VITG_TAPS)
+        mha.launches = 0
+        piped = vit.get_intermediate_layers(x, None, VITG_TAPS,
+                                            pipeline_mesh=pmesh,
+                                            pipeline_microbatches=2)
+    out["pipe_launches"] = mha.launches
+    err = max(float((a - b).abs().max()) for pa, pb in zip(piped, seq)
+              for a, b in zip(pa, pb))
+    out["pipe_err"] = err
+    need(err <= PIPE_TAPS_TOL and mha.launches == 2 * 40 // world,
+         f"vitg taps, pipe = {world} vs sequential: max abs {err:.3e} <= "
+         f"{PIPE_TAPS_TOL}; {mha.launches} forward launches on this stage")
+    del vit, seq, piped
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one pipelined train step on the proxy, its gradients against the
+    # sequential step's
+    worst, moved = _pipelined_proxy_step(pmesh, proxy_batch, "cuda")
+    out["pipe_step_worst_grad"] = worst
+    need(moved, "the pipelined step moved the parameters, finite")
+    need(worst <= PROXY_GRAD_TOL,
+         f"pipelined proxy step: worst gradient {worst:.3e} of its max abs "
+         f"<= {PROXY_GRAD_TOL}")
+    lap("d", t)
+    out["seconds"]["all"] = round(time.time() - t_start, 1)
+    with open(os.path.join(SCALE_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    if out["failures"]:
+        raise RuntimeError("; ".join(out["failures"]))
+
+
+def scale_out_phase(gpu: str) -> dict:
+    """Phase 15: scale-out on the one card (see the module docstring).
+    Returns the launches counted on its paths, each from 0."""
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.time()
+    one = scale_out_one_rank(gpu)
+    print(f"  (a) took {time.time() - t0:.1f} s", flush=True)
+    t = time.time()
+    _scale_refs()
+    print(f"  one-process references in {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    try:
+        mp.spawn(_scale_rank, args=(SCALE_RANKS, free_port()),
+                 nprocs=SCALE_RANKS, join=True)
+        spawned = True
+    except Exception as e:   # noqa: BLE001 -- recorded as a failure
+        spawned = False
+        check(False, f"the {SCALE_RANKS} ranks: {type(e).__name__}: "
+                     f"{str(e)[-600:]}")
+    print(f"  {SCALE_RANKS} ranks over gloo took {time.time() - t:.1f} s",
+          flush=True)
+    ranks = []
+    for r in range(SCALE_RANKS):
+        path = os.path.join(SCALE_DIR, f"rank{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                ranks.append(json.load(f))
+    check(spawned and len(ranks) == SCALE_RANKS,
+          f"{len(ranks)} of {SCALE_RANKS} ranks exited 0 with their results")
+    refs = torch.load(os.path.join(SCALE_DIR, "refs.pt"), weights_only=False)
+    for r in ranks:
+        print(f"  rank {r['rank']}: backend {r['backend']}; gloo takes CUDA "
+              f"tensors for {r['gloo_cuda']} (others staged through pinned "
+              f"host memory)", flush=True)
+        print(f"  rank {r['rank']} (b) vitg + vitl model = {SCALE_RANKS}: "
+              f"f32 batch 1 blended max abs {r['f32_err']:.3e} vs one "
+              f"process; bf16 batch 4 calls {[round(x, 1) for x in r['tp_ms']]}"
+              f" ms (p50 {np.median(r['tp_ms']):.1f} ms), blended delta "
+              f"{r['bf16_delta']:.4f} vs one process; {r['tp_launches']} "
+              f"forward launches at {r['tp_heads']} [{gpu}; gloo on one card: "
+              f"no measure of scale-out]", flush=True)
+        print(f"  rank {r['rank']} (c) proxy f32 data = {SCALE_RANKS}: "
+              f"{r['proxy_dp']}; vitl bf16 4 rows a rank vs 8 in one "
+              f"process: {r['vitl_dp']}; parameter + Adam "
+              f"{r['dp_bytes']:.3f} GB, peak {r['dp_peak']:.2f} GiB; fsdp: "
+              f"{r['fsdp']['bytes']:.3f} GB, peak {r['fsdp']['peak']:.2f} "
+              f"GiB, {r['fsdp']['sharded']} tensors sharded (one process: "
+              f"{refs['vitl_bytes']:.3f} GB, peak {refs['vitl_peak']:.2f} "
+              f"GiB) [{gpu}]", flush=True)
+        print(f"  rank {r['rank']} (d) vitg pipe = {SCALE_RANKS} taps max "
+              f"abs {r['pipe_err']:.3e}, {r['pipe_launches']} launches; "
+              f"pipelined proxy step worst gradient "
+              f"{r['pipe_step_worst_grad']:.3e}; seconds {r['seconds']}",
+              flush=True)
+    shutil.rmtree(SCALE_DIR, ignore_errors=True)
+    took = time.time() - t0
+    print(f"  phase 15 took {took:.1f} s (cap {PHASE15_CAP_S:.0f} s) "
+          f"[{gpu}]", flush=True)
+    check(took <= PHASE15_CAP_S, f"phase 15 took {took:.1f} s <= "
+                                 f"{PHASE15_CAP_S:.0f} s")
+    launches = {"flash_attn_fwd": one["flash_attn_fwd"] + one["pipeline"],
+                "flash_attn_bwd_dq": one["flash_attn_bwd_dq"],
+                "flash_attn_bwd_dkv": one["flash_attn_bwd_dkv"]}
+    for r in ranks:
+        launches["flash_attn_fwd"] += (r["tp_launches"] + r["dp_launches"][0]
+                                       + r["pipe_launches"])
+        launches["flash_attn_bwd_dq"] += r["dp_launches"][1]
+        launches["flash_attn_bwd_dkv"] += r["dp_launches"][2]
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5180,8 +5718,10 @@ def main() -> int:
         apply_precision_policy
 
     started = time.time()
+    stamps = []
 
     def phase(title: str) -> None:
+        stamps.append((title.split("]")[0] + "]", time.time() - started))
         print(f"{title} (at {time.time() - started:.1f} s)", flush=True)
 
     gpu = card()
@@ -5218,7 +5758,7 @@ def main() -> int:
              "10": lambda g: (p2g_proxy_phase(), heuristics_phase(g)),
              "11": baselines_phase, "12": compression_phase,
              "13": lambda g: slice12_phase(heuristics_phase(g)[1], g),
-             "14": lambda g: slice13_alone(g)}
+             "14": lambda g: slice13_alone(g), "15": scale_out_phase}
     if only is not None:                  # iterate on some phases alone
         for name in only.split(","):
             phase(f"[{name}] alone")
@@ -5296,6 +5836,13 @@ def main() -> int:
     phase("[12] serving compression at full width: int8 W8A8 / w8 / w4, "
           "ToMe, ToMe-SD, captured; proxy_gate_v2; cli.serve --int8")
     tome_rows, comp_launches = compression_phase(gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("[15] scale-out on the one card: a one-rank NCCL mesh captured; "
+          "two ranks over gloo: tensor-parallel vitg + vitl, data-parallel "
+          "and FSDP vitl training, the GPipe vitg trunk")
+    scale = scale_out_phase(gpu)
 
     # launches: over the main paths, each counted from 0; the forward
     # kernel runs on twelve (inference [5], training [6], DepthFM [7],
@@ -5313,7 +5860,8 @@ def main() -> int:
                               "flash_attn_bwd_dkv")):
         kernels[i].update(
             launches=launches[name] + dfm_train[name] + dfm_train["ddpm"][i]
-            + base["launches"][name] + vitg[name],
+            + base["launches"][name] + vitg[name] + scale[name],
+            launches_scale_out=scale[name],
             launches_training=launches[name],
             launches_vitg_singlechip_training=vitg[name],
             slice13_shapes=s13["rows"][name],
@@ -5338,7 +5886,10 @@ def main() -> int:
         **{f"launches_{k}": v for k, v in s13["scripts"].items()},
         launches_per_replay_traced=per_replay,
         compression_shapes=tome_rows)
-    print(f"  all phases took {time.time() - started:.1f} s", flush=True)
+    ends = [t for _, t in stamps[1:]] + [time.time() - started]
+    print(f"  all phases took {time.time() - started:.1f} s: "
+          f"{[(name, round(end - t, 1)) for (name, t), end in zip(stamps, ends)]}",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", file=sys.stderr)

@@ -45,7 +45,7 @@ from amodal_depth_anything_tpu_torch.train import (AmodalSynthDriveTrainer,
                                                    TrainerConfig)
 from tests.test_deeplab import tiny_model as jax_tiny_deeplab
 from tests.test_torch_baselines import noisy_tree
-from tests.test_torch_models import eager, few_torch_threads  # noqa: F401
+from tests.test_torch_models import few_torch_threads  # noqa: F401
 
 HW = 64
 TRAINERS = {"ADDeepLab": (AmodalSynthDriveTrainer, JaxSynthDriveTrainer),
@@ -82,11 +82,13 @@ def _jax_model(name):
 
 def _setup(name):
     """(port trainer, JAX trainer, JAX model, noisy JAX tree) on the same
-    weights."""
+    weights: the port's seeded init taken across by the bridge, with seeded
+    noise on every leaf (a JAX init run op by op compiles every draw)."""
     jmodel = _jax_model(name)
-    tree = noisy_tree(jax.tree.map(np.asarray,
-                                   eager(jmodel.init)(jax.random.PRNGKey(0))))
     model = get_model(name, tiny=True, device="cpu")
+    model.init_weights_(torch.Generator().manual_seed(0))
+    tree = noisy_tree(baseline_params_to_jax(name, model.state_dict(),
+                                             model.cfg))
     cls, jcls = TRAINERS[name]
     trainer = cls(TrainerConfig(**_cfg(name, attn_impl="plain")), model,
                   None, device="cpu",

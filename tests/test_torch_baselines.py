@@ -1,6 +1,6 @@
 """The port's baselines (ADDeepLab, PartialCompletionContentDPT,
 InvisibleStitch, JoUNet) on the CPU against the JAX package's models at
-their tiny presets, f32, on the same weights (the JAX init with seeded noise
+their tiny presets, f32, on the same weights (the port's seeded init with seeded noise
 on every leaf, carried by the weight bridge) and the same numpy-seeded
 inputs: forward in eval and in train mode, the BatchNorm running statistics
 after a train-mode forward against the JAX `new_bn`, the bridge both ways,
@@ -136,13 +136,17 @@ def inputs(hw, seed=1, b=2):
 
 @pytest.fixture(scope="module")
 def pairs():
-    """name -> (port model, JAX tree, JAX apply) at the tiny presets."""
+    """name -> (port model, JAX tree, JAX apply) at the tiny presets. The
+    weights are the port's seeded init taken to the JAX layout by the
+    bridge, with seeded noise on every leaf: both packages start from
+    them, and no JAX init runs (op by op it took about a minute)."""
     out = {}
     for name in NAMES:
         model = get_model(name, tiny=True, device="cpu")
-        init, apply = jax_side(name, model.cfg)
-        tree = noisy_tree(jax.tree.map(np.asarray,
-                                       init(jax.random.PRNGKey(0))))
+        model.init_weights_(torch.Generator().manual_seed(0))
+        _, apply = jax_side(name, model.cfg)
+        tree = noisy_tree(baseline_params_to_jax(name, model.state_dict(),
+                                                 model.cfg))
         out[name] = (model, tree, apply)
     return out
 

@@ -21,8 +21,8 @@ from amodal_depth_anything_tpu.models import vae as jvae
 from amodal_depth_anything_tpu.ops import conv as jconv
 from amodal_depth_anything_tpu.ops.ddim import \
     parse_deep_cache as jax_parse_deep_cache
-from amodal_depth_anything_tpu_torch.convert.weights import \
-    depthfm_params_from_jax
+from amodal_depth_anything_tpu_torch.convert.weights import (
+    depthfm_params_from_jax, depthfm_params_to_jax)
 from amodal_depth_anything_tpu_torch.models import get_model
 from amodal_depth_anything_tpu_torch.models import depthfm as tfm
 from amodal_depth_anything_tpu_torch.models import unet_ldm as tunet
@@ -30,17 +30,22 @@ from amodal_depth_anything_tpu_torch.ops.conv import (conv2d,
                                                       fused_upsample2x_conv)
 from amodal_depth_anything_tpu_torch.ops.ddim import parse_deep_cache
 from amodal_depth_anything_tpu_torch.ops.resize import resize_nearest
-from tests.test_torch_models import eager, few_torch_threads  # noqa: F401
+from tests.test_torch_models import few_torch_threads  # noqa: F401
 
 TOL = 1e-4
 OP_TOL = 1e-5
 
 
 def seeded_tree(jmodel, seed=0):
-    """The JAX init plus seeded numpy noise on every leaf, so that the
-    zero-initialised layers carry signal too."""
+    """Seeded weights of `jmodel`'s configuration in the JAX layout: the
+    port's seeded init (`init_depthfm_`) taken across by the bridge, plus
+    seeded numpy noise on every leaf. Both packages start from them, and no
+    JAX init runs (op by op it compiled every draw: about 25 s cold)."""
+    cfg = tfm.DepthFMConfig(**dataclasses.asdict(jmodel.config))
+    model = tfm.build_depthfm(cfg, device="cpu")
+    tfm.init_depthfm_(model, torch.Generator().manual_seed(0))
+    init = depthfm_params_to_jax(model.state_dict(), cfg)
     rng = np.random.default_rng(seed)
-    init = eager(jmodel.init)(jax.random.PRNGKey(0))
     return jax.tree.map(
         lambda a: np.asarray(a) + 0.05 * rng.standard_normal(
             a.shape).astype(np.float32), init)

@@ -220,8 +220,11 @@ def test_device_cpu_is_honoured_and_bf16_runs():
                                     "save_serving", "load_serving"])
 def test_left_out_options_raise_not_implemented(amodal_pair, option,
                                                 tmp_path):
-    """Of these options only the mesh is left out of the port and raises.
-    ToMe-SD (`tome`) matches the JAX pipeline; `quantize_int8` runs (its
+    """These options all run in the port now (the name is that of the
+    test that held the mesh's refusal). A one-rank `mesh` gives the call
+    without one, bit for bit (data parallelism over ranks:
+    tests/test_torch_parallel_ranks.py). ToMe-SD (`tome`) matches the JAX
+    pipeline; `quantize_int8` runs (its
     parity is held in tests/test_torch_quant.py); a state saved with ToMe
     on ("save_serving") restores it, and a weight-only int8 state the JAX
     package writes ("load_serving") holds the port's own w8 codes and
@@ -243,8 +246,10 @@ def test_left_out_options_raise_not_implemented(amodal_pair, option,
                                num_steps=2, seed=SEED, device="cpu", **kw)
 
     if option == "mesh":
-        with pytest.raises(NotImplementedError):
-            DepthFMPipeline(pipe.model, device="cpu", mesh=object())
+        from amodal_depth_anything_tpu_torch.parallel import make_mesh
+        ours = port(mesh=make_mesh())
+        assert np.array_equal(ours(img, mask, obs, noise=noise),
+                              pipe(img, mask, obs, noise=noise))
     elif option == "tome":
         jp = JaxDepthFMPipeline(params, jpipe.cfg, size=32, num_steps=2,
                                 attn_impl="xla", seed=SEED, tome=(0.5, 16))

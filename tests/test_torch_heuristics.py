@@ -29,8 +29,8 @@ from amodal_depth_anything_tpu.models import sam as jsam
 from amodal_depth_anything_tpu_torch.convert import heuristics as ch
 from amodal_depth_anything_tpu_torch.convert.weights import (
     clip_params_from_jax, clip_params_to_jax, p2g_params_from_jax,
-    rmbg_params_from_jax, rmbg_params_to_jax, sam_params_from_jax,
-    sam_params_to_jax)
+    p2g_params_to_jax, rmbg_params_from_jax, rmbg_params_to_jax,
+    sam_params_from_jax, sam_params_to_jax)
 from amodal_depth_anything_tpu_torch.heuristics import (
     MaskHeuristics, make_rmbg_matting_fn)
 from amodal_depth_anything_tpu_torch.models.clip_vit import (
@@ -75,12 +75,26 @@ def _module(cls, cfg, sd, **kw):
 @pytest.fixture(scope="module")
 def stack():
     """(JAX MaskHeuristics, port MaskHeuristics) on the same noisy tiny
-    weights, each with a tiny RMBG hook on the same weights (input 64)."""
-    jh = jmh.MaskHeuristics.init_random(jax.random.PRNGKey(0), tiny=True)
-    jh.sam_params = noisy(jh.sam_params, 1)
-    jh.p2g_params = noisy(jh.p2g_params, 2)
+    weights, each with a tiny RMBG hook on the same weights (input 64).
+    The weights: the port's seeded init of the tiny stack
+    (`init_heuristics_`, drawn as the JAX package draws its init) taken to
+    the JAX layout by the bridge, plus seeded noise on every leaf; no JAX
+    init runs (op by op it compiled every draw, about 45 s cold)."""
+    from amodal_depth_anything_tpu_torch.heuristics.mask_heuristics import \
+        init_heuristics_
+    t0 = MaskHeuristics.init_random(0, tiny=True, device="cpu")
+    jh = jmh.MaskHeuristics(
+        noisy(sam_params_to_jax(t0.sam.state_dict(), t0.sam_cfg), 1),
+        _cfg(jsam.SAMConfig, t0.sam_cfg),
+        noisy(p2g_params_to_jax(t0.p2g.state_dict(), t0.p2g_cfg,
+                                t0.clip_cfg, t0.vae_cfg), 2),
+        _cfg(jmh.Pix2GestaltConfig, t0.p2g_cfg),
+        clip_cfg=_cfg(jclip.CLIPVisionConfig, t0.clip_cfg),
+        vae_cfg=_cfg(jmh.VAEConfig, t0.vae_cfg))
     rcfg = jrmbg.RMBGConfig(**TINY_RMBG)
-    rparams = noisy(jrmbg.init_rmbg(jax.random.PRNGKey(3), rcfg), 4)
+    isnet = init_heuristics_(ISNet(RMBGConfig(**TINY_RMBG)),
+                             torch.Generator().manual_seed(3))
+    rparams = noisy(rmbg_params_to_jax(isnet.state_dict(), isnet.cfg), 4)
     jh.matting_fn = jmh.make_rmbg_matting_fn(rparams, rcfg, input_size=64)
 
     sam_cfg = _cfg(SAMConfig, jh.sam_cfg)

@@ -133,8 +133,9 @@ def test_amodal_mask_from_points_matches_jax(stack, matting):
     assert int(differ.sum()) == near
 
 
-def test_p2g_proxy_matches_jax():
-    """The trained in-repo proxy at 64 px, three DDIM steps."""
+def test_p2g_proxy_matches_jax(stack):
+    """The trained in-repo proxy at 64 px, three DDIM steps (beside the
+    tiny stack's SAM, which the completion does not read)."""
     import json
 
     from amodal_depth_anything_tpu.scripts.train_proxy import load_params_npz
@@ -145,10 +146,12 @@ def test_p2g_proxy_matches_jax():
     jcfg = dataclasses.replace(
         cfg_from_dict(jmh.Pix2GestaltConfig, meta["p2g_cfg"]),
         image_size=64, ddim_steps=3)
-    jh = jmh.MaskHeuristics.init_random(jax.random.PRNGKey(0), tiny=True)
-    jh.clip_cfg = cfg_from_dict(jclip.CLIPVisionConfig, meta["clip_cfg"])
-    jh.vae_cfg = cfg_from_dict(jmh.VAEConfig, meta["vae_cfg"])
-    jh.p2g_params = jax.tree.map(jnp.asarray, load_params_npz(PROXY))
+    j0 = stack[0]
+    jh = jmh.MaskHeuristics(
+        j0.sam_params, j0.sam_cfg,
+        jax.tree.map(jnp.asarray, load_params_npz(PROXY)), jcfg,
+        clip_cfg=cfg_from_dict(jclip.CLIPVisionConfig, meta["clip_cfg"]),
+        vae_cfg=cfg_from_dict(jmh.VAEConfig, meta["vae_cfg"]))
     image, _ = _scene(20, 48, 72)
     visible = np.zeros(image.shape[:2], bool)
     visible[10:40, 20:50] = True

@@ -20,7 +20,7 @@ from amodal_depth_anything_tpu_torch.models import get_model
 from amodal_depth_anything_tpu_torch.pipeline.raw_infer import (
     constrain_to_multiple_of, image2tensor_np, infer_image, keep_aspect_size,
     resize_cubic)
-from tests.test_torch_models import eager, few_torch_threads  # noqa: F401
+from tests.test_torch_models import few_torch_threads  # noqa: F401
 
 SIZES = [(480, 640), (640, 480), (375, 1242), (518, 518), (17, 900),
          (1080, 1920), (100, 101), (3, 5)]
@@ -37,6 +37,24 @@ def test_keep_aspect_size_matches_jax(method, multiple):
                           method=method)
                 assert keep_aspect_size(h, w, **kw) == \
                     jax_raw_infer.keep_aspect_size(h, w, **kw), (h, w, kw)
+
+
+def _port_seeded_tree(jcfg, seed=0):
+    """Seeded weights of the JAX config `jcfg`'s DAV2 model in the JAX
+    layout: the port's seeded init taken across by the bridge (a JAX init
+    run op by op compiles every draw)."""
+    import dataclasses
+
+    import torch
+
+    from amodal_depth_anything_tpu_torch.convert.weights import \
+        params_to_jax
+    from amodal_depth_anything_tpu_torch.models.amodal_dav2 import (
+        DAV2Config, build_model, init_weights_)
+    cfg = DAV2Config(**dataclasses.asdict(jcfg))
+    model = init_weights_(build_model(cfg, device="cpu"),
+                          torch.Generator().manual_seed(seed))
+    return params_to_jax(model.state_dict(), cfg)
 
 
 def test_constrain_to_multiple_of_matches_jax():
@@ -84,7 +102,7 @@ def test_infer_image_matches_jax():
     jmodel = jax_get_model("DepthAnythingV2Raw", encoder="vitt")
     params = jax.tree.map(
         lambda a: (np.asarray(a) + 0.05 * rng.standard_normal(a.shape))
-        .astype(np.float32), eager(jmodel.init)(jax.random.PRNGKey(0)))
+        .astype(np.float32), _port_seeded_tree(jmodel.config))
     bgr = rng.integers(0, 256, (45, 70, 3)).astype(np.uint8)
     with jax.default_matmul_precision("highest"):
         ref = jax_raw_infer.infer_image(params, jmodel.config, bgr, 70,

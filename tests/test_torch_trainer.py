@@ -39,7 +39,7 @@ from amodal_depth_anything_tpu_torch.train import (DiscriminativeTrainer,
 from amodal_depth_anything_tpu_torch.train.trainer import (LOSS_STRATEGIES,
                                                            _strategy_loss)
 from amodal_depth_anything_tpu_torch.utils.loss import get_loss
-from tests.test_torch_models import eager, few_torch_threads  # noqa: F401
+from tests.test_torch_models import few_torch_threads  # noqa: F401
 
 HW = 56
 
@@ -87,12 +87,19 @@ def _batches(sam_tree, n):
 
 
 def _noisy_jax_params(jmodel, seed=0):
-    """The JAX package's init with seeded noise on every leaf, so that
-    biases, layer scales and the guidance embed carry gradients."""
+    """Seeded weights of `jmodel`'s configuration in the JAX layout with
+    seeded noise on every leaf, so that biases, layer scales and the
+    guidance embed carry gradients: the port's seeded init taken across by
+    the bridge (a JAX init run op by op compiles every draw)."""
+    from amodal_depth_anything_tpu_torch.models.amodal_dav2 import (
+        DAV2Config, build_model, init_weights_)
+    cfg = DAV2Config(**dataclasses.asdict(jmodel.config))
+    model = init_weights_(build_model(cfg, device="cpu"),
+                          torch.Generator().manual_seed(seed))
     rng = np.random.default_rng(seed)
     return jax.tree.map(
         lambda a: (np.asarray(a) + 0.05 * rng.standard_normal(a.shape))
-        .astype(np.float32), eager(jmodel.init)(jax.random.PRNGKey(seed)))
+        .astype(np.float32), params_to_jax(model.state_dict(), cfg))
 
 
 def _jax_loss_and_grads(jmodel, cfg, params, batch):
@@ -381,9 +388,13 @@ def test_train_cli_smoke(sam_tree, tmp_path, restore_logging):
 
 
 def test_train_cli_rejects_a_model_mesh(sam_tree, tmp_path):
+    """One process holds no model axis: `--mesh_model 2` asks for a mesh
+    of two ranks and the CLI stops before reading anything, with the JAX
+    mesh's error. (On two ranks it trains:
+    tests/test_torch_parallel_ranks.py.)"""
     from amodal_depth_anything_tpu_torch.cli import train as train_cli
 
-    with pytest.raises(NotImplementedError, match="mesh_model"):
+    with pytest.raises(ValueError, match="mesh 0x2x1 != 1 available"):
         train_cli.main(["--config", "unused.yaml", "--base_data_dir",
                         sam_tree[0], "--output_dir", str(tmp_path),
                         "--no_wandb", "--device", "cpu", "--mesh_model", "2"])
@@ -391,11 +402,20 @@ def test_train_cli_rejects_a_model_mesh(sam_tree, tmp_path):
 
 @pytest.mark.parametrize("field,value", [
     ("fsdp", True), ("sequence_parallel", True)])
-def test_deferred_trainer_config_fields_raise(field, value):
-    """Fields of the JAX TrainerConfig whose features are not ported keep
-    their names; any value but the default raises, naming the field."""
-    with pytest.raises(NotImplementedError, match=field):
-        _trainer(_cfg(**{field: value}), None)
+def test_deferred_trainer_config_fields_raise(sam_tree, field, value):
+    """`fsdp` and `sequence_parallel` are ported (they raised
+    NotImplementedError before the scale-out slice, hence the name). In
+    one process, on a 1 x 1 mesh, they shard nothing: a step's loss and
+    gradients equal the default trainer's bit for bit. Their effect over
+    ranks: tests/test_torch_parallel_ranks.py."""
+    batch = _batches(sam_tree, 1)[0]
+    results = []
+    for kw in ({}, {field: value}):
+        trainer = _trainer(_cfg(**kw), None, seed=4)
+        results.append(trainer.loss_and_grads(trainer._device_batch(batch)))
+    (loss0, grads0), (loss1, grads1) = results
+    assert torch.equal(loss0, loss1)
+    assert all(torch.equal(grads0[k], grads1[k]) for k in grads0)
 
 
 def test_unknown_and_unported_trainers():
