@@ -37,50 +37,57 @@
 // d (the forward's):
 //
 //   bfloat16, d <= 64   flash_attn_bwd_{dq,dkv}_bf16_wgmma<ceil(d / 16)>
-//   bfloat16, d <= 80   flash_attn_bwd_{dq,dkv}_bf16<80>    (mma.sync)
-//   bfloat16, d <= 160  flash_attn_bwd_{dq,dkv}_bf16<160>   (mma.sync)
+//   bfloat16, d <= 80   flash_attn_bwd_dq_bf16<80> (mma.sync),
+//                       flash_attn_bwd_dkv_bf16_wgmma<5>
+//   bfloat16, d <= 160  flash_attn_bwd_dq_bf16<160> (mma.sync),
+//                       flash_attn_bwd_dkv_bf16_wgmma<10>
 //   float32,  d <= 160  flash_attn_bwd_{dq,dkv}_f32<DPAD>, DPAD the
 //                       smallest of 16, 32, 48, 64, 80, 160 that holds d
 //
-//  * bfloat16, d <= 64 (the DINOv2 trunks' 64, the SD-1.5 UNet's 40): wgmma
-//    fed by TMA, the forward's shape. A block is three warpgroups on 128
-//    resident rows (query rows in dQ, key rows in dK/dV) that land once by
-//    TMA; one thread of the producer warpgroup (setmaxnreg 40) streams
-//    64-row tiles of the other pair (K and V; Q and dO) into a ring of four
-//    stages through 4-D tensor maps over (d, token, head, batch), each tile
-//    a 64 x 64 box with the 128-byte swizzle. Each of the two consumer
-//    warpgroups (setmaxnreg 232) owns 64 resident rows, the wgmma M. Per
-//    tile: the two score products (S and dP; S^T and dP^T) are ceil(d/16)
+//  * bfloat16 on wgmma fed by TMA, the forward's shape. A block is three
+//    warpgroups on resident rows (query rows in dQ, key rows in dK/dV) that
+//    land once by TMA; one thread of the producer warpgroup (setmaxnreg 40)
+//    streams 64-row tiles of the other pair (K and V; Q and dO) into a ring
+//    of up to four stages through 4-D tensor maps over (d, token, head,
+//    batch). As in the forward, a tile's head dim lies in 64-column boxes of
+//    the 128-byte swizzle (one up to d = 64, two at 80, three at 160). Each
+//    consumer warpgroup (setmaxnreg 232) owns 64 resident rows, the wgmma M.
+//    Per tile: the two score products (S and dP; S^T and dP^T) are KSTEPS
 //    wgmma m64n64k16 each with both operands in shared memory, K-major over
 //    the head dim; P and dS are rebuilt on the accumulator fragments and,
 //    rounded to bfloat16, regrouped in place into m64k16 A fragments for
 //    the products that contract over the tile's 64 rows (dS K; P^T dO and
-//    dS^T Q): four wgmma m64nNk16 each, N = 16 * ceil(d / 16), with the
-//    streamed tile as the MN-major B operand straight from its [rows, d]
-//    box. The two warpgroups take turns on the tensor cores over named
-//    barriers, so that one's exponentials run under the other's products.
-//    dQ also overlaps within a warpgroup: tile t's score products go out
-//    together with tile t-1's dS K. dK/dV cannot: its dK and dV
-//    accumulators, P^T and dS^T beside the next tile's scores are more
-//    registers than ptxas will hold for wgmmas in flight (it serialises
-//    every wgmma, C7512: `tools/kernel_ablation.py`, dkv_pipelined), so
-//    each of its warpgroups keeps one batch in flight and takes two turns
-//    a tile. TMA zero-fills what
-//    lies outside the tensor: rows past the maps' ends (kv_len for K and V;
-//    q_len for Q and dO in the dK/dV kernel) and the columns from d on. In
-//    the dK/dV kernel a second producer warp copies each tile's LSE (times
-//    log2 e; +inf for rows at or past q_len, so that their P is exactly 0)
-//    and delta into the stage beside the tiles, and arrives on the stage's
-//    barrier with the TMA bytes; in the dQ kernel the keys at or past
-//    kv_len of the last tile are masked by a second instance of the tile
-//    body.
-//  * bfloat16, 64 < d <= 160 (the UNet's 80 and 160, launch-bound shapes of
-//    at most 1024 tokens): mma.sync m16n8k16 on 64-row tiles, with the
-//    resident operands in shared memory (read by ldmatrix per use, so that
-//    no warp holds them as fragments) and the streamed tiles in a cp.async
-//    double buffer. dQ: 4 warps of 16 query rows. dK/dV: 8 warps, warps 0-3
-//    sum dV and warps 4-7 dK over the same 64 key rows (both rebuild P^T),
-//    so that no warp holds both 16 x d accumulators.
+//    dS^T Q): four wgmma m64nNk16, N = 16 * ceil(d / 16) up to 64, then 80
+//    and 160, with the streamed tile as the MN-major B operand straight from
+//    its [rows, d] boxes (the descriptor's leading byte offset steps from
+//    box to box).
+//    The two warpgroups take turns on the tensor cores over named barriers,
+//    so that one's exponentials run under the other's products. dQ also
+//    overlaps within a warpgroup: tile t's score products go out together
+//    with tile t-1's dS K. dK/dV cannot: its dK and dV accumulators, P^T and
+//    dS^T beside the next tile's scores are more registers than ptxas will
+//    hold for wgmmas in flight (it serialises every wgmma, C7512:
+//    `tools/kernel_ablation.py`, dkv_pipelined), so each of its warpgroups
+//    keeps one batch in flight and takes two turns a tile. Up to d = 64 a
+//    dK/dV block holds 128 key rows and each warpgroup sums both dK and dV
+//    over its 64. Above, both accumulators beside both score tiles are 144
+//    registers a thread at d = 80 and 224 at 160, past what ptxas keeps
+//    wgmmas in flight with, so a block holds 64 key rows and splits the
+//    work by product (kDkvSplit): one warpgroup computes S^T, P^T and dV +=
+//    P^T dO and hands P^T (float32) to the other through shared memory,
+//    which computes dP^T, dS^T and dK += dS^T Q; two products each a tile,
+//    none computed twice. TMA zero-fills what lies outside the
+//    tensor: rows past the maps' ends (kv_len for K and V; q_len for Q and
+//    dO in the dK/dV kernel) and the columns from d on. In the dK/dV kernel
+//    a second producer warp copies each tile's LSE (times log2 e; +inf for
+//    rows at or past q_len, so that their P is exactly 0) and delta into
+//    the stage beside the tiles, and arrives on the stage's barrier with
+//    the TMA bytes; in the dQ kernel the keys at or past kv_len of the last
+//    tile are masked by a second instance of the tile body.
+//  * bfloat16 dQ, 64 < d <= 160 (the UNet's 80 and 160): mma.sync
+//    m16n8k16 on 64-row tiles, 4 warps of 16 query rows, with Q and dO in
+//    shared memory (read by ldmatrix per use, so that no warp holds them as
+//    fragments) and the K and V tiles in a cp.async double buffer.
 //  * float32: 256 threads, each a 4x4 patch of the score tiles and 4 rows x
 //    DPAD/16 columns of the output tiles, scalar FMAs on float32 smem tiles
 //    (TF32 would miss the parity bar); 64-row tiles of DPAD + 4 floats, the
@@ -345,14 +352,7 @@ flash_attn_bwd_dkv_f32(const float* __restrict__ q,
                        kv_len, d, ty, tx);
 }
 
-// ------------------------------- bfloat16 path, 64 < d <= 160: mma.sync
-
-// 4 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
-                   "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
-}
+// ------------------------------- bfloat16 dQ, 64 < d <= 160: mma.sync
 
 // c[j] = A * tile^T over KST 16-wide steps of the head dim: A the warp's 16
 // rows [row16, row16 + 16) of smem tile `a`, tile 64 rows; both [64][LD].
@@ -437,10 +437,6 @@ template <int DPAD>
 constexpr int kLdBf16 = DPAD + 8;
 template <int DPAD>
 constexpr int kDqMmaSmemBytes = 2 * 6 * 64 * kLdBf16<DPAD>;   // Q dO 2K 2V
-template <int DPAD>
-constexpr int kDkvMmaSmemBytes =
-    2 * 6 * 64 * kLdBf16<DPAD> + 2 * 2 * 64 * 4;   // K V 2Q 2dO, 2 LSE 2 delta
-constexpr int kDkvMmaThreads = 256;
 
 template <int DPAD>
 __global__ void __launch_bounds__(kBf16Threads)
@@ -524,132 +520,56 @@ flash_attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       q0 + warp * 16, nq, nq, d, lane);
 }
 
-template <int DPAD>
-__global__ void __launch_bounds__(kDkvMmaThreads)
-flash_attn_bwd_dkv_bf16(const bf16* __restrict__ q,
-                        const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        bf16* __restrict__ dk, bf16* __restrict__ dv, int nq,
-                        int nk, int q_len, int kv_len, int d, float sm_scale,
-                        Strides sq, Strides sk, Strides sv, Strides sdo,
-                        Strides sdk, Strides sdv) {
-  constexpr int kLd = kLdBf16<DPAD>;
-  constexpr int kTile = 64 * kLd;
-  constexpr int kDT = DPAD / 8;
-  extern __shared__ float4 smem4[];
-  bf16* ks = reinterpret_cast<bf16*>(smem4);
-  bf16* vs = ks + kTile;
-  bf16* qs = vs + kTile;          // two Q tiles, then two dO tiles
-  bf16* dos = qs + 2 * kTile;
-  float* lses = reinterpret_cast<float*>(dos + 2 * kTile);   // [2][64]
-  float* dls = lses + 2 * 64;                                // [2][64]
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  // warps 0-3 sum dV, warps 4-7 dK, over the same 64 key rows
-  const bool dk_warp = warp >= 4;
-  const int row16 = (warp & 3) * 16;
-  const int k0 = blockIdx.x * kBN;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const float scale_log2 = sm_scale * kLog2e;
+// ------------------------------------------- bfloat16 path: wgmma + TMA
 
-  float acc[kDT][4];
-  #pragma unroll
-  for (int j = 0; j < kDT; ++j)
-    #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  if (k0 < kv_len) {  // key tiles at or past kv_len only write zeros
-    const bf16* qb = q + b * sq.b + h * sq.h;
-    const bf16* dob = dout + b * sdo.b + h * sdo.h;
-    const float* lseb = lse + ((long long)b * gridDim.y + h) * nq;
-    const float* dlb = delta + ((long long)b * gridDim.y + h) * nq;
-
-    // one 64-row tile of Q, dO, LSE and delta into buffer `buf`
-    auto load_q_tile = [&](int buf, int row0) {
-      load_tile_bf16<DPAD, kDkvMmaThreads>(qs + buf * kTile, qb, sq.n, row0,
-                                           q_len, d);
-      load_tile_bf16<DPAD, kDkvMmaThreads>(dos + buf * kTile, dob, sdo.n,
-                                           row0, q_len, d);
-      const int i = threadIdx.x & 63;
-      const bool valid = row0 + i < q_len;
-      if (threadIdx.x < 64)
-        cp_async4(&lses[buf * 64 + i], lseb + (valid ? row0 + i : 0), valid);
-      else if (threadIdx.x < 128)
-        cp_async4(&dls[buf * 64 + i], dlb + (valid ? row0 + i : 0), valid);
-    };
-
-    load_tile_bf16<DPAD, kDkvMmaThreads>(ks, k + b * sk.b + h * sk.h, sk.n,
-                                         k0, kv_len, d);
-    load_tile_bf16<DPAD, kDkvMmaThreads>(vs, v + b * sv.b + h * sv.h, sv.n,
-                                         k0, kv_len, d);
-    load_q_tile(0, 0);
-    cp_async_commit();
-
-    const int n_tiles = (q_len + kBM - 1) / kBM;
-    for (int t = 0; t < n_tiles; ++t) {
-      const int buf = t & 1;
-      if (t + 1 < n_tiles) load_q_tile(buf ^ 1, (t + 1) * kBM);
-      cp_async_commit();
-      cp_async_wait_all_but_newest();  // tile t (and K, V) have landed
-      __syncthreads();
-
-      // rows: the warp's 16 keys; columns: the tile's 64 queries
-      const bf16* qt = qs + buf * kTile;
-      const bf16* dot = dos + buf * kTile;
-      float st[8][4], dpt[8][4];
-      mma_rows_t<DPAD / 16, kLd>(st, ks, qt, row16, lane);      // K Q^T
-      if (dk_warp)
-        mma_rows_t<DPAD / 16, kLd>(dpt, vs, dot, row16, lane);  // V dO^T
-      #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = j * 8 + 2 * (lane & 3);
-        const float2 l2 = *reinterpret_cast<const float2*>(&lses[buf * 64 + c]);
-        const float2 d2 = *reinterpret_cast<const float2*>(&dls[buf * 64 + c]);
-        #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float l = (e & 1) ? l2.y : l2.x;
-          const float dd = (e & 1) ? d2.y : d2.x;
-          const float p = t * kBM + c + (e & 1) < q_len
-                              ? exp2f(st[j][e] * scale_log2 - l * kLog2e)
-                              : 0.f;
-          st[j][e] = dk_warp ? p * (dpt[j][e] - dd) : p;   // dS^T or P^T
-        }
-      }
-      mma_c_rows<kDT, kLd>(acc, st, dk_warp ? qt : dot, lane);  // dK, dV
-      __syncthreads();  // every warp is done with buffer `buf`
-    }
-  }
-
-  if (dk_warp)
-    store_acc_bf16<kDT>(dk + b * sdk.b + h * sdk.h, sdk.n, acc, sm_scale,
-                        k0 + row16, nk, kv_len, d, lane);
-  else
-    store_acc_bf16<kDT>(dv + b * sdv.b + h * sdv.h, sdv.n, acc, 1.f,
-                        k0 + row16, nk, kv_len, d, lane);
-}
-
-// ------------------------------------ bfloat16 path, d <= 64: wgmma + TMA
-
-constexpr int kWgRows = 128;               // resident rows per block
 constexpr int kWgStream = 64;              // rows of a streamed tile
-constexpr int kWgStages = 4;
 constexpr int kWgThreads = 384;            // two consumer warpgroups, then
                                            // the producer's
-constexpr int kWgResident = kWgRows * 64;  // elements of a resident tile
-constexpr int kWgTile = kWgStream * 64;    // elements of a streamed tile
-constexpr int kWgResidentBytes = 2 * kWgResident;
-constexpr int kWgTileBytes = 2 * kWgTile;
 constexpr int kWgKStepBytes = 16 * kSwizzleRow;   // 16 rows of a tile
-// two resident tiles, two streamed tiles a stage, LSE and delta rows a
-// stage (dK/dV), the barriers, and room to align the tiles to 1024 bytes
-constexpr int kWgSmemBytes = 2 * kWgResidentBytes +
-                             kWgStages * (2 * kWgTileBytes + 2 * 64 * 4) +
-                             (1 + 2 * kWgStages) * 8 + kSwizzleAtom;
+
+// Whether flash_attn_bwd_dkv_bf16_wgmma<KSTEPS> splits its two sums over two
+// warpgroups. Up to d = 64 each warpgroup holds both the dK and the dV
+// accumulator (8 KSTEPS registers each) beside the two score tiles (64):
+// 128 at d = 64. Above, that is 144 registers at d = 80 and 224 at 160, and
+// ptxas serialises every wgmma of the kernel (C7512), so one warpgroup
+// sums dV and the other dK over the same 64 key rows: 8 KSTEPS + 32 each.
+template <int KSTEPS>
+constexpr bool kDkvSplit = KSTEPS > 4;
+
+// The tiles of a wgmma backward block over KSTEPS k16 steps of the head dim:
+// two resident operands of kRes rows (Q and dO in dQ, K and V in dK/dV:
+// 128 rows, 64 a consumer warpgroup, or 64 rows shared by both warpgroups
+// when SPLIT), then a ring of kStages stages, each two streamed 64-row tiles
+// (K and V; Q and dO) and a tile's LSE and delta (dK/dV), as many stages as
+// fit up to four; each tile kBoxes boxes of 64 head-dim columns. A SPLIT
+// block also holds one 64 x 64 float32 P^T tile, which its dV warpgroup
+// hands to its dK warpgroup.
+template <int KSTEPS, bool SPLIT>
+struct BwdTiles {
+  static constexpr bool kSplit = SPLIT;
+  static constexpr int kBoxes = kHeadBoxes<KSTEPS>;
+  static constexpr int kRes = SPLIT ? 64 : 128;
+  static constexpr int kResBox = kRes * 64;         // elements of a box
+  static constexpr int kStrBox = kWgStream * 64;
+  static constexpr int kResTile = kBoxes * kResBox;
+  static constexpr int kStrTile = kBoxes * kStrBox;
+  static constexpr int kStageBytes = 2 * 2 * kStrTile + 2 * 64 * 4;
+  static constexpr int kPBytes = SPLIT ? 64 * 64 * 4 : 0;
+  static constexpr int kRoom =
+      kSmemMax - kSwizzleAtom - 11 * 8 - 2 * 2 * kResTile - kPBytes;
+  static constexpr int kStages = kRoom / kStageBytes < 4
+                                     ? kRoom / kStageBytes : 4;
+  static constexpr int kSmemBytes = 2 * 2 * kResTile +
+                                    kStages * kStageBytes + kPBytes +
+                                    (3 + 2 * kStages) * 8 + kSwizzleAtom;
+  static_assert(kStages >= 2 && kSmemBytes <= kSmemMax, "shared memory");
+};
+
+template <int KSTEPS>
+using DqTiles = BwdTiles<KSTEPS, false>;
+template <int KSTEPS>
+using DkvTiles = BwdTiles<KSTEPS, kDkvSplit<KSTEPS>>;
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -668,26 +588,27 @@ __device__ __forceinline__ void pack_a(uint32_t (&f)[4][4],
 }
 
 // s (+)= A B^T over KSTEPS k16 steps of the head dim, both operands K-major
-// 128-byte-swizzled tiles in shared memory (A 64 rows, B 64 rows)
-template <int KSTEPS>
+// 128-byte-swizzled tiles in shared memory (A 64 rows, B 64 rows), their
+// boxes A_BOX and B_BOX elements apart
+template <int KSTEPS, int A_BOX, int B_BOX>
 __device__ __forceinline__ void scores(float (&s)[32], const bf16* a,
                                        const bf16* b) {
   const uint64_t da = wgmma_desc(a, 16, kSwizzleAtom);
   const uint64_t db = wgmma_desc(b, 16, kSwizzleAtom);
   #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk)
-    wgmma_ss<0>(s, wgmma_desc_advance(da, kk * 32),
-                wgmma_desc_advance(db, kk * 32), kk != 0);
+    wgmma_ss<0>(s, kstep_desc(da, kk, 2 * A_BOX),
+                kstep_desc(db, kk, 2 * B_BOX), kk != 0);
 }
 
-// acc += F tile, F the A fragments of a 64 x 64 operand, tile a streamed or
-// resident [64 rows, d] box read as the MN-major B operand (16 rows a k16
-// step): N = 16 * KSTEPS columns
+// acc += F tile, F the A fragments of a 64 x 64 operand, tile a streamed
+// [64 rows, d] tile read as the MN-major B operand (16 rows a k16 step, its
+// 64-column boxes LBO apart): N = 16 * KSTEPS columns
 template <int KSTEPS>
 __device__ __forceinline__ void accumulate(float (&acc)[8 * KSTEPS],
                                            const uint32_t (&f)[4][4],
                                            const bf16* tile) {
-  const uint64_t db = wgmma_desc(tile, 16, kSwizzleAtom);
+  const uint64_t db = wgmma_desc(tile, 2 * kWgStream * 64, kSwizzleAtom);
   #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
     wgmma_rs(acc, f[kk], wgmma_desc_advance(db, kk * kWgKStepBytes));
@@ -720,10 +641,12 @@ __device__ __forceinline__ void store_wg_bf16(bf16* dst, long long row_stride,
   }
 }
 
-// The shared memory of a wgmma backward block: two resident 128 x 64 tiles,
-// then a ring of stages, each two streamed 64 x 64 tiles and 64 LSE and
-// delta values, then the barriers; tiles aligned to 1024 bytes (the swizzle
-// pattern is a function of the address).
+// The shared memory of a wgmma backward block (BwdTiles T): the two
+// resident tiles, then the ring of stages, each two streamed tiles and 64
+// LSE and delta values, the P^T tile of a split block, then the barriers;
+// tiles aligned to 1024 bytes (the swizzle pattern is a function of the
+// address).
+template <typename T>
 struct WgSmem {
   bf16* res0;         // Q (dQ) or K (dK/dV)
   bf16* res1;         // dO (dQ) or V (dK/dV)
@@ -731,28 +654,37 @@ struct WgSmem {
   bf16* str1;         // [stage]: V (dQ) or dO (dK/dV)
   float* lse2;        // [stage][64], log2 units (dK/dV)
   float* dl;          // [stage][64] (dK/dV)
+  float4* pt;         // P^T of a split block: [8][128], each consumer
+                      // thread's 32 accumulator values
   uint64_t* res_full;
   uint64_t* full;     // [stage]
   uint64_t* empty;    // [stage]
+  uint64_t* pt_full;  // P^T written (128 arrivals: the dV warpgroup)
+  uint64_t* pt_empty; // P^T read (128 arrivals: the dK warpgroup)
 
   __device__ explicit WgSmem(uint8_t* raw) {
     uint8_t* p = raw + ((kSwizzleAtom - smem_addr(raw)) & (kSwizzleAtom - 1));
     res0 = reinterpret_cast<bf16*>(p);
-    res1 = res0 + kWgResident;
-    str0 = res1 + kWgResident;
-    str1 = str0 + kWgStages * kWgTile;
-    lse2 = reinterpret_cast<float*>(str1 + kWgStages * kWgTile);
-    dl = lse2 + kWgStages * 64;
-    res_full = reinterpret_cast<uint64_t*>(dl + kWgStages * 64);
+    res1 = res0 + T::kResTile;
+    str0 = res1 + T::kResTile;
+    str1 = str0 + T::kStages * T::kStrTile;
+    lse2 = reinterpret_cast<float*>(str1 + T::kStages * T::kStrTile);
+    dl = lse2 + T::kStages * 64;
+    pt = reinterpret_cast<float4*>(dl + T::kStages * 64);
+    res_full = reinterpret_cast<uint64_t*>(
+        reinterpret_cast<uint8_t*>(pt) + T::kPBytes);
     full = res_full + 1;
-    empty = full + kWgStages;
+    empty = full + T::kStages;
+    pt_full = empty + T::kStages;
+    pt_empty = pt_full + 1;
   }
 };
 
 // The producer thread: the two resident tiles at row r0, then the streamed
 // tiles of n_tiles into the ring, each stage once both consumers released
 // it (and, for dK/dV, the stats warp has also arrived on `full`)
-__device__ __forceinline__ void produce(const WgSmem& sm,
+template <typename T>
+__device__ __forceinline__ void produce(const WgSmem<T>& sm,
                                         const CUtensorMap* res_map0,
                                         const CUtensorMap* res_map1,
                                         const CUtensorMap* str_map0,
@@ -762,19 +694,21 @@ __device__ __forceinline__ void produce(const WgSmem& sm,
   tma_prefetch_map(res_map1);
   tma_prefetch_map(str_map0);
   tma_prefetch_map(str_map1);
-  mbar_arrive_expect_tx(sm.res_full, 2 * kWgResidentBytes);
-  tma_load_4d(sm.res0, res_map0, sm.res_full, 0, r0, h, b);
-  tma_load_4d(sm.res1, res_map1, sm.res_full, 0, r0, h, b);
+  mbar_arrive_expect_tx(sm.res_full, 2 * 2 * T::kResTile);
+  tma_load_boxes<T::kBoxes>(sm.res0, T::kResBox, res_map0, sm.res_full, r0,
+                            h, b);
+  tma_load_boxes<T::kBoxes>(sm.res1, T::kResBox, res_map1, sm.res_full, r0,
+                            h, b);
   int stage = 0;
   uint32_t phase = 0;
   for (int t = 0; t < n_tiles; ++t) {
     mbar_wait(sm.empty + stage, phase ^ 1);   // free from the start
-    mbar_arrive_expect_tx(sm.full + stage, 2 * kWgTileBytes);
-    tma_load_4d(sm.str0 + stage * kWgTile, str_map0, sm.full + stage, 0,
-                t * kWgStream, h, b);
-    tma_load_4d(sm.str1 + stage * kWgTile, str_map1, sm.full + stage, 0,
-                t * kWgStream, h, b);
-    if (++stage == kWgStages) {
+    mbar_arrive_expect_tx(sm.full + stage, 2 * 2 * T::kStrTile);
+    tma_load_boxes<T::kBoxes>(sm.str0 + stage * T::kStrTile, T::kStrBox,
+                              str_map0, sm.full + stage, t * kWgStream, h, b);
+    tma_load_boxes<T::kBoxes>(sm.str1 + stage * T::kStrTile, T::kStrBox,
+                              str_map1, sm.full + stage, t * kWgStream, h, b);
+    if (++stage == T::kStages) {
       stage = 0;
       phase ^= 1;
     }
@@ -809,7 +743,109 @@ __device__ __forceinline__ void dkv_tile_ds(float (&dpt)[32],
   }
 }
 
-template <int KSTEPS>   // k16 steps over the head dim: ceil(d / 16)
+// The two warpgroups of a split dK/dV block (T::kSplit) over its 64 key rows,
+// each with one accumulator and one score tile (8 KSTEPS + 32 registers):
+// the dV warpgroup computes S^T = K Q^T, P^T and dV += P^T dO, and hands
+// P^T, float32 as the accumulator holds it, to the dK warpgroup through
+// shared memory (thread i of one warpgroup holds the same elements as
+// thread i of the other); the dK warpgroup computes dP^T = V dO^T, dS^T =
+// P^T (dP^T - delta) and dK += dS^T Q. Each takes two turns a tile, one
+// for its score product and one for its accumulating product.
+template <int KSTEPS, typename T>
+__device__ __forceinline__ void dkv_split_dv(float (&acc)[8 * KSTEPS],
+                                             const WgSmem<T>& sm,
+                                             int n_tiles, float c, int col0,
+                                             bool elected) {
+  const int i = threadIdx.x & 127;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    float st[32];
+    uint32_t pf[4][4];   // P^T in bf16
+    mbar_wait(sm.full + stage, phase);
+    turn_wait(0);
+    wgmma_fence();
+    scores<KSTEPS, T::kResBox, T::kStrBox>(st, sm.res0,
+                                           sm.str0 + stage * T::kStrTile);
+    wgmma_commit();
+    turn_pass(0);
+    wgmma_wait<0>();
+    wgmma_pin(st);
+    dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);
+    mbar_wait(sm.pt_empty, (t & 1) ^ 1);   // free from the start
+    #pragma unroll
+    for (int j = 0; j < 8; ++j)
+      sm.pt[j * 128 + i] = make_float4(st[4 * j], st[4 * j + 1],
+                                       st[4 * j + 2], st[4 * j + 3]);
+    mbar_arrive(sm.pt_full);
+    pack_a(pf, st);
+    turn_wait(0);
+    wgmma_fence();   // pf was written by ordinary code
+    accumulate<KSTEPS>(acc, pf, sm.str1 + stage * T::kStrTile);
+    wgmma_commit();
+    turn_pass(0);
+    wgmma_wait<0>();   // the stage is free
+    wgmma_pin(acc);
+    if (elected) mbar_arrive(sm.empty + stage);
+    if (++stage == T::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+template <int KSTEPS, typename T>
+__device__ __forceinline__ void dkv_split_dk(float (&acc)[8 * KSTEPS],
+                                             const WgSmem<T>& sm,
+                                             int n_tiles, int col0,
+                                             bool elected) {
+  const int i = threadIdx.x & 127;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    float dpt[32];
+    uint32_t dsf[4][4];   // dS^T in bf16
+    mbar_wait(sm.full + stage, phase);
+    turn_wait(1);
+    wgmma_fence();
+    scores<KSTEPS, T::kResBox, T::kStrBox>(dpt, sm.res1,
+                                           sm.str1 + stage * T::kStrTile);
+    wgmma_commit();
+    turn_pass(1);
+    wgmma_wait<0>();
+    wgmma_pin(dpt);
+    // dS^T = P^T (dP^T - delta), P^T read four values at a time, so that
+    // no second tile of registers is live beside dP^T and dK
+    mbar_wait(sm.pt_full, t & 1);
+    #pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 p = sm.pt[j * 128 + i];
+      const float2 dd = *reinterpret_cast<const float2*>(
+          sm.dl + stage * 64 + j * 8 + col0);
+      dpt[4 * j] = p.x * (dpt[4 * j] - dd.x);
+      dpt[4 * j + 1] = p.y * (dpt[4 * j + 1] - dd.y);
+      dpt[4 * j + 2] = p.z * (dpt[4 * j + 2] - dd.x);
+      dpt[4 * j + 3] = p.w * (dpt[4 * j + 3] - dd.y);
+    }
+    mbar_arrive(sm.pt_empty);
+    pack_a(dsf, dpt);
+    turn_wait(1);
+    wgmma_fence();   // dsf was written by ordinary code
+    accumulate<KSTEPS>(acc, dsf, sm.str0 + stage * T::kStrTile);
+    wgmma_commit();
+    turn_pass(1);
+    wgmma_wait<0>();   // the stage is free
+    wgmma_pin(acc);
+    if (elected) mbar_arrive(sm.empty + stage);
+    if (++stage == T::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+template <int KSTEPS>   // k16 steps over the head dim: ceil(d / 16) up to 4,
+                        // then 5 or 10
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attn_bwd_dkv_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
                               const __grid_constant__ CUtensorMap map_k,
@@ -820,34 +856,48 @@ flash_attn_bwd_dkv_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
                               bf16* __restrict__ dk, bf16* __restrict__ dv,
                               int nq, int nk, int q_len, int kv_len, int d,
                               float sm_scale, Strides sdk, Strides sdv) {
+  using T = DkvTiles<KSTEPS>;
   extern __shared__ uint8_t smem_raw[];
-  const WgSmem sm(smem_raw);
-  const int k0 = blockIdx.x * kWgRows;
+  const WgSmem<T> sm(smem_raw);
+  const int k0 = blockIdx.x * T::kRes;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  // per consumer thread: key rows row0 and row0 + 8; in each 8-wide column
+  // tile, columns col0 and col0 + 1 (the accumulator layout, sm90.cuh); a
+  // split block's two warpgroups share its 64 key rows
+  const int row0 = k0 + (T::kSplit ? 0 : wg * 64) +
+                   ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  // warpgroup 0 stores dV, 1 dK when split; each both otherwise
+  const bool stores_dk = !T::kSplit || wg == 1;
+  const bool stores_dv = !T::kSplit || wg == 0;
 
   if (k0 >= kv_len) {   // key rows at or past kv_len only write zeros
     if (wg < 2) {
       const float zero[8 * KSTEPS] = {};
-      const int lane = threadIdx.x & 31;
-      const int row0 = k0 + wg * 64 + ((threadIdx.x >> 5) & 3) * 16 +
-                       (lane >> 2);
-      store_wg_bf16<KSTEPS>(dk + b * sdk.b + h * sdk.h, sdk.n, zero, 0.f,
-                            row0, nk, 0, d, 2 * (lane & 3));
-      store_wg_bf16<KSTEPS>(dv + b * sdv.b + h * sdv.h, sdv.n, zero, 0.f,
-                            row0, nk, 0, d, 2 * (lane & 3));
+      if (stores_dk)
+        store_wg_bf16<KSTEPS>(dk + b * sdk.b + h * sdk.h, sdk.n, zero, 0.f,
+                              row0, nk, 0, d, col0);
+      if (stores_dv)
+        store_wg_bf16<KSTEPS>(dv + b * sdv.b + h * sdv.h, sdv.n, zero, 0.f,
+                              row0, nk, 0, d, col0);
     }
     return;
   }
 
   if (threadIdx.x == 0) {
     mbar_init(sm.res_full, 1);
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int s = 0; s < T::kStages; ++s) {
       // the TMA thread's arrive (the bytes come with it) and the stats
       // warp's 32 lanes
       mbar_init(sm.full + s, 1 + 32);
       mbar_init(sm.empty + s, 2);   // one thread of each consumer warpgroup
+    }
+    if (T::kSplit) {
+      mbar_init(sm.pt_full, 128);
+      mbar_init(sm.pt_empty, 128);
     }
     mbar_init_fence();
   }
@@ -864,7 +914,6 @@ flash_attn_bwd_dkv_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
     } else if (warp == 1) {
       // the stats warp: each tile's LSE (in log2 units; +inf for query rows
       // at or past q_len) and delta into the stage
-      const int lane = threadIdx.x & 31;
       const long long stat0 = ((long long)b * gridDim.y + h) * nq;
       int stage = 0;
       uint32_t phase = 0;
@@ -879,7 +928,7 @@ flash_attn_bwd_dkv_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
           sm.dl[stage * 64 + r] = live ? delta[stat0 + row] : 0.f;
         }
         mbar_arrive(sm.full + stage);
-        if (++stage == kWgStages) {
+        if (++stage == T::kStages) {
           stage = 0;
           phase ^= 1;
         }
@@ -888,71 +937,83 @@ flash_attn_bwd_dkv_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
   } else {
     // ----------------------------------------------------------- consumers
     setmaxnreg_inc<232>();
-    const int lane = threadIdx.x & 31;
-    // per thread: key rows row0 and row0 + 8; in each 8-wide column tile,
-    // query columns col0 and col0 + 1 (the accumulator layout, sm90.cuh)
-    const int row0 = k0 + wg * 64 + ((threadIdx.x >> 5) & 3) * 16 +
-                     (lane >> 2);
-    const int col0 = 2 * (lane & 3);
     const bool elected = (threadIdx.x & 127) == 0;
     const float c = sm_scale * kLog2e;
-    const bf16* kw = sm.res0 + wg * 64 * 64;   // this warpgroup's key rows
-    const bf16* vw = sm.res1 + wg * 64 * 64;
 
-    float dka[8 * KSTEPS], dva[8 * KSTEPS];
-    #pragma unroll
-    for (int i = 0; i < 8 * KSTEPS; ++i) dka[i] = dva[i] = 0.f;
-
-    // A tile is two batches of wgmmas: S^T = K Q^T and dP^T = V dO^T, then
-    // dV += P^T dO and dK += dS^T Q, each batch on a turn of its own, so
-    // that one warpgroup's exponentials run under the other's products.
-    // Only one batch is in flight per warpgroup: tile t's score
-    // accumulators beside tile t-1's accumulating products would need more
-    // registers than ptxas has and it would serialise every wgmma (C7512).
     if (wg == 1) turn_pass(wg);   // warpgroup 0 goes first
     mbar_wait(sm.res_full, 0);
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int t = 0; t < n_tiles; ++t) {
-      float st[32], dpt[32];
-      mbar_wait(sm.full + stage, phase);
-      turn_wait(wg);
-      wgmma_fence();
-      scores<KSTEPS>(st, kw, sm.str0 + stage * kWgTile);
-      wgmma_commit();
-      scores<KSTEPS>(dpt, vw, sm.str1 + stage * kWgTile);
-      wgmma_commit();
-      turn_pass(wg);
-      wgmma_wait<1>();   // S^T is complete, dP^T may still run
-      wgmma_pin(st);
-      dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);
-      wgmma_wait<0>();
-      wgmma_pin(dpt);
-      dkv_tile_ds(dpt, st, sm.dl + stage * 64, col0);
-      uint32_t pf[4][4], dsf[4][4];   // P^T and dS^T in bf16
-      pack_a(pf, st);
-      pack_a(dsf, dpt);
-
-      turn_wait(wg);
-      wgmma_fence();   // pf, dsf were written by ordinary code
-      accumulate<KSTEPS>(dva, pf, sm.str1 + stage * kWgTile);
-      accumulate<KSTEPS>(dka, dsf, sm.str0 + stage * kWgTile);
-      wgmma_commit();
-      turn_pass(wg);
-      wgmma_wait<0>();   // the stage is free
-      wgmma_pin(dka);
-      wgmma_pin(dva);
-      if (elected) mbar_arrive(sm.empty + stage);
-      if (++stage == kWgStages) {
-        stage = 0;
-        phase ^= 1;
+    if constexpr (T::kSplit) {
+      float acc[8 * KSTEPS];
+      #pragma unroll
+      for (int i = 0; i < 8 * KSTEPS; ++i) acc[i] = 0.f;
+      if (wg == 1) {
+        dkv_split_dk<KSTEPS>(acc, sm, n_tiles, col0, elected);
+        store_wg_bf16<KSTEPS>(dk + b * sdk.b + h * sdk.h, sdk.n, acc,
+                              sm_scale, row0, nk, kv_len, d, col0);
+      } else {
+        dkv_split_dv<KSTEPS>(acc, sm, n_tiles, c, col0, elected);
+        store_wg_bf16<KSTEPS>(dv + b * sdv.b + h * sdv.h, sdv.n, acc, 1.f,
+                              row0, nk, kv_len, d, col0);
       }
-    }
+    } else {
+      const bf16* kw = sm.res0 + wg * 64 * 64;   // this warpgroup's key rows
+      const bf16* vw = sm.res1 + wg * 64 * 64;
+      float dka[8 * KSTEPS], dva[8 * KSTEPS];
+      #pragma unroll
+      for (int i = 0; i < 8 * KSTEPS; ++i) dka[i] = dva[i] = 0.f;
 
-    store_wg_bf16<KSTEPS>(dk + b * sdk.b + h * sdk.h, sdk.n, dka, sm_scale,
-                          row0, nk, kv_len, d, col0);
-    store_wg_bf16<KSTEPS>(dv + b * sdv.b + h * sdv.h, sdv.n, dva, 1.f, row0,
-                          nk, kv_len, d, col0);
+      // A tile is two batches of wgmmas: S^T = K Q^T and dP^T = V dO^T,
+      // then dV += P^T dO and dK += dS^T Q, each batch on a turn of its
+      // own, so that one warpgroup's exponentials run under the other's
+      // products. Only one batch is in flight per warpgroup: tile t's score
+      // accumulators beside tile t-1's accumulating products would need
+      // more registers than ptxas has and it would serialise every wgmma
+      // (C7512).
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        float st[32], dpt[32];
+        mbar_wait(sm.full + stage, phase);
+        turn_wait(wg);
+        wgmma_fence();
+        scores<KSTEPS, T::kResBox, T::kStrBox>(st, kw,
+                                               sm.str0 + stage * T::kStrTile);
+        wgmma_commit();
+        scores<KSTEPS, T::kResBox, T::kStrBox>(dpt, vw,
+                                               sm.str1 + stage * T::kStrTile);
+        wgmma_commit();
+        turn_pass(wg);
+        wgmma_wait<1>();   // S^T is complete, dP^T may still run
+        wgmma_pin(st);
+        dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);
+        wgmma_wait<0>();
+        wgmma_pin(dpt);
+        dkv_tile_ds(dpt, st, sm.dl + stage * 64, col0);
+        uint32_t pf[4][4], dsf[4][4];   // P^T and dS^T in bf16
+        pack_a(pf, st);
+        pack_a(dsf, dpt);
+
+        turn_wait(wg);
+        wgmma_fence();   // pf, dsf were written by ordinary code
+        accumulate<KSTEPS>(dva, pf, sm.str1 + stage * T::kStrTile);
+        accumulate<KSTEPS>(dka, dsf, sm.str0 + stage * T::kStrTile);
+        wgmma_commit();
+        turn_pass(wg);
+        wgmma_wait<0>();   // the stage is free
+        wgmma_pin(dka);
+        wgmma_pin(dva);
+        if (elected) mbar_arrive(sm.empty + stage);
+        if (++stage == T::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+
+      store_wg_bf16<KSTEPS>(dk + b * sdk.b + h * sdk.h, sdk.n, dka, sm_scale,
+                            row0, nk, kv_len, d, col0);
+      store_wg_bf16<KSTEPS>(dv + b * sdv.b + h * sdv.h, sdv.n, dva, 1.f,
+                            row0, nk, kv_len, d, col0);
+    }
   }
 }
 
@@ -973,7 +1034,7 @@ __device__ __forceinline__ void dq_tile(float (&s)[32], float (&dp)[32],
   }
 }
 
-template <int KSTEPS>   // k16 steps over the head dim: ceil(d / 16)
+template <int KSTEPS>   // k16 steps over the head dim: ceil(d / 16) <= 4
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attn_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
@@ -983,12 +1044,13 @@ flash_attn_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
                              const float* __restrict__ delta,
                              bf16* __restrict__ dq, int nq, int kv_len, int d,
                              float sm_scale, Strides sdq) {
+  using T = DqTiles<KSTEPS>;
   extern __shared__ uint8_t smem_raw[];
-  const WgSmem sm(smem_raw);
+  const WgSmem<T> sm(smem_raw);
 
   if (threadIdx.x == 0) {
     mbar_init(sm.res_full, 1);
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int s = 0; s < T::kStages; ++s) {
       mbar_init(sm.full + s, 1);    // the producer's arrive; TMA adds bytes
       mbar_init(sm.empty + s, 2);   // one thread of each consumer warpgroup
     }
@@ -996,7 +1058,7 @@ flash_attn_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
   }
   __syncthreads();
 
-  const int q0 = blockIdx.x * kWgRows;
+  const int q0 = blockIdx.x * T::kRes;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int n_tiles = (kv_len + kWgStream - 1) / kWgStream;
@@ -1020,6 +1082,7 @@ flash_attn_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
     const float c = sm_scale * kLog2e;
     const bf16* qw = sm.res0 + wg * 64 * 64;   // this warpgroup's rows
     const bf16* dow = sm.res1 + wg * 64 * 64;
+    constexpr int kA = T::kResBox, kB = T::kStrBox;
 
     const long long stat0 = ((long long)b * gridDim.y + h) * nq;
     float lse2[2], dl[2];
@@ -1050,9 +1113,9 @@ flash_attn_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
       mbar_wait(sm.full, 0);
       turn_wait(wg);
       wgmma_fence();
-      scores<KSTEPS>(s, qw, sm.str0);
+      scores<KSTEPS, kA, kB>(s, qw, sm.str0);
       wgmma_commit();
-      scores<KSTEPS>(dp, dow, sm.str1);
+      scores<KSTEPS, kA, kB>(dp, dow, sm.str1);
       wgmma_commit();
       turn_pass(wg);
       wgmma_wait<0>();
@@ -1061,18 +1124,18 @@ flash_attn_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
       tile(s, dp, 0);
       pack_a(dsf, dp);
     }
-    int prev = 0, stage = 1 % kWgStages;
-    uint32_t phase = kWgStages == 1;
+    int prev = 0, stage = 1 % T::kStages;
+    uint32_t phase = T::kStages == 1;
     for (int t = 1; t < n_tiles; ++t) {
       float s[32], dp[32];
       mbar_wait(sm.full + stage, phase);
       turn_wait(wg);
       wgmma_fence();   // dsf was written by ordinary code
-      scores<KSTEPS>(s, qw, sm.str0 + stage * kWgTile);
+      scores<KSTEPS, kA, kB>(s, qw, sm.str0 + stage * T::kStrTile);
       wgmma_commit();
-      scores<KSTEPS>(dp, dow, sm.str1 + stage * kWgTile);
+      scores<KSTEPS, kA, kB>(dp, dow, sm.str1 + stage * T::kStrTile);
       wgmma_commit();
-      accumulate<KSTEPS>(acc, dsf, sm.str0 + prev * kWgTile);
+      accumulate<KSTEPS>(acc, dsf, sm.str0 + prev * T::kStrTile);
       wgmma_commit();
       turn_pass(wg);
 
@@ -1085,14 +1148,14 @@ flash_attn_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
       if (elected) mbar_arrive(sm.empty + prev);
       pack_a(dsf, dp);
       prev = stage;
-      if (++stage == kWgStages) {
+      if (++stage == T::kStages) {
         stage = 0;
         phase ^= 1;
       }
     }
     turn_wait(wg);   // the last tile's dS K
     wgmma_fence();
-    accumulate<KSTEPS>(acc, dsf, sm.str0 + prev * kWgTile);
+    accumulate<KSTEPS>(acc, dsf, sm.str0 + prev * T::kStrTile);
     wgmma_commit();
     turn_pass(wg);
     wgmma_wait<0>();
@@ -1154,31 +1217,17 @@ cudaError_t launch_dq(int dtype, const Args& a, cudaStream_t s) {
 }
 
 template <int DPAD>
-cudaError_t launch_dkv(int dtype, const Args& a, cudaStream_t s) {
+cudaError_t launch_dkv_f32(const Args& a, cudaStream_t s) {
   const dim3 grid((a.nk + kBN - 1) / kBN, a.heads, a.batch);
-  if (dtype == 0) {
-    constexpr int smem = BwdF32<DPAD>::kDkvSmemBytes;
-    const cudaError_t err = allow_smem(flash_attn_bwd_dkv_f32<DPAD>, smem);
-    if (err != cudaSuccess) return err;
-    flash_attn_bwd_dkv_f32<DPAD><<<grid, kF32Threads, smem, s>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-        a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-        a.nq, a.nk, a.q_len, a.kv_len, a.d, a.sm_scale, a.sq, a.sk, a.sv,
-        a.sdo, a.so0, a.so1);
-  } else if constexpr (DPAD > 64) {
-    constexpr int smem = kDkvMmaSmemBytes<DPAD>;
-    const cudaError_t err = allow_smem(flash_attn_bwd_dkv_bf16<DPAD>, smem);
-    if (err != cudaSuccess) return err;
-    flash_attn_bwd_dkv_bf16<DPAD><<<grid, kDkvMmaThreads, smem, s>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-        a.nq, a.nk, a.q_len, a.kv_len, a.d, a.sm_scale, a.sq, a.sk, a.sv,
-        a.sdo, a.so0, a.so1);
-  } else {
-    return cudaErrorInvalidValue;   // bf16 at d <= 64 is the wgmma kernel's
-  }
+  constexpr int smem = BwdF32<DPAD>::kDkvSmemBytes;
+  const cudaError_t err = allow_smem(flash_attn_bwd_dkv_f32<DPAD>, smem);
+  if (err != cudaSuccess) return err;
+  flash_attn_bwd_dkv_f32<DPAD><<<grid, kF32Threads, smem, s>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.nq, a.nk, a.q_len, a.kv_len, a.d, a.sm_scale, a.sq, a.sk, a.sv,
+      a.sdo, a.so0, a.so1);
   return cudaGetLastError();
 }
 
@@ -1192,13 +1241,13 @@ bool attention_map(CUtensorMap* map, const void* base, int d, int tokens,
   return encode_tensor_map_bf16(map, base, 4, dims, strides, box);
 }
 
-// The four maps of a wgmma launch: resident boxes of 128 rows, streamed
-// boxes of 64; dQ: Q, dO resident (ending at nq), K, V streamed (ending at
-// kv_len); dK/dV: K, V resident (ending at kv_len), Q, dO streamed (ending
-// at q_len).
-bool wgmma_maps(const Args& a, bool dq, CUtensorMap (&maps)[4]) {
-  const int q_rows = dq ? kWgRows : kWgStream;
-  const int kv_rows = dq ? kWgStream : kWgRows;
+// The four maps of a wgmma launch: resident boxes of `res_rows` rows,
+// streamed boxes of 64; dQ: Q, dO resident (ending at nq), K, V streamed
+// (ending at kv_len); dK/dV: K, V resident (ending at kv_len), Q, dO
+// streamed (ending at q_len).
+bool wgmma_maps(const Args& a, bool dq, int res_rows, CUtensorMap (&maps)[4]) {
+  const int q_rows = dq ? res_rows : kWgStream;
+  const int kv_rows = dq ? kWgStream : res_rows;
   const int q_end = dq ? a.nq : a.q_len;
   return attention_map(&maps[0], a.q, a.d, q_end, a.heads, a.batch, a.sq,
                        q_rows) &&
@@ -1211,26 +1260,31 @@ bool wgmma_maps(const Args& a, bool dq, CUtensorMap (&maps)[4]) {
 }
 
 template <int KSTEPS>
-cudaError_t launch_dq_wgmma(const Args& a, const CUtensorMap (&m)[4],
-                            cudaStream_t s) {
+cudaError_t launch_dq_wgmma(const Args& a, cudaStream_t s) {
+  using T = DqTiles<KSTEPS>;
+  CUtensorMap m[4];
+  if (!wgmma_maps(a, true, T::kRes, m)) return cudaErrorInvalidValue;
   const cudaError_t err =
-      allow_smem(flash_attn_bwd_dq_bf16_wgmma<KSTEPS>, kWgSmemBytes);
+      allow_smem(flash_attn_bwd_dq_bf16_wgmma<KSTEPS>, T::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.nq + kWgRows - 1) / kWgRows, a.heads, a.batch);
-  flash_attn_bwd_dq_bf16_wgmma<KSTEPS><<<grid, kWgThreads, kWgSmemBytes, s>>>(
+  const dim3 grid((a.nq + T::kRes - 1) / T::kRes, a.heads, a.batch);
+  flash_attn_bwd_dq_bf16_wgmma<KSTEPS><<<grid, kWgThreads, T::kSmemBytes,
+                                         s>>>(
       m[0], m[1], m[2], m[3], a.lse, a.delta, static_cast<bf16*>(a.dq), a.nq,
       a.kv_len, a.d, a.sm_scale, a.so0);
   return cudaGetLastError();
 }
 
 template <int KSTEPS>
-cudaError_t launch_dkv_wgmma(const Args& a, const CUtensorMap (&m)[4],
-                             cudaStream_t s) {
+cudaError_t launch_dkv_wgmma(const Args& a, cudaStream_t s) {
+  using T = DkvTiles<KSTEPS>;
+  CUtensorMap m[4];
+  if (!wgmma_maps(a, false, T::kRes, m)) return cudaErrorInvalidValue;
   const cudaError_t err =
-      allow_smem(flash_attn_bwd_dkv_bf16_wgmma<KSTEPS>, kWgSmemBytes);
+      allow_smem(flash_attn_bwd_dkv_bf16_wgmma<KSTEPS>, T::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.nk + kWgRows - 1) / kWgRows, a.heads, a.batch);
-  flash_attn_bwd_dkv_bf16_wgmma<KSTEPS><<<grid, kWgThreads, kWgSmemBytes,
+  const dim3 grid((a.nk + T::kRes - 1) / T::kRes, a.heads, a.batch);
+  flash_attn_bwd_dkv_bf16_wgmma<KSTEPS><<<grid, kWgThreads, T::kSmemBytes,
                                           s>>>(
       m[0], m[1], m[2], m[3], a.lse, a.delta, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), a.nq, a.nk, a.q_len, a.kv_len, a.d,
@@ -1238,38 +1292,44 @@ cudaError_t launch_dkv_wgmma(const Args& a, const CUtensorMap (&m)[4],
   return cudaGetLastError();
 }
 
-template <int DPAD>
-cudaError_t launch_padded(int dtype, bool dq, const Args& a, cudaStream_t s) {
-  return dq ? launch_dq<DPAD>(dtype, a, s) : launch_dkv<DPAD>(dtype, a, s);
-}
-
-template <int KSTEPS>
-cudaError_t launch_wgmma(bool dq, const Args& a, const CUtensorMap (&m)[4],
-                         cudaStream_t s) {
-  return dq ? launch_dq_wgmma<KSTEPS>(a, m, s)
-            : launch_dkv_wgmma<KSTEPS>(a, m, s);
-}
-
 // The fixed table of the header note
-cudaError_t dispatch(int dtype, bool dq, const Args& a, cudaStream_t s) {
+cudaError_t dispatch_dq(int dtype, const Args& a, cudaStream_t s) {
   const int d = a.d;
-  if ((dtype != 0 && dtype != 1) || d < 1 || d > 160 ||
-      d % (dtype == 0 ? 4 : 8) != 0)
-    return cudaErrorInvalidValue;
   if (dtype == 1 && d <= 64) {
-    CUtensorMap m[4];
-    if (!wgmma_maps(a, dq, m)) return cudaErrorInvalidValue;
-    if (d <= 16) return launch_wgmma<1>(dq, a, m, s);
-    if (d <= 32) return launch_wgmma<2>(dq, a, m, s);
-    if (d <= 48) return launch_wgmma<3>(dq, a, m, s);
-    return launch_wgmma<4>(dq, a, m, s);
+    if (d <= 16) return launch_dq_wgmma<1>(a, s);
+    if (d <= 32) return launch_dq_wgmma<2>(a, s);
+    if (d <= 48) return launch_dq_wgmma<3>(a, s);
+    return launch_dq_wgmma<4>(a, s);
   }
-  if (d <= 16) return launch_padded<16>(dtype, dq, a, s);
-  if (d <= 32) return launch_padded<32>(dtype, dq, a, s);
-  if (d <= 48) return launch_padded<48>(dtype, dq, a, s);
-  if (d <= 64) return launch_padded<64>(dtype, dq, a, s);
-  if (d <= 80) return launch_padded<80>(dtype, dq, a, s);
-  return launch_padded<160>(dtype, dq, a, s);
+  if (d <= 16) return launch_dq<16>(dtype, a, s);
+  if (d <= 32) return launch_dq<32>(dtype, a, s);
+  if (d <= 48) return launch_dq<48>(dtype, a, s);
+  if (d <= 64) return launch_dq<64>(dtype, a, s);
+  if (d <= 80) return launch_dq<80>(dtype, a, s);
+  return launch_dq<160>(dtype, a, s);
+}
+
+cudaError_t dispatch_dkv(int dtype, const Args& a, cudaStream_t s) {
+  const int d = a.d;
+  if (dtype == 1) {
+    if (d <= 16) return launch_dkv_wgmma<1>(a, s);
+    if (d <= 32) return launch_dkv_wgmma<2>(a, s);
+    if (d <= 48) return launch_dkv_wgmma<3>(a, s);
+    if (d <= 64) return launch_dkv_wgmma<4>(a, s);
+    if (d <= 80) return launch_dkv_wgmma<5>(a, s);
+    return launch_dkv_wgmma<10>(a, s);
+  }
+  if (d <= 16) return launch_dkv_f32<16>(a, s);
+  if (d <= 32) return launch_dkv_f32<32>(a, s);
+  if (d <= 48) return launch_dkv_f32<48>(a, s);
+  if (d <= 64) return launch_dkv_f32<64>(a, s);
+  if (d <= 80) return launch_dkv_f32<80>(a, s);
+  return launch_dkv_f32<160>(a, s);
+}
+
+bool valid(int dtype, int d) {
+  return (dtype == 0 || dtype == 1) && d >= 1 && d <= 160 &&
+         d % (dtype == 0 ? 4 : 8) == 0;
 }
 
 }  // namespace
@@ -1286,12 +1346,13 @@ extern "C" int flash_attn_bwd_dq(int dtype, const void* q, const void* k,
                                  int batch, int heads, int nq, int kv_len,
                                  int d, float sm_scale, const long long* st,
                                  void* stream) {
+  if (!valid(dtype, d)) return (int)cudaErrorInvalidValue;
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dq, nullptr, nullptr,
          batch, heads, nq, kv_len, nq, kv_len, d, sm_scale,
          strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
          strides_at(st, 3), strides_at(st, 4), Strides{0, 0, 0}};
-  return (int)dispatch(dtype, true, a, static_cast<cudaStream_t>(stream));
+  return (int)dispatch_dq(dtype, a, static_cast<cudaStream_t>(stream));
 }
 
 // As flash_attn_bwd_dq, with dk, dv: [B, H, Nk, d] and 18 strides: q, k, v,
@@ -1304,10 +1365,11 @@ extern "C" int flash_attn_bwd_dkv(int dtype, const void* q, const void* k,
                                   int nq, int nk, int q_len, int kv_len,
                                   int d, float sm_scale, const long long* st,
                                   void* stream) {
+  if (!valid(dtype, d)) return (int)cudaErrorInvalidValue;
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), nullptr, dk, dv,
          batch, heads, nq, nk, q_len, kv_len, d, sm_scale,
          strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
          strides_at(st, 3), strides_at(st, 4), strides_at(st, 5)};
-  return (int)dispatch(dtype, false, a, static_cast<cudaStream_t>(stream));
+  return (int)dispatch_dkv(dtype, a, static_cast<cudaStream_t>(stream));
 }

@@ -163,12 +163,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // into a [64][DPAD + 8] smem tile (rows of an odd number of 16-byte chunks:
 // ldmatrix reads 8 of them without bank conflicts), zero-filling rows at or
 // past `rows` and the columns from the head dim `d` (a multiple of 8) to
-// DPAD; THREADS threads of the block take part.
-template <int DPAD, int THREADS = kBf16Threads>
+// DPAD; the block's kBf16Threads threads take part.
+template <int DPAD>
 __device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
                                                long long row_stride, int row0,
                                                int rows, int d) {
-  for (int i = threadIdx.x; i < 64 * (DPAD / 8); i += THREADS) {
+  for (int i = threadIdx.x; i < 64 * (DPAD / 8); i += kBf16Threads) {
     const int r = i / (DPAD / 8);
     const int c = (i % (DPAD / 8)) * 8;
     const bool valid = row0 + r < rows && c < d;

@@ -32,41 +32,38 @@
 // Which kernel runs is a fixed table by dtype and head dim d:
 //
 //   bfloat16, d <= 64   flash_attn_fwd_bf16_wgmma<ceil(d / 16)>
-//   bfloat16, d <= 80   flash_attn_fwd_bf16<80>    (mma.sync)
-//   bfloat16, d <= 160  flash_attn_fwd_bf16<160>   (mma.sync)
+//   bfloat16, d <= 80   flash_attn_fwd_bf16_wgmma<5>
+//   bfloat16, d <= 160  flash_attn_fwd_bf16_wgmma<10>
 //   float32,  d <= 160  flash_attn_fwd_f32<DPAD>, DPAD the smallest of
 //                       16, 32, 48, 64, 80, 160 that holds d
 //
-//  * bfloat16, d <= 64 (both DINOv2 trunks' 64, the SD-1.5 UNet's 40): the
+//  * bfloat16 (the DINOv2 trunks' 64, the SD-1.5 UNet's 40, 80 and 160): the
 //    tensor cores' full-rate path, wgmma fed by TMA, FlashAttention-3's
 //    shape at its simplest. A block is three warpgroups on 128 query rows.
 //    One thread of the producer warpgroup (which gives its registers away
 //    with setmaxnreg) starts TMA loads through 4-D tensor maps over (d,
 //    token, head, batch) that the C entry encodes from the strides it is
-//    given: Q once, then K and V tiles of 128 keys into a ring of three
-//    stages, each tile a 128 x 64 box with the 128-byte swizzle, each stage
-//    with a "full" and an "empty" mbarrier for K and another pair for V.
-//    TMA fills what lies outside the tensor with zeros: rows past Nq or
-//    kv_len (the K and V maps end at kv_len) and, for d < 64, the columns
-//    from d on. Each of the two consumer warpgroups owns 64 query rows: S =
-//    Q K^T is ceil(d / 16) wgmma m64n128k16 with both operands in shared
-//    memory; the online softmax runs on the accumulator fragments in
-//    registers; P, rounded to bfloat16, is regrouped in place into m64k16 A
-//    fragments (no shuffle) and P.V is eight wgmma m64nNk16, N = 16 *
-//    ceil(d / 16), with V as the MN-major B operand straight from its
-//    [keys, d] tile. So d = 40 pays for 48 columns, not 64. What bounds the
-//    kernel is the softmax (FP32 and exp work of two warps a scheduler),
-//    so the products are made to run under it: tile t's S goes out together
-//    with tile t-1's P.V, the softmax of tile t runs while P.V is still in
-//    flight, and the two warpgroups take turns on the tensor cores over a
-//    pair of named barriers, so that one's softmax falls under the other's
-//    products.
-//  * bfloat16, 64 < d <= 160 (the UNet's 80 and 160, launch-bound shapes of
-//    at most 1024 tokens): 4 warps, 16 query rows each, mma.sync m16n8k16.
-//    Q stays in registers as A fragments; 64-key K/V tiles arrive by
-//    cp.async into a double buffer; ldmatrix feeds K (and, with .trans, V)
-//    as B fragments; the score accumulator is reused as the A fragment of
-//    P.V. Shared memory is dynamic: 640 * (DPAD + 8) bytes, 107.5 KB at 160.
+//    given: Q once, then K and V tiles into a ring of three stages, each
+//    stage with a "full" and an "empty" mbarrier for K and another pair for
+//    V. A tile's head dim lies in 64-column boxes of the 128-byte swizzle
+//    (one box up to d = 64, two at 80, three at 160), so the padded widths
+//    are 16 * ceil(d / 16) up to 64, then 80 and 160. TMA fills what lies
+//    outside the tensor with zeros: rows past Nq or kv_len (the K and V maps
+//    end at kv_len) and the columns from d on. Each of the two consumer
+//    warpgroups owns 64 query rows: S = Q K^T is KSTEPS wgmma m64nKk16 with
+//    both operands in shared memory (each k16 step in its box); the online
+//    softmax runs on the accumulator fragments in registers; P, rounded to
+//    bfloat16, is regrouped in place into m64k16 A fragments (no shuffle)
+//    and P.V is one wgmma m64nNk16 a k16 step, N = 16 * ceil(d / 16) up to
+//    64 (d = 40 pays for 48 columns, not 64), then 80 and 160, with V as the
+//    MN-major B operand straight from its [keys, d] boxes (the descriptor's
+//    leading byte offset steps from box to box). K/V tiles are 128 keys up
+//    to d = 64 and 64 keys above (FwdTiles). What bounds the kernel is the
+//    softmax (FP32 and exp work of two warps a scheduler), so the products
+//    are made to run under it: tile t's S goes out together with tile t-1's
+//    P.V, the softmax of tile t runs while P.V is still in flight, and the
+//    two warpgroups take turns on the tensor cores over a pair of named
+//    barriers, so that one's softmax falls under the other's products.
 //  * float32: 256 threads, each 4 rows x 4 keys of the score tile and 4 rows
 //    x DPAD/16 columns of the output tile, scalar FMAs on float32 smem
 //    tiles: exact to float32 (TF32 tensor cores would lose the parity the
@@ -221,177 +218,37 @@ flash_attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------- bfloat16 path, d > 64: mma.sync
+// ------------------------------------------- bfloat16 path: wgmma + TMA
 
-template <int DPAD>
-constexpr int kBf16SmemBytes = 2 * (kBM + 4 * kBN) * (DPAD + 8);  // Q, 2 K, 2 V
-
-template <int DPAD>
-__global__ void __launch_bounds__(kBf16Threads)
-flash_attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o,
-                    float* __restrict__ lse, int nq, int kv_len, int d,
-                    float scale_log2, Strides sq, Strides sk, Strides sv,
-                    Strides so, long long lse_sb, long long lse_sh) {
-  constexpr int kLd = DPAD + 8;     // 16-byte chunks per row odd: ldmatrix
-                                    // reads 8 rows without bank conflicts
-  constexpr int kSteps = DPAD / 16; // k steps of Q K^T
-  constexpr int kDTiles = DPAD / 8; // 8-wide column tiles of the output
-  extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);
-  bf16* ks = qs + kBM * kLd;        // two K tiles, then two V tiles
-  bf16* vs = ks + 2 * kBN * kLd;
-  constexpr int kTile = kBN * kLd;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * kBM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-
-  load_tile_bf16<DPAD>(qs, q + b * sq.b + h * sq.h, sq.n, q0, nq, d);
-  load_tile_bf16<DPAD>(ks, kb, sk.n, 0, kv_len, d);
-  load_tile_bf16<DPAD>(vs, vb, sv.n, 0, kv_len, d);
-  cp_async_commit();
-
-  // per thread: rows g = lane/4 and g + 8 of the warp's 16; in each 8-wide
-  // column tile, columns 2*(lane%4) and +1 (the mma C-fragment layout)
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float acc[kDTiles][4];
-  #pragma unroll
-  for (int j = 0; j < kDTiles; ++j)
-    #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  uint32_t qf[kSteps][4];  // Q as A fragments, one per 16-wide k step
-
-  const int n_tiles = (kv_len + kBN - 1) / kBN;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) {  // prefetch the next tile into the other buffer
-      load_tile_bf16<DPAD>(ks + (buf ^ 1) * kTile, kb, sk.n, (t + 1) * kBN,
-                           kv_len, d);
-      load_tile_bf16<DPAD>(vs + (buf ^ 1) * kTile, vb, sv.n, (t + 1) * kBN,
-                           kv_len, d);
-    }
-    cp_async_commit();
-    cp_async_wait_all_but_newest();  // tile t (and Q) have landed
-    __syncthreads();
-    if (t == 0) {
-      #pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk)
-        ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * kLd + kk * 16 +
-                                (lane >> 4) * 8);
-    }
-
-    // S = Q K^T: 16 rows x 64 keys per warp
-    float s[8][4];
-    #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    #pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-      #pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t kf[4];  // B fragments of key tiles j and j + 1 at step kk
-        ldmatrix_x4(kf, ks + buf * kTile +
-                            ((j + (lane >> 4)) * 8 + (lane & 7)) * kLd +
-                            kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[j], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[j + 1], qf[kk], kf[2], kf[3]);
-      }
-    }
-
-    // online softmax in the exp2 domain; keys >= kv_len -> -inf
-    const int col0 = t * kBN + 2 * (lane & 3);
-    float mx[2] = {-INFINITY, -INFINITY};
-    #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale_log2;
-        if (col0 + j * 8 + (e & 1) >= kv_len) x = -INFINITY;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2];
-    #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);  // finite: a key < kv_len
-      alpha[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];  // this thread's share of the row sum
-    }
-    #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        l[e >> 1] += p;
-      }
-    #pragma unroll
-    for (int j = 0; j < kDTiles; ++j)
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
-
-    // acc += P V; P's C fragments of two column tiles form one A fragment
-    #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pf[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      #pragma unroll
-      for (int jd = 0; jd < kDTiles; jd += 2) {
-        uint32_t vf[4];  // B fragments of d tiles jd and jd + 1
-        ldmatrix_x4_trans(vf, vs + buf * kTile +
-                                  (kk * 16 + (lane & 7) +
-                                   ((lane >> 3) & 1) * 8) * kLd +
-                                  jd * 8 + (lane >> 4) * 8);
-        mma_bf16(acc[jd], pf, vf[0], vf[1]);
-        mma_bf16(acc[jd + 1], pf, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with buffer `buf`
-  }
-
-  bf16* ob = o + b * so.b + h * so.h;
-  #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int row = q0 + warp * 16 + (lane >> 2) + r * 8;
-    if (row >= nq) continue;
-    const float inv = 1.f / l[r];
-    #pragma unroll
-    for (int j = 0; j < kDTiles; ++j) {
-      const int col = j * 8 + 2 * (lane & 3);   // d is a multiple of 8
-      if (col < d)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row * so.n + col) =
-            __floats2bfloat162_rn(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
-    }
-    if (lse != nullptr && (lane & 3) == 0)
-      lse[b * lse_sb + h * lse_sh + row] = m[r] * kLn2 + logf(l[r]);
-  }
-}
-
-// ------------------------------------ bfloat16 path, d <= 64: wgmma + TMA
-
-constexpr int kWgRows = 128;             // query rows per block, keys per tile
-constexpr int kWgStages = 3;
+constexpr int kWgRows = 128;             // query rows per block
 constexpr int kWgThreads = 384;          // two consumer warpgroups, then the
                                          // producer's
-constexpr int kWgTile = kWgRows * 64;    // elements of a Q, K or V tile
-constexpr int kWgTileBytes = 2 * kWgTile;
-constexpr int kWgSmemBytes = (1 + 2 * kWgStages) * kWgTileBytes +
-                             (1 + 4 * kWgStages) * 8 +
-                             kSwizzleAtom;   // room to align the tiles
+
+// The tiles of flash_attn_fwd_bf16_wgmma<KSTEPS>: Q, then a ring of K and V
+// tiles of kKeys keys, each tile kBoxes boxes of 64 head-dim columns. A tile
+// is 128 keys up to d = 64 and 64 keys above. At d = 160, 128 keys would tie
+// 176 registers a consumer thread to wgmmas in flight (the scores, 64; P as
+// bf16 fragments, 32; the output, 80), past the 168 a thread of a
+// 384-thread block has. At d = 80 they would tie 136, which ptxas still
+// keeps in flight, and take 3-4% less time at 1024 keys but about 20% more
+// onto the pix2gestalt UNet's one context key, a tile that is nearly all
+// zero fill (`tools/kernel_ablation.py`, keys128; PERF.md).
+template <int KSTEPS>
+struct FwdTiles {
+  static constexpr int kBoxes = kHeadBoxes<KSTEPS>;
+  static constexpr int kKeys = KSTEPS <= 4 ? 128 : 64;
+  static constexpr int kQBox = kWgRows * 64;        // elements of a Q box
+  static constexpr int kKVBox = kKeys * 64;         // ... of a K or V box
+  static constexpr int kQBytes = 2 * kBoxes * kQBox;
+  static constexpr int kKVBytes = 2 * kBoxes * kKVBox;
+  static constexpr int kRoom = kSmemMax - kSwizzleAtom - 13 * 8 - kQBytes;
+  static constexpr int kStages = kRoom / (2 * kKVBytes) < 3
+                                     ? kRoom / (2 * kKVBytes) : 3;
+  static constexpr int kSmemBytes = kQBytes + 2 * kStages * kKVBytes +
+                                    (1 + 4 * kStages) * 8 +
+                                    kSwizzleAtom;   // room to align the tiles
+  static_assert(kStages >= 2 && kSmemBytes <= kSmemMax, "shared memory");
+};
 
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -399,24 +256,24 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// The online softmax of one 64 x 128 score tile held as accumulator
-// fragments: s becomes P = exp2(scale * s - new max) in place, m (the running
-// max of scale * s) and l (this thread's share of the row sums) are brought
-// up to date, and alpha is what the output so far must be multiplied by. The
-// max is taken over the raw scores, of s or, for a negative scale (NEG), of
-// -s: rounding is monotonic, so |scale| times that is exactly the max of the
-// rounded scale * s, and the scale costs no instruction of its own: it is
-// the multiplier of the one fused multiply-add under the exponential. In a
-// RAGGED tile (the last one, when kv_len is no multiple of 128) keys >=
-// kv_len are left out of the max and get P = 0.
-template <bool RAGGED, bool NEG>
-__device__ __forceinline__ void softmax_body(float (&s)[64], float (&m)[2],
+// The online softmax of one 64-row score tile of N / 2 keys held as
+// accumulator fragments: s becomes P = exp2(scale * s - new max) in place, m
+// (the running max of scale * s) and l (this thread's share of the row sums)
+// are brought up to date, and alpha is what the output so far must be
+// multiplied by. The max is taken over the raw scores, of s or, for a
+// negative scale (NEG), of -s: rounding is monotonic, so |scale| times that
+// is exactly the max of the rounded scale * s, and the scale costs no
+// instruction of its own: it is the multiplier of the one fused multiply-add
+// under the exponential. In a RAGGED tile (the last one, when kv_len is no
+// multiple of the tile) keys >= kv_len are left out of the max and get P = 0.
+template <bool RAGGED, bool NEG, int N>
+__device__ __forceinline__ void softmax_body(float (&s)[N], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              float scale_log2, int key0,
                                              int kv_len) {
   float mx[2] = {-INFINITY, -INFINITY};
   #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N; ++i) {
     if (RAGGED && key0 + (i >> 2) * 8 + (i & 1) >= kv_len) continue;
     mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], NEG ? -s[i] : s[i]);
   }
@@ -431,7 +288,7 @@ __device__ __forceinline__ void softmax_body(float (&s)[64], float (&m)[2],
     l[r] *= alpha[r];
   }
   #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N; ++i) {
     s[i] = exp2_approx(fmaf(s[i], scale_log2, -m[(i >> 1) & 1]));
     if (RAGGED && key0 + (i >> 2) * 8 + (i & 1) >= kv_len) s[i] = 0.f;
     l[(i >> 1) & 1] += s[i];
@@ -439,7 +296,8 @@ __device__ __forceinline__ void softmax_body(float (&s)[64], float (&m)[2],
 }
 
 // tile_end: one past the tile's last key
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              float scale_log2, int key0,
                                              int tile_end, int kv_len) {
@@ -455,16 +313,17 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
   }
 }
 
-// P, rounded to bf16, regrouped into the A fragments of eight k16 steps: the
+// P, rounded to bf16, regrouped into the A fragments of N / 8 k16 steps: the
 // accumulator's column tiles 2kk and 2kk + 1 are one m64k16 A fragment
-__device__ __forceinline__ void pack_p(uint32_t (&pf)[8][4],
-                                       const float (&s)[64]) {
+template <int N>
+__device__ __forceinline__ void pack_p(uint32_t (&pf)[N / 8][4],
+                                       const float (&s)[N]) {
   #pragma unroll
-  for (int i = 0; i < 64; i += 2)
+  for (int i = 0; i < N; i += 2)
     pf[i >> 3][(i >> 1) & 3] = pack_bf16(s[i], s[i + 1]);
 }
 
-template <int KSTEPS>   // k16 steps over the head dim: ceil(d / 16)
+template <int KSTEPS>   // k16 steps over the head dim: ceil(d / 16) to 4, 5, 10
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attn_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
@@ -472,23 +331,27 @@ flash_attn_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
                           bf16* __restrict__ o, float* __restrict__ lse,
                           int nq, int kv_len, int d, float scale_log2,
                           Strides so, long long lse_sb, long long lse_sh) {
+  using T = FwdTiles<KSTEPS>;
   constexpr int kNV = 16 * KSTEPS;      // output columns computed
+  constexpr int kKeys = T::kKeys, kStages = T::kStages;
+  constexpr int kS = kKeys / 2;         // score registers a thread
   extern __shared__ uint8_t smem_raw[];
   // the swizzle pattern is a function of the address: 1024-byte aligned tiles
   uint8_t* smem = smem_raw + ((kSwizzleAtom - smem_addr(smem_raw)) &
                               (kSwizzleAtom - 1));
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + kWgTile;
-  bf16* vs = ks + kWgStages * kWgTile;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kWgStages * kWgTile);
+  bf16* ks = qs + T::kBoxes * T::kQBox;
+  bf16* vs = ks + kStages * T::kBoxes * T::kKVBox;
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(vs + kStages * T::kBoxes * T::kKVBox);
   uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = k_full + kWgStages;
-  uint64_t* k_empty = v_full + kWgStages;
-  uint64_t* v_empty = k_empty + kWgStages;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(k_full + s, 1);   // the producer's arrive; TMA adds the bytes
       mbar_init(v_full + s, 1);
       mbar_init(k_empty + s, 2);  // one thread of each consumer warpgroup
@@ -501,7 +364,7 @@ flash_attn_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
   const int q0 = blockIdx.x * kWgRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int n_tiles = (kv_len + kWgRows - 1) / kWgRows;
+  const int n_tiles = (kv_len + kKeys - 1) / kKeys;
   const int wg = threadIdx.x >> 7;
 
   if (wg == 2) {
@@ -511,20 +374,21 @@ flash_attn_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
       tma_prefetch_map(&map_q);
       tma_prefetch_map(&map_k);
       tma_prefetch_map(&map_v);
-      mbar_arrive_expect_tx(q_full, kWgTileBytes);
-      tma_load_4d(qs, &map_q, q_full, 0, q0, h, b);
+      mbar_arrive_expect_tx(q_full, T::kQBytes);
+      tma_load_boxes<T::kBoxes>(qs, T::kQBox, &map_q, q_full, q0, h, b);
       int stage = 0;
       uint32_t phase = 0;
       for (int t = 0; t < n_tiles; ++t) {
+        const int off = stage * T::kBoxes * T::kKVBox;
         mbar_wait(k_empty + stage, phase ^ 1);   // free from the start
-        mbar_arrive_expect_tx(k_full + stage, kWgTileBytes);
-        tma_load_4d(ks + stage * kWgTile, &map_k, k_full + stage, 0,
-                    t * kWgRows, h, b);
+        mbar_arrive_expect_tx(k_full + stage, T::kKVBytes);
+        tma_load_boxes<T::kBoxes>(ks + off, T::kKVBox, &map_k,
+                                  k_full + stage, t * kKeys, h, b);
         mbar_wait(v_empty + stage, phase ^ 1);
-        mbar_arrive_expect_tx(v_full + stage, kWgTileBytes);
-        tma_load_4d(vs + stage * kWgTile, &map_v, v_full + stage, 0,
-                    t * kWgRows, h, b);
-        if (++stage == kWgStages) {
+        mbar_arrive_expect_tx(v_full + stage, T::kKVBytes);
+        tma_load_boxes<T::kBoxes>(vs + off, T::kKVBox, &map_v,
+                                  v_full + stage, t * kKeys, h, b);
+        if (++stage == kStages) {
           stage = 0;
           phase ^= 1;
         }
@@ -547,33 +411,36 @@ flash_attn_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
     float acc[kNV / 2];
     #pragma unroll
     for (int i = 0; i < kNV / 2; ++i) acc[i] = 0.f;
-    uint32_t pf[8][4];    // the tile before's P in bf16, read by its P.V
+    uint32_t pf[kKeys / 16][4];   // the tile before's P in bf16, read by P.V
 
-    // Tile t's S = Q K^T (ceil(d / 16) wgmma m64n128k16, operands in shared
-    // memory) is started together with tile t-1's O += P V (eight wgmma
-    // m64nNk16, P from registers, V [keys, d] the MN-major B operand), so
-    // that tile t's softmax runs while the tensor cores work on P V.
+    // Tile t's S = Q K^T (KSTEPS wgmma m64nKk16, K the tile's keys, operands
+    // in shared memory) is started together with tile t-1's O += P V (one
+    // wgmma m64nNk16 a k16 step, N = 16 KSTEPS, P from registers, V [keys,
+    // d] the MN-major B operand, its boxes LBO apart), so that tile t's
+    // softmax runs while the tensor cores work on P V.
     if (wg == 1) turn_pass(wg);   // warpgroup 0 goes first
     mbar_wait(q_full, 0);
     const uint64_t dq = wgmma_desc(qs + wg * 64 * 64, 16, kSwizzleAtom);
-    const auto start_s = [&](float (&s)[64], int stage) {
-      const uint64_t dk = wgmma_desc(ks + stage * kWgTile, 16, kSwizzleAtom);
+    const auto start_s = [&](float (&s)[kS], int stage) {
+      const uint64_t dk = wgmma_desc(ks + stage * T::kBoxes * T::kKVBox, 16,
+                                     kSwizzleAtom);
       #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk)
-        wgmma_ss<0>(s, wgmma_desc_advance(dq, kk * 32),
-                    wgmma_desc_advance(dk, kk * 32), kk != 0);
+        wgmma_ss<0>(s, kstep_desc(dq, kk, 2 * T::kQBox),
+                    kstep_desc(dk, kk, 2 * T::kKVBox), kk != 0);
       wgmma_commit();
     };
     const auto start_pv = [&](int stage) {
-      const uint64_t dv = wgmma_desc(vs + stage * kWgTile, 16, kSwizzleAtom);
+      const uint64_t dv = wgmma_desc(vs + stage * T::kBoxes * T::kKVBox,
+                                     2 * T::kKVBox, kSwizzleAtom);
       #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < kKeys / 16; ++kk)
         wgmma_rs(acc, pf[kk], wgmma_desc_advance(dv, kk * 16 * kSwizzleRow));
       wgmma_commit();
     };
 
     {   // tile 0: nothing to overlap with yet
-      float s[64];
+      float s[kS];
       mbar_wait(k_full, 0);
       turn_wait(wg);
       wgmma_fence();
@@ -582,13 +449,13 @@ flash_attn_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<0>();
       wgmma_pin(s);
       if (elected) mbar_arrive(k_empty);
-      softmax_tile(s, m, l, alpha, scale_log2, col0, kWgRows, kv_len);
+      softmax_tile(s, m, l, alpha, scale_log2, col0, kKeys, kv_len);
       pack_p(pf, s);   // acc is 0: nothing to rescale
     }
-    int k_stage = 1 % kWgStages, v_stage = 0;
-    uint32_t k_phase = kWgStages == 1, v_phase = 0;
+    int k_stage = 1 % kStages, v_stage = 0;
+    uint32_t k_phase = kStages == 1, v_phase = 0;
     for (int t = 1; t < n_tiles; ++t) {
-      float s[64];
+      float s[kS];
       mbar_wait(k_full + k_stage, k_phase);
       turn_wait(wg);
       wgmma_fence();   // acc, rescaled, and pf were written by ordinary code
@@ -600,16 +467,16 @@ flash_attn_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<1>();   // S is complete, P V may still run
       wgmma_pin(s);
       if (elected) mbar_arrive(k_empty + k_stage);
-      if (++k_stage == kWgStages) {
+      if (++k_stage == kStages) {
         k_stage = 0;
         k_phase ^= 1;
       }
-      softmax_tile(s, m, l, alpha, scale_log2, t * kWgRows + col0,
-                   (t + 1) * kWgRows, kv_len);
+      softmax_tile(s, m, l, alpha, scale_log2, t * kKeys + col0,
+                   (t + 1) * kKeys, kv_len);
       wgmma_wait<0>();
       wgmma_pin(acc);
       if (elected) mbar_arrive(v_empty + v_stage);
-      if (++v_stage == kWgStages) {
+      if (++v_stage == kStages) {
         v_stage = 0;
         v_phase ^= 1;
       }
@@ -668,49 +535,44 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 }
 
 template <int DPAD>
-cudaError_t launch(int dtype, const Args& a, dim3 grid, cudaStream_t s) {
-  if (dtype == 0) {
-    constexpr int smem = F32Tile<DPAD>::kSmemBytes;
-    const cudaError_t err = allow_smem(flash_attn_fwd_f32<DPAD>, smem);
-    if (err != cudaSuccess) return err;
-    flash_attn_fwd_f32<DPAD><<<grid, kF32Threads, smem, s>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse,
-        a.nq, a.kv_len, a.d, a.scale_log2, a.sq, a.sk, a.sv, a.so, a.lse_sb,
-        a.lse_sh);
-  } else if constexpr (DPAD > 64) {
-    constexpr int smem = kBf16SmemBytes<DPAD>;
-    const cudaError_t err = allow_smem(flash_attn_fwd_bf16<DPAD>, smem);
-    if (err != cudaSuccess) return err;
-    flash_attn_fwd_bf16<DPAD><<<grid, kBf16Threads, smem, s>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.nq,
-        a.kv_len, a.d, a.scale_log2, a.sq, a.sk, a.sv, a.so, a.lse_sb,
-        a.lse_sh);
-  } else {
-    return cudaErrorInvalidValue;   // bf16 at d <= 64 is launch_wgmma's
-  }
+cudaError_t launch_f32(const Args& a, dim3 grid, cudaStream_t s) {
+  constexpr int smem = F32Tile<DPAD>::kSmemBytes;
+  const cudaError_t err = allow_smem(flash_attn_fwd_f32<DPAD>, smem);
+  if (err != cudaSuccess) return err;
+  flash_attn_fwd_f32<DPAD><<<grid, kF32Threads, smem, s>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.nq,
+      a.kv_len, a.d, a.scale_log2, a.sq, a.sk, a.sv, a.so, a.lse_sb,
+      a.lse_sh);
   return cudaGetLastError();
 }
 
 // One operand's tensor map: (d, token, head, batch) in boxes of 64 columns
-// x 128 tokens of one head.
+// x `rows` tokens of one head.
 bool attention_map(CUtensorMap* map, const void* base, int d, int tokens,
-                   int heads, int batch, const Strides& st) {
+                   int heads, int batch, const Strides& st, int rows) {
   const long long dims[4] = {d, tokens, heads, batch};
   const long long strides[3] = {st.n, st.h, st.b};
-  const int box[4] = {64, kWgRows, 1, 1};
+  const int box[4] = {64, rows, 1, 1};
   return encode_tensor_map_bf16(map, base, 4, dims, strides, box);
 }
 
 template <int KSTEPS>
-cudaError_t launch_wgmma(const Args& a, const CUtensorMap& map_q,
-                         const CUtensorMap& map_k, const CUtensorMap& map_v,
-                         dim3 grid, cudaStream_t s) {
+cudaError_t launch_wgmma(const Args& a, int heads, int batch,
+                         cudaStream_t s) {
+  using T = FwdTiles<KSTEPS>;
+  CUtensorMap map_q, map_k, map_v;
+  if (!attention_map(&map_q, a.q, a.d, a.nq, heads, batch, a.sq, kWgRows) ||
+      !attention_map(&map_k, a.k, a.d, a.kv_len, heads, batch, a.sk,
+                     T::kKeys) ||
+      !attention_map(&map_v, a.v, a.d, a.kv_len, heads, batch, a.sv,
+                     T::kKeys))
+    return cudaErrorInvalidValue;
   const cudaError_t err =
-      allow_smem(flash_attn_fwd_bf16_wgmma<KSTEPS>, kWgSmemBytes);
+      allow_smem(flash_attn_fwd_bf16_wgmma<KSTEPS>, T::kSmemBytes);
   if (err != cudaSuccess) return err;
-  flash_attn_fwd_bf16_wgmma<KSTEPS><<<grid, kWgThreads, kWgSmemBytes, s>>>(
+  const dim3 grid((a.nq + kWgRows - 1) / kWgRows, heads, batch);
+  flash_attn_fwd_bf16_wgmma<KSTEPS><<<grid, kWgThreads, T::kSmemBytes, s>>>(
       map_q, map_k, map_v, static_cast<bf16*>(a.o), a.lse, a.nq, a.kv_len,
       a.d, a.scale_log2, a.so, a.lse_sb, a.lse_sh);
   return cudaGetLastError();
@@ -739,23 +601,19 @@ extern "C" int flash_attn_fwd(int dtype, const void* q, const void* k,
                Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
                Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
                lse_sb, lse_sh};
-  if (dtype == 1 && d <= 64) {
-    CUtensorMap map_q, map_k, map_v;
-    if (!attention_map(&map_q, q, d, nq, heads, batch, a.sq) ||
-        !attention_map(&map_k, k, d, kv_len, heads, batch, a.sk) ||
-        !attention_map(&map_v, v, d, kv_len, heads, batch, a.sv))
-      return (int)cudaErrorInvalidValue;
-    const dim3 grid((nq + kWgRows - 1) / kWgRows, heads, batch);
-    if (d <= 16) return (int)launch_wgmma<1>(a, map_q, map_k, map_v, grid, s);
-    if (d <= 32) return (int)launch_wgmma<2>(a, map_q, map_k, map_v, grid, s);
-    if (d <= 48) return (int)launch_wgmma<3>(a, map_q, map_k, map_v, grid, s);
-    return (int)launch_wgmma<4>(a, map_q, map_k, map_v, grid, s);
+  if (dtype == 1) {   // the fixed table of the header note
+    if (d <= 16) return (int)launch_wgmma<1>(a, heads, batch, s);
+    if (d <= 32) return (int)launch_wgmma<2>(a, heads, batch, s);
+    if (d <= 48) return (int)launch_wgmma<3>(a, heads, batch, s);
+    if (d <= 64) return (int)launch_wgmma<4>(a, heads, batch, s);
+    if (d <= 80) return (int)launch_wgmma<5>(a, heads, batch, s);
+    return (int)launch_wgmma<10>(a, heads, batch, s);
   }
   const dim3 grid((nq + kBM - 1) / kBM, heads, batch);
-  if (d <= 16) return (int)launch<16>(dtype, a, grid, s);
-  if (d <= 32) return (int)launch<32>(dtype, a, grid, s);
-  if (d <= 48) return (int)launch<48>(dtype, a, grid, s);
-  if (d <= 64) return (int)launch<64>(dtype, a, grid, s);
-  if (d <= 80) return (int)launch<80>(dtype, a, grid, s);
-  return (int)launch<160>(dtype, a, grid, s);
+  if (d <= 16) return (int)launch_f32<16>(a, grid, s);
+  if (d <= 32) return (int)launch_f32<32>(a, grid, s);
+  if (d <= 48) return (int)launch_f32<48>(a, grid, s);
+  if (d <= 64) return (int)launch_f32<64>(a, grid, s);
+  if (d <= 80) return (int)launch_f32<80>(a, grid, s);
+  return (int)launch_f32<160>(a, grid, s);
 }

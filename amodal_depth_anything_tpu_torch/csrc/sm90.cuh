@@ -23,6 +23,13 @@ namespace {
 
 constexpr int kSwizzleRow = 128;     // bytes per row of a swizzled tile
 constexpr int kSwizzleAtom = 1024;   // 8 rows: alignment of every tile
+constexpr int kSmemMax = 232448;     // dynamic shared memory of one block
+
+// A head dim of 16 * KSTEPS columns lies in shared memory as kHeadBoxes
+// 64-column boxes, each a tile of its own (rows of 128 bytes, 1024-byte
+// aligned); TMA zero-fills the last one past the head dim.
+template <int KSTEPS>
+constexpr int kHeadBoxes = (KSTEPS + 3) / 4;
 
 // ------------------------------------------------------------- mbarriers
 
@@ -103,6 +110,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
           "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
           "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// The BOXES 64-column boxes of the tile at token `row` of head h, batch b
+// of a (d, token, head, batch) map, `box_elems` elements apart in dst
+template <int BOXES>
+__device__ __forceinline__ void tma_load_boxes(bf16* dst, int box_elems,
+                                               const CUtensorMap* map,
+                                               uint64_t* bar, int row, int h,
+                                               int b) {
+  #pragma unroll
+  for (int x = 0; x < BOXES; ++x)
+    tma_load_4d(dst + x * box_elems, map, bar, 64 * x, row, h, b);
 }
 
 // Copy a box from shared memory to the map's tensor at (c0, c1); what lies
@@ -430,6 +449,88 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 80] += A[64 x 16] * B[16 x 80]: A as four registers of bf16 pairs
+// per thread (the m16n8k16 A-fragment layout of each warp's 16 rows), B
+// MN-major in shared memory, in 64-column boxes LBO apart
+__device__ __forceinline__ void wgmma_rs(float (&d)[40],
+    const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 160] += A[64 x 16] * B[16 x 160]: A as four registers of bf16 pairs
+// per thread (the m16n8k16 A-fragment layout of each warp's 16 rows), B
+// MN-major in shared memory, in 64-column boxes LBO apart
+__device__ __forceinline__ void wgmma_rs(float (&d)[80],
+    const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The descriptor of k16 step kk of a K-major operand whose head dim lies in
+// boxes `box_bytes` apart (desc: box 0's): 32 bytes a step within a box
+__device__ __forceinline__ uint64_t kstep_desc(uint64_t desc, int kk,
+                                               uint32_t box_bytes) {
+  return wgmma_desc_advance(desc, (kk / 4) * box_bytes + (kk % 4) * 32);
 }
 
 // ------------------------------------------------- tensor maps (host side)

@@ -5,8 +5,9 @@ compiles for Hopper (`sm_90a`) into
 `<repo>/build/torch_kernels/lib<name>_<hash>.so`, where the hash covers the
 source, the shared `csrc/*.cuh` headers and the flags, so an edited source
 builds anew and an unchanged one is reused. `build()` starts one nvcc per kernel,
-all together, and waits for them; `load()` builds what is missing and
-returns the `ctypes.CDLL`. The libraries link against the CUDA runtime
+all together, and waits for them, and keeps each compiler report beside its
+library (`ptxas_report`); `load()` builds what is missing and returns the
+`ctypes.CDLL`. The libraries link against the CUDA runtime
 only: the one libcuda function they need (`cuTensorMapEncodeTiled`, for the
 TMA tensor maps of `csrc/sm90.cuh`) is fetched through the runtime at first
 use. Nothing here runs at import.
@@ -22,7 +23,7 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["KERNELS", "BUILD_DIR", "build", "load", "library_path",
-           "nvcc_path"]
+           "nvcc_path", "ptxas_report"]
 
 KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "fused_epilogue")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -75,11 +76,19 @@ def build(names=KERNELS) -> dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
             continue
+        library_path(name).with_suffix(".log").write_text(out)
         os.replace(tmp, library_path(name))
         reports[name] = out
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return reports
+
+
+def ptxas_report(name: str) -> str | None:
+    """What nvcc and ptxas (`-v`) printed when kernel library `name` was
+    built, kept beside it; None if it is not built."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else None
 
 
 def load(name: str) -> ctypes.CDLL:

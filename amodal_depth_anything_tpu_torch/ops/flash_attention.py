@@ -25,8 +25,11 @@ Layout [B, H, N, D] as in the JAX package. The kernels take any Nq and Nk
 (they mask the ragged edges and keys >= `kv_len` themselves) and float32 or
 bfloat16. All three take any head dim up to 160 that is a multiple of 4
 (float32) or 8 (bfloat16), the 16-byte vector loads' rule: the DINOv2
-trunks' 64 and the SD-1.5 UNet's 40, 80 and 160 among them;
-`bwd_instantiations` names the backward kernels a dtype and head dim run.
+trunks' 64 and the SD-1.5 UNet's 40, 80 and 160 among them. In bfloat16
+the forward and dK/dV run on TMA + wgmma at every head dim, padded to 16 *
+ceil(d / 16) up to 64 and to 80 or 160 above; dQ does up to 64 and runs
+`mma.sync` above. `fwd_instantiation` and `bwd_instantiations` name the
+kernels a dtype and head dim run (the sources' fixed tables).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import torch
 
 __all__ = ["mha", "mha_reference", "mha_bwd_reference", "flash_attn_bwd_dq",
            "flash_attn_bwd_dkv", "entry_argtypes", "check_head_dim",
-           "kernel_strides",
+           "kernel_strides", "fwd_instantiation",
            "bwd_instantiations", "MAX_HEAD_DIM", "NEG_INF"]
 
 NEG_INF = -1e30  # the JAX package's mask value (avoids inf - inf NaNs)
@@ -117,16 +120,37 @@ def check_head_dim(d: int, dtype) -> None:
             f"{MAX_HEAD_DIM}, got {d}")
 
 
+def _padded(d: int) -> int:
+    """The f32 kernels' padded head dim: the smallest that holds d."""
+    return next(p for p in (16, 32, 48, 64, 80, 160) if d <= p)
+
+
+def _wgmma_steps(d: int) -> int:
+    """k16 steps of a bf16 wgmma instantiation: ceil(d / 16) up to 64,
+    then the padded widths 80 and 160 (5 and 10 steps)."""
+    return -(-d // 16) if d <= 64 else _padded(d) // 16
+
+
+def fwd_instantiation(dtype, d: int) -> str:
+    """The forward kernel instantiation `csrc/flash_attn_fwd.cu` runs for
+    `dtype` and head dim `d` (its fixed table)."""
+    check_head_dim(d, dtype)
+    if dtype == torch.bfloat16:
+        return f"flash_attn_fwd_bf16_wgmma<{_wgmma_steps(d)}>"
+    return f"flash_attn_fwd_f32<{_padded(d)}>"
+
+
 def bwd_instantiations(dtype, d: int) -> tuple[str, str]:
     """The (dQ, dK/dV) kernel instantiations `csrc/flash_attn_bwd.cu` runs
     for `dtype` and head dim `d` (its fixed table)."""
     check_head_dim(d, dtype)
-    if dtype == torch.bfloat16 and d <= 64:
-        kind = f"bf16_wgmma<{-(-d // 16)}>"
-    else:
-        pad = next(p for p in (16, 32, 48, 64, 80, 160) if d <= p)
-        kind = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}<{pad}>"
-    return f"flash_attn_bwd_dq_{kind}", f"flash_attn_bwd_dkv_{kind}"
+    if dtype != torch.bfloat16:
+        kind = f"f32<{_padded(d)}>"
+        return f"flash_attn_bwd_dq_{kind}", f"flash_attn_bwd_dkv_{kind}"
+    dkv = f"flash_attn_bwd_dkv_bf16_wgmma<{_wgmma_steps(d)}>"
+    if d <= 64:
+        return f"flash_attn_bwd_dq_bf16_wgmma<{_wgmma_steps(d)}>", dkv
+    return f"flash_attn_bwd_dq_bf16<{_padded(d)}>", dkv
 
 
 def _check(q, k, v, kv_len):

@@ -1,27 +1,41 @@
 """Where a tensor-core kernel's time goes, by taking parts of it out.
 
-    python -m amodal_depth_anything_tpu_torch.tools.kernel_ablation
+    python -m amodal_depth_anything_tpu_torch.tools.kernel_ablation \
+        [--only LIBRARY:ABLATION,...]
 
 Needs one NVIDIA Hopper card and nvcc. Copies `csrc/` into
 `build/kernel_ablation/`, and for each ablation below edits the copy of one
 source (every edit must find its text, so a source that has moved on fails
 loudly), rebuilds that library and times it at the main paths' shapes in
-bfloat16. The results of an ablated kernel are wrong on purpose: only its
-time is read. The sources in the package are never touched.
+bfloat16: the device time per call from a torch.profiler trace (the UNet's
+shapes at d > 64 take less time on the card than a launch takes the host).
+The results of an ablated kernel are wrong on purpose: only its time is
+read. The sources in the package are never touched. `--only` runs the named
+ablations alone (e.g. `flash_attn_fwd:full,flash_attn_fwd:keys128`).
 
-What the ablations say:
+What the ablations say (the shapes below hold the d = 64, 40, 80 and 160
+instantiations of each kernel):
   flash_attn_fwd  no_softmax: the two products, the loads and the barriers;
                   no_exp: the softmax with a multiply-add in place of each
                   exponential (the FP32 work without the MUFU unit);
-                  no_products: the softmax path alone.
+                  no_products: the softmax path alone; and an alternative
+                  the design turned down: 128-key K/V tiles at d = 80, as
+                  up to 64 (keys128).
   flash_attn_bwd  the same three for the dQ and the dK/dV kernels: no P
                   and dS rebuild (no_softmax), no exponentials (no_exp),
-                  no wgmma (no_products), each timed for both kernels; and
-                  two alternatives the design turned down: a ring of three
-                  stages instead of four (three_stages), and dK/dV with
-                  tile t's score products in flight beside tile t-1's
+                  no wgmma (no_products), each timed for both kernels; the
+                  first and the last in the split dK/dV kernels of d = 80
+                  and 160 too, where one warpgroup sums dV and hands P^T to
+                  the other, which sums dK (split_no_softmax: no
+                  exponentials and no dS; split_no_products); and three
+                  alternatives the design turned down: a ring of three
+                  stages instead of four (three_stages), dK/dV with tile
+                  t's score products in flight beside tile t-1's
                   accumulating products, as dQ does (dkv_pipelined: ptxas
-                  then serialises its wgmmas at KSTEPS 3 and 4, C7512).
+                  then serialises its wgmmas at KSTEPS 3 and 4, C7512), and
+                  at d = 80 each warpgroup summing both dK and dV over its
+                  own 64 key rows, as up to d = 64 (dkv80_joint: 144
+                  registers, C7512).
   fused_epilogue  product_only: no residual load, no epilogue arithmetic,
                   no store; epilogue_only: one k tile per output tile.
 A part that is hidden behind another costs nothing when it is taken out.
@@ -31,123 +45,126 @@ wgmmas serialised; C7519, an injected warpgroup.arrive, is informational).
 
 from __future__ import annotations
 
+import argparse
 import shutil
 import subprocess
 import sys
 
-ATTN_SHAPES = [(4, 24, 1370, 64), (1, 24, 5330, 64), (4, 8, 4096, 40)]
-BWD_SHAPES = [(8, 16, 1370, 64), (1, 24, 5330, 64), (4, 8, 4096, 40)]
+ATTN_SHAPES = [(4, 24, 1370, 64), (1, 24, 5330, 64), (4, 8, 4096, 40),
+               (4, 8, 1024, 80), (4, 8, 256, 160)]
+BWD_SHAPES = [(8, 16, 1370, 64), (1, 24, 5330, 64), (4, 8, 4096, 40),
+              (8, 8, 1024, 80), (8, 8, 256, 160)]
 GEMM_SHAPES = [(42640, 1536, 1536), (42640, 1024, 1024), (5480, 4096, 1536)]
 
 # the dK/dV consumer loop of csrc/flash_attn_bwd.cu, and the same loop with
 # tile t's score products issued beside tile t-1's accumulating products
 DKV_LOOP = """\
-    if (wg == 1) turn_pass(wg);   // warpgroup 0 goes first
-    mbar_wait(sm.res_full, 0);
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int t = 0; t < n_tiles; ++t) {
-      float st[32], dpt[32];
-      mbar_wait(sm.full + stage, phase);
-      turn_wait(wg);
-      wgmma_fence();
-      scores<KSTEPS>(st, kw, sm.str0 + stage * kWgTile);
-      wgmma_commit();
-      scores<KSTEPS>(dpt, vw, sm.str1 + stage * kWgTile);
-      wgmma_commit();
-      turn_pass(wg);
-      wgmma_wait<1>();   // S^T is complete, dP^T may still run
-      wgmma_pin(st);
-      dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);
-      wgmma_wait<0>();
-      wgmma_pin(dpt);
-      dkv_tile_ds(dpt, st, sm.dl + stage * 64, col0);
-      uint32_t pf[4][4], dsf[4][4];   // P^T and dS^T in bf16
-      pack_a(pf, st);
-      pack_a(dsf, dpt);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        float st[32], dpt[32];
+        mbar_wait(sm.full + stage, phase);
+        turn_wait(wg);
+        wgmma_fence();
+        scores<KSTEPS, T::kResBox, T::kStrBox>(st, kw,
+                                               sm.str0 + stage * T::kStrTile);
+        wgmma_commit();
+        scores<KSTEPS, T::kResBox, T::kStrBox>(dpt, vw,
+                                               sm.str1 + stage * T::kStrTile);
+        wgmma_commit();
+        turn_pass(wg);
+        wgmma_wait<1>();   // S^T is complete, dP^T may still run
+        wgmma_pin(st);
+        dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);
+        wgmma_wait<0>();
+        wgmma_pin(dpt);
+        dkv_tile_ds(dpt, st, sm.dl + stage * 64, col0);
+        uint32_t pf[4][4], dsf[4][4];   // P^T and dS^T in bf16
+        pack_a(pf, st);
+        pack_a(dsf, dpt);
 
-      turn_wait(wg);
-      wgmma_fence();   // pf, dsf were written by ordinary code
-      accumulate<KSTEPS>(dva, pf, sm.str1 + stage * kWgTile);
-      accumulate<KSTEPS>(dka, dsf, sm.str0 + stage * kWgTile);
-      wgmma_commit();
-      turn_pass(wg);
-      wgmma_wait<0>();   // the stage is free
-      wgmma_pin(dka);
-      wgmma_pin(dva);
-      if (elected) mbar_arrive(sm.empty + stage);
-      if (++stage == kWgStages) {
-        stage = 0;
-        phase ^= 1;
+        turn_wait(wg);
+        wgmma_fence();   // pf, dsf were written by ordinary code
+        accumulate<KSTEPS>(dva, pf, sm.str1 + stage * T::kStrTile);
+        accumulate<KSTEPS>(dka, dsf, sm.str0 + stage * T::kStrTile);
+        wgmma_commit();
+        turn_pass(wg);
+        wgmma_wait<0>();   // the stage is free
+        wgmma_pin(dka);
+        wgmma_pin(dva);
+        if (elected) mbar_arrive(sm.empty + stage);
+        if (++stage == T::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
-    }
 
 """
 DKV_PIPELINED = """\
-    if (wg == 1) turn_pass(wg);
-    mbar_wait(sm.res_full, 0);
-    uint32_t pf[4][4], dsf[4][4];
-    {
-      float st[32], dpt[32];
-      mbar_wait(sm.full, 0);
+      uint32_t pf[4][4], dsf[4][4];
+      {
+        float st[32], dpt[32];
+        mbar_wait(sm.full, 0);
+        turn_wait(wg);
+        wgmma_fence();
+        scores<KSTEPS, T::kResBox, T::kStrBox>(st, kw, sm.str0);
+        wgmma_commit();
+        scores<KSTEPS, T::kResBox, T::kStrBox>(dpt, vw, sm.str1);
+        wgmma_commit();
+        turn_pass(wg);
+        wgmma_wait<1>();
+        wgmma_pin(st);
+        dkv_tile_p(st, sm.lse2, c, col0);
+        wgmma_wait<0>();
+        wgmma_pin(dpt);
+        dkv_tile_ds(dpt, st, sm.dl, col0);
+        pack_a(pf, st);
+        pack_a(dsf, dpt);
+      }
+      int prev = 0, stage = 1 % T::kStages;
+      uint32_t phase = T::kStages == 1;
+      for (int t = 1; t < n_tiles; ++t) {
+        float st[32], dpt[32];
+        mbar_wait(sm.full + stage, phase);
+        turn_wait(wg);
+        wgmma_fence();
+        scores<KSTEPS, T::kResBox, T::kStrBox>(st, kw,
+                                               sm.str0 + stage * T::kStrTile);
+        wgmma_commit();
+        scores<KSTEPS, T::kResBox, T::kStrBox>(dpt, vw,
+                                               sm.str1 + stage * T::kStrTile);
+        wgmma_commit();
+        accumulate<KSTEPS>(dva, pf, sm.str1 + prev * T::kStrTile);
+        accumulate<KSTEPS>(dka, dsf, sm.str0 + prev * T::kStrTile);
+        wgmma_commit();
+        turn_pass(wg);
+        wgmma_wait<2>();
+        wgmma_pin(st);
+        dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);
+        wgmma_wait<1>();
+        wgmma_pin(dpt);
+        dkv_tile_ds(dpt, st, sm.dl + stage * 64, col0);
+        wgmma_wait<0>();
+        wgmma_pin(dka);
+        wgmma_pin(dva);
+        if (elected) mbar_arrive(sm.empty + prev);
+        pack_a(pf, st);
+        pack_a(dsf, dpt);
+        prev = stage;
+        if (++stage == T::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
       turn_wait(wg);
       wgmma_fence();
-      scores<KSTEPS>(st, kw, sm.str0);
-      wgmma_commit();
-      scores<KSTEPS>(dpt, vw, sm.str1);
-      wgmma_commit();
-      turn_pass(wg);
-      wgmma_wait<1>();
-      wgmma_pin(st);
-      dkv_tile_p(st, sm.lse2, c, col0);
-      wgmma_wait<0>();
-      wgmma_pin(dpt);
-      dkv_tile_ds(dpt, st, sm.dl, col0);
-      pack_a(pf, st);
-      pack_a(dsf, dpt);
-    }
-    int prev = 0, stage = 1 % kWgStages;
-    uint32_t phase = kWgStages == 1;
-    for (int t = 1; t < n_tiles; ++t) {
-      float st[32], dpt[32];
-      mbar_wait(sm.full + stage, phase);
-      turn_wait(wg);
-      wgmma_fence();
-      scores<KSTEPS>(st, kw, sm.str0 + stage * kWgTile);
-      wgmma_commit();
-      scores<KSTEPS>(dpt, vw, sm.str1 + stage * kWgTile);
-      wgmma_commit();
-      accumulate<KSTEPS>(dva, pf, sm.str1 + prev * kWgTile);
-      accumulate<KSTEPS>(dka, dsf, sm.str0 + prev * kWgTile);
+      accumulate<KSTEPS>(dva, pf, sm.str1 + prev * T::kStrTile);
+      accumulate<KSTEPS>(dka, dsf, sm.str0 + prev * T::kStrTile);
       wgmma_commit();
       turn_pass(wg);
-      wgmma_wait<2>();
-      wgmma_pin(st);
-      dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);
-      wgmma_wait<1>();
-      wgmma_pin(dpt);
-      dkv_tile_ds(dpt, st, sm.dl + stage * 64, col0);
       wgmma_wait<0>();
       wgmma_pin(dka);
       wgmma_pin(dva);
-      if (elected) mbar_arrive(sm.empty + prev);
-      pack_a(pf, st);
-      pack_a(dsf, dpt);
-      prev = stage;
-      if (++stage == kWgStages) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-    turn_wait(wg);
-    wgmma_fence();
-    accumulate<KSTEPS>(dva, pf, sm.str1 + prev * kWgTile);
-    accumulate<KSTEPS>(dka, dsf, sm.str0 + prev * kWgTile);
-    wgmma_commit();
-    turn_pass(wg);
-    wgmma_wait<0>();
-    wgmma_pin(dka);
-    wgmma_pin(dva);
 
 """
 
@@ -156,20 +173,22 @@ ABLATIONS = {
     "flash_attn_fwd": {
         "full": [],
         "no_softmax": [(
-            "      softmax_tile(s, m, l, alpha, scale_log2, t * kWgRows + "
-            "col0,\n                   (t + 1) * kWgRows, kv_len);\n",
+            "      softmax_tile(s, m, l, alpha, scale_log2, t * kKeys + col0,\n"
+            "                   (t + 1) * kKeys, kv_len);\n",
             "      alpha[0] = alpha[1] = 1.f; l[0] += s[0]; l[1] += s[2];\n")],
         "no_exp": [(
             'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
             "y = x * 0.001f + 1.f;")],
         "no_products": [
-            ("        wgmma_ss<0>(s, wgmma_desc_advance(dq, kk * 32),\n"
-             "                    wgmma_desc_advance(dk, kk * 32), kk != 0);\n",
+            ("        wgmma_ss<0>(s, kstep_desc(dq, kk, 2 * T::kQBox),\n"
+             "                    kstep_desc(dk, kk, 2 * T::kKVBox), kk != 0);\n",
              "        s[kk] = __uint_as_float((uint32_t)(dq + dk) & "
              "0x3fffffffu);\n"),
             ("        wgmma_rs(acc, pf[kk], wgmma_desc_advance(dv, kk * 16 * "
              "kSwizzleRow));\n",
              "        acc[kk] += __uint_as_float(pf[kk][0] ^ (uint32_t)dv);\n")],
+        "keys128": [("  static constexpr int kKeys = KSTEPS <= 4 ? 128 : 64;\n",
+                     "  static constexpr int kKeys = KSTEPS <= 5 ? 128 : 64;\n")],
     },
     "flash_attn_bwd": {
         "full": [],
@@ -181,16 +200,43 @@ ABLATIONS = {
             'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
             "y = x * 0.001f + 1.f;")],
         "no_products": [
-            ("    wgmma_ss<0>(s, wgmma_desc_advance(da, kk * 32),\n"
-             "                wgmma_desc_advance(db, kk * 32), kk != 0);\n",
+            ("    wgmma_ss<0>(s, kstep_desc(da, kk, 2 * A_BOX),\n"
+             "                kstep_desc(db, kk, 2 * B_BOX), kk != 0);\n",
              "    s[kk] = __uint_as_float((uint32_t)(da + db) & "
              "0x3fffffffu);\n"),
             ("    wgmma_rs(acc, f[kk], wgmma_desc_advance(db, kk * "
              "kWgKStepBytes));\n",
              "    acc[kk] += __uint_as_float(f[kk][0] ^ (uint32_t)db);\n")],
-        "three_stages": [("constexpr int kWgStages = 4;",
-                          "constexpr int kWgStages = 3;")],
+        "split_no_softmax": [
+            ("    dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);\n"
+             "    mbar_wait(sm.pt_empty", "    mbar_wait(sm.pt_empty"),
+            ("      dpt[4 * j] = p.x * (dpt[4 * j] - dd.x);\n"
+             "      dpt[4 * j + 1] = p.y * (dpt[4 * j + 1] - dd.y);\n"
+             "      dpt[4 * j + 2] = p.z * (dpt[4 * j + 2] - dd.x);\n"
+             "      dpt[4 * j + 3] = p.w * (dpt[4 * j + 3] - dd.y);\n",
+             "      dpt[4 * j] += p.x + dd.x;\n")],
+        "split_no_products": [
+            ("    scores<KSTEPS, T::kResBox, T::kStrBox>(st, sm.res0,\n"
+             "                                           sm.str0 + stage * "
+             "T::kStrTile);\n",
+             "    st[0] = __uint_as_float((uint32_t)stage & 0x3fffffffu);\n"),
+            ("    scores<KSTEPS, T::kResBox, T::kStrBox>(dpt, sm.res1,\n"
+             "                                           sm.str1 + stage * "
+             "T::kStrTile);\n",
+             "    dpt[0] = __uint_as_float((uint32_t)stage & 0x3fffffffu);\n"),
+            ("    accumulate<KSTEPS>(acc, pf, sm.str1 + stage * T::kStrTile);\n",
+             "    acc[0] += __uint_as_float(pf[0][0]);\n"),
+            ("    accumulate<KSTEPS>(acc, dsf, sm.str0 + stage * T::kStrTile);"
+             "\n",
+             "    acc[0] += __uint_as_float(dsf[0][0]);\n")],
+        "three_stages": [(
+            "  static constexpr int kStages = kRoom / kStageBytes < 4\n"
+            "                                     ? kRoom / kStageBytes : 4;",
+            "  static constexpr int kStages = kRoom / kStageBytes < 3\n"
+            "                                     ? kRoom / kStageBytes : 3;")],
         "dkv_pipelined": [(DKV_LOOP, DKV_PIPELINED)],
+        "dkv80_joint": [("constexpr bool kDkvSplit = KSTEPS > 4;",
+                         "constexpr bool kDkvSplit = KSTEPS > 5;")],
     },
     "fused_epilogue": {
         "full": [],
@@ -222,22 +268,17 @@ ABLATIONS = {
 }
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
-    import torch
+def device_ms(fn, calls: int = 20) -> float:
+    """Device time per call of `fn`, every kernel it launches summed."""
+    from .head_dim_times import device_times
 
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return device_times(fn, calls)["all"]
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", help="LIBRARY:ABLATION,... to run alone")
+    only = ap.parse_args().only
     import torch
 
     from ..ops import _build
@@ -281,6 +322,8 @@ def main() -> int:
 
     for name, ablations in ABLATIONS.items():
         for label, edits in ablations.items():
+            if only is not None and f"{name}:{label}" not in only.split(","):
+                continue
             text = sources[name]
             for old, new in edits:
                 if old not in text:
@@ -298,9 +341,9 @@ def main() -> int:
             if name == "flash_attn_bwd":
                 for shape, args in zip(BWD_SHAPES, bwds):
                     scale = shape[3] ** -0.5
-                    dq_ms = cuda_ms(lambda: flash_attn_bwd_dq(
+                    dq_ms = device_ms(lambda: flash_attn_bwd_dq(
                         *args, sm_scale=scale))
-                    dkv_ms = cuda_ms(lambda: flash_attn_bwd_dkv(
+                    dkv_ms = device_ms(lambda: flash_attn_bwd_dkv(
                         *args, sm_scale=scale))
                     times.append(f"{list(shape)} dq {dq_ms:.4f} ms, dk/dv "
                                  f"{dkv_ms:.4f} ms")
@@ -308,10 +351,10 @@ def main() -> int:
                 for shape, qkv in zip(ATTN_SHAPES, qkvs):
                     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
                     times.append(f"{list(shape)} "
-                                 f"{cuda_ms(lambda: mha(q, k, v)):.4f} ms")
+                                 f"{device_ms(lambda: mha(q, k, v)):.4f} ms")
             else:
                 for shape, args in zip(GEMM_SHAPES, gemms):
-                    ms = cuda_ms(lambda: matmul_scale_residual(*args))
+                    ms = device_ms(lambda: matmul_scale_residual(*args))
                     times.append(f"{list(shape)} {ms:.4f} ms")
             print(f"{name} {label}: {'; '.join(times)} [{gpu}]", flush=True)
     return 0

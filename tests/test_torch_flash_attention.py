@@ -13,9 +13,10 @@ import torch
 from amodal_depth_anything_tpu.ops.flash_attention import mha as jax_mha
 from amodal_depth_anything_tpu.ops.flash_attention import \
     mha_reference as jax_mha_reference
+from amodal_depth_anything_tpu_torch.ops import _build
 from amodal_depth_anything_tpu_torch.ops.attention import multi_head_attention
 from amodal_depth_anything_tpu_torch.ops.flash_attention import (
-    _check, _check_bwd, mha, mha_reference)
+    _check, _check_bwd, fwd_instantiation, mha, mha_reference)
 from tests.test_torch_models import few_torch_threads  # noqa: F401
 
 TOL = 1e-5
@@ -206,6 +207,28 @@ def test_check_head_dim_rule(dtype, d, ok):
     else:
         with pytest.raises(ValueError, match="head dim"):
             _check(q, k, k, 7)
+
+
+@pytest.mark.parametrize("dtype,d,name", [
+    (torch.bfloat16, 8, "flash_attn_fwd_bf16_wgmma<1>"),
+    (torch.bfloat16, 40, "flash_attn_fwd_bf16_wgmma<3>"),
+    (torch.bfloat16, 64, "flash_attn_fwd_bf16_wgmma<4>"),
+    (torch.bfloat16, 72, "flash_attn_fwd_bf16_wgmma<5>"),
+    (torch.bfloat16, 80, "flash_attn_fwd_bf16_wgmma<5>"),
+    (torch.bfloat16, 96, "flash_attn_fwd_bf16_wgmma<10>"),
+    (torch.bfloat16, 160, "flash_attn_fwd_bf16_wgmma<10>"),
+    (torch.float32, 12, "flash_attn_fwd_f32<16>"),
+    (torch.float32, 80, "flash_attn_fwd_f32<80>"),
+    (torch.float32, 100, "flash_attn_fwd_f32<160>")])
+def test_fwd_instantiation_follows_the_source_table(dtype, d, name):
+    """`fwd_instantiation` names the kernel `flash_attn_fwd.cu` dispatches
+    to: its template, and the instantiation in the source's table."""
+    assert fwd_instantiation(dtype, d) == name
+    src = (_build.CSRC / "flash_attn_fwd.cu").read_text()
+    assert f"\n{name.split('<')[0]}(" in src, name
+    template, steps = name[:-1].split("<")
+    call = ("launch_wgmma" if "wgmma" in template else "launch_f32")
+    assert f"{call}<{steps}>(" in src, name
 
 
 def test_backward_kernels_keep_head_dim_64():
