@@ -37,10 +37,8 @@
 // d (the forward's):
 //
 //   bfloat16, d <= 64   flash_attn_bwd_{dq,dkv}_bf16_wgmma<ceil(d / 16)>
-//   bfloat16, d <= 80   flash_attn_bwd_dq_bf16<80> (mma.sync),
-//                       flash_attn_bwd_dkv_bf16_wgmma<5>
-//   bfloat16, d <= 160  flash_attn_bwd_dq_bf16<160> (mma.sync),
-//                       flash_attn_bwd_dkv_bf16_wgmma<10>
+//   bfloat16, d <= 80   flash_attn_bwd_{dq,dkv}_bf16_wgmma<5>
+//   bfloat16, d <= 160  flash_attn_bwd_{dq,dkv}_bf16_wgmma<10>
 //   float32,  d <= 160  flash_attn_bwd_{dq,dkv}_f32<DPAD>, DPAD the
 //                       smallest of 16, 32, 48, 64, 80, 160 that holds d
 //
@@ -62,32 +60,36 @@
 //    its [rows, d] boxes (the descriptor's leading byte offset steps from
 //    box to box).
 //    The two warpgroups take turns on the tensor cores over named barriers,
-//    so that one's exponentials run under the other's products. dQ also
-//    overlaps within a warpgroup: tile t's score products go out together
-//    with tile t-1's dS K. dK/dV cannot: its dK and dV accumulators, P^T and
-//    dS^T beside the next tile's scores are more registers than ptxas will
-//    hold for wgmmas in flight (it serialises every wgmma, C7512:
-//    `tools/kernel_ablation.py`, dkv_pipelined), so each of its warpgroups
-//    keeps one batch in flight and takes two turns a tile. Up to d = 64 a
-//    dK/dV block holds 128 key rows and each warpgroup sums both dK and dV
-//    over its 64. Above, both accumulators beside both score tiles are 144
-//    registers a thread at d = 80 and 224 at 160, past what ptxas keeps
-//    wgmmas in flight with, so a block holds 64 key rows and splits the
-//    work by product (kDkvSplit): one warpgroup computes S^T, P^T and dV +=
-//    P^T dO and hands P^T (float32) to the other through shared memory,
-//    which computes dP^T, dS^T and dK += dS^T Q; two products each a tile,
-//    none computed twice. TMA zero-fills what lies outside the
-//    tensor: rows past the maps' ends (kv_len for K and V; q_len for Q and
-//    dO in the dK/dV kernel) and the columns from d on. In the dK/dV kernel
-//    a second producer warp copies each tile's LSE (times log2 e; +inf for
-//    rows at or past q_len, so that their P is exactly 0) and delta into
-//    the stage beside the tiles, and arrives on the stage's barrier with
-//    the TMA bytes; in the dQ kernel the keys at or past kv_len of the last
-//    tile are masked by a second instance of the tile body.
-//  * bfloat16 dQ, 64 < d <= 160 (the UNet's 80 and 160): mma.sync
-//    m16n8k16 on 64-row tiles, 4 warps of 16 query rows, with Q and dO in
-//    shared memory (read by ldmatrix per use, so that no warp holds them as
-//    fragments) and the K and V tiles in a cp.async double buffer.
+//    so that one's exponentials run under the other's products. dQ up to
+//    d = 80 also overlaps within a warpgroup: tile t's score products go out
+//    together with tile t-1's dS K (the dQ accumulator, S, dP and tile
+//    t-1's dS fragments: 120 registers a thread at d = 80). dK/dV cannot:
+//    its dK and dV accumulators, P^T and dS^T beside the next tile's scores
+//    are more registers than ptxas will hold for wgmmas in flight (it
+//    serialises every wgmma, C7512: `tools/kernel_ablation.py`,
+//    dkv_pipelined), so each of its warpgroups keeps one batch in flight
+//    and takes two turns a tile. Up to d = 64 a dK/dV block holds 128 key
+//    rows and each warpgroup sums both dK and dV over its 64. Above, both
+//    accumulators beside both score tiles are 144 registers a thread at
+//    d = 80 and 224 at 160, past what ptxas keeps wgmmas in flight with, so
+//    a block holds 64 key rows and splits the work by product (kDkvSplit):
+//    one warpgroup computes S^T, P^T and dV += P^T dO and hands P^T
+//    (float32) to the other through shared memory, which computes dP^T,
+//    dS^T and dK += dS^T Q; two products each a tile, none computed twice.
+//    dQ at d = 160 splits the same way (kDqSplit): its accumulator beside S
+//    and dP is 144 registers, so a block holds 64 query rows; one warpgroup
+//    computes S and P and hands P to the other, which computes dP, dS and
+//    dQ += dS K (80 + 32 registers). The first's exponentials run under the
+//    second's products and the second's dS under the first's, without
+//    turns: one product a tile against two. TMA zero-fills what lies
+//    outside the tensor: rows past the maps' ends (kv_len for K and V;
+//    q_len for Q and dO in the dK/dV kernel) and the columns from d on. In
+//    the dK/dV kernel a second producer warp copies each tile's LSE (times
+//    log2 e; +inf for rows at or past q_len, so that their P is exactly 0)
+//    and delta into the stage beside the tiles, and arrives on the stage's
+//    barrier with the TMA bytes; in the dQ kernel the keys at or past
+//    kv_len of the last tile are masked by a second instance of the tile
+//    body.
 //  * float32: 256 threads, each a 4x4 patch of the score tiles and 4 rows x
 //    DPAD/16 columns of the output tiles, scalar FMAs on float32 smem tiles
 //    (TF32 would miss the parity bar); 64-row tiles of DPAD + 4 floats, the
@@ -352,175 +354,6 @@ flash_attn_bwd_dkv_f32(const float* __restrict__ q,
                        kv_len, d, ty, tx);
 }
 
-// ------------------------------- bfloat16 dQ, 64 < d <= 160: mma.sync
-
-// c[j] = A * tile^T over KST 16-wide steps of the head dim: A the warp's 16
-// rows [row16, row16 + 16) of smem tile `a`, tile 64 rows; both [64][LD].
-template <int KST, int LD>
-__device__ __forceinline__ void mma_rows_t(float (&c)[8][4], const bf16* a,
-                                           const bf16* tile, int row16,
-                                           int lane) {
-  #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    #pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-  #pragma unroll
-  for (int kk = 0; kk < KST; ++kk) {
-    uint32_t af[4];
-    ldmatrix_x4(af, a + (row16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
-    #pragma unroll
-    for (int j = 0; j < 8; j += 2) {
-      uint32_t bf[4];  // B fragments of row tiles j and j + 1 at step kk
-      ldmatrix_x4(bf, tile + ((j + (lane >> 4)) * 8 + (lane & 7)) * LD +
-                          kk * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16(c[j], af, bf[0], bf[1]);
-      mma_bf16(c[j + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc += x (16 x 64 float32 C fragments, rounded to bf16) * tile, tile
-// [64 rows][LD] with DT 8-wide column tiles: the product contracts over the
-// tile's rows.
-template <int DT, int LD>
-__device__ __forceinline__ void mma_c_rows(float (&acc)[DT][4],
-                                           const float (&x)[8][4],
-                                           const bf16* tile, int lane) {
-  #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    // the C fragments of two column tiles form one A fragment
-    const uint32_t af[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                            pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                            pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                            pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-    #pragma unroll
-    for (int jd = 0; jd < DT; jd += 2) {
-      uint32_t bf[4];  // B fragments of d tiles jd and jd + 1
-      ldmatrix_x4_trans(bf, tile + (kk * 16 + (lane & 7) +
-                                    ((lane >> 3) & 1) * 8) * LD +
-                                jd * 8 + (lane >> 4) * 8);
-      mma_bf16(acc[jd], af, bf[0], bf[1]);
-      mma_bf16(acc[jd + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// Store a warp's 16 x (8 DT) float32 accumulator, times `mul`, as bf16 rows
-// [row16, row16 + 16) of one (b, h) slice; rows at or past `rows` are
-// skipped, rows at or past `live` written as zero, columns from d skipped.
-template <int DT>
-__device__ __forceinline__ void store_acc_bf16(bf16* dst, long long row_stride,
-                                               const float (&acc)[DT][4],
-                                               float mul, int row16, int rows,
-                                               int live, int d, int lane) {
-  #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row16 + (lane >> 2) + r * 8;
-    if (row >= rows) continue;
-    // literal zeros for a dead row: its sums of P = exp(-LSE) terms may
-    // have overflowed, and inf * 0 is NaN
-    const bool keep = row < live;
-    #pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      const int col = j * 8 + 2 * (lane & 3);   // d is a multiple of 8
-      if (col < d)
-        *reinterpret_cast<__nv_bfloat162*>(dst + (long long)row * row_stride +
-                                           col) =
-            keep ? __floats2bfloat162_rn(acc[j][2 * r] * mul,
-                                         acc[j][2 * r + 1] * mul)
-                 : __floats2bfloat162_rn(0.f, 0.f);
-    }
-  }
-}
-
-template <int DPAD>
-constexpr int kLdBf16 = DPAD + 8;
-template <int DPAD>
-constexpr int kDqMmaSmemBytes = 2 * 6 * 64 * kLdBf16<DPAD>;   // Q dO 2K 2V
-
-template <int DPAD>
-__global__ void __launch_bounds__(kBf16Threads)
-flash_attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta, bf16* __restrict__ dq,
-                       int nq, int kv_len, int d, float sm_scale, Strides sq,
-                       Strides sk, Strides sv, Strides sdo, Strides sdq) {
-  constexpr int kLd = kLdBf16<DPAD>;
-  constexpr int kTile = 64 * kLd;
-  constexpr int kDT = DPAD / 8;
-  extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);
-  bf16* dos = qs + kTile;
-  bf16* ks = dos + kTile;        // two K tiles, then two V tiles
-  bf16* vs = ks + 2 * kTile;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * kBM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const float scale_log2 = sm_scale * kLog2e;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-
-  load_tile_bf16<DPAD>(qs, q + b * sq.b + h * sq.h, sq.n, q0, nq, d);
-  load_tile_bf16<DPAD>(dos, dout + b * sdo.b + h * sdo.h, sdo.n, q0, nq, d);
-  load_tile_bf16<DPAD>(ks, kb, sk.n, 0, kv_len, d);
-  load_tile_bf16<DPAD>(vs, vb, sv.n, 0, kv_len, d);
-  cp_async_commit();
-
-  // per thread: rows g = lane/4 and g + 8 of the warp's 16; in each 8-wide
-  // column tile, columns 2*(lane%4) and +1 (the mma C-fragment layout)
-  const long long stat0 = ((long long)b * gridDim.y + h) * nq;
-  float lse2[2], dl[2];
-  #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + (lane >> 2) + r * 8;
-    lse2[r] = row < nq ? lse[stat0 + row] * kLog2e : 0.f;
-    dl[r] = row < nq ? delta[stat0 + row] : 0.f;
-  }
-  float acc[kDT][4];
-  #pragma unroll
-  for (int j = 0; j < kDT; ++j)
-    #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  const int n_tiles = (kv_len + kBN - 1) / kBN;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) {  // prefetch the next tile into the other buffer
-      load_tile_bf16<DPAD>(ks + (buf ^ 1) * kTile, kb, sk.n, (t + 1) * kBN,
-                           kv_len, d);
-      load_tile_bf16<DPAD>(vs + (buf ^ 1) * kTile, vb, sv.n, (t + 1) * kBN,
-                           kv_len, d);
-    }
-    cp_async_commit();
-    cp_async_wait_all_but_newest();  // tile t (and Q, dO) have landed
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    mma_rows_t<DPAD / 16, kLd>(s, qs, ks + buf * kTile, warp * 16, lane);
-    mma_rows_t<DPAD / 16, kLd>(dp, dos, vs + buf * kTile, warp * 16, lane);
-    const int col0 = t * kBN + 2 * (lane & 3);
-    #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = col0 + j * 8 + (e & 1) < kv_len
-                            ? exp2f(s[j][e] * scale_log2 - lse2[e >> 1]) : 0.f;
-        s[j][e] = p * (dp[j][e] - dl[e >> 1]);   // dS
-      }
-    mma_c_rows<kDT, kLd>(acc, s, ks + buf * kTile, lane);   // dQ += dS K
-    __syncthreads();  // every warp is done with buffer `buf`
-  }
-
-  store_acc_bf16<kDT>(dq + b * sdq.b + h * sdq.h, sdq.n, acc, sm_scale,
-                      q0 + warp * 16, nq, nq, d, lane);
-}
-
-
 // ------------------------------------------- bfloat16 path: wgmma + TMA
 
 constexpr int kWgStream = 64;              // rows of a streamed tile
@@ -537,14 +370,24 @@ constexpr int kWgKStepBytes = 16 * kSwizzleRow;   // 16 rows of a tile
 template <int KSTEPS>
 constexpr bool kDkvSplit = KSTEPS > 4;
 
+// Whether flash_attn_bwd_dq_bf16_wgmma<KSTEPS> splits its products over two
+// warpgroups. Up to d = 80 each warpgroup holds the dQ accumulator (8
+// KSTEPS registers), S and dP (64) and the tile before's dS fragments (16)
+// with wgmmas in flight: 120 at d = 80. At d = 160 that is 160, and 144
+// without the overlap, and ptxas serialises every wgmma (C7512), so one
+// warpgroup computes S and P and the other dP, dS and dQ over the same 64
+// query rows: 32 and 8 KSTEPS + 32.
+template <int KSTEPS>
+constexpr bool kDqSplit = KSTEPS > 5;
+
 // The tiles of a wgmma backward block over KSTEPS k16 steps of the head dim:
 // two resident operands of kRes rows (Q and dO in dQ, K and V in dK/dV:
 // 128 rows, 64 a consumer warpgroup, or 64 rows shared by both warpgroups
 // when SPLIT), then a ring of kStages stages, each two streamed 64-row tiles
 // (K and V; Q and dO) and a tile's LSE and delta (dK/dV), as many stages as
 // fit up to four; each tile kBoxes boxes of 64 head-dim columns. A SPLIT
-// block also holds one 64 x 64 float32 P^T tile, which its dV warpgroup
-// hands to its dK warpgroup.
+// block also holds one 64 x 64 float32 P tile (P^T in dK/dV), which its
+// first warpgroup hands to its second.
 template <int KSTEPS, bool SPLIT>
 struct BwdTiles {
   static constexpr bool kSplit = SPLIT;
@@ -567,7 +410,7 @@ struct BwdTiles {
 };
 
 template <int KSTEPS>
-using DqTiles = BwdTiles<KSTEPS, false>;
+using DqTiles = BwdTiles<KSTEPS, kDqSplit<KSTEPS>>;
 template <int KSTEPS>
 using DkvTiles = BwdTiles<KSTEPS, kDkvSplit<KSTEPS>>;
 
@@ -654,13 +497,13 @@ struct WgSmem {
   bf16* str1;         // [stage]: V (dQ) or dO (dK/dV)
   float* lse2;        // [stage][64], log2 units (dK/dV)
   float* dl;          // [stage][64] (dK/dV)
-  float4* pt;         // P^T of a split block: [8][128], each consumer
-                      // thread's 32 accumulator values
+  float4* pt;         // P (dQ) or P^T (dK/dV) of a split block: [8][128],
+                      // each consumer thread's 32 accumulator values
   uint64_t* res_full;
   uint64_t* full;     // [stage]
   uint64_t* empty;    // [stage]
-  uint64_t* pt_full;  // P^T written (128 arrivals: the dV warpgroup)
-  uint64_t* pt_empty; // P^T read (128 arrivals: the dK warpgroup)
+  uint64_t* pt_full;  // P written (128 arrivals: the first warpgroup)
+  uint64_t* pt_empty; // P read (128 arrivals: the second warpgroup)
 
   __device__ explicit WgSmem(uint8_t* raw) {
     uint8_t* p = raw + ((kSwizzleAtom - smem_addr(raw)) & (kSwizzleAtom - 1));
@@ -1017,24 +860,198 @@ flash_attn_bwd_dkv_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// The dQ kernel's score tile body: P = exp2(c S - LSE2) and dS = P (dP -
-// delta) in place; in a RAGGED tile (the last one, when kv_len is no
-// multiple of 64) keys at or past kv_len get P = 0.
+// The dQ kernel's P on a score tile: P = exp2(c S - LSE2) in place; in a
+// RAGGED tile (the last one, when kv_len is no multiple of 64) keys at or
+// past kv_len get P = 0.
 template <bool RAGGED>
-__device__ __forceinline__ void dq_tile(float (&s)[32], float (&dp)[32],
-                                        const float (&lse2)[2],
-                                        const float (&dl)[2], float c,
-                                        int key0, int kv_len) {
+__device__ __forceinline__ void dq_tile_p(float (&s)[32],
+                                          const float (&lse2)[2], float c,
+                                          int key0, int kv_len) {
   #pragma unroll
   for (int i = 0; i < 32; ++i) {
     float p = ex2(fmaf(s[i], c, -lse2[(i >> 1) & 1]));
     if (RAGGED && key0 + (i >> 2) * 8 + (i & 1) >= kv_len) p = 0.f;
     s[i] = p;
-    dp[i] = p * (dp[i] - dl[(i >> 1) & 1]);
   }
 }
 
-template <int KSTEPS>   // k16 steps over the head dim: ceil(d / 16) <= 4
+// The dQ kernel's score tile body: P in place of S, as dq_tile_p, and dS =
+// P (dP - delta) in place of dP
+template <bool RAGGED>
+__device__ __forceinline__ void dq_tile(float (&s)[32], float (&dp)[32],
+                                        const float (&lse2)[2],
+                                        const float (&dl)[2], float c,
+                                        int key0, int kv_len) {
+  dq_tile_p<RAGGED>(s, lse2, c, key0, kv_len);
+  #pragma unroll
+  for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]);
+}
+
+// A consumer warpgroup of a dQ block that is not split, over its own 64
+// query rows (qw, dow: its rows of Q and dO): tile t's S = Q K^T and dP =
+// dO V^T go out together with tile t-1's dQ += dS K, so that tile t's
+// exponentials run under that product (the registers allow it here, unlike
+// in the dK/dV kernel), each batch on a turn of its own.
+template <int KSTEPS, typename T>
+__device__ __forceinline__ void dq_joint(float (&acc)[8 * KSTEPS],
+                                         const WgSmem<T>& sm, const bf16* qw,
+                                         const bf16* dow, int wg, int n_tiles,
+                                         const float (&lse2)[2],
+                                         const float (&dl)[2], float c,
+                                         int col0, int kv_len,
+                                         bool elected) {
+  constexpr int kA = T::kResBox, kB = T::kStrBox;
+  uint32_t dsf[4][4];   // the tile before's dS, bf16
+  const auto tile = [&](float (&s)[32], float (&dp)[32], int t) {
+    if ((t + 1) * kWgStream > kv_len)
+      dq_tile<true>(s, dp, lse2, dl, c, t * kWgStream + col0, kv_len);
+    else
+      dq_tile<false>(s, dp, lse2, dl, c, t * kWgStream + col0, kv_len);
+  };
+  if (wg == 1) turn_pass(wg);   // warpgroup 0 goes first
+  {   // tile 0: nothing to overlap with yet
+    float s[32], dp[32];
+    mbar_wait(sm.full, 0);
+    turn_wait(wg);
+    wgmma_fence();
+    scores<KSTEPS, kA, kB>(s, qw, sm.str0);
+    wgmma_commit();
+    scores<KSTEPS, kA, kB>(dp, dow, sm.str1);
+    wgmma_commit();
+    turn_pass(wg);
+    wgmma_wait<0>();
+    wgmma_pin(s);
+    wgmma_pin(dp);
+    tile(s, dp, 0);
+    pack_a(dsf, dp);
+  }
+  int prev = 0, stage = 1 % T::kStages;
+  uint32_t phase = T::kStages == 1;
+  for (int t = 1; t < n_tiles; ++t) {
+    float s[32], dp[32];
+    mbar_wait(sm.full + stage, phase);
+    turn_wait(wg);
+    wgmma_fence();   // dsf was written by ordinary code
+    scores<KSTEPS, kA, kB>(s, qw, sm.str0 + stage * T::kStrTile);
+    wgmma_commit();
+    scores<KSTEPS, kA, kB>(dp, dow, sm.str1 + stage * T::kStrTile);
+    wgmma_commit();
+    accumulate<KSTEPS>(acc, dsf, sm.str0 + prev * T::kStrTile);
+    wgmma_commit();
+    turn_pass(wg);
+
+    wgmma_wait<1>();   // S and dP are complete, dS K may still run
+    wgmma_pin(s);
+    wgmma_pin(dp);
+    tile(s, dp, t);
+    wgmma_wait<0>();   // tile t-1's dS K: its stage is free
+    wgmma_pin(acc);
+    if (elected) mbar_arrive(sm.empty + prev);
+    pack_a(dsf, dp);
+    prev = stage;
+    if (++stage == T::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  turn_wait(wg);   // the last tile's dS K
+  wgmma_fence();
+  accumulate<KSTEPS>(acc, dsf, sm.str0 + prev * T::kStrTile);
+  wgmma_commit();
+  turn_pass(wg);
+  wgmma_wait<0>();
+  wgmma_pin(acc);
+}
+
+// The two warpgroups of a split dQ block (T::kSplit) over its 64 query rows:
+// the P warpgroup computes S = Q K^T and P, and hands P, float32 as the
+// accumulator holds it, to the dS warpgroup through shared memory (thread i
+// of one warpgroup holds the same elements as thread i of the other); the
+// dS warpgroup computes dP = dO V^T, dS = P (dP - delta) and dQ += dS K.
+// The first runs one product a tile and the second two, so neither waits
+// for turns: the first's exponentials run under the second's products and
+// the second's dS under the first's S.
+template <int KSTEPS, typename T>
+__device__ __forceinline__ void dq_split_p(const WgSmem<T>& sm, int n_tiles,
+                                           const float (&lse2)[2], float c,
+                                           int col0, int kv_len,
+                                           bool elected) {
+  const int i = threadIdx.x & 127;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    float s[32];
+    mbar_wait(sm.full + stage, phase);
+    wgmma_fence();
+    scores<KSTEPS, T::kResBox, T::kStrBox>(s, sm.res0,
+                                           sm.str0 + stage * T::kStrTile);
+    wgmma_commit();
+    wgmma_wait<0>();   // done with the stage's K
+    wgmma_pin(s);
+    if (elected) mbar_arrive(sm.empty + stage);
+    if ((t + 1) * kWgStream > kv_len)
+      dq_tile_p<true>(s, lse2, c, t * kWgStream + col0, kv_len);
+    else
+      dq_tile_p<false>(s, lse2, c, t * kWgStream + col0, kv_len);
+    mbar_wait(sm.pt_empty, (t & 1) ^ 1);   // free from the start
+    #pragma unroll
+    for (int j = 0; j < 8; ++j)
+      sm.pt[j * 128 + i] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2],
+                                       s[4 * j + 3]);
+    mbar_arrive(sm.pt_full);
+    if (++stage == T::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+template <int KSTEPS, typename T>
+__device__ __forceinline__ void dq_split_ds(float (&acc)[8 * KSTEPS],
+                                            const WgSmem<T>& sm, int n_tiles,
+                                            const float (&dl)[2],
+                                            bool elected) {
+  const int i = threadIdx.x & 127;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    float dp[32];
+    uint32_t dsf[4][4];   // dS in bf16
+    mbar_wait(sm.full + stage, phase);
+    wgmma_fence();
+    scores<KSTEPS, T::kResBox, T::kStrBox>(dp, sm.res1,
+                                           sm.str1 + stage * T::kStrTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin(dp);
+    // dS = P (dP - delta), P read four values at a time, so that no second
+    // tile of registers is live beside dP and dQ
+    mbar_wait(sm.pt_full, t & 1);
+    #pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 p = sm.pt[j * 128 + i];
+      dp[4 * j] = p.x * (dp[4 * j] - dl[0]);
+      dp[4 * j + 1] = p.y * (dp[4 * j + 1] - dl[0]);
+      dp[4 * j + 2] = p.z * (dp[4 * j + 2] - dl[1]);
+      dp[4 * j + 3] = p.w * (dp[4 * j + 3] - dl[1]);
+    }
+    mbar_arrive(sm.pt_empty);
+    pack_a(dsf, dp);
+    wgmma_fence();   // dsf was written by ordinary code
+    accumulate<KSTEPS>(acc, dsf, sm.str0 + stage * T::kStrTile);   // dS K
+    wgmma_commit();
+    wgmma_wait<0>();   // the stage is free
+    wgmma_pin(acc);
+    if (elected) mbar_arrive(sm.empty + stage);
+    if (++stage == T::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+template <int KSTEPS>   // k16 steps over the head dim: ceil(d / 16) up to 4,
+                        // then 5 or 10
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attn_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
@@ -1053,6 +1070,10 @@ flash_attn_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
     for (int s = 0; s < T::kStages; ++s) {
       mbar_init(sm.full + s, 1);    // the producer's arrive; TMA adds bytes
       mbar_init(sm.empty + s, 2);   // one thread of each consumer warpgroup
+    }
+    if (T::kSplit) {
+      mbar_init(sm.pt_full, 128);
+      mbar_init(sm.pt_empty, 128);
     }
     mbar_init_fence();
   }
@@ -1074,15 +1095,13 @@ flash_attn_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
     setmaxnreg_inc<232>();
     const int lane = threadIdx.x & 31;
     // per thread: query rows row0 and row0 + 8; in each 8-wide column tile,
-    // key columns col0 and col0 + 1 (the accumulator layout, sm90.cuh)
-    const int row0 = q0 + wg * 64 + ((threadIdx.x >> 5) & 3) * 16 +
-                     (lane >> 2);
+    // key columns col0 and col0 + 1 (the accumulator layout, sm90.cuh); a
+    // split block's two warpgroups share its 64 query rows
+    const int row0 = q0 + (T::kSplit ? 0 : wg * 64) +
+                     ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
     const int col0 = 2 * (lane & 3);
     const bool elected = (threadIdx.x & 127) == 0;
     const float c = sm_scale * kLog2e;
-    const bf16* qw = sm.res0 + wg * 64 * 64;   // this warpgroup's rows
-    const bf16* dow = sm.res1 + wg * 64 * 64;
-    constexpr int kA = T::kResBox, kB = T::kStrBox;
 
     const long long stat0 = ((long long)b * gridDim.y + h) * nq;
     float lse2[2], dl[2];
@@ -1095,72 +1114,19 @@ flash_attn_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
     float acc[8 * KSTEPS];
     #pragma unroll
     for (int i = 0; i < 8 * KSTEPS; ++i) acc[i] = 0.f;
-    uint32_t dsf[4][4];   // the tile before's dS, bf16
 
-    // Tile t's S = Q K^T and dP = dO V^T go out together with tile t-1's
-    // dQ += dS K, so that tile t's exponentials run under that product
-    // (the registers allow it here, unlike in the dK/dV kernel).
-    if (wg == 1) turn_pass(wg);   // warpgroup 0 goes first
     mbar_wait(sm.res_full, 0);
-    const auto tile = [&](float (&s)[32], float (&dp)[32], int t) {
-      if ((t + 1) * kWgStream > kv_len)
-        dq_tile<true>(s, dp, lse2, dl, c, t * kWgStream + col0, kv_len);
-      else
-        dq_tile<false>(s, dp, lse2, dl, c, t * kWgStream + col0, kv_len);
-    };
-    {   // tile 0: nothing to overlap with yet
-      float s[32], dp[32];
-      mbar_wait(sm.full, 0);
-      turn_wait(wg);
-      wgmma_fence();
-      scores<KSTEPS, kA, kB>(s, qw, sm.str0);
-      wgmma_commit();
-      scores<KSTEPS, kA, kB>(dp, dow, sm.str1);
-      wgmma_commit();
-      turn_pass(wg);
-      wgmma_wait<0>();
-      wgmma_pin(s);
-      wgmma_pin(dp);
-      tile(s, dp, 0);
-      pack_a(dsf, dp);
-    }
-    int prev = 0, stage = 1 % T::kStages;
-    uint32_t phase = T::kStages == 1;
-    for (int t = 1; t < n_tiles; ++t) {
-      float s[32], dp[32];
-      mbar_wait(sm.full + stage, phase);
-      turn_wait(wg);
-      wgmma_fence();   // dsf was written by ordinary code
-      scores<KSTEPS, kA, kB>(s, qw, sm.str0 + stage * T::kStrTile);
-      wgmma_commit();
-      scores<KSTEPS, kA, kB>(dp, dow, sm.str1 + stage * T::kStrTile);
-      wgmma_commit();
-      accumulate<KSTEPS>(acc, dsf, sm.str0 + prev * T::kStrTile);
-      wgmma_commit();
-      turn_pass(wg);
-
-      wgmma_wait<1>();   // S and dP are complete, dS K may still run
-      wgmma_pin(s);
-      wgmma_pin(dp);
-      tile(s, dp, t);
-      wgmma_wait<0>();   // tile t-1's dS K: its stage is free
-      wgmma_pin(acc);
-      if (elected) mbar_arrive(sm.empty + prev);
-      pack_a(dsf, dp);
-      prev = stage;
-      if (++stage == T::kStages) {
-        stage = 0;
-        phase ^= 1;
+    if constexpr (T::kSplit) {
+      if (wg == 0) {   // the P warpgroup stores nothing
+        dq_split_p<KSTEPS>(sm, n_tiles, lse2, c, col0, kv_len, elected);
+        return;
       }
+      dq_split_ds<KSTEPS>(acc, sm, n_tiles, dl, elected);
+    } else {
+      dq_joint<KSTEPS>(acc, sm, sm.res0 + wg * 64 * 64,
+                       sm.res1 + wg * 64 * 64, wg, n_tiles, lse2, dl, c, col0,
+                       kv_len, elected);
     }
-    turn_wait(wg);   // the last tile's dS K
-    wgmma_fence();
-    accumulate<KSTEPS>(acc, dsf, sm.str0 + prev * T::kStrTile);
-    wgmma_commit();
-    turn_pass(wg);
-    wgmma_wait<0>();
-    wgmma_pin(acc);
-
     store_wg_bf16<KSTEPS>(dq + b * sdq.b + h * sdq.h, sdq.n, acc, sm_scale,
                           row0, nq, nq, d, col0);
   }
@@ -1190,29 +1156,16 @@ struct Args {
 };
 
 template <int DPAD>
-cudaError_t launch_dq(int dtype, const Args& a, cudaStream_t s) {
+cudaError_t launch_dq_f32(const Args& a, cudaStream_t s) {
   const dim3 grid((a.nq + kBM - 1) / kBM, a.heads, a.batch);
-  if (dtype == 0) {
-    constexpr int smem = BwdF32<DPAD>::kDqSmemBytes;
-    const cudaError_t err = allow_smem(flash_attn_bwd_dq_f32<DPAD>, smem);
-    if (err != cudaSuccess) return err;
-    flash_attn_bwd_dq_f32<DPAD><<<grid, kF32Threads, smem, s>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-        a.lse, a.delta, static_cast<float*>(a.dq), a.nq, a.kv_len, a.d,
-        a.sm_scale, a.sq, a.sk, a.sv, a.sdo, a.so0);
-  } else if constexpr (DPAD > 64) {
-    constexpr int smem = kDqMmaSmemBytes<DPAD>;
-    const cudaError_t err = allow_smem(flash_attn_bwd_dq_bf16<DPAD>, smem);
-    if (err != cudaSuccess) return err;
-    flash_attn_bwd_dq_bf16<DPAD><<<grid, kBf16Threads, smem, s>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        a.lse, a.delta, static_cast<bf16*>(a.dq), a.nq, a.kv_len, a.d,
-        a.sm_scale, a.sq, a.sk, a.sv, a.sdo, a.so0);
-  } else {
-    return cudaErrorInvalidValue;   // bf16 at d <= 64 is the wgmma kernel's
-  }
+  constexpr int smem = BwdF32<DPAD>::kDqSmemBytes;
+  const cudaError_t err = allow_smem(flash_attn_bwd_dq_f32<DPAD>, smem);
+  if (err != cudaSuccess) return err;
+  flash_attn_bwd_dq_f32<DPAD><<<grid, kF32Threads, smem, s>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dq), a.nq, a.kv_len, a.d,
+      a.sm_scale, a.sq, a.sk, a.sv, a.sdo, a.so0);
   return cudaGetLastError();
 }
 
@@ -1295,18 +1248,20 @@ cudaError_t launch_dkv_wgmma(const Args& a, cudaStream_t s) {
 // The fixed table of the header note
 cudaError_t dispatch_dq(int dtype, const Args& a, cudaStream_t s) {
   const int d = a.d;
-  if (dtype == 1 && d <= 64) {
+  if (dtype == 1) {
     if (d <= 16) return launch_dq_wgmma<1>(a, s);
     if (d <= 32) return launch_dq_wgmma<2>(a, s);
     if (d <= 48) return launch_dq_wgmma<3>(a, s);
-    return launch_dq_wgmma<4>(a, s);
+    if (d <= 64) return launch_dq_wgmma<4>(a, s);
+    if (d <= 80) return launch_dq_wgmma<5>(a, s);
+    return launch_dq_wgmma<10>(a, s);
   }
-  if (d <= 16) return launch_dq<16>(dtype, a, s);
-  if (d <= 32) return launch_dq<32>(dtype, a, s);
-  if (d <= 48) return launch_dq<48>(dtype, a, s);
-  if (d <= 64) return launch_dq<64>(dtype, a, s);
-  if (d <= 80) return launch_dq<80>(dtype, a, s);
-  return launch_dq<160>(dtype, a, s);
+  if (d <= 16) return launch_dq_f32<16>(a, s);
+  if (d <= 32) return launch_dq_f32<32>(a, s);
+  if (d <= 48) return launch_dq_f32<48>(a, s);
+  if (d <= 64) return launch_dq_f32<64>(a, s);
+  if (d <= 80) return launch_dq_f32<80>(a, s);
+  return launch_dq_f32<160>(a, s);
 }
 
 cudaError_t dispatch_dkv(int dtype, const Args& a, cudaStream_t s) {

@@ -1,7 +1,8 @@
 // Shared device helpers of the flash-attention kernels (forward and backward)
-// for NVIDIA Hopper (sm_90a): tile sizes, strided addressing, cp.async staging,
-// ldmatrix / mma.sync (bf16 in, f32 accumulate) wrappers and the float32
-// tile loader. Included by flash_attn_fwd.cu and flash_attn_bwd.cu.
+// for NVIDIA Hopper (sm_90a): tile sizes, strided addressing, cp.async
+// copies, bf16 packing and the float32 tile loader. Included by
+// flash_attn_fwd.cu and flash_attn_bwd.cu (through sm90.cuh, also by
+// fused_epilogue.cu).
 
 #pragma once
 
@@ -103,7 +104,6 @@ __device__ __forceinline__ float lanes16_sum(float x) {
 // ----------------------------------------------------------- bfloat16 path
 
 using bf16 = __nv_bfloat16;
-constexpr int kBf16Threads = 128;    // 4 warps x 16 query rows
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -124,58 +124,9 @@ __device__ __forceinline__ void cp_async_wait_all_but_newest() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row-major) * b (16x8, col-major); bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Start the cp.async copies of rows [row0, row0 + 64) of one (b, h) slice
-// into a [64][DPAD + 8] smem tile (rows of an odd number of 16-byte chunks:
-// ldmatrix reads 8 of them without bank conflicts), zero-filling rows at or
-// past `rows` and the columns from the head dim `d` (a multiple of 8) to
-// DPAD; the block's kBf16Threads threads take part.
-template <int DPAD>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
-                                               long long row_stride, int row0,
-                                               int rows, int d) {
-  for (int i = threadIdx.x; i < 64 * (DPAD / 8); i += kBf16Threads) {
-    const int r = i / (DPAD / 8);
-    const int c = (i % (DPAD / 8)) * 8;
-    const bool valid = row0 + r < rows && c < d;
-    cp_async16(dst + r * (DPAD + 8) + c,
-               valid ? src + (long long)(row0 + r) * row_stride + c : src,
-               valid);
-  }
 }
 
 }  // namespace

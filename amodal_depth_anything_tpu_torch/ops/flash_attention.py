@@ -26,10 +26,10 @@ Layout [B, H, N, D] as in the JAX package. The kernels take any Nq and Nk
 bfloat16. All three take any head dim up to 160 that is a multiple of 4
 (float32) or 8 (bfloat16), the 16-byte vector loads' rule: the DINOv2
 trunks' 64 and the SD-1.5 UNet's 40, 80 and 160 among them. In bfloat16
-the forward and dK/dV run on TMA + wgmma at every head dim, padded to 16 *
-ceil(d / 16) up to 64 and to 80 or 160 above; dQ does up to 64 and runs
-`mma.sync` above. `fwd_instantiation` and `bwd_instantiations` name the
-kernels a dtype and head dim run (the sources' fixed tables).
+all three run on TMA + wgmma at every head dim, padded to 16 * ceil(d / 16)
+up to 64 and to 80 or 160 above. `fwd_instantiation` and
+`bwd_instantiations` name the kernels a dtype and head dim run (the
+sources' fixed tables).
 """
 
 from __future__ import annotations
@@ -144,13 +144,9 @@ def bwd_instantiations(dtype, d: int) -> tuple[str, str]:
     """The (dQ, dK/dV) kernel instantiations `csrc/flash_attn_bwd.cu` runs
     for `dtype` and head dim `d` (its fixed table)."""
     check_head_dim(d, dtype)
-    if dtype != torch.bfloat16:
-        kind = f"f32<{_padded(d)}>"
-        return f"flash_attn_bwd_dq_{kind}", f"flash_attn_bwd_dkv_{kind}"
-    dkv = f"flash_attn_bwd_dkv_bf16_wgmma<{_wgmma_steps(d)}>"
-    if d <= 64:
-        return f"flash_attn_bwd_dq_bf16_wgmma<{_wgmma_steps(d)}>", dkv
-    return f"flash_attn_bwd_dq_bf16<{_padded(d)}>", dkv
+    kind = (f"bf16_wgmma<{_wgmma_steps(d)}>" if dtype == torch.bfloat16
+            else f"f32<{_padded(d)}>")
+    return f"flash_attn_bwd_dq_{kind}", f"flash_attn_bwd_dkv_{kind}"
 
 
 def _check(q, k, v, kv_len):

@@ -8,7 +8,8 @@ Needs one NVIDIA GPU and nvcc. Times the port it belongs to (to compare
 two checkouts on one card, run each checkout's own copy in one call): the
 forward (`mha`) at the DepthFM and pix2gestalt UNet shapes
 with d > 64 (self-attention and onto 77 or 1 keys), and dQ and dK/dV at
-DepthFM training's (batch 4 and 8, self and onto 77 keys). Each time is the
+DepthFM training's (batch 4, and every d > 64 shape of a step at the
+recipe's batch 8: self and onto 77 keys). Each time is the
 kernel's device time per call from a torch.profiler trace (no launch or
 dispatch cost), with the name of the kernel the trace shows; SDPA's
 forward and backward are read the same way (a yardstick only). The bound
@@ -33,10 +34,13 @@ FWD_CASES = [((4, 8, 1024, 80), 1024), ((4, 8, 256, 160), 256),
              ((2, 8, 64, 160), 64), ((2, 8, 16, 160), 16),
              ((2, 8, 256, 80), 1), ((2, 8, 64, 160), 1),
              ((2, 8, 16, 160), 1)]
-# DepthFM training's backward at d > 64: batch 4 and the recipe's batch 8
+# DepthFM training's backward at d > 64: batch 4, and every d > 64 shape of
+# a train step at the recipe's batch 8 (the mid block's 64 tokens included)
 BWD_CASES = [((4, 8, 1024, 80), 1024), ((4, 8, 256, 160), 256),
              ((4, 8, 1024, 80), 77), ((4, 8, 256, 160), 77),
-             ((8, 8, 1024, 80), 1024), ((8, 8, 256, 160), 256)]
+             ((8, 8, 1024, 80), 1024), ((8, 8, 256, 160), 256),
+             ((8, 8, 1024, 80), 77), ((8, 8, 256, 160), 77),
+             ((8, 8, 64, 160), 64), ((8, 8, 64, 160), 77)]
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12   # H100 SXM, bf16 dense, HBM3
 KERNEL = re.compile(r"(flash_attn_\w+(?:<[^>]*>)?)")
 

@@ -35,7 +35,16 @@ instantiations of each kernel):
                   then serialises its wgmmas at KSTEPS 3 and 4, C7512), and
                   at d = 80 each warpgroup summing both dK and dV over its
                   own 64 key rows, as up to d = 64 (dkv80_joint: 144
-                  registers, C7512).
+                  registers, C7512). The split dQ kernel of d = 160,
+                  where one warpgroup computes S and P and hands P to the
+                  other, which computes dP, dS and dQ: without P and dS
+                  (dq_split_no_softmax), without wgmma
+                  (dq_split_no_products), and three alternatives: the
+                  first warpgroup computing S, dP and dS and handing dS
+                  over (dq_split_by_ds: two products against one), the
+                  split at d = 80 too (dq80_split), and at d = 160 each
+                  warpgroup on its own 64 query rows, as up to d = 80
+                  (dq160_joint: 144 registers and more).
   fused_epilogue  product_only: no residual load, no epilogue arithmetic,
                   no store; epilogue_only: one k tile per output tile.
 A part that is hidden behind another costs nothing when it is taken out.
@@ -168,6 +177,18 @@ DKV_PIPELINED = """\
 
 """
 
+# the split dQ kernel's P rebuild (P warpgroup) and dP product (dS warpgroup)
+DQ_SPLIT_P = """\
+    if ((t + 1) * kWgStream > kv_len)
+      dq_tile_p<true>(s, lse2, c, t * kWgStream + col0, kv_len);
+    else
+      dq_tile_p<false>(s, lse2, c, t * kWgStream + col0, kv_len);
+"""
+DQ_SPLIT_DP = """\
+    scores<KSTEPS, T::kResBox, T::kStrBox>(dp, sm.res1,
+                                           sm.str1 + stage * T::kStrTile);
+"""
+
 # library -> {ablation: [(text in the source, its replacement), ...]}
 ABLATIONS = {
     "flash_attn_fwd": {
@@ -195,7 +216,7 @@ ABLATIONS = {
         "no_softmax": [
             ("      dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);\n", ""),
             ("      dkv_tile_ds(dpt, st, sm.dl + stage * 64, col0);\n", ""),
-            ("      tile(s, dp, t);\n", "")],
+            ("    tile(s, dp, t);\n", "")],
         "no_exp": [(
             'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
             "y = x * 0.001f + 1.f;")],
@@ -229,6 +250,50 @@ ABLATIONS = {
             ("    accumulate<KSTEPS>(acc, dsf, sm.str0 + stage * T::kStrTile);"
              "\n",
              "    acc[0] += __uint_as_float(dsf[0][0]);\n")],
+        "dq_split_no_softmax": [
+            (DQ_SPLIT_P, ""),
+            ("      dp[4 * j] = p.x * (dp[4 * j] - dl[0]);\n"
+             "      dp[4 * j + 1] = p.y * (dp[4 * j + 1] - dl[0]);\n"
+             "      dp[4 * j + 2] = p.z * (dp[4 * j + 2] - dl[1]);\n"
+             "      dp[4 * j + 3] = p.w * (dp[4 * j + 3] - dl[1]);\n",
+             "      dp[4 * j] += p.x + dl[0];\n")],
+        "dq_split_no_products": [
+            ("    scores<KSTEPS, T::kResBox, T::kStrBox>(s, sm.res0,\n"
+             "                                           sm.str0 + stage * "
+             "T::kStrTile);\n",
+             "    s[0] = __uint_as_float((uint32_t)stage & 0x3fffffffu);\n"),
+            (DQ_SPLIT_DP,
+             "    dp[0] = __uint_as_float((uint32_t)stage & 0x3fffffffu);\n"),
+            ("    accumulate<KSTEPS>(acc, dsf, sm.str0 + stage * T::kStrTile);"
+             "   // dS K\n",
+             "    acc[0] += __uint_as_float(dsf[0][0]);\n")],
+        "dq_split_by_ds": [
+            ("void dq_split_p(const WgSmem<T>& sm, int n_tiles,\n"
+             "                                           const float "
+             "(&lse2)[2], float c,\n",
+             "void dq_split_p(const WgSmem<T>& sm, int n_tiles,\n"
+             "    const float (&lse2)[2], const float (&dl)[2], float c,\n"),
+            ("dq_split_p<KSTEPS>(sm, n_tiles, lse2, c,",
+             "dq_split_p<KSTEPS>(sm, n_tiles, lse2, dl, c,"),
+            ("    float s[32];\n", "    float s[32], dp[32];\n"),
+            ("    wgmma_wait<0>();   // done with the stage's K\n"
+             "    wgmma_pin(s);\n",
+             DQ_SPLIT_DP + "    wgmma_commit();\n    wgmma_wait<0>();\n"
+             "    wgmma_pin(s);\n    wgmma_pin(dp);\n"),
+            (DQ_SPLIT_P,
+             DQ_SPLIT_P.replace("dq_tile_p<true>(s,", "dq_tile<true>(s, dp,")
+             .replace("dq_tile_p<false>(s,", "dq_tile<false>(s, dp,")
+             .replace("lse2, c,", "lse2, dl, c,")
+             + "    #pragma unroll\n"
+             "    for (int e = 0; e < 32; ++e) s[e] = dp[e];\n"),
+            ("    wgmma_fence();\n" + DQ_SPLIT_DP + "    wgmma_commit();\n"
+             "    wgmma_wait<0>();\n    wgmma_pin(dp);\n", ""),
+            ("      dp[4 * j] = p.x * (dp[4 * j] - dl[0]);\n"
+             "      dp[4 * j + 1] = p.y * (dp[4 * j + 1] - dl[0]);\n"
+             "      dp[4 * j + 2] = p.z * (dp[4 * j + 2] - dl[1]);\n"
+             "      dp[4 * j + 3] = p.w * (dp[4 * j + 3] - dl[1]);\n",
+             "      dp[4 * j] = p.x;\n      dp[4 * j + 1] = p.y;\n"
+             "      dp[4 * j + 2] = p.z;\n      dp[4 * j + 3] = p.w;\n")],
         "three_stages": [(
             "  static constexpr int kStages = kRoom / kStageBytes < 4\n"
             "                                     ? kRoom / kStageBytes : 4;",
@@ -237,6 +302,10 @@ ABLATIONS = {
         "dkv_pipelined": [(DKV_LOOP, DKV_PIPELINED)],
         "dkv80_joint": [("constexpr bool kDkvSplit = KSTEPS > 4;",
                          "constexpr bool kDkvSplit = KSTEPS > 5;")],
+        "dq80_split": [("constexpr bool kDqSplit = KSTEPS > 5;",
+                        "constexpr bool kDqSplit = KSTEPS > 4;")],
+        "dq160_joint": [("constexpr bool kDqSplit = KSTEPS > 5;",
+                         "constexpr bool kDqSplit = KSTEPS > 10;")],
     },
     "fused_epilogue": {
         "full": [],

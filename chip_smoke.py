@@ -12,9 +12,9 @@ plain PyTorch version on the card:
      once); ptxas's `-v` report (kept beside each library) must show no
      serialised wgmma (C7512 and its kin); where `cuobjdump` is found, the
      SASS of each wgmma kernel function (every bf16 instantiation of the
-     forward and dK/dV, d = 16 to 160; dQ's to 64; the epilogue's) must hold
-     HGMMA (wgmma) and UTMALDG (TMA load) opcodes, and no bf16 forward or
-     dK/dV kernel on mma.sync may be left;
+     forward, dQ and dK/dV, d = 16 to 160; the epilogue's) must hold
+     HGMMA (wgmma) and UTMALDG (TMA load) opcodes, and no bf16 attention
+     kernel on mma.sync may be left;
   3. kernel vs plain version at the main paths' attention shapes and
      more, float32 (max abs <= 2e-5) and bfloat16 (<= 2e-2, plain version
      on the bf16-rounded inputs in float32), with kernel, plain and
@@ -32,12 +32,13 @@ plain PyTorch version on the card:
      kernels' device time from torch.profiler, which launch-bound shapes
      need), and on the edges of their
      tiles (the forward's sweep: N from 1 to 257, kv_len inside a tile,
-     dead dK/dV rows exactly 0, a second dK/dV run bit-identical, head dims
-     64/40/24/8/80/136/160), and `mha` under autograd on strided CUDA
-     views; the device time (torch.profiler) of the bf16 forward, dQ and
+     dead dK/dV rows exactly 0, a second dQ and dK/dV run bit-identical,
+     head dims 64/40/24/8/80/136/160), and `mha` under autograd on strided
+     CUDA views; the device time (torch.profiler) of the bf16 forward, dQ and
      dK/dV at every d > 64 UNet shape (`tools/head_dim_times.py`'s: the
      forward self and onto 77 or 1 keys, DepthFM training's backward at
-     batch 4 and 8), each beside SDPA's and the bound, and the profiled
+     batch 4 and at every d > 64 shape of a batch-8 step), each beside
+     SDPA's and the bound, and the profiled
      kernel checked to be the table's instantiation; then the fused matmul
      + LayerScale + residual epilogue against
      `matmul_scale_residual_reference` at the trunks' proj / fc2 shapes,
@@ -731,17 +732,18 @@ def native_build_check() -> None:
 
 # the kernel functions that must run on wgmma fed by TMA, by the mangled
 # name cuobjdump heads each function's SASS with: every bf16 instantiation of
-# the forward and of dK/dV, dQ's at d <= 64, the fused epilogue's bf16 kernel
+# the forward, dQ and dK/dV, the fused epilogue's bf16 kernel
 WGMMA_FUNCTIONS = {
     "flash_attn_fwd": [f"flash_attn_fwd_bf16_wgmmaILi{k}E"
                        for k in (1, 2, 3, 4, 5, 10)],
-    "flash_attn_bwd": [f"flash_attn_bwd_dkv_bf16_wgmmaILi{k}E"
-                       for k in (1, 2, 3, 4, 5, 10)]
-    + [f"flash_attn_bwd_dq_bf16_wgmmaILi{k}E" for k in (1, 2, 3, 4)],
+    "flash_attn_bwd": [f"flash_attn_bwd_{kind}_bf16_wgmmaILi{k}E"
+                       for kind in ("dkv", "dq")
+                       for k in (1, 2, 3, 4, 5, 10)],
     "fused_epilogue": ["fused_epilogue_bf16"]}
-# bf16 kernels on mma.sync that no longer exist: the forward and dK/dV run on
-# wgmma at every head dim
-GONE_FUNCTIONS = ("flash_attn_fwd_bf16ILi", "flash_attn_bwd_dkv_bf16ILi")
+# bf16 kernels on mma.sync that no longer exist: the forward, dQ and dK/dV
+# run on wgmma at every head dim
+GONE_FUNCTIONS = ("flash_attn_fwd_bf16ILi", "flash_attn_bwd_dkv_bf16ILi",
+                  "flash_attn_bwd_dq_bf16ILi")
 
 
 def sass_functions(sass: str) -> dict:
@@ -752,7 +754,7 @@ def sass_functions(sass: str) -> dict:
 
 def sass_check() -> None:
     """Each wgmma kernel function's SASS holds wgmma and TMA-load opcodes,
-    the forward and dK/dV keep no bf16 mma.sync kernel, and ptxas
+    no bf16 attention kernel on mma.sync is left, and ptxas
     serialised no wgmma of any kernel (its `-v` report, kept beside each
     library)."""
     import shutil
@@ -797,7 +799,7 @@ def wide_head_rows(gpu: str) -> tuple[list, list]:
     """Device time of the bf16 forward, dQ and dK/dV at the UNet's d > 64
     shapes (`tools/head_dim_times.py`'s), beside SDPA's and the bound; each
     profiled kernel must be the instantiation the table names, on wgmma for
-    the forward and dK/dV. Returns (forward rows, backward rows)."""
+    all three. Returns (forward rows, backward rows)."""
     import torch
 
     from amodal_depth_anything_tpu_torch.ops.flash_attention import (
@@ -826,6 +828,8 @@ def wide_head_rows(gpu: str) -> tuple[list, list]:
               f"{r['dq_bound_ms']:.4f} ms); SDPA backward "
               f"{as_ms(r['sdpa_bwd_device_ms'])} [{gpu}]", flush=True)
         check((r["dq_kernel"], r["dkv_kernel"]) == want
+              and all("wgmma" in name for name in want)
+              and r["dq_device_ms"] is not None
               and r["dkv_device_ms"] is not None,
               f"the backward at {list(shape)} Nk={nk} ran {r['dq_kernel']} "
               f"and {r['dkv_kernel']} ({want})")
@@ -1146,12 +1150,12 @@ def attention_bwd_phase(gpu: str) -> dict:
 
 def attention_bwd_edge_cases(runs: dict) -> None:
     """Both backward kernels on the edges of their tiles (128 resident rows
-    a block, 64 a warpgroup, 64-row streamed tiles), through strided views
-    of one qkv buffer as the models hand them over, against
-    `mha_bwd_reference`. The error is relative to the largest of the three
-    reference gradients' max abs: at N = 1, dQ and dK are zero up to
-    rounding (P = 1, dP = delta), so a ratio to their own max abs would
-    measure only that rounding."""
+    a block and 64 a warpgroup, or 64 a split block; 64-row streamed
+    tiles), through strided views of one qkv buffer as the models hand them
+    over, against `mha_bwd_reference`. The error is relative to the largest
+    of the three reference gradients' max abs: at N = 1, dQ and dK are zero
+    up to rounding (P = 1, dP = delta), so a ratio to their own max abs
+    would measure only that rounding."""
     import torch
 
     from amodal_depth_anything_tpu_torch.ops.flash_attention import (
@@ -1183,9 +1187,10 @@ def attention_bwd_edge_cases(runs: dict) -> None:
                 kw = {"sm_scale": d ** -0.5, "kv_len": kv_len}
                 outs = (flash_attn_bwd_dq(*args, **kw),
                         *flash_attn_bwd_dkv(*args, **kw))
-                again = flash_attn_bwd_dkv(*args, **kw)   # the same bits
+                again = (flash_attn_bwd_dq(*args, **kw),   # the same bits
+                         *flash_attn_bwd_dkv(*args, **kw))
                 unequal += sum(not torch.equal(a, r)
-                               for a, r in zip(outs[1:], again))
+                               for a, r in zip(outs, again))
                 torch.cuda.synchronize()
                 refs = mha_bwd_reference(q.float(), k.float(), v.float(),
                                          o.float(), lse, do.float(), **kw)
@@ -1208,8 +1213,8 @@ def attention_bwd_edge_cases(runs: dict) -> None:
                   f"cases (N in {list(EDGE_NS)}, kv_len N-1 and N-70, 4096 x "
                   f"77): max abs {worst:.3e} of the largest reference "
                   f"gradient <= {TOL[dt_name]}; rows >= kv_len of dK and dV "
-                  f"exactly 0 (max {dead}); a second run of dK/dV "
-                  f"bit-identical ({unequal} of {2 * len(cases)} differ)"
+                  f"exactly 0 (max {dead}); a second run of dQ and dK/dV "
+                  f"bit-identical ({unequal} of {3 * len(cases)} differ)"
                   + (f"; failing (Nq, Nk, kv_len, err): {bad}" if bad else ""))
 
 

@@ -180,10 +180,16 @@ def test_bwd_check_takes_the_forward_head_dim_rule(dtype, d, ok):
                           "flash_attn_bwd_dkv_bf16_wgmma<4>")),
     (torch.bfloat16, 40, ("flash_attn_bwd_dq_bf16_wgmma<3>",
                           "flash_attn_bwd_dkv_bf16_wgmma<3>")),
-    (torch.bfloat16, 80, ("flash_attn_bwd_dq_bf16<80>",
+    (torch.bfloat16, 72, ("flash_attn_bwd_dq_bf16_wgmma<5>",
                           "flash_attn_bwd_dkv_bf16_wgmma<5>")),
-    (torch.bfloat16, 96, ("flash_attn_bwd_dq_bf16<160>",
+    (torch.bfloat16, 80, ("flash_attn_bwd_dq_bf16_wgmma<5>",
+                          "flash_attn_bwd_dkv_bf16_wgmma<5>")),
+    (torch.bfloat16, 96, ("flash_attn_bwd_dq_bf16_wgmma<10>",
                           "flash_attn_bwd_dkv_bf16_wgmma<10>")),
+    (torch.bfloat16, 136, ("flash_attn_bwd_dq_bf16_wgmma<10>",
+                           "flash_attn_bwd_dkv_bf16_wgmma<10>")),
+    (torch.bfloat16, 160, ("flash_attn_bwd_dq_bf16_wgmma<10>",
+                           "flash_attn_bwd_dkv_bf16_wgmma<10>")),
     (torch.float32, 12, ("flash_attn_bwd_dq_f32<16>",
                          "flash_attn_bwd_dkv_f32<16>")),
     (torch.float32, 64, ("flash_attn_bwd_dq_f32<64>",
