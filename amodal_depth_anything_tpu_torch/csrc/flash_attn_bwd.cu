@@ -36,11 +36,19 @@
 // accumulator rows. Which kernel runs is a fixed table by dtype and head dim
 // d (the forward's):
 //
-//   bfloat16, d <= 64   flash_attn_bwd_{dq,dkv}_bf16_wgmma<ceil(d / 16)>
-//   bfloat16, d <= 80   flash_attn_bwd_{dq,dkv}_bf16_wgmma<5>
-//   bfloat16, d <= 160  flash_attn_bwd_{dq,dkv}_bf16_wgmma<10>
+//   bfloat16, d <= 32   flash_attn_bwd_dq_bf16_wgmma<ceil(d / 16)>,
+//                       flash_attn_bwd_dkv_bf16_wgmma<ceil(d / 16), 2>
+//   bfloat16, d <= 48   flash_attn_bwd_dq_bf16_wgmma<3>,
+//                       flash_attn_bwd_dkv_bf16_wgmma<3, 2> (boxes of d
+//                       columns)
+//   bfloat16, d <= 64   flash_attn_bwd_dq_bf16_wgmma<4>,
+//                       flash_attn_bwd_dkv_bf16_wgmma<4, 2>
+//   bfloat16, d <= 80   ..._dq_bf16_wgmma<5>, ..._dkv_bf16_wgmma<5, 2>
+//   bfloat16, d <= 160  ..._dq_bf16_wgmma<10>, ..._dkv_bf16_wgmma<10, 2>
 //   float32,  d <= 160  flash_attn_bwd_{dq,dkv}_f32<DPAD>, DPAD the
 //                       smallest of 16, 32, 48, 64, 80, 160 that holds d
+//
+// (the dK/dV template's second argument counts its consumer warpgroups)
 //
 //  * bfloat16 on wgmma fed by TMA, the forward's shape. A block is three
 //    warpgroups on resident rows (query rows in dQ, key rows in dK/dV) that
@@ -83,7 +91,9 @@
 //    second's products and the second's dS under the first's, without
 //    turns: one product a tile against two. TMA zero-fills what lies
 //    outside the tensor: rows past the maps' ends (kv_len for K and V;
-//    q_len for Q and dO in the dK/dV kernel) and the columns from d on. In
+//    q_len for Q and dO in the dK/dV kernel) and the columns from d on; at
+//    32 < d <= 48 dK/dV reads boxes of d columns instead, as the forward
+//    does, and zeroes the columns from d to 48 itself (dQ keeps 64). In
 //    the dK/dV kernel a second producer warp copies each tile's LSE (times
 //    log2 e; +inf for rows at or past q_len, so that their P is exactly 0)
 //    and delta into the stage beside the tiles, and arrives on the stage's
@@ -359,6 +369,8 @@ flash_attn_bwd_dkv_f32(const float* __restrict__ q,
 constexpr int kWgStream = 64;              // rows of a streamed tile
 constexpr int kWgThreads = 384;            // two consumer warpgroups, then
                                            // the producer's
+template <int WGS>                         // WGS consumer warpgroups
+constexpr int kWgsThreads = 128 * (WGS + 1);
 constexpr int kWgKStepBytes = 16 * kSwizzleRow;   // 16 rows of a tile
 
 // Whether flash_attn_bwd_dkv_bf16_wgmma<KSTEPS> splits its two sums over two
@@ -388,11 +400,12 @@ constexpr bool kDqSplit = KSTEPS > 5;
 // fit up to four; each tile kBoxes boxes of 64 head-dim columns. A SPLIT
 // block also holds one 64 x 64 float32 P tile (P^T in dK/dV), which its
 // first warpgroup hands to its second.
-template <int KSTEPS, bool SPLIT>
+template <int KSTEPS, bool SPLIT, int WGS = 2, bool NARROW = false>
 struct BwdTiles {
   static constexpr bool kSplit = SPLIT;
+  static constexpr bool kNarrow = NARROW;   // boxes of d columns (sm90.cuh)
   static constexpr int kBoxes = kHeadBoxes<KSTEPS>;
-  static constexpr int kRes = SPLIT ? 64 : 128;
+  static constexpr int kRes = SPLIT ? 64 : 64 * WGS;
   static constexpr int kResBox = kRes * 64;         // elements of a box
   static constexpr int kStrBox = kWgStream * 64;
   static constexpr int kResTile = kBoxes * kResBox;
@@ -406,13 +419,27 @@ struct BwdTiles {
   static constexpr int kSmemBytes = 2 * 2 * kResTile +
                                     kStages * kStageBytes + kPBytes +
                                     (3 + 2 * kStages) * 8 + kSwizzleAtom;
+  // registers a thread: the consumers take what the producer gives away
+  // (65536 a block: 40 + 2 x 232 or 32 + 3 x 160 a warpgroup's threads)
+  static constexpr int kProducerRegs = WGS == 2 ? 40 : 32;
+  static constexpr int kConsumerRegs = WGS == 2 ? 232 : 160;
   static_assert(kStages >= 2 && kSmemBytes <= kSmemMax, "shared memory");
+  static_assert(WGS == 2 || !SPLIT, "a split block is two warpgroups");
 };
 
 template <int KSTEPS>
 using DqTiles = BwdTiles<KSTEPS, kDqSplit<KSTEPS>>;
-template <int KSTEPS>
-using DkvTiles = BwdTiles<KSTEPS, kDkvSplit<KSTEPS>>;
+
+// dK/dV at KSTEPS 3: whether it reads its operands in boxes of d columns
+// (attention_map in sm90.cuh), and its consumer warpgroups (three on 192
+// key rows are compiled for the 128 registers a thread of a 512-thread
+// block, spill and serialise their wgmmas: C7512, `tools/kernel_ablation.py`,
+// dkv_three_warpgroups)
+constexpr bool kNarrowBoxes = true;
+constexpr int kDkvNarrowWarpgroups = 2;
+template <int KSTEPS, int WGS>
+using DkvTiles = BwdTiles<KSTEPS, kDkvSplit<KSTEPS>, WGS,
+                          KSTEPS == 3 && kNarrowBoxes>;
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -525,19 +552,21 @@ struct WgSmem {
 
 // The producer thread: the two resident tiles at row r0, then the streamed
 // tiles of n_tiles into the ring, each stage once both consumers released
-// it (and, for dK/dV, the stats warp has also arrived on `full`)
+// it (and, for dK/dV, the stats warp has also arrived on `full`); d columns
+// a row where the boxes are narrow
 template <typename T>
 __device__ __forceinline__ void produce(const WgSmem<T>& sm,
                                         const CUtensorMap* res_map0,
                                         const CUtensorMap* res_map1,
                                         const CUtensorMap* str_map0,
                                         const CUtensorMap* str_map1, int r0,
-                                        int n_tiles, int h, int b) {
+                                        int n_tiles, int h, int b, int d) {
+  const uint32_t row_bytes = T::kNarrow ? 2 * d : 2 * 64 * T::kBoxes;
   tma_prefetch_map(res_map0);
   tma_prefetch_map(res_map1);
   tma_prefetch_map(str_map0);
   tma_prefetch_map(str_map1);
-  mbar_arrive_expect_tx(sm.res_full, 2 * 2 * T::kResTile);
+  mbar_arrive_expect_tx(sm.res_full, 2 * T::kRes * row_bytes);
   tma_load_boxes<T::kBoxes>(sm.res0, T::kResBox, res_map0, sm.res_full, r0,
                             h, b);
   tma_load_boxes<T::kBoxes>(sm.res1, T::kResBox, res_map1, sm.res_full, r0,
@@ -546,7 +575,7 @@ __device__ __forceinline__ void produce(const WgSmem<T>& sm,
   uint32_t phase = 0;
   for (int t = 0; t < n_tiles; ++t) {
     mbar_wait(sm.empty + stage, phase ^ 1);   // free from the start
-    mbar_arrive_expect_tx(sm.full + stage, 2 * 2 * T::kStrTile);
+    mbar_arrive_expect_tx(sm.full + stage, 2 * kWgStream * row_bytes);
     tma_load_boxes<T::kBoxes>(sm.str0 + stage * T::kStrTile, T::kStrBox,
                               str_map0, sm.full + stage, t * kWgStream, h, b);
     tma_load_boxes<T::kBoxes>(sm.str1 + stage * T::kStrTile, T::kStrBox,
@@ -687,9 +716,10 @@ __device__ __forceinline__ void dkv_split_dk(float (&acc)[8 * KSTEPS],
   }
 }
 
-template <int KSTEPS>   // k16 steps over the head dim: ceil(d / 16) up to 4,
+template <int KSTEPS,   // k16 steps over the head dim: ceil(d / 16) up to 4,
                         // then 5 or 10
-__global__ void __launch_bounds__(kWgThreads, 1)
+          int WGS>      // consumer warpgroups: 2, or 3 (KSTEPS 3, joint)
+__global__ void __launch_bounds__(kWgsThreads<WGS>, 1)
 flash_attn_bwd_dkv_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
                               const __grid_constant__ CUtensorMap map_k,
                               const __grid_constant__ CUtensorMap map_v,
@@ -699,7 +729,7 @@ flash_attn_bwd_dkv_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
                               bf16* __restrict__ dk, bf16* __restrict__ dv,
                               int nq, int nk, int q_len, int kv_len, int d,
                               float sm_scale, Strides sdk, Strides sdv) {
-  using T = DkvTiles<KSTEPS>;
+  using T = DkvTiles<KSTEPS, WGS>;
   extern __shared__ uint8_t smem_raw[];
   const WgSmem<T> sm(smem_raw);
   const int k0 = blockIdx.x * T::kRes;
@@ -718,7 +748,7 @@ flash_attn_bwd_dkv_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
   const bool stores_dv = !T::kSplit || wg == 0;
 
   if (k0 >= kv_len) {   // key rows at or past kv_len only write zeros
-    if (wg < 2) {
+    if (wg < WGS) {
       const float zero[8 * KSTEPS] = {};
       if (stores_dk)
         store_wg_bf16<KSTEPS>(dk + b * sdk.b + h * sdk.h, sdk.n, zero, 0.f,
@@ -736,7 +766,7 @@ flash_attn_bwd_dkv_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
       // the TMA thread's arrive (the bytes come with it) and the stats
       // warp's 32 lanes
       mbar_init(sm.full + s, 1 + 32);
-      mbar_init(sm.empty + s, 2);   // one thread of each consumer warpgroup
+      mbar_init(sm.empty + s, WGS);   // one thread of each consumer warpgroup
     }
     if (T::kSplit) {
       mbar_init(sm.pt_full, 128);
@@ -745,15 +775,14 @@ flash_attn_bwd_dkv_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
     mbar_init_fence();
   }
   __syncthreads();
-
   const int n_tiles = (q_len + kWgStream - 1) / kWgStream;
 
-  if (wg == 2) {
+  if (wg == WGS) {
     // ------------------------------------------------------------ producer
-    setmaxnreg_dec<40>();
+    setmaxnreg_dec<T::kProducerRegs>();
     const int warp = (threadIdx.x >> 5) & 3;
-    if (threadIdx.x == 2 * 128) {
-      produce(sm, &map_k, &map_v, &map_q, &map_do, k0, n_tiles, h, b);
+    if (threadIdx.x == WGS * 128) {
+      produce(sm, &map_k, &map_v, &map_q, &map_do, k0, n_tiles, h, b, d);
     } else if (warp == 1) {
       // the stats warp: each tile's LSE (in log2 units; +inf for query rows
       // at or past q_len) and delta into the stage
@@ -779,11 +808,23 @@ flash_attn_bwd_dkv_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     // ----------------------------------------------------------- consumers
-    setmaxnreg_inc<232>();
+    setmaxnreg_inc<T::kConsumerRegs>();
+    if (T::kNarrow) {
+      // A narrow box brings d columns: the k16 steps' columns from d on
+      // are zeros written here once, while the first loads are under way
+      // (K and V, and Q and dO in the stages in use).
+      const int used = min(n_tiles, T::kStages) * kWgStream;
+      zero_chunks(sm.res0, 2 * T::kRes, d / 8, 2 * KSTEPS, threadIdx.x,
+                  128 * WGS);
+      zero_chunks(sm.str0, used, d / 8, 2 * KSTEPS, threadIdx.x, 128 * WGS);
+      zero_chunks(sm.str1, used, d / 8, 2 * KSTEPS, threadIdx.x, 128 * WGS);
+      fence_proxy_async();
+      consumers_sync<WGS>();
+    }
     const bool elected = (threadIdx.x & 127) == 0;
     const float c = sm_scale * kLog2e;
 
-    if (wg == 1) turn_pass(wg);   // warpgroup 0 goes first
+    if (wg == WGS - 1) turn_pass<WGS>(wg);   // warpgroup 0 goes first
     mbar_wait(sm.res_full, 0);
     if constexpr (T::kSplit) {
       float acc[8 * KSTEPS];
@@ -825,7 +866,7 @@ flash_attn_bwd_dkv_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
         scores<KSTEPS, T::kResBox, T::kStrBox>(dpt, vw,
                                                sm.str1 + stage * T::kStrTile);
         wgmma_commit();
-        turn_pass(wg);
+        turn_pass<WGS>(wg);
         wgmma_wait<1>();   // S^T is complete, dP^T may still run
         wgmma_pin(st);
         dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);
@@ -841,7 +882,7 @@ flash_attn_bwd_dkv_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
         accumulate<KSTEPS>(dva, pf, sm.str1 + stage * T::kStrTile);
         accumulate<KSTEPS>(dka, dsf, sm.str0 + stage * T::kStrTile);
         wgmma_commit();
-        turn_pass(wg);
+        turn_pass<WGS>(wg);
         wgmma_wait<0>();   // the stage is free
         wgmma_pin(dka);
         wgmma_pin(dva);
@@ -1089,7 +1130,7 @@ flash_attn_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
     // ------------------------------------------------------------ producer
     setmaxnreg_dec<40>();
     if (threadIdx.x == 2 * 128)
-      produce(sm, &map_q, &map_do, &map_k, &map_v, q0, n_tiles, h, b);
+      produce(sm, &map_q, &map_do, &map_k, &map_v, q0, n_tiles, h, b, d);
   } else {
     // ----------------------------------------------------------- consumers
     setmaxnreg_inc<232>();
@@ -1184,39 +1225,31 @@ cudaError_t launch_dkv_f32(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// One operand's tensor map: (d, token, head, batch), the tokens ending at
-// `tokens`, in boxes of 64 columns x `rows` tokens of one head.
-bool attention_map(CUtensorMap* map, const void* base, int d, int tokens,
-                   int heads, int batch, const Strides& st, int rows) {
-  const long long dims[4] = {d, tokens, heads, batch};
-  const long long strides[3] = {st.n, st.h, st.b};
-  const int box[4] = {64, rows, 1, 1};
-  return encode_tensor_map_bf16(map, base, 4, dims, strides, box);
-}
-
-// The four maps of a wgmma launch: resident boxes of `res_rows` rows,
-// streamed boxes of 64; dQ: Q, dO resident (ending at nq), K, V streamed
-// (ending at kv_len); dK/dV: K, V resident (ending at kv_len), Q, dO
-// streamed (ending at q_len).
-bool wgmma_maps(const Args& a, bool dq, int res_rows, CUtensorMap (&maps)[4]) {
-  const int q_rows = dq ? res_rows : kWgStream;
-  const int kv_rows = dq ? kWgStream : res_rows;
+// The four maps of a wgmma launch (narrow as T::kNarrow): resident boxes
+// of T::kRes rows, streamed boxes of 64; dQ: Q, dO resident (ending at nq),
+// K, V streamed (ending at kv_len); dK/dV: K, V resident (ending at
+// kv_len), Q, dO streamed (ending at q_len).
+template <typename T>
+bool wgmma_maps(const Args& a, bool dq, CUtensorMap (&maps)[4]) {
+  const int q_rows = dq ? T::kRes : kWgStream;
+  const int kv_rows = dq ? kWgStream : T::kRes;
   const int q_end = dq ? a.nq : a.q_len;
+  const bool c = T::kNarrow;
   return attention_map(&maps[0], a.q, a.d, q_end, a.heads, a.batch, a.sq,
-                       q_rows) &&
+                       q_rows, c) &&
          attention_map(&maps[1], a.k, a.d, a.kv_len, a.heads, a.batch, a.sk,
-                       kv_rows) &&
+                       kv_rows, c) &&
          attention_map(&maps[2], a.v, a.d, a.kv_len, a.heads, a.batch, a.sv,
-                       kv_rows) &&
+                       kv_rows, c) &&
          attention_map(&maps[3], a.dout, a.d, q_end, a.heads, a.batch, a.sdo,
-                       q_rows);
+                       q_rows, c);
 }
 
 template <int KSTEPS>
 cudaError_t launch_dq_wgmma(const Args& a, cudaStream_t s) {
   using T = DqTiles<KSTEPS>;
   CUtensorMap m[4];
-  if (!wgmma_maps(a, true, T::kRes, m)) return cudaErrorInvalidValue;
+  if (!wgmma_maps<T>(a, true, m)) return cudaErrorInvalidValue;
   const cudaError_t err =
       allow_smem(flash_attn_bwd_dq_bf16_wgmma<KSTEPS>, T::kSmemBytes);
   if (err != cudaSuccess) return err;
@@ -1228,20 +1261,21 @@ cudaError_t launch_dq_wgmma(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <int KSTEPS>
+template <int KSTEPS, int WGS>
 cudaError_t launch_dkv_wgmma(const Args& a, cudaStream_t s) {
-  using T = DkvTiles<KSTEPS>;
+  using T = DkvTiles<KSTEPS, WGS>;
   CUtensorMap m[4];
-  if (!wgmma_maps(a, false, T::kRes, m)) return cudaErrorInvalidValue;
+  if (!wgmma_maps<T>(a, false, m)) return cudaErrorInvalidValue;
   const cudaError_t err =
-      allow_smem(flash_attn_bwd_dkv_bf16_wgmma<KSTEPS>, T::kSmemBytes);
+      allow_smem(flash_attn_bwd_dkv_bf16_wgmma<KSTEPS, WGS>, T::kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.nk + T::kRes - 1) / T::kRes, a.heads, a.batch);
-  flash_attn_bwd_dkv_bf16_wgmma<KSTEPS><<<grid, kWgThreads, T::kSmemBytes,
-                                          s>>>(
-      m[0], m[1], m[2], m[3], a.lse, a.delta, static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.nq, a.nk, a.q_len, a.kv_len, a.d,
-      a.sm_scale, a.so0, a.so1);
+  constexpr int threads = kWgsThreads<WGS>;
+  flash_attn_bwd_dkv_bf16_wgmma<KSTEPS, WGS><<<grid, threads, T::kSmemBytes,
+                                               s>>>(
+          m[0], m[1], m[2], m[3], a.lse, a.delta, static_cast<bf16*>(a.dk),
+          static_cast<bf16*>(a.dv), a.nq, a.nk, a.q_len, a.kv_len, a.d,
+          a.sm_scale, a.so0, a.so1);
   return cudaGetLastError();
 }
 
@@ -1267,12 +1301,12 @@ cudaError_t dispatch_dq(int dtype, const Args& a, cudaStream_t s) {
 cudaError_t dispatch_dkv(int dtype, const Args& a, cudaStream_t s) {
   const int d = a.d;
   if (dtype == 1) {
-    if (d <= 16) return launch_dkv_wgmma<1>(a, s);
-    if (d <= 32) return launch_dkv_wgmma<2>(a, s);
-    if (d <= 48) return launch_dkv_wgmma<3>(a, s);
-    if (d <= 64) return launch_dkv_wgmma<4>(a, s);
-    if (d <= 80) return launch_dkv_wgmma<5>(a, s);
-    return launch_dkv_wgmma<10>(a, s);
+    if (d <= 16) return launch_dkv_wgmma<1, 2>(a, s);
+    if (d <= 32) return launch_dkv_wgmma<2, 2>(a, s);
+    if (d <= 48) return launch_dkv_wgmma<3, kDkvNarrowWarpgroups>(a, s);
+    if (d <= 64) return launch_dkv_wgmma<4, 2>(a, s);
+    if (d <= 80) return launch_dkv_wgmma<5, 2>(a, s);
+    return launch_dkv_wgmma<10, 2>(a, s);
   }
   if (d <= 16) return launch_dkv_f32<16>(a, s);
   if (d <= 32) return launch_dkv_f32<32>(a, s);

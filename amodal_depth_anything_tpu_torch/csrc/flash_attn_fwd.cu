@@ -31,15 +31,18 @@
 //
 // Which kernel runs is a fixed table by dtype and head dim d:
 //
-//   bfloat16, d <= 64   flash_attn_fwd_bf16_wgmma<ceil(d / 16)>
-//   bfloat16, d <= 80   flash_attn_fwd_bf16_wgmma<5>
-//   bfloat16, d <= 160  flash_attn_fwd_bf16_wgmma<10>
+//   bfloat16, d <= 32   flash_attn_fwd_bf16_wgmma<ceil(d / 16), 2>
+//   bfloat16, d <= 48   flash_attn_fwd_bf16_wgmma<3, 2>, boxes of d columns
+//   bfloat16, d <= 64   flash_attn_fwd_bf16_wgmma<4, 2>
+//   bfloat16, d <= 80   flash_attn_fwd_bf16_wgmma<5, 2>
+//   bfloat16, d <= 160  flash_attn_fwd_bf16_wgmma<10, 2>
 //   float32,  d <= 160  flash_attn_fwd_f32<DPAD>, DPAD the smallest of
 //                       16, 32, 48, 64, 80, 160 that holds d
 //
 //  * bfloat16 (the DINOv2 trunks' 64, the SD-1.5 UNet's 40, 80 and 160): the
 //    tensor cores' full-rate path, wgmma fed by TMA, FlashAttention-3's
-//    shape at its simplest. A block is three warpgroups on 128 query rows.
+//    shape at its simplest. A block is three warpgroups on 128 query rows
+//    (the template's second argument counts the consumer warpgroups).
 //    One thread of the producer warpgroup (which gives its registers away
 //    with setmaxnreg) starts TMA loads through 4-D tensor maps over (d,
 //    token, head, batch) that the C entry encodes from the strides it is
@@ -49,7 +52,12 @@
 //    (one box up to d = 64, two at 80, three at 160), so the padded widths
 //    are 16 * ceil(d / 16) up to 64, then 80 and 160. TMA fills what lies
 //    outside the tensor with zeros: rows past Nq or kv_len (the K and V maps
-//    end at kv_len) and the columns from d on. Each of the two consumer
+//    end at kv_len) and the columns from d on. At 32 < d <= 48 (the UNet's
+//    40) a box is d columns wide instead: TMA zero-fills a 64-column box's
+//    last columns in every row at a cost that bounded the kernel, and the
+//    narrow box lands in the same swizzled rows; the columns from d to 48
+//    are zeroed once in shared memory (kNarrowQBoxes, kNarrowKVBoxes).
+//    Each of the two consumer
 //    warpgroups owns 64 query rows: S = Q K^T is KSTEPS wgmma m64nKk16 with
 //    both operands in shared memory (each k16 step in its box); the online
 //    softmax runs on the accumulator fragments in registers; P, rounded to
@@ -59,8 +67,9 @@
 //    MN-major B operand straight from its [keys, d] boxes (the descriptor's
 //    leading byte offset steps from box to box). K/V tiles are 128 keys up
 //    to d = 64 and 64 keys above (FwdTiles). What bounds the kernel is the
-//    softmax (FP32 and exp work of two warps a scheduler), so the products
-//    are made to run under it: tile t's S goes out together with tile t-1's
+//    softmax (FP32 and exp work of two warps a scheduler; each tile's row
+//    sums start from zero, so that none waits on the rescale), so the
+//    products are made to run under it: tile t's S goes out with tile t-1's
 //    P.V, the softmax of tile t runs while P.V is still in flight, and the
 //    two warpgroups take turns on the tensor cores over a pair of named
 //    barriers, so that one's softmax falls under the other's products.
@@ -220,35 +229,67 @@ flash_attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------- bfloat16 path: wgmma + TMA
 
-constexpr int kWgRows = 128;             // query rows per block
-constexpr int kWgThreads = 384;          // two consumer warpgroups, then the
-                                         // producer's
+// A bf16 block is WGS consumer warpgroups of 64 query rows each, then the
+// producer's warpgroup.
+template <int WGS>
+constexpr int kFwdThreads = 128 * (WGS + 1);
 
-// The tiles of flash_attn_fwd_bf16_wgmma<KSTEPS>: Q, then a ring of K and V
-// tiles of kKeys keys, each tile kBoxes boxes of 64 head-dim columns. A tile
-// is 128 keys up to d = 64 and 64 keys above. At d = 160, 128 keys would tie
-// 176 registers a consumer thread to wgmmas in flight (the scores, 64; P as
-// bf16 fragments, 32; the output, 80), past the 168 a thread of a
-// 384-thread block has. At d = 80 they would tie 136, which ptxas still
-// keeps in flight, and take 3-4% less time at 1024 keys but about 20% more
-// onto the pix2gestalt UNet's one context key, a tile that is nearly all
-// zero fill (`tools/kernel_ablation.py`, keys128; PERF.md).
-template <int KSTEPS>
+// KSTEPS 3 (33 <= d <= 48) reads Q, K and V in boxes of d columns
+// (attention_map in sm90.cuh): a 64-column box over 40 columns costs the
+// skeleton alone 0.29 ms at [4,8,4096,40], the boxes of d columns 0.15. It
+// keeps two consumer warpgroups: three on 192 rows are compiled for the
+// 128 registers a thread of a 512-thread block (setmaxnreg does not raise
+// ptxas's count), so they take 64-key tiles and lose to two on 128 keys at
+// the UNet's grids (`tools/kernel_ablation.py`, box64_map,
+// three_warpgroups; PERF.md).
+constexpr bool kNarrowQBoxes = true, kNarrowKVBoxes = true;
+constexpr int kNarrowWarpgroups = 2;
+
+// The tiles of flash_attn_fwd_bf16_wgmma<KSTEPS, WGS>: Q (64 WGS rows), then
+// a ring of K and V tiles of kKeys keys, each tile kBoxes boxes of 64
+// head-dim columns. A tile is 128 keys up to d = 64 and 64 keys above (and
+// with three warpgroups, whose 128 registers hold no more). At d = 160,
+// 128 keys would tie 176 registers a consumer thread to wgmmas in flight
+// (the scores, 64; P as bf16 fragments, 32; the output, 80), past the 168
+// a thread of a 384-thread block has. At d = 80 they would tie 136, which
+// ptxas still keeps in flight, and take 3-4% less time at 1024 keys but
+// about 20% more onto the pix2gestalt UNet's one context key, a tile that
+// is nearly all zero fill (`tools/kernel_ablation.py`, keys128; PERF.md).
+template <int KSTEPS, int WGS>
 struct FwdTiles {
   static constexpr int kBoxes = kHeadBoxes<KSTEPS>;
-  static constexpr int kKeys = KSTEPS <= 4 ? 128 : 64;
-  static constexpr int kQBox = kWgRows * 64;        // elements of a Q box
+  static constexpr int kRows = 64 * WGS;           // query rows a block
+  static constexpr int kKeys = KSTEPS <= 4 && WGS == 2 ? 128 : 64;
+  static constexpr int kQBox = kRows * 64;          // elements of a Q box
   static constexpr int kKVBox = kKeys * 64;         // ... of a K or V box
   static constexpr int kQBytes = 2 * kBoxes * kQBox;
   static constexpr int kKVBytes = 2 * kBoxes * kKVBox;
-  static constexpr int kRoom = kSmemMax - kSwizzleAtom - 13 * 8 - kQBytes;
-  static constexpr int kStages = kRoom / (2 * kKVBytes) < 3
-                                     ? kRoom / (2 * kKVBytes) : 3;
+  static constexpr int kMaxStages = WGS == 2 ? 3 : 8;
+  static constexpr int kRoom = kSmemMax - kSwizzleAtom -
+                               (1 + 4 * kMaxStages) * 8 - kQBytes;
+  static constexpr int kStages = kRoom / (2 * kKVBytes) < kMaxStages
+                                     ? kRoom / (2 * kKVBytes) : kMaxStages;
   static constexpr int kSmemBytes = kQBytes + 2 * kStages * kKVBytes +
                                     (1 + 4 * kStages) * 8 +
                                     kSwizzleAtom;   // room to align the tiles
+  // registers a thread: the consumers take what the producer gives away
+  // (65536 a block: 40 + 2 x 232 or 32 + 3 x 160 a warpgroup's threads)
+  static constexpr int kProducerRegs = WGS == 2 ? 40 : 32;
+  static constexpr int kConsumerRegs = WGS == 2 ? 232 : 160;
+  static constexpr bool kNarrowQ = KSTEPS == 3 && kNarrowQBoxes;
+  static constexpr bool kNarrowKV = KSTEPS == 3 && kNarrowKVBoxes;
   static_assert(kStages >= 2 && kSmemBytes <= kSmemMax, "shared memory");
 };
+
+// K and V come in boxes of d columns where their keys fill at least half a
+// tile: onto one key (the pix2gestalt UNet's context) the 64-column boxes
+// take less time, onto 77 (DepthFM's) the narrow ones
+// (`tools/kernel_ablation.py`, kv_box64; PERF.md). The host's maps and the
+// kernel's byte counts both follow it.
+template <typename T>
+__host__ __device__ __forceinline__ bool kv_boxes_narrow(int kv_len) {
+  return T::kNarrowKV && kv_len >= T::kKeys / 2;
+}
 
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -266,12 +307,15 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // instruction of its own: it is the multiplier of the one fused multiply-add
 // under the exponential. In a RAGGED tile (the last one, when kv_len is no
 // multiple of the tile) keys >= kv_len are left out of the max and get P = 0.
+// The tile's row sums start from zero and join l once complete, so that no
+// addition waits on alpha's exponential (the running sum rescaled first
+// takes 10% longer at d = 40: `tools/kernel_ablation.py`, sum_into_l).
 template <bool RAGGED, bool NEG, int N>
 __device__ __forceinline__ void softmax_body(float (&s)[N], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              float scale_log2, int key0,
                                              int kv_len) {
-  float mx[2] = {-INFINITY, -INFINITY};
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
   #pragma unroll
   for (int i = 0; i < N; ++i) {
     if (RAGGED && key0 + (i >> 2) * 8 + (i & 1) >= kv_len) continue;
@@ -285,14 +329,15 @@ __device__ __forceinline__ void softmax_body(float (&s)[N], float (&m)[2],
     const float m_new = fmaxf(m[r], mx[r] * fabsf(scale_log2));
     alpha[r] = exp2_approx(m[r] - m_new);
     m[r] = m_new;
-    l[r] *= alpha[r];
   }
   #pragma unroll
   for (int i = 0; i < N; ++i) {
     s[i] = exp2_approx(fmaf(s[i], scale_log2, -m[(i >> 1) & 1]));
     if (RAGGED && key0 + (i >> 2) * 8 + (i & 1) >= kv_len) s[i] = 0.f;
-    l[(i >> 1) & 1] += s[i];
+    sum[(i >> 1) & 1] += s[i];
   }
+  #pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
 }
 
 // tile_end: one past the tile's last key
@@ -323,15 +368,17 @@ __device__ __forceinline__ void pack_p(uint32_t (&pf)[N / 8][4],
     pf[i >> 3][(i >> 1) & 3] = pack_bf16(s[i], s[i + 1]);
 }
 
-template <int KSTEPS>   // k16 steps over the head dim: ceil(d / 16) to 4, 5, 10
-__global__ void __launch_bounds__(kWgThreads, 1)
+template <int KSTEPS,   // k16 steps over the head dim: ceil(d / 16) to 4,
+                        // then 5, 10
+          int WGS>      // consumer warpgroups, 64 query rows each
+__global__ void __launch_bounds__(kFwdThreads<WGS>, 1)
 flash_attn_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
                           bf16* __restrict__ o, float* __restrict__ lse,
                           int nq, int kv_len, int d, float scale_log2,
                           Strides so, long long lse_sb, long long lse_sh) {
-  using T = FwdTiles<KSTEPS>;
+  using T = FwdTiles<KSTEPS, WGS>;
   constexpr int kNV = 16 * KSTEPS;      // output columns computed
   constexpr int kKeys = T::kKeys, kStages = T::kStages;
   constexpr int kS = kKeys / 2;         // score registers a thread
@@ -354,38 +401,41 @@ flash_attn_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
     for (int s = 0; s < kStages; ++s) {
       mbar_init(k_full + s, 1);   // the producer's arrive; TMA adds the bytes
       mbar_init(v_full + s, 1);
-      mbar_init(k_empty + s, 2);  // one thread of each consumer warpgroup
-      mbar_init(v_empty + s, 2);
+      mbar_init(k_empty + s, WGS);  // one thread of each consumer warpgroup
+      mbar_init(v_empty + s, WGS);
     }
     mbar_init_fence();
   }
   __syncthreads();
+  const int n_tiles = (kv_len + kKeys - 1) / kKeys;
+  const uint32_t q_bytes = T::kNarrowQ ? 2 * T::kRows * d : T::kQBytes;
+  const bool kv_narrow = kv_boxes_narrow<T>(kv_len);
+  const uint32_t kv_bytes = kv_narrow ? 2 * kKeys * d : T::kKVBytes;
 
-  const int q0 = blockIdx.x * kWgRows;
+  const int q0 = blockIdx.x * T::kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int n_tiles = (kv_len + kKeys - 1) / kKeys;
   const int wg = threadIdx.x >> 7;
 
-  if (wg == 2) {
+  if (wg == WGS) {
     // ------------------------------------------------------------ producer
-    setmaxnreg_dec<40>();
-    if (threadIdx.x == 2 * 128) {
+    setmaxnreg_dec<T::kProducerRegs>();
+    if (threadIdx.x == WGS * 128) {
       tma_prefetch_map(&map_q);
       tma_prefetch_map(&map_k);
       tma_prefetch_map(&map_v);
-      mbar_arrive_expect_tx(q_full, T::kQBytes);
+      mbar_arrive_expect_tx(q_full, q_bytes);
       tma_load_boxes<T::kBoxes>(qs, T::kQBox, &map_q, q_full, q0, h, b);
       int stage = 0;
       uint32_t phase = 0;
       for (int t = 0; t < n_tiles; ++t) {
         const int off = stage * T::kBoxes * T::kKVBox;
         mbar_wait(k_empty + stage, phase ^ 1);   // free from the start
-        mbar_arrive_expect_tx(k_full + stage, T::kKVBytes);
+        mbar_arrive_expect_tx(k_full + stage, kv_bytes);
         tma_load_boxes<T::kBoxes>(ks + off, T::kKVBox, &map_k,
                                   k_full + stage, t * kKeys, h, b);
         mbar_wait(v_empty + stage, phase ^ 1);
-        mbar_arrive_expect_tx(v_full + stage, T::kKVBytes);
+        mbar_arrive_expect_tx(v_full + stage, kv_bytes);
         tma_load_boxes<T::kBoxes>(vs + off, T::kKVBox, &map_v,
                                   v_full + stage, t * kKeys, h, b);
         if (++stage == kStages) {
@@ -396,7 +446,20 @@ flash_attn_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     // ----------------------------------------------------------- consumers
-    setmaxnreg_inc<232>();
+    setmaxnreg_inc<T::kConsumerRegs>();
+    if (T::kNarrowQ || T::kNarrowKV) {
+      // A narrow box brings d columns: the k16 steps' columns from d on
+      // are zeros written here once, while the first loads are under way,
+      // in Q and in the K stages in use (V's reach only output columns
+      // that are never stored).
+      if (T::kNarrowQ)
+        zero_chunks(qs, T::kRows, d / 8, 2 * KSTEPS, threadIdx.x, 128 * WGS);
+      if (kv_narrow)
+        zero_chunks(ks, min(n_tiles, kStages) * kKeys, d / 8, 2 * KSTEPS,
+                    threadIdx.x, 128 * WGS);
+      fence_proxy_async();
+      consumers_sync<WGS>();
+    }
     const int lane = threadIdx.x & 31;
     // per thread: rows row0 and row0 + 8; in each 8-wide column tile,
     // columns col0 and col0 + 1 (the accumulator layout, see sm90.cuh)
@@ -418,7 +481,7 @@ flash_attn_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
     // wgmma m64nNk16 a k16 step, N = 16 KSTEPS, P from registers, V [keys,
     // d] the MN-major B operand, its boxes LBO apart), so that tile t's
     // softmax runs while the tensor cores work on P V.
-    if (wg == 1) turn_pass(wg);   // warpgroup 0 goes first
+    if (wg == WGS - 1) turn_pass<WGS>(wg);   // warpgroup 0 goes first
     mbar_wait(q_full, 0);
     const uint64_t dq = wgmma_desc(qs + wg * 64 * 64, 16, kSwizzleAtom);
     const auto start_s = [&](float (&s)[kS], int stage) {
@@ -445,7 +508,7 @@ flash_attn_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
       turn_wait(wg);
       wgmma_fence();
       start_s(s, 0);
-      turn_pass(wg);
+      turn_pass<WGS>(wg);
       wgmma_wait<0>();
       wgmma_pin(s);
       if (elected) mbar_arrive(k_empty);
@@ -462,7 +525,7 @@ flash_attn_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
       start_s(s, k_stage);
       mbar_wait(v_full + v_stage, v_phase);
       start_pv(v_stage);
-      turn_pass(wg);
+      turn_pass<WGS>(wg);
 
       wgmma_wait<1>();   // S is complete, P V may still run
       wgmma_pin(s);
@@ -490,7 +553,7 @@ flash_attn_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
     turn_wait(wg);
     wgmma_fence();
     start_pv(v_stage);
-    turn_pass(wg);
+    turn_pass<WGS>(wg);
     wgmma_wait<0>();
     wgmma_pin(acc);
 
@@ -547,34 +610,26 @@ cudaError_t launch_f32(const Args& a, dim3 grid, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// One operand's tensor map: (d, token, head, batch) in boxes of 64 columns
-// x `rows` tokens of one head.
-bool attention_map(CUtensorMap* map, const void* base, int d, int tokens,
-                   int heads, int batch, const Strides& st, int rows) {
-  const long long dims[4] = {d, tokens, heads, batch};
-  const long long strides[3] = {st.n, st.h, st.b};
-  const int box[4] = {64, rows, 1, 1};
-  return encode_tensor_map_bf16(map, base, 4, dims, strides, box);
-}
-
-template <int KSTEPS>
+template <int KSTEPS, int WGS>
 cudaError_t launch_wgmma(const Args& a, int heads, int batch,
                          cudaStream_t s) {
-  using T = FwdTiles<KSTEPS>;
+  using T = FwdTiles<KSTEPS, WGS>;
   CUtensorMap map_q, map_k, map_v;
-  if (!attention_map(&map_q, a.q, a.d, a.nq, heads, batch, a.sq, kWgRows) ||
+  if (!attention_map(&map_q, a.q, a.d, a.nq, heads, batch, a.sq, T::kRows,
+                     T::kNarrowQ) ||
       !attention_map(&map_k, a.k, a.d, a.kv_len, heads, batch, a.sk,
-                     T::kKeys) ||
+                     T::kKeys, kv_boxes_narrow<T>(a.kv_len)) ||
       !attention_map(&map_v, a.v, a.d, a.kv_len, heads, batch, a.sv,
-                     T::kKeys))
+                     T::kKeys, kv_boxes_narrow<T>(a.kv_len)))
     return cudaErrorInvalidValue;
   const cudaError_t err =
-      allow_smem(flash_attn_fwd_bf16_wgmma<KSTEPS>, T::kSmemBytes);
+      allow_smem(flash_attn_fwd_bf16_wgmma<KSTEPS, WGS>, T::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.nq + kWgRows - 1) / kWgRows, heads, batch);
-  flash_attn_fwd_bf16_wgmma<KSTEPS><<<grid, kWgThreads, T::kSmemBytes, s>>>(
-      map_q, map_k, map_v, static_cast<bf16*>(a.o), a.lse, a.nq, a.kv_len,
-      a.d, a.scale_log2, a.so, a.lse_sb, a.lse_sh);
+  const dim3 grid((a.nq + T::kRows - 1) / T::kRows, heads, batch);
+  constexpr int threads = kFwdThreads<WGS>;
+  flash_attn_fwd_bf16_wgmma<KSTEPS, WGS><<<grid, threads, T::kSmemBytes, s>>>(
+          map_q, map_k, map_v, static_cast<bf16*>(a.o), a.lse, a.nq,
+          a.kv_len, a.d, a.scale_log2, a.so, a.lse_sb, a.lse_sh);
   return cudaGetLastError();
 }
 
@@ -602,12 +657,13 @@ extern "C" int flash_attn_fwd(int dtype, const void* q, const void* k,
                Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
                lse_sb, lse_sh};
   if (dtype == 1) {   // the fixed table of the header note
-    if (d <= 16) return (int)launch_wgmma<1>(a, heads, batch, s);
-    if (d <= 32) return (int)launch_wgmma<2>(a, heads, batch, s);
-    if (d <= 48) return (int)launch_wgmma<3>(a, heads, batch, s);
-    if (d <= 64) return (int)launch_wgmma<4>(a, heads, batch, s);
-    if (d <= 80) return (int)launch_wgmma<5>(a, heads, batch, s);
-    return (int)launch_wgmma<10>(a, heads, batch, s);
+    if (d <= 16) return (int)launch_wgmma<1, 2>(a, heads, batch, s);
+    if (d <= 32) return (int)launch_wgmma<2, 2>(a, heads, batch, s);
+    if (d <= 48) return (int)launch_wgmma<3, kNarrowWarpgroups>(a, heads,
+                                                                batch, s);
+    if (d <= 64) return (int)launch_wgmma<4, 2>(a, heads, batch, s);
+    if (d <= 80) return (int)launch_wgmma<5, 2>(a, heads, batch, s);
+    return (int)launch_wgmma<10, 2>(a, heads, batch, s);
   }
   const dim3 grid((nq + kBM - 1) / kBM, heads, batch);
   if (d <= 16) return (int)launch_f32<16>(a, grid, s);

@@ -2,8 +2,10 @@
 // mbarriers, TMA (cp.async.bulk.tensor) loads and stores through a
 // CUtensorMap, the wgmma shared-memory matrix descriptor and the
 // wgmma.mma_async wrappers (bf16 in, f32 accumulate), setmaxnreg,
-// named-barrier turn-taking and the host helper that encodes a tensor map.
-// Included by fused_epilogue.cu, flash_attn_fwd.cu and flash_attn_bwd.cu.
+// named-barrier turn-taking, the host helper that encodes a tensor map and
+// the attention operands' maps (64-column or d-column boxes; zero_chunks
+// clears what a d-column box leaves). Included by fused_epilogue.cu,
+// flash_attn_fwd.cu and flash_attn_bwd.cu.
 //
 // Conventions. Every tile that wgmma reads is written by TMA with the
 // 128-byte swizzle: rows of 64 bf16 (128 bytes), 8 rows to a 1024-byte
@@ -124,6 +126,21 @@ __device__ __forceinline__ void tma_load_boxes(bf16* dst, int box_elems,
     tma_load_4d(dst + x * box_elems, map, bar, 64 * x, row, h, b);
 }
 
+// Zero the 16-byte chunks [c0, c1) of each of `rows` rows of a
+// 128-byte-swizzled tile (1024-byte aligned): the columns a narrow box
+// (attention_map) never writes, which a k16 step still reads. Threads
+// tid of `threads` stride over them; fence_proxy_async() and a barrier of
+// those threads must follow before wgmma reads the tile.
+__device__ __forceinline__ void zero_chunks(bf16* tile, int rows, int c0,
+                                            int c1, int tid, int threads) {
+  const int n = c1 - c0;
+  for (int i = tid; i < rows * n; i += threads) {
+    const int r = i / n, c = c0 + i % n;
+    *reinterpret_cast<uint4*>(reinterpret_cast<uint8_t*>(tile) + r * 128 +
+                              ((c ^ (r & 7)) << 4)) = make_uint4(0, 0, 0, 0);
+  }
+}
+
 // Copy a box from shared memory to the map's tensor at (c0, c1); what lies
 // outside the tensor is not written. One thread executes it, after every
 // writer of the tile ran fence_proxy_async() and was waited for.
@@ -160,18 +177,29 @@ __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(REGS));
 }
 
-// Turn-taking of two consumer warpgroups (0 and 1) on the tensor cores,
-// over named barriers 1 and 2: warpgroup w waits for its turn before it
-// starts a batch of wgmmas and passes the turn on once they are under way,
-// so that one's ordinary arithmetic (a softmax, an epilogue) runs under the
-// other's products. Warpgroup 1 passes once before its first wait, and both
-// take the same number of turns.
+// Turn-taking of WGS consumer warpgroups (0 .. WGS - 1) on the tensor cores,
+// over named barriers 1 .. WGS: warpgroup w waits for its turn (barrier
+// 1 + w) before it starts a batch of wgmmas and passes the turn to
+// warpgroup w + 1 (mod WGS) once they are under way, so that one's ordinary
+// arithmetic (a softmax, an epilogue) runs under the others' products. The
+// last warpgroup passes once before its first wait, and all take the same
+// number of turns.
 __device__ __forceinline__ void turn_wait(int wg) {
   asm volatile("bar.sync %0, 256;\n" :: "r"(1 + wg) : "memory");
 }
 
+template <int WGS = 2>
 __device__ __forceinline__ void turn_pass(int wg) {
-  asm volatile("bar.arrive %0, 256;\n" :: "r"(2 - wg) : "memory");
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(1 + (wg + 1) % WGS)
+               : "memory");
+}
+
+// All WGS consumer warpgroups meet, over named barrier WGS + 1 (past the
+// turns')
+template <int WGS>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync %0, %1;\n" :: "n"(WGS + 1), "n"(128 * WGS)
+               : "memory");
 }
 
 // ----------------------------------------------------------------- wgmma
@@ -584,6 +612,24 @@ inline bool encode_tensor_map_bf16(CUtensorMap* map, const void* base,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One attention operand's tensor map: (d, token, head, batch) in boxes of
+// `rows` tokens of one head, the tokens ending at `tokens`. A box is 64
+// columns, or the d columns themselves (NARROW, d <= 64): where d is no
+// multiple of 64 the 64-column box runs past the tensor's edge in every
+// row, and TMA fills those columns with zeros at a cost that bounded the
+// forward at d = 40 (`tools/kernel_ablation.py`, box64_map). A narrow box
+// lands in the same 128-byte swizzled rows (shared memory keeps its
+// layout), reports rows * d * 2 bytes, and leaves the columns from d on as
+// they were (zero_chunks).
+inline bool attention_map(CUtensorMap* map, const void* base, int d,
+                          int tokens, int heads, int batch, const Strides& st,
+                          int rows, bool narrow) {
+  const long long dims[4] = {d, tokens, heads, batch};
+  const long long strides[3] = {st.n, st.h, st.b};
+  const int box[4] = {narrow ? d : 64, rows, 1, 1};
+  return encode_tensor_map_bf16(map, base, 4, dims, strides, box);
 }
 
 }  // namespace

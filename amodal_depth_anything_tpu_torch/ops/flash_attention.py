@@ -133,20 +133,25 @@ def _wgmma_steps(d: int) -> int:
 
 def fwd_instantiation(dtype, d: int) -> str:
     """The forward kernel instantiation `csrc/flash_attn_fwd.cu` runs for
-    `dtype` and head dim `d` (its fixed table)."""
+    `dtype` and head dim `d` (its fixed table): `<KSTEPS, consumer
+    warpgroups>` in bfloat16."""
     check_head_dim(d, dtype)
     if dtype == torch.bfloat16:
-        return f"flash_attn_fwd_bf16_wgmma<{_wgmma_steps(d)}>"
+        return f"flash_attn_fwd_bf16_wgmma<{_wgmma_steps(d)}, 2>"
     return f"flash_attn_fwd_f32<{_padded(d)}>"
 
 
 def bwd_instantiations(dtype, d: int) -> tuple[str, str]:
     """The (dQ, dK/dV) kernel instantiations `csrc/flash_attn_bwd.cu` runs
-    for `dtype` and head dim `d` (its fixed table)."""
+    for `dtype` and head dim `d` (its fixed table); dK/dV in bfloat16 is
+    `<KSTEPS, consumer warpgroups>`."""
     check_head_dim(d, dtype)
-    kind = (f"bf16_wgmma<{_wgmma_steps(d)}>" if dtype == torch.bfloat16
-            else f"f32<{_padded(d)}>")
-    return f"flash_attn_bwd_dq_{kind}", f"flash_attn_bwd_dkv_{kind}"
+    if dtype != torch.bfloat16:
+        kind = f"f32<{_padded(d)}>"
+        return f"flash_attn_bwd_dq_{kind}", f"flash_attn_bwd_dkv_{kind}"
+    steps = _wgmma_steps(d)
+    return (f"flash_attn_bwd_dq_bf16_wgmma<{steps}>",
+            f"flash_attn_bwd_dkv_bf16_wgmma<{steps}, 2>")
 
 
 def _check(q, k, v, kv_len):

@@ -1,51 +1,72 @@
 """Device time of the bf16 attention kernels at the SD-1.5 UNet's head dims
-above 64, beside SDPA's and the card's bound.
+(40, 80, 160) and at the DINOv2 trunks' 64, beside SDPA's, the card's bound
+and the exponentials' floor.
 
     python -m amodal_depth_anything_tpu_torch.tools.head_dim_times \\
         [--calls 20] [--out FILE.json]
 
 Needs one NVIDIA GPU and nvcc. Times the port it belongs to (to compare
 two checkouts on one card, run each checkout's own copy in one call): the
-forward (`mha`) at the DepthFM and pix2gestalt UNet shapes
-with d > 64 (self-attention and onto 77 or 1 keys), and dQ and dK/dV at
-DepthFM training's (batch 4, and every d > 64 shape of a step at the
-recipe's batch 8: self and onto 77 keys). Each time is the
+forward (`mha`) at the DepthFM and pix2gestalt UNet shapes (self-attention
+and onto 77 or 1 keys; at d = 40 also ToMe-SD's merged 2049 tokens and the
+p2g proxy replay's batch 10), and dQ and dK/dV at DepthFM training's (batch
+4, and the shapes of a step at the recipe's batch 8: self and onto 77
+keys); then the d = 64 trunk shapes as guards. Each time is the
 kernel's device time per call from a torch.profiler trace (no launch or
 dispatch cost), with the name of the kernel the trace shows; SDPA's
 forward and backward are read the same way (a yardstick only). The bound
 is the larger of the operations over 989 TFLOP/s and the bytes (each input
-read once, each output written once) over 3.35 TB/s.
+read once, each output written once) over 3.35 TB/s. The exponentials'
+floor is B*H*Nq*Nk exponentials (one a score; the backward kernels each
+rebuild P) over the card's MUFU rate, 16 a clock on each of 132 SMs at the
+highest SM clock `nvidia-smi` reads (`clocks.max.sm`): no call that
+exponentiates every score in the MUFU unit takes less.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import subprocess
 import sys
 
-# (q shape [B, H, Nq, d], Nk): the SD-1.5 UNet at d > 64 in DepthFM at
-# 512 px batch 4 (1024 / 256 / 64 latent tokens, onto 77 context keys) and
-# in pix2gestalt at 256 px batch 2 (both guidance halves; onto one key)
-FWD_CASES = [((4, 8, 1024, 80), 1024), ((4, 8, 256, 160), 256),
+# (q shape [B, H, Nq, d], Nk): the SD-1.5 UNet in DepthFM at 512 px batch 4
+# (4096 / 1024 / 256 / 64 latent tokens, onto 77 context keys), at d = 40
+# also batch 8 (the training recipe's), batch 10 (the p2g proxy's replay)
+# and ToMe-SD's 2049 merged tokens,
+# and in pix2gestalt at 256 px batch 2 (both guidance halves; onto one
+# key); then the vitl / vitg trunks at 518 and 1022 px (d = 64)
+FWD_CASES = [((4, 8, 4096, 40), 4096), ((4, 8, 4096, 40), 77),
+             ((8, 8, 4096, 40), 4096), ((10, 8, 4096, 40), 4096),
+             ((4, 8, 2049, 40), 2049),
+             ((2, 8, 1024, 40), 1024), ((2, 8, 1024, 40), 1),
+             ((4, 8, 1024, 80), 1024), ((4, 8, 256, 160), 256),
              ((4, 8, 64, 160), 64), ((4, 8, 1024, 80), 77),
              ((4, 8, 256, 160), 77), ((2, 8, 256, 80), 256),
              ((2, 8, 64, 160), 64), ((2, 8, 16, 160), 16),
              ((2, 8, 256, 80), 1), ((2, 8, 64, 160), 1),
-             ((2, 8, 16, 160), 1)]
-# DepthFM training's backward at d > 64: batch 4, and every d > 64 shape of
-# a train step at the recipe's batch 8 (the mid block's 64 tokens included)
-BWD_CASES = [((4, 8, 1024, 80), 1024), ((4, 8, 256, 160), 256),
+             ((2, 8, 16, 160), 1), ((4, 24, 1370, 64), 1370),
+             ((1, 24, 5330, 64), 5330)]
+# DepthFM training's backward: batch 4, and every shape of a train step at
+# the recipe's batch 8 (the mid block's 64 tokens included); then the vitl
+# train step's (d = 64)
+BWD_CASES = [((4, 8, 4096, 40), 4096), ((4, 8, 4096, 40), 77),
+             ((8, 8, 4096, 40), 4096), ((8, 8, 4096, 40), 77),
+             ((4, 8, 1024, 80), 1024), ((4, 8, 256, 160), 256),
              ((4, 8, 1024, 80), 77), ((4, 8, 256, 160), 77),
              ((8, 8, 1024, 80), 1024), ((8, 8, 256, 160), 256),
              ((8, 8, 1024, 80), 77), ((8, 8, 256, 160), 77),
-             ((8, 8, 64, 160), 64), ((8, 8, 64, 160), 77)]
+             ((8, 8, 64, 160), 64), ((8, 8, 64, 160), 77),
+             ((8, 16, 1370, 64), 1370)]
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12   # H100 SXM, bf16 dense, HBM3
+SMS, EX2_PER_CLOCK = 132, 16   # H100 SXM: SMs, MUFU ex2 a clock an SM
 KERNEL = re.compile(r"(flash_attn_\w+(?:<[^>]*>)?)")
 
 __all__ = ["FWD_CASES", "BWD_CASES", "fwd_bound", "bwd_bounds",
-           "device_events", "device_times", "fwd_row", "bwd_row"]
+           "exp_floor", "sm_clock_mhz", "device_events", "device_times",
+           "fwd_row", "bwd_row"]
 
 
 def _roofline(flops: float, nbytes: float) -> tuple[float, str]:
@@ -67,6 +88,23 @@ def bwd_bounds(shape, nk: int) -> tuple[tuple, tuple]:
     io = 2 * (2 * b * h * n * d + 2 * b * h * nk * d) + 2 * b * h * n * 4
     return (_roofline(6 * b * h * n * nk * d, io + 2 * b * h * n * d),
             _roofline(8 * b * h * n * nk * d, io + 4 * b * h * nk * d))
+
+
+def exp_floor(shape, nk: int, mhz: float) -> float:
+    """ms of B*H*Nq*Nk exponentials at the card's MUFU rate and SM clock
+    `mhz`: the forward's, and each backward kernel's (P rebuilt)."""
+    b, h, n, _ = shape
+    return b * h * n * nk / (SMS * EX2_PER_CLOCK * mhz * 1e6) * 1e3
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_mhz() -> float:
+    """The highest SM clock `nvidia-smi` reads for card 0, MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout
+    return float(out.strip().splitlines()[0])
 
 
 def device_events(prof) -> list:
@@ -147,7 +185,8 @@ def fwd_row(shape, nk: int, calls: int = 20) -> dict:
                         calls)["all"]
     bound, by = fwd_bound(shape, nk)
     return {"q": list(shape), "nk": nk, "kernel": name, "device_ms": ms,
-            "sdpa_device_ms": sdpa, "bound_ms": bound, "bound_by": by}
+            "sdpa_device_ms": sdpa, "bound_ms": bound, "bound_by": by,
+            "exp_floor_ms": exp_floor(shape, nk, sm_clock_mhz())}
 
 
 def bwd_row(shape, nk: int, calls: int = 20) -> dict:
@@ -176,7 +215,8 @@ def bwd_row(shape, nk: int, calls: int = 20) -> dict:
             "dq_device_ms": dq_ms, "dq_bound_ms": dq_bound[0],
             "dkv_kernel": dkv_name, "dkv_device_ms": dkv_ms,
             "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
-            "sdpa_bwd_device_ms": sdpa}
+            "sdpa_bwd_device_ms": sdpa,
+            "exp_floor_ms": exp_floor(shape, nk, sm_clock_mhz())}
 
 
 def _ms(x) -> str:
@@ -200,14 +240,17 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     _build.build(("flash_attn_fwd", "flash_attn_bwd"))
-    print(f"head_dim_times of {_build.CSRC} [{gpu}]", flush=True)
-    rows = {"card": gpu, "fwd": [], "bwd": []}
+    print(f"head_dim_times of {_build.CSRC} [{gpu}, SM clock up to "
+          f"{sm_clock_mhz():.0f} MHz]", flush=True)
+    rows = {"card": gpu, "sm_clock_max_mhz": sm_clock_mhz(), "fwd": [],
+            "bwd": []}
     for shape, nk in FWD_CASES:
         r = fwd_row(shape, nk, args.calls)
         rows["fwd"].append(r)
         print(f"  fwd q {r['q']} Nk={nk}: {r['kernel']} "
               f"{_ms(r['device_ms'])}, SDPA {_ms(r['sdpa_device_ms'])}, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), exp floor "
+              f"{r['exp_floor_ms']:.4f} ms", flush=True)
     for shape, nk in BWD_CASES:
         r = bwd_row(shape, nk, args.calls)
         rows["bwd"].append(r)
@@ -215,7 +258,8 @@ def main() -> int:
               f"{_ms(r['dq_device_ms'])} (bound {r['dq_bound_ms']:.4f}), "
               f"{r['dkv_kernel']} {_ms(r['dkv_device_ms'])} (bound "
               f"{r['dkv_bound_ms']:.4f}, {r['dkv_bound_by']}), SDPA "
-              f"backward {_ms(r['sdpa_bwd_device_ms'])}", flush=True)
+              f"backward {_ms(r['sdpa_bwd_device_ms'])}, exp floor "
+              f"{r['exp_floor_ms']:.4f} ms", flush=True)
         torch.cuda.empty_cache()
     if args.out:
         with open(args.out, "w") as f:

@@ -1,7 +1,7 @@
 """Where a tensor-core kernel's time goes, by taking parts of it out.
 
     python -m amodal_depth_anything_tpu_torch.tools.kernel_ablation \
-        [--only LIBRARY:ABLATION,...]
+        [--only LIBRARY:ABLATION,...] [--head_dims 40,...] [--ptxas ILi3E]
 
 Needs one NVIDIA Hopper card and nvcc. Copies `csrc/` into
 `build/kernel_ablation/`, and for each ablation below edits the copy of one
@@ -11,16 +11,30 @@ bfloat16: the device time per call from a torch.profiler trace (the UNet's
 shapes at d > 64 take less time on the card than a launch takes the host).
 The results of an ablated kernel are wrong on purpose: only its time is
 read. The sources in the package are never touched. `--only` runs the named
-ablations alone (e.g. `flash_attn_fwd:full,flash_attn_fwd:keys128`).
+ablations alone (e.g. `flash_attn_fwd:full,flash_attn_fwd:keys128`; a label
+"a+b" applies a's edits, then b's), `--head_dims` times the attention
+shapes of those head dims alone, and `--ptxas` prints ptxas's `-v` lines
+(registers, stack, spills) of each kernel function whose mangled name holds
+the given text.
 
 What the ablations say (the shapes below hold the d = 64, 40, 80 and 160
 instantiations of each kernel):
   flash_attn_fwd  no_softmax: the two products, the loads and the barriers;
                   no_exp: the softmax with a multiply-add in place of each
                   exponential (the FP32 work without the MUFU unit);
-                  no_products: the softmax path alone; and an alternative
-                  the design turned down: 128-key K/V tiles at d = 80, as
-                  up to 64 (keys128).
+                  no_products: the softmax path alone (no_qk, no_pv: one
+                  product out); and alternatives the design turned down:
+                  128-key K/V tiles at d = 80, as up to 64 (keys128); at
+                  d = 40 the 64-column boxes of the parent (box64_map; of
+                  Q or of K and V alone: q_box64, kv_box64), the tile's row
+                  sum added to l rescaled first (sum_into_l), the row max
+                  and sum on four chains (four_chains), three consumer
+                  warpgroups on 192 rows (three_warpgroups: 64-key tiles,
+                  ptxas's 128 registers a thread; narrow_keys128 the same
+                  on 128 keys: spills, C7512), two on 64-key tiles
+                  (narrow_keys64), a ring of six stages
+                  (narrow_six_stages), and no turns between the
+                  warpgroups (no_turns).
   flash_attn_bwd  the same three for the dQ and the dK/dV kernels: no P
                   and dS rebuild (no_softmax), no exponentials (no_exp),
                   no wgmma (no_products), each timed for both kernels; the
@@ -35,7 +49,18 @@ instantiations of each kernel):
                   then serialises its wgmmas at KSTEPS 3 and 4, C7512), and
                   at d = 80 each warpgroup summing both dK and dV over its
                   own 64 key rows, as up to d = 64 (dkv80_joint: 144
-                  registers, C7512). The split dQ kernel of d = 160,
+                  registers, C7512). At d = 40 (KSTEPS 3): 64-column
+                  boxes (box64_map); three warpgroups on 192 key rows
+                  (dkv_three_warpgroups: 128 registers a thread, spills,
+                  C7512); a split block of 64 key rows (dkv40_split: twice
+                  the streamed tiles); and three orders of the joint loop:
+                  tile t+1's S^T behind tile t's accumulating products
+                  (dkv_scores_behind: 112 registers in flight, slower),
+                  the same issued under a condition (dkv_scores_early:
+                  C7518), dV's product issued under dS^T
+                  (dkv_early_dv: three turns a tile, slower). The ablation
+                  tool times dK/dV's products (no_score_products,
+                  no_acc_products) apart too. The split dQ kernel of d = 160,
                   where one warpgroup computes S and P and hands P to the
                   other, which computes dP, dS and dQ: without P and dS
                   (dq_split_no_softmax), without wgmma
@@ -47,6 +72,11 @@ instantiations of each kernel):
                   (dq160_joint: 144 registers and more).
   fused_epilogue  product_only: no residual load, no epilogue arithmetic,
                   no store; epilogue_only: one k tile per output tile.
+  pad_rows        (both attention libraries) edits nothing: the same kernel
+                  on operands whose rows are padded to a multiple of 64
+                  columns (128 bytes at d = 40), the head dim still d, so
+                  that each row a TMA box reads starts on a 128-byte line;
+                  timed at the head dims that are no multiple of 64.
 A part that is hidden behind another costs nothing when it is taken out.
 Each build's ptxas C75xx advisories are printed beside the times (C7510-C7515:
 wgmmas serialised; C7519, an injected warpgroup.arrive, is informational).
@@ -60,14 +90,26 @@ import subprocess
 import sys
 
 ATTN_SHAPES = [(4, 24, 1370, 64), (1, 24, 5330, 64), (4, 8, 4096, 40),
-               (4, 8, 1024, 80), (4, 8, 256, 160)]
+               (8, 8, 4096, 40), (4, 8, 1024, 80), (4, 8, 256, 160)]
 BWD_SHAPES = [(8, 16, 1370, 64), (1, 24, 5330, 64), (4, 8, 4096, 40),
-              (8, 8, 1024, 80), (8, 8, 256, 160)]
+              (8, 8, 4096, 40), (8, 8, 1024, 80), (8, 8, 256, 160)]
+# the forward's cross-attention at d = 40 (q shape, keys): pix2gestalt's
+# UNet onto its one context key, DepthFM's onto 77
+FWD_CROSS = [((2, 8, 1024, 40), 1), ((4, 8, 4096, 40), 77)]
 GEMM_SHAPES = [(42640, 1536, 1536), (42640, 1024, 1024), (5480, 4096, 1536)]
 
-# the dK/dV consumer loop of csrc/flash_attn_bwd.cu, and the same loop with
-# tile t's score products issued beside tile t-1's accumulating products
+# the dK/dV consumer loop of csrc/flash_attn_bwd.cu (one batch of wgmmas in
+# flight, two turns a tile); the same with tile t+1's S^T issued behind
+# tile t's accumulating products (112 registers in flight); and with tile
+# t's score products issued beside tile t-1's accumulating products
 DKV_LOOP = """\
+      // A tile is two batches of wgmmas: S^T = K Q^T and dP^T = V dO^T,
+      // then dV += P^T dO and dK += dS^T Q, each batch on a turn of its
+      // own, so that one warpgroup's exponentials run under the other's
+      // products. Only one batch is in flight per warpgroup: tile t's score
+      // accumulators beside tile t-1's accumulating products would need
+      // more registers than ptxas has and it would serialise every wgmma
+      // (C7512).
       int stage = 0;
       uint32_t phase = 0;
       for (int t = 0; t < n_tiles; ++t) {
@@ -81,7 +123,7 @@ DKV_LOOP = """\
         scores<KSTEPS, T::kResBox, T::kStrBox>(dpt, vw,
                                                sm.str1 + stage * T::kStrTile);
         wgmma_commit();
-        turn_pass(wg);
+        turn_pass<WGS>(wg);
         wgmma_wait<1>();   // S^T is complete, dP^T may still run
         wgmma_pin(st);
         dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);
@@ -97,7 +139,7 @@ DKV_LOOP = """\
         accumulate<KSTEPS>(dva, pf, sm.str1 + stage * T::kStrTile);
         accumulate<KSTEPS>(dka, dsf, sm.str0 + stage * T::kStrTile);
         wgmma_commit();
-        turn_pass(wg);
+        turn_pass<WGS>(wg);
         wgmma_wait<0>();   // the stage is free
         wgmma_pin(dka);
         wgmma_pin(dva);
@@ -107,6 +149,76 @@ DKV_LOOP = """\
           phase ^= 1;
         }
       }
+
+"""
+DKV_SCORES_BEHIND = """\
+      // A tile is three batches of wgmmas: dP^T = V dO^T; then dV += P^T dO
+      // and dK += dS^T Q together with the next tile's S^T = K Q^T, so that
+      // the score product follows the accumulating ones on the tensor cores
+      // without a round trip through the warpgroup, and the next tile's
+      // P^T runs under its dP^T. Each batch takes a turn, so that one
+      // warpgroup's exponentials run under the other's products. In flight
+      // beside the accumulating products are S^T and the P^T and dS^T
+      // fragments: 112 registers a thread. Both score products there are
+      // 144, and ptxas serialises every wgmma (C7512:
+      // `tools/kernel_ablation.py`, dkv_pipelined); the last tile is peeled
+      // off, since a batch issued under a condition serialises them too
+      // (C7518, dkv_scores_early).
+      constexpr int kA = T::kResBox, kB = T::kStrBox;
+      float st[32], dpt[32];
+      uint32_t pf[4][4], dsf[4][4];   // P^T and dS^T in bf16
+      const auto score_dp = [&](int stage) {   // dP^T, then P^T and dS^T
+        turn_wait(wg);
+        wgmma_fence();
+        scores<KSTEPS, kA, kB>(dpt, vw, sm.str1 + stage * T::kStrTile);
+        wgmma_commit();
+        turn_pass<WGS>(wg);
+        wgmma_wait<1>();   // S^T is complete, dP^T may still run
+        wgmma_pin(st);
+        dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);
+        wgmma_wait<0>();
+        wgmma_pin(dpt);
+        dkv_tile_ds(dpt, st, sm.dl + stage * 64, col0);
+        pack_a(pf, st);
+        pack_a(dsf, dpt);
+      };
+      mbar_wait(sm.full, 0);   // tile 0's S^T: nothing to overlap with yet
+      wgmma_fence();
+      scores<KSTEPS, kA, kB>(st, kw, sm.str0);
+      wgmma_commit();
+      score_dp(0);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t + 1 < n_tiles; ++t) {
+        const int next = stage + 1 == T::kStages ? 0 : stage + 1;
+        const uint32_t next_phase = next == 0 ? phase ^ 1 : phase;
+        mbar_wait(sm.full + next, next_phase);
+        turn_wait(wg);
+        wgmma_fence();   // pf, dsf were written by ordinary code
+        accumulate<KSTEPS>(dva, pf, sm.str1 + stage * T::kStrTile);
+        accumulate<KSTEPS>(dka, dsf, sm.str0 + stage * T::kStrTile);
+        wgmma_commit();
+        scores<KSTEPS, kA, kB>(st, kw, sm.str0 + next * T::kStrTile);
+        wgmma_commit();
+        turn_pass<WGS>(wg);
+        wgmma_wait<1>();   // the accumulating products: the stage is free
+        wgmma_pin(dka);
+        wgmma_pin(dva);
+        if (elected) mbar_arrive(sm.empty + stage);
+        stage = next;
+        phase = next_phase;
+        score_dp(stage);
+      }
+      turn_wait(wg);   // the last tile's accumulating products
+      wgmma_fence();
+      accumulate<KSTEPS>(dva, pf, sm.str1 + stage * T::kStrTile);
+      accumulate<KSTEPS>(dka, dsf, sm.str0 + stage * T::kStrTile);
+      wgmma_commit();
+      turn_pass<WGS>(wg);
+      wgmma_wait<0>();
+      wgmma_pin(dka);
+      wgmma_pin(dva);
+      if (elected) mbar_arrive(sm.empty + stage);
 
 """
 DKV_PIPELINED = """\
@@ -120,7 +232,7 @@ DKV_PIPELINED = """\
         wgmma_commit();
         scores<KSTEPS, T::kResBox, T::kStrBox>(dpt, vw, sm.str1);
         wgmma_commit();
-        turn_pass(wg);
+        turn_pass<WGS>(wg);
         wgmma_wait<1>();
         wgmma_pin(st);
         dkv_tile_p(st, sm.lse2, c, col0);
@@ -146,7 +258,7 @@ DKV_PIPELINED = """\
         accumulate<KSTEPS>(dva, pf, sm.str1 + prev * T::kStrTile);
         accumulate<KSTEPS>(dka, dsf, sm.str0 + prev * T::kStrTile);
         wgmma_commit();
-        turn_pass(wg);
+        turn_pass<WGS>(wg);
         wgmma_wait<2>();
         wgmma_pin(st);
         dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);
@@ -170,11 +282,126 @@ DKV_PIPELINED = """\
       accumulate<KSTEPS>(dva, pf, sm.str1 + prev * T::kStrTile);
       accumulate<KSTEPS>(dka, dsf, sm.str0 + prev * T::kStrTile);
       wgmma_commit();
-      turn_pass(wg);
+      turn_pass<WGS>(wg);
       wgmma_wait<0>();
       wgmma_pin(dka);
       wgmma_pin(dva);
 
+"""
+
+# two more orders of the same loop that were turned down: tile t's
+# accumulating products issued together with tile t+1's S^T, and tile t+1's
+# dP^T on a turn of its own (C7518: ptxas serialises them); dV += P^T dO
+# issued as soon as P^T is packed, under dS^T (three turns a tile; C7512)
+DKV_KERNEL = """\
+template <int KSTEPS,   // k16 steps over the head dim: ceil(d / 16) up to 4,
+                        // then 5 or 10
+          int WGS>"""
+DKV_SCORES_EARLY_FN = """\
+// A joint dK/dV warpgroup's tiles (dkv_scores_early) over its 64 key rows
+// (kw, vw): tile t's dV += P^T dO and dK += dS^T Q go out together with
+// tile t+1's S^T = K Q^T, so that the score product follows the
+// accumulating ones on the tensor cores without a round trip through the
+// warpgroup; tile t+1's dP^T = V dO^T goes out on a turn of its own once
+// tile t's stage is free, and P^T's exponentials run under it. Two turns a
+// tile, as the joint loop below.
+template <int KSTEPS, int WGS, typename T>
+__device__ __forceinline__ void dkv_scores_early(
+    float (&dka)[8 * KSTEPS], float (&dva)[8 * KSTEPS], const WgSmem<T>& sm,
+    const bf16* kw, const bf16* vw, int wg, int n_tiles, float c, int col0,
+    bool elected) {
+  constexpr int kA = T::kResBox, kB = T::kStrBox;
+  float st[32], dpt[32];
+  uint32_t pf[4][4], dsf[4][4];   // P^T and dS^T in bf16
+  const auto rebuild = [&](int stage) {   // P^T, dS^T of a scored tile
+    wgmma_wait<1>();   // S^T is complete, dP^T may still run
+    wgmma_pin(st);
+    dkv_tile_p(st, sm.lse2 + stage * 64, c, col0);
+    wgmma_wait<0>();
+    wgmma_pin(dpt);
+    dkv_tile_ds(dpt, st, sm.dl + stage * 64, col0);
+    pack_a(pf, st);
+    pack_a(dsf, dpt);
+  };
+  mbar_wait(sm.full, 0);   // tile 0's scores: nothing to overlap with yet
+  turn_wait(wg);
+  wgmma_fence();
+  scores<KSTEPS, kA, kB>(st, kw, sm.str0);
+  wgmma_commit();
+  scores<KSTEPS, kA, kB>(dpt, vw, sm.str1);
+  wgmma_commit();
+  turn_pass<WGS>(wg);
+  rebuild(0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    const bool more = t + 1 < n_tiles;
+    const int next = stage + 1 == T::kStages ? 0 : stage + 1;
+    const uint32_t next_phase = next == 0 ? phase ^ 1 : phase;
+    if (more) mbar_wait(sm.full + next, next_phase);
+    turn_wait(wg);
+    wgmma_fence();   // pf, dsf were written by ordinary code
+    accumulate<KSTEPS>(dva, pf, sm.str1 + stage * T::kStrTile);
+    accumulate<KSTEPS>(dka, dsf, sm.str0 + stage * T::kStrTile);
+    wgmma_commit();
+    if (more) {
+      scores<KSTEPS, kA, kB>(st, kw, sm.str0 + next * T::kStrTile);
+      wgmma_commit();
+    }
+    turn_pass<WGS>(wg);
+    if (more)
+      wgmma_wait<1>();   // the accumulating products: tile t's stage is free
+    else
+      wgmma_wait<0>();
+    wgmma_pin(dka);
+    wgmma_pin(dva);
+    if (elected) mbar_arrive(sm.empty + stage);
+    stage = next;
+    phase = next_phase;
+    if (!more) break;
+    turn_wait(wg);
+    wgmma_fence();
+    scores<KSTEPS, kA, kB>(dpt, vw, sm.str1 + stage * T::kStrTile);
+    wgmma_commit();
+    turn_pass<WGS>(wg);
+    rebuild(stage);
+  }
+}
+
+"""
+DKV_SCORES_EARLY_LOOP = """\
+      dkv_scores_early<KSTEPS, WGS>(dka, dva, sm, kw, vw, wg, n_tiles, c,
+                                    col0, elected);
+
+"""
+DKV_LATE_DV = """\
+        wgmma_wait<0>();
+        wgmma_pin(dpt);
+        dkv_tile_ds(dpt, st, sm.dl + stage * 64, col0);
+        uint32_t pf[4][4], dsf[4][4];   // P^T and dS^T in bf16
+        pack_a(pf, st);
+        pack_a(dsf, dpt);
+
+        turn_wait(wg);
+        wgmma_fence();   // pf, dsf were written by ordinary code
+        accumulate<KSTEPS>(dva, pf, sm.str1 + stage * T::kStrTile);
+        accumulate<KSTEPS>(dka, dsf, sm.str0 + stage * T::kStrTile);
+"""
+DKV_EARLY_DV = """\
+        uint32_t pf[4][4], dsf[4][4];   // P^T and dS^T in bf16
+        pack_a(pf, st);
+        turn_wait(wg);
+        wgmma_fence();   // pf was written by ordinary code
+        accumulate<KSTEPS>(dva, pf, sm.str1 + stage * T::kStrTile);
+        wgmma_commit();
+        turn_pass<WGS>(wg);
+        wgmma_wait<1>();   // dP^T is complete, dV += P^T dO may still run
+        wgmma_pin(dpt);
+        dkv_tile_ds(dpt, st, sm.dl + stage * 64, col0);
+        pack_a(dsf, dpt);
+        turn_wait(wg);
+        wgmma_fence();   // dsf was written by ordinary code
+        accumulate<KSTEPS>(dka, dsf, sm.str0 + stage * T::kStrTile);
 """
 
 # the split dQ kernel's P rebuild (P warpgroup) and dP product (dS warpgroup)
@@ -189,6 +416,66 @@ DQ_SPLIT_DP = """\
                                            sm.str1 + stage * T::kStrTile);
 """
 
+# the forward softmax's row max and row sum, each a chain of N / 2 steps a
+# row, and the same on four chains a row joined at the end
+# the forward softmax's row max and row sum, each a chain of N / 2 steps a
+# row, and the same on four chains a row joined at the end; and the sum as
+# it was before (l rescaled by alpha first, each exponential added to it)
+SOFTMAX_MAX = """\
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+  #pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (RAGGED && key0 + (i >> 2) * 8 + (i & 1) >= kv_len) continue;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], NEG ? -s[i] : s[i]);
+  }
+"""
+SOFTMAX_MAX4 = """\
+  float mx[2], sum[2] = {0.f, 0.f}, m4[2][4], l4[2][4] = {};
+  #pragma unroll
+  for (int c = 0; c < 4; ++c) m4[0][c] = m4[1][c] = -INFINITY;
+  #pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (RAGGED && key0 + (i >> 2) * 8 + (i & 1) >= kv_len) continue;
+    float& x = m4[(i >> 1) & 1][(2 * (i >> 2) + (i & 1)) % 4];
+    x = fmaxf(x, NEG ? -s[i] : s[i]);
+  }
+  #pragma unroll
+  for (int r = 0; r < 2; ++r)
+    mx[r] = fmaxf(fmaxf(m4[r][0], m4[r][1]), fmaxf(m4[r][2], m4[r][3]));
+"""
+SOFTMAX_SUM = """\
+    sum[(i >> 1) & 1] += s[i];
+  }
+"""
+SOFTMAX_SUM4 = """\
+    l4[(i >> 1) & 1][(2 * (i >> 2) + (i & 1)) % 4] += s[i];
+  }
+  #pragma unroll
+  for (int r = 0; r < 2; ++r)
+    sum[r] = (l4[r][0] + l4[r][1]) + (l4[r][2] + l4[r][3]);
+"""
+SOFTMAX_JOIN = """\
+    m[r] = m_new;
+  }
+"""
+SOFTMAX_JOIN_FIRST = """\
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+"""
+
+# the forward's S = Q K^T and P V wgmmas, each for a cheap stand-in
+NO_QK = ("        wgmma_ss<0>(s, kstep_desc(dq, kk, 2 * T::kQBox),\n"
+         "                    kstep_desc(dk, kk, 2 * T::kKVBox), kk != 0);\n",
+         "        s[kk] = __uint_as_float((uint32_t)(dq + dk) & "
+         "0x3fffffffu);\n")
+NO_PV = ("        wgmma_rs(acc, pf[kk], wgmma_desc_advance(dv, kk * 16 * "
+         "kSwizzleRow));\n",
+         "        acc[kk] += __uint_as_float(pf[kk][0] ^ (uint32_t)dv);\n")
+
+# the forward's key tile: 128 keys up to d = 64 with two warpgroups
+KEYS = "  static constexpr int kKeys = KSTEPS <= 4 && WGS == 2 ? 128 : 64;"
+
 # library -> {ablation: [(text in the source, its replacement), ...]}
 ABLATIONS = {
     "flash_attn_fwd": {
@@ -200,16 +487,35 @@ ABLATIONS = {
         "no_exp": [(
             'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
             "y = x * 0.001f + 1.f;")],
-        "no_products": [
-            ("        wgmma_ss<0>(s, kstep_desc(dq, kk, 2 * T::kQBox),\n"
-             "                    kstep_desc(dk, kk, 2 * T::kKVBox), kk != 0);\n",
-             "        s[kk] = __uint_as_float((uint32_t)(dq + dk) & "
-             "0x3fffffffu);\n"),
-            ("        wgmma_rs(acc, pf[kk], wgmma_desc_advance(dv, kk * 16 * "
-             "kSwizzleRow));\n",
-             "        acc[kk] += __uint_as_float(pf[kk][0] ^ (uint32_t)dv);\n")],
-        "keys128": [("  static constexpr int kKeys = KSTEPS <= 4 ? 128 : 64;\n",
-                     "  static constexpr int kKeys = KSTEPS <= 5 ? 128 : 64;\n")],
+        "no_products": [NO_QK, NO_PV],
+        "no_qk": [NO_QK],
+        "no_pv": [NO_PV],
+        "keys128": [(KEYS, KEYS.replace("KSTEPS <= 4", "KSTEPS <= 5"))],
+        "pad_rows": [],
+        "box64_map": [("kNarrowQBoxes = true, kNarrowKVBoxes = true;",
+                       "kNarrowQBoxes = false, kNarrowKVBoxes = false;")],
+        "q_box64": [("kNarrowQBoxes = true,", "kNarrowQBoxes = false,")],
+        "kv_box64": [("kNarrowKVBoxes = true;", "kNarrowKVBoxes = false;")],
+        "three_warpgroups": [("constexpr int kNarrowWarpgroups = 2;",
+                              "constexpr int kNarrowWarpgroups = 3;")],
+        "no_turns": [("turn_wait(wg);", ";"), ("turn_pass<WGS>(wg);", ";")],
+        "narrow_keys64": [(KEYS, KEYS.replace("WGS == 2", "KSTEPS != 3"))],
+        "four_chains": [(SOFTMAX_MAX, SOFTMAX_MAX4), (SOFTMAX_SUM,
+                                                      SOFTMAX_SUM4)],
+        "sum_into_l": [
+            (SOFTMAX_JOIN, SOFTMAX_JOIN_FIRST),
+            ("    sum[(i >> 1) & 1] += s[i];", "    l[(i >> 1) & 1] += s[i];"),
+            ("  #pragma unroll\n"
+             "  for (int r = 0; r < 2; ++r) "
+             "l[r] = l[r] * alpha[r] + sum[r];\n",
+             "")],
+        "narrow_six_stages": [(
+            "  static constexpr int kMaxStages = WGS == 2 ? 3 : 8;",
+            "  static constexpr int kMaxStages = KSTEPS == 3 ? 6 : 3;")],
+        "narrow_keys128": [
+            ("constexpr int kNarrowWarpgroups = 2;",
+             "constexpr int kNarrowWarpgroups = 3;"),
+            (KEYS, KEYS.replace(" && WGS == 2", ""))],
     },
     "flash_attn_bwd": {
         "full": [],
@@ -225,6 +531,15 @@ ABLATIONS = {
              "                kstep_desc(db, kk, 2 * B_BOX), kk != 0);\n",
              "    s[kk] = __uint_as_float((uint32_t)(da + db) & "
              "0x3fffffffu);\n"),
+            ("    wgmma_rs(acc, f[kk], wgmma_desc_advance(db, kk * "
+             "kWgKStepBytes));\n",
+             "    acc[kk] += __uint_as_float(f[kk][0] ^ (uint32_t)db);\n")],
+        "no_score_products": [
+            ("    wgmma_ss<0>(s, kstep_desc(da, kk, 2 * A_BOX),\n"
+             "                kstep_desc(db, kk, 2 * B_BOX), kk != 0);\n",
+             "    s[kk] = __uint_as_float((uint32_t)(da + db) & "
+             "0x3fffffffu);\n")],
+        "no_acc_products": [
             ("    wgmma_rs(acc, f[kk], wgmma_desc_advance(db, kk * "
              "kWgKStepBytes));\n",
              "    acc[kk] += __uint_as_float(f[kk][0] ^ (uint32_t)db);\n")],
@@ -299,13 +614,24 @@ ABLATIONS = {
             "                                     ? kRoom / kStageBytes : 4;",
             "  static constexpr int kStages = kRoom / kStageBytes < 3\n"
             "                                     ? kRoom / kStageBytes : 3;")],
+        "dkv_scores_behind": [(DKV_LOOP, DKV_SCORES_BEHIND)],
         "dkv_pipelined": [(DKV_LOOP, DKV_PIPELINED)],
+        "dkv_scores_early": [(DKV_KERNEL, DKV_SCORES_EARLY_FN + DKV_KERNEL),
+                             (DKV_LOOP, DKV_SCORES_EARLY_LOOP)],
+        "dkv_early_dv": [(DKV_LATE_DV, DKV_EARLY_DV)],
+        "dkv40_split": [("kDkvSplit = KSTEPS > 4;",
+                         "kDkvSplit = KSTEPS > 4 || KSTEPS == 3;")],
         "dkv80_joint": [("constexpr bool kDkvSplit = KSTEPS > 4;",
                          "constexpr bool kDkvSplit = KSTEPS > 5;")],
         "dq80_split": [("constexpr bool kDqSplit = KSTEPS > 5;",
                         "constexpr bool kDqSplit = KSTEPS > 4;")],
         "dq160_joint": [("constexpr bool kDqSplit = KSTEPS > 5;",
                          "constexpr bool kDqSplit = KSTEPS > 10;")],
+        "pad_rows": [],
+        "box64_map": [("constexpr bool kNarrowBoxes = true;",
+                       "constexpr bool kNarrowBoxes = false;")],
+        "dkv_three_warpgroups": [("constexpr int kDkvNarrowWarpgroups = 2;",
+                                  "constexpr int kDkvNarrowWarpgroups = 3;")],
     },
     "fused_epilogue": {
         "full": [],
@@ -337,6 +663,15 @@ ABLATIONS = {
 }
 
 
+# ablations that edit no source but time the kernel on other operands
+PADDED = ("pad_rows",)
+
+
+def ablation_edits(ablations: dict, label: str) -> list:
+    """The edits of ablation `label`, or of each of "a+b+..." in turn."""
+    return [edit for part in label.split("+") for edit in ablations[part]]
+
+
 def device_ms(fn, calls: int = 20) -> float:
     """Device time per call of `fn`, every kernel it launches summed."""
     from .head_dim_times import device_times
@@ -344,10 +679,43 @@ def device_ms(fn, calls: int = 20) -> float:
     return device_times(fn, calls)["all"]
 
 
+def padded(t):
+    """`t` [..., d] as a view of a zero buffer whose rows are padded to a
+    multiple of 64 columns (128 bytes in bfloat16)."""
+    import torch
+
+    d = t.shape[-1]
+    buf = torch.zeros((*t.shape[:-1], -(-d // 64) * 64), dtype=t.dtype,
+                      device=t.device)
+    buf[..., :d] = t
+    return buf[..., :d]
+
+
+def ptxas_lines(report: str, wanted: str) -> list[str]:
+    """ptxas's `-v` lines (entry, stack and spills, registers) of each
+    kernel function whose mangled name holds `wanted`."""
+    out, current = [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            current = line.split()[-1] if "properties" in line else \
+                line.split("'")[1]
+            if wanted in current and "Compiling" in line:
+                out.append(current)
+        elif current and wanted in current and (
+                "stack frame" in line or "Used" in line):
+            out.append("  " + line.strip())
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", help="LIBRARY:ABLATION,... to run alone")
-    only = ap.parse_args().only
+    ap.add_argument("--head_dims", help="time the attention shapes of these "
+                    "head dims alone (comma-separated)")
+    ap.add_argument("--ptxas", help="print ptxas -v lines of the kernel "
+                    "functions whose mangled name holds this text")
+    args = ap.parse_args()
+    only = args.only
     import torch
 
     from ..ops import _build
@@ -368,12 +736,21 @@ def main() -> int:
     sources = {name: (_build.CSRC / f"{name}.cu").read_text()
                for name in ABLATIONS}
     _build.CSRC, _build.BUILD_DIR = work / "csrc", work / "lib"
+    dims = (None if args.head_dims is None
+            else {int(d) for d in args.head_dims.split(",")})
+    attn_shapes = [s for s in ATTN_SHAPES if dims is None or s[3] in dims]
+    bwd_shapes = [s for s in BWD_SHAPES if dims is None or s[3] in dims]
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     qkvs = [torch.randn((b, n, 3, h, d), generator=gen, device="cuda",
-                        dtype=torch.bfloat16) for b, h, n, d in ATTN_SHAPES]
+                        dtype=torch.bfloat16) for b, h, n, d in attn_shapes]
+    cross = [(shape, nk, *(torch.randn(s, generator=gen, device="cuda",
+                                       dtype=torch.bfloat16)
+                           for s in (shape, (*shape[:2], nk, shape[3]),
+                                     (*shape[:2], nk, shape[3]))))
+             for shape, nk in FWD_CROSS if dims is None or shape[3] in dims]
     bwds = []   # (q, k, v, dO, LSE, delta); the forward by the plain version
-    for b, h, n, d in BWD_SHAPES:
+    for b, h, n, d in bwd_shapes:
         q, k, v, do = (torch.randn((b, h, n, d), generator=gen, device="cuda",
                                    dtype=torch.bfloat16) for _ in range(4))
         o, lse = mha_reference(q, k, v, return_lse=True)
@@ -390,11 +767,12 @@ def main() -> int:
         gemms.append((x, w, b, g, r))
 
     for name, ablations in ABLATIONS.items():
-        for label, edits in ablations.items():
-            if only is not None and f"{name}:{label}" not in only.split(","):
-                continue
+        labels = list(ablations) if only is None else [
+            item.split(":", 1)[1] for item in only.split(",")
+            if item.startswith(name + ":")]
+        for label in labels:
             text = sources[name]
-            for old, new in edits:
+            for old, new in ablation_edits(ablations, label):
                 if old not in text:
                     raise SystemExit(f"{name}/{label}: the source no longer "
                                      f"holds {old[:60]!r}")
@@ -406,24 +784,41 @@ def main() -> int:
                 if "(C75" in line:   # ptxas serialised a wgmma pipeline
                     print(f"{name} {label}: {line.strip()[:120]} ...",
                           flush=True)
+            if args.ptxas:
+                for line in ptxas_lines(report, args.ptxas):
+                    print(f"{name} {label} ptxas: {line}", flush=True)
+            pad = any(part in PADDED for part in label.split("+"))
             times = []
             if name == "flash_attn_bwd":
-                for shape, args in zip(BWD_SHAPES, bwds):
+                for shape, args_ in zip(bwd_shapes, bwds):
+                    if pad and shape[3] % 64 == 0:
+                        continue
+                    if pad:
+                        args_ = (*(padded(t) for t in args_[:4]), *args_[4:])
                     scale = shape[3] ** -0.5
                     dq_ms = device_ms(lambda: flash_attn_bwd_dq(
-                        *args, sm_scale=scale))
+                        *args_, sm_scale=scale))
                     dkv_ms = device_ms(lambda: flash_attn_bwd_dkv(
-                        *args, sm_scale=scale))
+                        *args_, sm_scale=scale))
                     times.append(f"{list(shape)} dq {dq_ms:.4f} ms, dk/dv "
                                  f"{dkv_ms:.4f} ms")
             elif name == "flash_attn_fwd":
-                for shape, qkv in zip(ATTN_SHAPES, qkvs):
+                for shape, qkv in zip(attn_shapes, qkvs):
+                    if pad and shape[3] % 64 == 0:
+                        continue
+                    if pad:
+                        qkv = padded(qkv)
                     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
                     times.append(f"{list(shape)} "
                                  f"{device_ms(lambda: mha(q, k, v)):.4f} ms")
+                for shape, nk, q, k, v in cross:
+                    if pad:
+                        q, k, v = padded(q), padded(k), padded(v)
+                    times.append(f"{list(shape)} x {nk} "
+                                 f"{device_ms(lambda: mha(q, k, v)):.4f} ms")
             else:
-                for shape, args in zip(GEMM_SHAPES, gemms):
-                    ms = device_ms(lambda: matmul_scale_residual(*args))
+                for shape, args_ in zip(GEMM_SHAPES, gemms):
+                    ms = device_ms(lambda: matmul_scale_residual(*args_))
                     times.append(f"{list(shape)} {ms:.4f} ms")
             print(f"{name} {label}: {'; '.join(times)} [{gpu}]", flush=True)
     return 0

@@ -33,12 +33,14 @@ plain PyTorch version on the card:
      need), and on the edges of their
      tiles (the forward's sweep: N from 1 to 257, kv_len inside a tile,
      dead dK/dV rows exactly 0, a second dQ and dK/dV run bit-identical,
-     head dims 64/40/24/8/80/136/160), and `mha` under autograd on strided
-     CUDA views; the device time (torch.profiler) of the bf16 forward, dQ and
-     dK/dV at every d > 64 UNet shape (`tools/head_dim_times.py`'s: the
-     forward self and onto 77 or 1 keys, DepthFM training's backward at
-     batch 4 and at every d > 64 shape of a batch-8 step), each beside
-     SDPA's and the bound, and the profiled
+     head dims 64/40/24/8/80/136/160 and bf16 48), and `mha` under
+     autograd on strided CUDA views; the KSTEPS 3 (d = 40) kernels' ptxas
+     report without spills; the device time (torch.profiler) of the bf16
+     forward, dQ and dK/dV at every d > 64 UNet shape and the d = 40 ones
+     of HEAD_DIM_40_* (`tools/head_dim_times.py`'s: the forward self and
+     onto 77 or 1 keys, DepthFM training's backward at batch 4 and at
+     every d > 64 shape of a batch-8 step), each beside SDPA's, the bound
+     and the exponentials' floor, and the profiled
      kernel checked to be the table's instantiation; then the fused matmul
      + LayerScale + residual epilogue against
      `matmul_scale_residual_reference` at the trunks' proj / fc2 shapes,
@@ -358,6 +360,9 @@ HEUR_MAIN_CASES = (CLIP_ATTN_CASE, ((2, 8, 1024, 40), 1))
 # version
 EDGE_NS = (1, 63, 64, 65, 127, 128, 129, 255, 257)
 EDGE_HEAD_DIMS = (64, 40, 24, 8, 80, 136, 160)
+# bf16 also at d = 48, the other width of the KSTEPS 3 kernels, whose boxes
+# of d columns leave no column of the k16 steps to zero (40 leaves 8)
+NARROW_EDGE_HEAD_DIMS = (48,)
 HOST_LAUNCHES = 1000
 # the DepthFM proxy's self-attention shapes (float32 only: head dim 12 is
 # no multiple of the bfloat16 kernel's 8)
@@ -419,7 +424,7 @@ GROUP_NORM_OPS = ("aten::var_mean", "aten::addcmul", "VarMeanBackward",
 # a kernel's name, and its padded head dim if it is a template, in the
 # mangled name ptxas reports
 ENTRY_NAME = re.compile(r"((?:flash_attn|fused_epilogue)_[a-z_]*(?:bf16|f32)"
-                        r"(?:_wgmma)?)(?:ILi(\d+)E)?")
+                        r"(?:_wgmma)?)(?:ILi(\d+)E(?:Li(\d+)E)?)?")
 
 failures: list[str] = []
 
@@ -539,6 +544,19 @@ def attention_case(gen, shape, nk, kv_len, dt_name: str, gpu: str,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
+def edge_sweeps():
+    """(dtype name, head dim, cases (Nq, Nk, kv_len)) of the tile-edge
+    sweeps: every head dim of EDGE_HEAD_DIMS in both dtypes, then
+    NARROW_EDGE_HEAD_DIMS in bf16, each with N = Nq = Nk in EDGE_NS,
+    kv_len N - 1 and N - 70 where they fit, and 4096 queries onto 77
+    keys."""
+    cases = [(n, n, kv) for n in EDGE_NS for kv in (None, n - 1, n - 70)
+             if kv is None or kv >= 1] + [(4096, 77, None)]
+    return ([(dt, d, cases) for dt in ("float32", "bfloat16")
+             for d in EDGE_HEAD_DIMS]
+            + [("bfloat16", d, cases) for d in NARROW_EDGE_HEAD_DIMS])
+
+
 def attention_edge_cases(runs: dict) -> None:
     """The forward kernel on the edges of its tiles, through strided views
     of one qkv buffer as the models hand them over, with and without the
@@ -549,39 +567,36 @@ def attention_edge_cases(runs: dict) -> None:
         mha, mha_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    cases = [(n, n, kv) for n in EDGE_NS for kv in (None, n - 1, n - 70)
-             if kv is None or kv >= 1] + [(4096, 77, None)]
     b, h = 2, 2
-    for dt_name in ("float32", "bfloat16"):
+    for dt_name, d, cases in edge_sweeps():
         dtype = getattr(torch, dt_name)
-        for d in EDGE_HEAD_DIMS:
-            worst, worst_lse, bad = 0.0, 0.0, []
-            for nq, nk, kv_len in cases:
-                qkv = torch.randn((b, nk, 3, h, d), generator=gen,
-                                  device="cuda").to(dtype)
-                q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-                if nq != nk:
-                    q = torch.randn((b, nq, h, d), generator=gen,
-                                    device="cuda").to(dtype).transpose(1, 2)
-                out, lse = mha(q, k, v, kv_len=kv_len, return_lse=True)
-                alone = mha(q, k, v, kv_len=kv_len)
-                torch.cuda.synchronize()
-                ref, ref_lse = mha_reference(q.float(), k.float(), v.float(),
-                                             kv_len=kv_len, return_lse=True)
-                err = max((out.float() - ref).abs().max().item(),
-                          (alone.float() - ref).abs().max().item())
-                lse_err = (lse - ref_lse).abs().max().item()
-                if not (err <= TOL[dt_name] and lse_err <= LSE_TOL):
-                    bad.append((nq, nk, kv_len, err, lse_err))
-                worst, worst_lse = max(worst, err), max(worst_lse, lse_err)
-            fwd_run(runs, dtype, d, len(cases), worst)
-            check(not bad,
-                  f"flash_attn_fwd {dt_name} d={d} on {len(cases)} tile-edge "
-                  f"cases (N in {list(EDGE_NS)}, kv_len N-1 and N-70, 4096 x "
-                  f"77), with and without LSE: max abs {worst:.3e} <= "
-                  f"{TOL[dt_name]}, LSE {worst_lse:.3e} <= {LSE_TOL}"
-                  + (f"; failing (Nq, Nk, kv_len, err, lse err): {bad}"
-                     if bad else ""))
+        worst, worst_lse, bad = 0.0, 0.0, []
+        for nq, nk, kv_len in cases:
+            qkv = torch.randn((b, nk, 3, h, d), generator=gen,
+                              device="cuda").to(dtype)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            if nq != nk:
+                q = torch.randn((b, nq, h, d), generator=gen,
+                                device="cuda").to(dtype).transpose(1, 2)
+            out, lse = mha(q, k, v, kv_len=kv_len, return_lse=True)
+            alone = mha(q, k, v, kv_len=kv_len)
+            torch.cuda.synchronize()
+            ref, ref_lse = mha_reference(q.float(), k.float(), v.float(),
+                                         kv_len=kv_len, return_lse=True)
+            err = max((out.float() - ref).abs().max().item(),
+                      (alone.float() - ref).abs().max().item())
+            lse_err = (lse - ref_lse).abs().max().item()
+            if not (err <= TOL[dt_name] and lse_err <= LSE_TOL):
+                bad.append((nq, nk, kv_len, err, lse_err))
+            worst, worst_lse = max(worst, err), max(worst_lse, lse_err)
+        fwd_run(runs, dtype, d, len(cases), worst)
+        check(not bad,
+              f"flash_attn_fwd {dt_name} d={d} on {len(cases)} tile-edge "
+              f"cases (N in {list(EDGE_NS)}, kv_len N-1 and N-70, 4096 x "
+              f"77), with and without LSE: max abs {worst:.3e} <= "
+              f"{TOL[dt_name]}, LSE {worst_lse:.3e} <= {LSE_TOL}"
+              + (f"; failing (Nq, Nk, kv_len, err, lse err): {bad}"
+                 if bad else ""))
 
 
 def heuristics_device_ms(shape, nk: int, gpu: str) -> dict:
@@ -733,12 +748,15 @@ def native_build_check() -> None:
 # the kernel functions that must run on wgmma fed by TMA, by the mangled
 # name cuobjdump heads each function's SASS with: every bf16 instantiation of
 # the forward, dQ and dK/dV, the fused epilogue's bf16 kernel
+# (<KSTEPS, consumer warpgroups> for the forward and dK/dV)
+WGMMA_STEPS = ((1, 2), (2, 2), (3, 2), (4, 2), (5, 2), (10, 2))
 WGMMA_FUNCTIONS = {
-    "flash_attn_fwd": [f"flash_attn_fwd_bf16_wgmmaILi{k}E"
-                       for k in (1, 2, 3, 4, 5, 10)],
-    "flash_attn_bwd": [f"flash_attn_bwd_{kind}_bf16_wgmmaILi{k}E"
-                       for kind in ("dkv", "dq")
-                       for k in (1, 2, 3, 4, 5, 10)],
+    "flash_attn_fwd": [f"flash_attn_fwd_bf16_wgmmaILi{k}ELi{w}E"
+                       for k, w in WGMMA_STEPS],
+    "flash_attn_bwd": [f"flash_attn_bwd_dkv_bf16_wgmmaILi{k}ELi{w}E"
+                       for k, w in WGMMA_STEPS]
+                      + [f"flash_attn_bwd_dq_bf16_wgmmaILi{k}E"
+                         for k in (1, 2, 3, 4, 5, 10)],
     "fused_epilogue": ["fused_epilogue_bf16"]}
 # bf16 kernels on mma.sync that no longer exist: the forward, dQ and dK/dV
 # run on wgmma at every head dim
@@ -761,6 +779,9 @@ def sass_check() -> None:
 
     from amodal_depth_anything_tpu_torch.ops import _build
 
+    from amodal_depth_anything_tpu_torch.tools.kernel_ablation import \
+        ptxas_lines
+
     for name in _build.KERNELS:
         report = _build.ptxas_report(name) or ""
         serial = [line.strip() for line in report.splitlines()
@@ -769,6 +790,14 @@ def sass_check() -> None:
               f"{name}: ptxas reports no serialised wgmma"
               + (f" ({len(serial)}: {serial[0][:200]} ...)" if serial
                  else "" if report else " (no report kept)"))
+        # the KSTEPS 3 (d = 40) kernels of the attention libraries
+        lines = ptxas_lines(report, "bf16_wgmmaILi3E")
+        spills = [line.strip() for line in lines
+                  if re.search(r"[1-9]\d* bytes spill stores", line)]
+        if lines:
+            check(not spills, f"{name}: ptxas reports no spill in the "
+                              f"KSTEPS 3 kernels" + (f" ({spills})" if spills
+                                                     else ""))
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(_build.nvcc_path()), "cuobjdump")
     if not os.path.exists(tool):
@@ -795,11 +824,19 @@ def sass_check() -> None:
               + (f"; bf16 mma.sync kernels left: {gone}" if gone else ""))
 
 
+# the d = 40 rows of `tools/head_dim_times.py` that phase 3 times beside its
+# d > 64 ones: the forward and dK/dV at DepthFM's 4096 tokens, the forward
+# at the pix2gestalt grid
+HEAD_DIM_40_FWD = (((4, 8, 4096, 40), 4096), ((2, 8, 1024, 40), 1024))
+HEAD_DIM_40_BWD = (((4, 8, 4096, 40), 4096),)
+
+
 def wide_head_rows(gpu: str) -> tuple[list, list]:
     """Device time of the bf16 forward, dQ and dK/dV at the UNet's d > 64
-    shapes (`tools/head_dim_times.py`'s), beside SDPA's and the bound; each
-    profiled kernel must be the instantiation the table names, on wgmma for
-    all three. Returns (forward rows, backward rows)."""
+    shapes and at HEAD_DIM_40_* (`tools/head_dim_times.py`'s), beside
+    SDPA's, the bound and the exponentials' floor; each profiled kernel
+    must be the instantiation the table names, on wgmma for all three.
+    Returns (forward rows, backward rows)."""
     import torch
 
     from amodal_depth_anything_tpu_torch.ops.flash_attention import (
@@ -807,18 +844,21 @@ def wide_head_rows(gpu: str) -> tuple[list, list]:
     from amodal_depth_anything_tpu_torch.tools import head_dim_times as hd
 
     fwd, bwd = [], []
-    for shape, nk in hd.FWD_CASES:
+    for shape, nk in [c for c in hd.FWD_CASES
+                      if c[0][3] > 64 or c in HEAD_DIM_40_FWD]:
         r = hd.fwd_row(shape, nk, calls=10)
         want = fwd_instantiation(torch.bfloat16, shape[3])
         print(f"  device time bf16 fwd q {list(shape)} Nk={nk}: "
               f"{r['kernel']} {as_ms(r['device_ms'])}, SDPA "
               f"{as_ms(r['sdpa_device_ms'])}, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}) [{gpu}]", flush=True)
+              f"({r['bound_by']}), exp floor {r['exp_floor_ms']:.4f} ms "
+              f"[{gpu}]", flush=True)
         check(r["kernel"] == want and r["device_ms"] is not None,
               f"the forward at {list(shape)} Nk={nk} ran {r['kernel']} "
               f"({want})")
         fwd.append(r)
-    for shape, nk in hd.BWD_CASES:
+    for shape, nk in [c for c in hd.BWD_CASES
+                      if c[0][3] > 64 or c in HEAD_DIM_40_BWD]:
         r = hd.bwd_row(shape, nk, calls=10)
         want = bwd_instantiations(torch.bfloat16, shape[3])
         print(f"  device time bf16 bwd q {list(shape)} Nk={nk}: "
@@ -826,7 +866,8 @@ def wide_head_rows(gpu: str) -> tuple[list, list]:
               f"{r['dkv_bound_ms']:.4f} ms, {r['dkv_bound_by']}); "
               f"{r['dq_kernel']} {as_ms(r['dq_device_ms'])} (bound "
               f"{r['dq_bound_ms']:.4f} ms); SDPA backward "
-              f"{as_ms(r['sdpa_bwd_device_ms'])} [{gpu}]", flush=True)
+              f"{as_ms(r['sdpa_bwd_device_ms'])}; exp floor "
+              f"{r['exp_floor_ms']:.4f} ms [{gpu}]", flush=True)
         check((r["dq_kernel"], r["dkv_kernel"]) == want
               and all("wgmma" in name for name in want)
               and r["dq_device_ms"] is not None
@@ -1152,10 +1193,10 @@ def attention_bwd_edge_cases(runs: dict) -> None:
     """Both backward kernels on the edges of their tiles (128 resident rows
     a block and 64 a warpgroup, or 64 a split block; 64-row streamed
     tiles), through strided views of one qkv buffer as the models hand them
-    over, against `mha_bwd_reference`. The error is relative to the largest
-    of the three reference gradients' max abs: at N = 1, dQ and dK are zero
-    up to rounding (P = 1, dP = delta), so a ratio to their own max abs
-    would measure only that rounding."""
+    over, against `mha_bwd_reference` (the sweeps of `edge_sweeps`). The
+    error is relative to the largest of the three reference gradients' max
+    abs: at N = 1, dQ and dK are zero up to rounding (P = 1, dP = delta),
+    so a ratio to their own max abs would measure only that rounding."""
     import torch
 
     from amodal_depth_anything_tpu_torch.ops.flash_attention import (
@@ -1163,59 +1204,56 @@ def attention_bwd_edge_cases(runs: dict) -> None:
         mha_bwd_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    cases = [(n, n, kv) for n in EDGE_NS for kv in (None, n - 1, n - 70)
-             if kv is None or kv >= 1] + [(4096, 77, None)]
     b, h = 2, 2
-    for dt_name in ("float32", "bfloat16"):
+    for dt_name, d, cases in edge_sweeps():
         dtype = getattr(torch, dt_name)
-        for d in EDGE_HEAD_DIMS:
-            worst, bad, dead, unequal = 0.0, [], 0.0, 0
-            for nq, nk, kv_len in cases:
-                qkv = torch.randn((b, nk, 3, h, d), generator=gen,
-                                  device="cuda").to(dtype)
-                q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-                if nq != nk:
-                    q = torch.randn((b, nq, h, d), generator=gen,
-                                    device="cuda").to(dtype).transpose(1, 2)
-                do = torch.randn((b, nq, h, d), generator=gen,
-                                 device="cuda").to(dtype).transpose(1, 2)
-                if kv_len is not None:
-                    do[:, :, kv_len:] = 0
-                o, lse = mha(q, k, v, kv_len=kv_len, return_lse=True)
-                delta = (do.float() * o.float()).sum(-1)
-                args = (q, k, v, do, lse, delta)
-                kw = {"sm_scale": d ** -0.5, "kv_len": kv_len}
-                outs = (flash_attn_bwd_dq(*args, **kw),
-                        *flash_attn_bwd_dkv(*args, **kw))
-                again = (flash_attn_bwd_dq(*args, **kw),   # the same bits
-                         *flash_attn_bwd_dkv(*args, **kw))
-                unequal += sum(not torch.equal(a, r)
-                               for a, r in zip(outs, again))
-                torch.cuda.synchronize()
-                refs = mha_bwd_reference(q.float(), k.float(), v.float(),
-                                         o.float(), lse, do.float(), **kw)
-                top = max(r.abs().max().item() for r in refs)
-                err = max((a.float() - r).abs().max().item()
-                          for a, r in zip(outs, refs)) / top
-                if kv_len is not None:
-                    dead = max(dead, outs[1][:, :, kv_len:].abs().max().item(),
-                               outs[2][:, :, kv_len:].abs().max().item())
-                if not err <= TOL[dt_name]:
-                    bad.append((nq, nk, kv_len, err))
-                worst = max(worst, err)
-            for kernel in bwd_instantiations(dtype, d):
-                run = runs.setdefault(kernel, {"cases": 0, "max_rel_err": 0.0,
-                                               "timed": []})
-                run["cases"] += len(cases)
-                run["max_rel_err"] = max(run["max_rel_err"], worst)
-            check(not bad and dead == 0.0 and not unequal,
-                  f"flash_attn_bwd {dt_name} d={d} on {len(cases)} tile-edge "
-                  f"cases (N in {list(EDGE_NS)}, kv_len N-1 and N-70, 4096 x "
-                  f"77): max abs {worst:.3e} of the largest reference "
-                  f"gradient <= {TOL[dt_name]}; rows >= kv_len of dK and dV "
-                  f"exactly 0 (max {dead}); a second run of dQ and dK/dV "
-                  f"bit-identical ({unequal} of {3 * len(cases)} differ)"
-                  + (f"; failing (Nq, Nk, kv_len, err): {bad}" if bad else ""))
+        worst, bad, dead, unequal = 0.0, [], 0.0, 0
+        for nq, nk, kv_len in cases:
+            qkv = torch.randn((b, nk, 3, h, d), generator=gen,
+                              device="cuda").to(dtype)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            if nq != nk:
+                q = torch.randn((b, nq, h, d), generator=gen,
+                                device="cuda").to(dtype).transpose(1, 2)
+            do = torch.randn((b, nq, h, d), generator=gen,
+                             device="cuda").to(dtype).transpose(1, 2)
+            if kv_len is not None:
+                do[:, :, kv_len:] = 0
+            o, lse = mha(q, k, v, kv_len=kv_len, return_lse=True)
+            delta = (do.float() * o.float()).sum(-1)
+            args = (q, k, v, do, lse, delta)
+            kw = {"sm_scale": d ** -0.5, "kv_len": kv_len}
+            outs = (flash_attn_bwd_dq(*args, **kw),
+                    *flash_attn_bwd_dkv(*args, **kw))
+            again = (flash_attn_bwd_dq(*args, **kw),   # the same bits
+                     *flash_attn_bwd_dkv(*args, **kw))
+            unequal += sum(not torch.equal(a, r)
+                           for a, r in zip(outs, again))
+            torch.cuda.synchronize()
+            refs = mha_bwd_reference(q.float(), k.float(), v.float(),
+                                     o.float(), lse, do.float(), **kw)
+            top = max(r.abs().max().item() for r in refs)
+            err = max((a.float() - r).abs().max().item()
+                      for a, r in zip(outs, refs)) / top
+            if kv_len is not None:
+                dead = max(dead, outs[1][:, :, kv_len:].abs().max().item(),
+                           outs[2][:, :, kv_len:].abs().max().item())
+            if not err <= TOL[dt_name]:
+                bad.append((nq, nk, kv_len, err))
+            worst = max(worst, err)
+        for kernel in bwd_instantiations(dtype, d):
+            run = runs.setdefault(kernel, {"cases": 0, "max_rel_err": 0.0,
+                                           "timed": []})
+            run["cases"] += len(cases)
+            run["max_rel_err"] = max(run["max_rel_err"], worst)
+        check(not bad and dead == 0.0 and not unequal,
+              f"flash_attn_bwd {dt_name} d={d} on {len(cases)} tile-edge "
+              f"cases (N in {list(EDGE_NS)}, kv_len N-1 and N-70, 4096 x 77): "
+              f"max abs {worst:.3e} of the largest reference gradient <= "
+              f"{TOL[dt_name]}; rows >= kv_len of dK and dV exactly 0 (max "
+              f"{dead}); a second run of dQ and dK/dV bit-identical "
+              f"({unequal} of {3 * len(cases)} differ)"
+              + (f"; failing (Nq, Nk, kv_len, err): {bad}" if bad else ""))
 
 
 def autograd_check() -> None:
@@ -5863,7 +5901,9 @@ def main() -> int:
         for line in report.splitlines():
             entry = ENTRY_NAME.search(line)
             if "Compiling entry function" in line and entry:
-                pad = f"<{entry.group(2)}>" if entry.group(2) else ""
+                pad = ("" if not entry.group(2) else f"<{entry.group(2)}>"
+                       if not entry.group(3)
+                       else f"<{entry.group(2)}, {entry.group(3)}>")
                 print(f"  {name}: {entry.group(1)}{pad}", flush=True)
             elif "(C7" in line:   # an advisory on a wgmma pipeline
                 print(f"  {name}:   {line.strip()[:150]} ...", flush=True)

@@ -43,6 +43,14 @@ INTERPRET_EDGE_CASES = [(1, 1, n, n, None, None)
                         for n in (127, 128, 129)] + EDGE_KV_CASES
 
 
+# d = 40 (the bf16 forward's KSTEPS 3, which reads boxes of d columns) on
+# N that is no multiple of its 128-row blocks and 128-key tiles, on the
+# edges of three and six 64-row warpgroups, kv_len inside a tile, and a
+# 77-key cross-attention under a ragged block (b, h, n_q, n_k, kv_len)
+D40_EDGE_CASES = [(1, 1, n, n, None) for n in (191, 192, 193, 383, 385)] + [
+    (1, 2, 385, 385, 200), (2, 1, 193, 77, None)]
+
+
 def _qkv(b, h, nq, nk, d=64, seed=0):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, h, nq, d), dtype=np.float32)
@@ -164,6 +172,33 @@ def test_mha_matches_jax_pallas_interpret_at_unet_head_dims(h, nq, nk, d,
     assert np.abs(ours - ref).max() <= TOL
 
 
+@pytest.mark.parametrize("b,h,nq,nk,kv_len", D40_EDGE_CASES)
+def test_mha_matches_jax_reference_at_d40_block_edges(b, h, nq, nk, kv_len):
+    """The port's plain version at d = 40 against the JAX reference on
+    D40_EDGE_CASES, LSE included."""
+    q, k, v = _qkv(b, h, nq, nk, d=40, seed=8)
+    ref = np.asarray(jax_mha_reference(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), kv_len=kv_len))
+    ours, lse = mha(torch.from_numpy(q), torch.from_numpy(k),
+                    torch.from_numpy(v), kv_len=kv_len, return_lse=True)
+    assert np.abs(ours.numpy() - ref).max() <= TOL
+    s = np.einsum("bhqd,bhkd->bhqk", q * 40 ** -0.5, k)[..., :kv_len or nk]
+    ref_lse = np.asarray(jax.scipy.special.logsumexp(jnp.asarray(s), axis=-1))
+    assert np.abs(lse.numpy() - ref_lse).max() <= TOL
+
+
+@pytest.mark.parametrize("b,h,nq,nk,kv_len", D40_EDGE_CASES[:3]
+                         + D40_EDGE_CASES[5:])
+def test_mha_matches_jax_pallas_interpret_at_d40_block_edges(b, h, nq, nk,
+                                                             kv_len):
+    q, k, v = _qkv(b, h, nq, nk, d=40, seed=9)
+    ref = np.asarray(jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             interpret=True, kv_len=kv_len))
+    ours = mha(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+               kv_len=kv_len).numpy()
+    assert np.abs(ours - ref).max() <= TOL
+
+
 class _OnCard:
     """A stand-in the kernel wrappers' checks see as a CUDA tensor: the
     head-dim rule is plain Python and is held here without a card."""
@@ -210,25 +245,31 @@ def test_check_head_dim_rule(dtype, d, ok):
 
 
 @pytest.mark.parametrize("dtype,d,name", [
-    (torch.bfloat16, 8, "flash_attn_fwd_bf16_wgmma<1>"),
-    (torch.bfloat16, 40, "flash_attn_fwd_bf16_wgmma<3>"),
-    (torch.bfloat16, 64, "flash_attn_fwd_bf16_wgmma<4>"),
-    (torch.bfloat16, 72, "flash_attn_fwd_bf16_wgmma<5>"),
-    (torch.bfloat16, 80, "flash_attn_fwd_bf16_wgmma<5>"),
-    (torch.bfloat16, 96, "flash_attn_fwd_bf16_wgmma<10>"),
-    (torch.bfloat16, 160, "flash_attn_fwd_bf16_wgmma<10>"),
+    (torch.bfloat16, 8, "flash_attn_fwd_bf16_wgmma<1, 2>"),
+    (torch.bfloat16, 40, "flash_attn_fwd_bf16_wgmma<3, 2>"),
+    (torch.bfloat16, 48, "flash_attn_fwd_bf16_wgmma<3, 2>"),
+    (torch.bfloat16, 64, "flash_attn_fwd_bf16_wgmma<4, 2>"),
+    (torch.bfloat16, 72, "flash_attn_fwd_bf16_wgmma<5, 2>"),
+    (torch.bfloat16, 80, "flash_attn_fwd_bf16_wgmma<5, 2>"),
+    (torch.bfloat16, 96, "flash_attn_fwd_bf16_wgmma<10, 2>"),
+    (torch.bfloat16, 160, "flash_attn_fwd_bf16_wgmma<10, 2>"),
     (torch.float32, 12, "flash_attn_fwd_f32<16>"),
+    (torch.float32, 40, "flash_attn_fwd_f32<48>"),
     (torch.float32, 80, "flash_attn_fwd_f32<80>"),
     (torch.float32, 100, "flash_attn_fwd_f32<160>")])
 def test_fwd_instantiation_follows_the_source_table(dtype, d, name):
     """`fwd_instantiation` names the kernel `flash_attn_fwd.cu` dispatches
-    to: its template, and the instantiation in the source's table."""
+    to: its template, and the instantiation in the source's table (at
+    KSTEPS 3 its warpgroups by name, `kNarrowWarpgroups`)."""
     assert fwd_instantiation(dtype, d) == name
     src = (_build.CSRC / "flash_attn_fwd.cu").read_text()
     assert f"\n{name.split('<')[0]}(" in src, name
-    template, steps = name[:-1].split("<")
+    template, args = name[:-1].split("<")
     call = ("launch_wgmma" if "wgmma" in template else "launch_f32")
-    assert f"{call}<{steps}>(" in src, name
+    if args == "3, 2":
+        assert "constexpr int kNarrowWarpgroups = 2;" in src
+        args = "3, kNarrowWarpgroups"
+    assert f"{call}<{args}>(" in src, name
 
 
 def test_backward_kernels_keep_head_dim_64():

@@ -42,6 +42,9 @@ CASES = [
     (1, 2, 70, 70, 50, None, 80),
     (1, 2, 40, 40, None, None, 160),
     (1, 2, 100, 77, None, None, 40),     # cross attention onto 77 keys
+    (1, 1, 191, 191, None, None, 40),    # d = 40 (boxes of d columns)
+    (1, 1, 193, 193, 150, None, 40),     # past its 128-key-row blocks
+    (1, 1, 385, 385, None, None, 40),
 ]
 
 
@@ -177,25 +180,38 @@ def test_bwd_check_takes_the_forward_head_dim_rule(dtype, d, ok):
 
 @pytest.mark.parametrize("dtype,d,names", [
     (torch.bfloat16, 64, ("flash_attn_bwd_dq_bf16_wgmma<4>",
-                          "flash_attn_bwd_dkv_bf16_wgmma<4>")),
+                          "flash_attn_bwd_dkv_bf16_wgmma<4, 2>")),
     (torch.bfloat16, 40, ("flash_attn_bwd_dq_bf16_wgmma<3>",
-                          "flash_attn_bwd_dkv_bf16_wgmma<3>")),
+                          "flash_attn_bwd_dkv_bf16_wgmma<3, 2>")),
+    (torch.bfloat16, 48, ("flash_attn_bwd_dq_bf16_wgmma<3>",
+                          "flash_attn_bwd_dkv_bf16_wgmma<3, 2>")),
     (torch.bfloat16, 72, ("flash_attn_bwd_dq_bf16_wgmma<5>",
-                          "flash_attn_bwd_dkv_bf16_wgmma<5>")),
+                          "flash_attn_bwd_dkv_bf16_wgmma<5, 2>")),
     (torch.bfloat16, 80, ("flash_attn_bwd_dq_bf16_wgmma<5>",
-                          "flash_attn_bwd_dkv_bf16_wgmma<5>")),
+                          "flash_attn_bwd_dkv_bf16_wgmma<5, 2>")),
     (torch.bfloat16, 96, ("flash_attn_bwd_dq_bf16_wgmma<10>",
-                          "flash_attn_bwd_dkv_bf16_wgmma<10>")),
+                          "flash_attn_bwd_dkv_bf16_wgmma<10, 2>")),
     (torch.bfloat16, 136, ("flash_attn_bwd_dq_bf16_wgmma<10>",
-                           "flash_attn_bwd_dkv_bf16_wgmma<10>")),
+                           "flash_attn_bwd_dkv_bf16_wgmma<10, 2>")),
     (torch.bfloat16, 160, ("flash_attn_bwd_dq_bf16_wgmma<10>",
-                           "flash_attn_bwd_dkv_bf16_wgmma<10>")),
+                           "flash_attn_bwd_dkv_bf16_wgmma<10, 2>")),
     (torch.float32, 12, ("flash_attn_bwd_dq_f32<16>",
                          "flash_attn_bwd_dkv_f32<16>")),
+    (torch.float32, 40, ("flash_attn_bwd_dq_f32<48>",
+                         "flash_attn_bwd_dkv_f32<48>")),
     (torch.float32, 64, ("flash_attn_bwd_dq_f32<64>",
                          "flash_attn_bwd_dkv_f32<64>"))])
 def test_bwd_instantiations_follow_the_source_table(dtype, d, names):
+    """`bwd_instantiations` names the kernels `flash_attn_bwd.cu`
+    dispatches to, and the dK/dV launch in the source's table (at KSTEPS 3
+    its warpgroups by name, `kDkvNarrowWarpgroups`)."""
     assert fa.bwd_instantiations(dtype, d) == names
     src = (_build.CSRC / "flash_attn_bwd.cu").read_text()
     for name in names:   # each names a kernel template of the source
         assert f"\n{name.split('<')[0]}(" in src, name
+    template, args = names[1][:-1].split("<")
+    if "wgmma" in template:
+        if args == "3, 2":
+            assert "constexpr int kDkvNarrowWarpgroups = 2;" in src
+            args = "3, kDkvNarrowWarpgroups"
+        assert f"launch_dkv_wgmma<{args}>(" in src, names[1]

@@ -96,7 +96,22 @@ def test_no_source_includes_a_library_of_kernels(path):
     (library, label) for library, ablations in sorted(ABLATIONS.items())
     for label in sorted(ablations)])
 def test_ablation_edits_still_find_their_text(library, ablation):
-    """`tools/kernel_ablation.py` takes parts out of a kernel by text."""
+    """`tools/kernel_ablation.py` takes parts out of a kernel by text, each
+    edit of an ablation on the text the ones before it left."""
     text = (CSRC / f"{library}.cu").read_text()
     for old, new in ABLATIONS[library][ablation]:
         assert old in text and new != old
+        text = text.replace(old, new)
+
+
+@pytest.mark.parametrize("name", ["flash_attn_fwd.cu", "flash_attn_bwd.cu"])
+def test_kstep3_reads_boxes_of_d_columns(name):
+    """The bf16 forward and dK/dV at KSTEPS 3 (d = 40) load boxes of d
+    columns (`attention_map(..., narrow)` in sm90.cuh) and zero the k16
+    steps' columns past d themselves; dQ keeps 64-column boxes."""
+    src = (CSRC / name).read_text()
+    assert "KSTEPS == 3 && kNarrow" in src and "zero_chunks(" in src
+    header = (CSRC / "sm90.cuh").read_text()
+    assert "const int box[4] = {narrow ? d : 64, rows, 1, 1};" in header
+    if name == "flash_attn_bwd.cu":
+        assert "using DqTiles = BwdTiles<KSTEPS, kDqSplit<KSTEPS>>;" in src
