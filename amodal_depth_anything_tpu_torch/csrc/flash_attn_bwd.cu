@@ -39,8 +39,8 @@
 //   bfloat16, d <= 32   flash_attn_bwd_dq_bf16_wgmma<ceil(d / 16)>,
 //                       flash_attn_bwd_dkv_bf16_wgmma<ceil(d / 16), 2>
 //   bfloat16, d <= 48   flash_attn_bwd_dq_bf16_wgmma<3>,
-//                       flash_attn_bwd_dkv_bf16_wgmma<3, 2> (boxes of d
-//                       columns)
+//                       flash_attn_bwd_dkv_bf16_wgmma<3, 2> (both on
+//                       boxes of d columns)
 //   bfloat16, d <= 64   flash_attn_bwd_dq_bf16_wgmma<4>,
 //                       flash_attn_bwd_dkv_bf16_wgmma<4, 2>
 //   bfloat16, d <= 80   ..._dq_bf16_wgmma<5>, ..._dkv_bf16_wgmma<5, 2>
@@ -92,8 +92,10 @@
 //    turns: one product a tile against two. TMA zero-fills what lies
 //    outside the tensor: rows past the maps' ends (kv_len for K and V;
 //    q_len for Q and dO in the dK/dV kernel) and the columns from d on; at
-//    32 < d <= 48 dK/dV reads boxes of d columns instead, as the forward
-//    does, and zeroes the columns from d to 48 itself (dQ keeps 64). In
+//    32 < d <= 48 both kernels read boxes of d columns instead, as the
+//    forward does, and zero the columns from d to 48 themselves (dQ's K
+//    and V where their keys fill at least half a streamed tile,
+//    dq_kv_narrow). In
 //    the dK/dV kernel a second producer warp copies each tile's LSE (times
 //    log2 e; +inf for rows at or past q_len, so that their P is exactly 0)
 //    and delta into the stage beside the tiles, and arrives on the stage's
@@ -367,8 +369,6 @@ flash_attn_bwd_dkv_f32(const float* __restrict__ q,
 // ------------------------------------------- bfloat16 path: wgmma + TMA
 
 constexpr int kWgStream = 64;              // rows of a streamed tile
-constexpr int kWgThreads = 384;            // two consumer warpgroups, then
-                                           // the producer's
 template <int WGS>                         // WGS consumer warpgroups
 constexpr int kWgsThreads = 128 * (WGS + 1);
 constexpr int kWgKStepBytes = 16 * kSwizzleRow;   // 16 rows of a tile
@@ -427,8 +427,29 @@ struct BwdTiles {
   static_assert(WGS == 2 || !SPLIT, "a split block is two warpgroups");
 };
 
+// dQ at KSTEPS 3: whether it reads Q and dO (and K and V, dq_kv_narrow) in
+// boxes of d columns, as dK/dV does: a 64-column box over 40 columns makes
+// TMA zero-fill 24 columns of every row (`tools/kernel_ablation.py`,
+// dq_box64)
+constexpr bool kNarrowDqBoxes = true;
+// dQ's consumer warpgroups at KSTEPS 3 (each on 64 query rows; three are
+// compiled for the 128 registers a thread of a 512-thread block:
+// `tools/kernel_ablation.py`, dq_three_warpgroups), two elsewhere
+constexpr int kDqNarrowWarpgroups = 2;
 template <int KSTEPS>
-using DqTiles = BwdTiles<KSTEPS, kDqSplit<KSTEPS>>;
+constexpr int kDqWarpgroups = KSTEPS == 3 ? kDqNarrowWarpgroups : 2;
+template <int KSTEPS>
+using DqTiles = BwdTiles<KSTEPS, kDqSplit<KSTEPS>, kDqWarpgroups<KSTEPS>,
+                         KSTEPS == 3 && kNarrowDqBoxes>;
+
+// dQ's streamed K and V come in boxes of d columns where their keys fill at
+// least half a tile (the forward's rule, kv_boxes_narrow): onto DepthFM's 77
+// keys, not onto one. The host's maps and the kernel's byte counts and zero
+// fill all follow it.
+template <typename T>
+__host__ __device__ __forceinline__ bool dq_kv_narrow(int kv_len) {
+  return T::kNarrow && kv_len >= kWgStream / 2;
+}
 
 // dK/dV at KSTEPS 3: whether it reads its operands in boxes of d columns
 // (attention_map in sm90.cuh), and its consumer warpgroups (three on 192
@@ -553,20 +574,23 @@ struct WgSmem {
 // The producer thread: the two resident tiles at row r0, then the streamed
 // tiles of n_tiles into the ring, each stage once both consumers released
 // it (and, for dK/dV, the stats warp has also arrived on `full`); d columns
-// a row where the boxes are narrow
+// a row where the boxes are narrow (the resident ones T::kNarrow, the
+// streamed ones str_narrow)
 template <typename T>
 __device__ __forceinline__ void produce(const WgSmem<T>& sm,
                                         const CUtensorMap* res_map0,
                                         const CUtensorMap* res_map1,
                                         const CUtensorMap* str_map0,
                                         const CUtensorMap* str_map1, int r0,
-                                        int n_tiles, int h, int b, int d) {
-  const uint32_t row_bytes = T::kNarrow ? 2 * d : 2 * 64 * T::kBoxes;
+                                        int n_tiles, int h, int b, int d,
+                                        bool str_narrow) {
+  const uint32_t res_row = T::kNarrow ? 2 * d : 2 * 64 * T::kBoxes;
+  const uint32_t str_row = str_narrow ? 2 * d : 2 * 64 * T::kBoxes;
   tma_prefetch_map(res_map0);
   tma_prefetch_map(res_map1);
   tma_prefetch_map(str_map0);
   tma_prefetch_map(str_map1);
-  mbar_arrive_expect_tx(sm.res_full, 2 * T::kRes * row_bytes);
+  mbar_arrive_expect_tx(sm.res_full, 2 * T::kRes * res_row);
   tma_load_boxes<T::kBoxes>(sm.res0, T::kResBox, res_map0, sm.res_full, r0,
                             h, b);
   tma_load_boxes<T::kBoxes>(sm.res1, T::kResBox, res_map1, sm.res_full, r0,
@@ -575,7 +599,7 @@ __device__ __forceinline__ void produce(const WgSmem<T>& sm,
   uint32_t phase = 0;
   for (int t = 0; t < n_tiles; ++t) {
     mbar_wait(sm.empty + stage, phase ^ 1);   // free from the start
-    mbar_arrive_expect_tx(sm.full + stage, 2 * kWgStream * row_bytes);
+    mbar_arrive_expect_tx(sm.full + stage, 2 * kWgStream * str_row);
     tma_load_boxes<T::kBoxes>(sm.str0 + stage * T::kStrTile, T::kStrBox,
                               str_map0, sm.full + stage, t * kWgStream, h, b);
     tma_load_boxes<T::kBoxes>(sm.str1 + stage * T::kStrTile, T::kStrBox,
@@ -782,7 +806,8 @@ flash_attn_bwd_dkv_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
     setmaxnreg_dec<T::kProducerRegs>();
     const int warp = (threadIdx.x >> 5) & 3;
     if (threadIdx.x == WGS * 128) {
-      produce(sm, &map_k, &map_v, &map_q, &map_do, k0, n_tiles, h, b, d);
+      produce(sm, &map_k, &map_v, &map_q, &map_do, k0, n_tiles, h, b, d,
+              T::kNarrow);
     } else if (warp == 1) {
       // the stats warp: each tile's LSE (in log2 units; +inf for query rows
       // at or past q_len) and delta into the stage
@@ -933,7 +958,7 @@ __device__ __forceinline__ void dq_tile(float (&s)[32], float (&dp)[32],
 // dO V^T go out together with tile t-1's dQ += dS K, so that tile t's
 // exponentials run under that product (the registers allow it here, unlike
 // in the dK/dV kernel), each batch on a turn of its own.
-template <int KSTEPS, typename T>
+template <int KSTEPS, typename T, int WGS = kDqWarpgroups<KSTEPS>>
 __device__ __forceinline__ void dq_joint(float (&acc)[8 * KSTEPS],
                                          const WgSmem<T>& sm, const bf16* qw,
                                          const bf16* dow, int wg, int n_tiles,
@@ -949,7 +974,7 @@ __device__ __forceinline__ void dq_joint(float (&acc)[8 * KSTEPS],
     else
       dq_tile<false>(s, dp, lse2, dl, c, t * kWgStream + col0, kv_len);
   };
-  if (wg == 1) turn_pass(wg);   // warpgroup 0 goes first
+  if (wg == WGS - 1) turn_pass<WGS>(wg);   // warpgroup 0 goes first
   {   // tile 0: nothing to overlap with yet
     float s[32], dp[32];
     mbar_wait(sm.full, 0);
@@ -959,7 +984,7 @@ __device__ __forceinline__ void dq_joint(float (&acc)[8 * KSTEPS],
     wgmma_commit();
     scores<KSTEPS, kA, kB>(dp, dow, sm.str1);
     wgmma_commit();
-    turn_pass(wg);
+    turn_pass<WGS>(wg);
     wgmma_wait<0>();
     wgmma_pin(s);
     wgmma_pin(dp);
@@ -979,7 +1004,7 @@ __device__ __forceinline__ void dq_joint(float (&acc)[8 * KSTEPS],
     wgmma_commit();
     accumulate<KSTEPS>(acc, dsf, sm.str0 + prev * T::kStrTile);
     wgmma_commit();
-    turn_pass(wg);
+    turn_pass<WGS>(wg);
 
     wgmma_wait<1>();   // S and dP are complete, dS K may still run
     wgmma_pin(s);
@@ -999,7 +1024,7 @@ __device__ __forceinline__ void dq_joint(float (&acc)[8 * KSTEPS],
   wgmma_fence();
   accumulate<KSTEPS>(acc, dsf, sm.str0 + prev * T::kStrTile);
   wgmma_commit();
-  turn_pass(wg);
+  turn_pass<WGS>(wg);
   wgmma_wait<0>();
   wgmma_pin(acc);
 }
@@ -1093,7 +1118,7 @@ __device__ __forceinline__ void dq_split_ds(float (&acc)[8 * KSTEPS],
 
 template <int KSTEPS>   // k16 steps over the head dim: ceil(d / 16) up to 4,
                         // then 5 or 10
-__global__ void __launch_bounds__(kWgThreads, 1)
+__global__ void __launch_bounds__(kWgsThreads<kDqWarpgroups<KSTEPS>>, 1)
 flash_attn_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v,
@@ -1103,14 +1128,15 @@ flash_attn_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
                              bf16* __restrict__ dq, int nq, int kv_len, int d,
                              float sm_scale, Strides sdq) {
   using T = DqTiles<KSTEPS>;
+  constexpr int WGS = kDqWarpgroups<KSTEPS>;
   extern __shared__ uint8_t smem_raw[];
   const WgSmem<T> sm(smem_raw);
 
   if (threadIdx.x == 0) {
     mbar_init(sm.res_full, 1);
     for (int s = 0; s < T::kStages; ++s) {
-      mbar_init(sm.full + s, 1);    // the producer's arrive; TMA adds bytes
-      mbar_init(sm.empty + s, 2);   // one thread of each consumer warpgroup
+      mbar_init(sm.full + s, 1);      // the producer's arrive; TMA adds bytes
+      mbar_init(sm.empty + s, WGS);   // one thread of each consumer warpgroup
     }
     if (T::kSplit) {
       mbar_init(sm.pt_full, 128);
@@ -1126,14 +1152,31 @@ flash_attn_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
   const int n_tiles = (kv_len + kWgStream - 1) / kWgStream;
   const int wg = threadIdx.x >> 7;
 
-  if (wg == 2) {
+  if (wg == WGS) {
     // ------------------------------------------------------------ producer
-    setmaxnreg_dec<40>();
-    if (threadIdx.x == 2 * 128)
-      produce(sm, &map_q, &map_do, &map_k, &map_v, q0, n_tiles, h, b, d);
+    setmaxnreg_dec<T::kProducerRegs>();
+    if (threadIdx.x == WGS * 128)
+      produce(sm, &map_q, &map_do, &map_k, &map_v, q0, n_tiles, h, b, d,
+              dq_kv_narrow<T>(kv_len));
   } else {
     // ----------------------------------------------------------- consumers
-    setmaxnreg_inc<232>();
+    setmaxnreg_inc<T::kConsumerRegs>();
+    if (T::kNarrow) {
+      // A narrow box brings d columns: the k16 steps' columns from d on
+      // are zeros written here once, while the first loads are under way
+      // (Q and dO, and K and V in the stages in use where they are
+      // narrow).
+      constexpr int kThreads = 128 * WGS;
+      zero_chunks(sm.res0, 2 * T::kRes, d / 8, 2 * KSTEPS, threadIdx.x,
+                  kThreads);
+      if (dq_kv_narrow<T>(kv_len)) {
+        const int used = min(n_tiles, T::kStages) * kWgStream;
+        zero_chunks(sm.str0, used, d / 8, 2 * KSTEPS, threadIdx.x, kThreads);
+        zero_chunks(sm.str1, used, d / 8, 2 * KSTEPS, threadIdx.x, kThreads);
+      }
+      fence_proxy_async();
+      consumers_sync<WGS>();
+    }
     const int lane = threadIdx.x & 31;
     // per thread: query rows row0 and row0 + 8; in each 8-wide column tile,
     // key columns col0 and col0 + 1 (the accumulator layout, sm90.cuh); a
@@ -1225,37 +1268,41 @@ cudaError_t launch_dkv_f32(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// The four maps of a wgmma launch (narrow as T::kNarrow): resident boxes
-// of T::kRes rows, streamed boxes of 64; dQ: Q, dO resident (ending at nq),
-// K, V streamed (ending at kv_len); dK/dV: K, V resident (ending at
-// kv_len), Q, dO streamed (ending at q_len).
+// The four maps of a wgmma launch (the resident ones narrow as T::kNarrow,
+// the streamed ones as str_narrow): resident boxes of T::kRes rows,
+// streamed boxes of 64; dQ: Q, dO resident (ending at nq), K, V streamed
+// (ending at kv_len); dK/dV: K, V resident (ending at kv_len), Q, dO
+// streamed (ending at q_len).
 template <typename T>
-bool wgmma_maps(const Args& a, bool dq, CUtensorMap (&maps)[4]) {
+bool wgmma_maps(const Args& a, bool dq, bool str_narrow,
+                CUtensorMap (&maps)[4]) {
   const int q_rows = dq ? T::kRes : kWgStream;
   const int kv_rows = dq ? kWgStream : T::kRes;
   const int q_end = dq ? a.nq : a.q_len;
-  const bool c = T::kNarrow;
+  const bool qc = dq ? T::kNarrow : str_narrow;
+  const bool kvc = dq ? str_narrow : T::kNarrow;
   return attention_map(&maps[0], a.q, a.d, q_end, a.heads, a.batch, a.sq,
-                       q_rows, c) &&
+                       q_rows, qc) &&
          attention_map(&maps[1], a.k, a.d, a.kv_len, a.heads, a.batch, a.sk,
-                       kv_rows, c) &&
+                       kv_rows, kvc) &&
          attention_map(&maps[2], a.v, a.d, a.kv_len, a.heads, a.batch, a.sv,
-                       kv_rows, c) &&
+                       kv_rows, kvc) &&
          attention_map(&maps[3], a.dout, a.d, q_end, a.heads, a.batch, a.sdo,
-                       q_rows, c);
+                       q_rows, qc);
 }
 
 template <int KSTEPS>
 cudaError_t launch_dq_wgmma(const Args& a, cudaStream_t s) {
   using T = DqTiles<KSTEPS>;
   CUtensorMap m[4];
-  if (!wgmma_maps<T>(a, true, m)) return cudaErrorInvalidValue;
+  if (!wgmma_maps<T>(a, true, dq_kv_narrow<T>(a.kv_len), m))
+    return cudaErrorInvalidValue;
   const cudaError_t err =
       allow_smem(flash_attn_bwd_dq_bf16_wgmma<KSTEPS>, T::kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.nq + T::kRes - 1) / T::kRes, a.heads, a.batch);
-  flash_attn_bwd_dq_bf16_wgmma<KSTEPS><<<grid, kWgThreads, T::kSmemBytes,
-                                         s>>>(
+  constexpr int threads = kWgsThreads<kDqWarpgroups<KSTEPS>>;
+  flash_attn_bwd_dq_bf16_wgmma<KSTEPS><<<grid, threads, T::kSmemBytes, s>>>(
       m[0], m[1], m[2], m[3], a.lse, a.delta, static_cast<bf16*>(a.dq), a.nq,
       a.kv_len, a.d, a.sm_scale, a.so0);
   return cudaGetLastError();
@@ -1265,7 +1312,7 @@ template <int KSTEPS, int WGS>
 cudaError_t launch_dkv_wgmma(const Args& a, cudaStream_t s) {
   using T = DkvTiles<KSTEPS, WGS>;
   CUtensorMap m[4];
-  if (!wgmma_maps<T>(a, false, m)) return cudaErrorInvalidValue;
+  if (!wgmma_maps<T>(a, false, T::kNarrow, m)) return cudaErrorInvalidValue;
   const cudaError_t err =
       allow_smem(flash_attn_bwd_dkv_bf16_wgmma<KSTEPS, WGS>, T::kSmemBytes);
   if (err != cudaSuccess) return err;

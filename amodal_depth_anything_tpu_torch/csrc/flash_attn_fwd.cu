@@ -29,8 +29,12 @@
 // q/k/v views of one fused qkv projection and an output laid out
 // [B, N, H, D] need no copies.
 //
-// Which kernel runs is a fixed table by dtype and head dim d:
+// Which kernel runs is a fixed table by dtype, kv_len and head dim d:
 //
+//   bfloat16, kv_len <= 80
+//                       flash_attn_fwd_bf16_short<KSTEPS, NK>, KSTEPS as
+//                       below (boxes of d columns at 3), NK 16 up to 16
+//                       keys and 80 above (kShortKeys, kShortFewKeys)
 //   bfloat16, d <= 32   flash_attn_fwd_bf16_wgmma<ceil(d / 16), 2>
 //   bfloat16, d <= 48   flash_attn_fwd_bf16_wgmma<3, 2>, boxes of d columns
 //   bfloat16, d <= 64   flash_attn_fwd_bf16_wgmma<4, 2>
@@ -73,6 +77,24 @@
 //    P.V, the softmax of tile t runs while P.V is still in flight, and the
 //    two warpgroups take turns on the tensor cores over a pair of named
 //    barriers, so that one's softmax falls under the other's products.
+//  * bfloat16 onto a short key set (kv_len <= 80: the UNets' cross-attention
+//    onto DepthFM's 77 context keys and pix2gestalt's one): the streaming
+//    kernel would spend a block of one 128-row item on a serial chain of
+//    loads, one tile's products and softmax and 4-byte stores, with a
+//    three-stage K/V ring in shared memory, 128 or 64-key tiles mostly fill
+//    and one block an SM. Here all keys are one tile of NK = 16 or 80, the
+//    N of S = Q K^T (wgmma m64n16k16 / m64n80k16), so the softmax is one
+//    pass (max, exp2, sum) with no rescale and the mask touches only the
+//    last columns. A block is one warpgroup with no producer: K and V land
+//    once by TMA and stay; the block's `items` 64-row query tiles of one
+//    (batch, head) stream through a ring of Q stages (kShortStages), the
+//    next tile's load issued as soon as S has read its stage, so that one
+//    tile's load runs under another's softmax and P V; O goes to a swizzled
+//    64-row tile in shared memory and out by TMA store (rows past Nq and
+//    columns past d are not written). The host sizes `items` so that the
+//    grid fills every warpgroup the card holds at once (several blocks
+//    share an SM: 37 KB of shared memory at d = 40, 72 at 80), and no
+//    more, so that K and V are read again as seldom as that allows.
 //  * float32: 256 threads, each 4 rows x 4 keys of the score tile and 4 rows
 //    x DPAD/16 columns of the output tile, scalar FMAs on float32 smem
 //    tiles: exact to float32 (TF32 tensor cores would lose the parity the
@@ -579,6 +601,239 @@ flash_attn_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// ------------------------------- bfloat16 onto a short key set: one tile
+
+// kv_len up to kShortKeys runs flash_attn_fwd_bf16_short<KSTEPS, NK>: every
+// key in one tile of NK keys, 16 up to kShortFewKeys and 80 above (the
+// pix2gestalt UNet's one context key, DepthFM's 77), the N of S = Q K^T.
+// Each choice below has an ablation in `tools/kernel_ablation.py`.
+constexpr int kShortKeys = 80, kShortFewKeys = 16;
+constexpr int kShortWarpgroups = 1;      // a block's warpgroups, 64 rows each
+constexpr int kShortStages = 1;          // Q tiles in flight a warpgroup
+constexpr bool kShortNarrow = true;      // boxes of d columns at KSTEPS 3
+constexpr bool kShortTmaStore = true;    // O out through shared memory
+constexpr int kSmemPerSm = 233472;       // an SM's 228 KB, 1 KB a block kept
+
+// The shared memory of flash_attn_fwd_bf16_short<KSTEPS, NK>: K and V (NK
+// rows), then each warpgroup's ring of kStages 64-row Q tiles and its
+// 64-row O tile, each kBoxes boxes of 64 head-dim columns, then the
+// barriers. Registers (the scores, P as bf16 fragments and the output: 40
+// + 20 + 8 KSTEPS a thread at NK = 80) and shared memory (37 KB at d = 40,
+// 72 at 80, 108 at 160) bound how many blocks share an SM. One Q stage
+// takes less time than two: the next tile's load is issued as soon as S
+// has read the stage, so it runs under this tile's softmax, P V and store,
+// and the smaller block lets more blocks share an SM
+// (`tools/kernel_ablation.py`, short_two_stages).
+template <int KSTEPS, int NK>
+struct ShortTiles {
+  static constexpr int kBoxes = kHeadBoxes<KSTEPS>;
+  static constexpr int kWgs = kShortWarpgroups;
+  static constexpr int kStages = kShortStages;
+  static constexpr int kQBox = 64 * 64;      // elements of a Q or O box
+  static constexpr int kKVBox = NK * 64;     // ... of a K or V box
+  static constexpr int kQTile = kBoxes * kQBox;
+  static constexpr int kKVTile = kBoxes * kKVBox;
+  static constexpr bool kNarrow = KSTEPS == 3 && kShortNarrow;
+  static constexpr int kBars = 1 + kWgs * kStages;
+  static constexpr int kSmemBytes =
+      2 * (2 * kKVTile + kWgs * (kStages + 1) * kQTile) + 8 * kBars +
+      kSwizzleAtom;   // room to align the tiles
+  static constexpr int kBySmem = kSmemPerSm / (kSmemBytes + 1024);
+  static constexpr int kByRegs =
+      (KSTEPS <= 4 ? 4 : KSTEPS <= 5 ? 3 : 2) / kWgs;
+  static constexpr int kMinBlocks =
+      kBySmem < kByRegs ? (kBySmem < 1 ? 1 : kBySmem)
+                        : (kByRegs < 1 ? 1 : kByRegs);
+  static_assert(kSmemBytes <= kSmemMax, "shared memory");
+};
+
+// the 128 threads of consumer warpgroup wg meet (named barrier 1 + wg)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+}
+
+template <int KSTEPS,   // k16 steps over the head dim, as the streaming kernel
+          int NK>       // keys of the one K/V tile: 16 or 80
+__global__ void __launch_bounds__(128 * kShortWarpgroups,
+                                  ShortTiles<KSTEPS, NK>::kMinBlocks)
+flash_attn_fwd_bf16_short(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_o,
+                          bf16* __restrict__ o, float* __restrict__ lse,
+                          int nq, int kv_len, int d, float scale_log2,
+                          int items, Strides so, long long lse_sb,
+                          long long lse_sh) {
+  using T = ShortTiles<KSTEPS, NK>;
+  constexpr int kNV = 16 * KSTEPS;   // output columns computed
+  constexpr int kS = NK / 2;         // score registers a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((kSwizzleAtom - smem_addr(smem_raw)) &
+                              (kSwizzleAtom - 1));
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + T::kKVTile;
+  bf16* qs = vs + T::kKVTile;                         // [warpgroup][stage]
+  bf16* os = qs + T::kWgs * T::kStages * T::kQTile;   // [warpgroup]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(os + T::kWgs * T::kQTile);
+  uint64_t* q_full = kv_full + 1;                     // [warpgroup][stage]
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tile0 = blockIdx.x * items;   // the block's first 64-row tile
+  const int tiles = min(items, (nq + 63) / 64 - tile0);
+  // warpgroup w's n-th tile is tile0 + w + n kWgs
+  const auto tiles_of = [&](int w) {
+    return tiles > w ? (tiles - w + T::kWgs - 1) / T::kWgs : 0;
+  };
+  const uint32_t q_bytes = T::kNarrow ? 2 * 64 * d : 2 * T::kQTile;
+  const uint32_t kv_bytes = T::kNarrow ? 2 * NK * d : 2 * T::kKVTile;
+  const CUtensorMap* mq = &map_q;
+  const auto load_q = [&](int w, int n) {   // one thread
+    const int slot = w * T::kStages + n % T::kStages;
+    mbar_arrive_expect_tx(q_full + slot, q_bytes);
+    tma_load_boxes<T::kBoxes>(qs + slot * T::kQTile, T::kQBox, mq,
+                              q_full + slot, (tile0 + w + n * T::kWgs) * 64,
+                              h, b);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < T::kBars; ++i) mbar_init(kv_full + i, 1);
+    mbar_init_fence();
+    tma_prefetch_map(&map_q);
+    tma_prefetch_map(&map_k);
+    tma_prefetch_map(&map_v);
+    mbar_arrive_expect_tx(kv_full, 2 * kv_bytes);
+    tma_load_boxes<T::kBoxes>(ks, T::kKVBox, &map_k, kv_full, 0, h, b);
+    tma_load_boxes<T::kBoxes>(vs, T::kKVBox, &map_v, kv_full, 0, h, b);
+    for (int w = 0; w < T::kWgs; ++w)
+      for (int n = 0; n < T::kStages && n < tiles_of(w); ++n) load_q(w, n);
+    if (kShortTmaStore) tma_prefetch_map(&map_o);
+  }
+  if (T::kNarrow) {
+    // A narrow box brings d columns: the k16 steps' columns from d on are
+    // zeros written here once, while the first loads are under way, in K
+    // and in every Q stage (V's reach only output columns never stored).
+    zero_chunks(ks, NK, d / 8, 2 * KSTEPS, threadIdx.x, 128 * T::kWgs);
+    zero_chunks(qs, T::kWgs * T::kStages * 64, d / 8, 2 * KSTEPS,
+                threadIdx.x, 128 * T::kWgs);
+    fence_proxy_async();
+  }
+  __syncthreads();   // the barriers are set up and the zeros written
+
+  const int wg = threadIdx.x >> 7;
+  const int n_tiles = tiles_of(wg);
+  const bool elected = (threadIdx.x & 127) == 0;
+  const int lane = threadIdx.x & 31;
+  // per thread: rows rsub and rsub + 8 of a tile; in each 8-wide column
+  // tile, columns col0 and col0 + 1 (the accumulator layout, sm90.cuh)
+  const int rsub = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  bf16* qw = qs + wg * T::kStages * T::kQTile;
+  bf16* ow = os + wg * T::kQTile;
+  uint64_t* fw = q_full + wg * T::kStages;
+  const uint64_t dk = wgmma_desc(ks, 16, kSwizzleAtom);
+  const uint64_t dv = wgmma_desc(vs, 2 * T::kKVBox, kSwizzleAtom);
+  if (n_tiles > 0) mbar_wait(kv_full, 0);
+
+  for (int n = 0; n < n_tiles; ++n) {
+    const int stage = n % T::kStages;
+    const int q0 = (tile0 + wg + n * T::kWgs) * 64;
+    // S = Q K^T: KSTEPS wgmma m64nNKk16, both operands in shared memory
+    float s[kS];
+    mbar_wait(fw + stage, (n / T::kStages) & 1);
+    const uint64_t dq = wgmma_desc(qw + stage * T::kQTile, 16, kSwizzleAtom);
+    wgmma_fence();
+    #pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      wgmma_ss<0>(s, kstep_desc(dq, kk, 2 * T::kQBox),
+                  kstep_desc(dk, kk, 2 * T::kKVBox), kk != 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin(s);
+    // the stage is read: this warpgroup's tile n + kStages comes into it
+    if (elected && n + T::kStages < n_tiles) load_q(wg, n + T::kStages);
+
+    // one pass: the row max, the exponentials and the row sums over all
+    // keys at once, those at or past kv_len masked
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    softmax_tile(s, m, l, alpha, scale_log2, col0, NK, kv_len);
+    uint32_t pf[NK / 16][4];
+    pack_p(pf, s);
+    // O = P V: one wgmma m64nNk16 a k16 step of keys, N = 16 KSTEPS
+    float acc[kNV / 2];
+    #pragma unroll
+    for (int i = 0; i < kNV / 2; ++i) acc[i] = 0.f;
+    wgmma_fence();   // acc and pf were written by ordinary code
+    #pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk)
+      wgmma_rs(acc, pf[kk], wgmma_desc_advance(dv, kk * 16 * kSwizzleRow));
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin(acc);
+
+    float inv[2];
+    #pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / l[r];
+    }
+    if (kShortTmaStore) {
+      // O into this warpgroup's swizzled tile, then out by TMA (rows past
+      // nq and columns past d are not written); the tile is free once the
+      // tile before's store has read it
+      if (elected) tma_store_wait_read();
+      warpgroup_sync(wg);
+      #pragma unroll
+      for (int j = 0; j < kNV / 8; ++j) {
+        uint8_t* box = reinterpret_cast<uint8_t*>(ow + (j / 8) * T::kQBox);
+        #pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = rsub + r * 8;
+          *reinterpret_cast<__nv_bfloat162*>(
+              box + row * kSwizzleRow + (((j % 8) ^ (row & 7)) << 4) +
+              2 * col0) = __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv[r],
+                                                acc[4 * j + 2 * r + 1] *
+                                                    inv[r]);
+        }
+      }
+      fence_proxy_async();
+      warpgroup_sync(wg);
+      if (elected) {
+        #pragma unroll
+        for (int x = 0; x < T::kBoxes; ++x)
+          tma_store_4d(&map_o, ow + x * T::kQBox, 64 * x, q0, h, b);
+        tma_store_commit();
+      }
+    } else {
+      bf16* ob = o + b * so.b + h * so.h;
+      #pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + rsub + r * 8;
+        if (row >= nq) continue;
+        #pragma unroll
+        for (int j = 0; j < kNV / 8; ++j) {
+          const int col = j * 8 + col0;   // d is a multiple of 8
+          if (col < d)
+            *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row * so.n +
+                                               col) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv[r],
+                                      acc[4 * j + 2 * r + 1] * inv[r]);
+        }
+      }
+    }
+    if (lse != nullptr && col0 == 0) {
+      #pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + rsub + r * 8;
+        if (row < nq)
+          lse[b * lse_sb + h * lse_sh + row] = m[r] * kLn2 + logf(l[r]);
+      }
+    }
+  }
+  if (kShortTmaStore && elected) tma_store_wait_read();
+}
+
 struct Args {
   const void *q, *k, *v;
   void *o;
@@ -633,6 +888,58 @@ cudaError_t launch_wgmma(const Args& a, int heads, int batch,
   return cudaGetLastError();
 }
 
+// The short-key grid: `items` 64-row tiles of one (batch, head) a block, as
+// few as fill every warpgroup the card holds at once (so that K and V are
+// loaded once for as many tiles as the grid allows); the warpgroups the
+// card holds are counted once per instantiation.
+template <int KSTEPS, int NK>
+cudaError_t launch_short(const Args& a, int heads, int batch,
+                         cudaStream_t s) {
+  using T = ShortTiles<KSTEPS, NK>;
+  const auto kernel = flash_attn_fwd_bf16_short<KSTEPS, NK>;
+  constexpr int threads = 128 * T::kWgs;
+  CUtensorMap map_q, map_k, map_v, map_o;
+  if (!attention_map(&map_q, a.q, a.d, a.nq, heads, batch, a.sq, 64,
+                     T::kNarrow) ||
+      !attention_map(&map_k, a.k, a.d, a.kv_len, heads, batch, a.sk, NK,
+                     T::kNarrow) ||
+      !attention_map(&map_v, a.v, a.d, a.kv_len, heads, batch, a.sv, NK,
+                     T::kNarrow) ||
+      !attention_map(&map_o, a.o, a.d, a.nq, heads, batch, a.so, 64,
+                     T::kNarrow))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, T::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  static int slots = 0;   // warpgroups in flight on the card
+  if (slots == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, threads, T::kSmemBytes)) != cudaSuccess)
+      return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    slots = sms * per_sm * T::kWgs;
+  }
+  const int tiles = (a.nq + 63) / 64;
+  const int per_wg = (tiles * heads * batch + slots - 1) / slots;
+  const int items = tiles < per_wg * T::kWgs ? tiles : per_wg * T::kWgs;
+  const dim3 grid((tiles + items - 1) / items, heads, batch);
+  flash_attn_fwd_bf16_short<KSTEPS, NK><<<grid, threads, T::kSmemBytes, s>>>(
+      map_q, map_k, map_v, map_o, static_cast<bf16*>(a.o), a.lse, a.nq,
+      a.kv_len, a.d, a.scale_log2, items, a.so, a.lse_sb, a.lse_sh);
+  return cudaGetLastError();
+}
+
+template <int KSTEPS>
+cudaError_t launch_short_keys(const Args& a, int heads, int batch,
+                              cudaStream_t s) {
+  return a.kv_len <= kShortFewKeys
+             ? launch_short<KSTEPS, kShortFewKeys>(a, heads, batch, s)
+             : launch_short<KSTEPS, kShortKeys>(a, heads, batch, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. d: the head dim, <= 160 and a multiple
@@ -657,6 +964,14 @@ extern "C" int flash_attn_fwd(int dtype, const void* q, const void* k,
                Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
                lse_sb, lse_sh};
   if (dtype == 1) {   // the fixed table of the header note
+    if (kv_len <= kShortKeys) {   // every key in one tile
+      if (d <= 16) return (int)launch_short_keys<1>(a, heads, batch, s);
+      if (d <= 32) return (int)launch_short_keys<2>(a, heads, batch, s);
+      if (d <= 48) return (int)launch_short_keys<3>(a, heads, batch, s);
+      if (d <= 64) return (int)launch_short_keys<4>(a, heads, batch, s);
+      if (d <= 80) return (int)launch_short_keys<5>(a, heads, batch, s);
+      return (int)launch_short_keys<10>(a, heads, batch, s);
+    }
     if (d <= 16) return (int)launch_wgmma<1, 2>(a, heads, batch, s);
     if (d <= 32) return (int)launch_wgmma<2, 2>(a, heads, batch, s);
     if (d <= 48) return (int)launch_wgmma<3, kNarrowWarpgroups>(a, heads,

@@ -154,6 +154,17 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
           "r"(c1) : "memory");
 }
 
+// As tma_store_2d, at (c0, c1, c2, c3) of a 4-D map
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0),
+          "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -284,6 +295,54 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d[64 x 16] (+)= A[64 x 16] * B[16 x 16], both operands in shared memory
+// (A K-major; B K-major when TRANS_B = 0, MN-major when 1)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, %11;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d[64 x 80] (+)= A[64 x 16] * B[16 x 80], both operands in shared memory
+// (A K-major; B K-major when TRANS_B = 0, MN-major when 1)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[40],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, 0, %43;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 

@@ -15,7 +15,9 @@ CUDA-graph capture trace through it. The forward op's gradient is
 registered with `register_autograd` and runs the two backward ops (the JAX
 `mha` is a `custom_vjp`). `mha.launches`, `mha.bwd_dq_launches` and
 `mha.bwd_dkv_launches` count the three kernels' launches from Python: at
-eager calls, warm-ups and captures, never at a graph's replay.
+eager calls, warm-ups and captures, never at a graph's replay;
+`mha.short_launches` counts those of the forward's that went to its
+short-key kernel.
 
 The ops return their outputs token-major, [B,N,H,D] contiguous; the Python
 wrappers (`mha`, `flash_attn_bwd_dq`, `flash_attn_bwd_dkv`) hand out the
@@ -27,9 +29,11 @@ bfloat16. All three take any head dim up to 160 that is a multiple of 4
 (float32) or 8 (bfloat16), the 16-byte vector loads' rule: the DINOv2
 trunks' 64 and the SD-1.5 UNet's 40, 80 and 160 among them. In bfloat16
 all three run on TMA + wgmma at every head dim, padded to 16 * ceil(d / 16)
-up to 64 and to 80 or 160 above. `fwd_instantiation` and
-`bwd_instantiations` name the kernels a dtype and head dim run (the
-sources' fixed tables).
+up to 64 and to 80 or 160 above. In bfloat16 a forward onto at most
+SHORT_KEYS keys (the UNets' cross-attention onto 77 context keys or one)
+runs a kernel of its own that holds every key in one tile.
+`fwd_instantiation` and `bwd_instantiations` name the kernels a dtype, head
+dim and key count run (the sources' fixed tables).
 """
 
 from __future__ import annotations
@@ -41,10 +45,15 @@ import torch
 __all__ = ["mha", "mha_reference", "mha_bwd_reference", "flash_attn_bwd_dq",
            "flash_attn_bwd_dkv", "entry_argtypes", "check_head_dim",
            "kernel_strides", "fwd_instantiation",
-           "bwd_instantiations", "MAX_HEAD_DIM", "NEG_INF"]
+           "bwd_instantiations", "MAX_HEAD_DIM", "NEG_INF", "SHORT_KEYS",
+           "SHORT_FEW_KEYS"]
 
 NEG_INF = -1e30  # the JAX package's mask value (avoids inf - inf NaNs)
 MAX_HEAD_DIM = 160   # the kernels' widest instantiation
+# the bf16 forward's short-key kernel: kv_len up to SHORT_KEYS in one tile
+# of 16 keys (up to SHORT_FEW_KEYS) or SHORT_KEYS (`csrc/flash_attn_fwd.cu`,
+# kShortKeys and kShortFewKeys)
+SHORT_KEYS, SHORT_FEW_KEYS = 80, 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -131,14 +140,18 @@ def _wgmma_steps(d: int) -> int:
     return -(-d // 16) if d <= 64 else _padded(d) // 16
 
 
-def fwd_instantiation(dtype, d: int) -> str:
+def fwd_instantiation(dtype, d: int, kv_len: int | None = None) -> str:
     """The forward kernel instantiation `csrc/flash_attn_fwd.cu` runs for
-    `dtype` and head dim `d` (its fixed table): `<KSTEPS, consumer
-    warpgroups>` in bfloat16."""
+    `dtype`, head dim `d` and `kv_len` live keys (its fixed table; None:
+    more than SHORT_KEYS): in bfloat16 `<KSTEPS, consumer warpgroups>` of
+    the streaming kernel, or `<KSTEPS, keys a tile>` of the short-key one."""
     check_head_dim(d, dtype)
-    if dtype == torch.bfloat16:
-        return f"flash_attn_fwd_bf16_wgmma<{_wgmma_steps(d)}, 2>"
-    return f"flash_attn_fwd_f32<{_padded(d)}>"
+    if dtype != torch.bfloat16:
+        return f"flash_attn_fwd_f32<{_padded(d)}>"
+    if kv_len is not None and kv_len <= SHORT_KEYS:
+        keys = SHORT_FEW_KEYS if kv_len <= SHORT_FEW_KEYS else SHORT_KEYS
+        return f"flash_attn_fwd_bf16_short<{_wgmma_steps(d)}, {keys}>"
+    return f"flash_attn_fwd_bf16_wgmma<{_wgmma_steps(d)}, 2>"
 
 
 def bwd_instantiations(dtype, d: int) -> tuple[str, str]:
@@ -258,6 +271,8 @@ def _launch_fwd(q, k, v, sm_scale: float, kv_len: int, need_lse: bool):
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {err}")
     mha.launches += 1
+    if q.dtype == torch.bfloat16 and kv_len <= SHORT_KEYS:
+        mha.short_launches += 1
     if lse is None:
         lse = _no_lse(q)
     return o.transpose(1, 2), lse
@@ -519,5 +534,6 @@ def mha(q, k, v, *, sm_scale: float | None = None, kv_len: int | None = None,
 
 
 mha.launches = 0
+mha.short_launches = 0
 mha.bwd_dq_launches = 0
 mha.bwd_dkv_launches = 0

@@ -44,7 +44,8 @@ FWD_CASES = [((4, 8, 4096, 40), 4096), ((4, 8, 4096, 40), 77),
              ((2, 8, 1024, 40), 1024), ((2, 8, 1024, 40), 1),
              ((4, 8, 1024, 80), 1024), ((4, 8, 256, 160), 256),
              ((4, 8, 64, 160), 64), ((4, 8, 1024, 80), 77),
-             ((4, 8, 256, 160), 77), ((2, 8, 256, 80), 256),
+             ((4, 8, 256, 160), 77), ((4, 8, 64, 160), 77),
+             ((2, 8, 256, 80), 256),
              ((2, 8, 64, 160), 64), ((2, 8, 16, 160), 16),
              ((2, 8, 256, 80), 1), ((2, 8, 64, 160), 1),
              ((2, 8, 16, 160), 1), ((4, 24, 1370, 64), 1370),

@@ -34,7 +34,18 @@ instantiations of each kernel):
                   on 128 keys: spills, C7512), two on 64-key tiles
                   (narrow_keys64), a ring of six stages
                   (narrow_six_stages), and no turns between the
-                  warpgroups (no_turns).
+                  warpgroups (no_turns). The short-key kernel (kv_len
+                  <= 80, the cross-attention rows): short_off sends those
+                  calls to the streaming kernel (the design it replaced);
+                  short_no_softmax and short_no_products take its softmax
+                  or its two products out; and the choices of its design,
+                  each turned back: two warpgroups on 128 rows a step
+                  sharing K and V (short_two_warpgroups), two Q stages
+                  (short_two_stages: a larger block, fewer an SM),
+                  64-column boxes at d = 40
+                  (short_box64), 4-byte stores from the accumulator in
+                  place of the TMA store (short_stores4), and one 64-row
+                  tile a block (short_one_item: K and V loaded for each).
   flash_attn_bwd  the same three for the dQ and the dK/dV kernels: no P
                   and dS rebuild (no_softmax), no exponentials (no_exp),
                   no wgmma (no_products), each timed for both kernels; the
@@ -43,7 +54,8 @@ instantiations of each kernel):
                   the other, which sums dK (split_no_softmax: no
                   exponentials and no dS; split_no_products); and three
                   alternatives the design turned down: a ring of three
-                  stages instead of four (three_stages), dK/dV with tile
+                  stages instead of four (three_stages) or of up to eight
+                  (eight_stages), dK/dV with tile
                   t's score products in flight beside tile t-1's
                   accumulating products, as dQ does (dkv_pipelined: ptxas
                   then serialises its wgmmas at KSTEPS 3 and 4, C7512), and
@@ -69,7 +81,11 @@ instantiations of each kernel):
                   over (dq_split_by_ds: two products against one), the
                   split at d = 80 too (dq80_split), and at d = 160 each
                   warpgroup on its own 64 query rows, as up to d = 80
-                  (dq160_joint: 144 registers and more).
+                  (dq160_joint: 144 registers and more). dQ at d = 40 on
+                  64-column boxes, as before boxes of d columns
+                  (dq_box64), and on narrow Q and dO but 64-column K and
+                  V boxes (dq_kv_box64); three warpgroups on 192 query
+                  rows (dq_three_warpgroups: 128 registers a thread).
   fused_epilogue  product_only: no residual load, no epilogue arithmetic,
                   no store; epilogue_only: one k tile per output tile.
   pad_rows        (both attention libraries) edits nothing: the same kernel
@@ -93,9 +109,16 @@ ATTN_SHAPES = [(4, 24, 1370, 64), (1, 24, 5330, 64), (4, 8, 4096, 40),
                (8, 8, 4096, 40), (4, 8, 1024, 80), (4, 8, 256, 160)]
 BWD_SHAPES = [(8, 16, 1370, 64), (1, 24, 5330, 64), (4, 8, 4096, 40),
               (8, 8, 4096, 40), (8, 8, 1024, 80), (8, 8, 256, 160)]
-# the forward's cross-attention at d = 40 (q shape, keys): pix2gestalt's
-# UNet onto its one context key, DepthFM's onto 77
-FWD_CROSS = [((2, 8, 1024, 40), 1), ((4, 8, 4096, 40), 77)]
+# the forward's cross-attention (q shape, keys), the short-key kernel's
+# main-path shapes: pix2gestalt's UNet onto its one context key, DepthFM's
+# onto 77, at d = 40, 80 and 160
+FWD_CROSS = [((2, 8, 1024, 40), 1), ((4, 8, 4096, 40), 77),
+             ((2, 8, 256, 80), 1), ((4, 8, 1024, 80), 77),
+             ((2, 8, 64, 160), 1), ((4, 8, 256, 160), 77),
+             ((4, 8, 64, 160), 77)]
+# the backward onto DepthFM's 77 context keys at d = 40 (batch 4 and the
+# training recipe's 8): dQ streams K and V of 77 keys
+BWD_CROSS = [((4, 8, 4096, 40), 77), ((8, 8, 4096, 40), 77)]
 GEMM_SHAPES = [(42640, 1536, 1536), (42640, 1024, 1024), (5480, 4096, 1536)]
 
 # the dK/dV consumer loop of csrc/flash_attn_bwd.cu (one batch of wgmmas in
@@ -473,6 +496,15 @@ NO_PV = ("        wgmma_rs(acc, pf[kk], wgmma_desc_advance(dv, kk * 16 * "
          "kSwizzleRow));\n",
          "        acc[kk] += __uint_as_float(pf[kk][0] ^ (uint32_t)dv);\n")
 
+# the short-key kernel's S = Q K^T and P V wgmmas
+SHORT_QK = ("      wgmma_ss<0>(s, kstep_desc(dq, kk, 2 * T::kQBox),\n"
+            "                  kstep_desc(dk, kk, 2 * T::kKVBox), kk != 0);\n",
+            "      s[kk] = __uint_as_float((uint32_t)(dq + dk) & "
+            "0x3fffffffu);\n")
+SHORT_PV = ("      wgmma_rs(acc, pf[kk], wgmma_desc_advance(dv, kk * 16 * "
+            "kSwizzleRow));\n",
+            "      acc[kk] += __uint_as_float(pf[kk][0] ^ (uint32_t)dv);\n")
+
 # the forward's key tile: 128 keys up to d = 64 with two warpgroups
 KEYS = "  static constexpr int kKeys = KSTEPS <= 4 && WGS == 2 ? 128 : 64;"
 
@@ -516,6 +548,24 @@ ABLATIONS = {
             ("constexpr int kNarrowWarpgroups = 2;",
              "constexpr int kNarrowWarpgroups = 3;"),
             (KEYS, KEYS.replace(" && WGS == 2", ""))],
+        "short_off": [("    if (kv_len <= kShortKeys) {   // every key in one tile",
+                       "    if (false) {   // every key in one tile")],
+        "short_no_softmax": [(
+            "    softmax_tile(s, m, l, alpha, scale_log2, col0, NK, kv_len);\n",
+            "    m[0] = m[1] = 0.f; l[0] = 1.f + s[0]; l[1] = 1.f + s[2];\n")],
+        "short_no_products": [SHORT_QK, SHORT_PV],
+        "short_two_warpgroups": [("constexpr int kShortWarpgroups = 1;",
+                                  "constexpr int kShortWarpgroups = 2;")],
+        "short_two_stages": [("constexpr int kShortStages = 1;",
+                              "constexpr int kShortStages = 2;")],
+        "short_box64": [("constexpr bool kShortNarrow = true;",
+                         "constexpr bool kShortNarrow = false;")],
+        "short_stores4": [("constexpr bool kShortTmaStore = true;",
+                           "constexpr bool kShortTmaStore = false;")],
+        "short_one_item": [(
+            "  const int items = tiles < per_wg * T::kWgs ? tiles : per_wg * "
+            "T::kWgs;",
+            "  const int items = 1 + 0 * per_wg;")],
     },
     "flash_attn_bwd": {
         "full": [],
@@ -609,6 +659,11 @@ ABLATIONS = {
              "      dp[4 * j + 3] = p.w * (dp[4 * j + 3] - dl[1]);\n",
              "      dp[4 * j] = p.x;\n      dp[4 * j + 1] = p.y;\n"
              "      dp[4 * j + 2] = p.z;\n      dp[4 * j + 3] = p.w;\n")],
+        "eight_stages": [(
+            "  static constexpr int kStages = kRoom / kStageBytes < 4\n"
+            "                                     ? kRoom / kStageBytes : 4;",
+            "  static constexpr int kStages = kRoom / kStageBytes < 8\n"
+            "                                     ? kRoom / kStageBytes : 8;")],
         "three_stages": [(
             "  static constexpr int kStages = kRoom / kStageBytes < 4\n"
             "                                     ? kRoom / kStageBytes : 4;",
@@ -632,6 +687,12 @@ ABLATIONS = {
                        "constexpr bool kNarrowBoxes = false;")],
         "dkv_three_warpgroups": [("constexpr int kDkvNarrowWarpgroups = 2;",
                                   "constexpr int kDkvNarrowWarpgroups = 3;")],
+        "dq_three_warpgroups": [("constexpr int kDqNarrowWarpgroups = 2;",
+                                 "constexpr int kDqNarrowWarpgroups = 3;")],
+        "dq_box64": [("constexpr bool kNarrowDqBoxes = true;",
+                      "constexpr bool kNarrowDqBoxes = false;")],
+        "dq_kv_box64": [("  return T::kNarrow && kv_len >= kWgStream / 2;",
+                         "  return T::kNarrow && kv_len < 0;")],
     },
     "fused_epilogue": {
         "full": [],
@@ -739,7 +800,9 @@ def main() -> int:
     dims = (None if args.head_dims is None
             else {int(d) for d in args.head_dims.split(",")})
     attn_shapes = [s for s in ATTN_SHAPES if dims is None or s[3] in dims]
-    bwd_shapes = [s for s in BWD_SHAPES if dims is None or s[3] in dims]
+    bwd_shapes = [(s, s[2]) for s in BWD_SHAPES
+                  if dims is None or s[3] in dims]
+    bwd_shapes += [c for c in BWD_CROSS if dims is None or c[0][3] in dims]
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     qkvs = [torch.randn((b, n, 3, h, d), generator=gen, device="cuda",
@@ -750,9 +813,10 @@ def main() -> int:
                                      (*shape[:2], nk, shape[3]))))
              for shape, nk in FWD_CROSS if dims is None or shape[3] in dims]
     bwds = []   # (q, k, v, dO, LSE, delta); the forward by the plain version
-    for b, h, n, d in bwd_shapes:
-        q, k, v, do = (torch.randn((b, h, n, d), generator=gen, device="cuda",
-                                   dtype=torch.bfloat16) for _ in range(4))
+    for (b, h, n, d), nk in bwd_shapes:
+        q, k, v, do = (torch.randn((b, h, rows, d), generator=gen,
+                                   device="cuda", dtype=torch.bfloat16)
+                       for rows in (n, nk, nk, n))
         o, lse = mha_reference(q, k, v, return_lse=True)
         bwds.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
         del o
@@ -790,7 +854,7 @@ def main() -> int:
             pad = any(part in PADDED for part in label.split("+"))
             times = []
             if name == "flash_attn_bwd":
-                for shape, args_ in zip(bwd_shapes, bwds):
+                for (shape, nk), args_ in zip(bwd_shapes, bwds):
                     if pad and shape[3] % 64 == 0:
                         continue
                     if pad:
@@ -800,8 +864,9 @@ def main() -> int:
                         *args_, sm_scale=scale))
                     dkv_ms = device_ms(lambda: flash_attn_bwd_dkv(
                         *args_, sm_scale=scale))
-                    times.append(f"{list(shape)} dq {dq_ms:.4f} ms, dk/dv "
-                                 f"{dkv_ms:.4f} ms")
+                    onto = "" if nk == shape[2] else f" x {nk}"
+                    times.append(f"{list(shape)}{onto} dq {dq_ms:.4f} ms, "
+                                 f"dk/dv {dkv_ms:.4f} ms")
             elif name == "flash_attn_fwd":
                 for shape, qkv in zip(attn_shapes, qkvs):
                     if pad and shape[3] % 64 == 0:

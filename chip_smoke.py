@@ -12,7 +12,8 @@ plain PyTorch version on the card:
      once); ptxas's `-v` report (kept beside each library) must show no
      serialised wgmma (C7512 and its kin); where `cuobjdump` is found, the
      SASS of each wgmma kernel function (every bf16 instantiation of the
-     forward, dQ and dK/dV, d = 16 to 160; the epilogue's) must hold
+     forward, the short-key forward, dQ and dK/dV, d = 16 to 160; the
+     epilogue's) must hold
      HGMMA (wgmma) and UTMALDG (TMA load) opcodes, and no bf16 attention
      kernel on mma.sync may be left;
   3. kernel vs plain version at the main paths' attention shapes and
@@ -24,7 +25,11 @@ plain PyTorch version on the card:
      cross-attention onto 77 keys, the proxy's 12/24/48) and on the
      edges of the Hopper kernel's tiles (N from 1 to 257, kv_len
      one short of N and in the middle of a tile, 77 keys under 4096 rows,
-     strided views of one qkv buffer, with and without the LSE), then the
+     strided views of one qkv buffer, with and without the LSE), the bf16
+     short-key kernel (kv_len <= 80, every key in one tile) onto 1, 77, 80
+     and 81 keys (one past the cut: the streaming kernel) at d = 40/80/160
+     under a ragged Nq, keys past kv_len, a negative scale, with the LSE,
+     each call's profiled kernel the table's instantiation, then the
      two backward kernels (dQ; dK and dV) against `mha_bwd_reference`,
      tolerances relative to the reference's max abs, at the trunks' shapes
      and the UNet's (head dims 40/80/160, self-attention and onto 77
@@ -33,9 +38,11 @@ plain PyTorch version on the card:
      need), and on the edges of their
      tiles (the forward's sweep: N from 1 to 257, kv_len inside a tile,
      dead dK/dV rows exactly 0, a second dQ and dK/dV run bit-identical,
-     head dims 64/40/24/8/80/136/160 and bf16 48), and `mha` under
-     autograd on strided CUDA views; the KSTEPS 3 (d = 40) kernels' ptxas
-     report without spills; the device time (torch.profiler) of the bf16
+     head dims 64/40/24/8/80/136/160 and bf16 48), dQ at d = 40 on boxes
+     of d columns (self with a ragged kv_len, onto 77 and onto 31 keys,
+     the profiled kernel checked), and `mha` under autograd on strided
+     CUDA views; the KSTEPS 3 (d = 40) and short-key kernels' ptxas report
+     without spills; the device time (torch.profiler) of the bf16
      forward, dQ and dK/dV at every d > 64 UNet shape and the d = 40 ones
      of HEAD_DIM_40_* (`tools/head_dim_times.py`'s: the forward self and
      onto 77 or 1 keys, DepthFM training's backward at batch 4 and at
@@ -424,9 +431,11 @@ GROUP_NORM_OPS = ("aten::var_mean", "aten::addcmul", "VarMeanBackward",
 # a kernel's name, and its padded head dim if it is a template, in the
 # mangled name ptxas reports
 ENTRY_NAME = re.compile(r"((?:flash_attn|fused_epilogue)_[a-z_]*(?:bf16|f32)"
-                        r"(?:_wgmma)?)(?:ILi(\d+)E(?:Li(\d+)E)?)?")
+                        r"(?:_wgmma|_short)?)(?:ILi(\d+)E(?:Li(\d+)E)?)?")
 
 failures: list[str] = []
+# the forward's launches that went to its short-key kernel, by main path
+SHORT_LAUNCHES: dict[str, int] = {}
 
 
 def check(ok: bool, what: str) -> None:
@@ -474,15 +483,15 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def fwd_run(runs: dict | None, dtype, d: int, cases: int, err: float,
-            timed: dict | None = None) -> None:
+            timed: dict | None = None, kv_len: int | None = None) -> None:
     """Add a forward case (or `cases` of them) to `runs`, under the
-    instantiation that dtype and head dim d run."""
+    instantiation that dtype, head dim d and kv_len live keys run."""
     from amodal_depth_anything_tpu_torch.ops.flash_attention import \
         fwd_instantiation
 
     if runs is None:
         return
-    run = runs.setdefault(fwd_instantiation(dtype, d),
+    run = runs.setdefault(fwd_instantiation(dtype, d, kv_len),
                           {"cases": 0, "max_abs_err": 0.0, "timed": []})
     run["cases"] += cases
     run["max_abs_err"] = max(run["max_abs_err"], err)
@@ -539,7 +548,7 @@ def attention_case(gen, shape, nk, kv_len, dt_name: str, gpu: str,
           f"{lse_err:.3e} <= {LSE_TOL}")
     fwd_run(runs, dtype, d, 1, err, {"q": list(shape), "nk": nk,
                                      "kv_len": kv, "ms": ms,
-                                     "bound_ms": bound_ms})
+                                     "bound_ms": bound_ms}, kv_len=kv)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
@@ -589,7 +598,7 @@ def attention_edge_cases(runs: dict) -> None:
             if not (err <= TOL[dt_name] and lse_err <= LSE_TOL):
                 bad.append((nq, nk, kv_len, err, lse_err))
             worst, worst_lse = max(worst, err), max(worst_lse, lse_err)
-        fwd_run(runs, dtype, d, len(cases), worst)
+            fwd_run(runs, dtype, d, 1, err, kv_len=kv_len or nk)
         check(not bad,
               f"flash_attn_fwd {dt_name} d={d} on {len(cases)} tile-edge "
               f"cases (N in {list(EDGE_NS)}, kv_len N-1 and N-70, 4096 x "
@@ -680,6 +689,92 @@ def heuristics_attention_cases() -> None:
                  if bad else ""))
 
 
+# the bf16 forward onto a short key set (kv_len <= SHORT_KEYS: every key in
+# one tile) at the UNets' head dims, under a ragged Nq: onto one key and 77,
+# at the cut and one key past it (the streaming kernel), keys past kv_len in
+# the tile, and a negative scale: (q shape, Nk, kv_len, sm_scale)
+SHORT_KEY_CASES = [((2, 4, 999, d), nk, None, None) for d in (40, 80, 160)
+                   for nk in (1, 77, 80, 81)] + [
+                       ((2, 4, 999, 160), 96, 80, None),
+                       ((2, 4, 999, 80), 77, None, -0.3)]
+
+
+def launched_kernels(fns, prefix: str) -> list:
+    """The name (with its template, as `fwd_instantiation` writes it) of
+    each kernel whose name starts with `prefix` that the calls `fns`
+    launched, in launch order, read from one torch.profiler trace of one
+    call of each; a trace that lost events is taken again, up to three
+    times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from amodal_depth_anything_tpu_torch.tools.head_dim_times import KERNEL
+
+    cuda = torch.autograd.DeviceType.CUDA
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                fn()
+            torch.cuda.synchronize()
+        found = sorted(
+            (e.start_ns(), KERNEL.search(e.name()))
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda
+            and not getattr(e, "is_hidden_event", lambda: False)())
+        names = [m.group(1) for _, m in found
+                 if m and m.group(1).startswith(prefix)]
+        if len(names) == len(fns):
+            break
+    return names
+
+
+def short_key_cases(runs: dict) -> None:
+    """The bf16 forward on SHORT_KEY_CASES against the plain version,
+    output and LSE; each call's profiled kernel must be the instantiation
+    `fwd_instantiation` names (the short-key kernel up to the cut, the
+    streaming one past it)."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import (
+        SHORT_KEYS, fwd_instantiation, mha, mha_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    worst, worst_lse, bad, calls, wants = 0.0, 0.0, [], [], []
+    for (b, h, nq, d), nk, kv_len, scale in SHORT_KEY_CASES:
+        q = torch.randn((b, nq, h, d), generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+        k, v = (torch.randn((b, h, nk, d), generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        kw = {"kv_len": kv_len, "sm_scale": scale}
+        out, lse = mha(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        ref, ref_lse = mha_reference(q.float(), k.float(), v.float(),
+                                     return_lse=True, **kw)
+        err = (out.float() - ref).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        kv = kv_len or nk
+        if not (err <= TOL["bfloat16"] and lse_err <= LSE_TOL):
+            bad.append(((b, h, nq, d), nk, kv_len, scale, err, lse_err))
+        worst, worst_lse = max(worst, err), max(worst_lse, lse_err)
+        fwd_run(runs, torch.bfloat16, d, 1, err, kv_len=kv)
+        calls.append(lambda q=q, k=k, v=v, kw=kw: mha(q, k, v, **kw))
+        wants.append(fwd_instantiation(torch.bfloat16, d, kv))
+    ran = launched_kernels(calls, "flash_attn_fwd_")
+    if ran != wants:
+        bad.append(("profiled", ran, "wanted", wants))
+    check(not bad,
+          f"flash_attn_fwd bf16 onto a short key set on "
+          f"{len(SHORT_KEY_CASES)} cases (d 40/80/160 onto 1, 77, "
+          f"{SHORT_KEYS} and {SHORT_KEYS + 1} keys under 999 query rows, "
+          f"keys past kv_len in the tile, a negative scale), with the LSE: "
+          f"max abs {worst:.3e} <= {TOL['bfloat16']}, LSE {worst_lse:.3e} "
+          f"<= {LSE_TOL}; each call's profiled kernel the table's "
+          f"instantiation"
+          + (f"; failing (q, Nk, kv_len, scale, err, lse err): {bad}"
+             if bad else ""))
+
+
 def host_cost_phase(gpu: str) -> None:
     """What one launch of each redesigned kernel costs the host, wrapper
     and tensor-map encodes included: many launches of a tiny case, no
@@ -752,7 +847,9 @@ def native_build_check() -> None:
 WGMMA_STEPS = ((1, 2), (2, 2), (3, 2), (4, 2), (5, 2), (10, 2))
 WGMMA_FUNCTIONS = {
     "flash_attn_fwd": [f"flash_attn_fwd_bf16_wgmmaILi{k}ELi{w}E"
-                       for k, w in WGMMA_STEPS],
+                       for k, w in WGMMA_STEPS]
+                      + [f"flash_attn_fwd_bf16_shortILi{k}ELi{n}E"
+                         for k, _ in WGMMA_STEPS for n in (16, 80)],
     "flash_attn_bwd": [f"flash_attn_bwd_dkv_bf16_wgmmaILi{k}ELi{w}E"
                        for k, w in WGMMA_STEPS]
                       + [f"flash_attn_bwd_dq_bf16_wgmmaILi{k}E"
@@ -790,14 +887,17 @@ def sass_check() -> None:
               f"{name}: ptxas reports no serialised wgmma"
               + (f" ({len(serial)}: {serial[0][:200]} ...)" if serial
                  else "" if report else " (no report kept)"))
-        # the KSTEPS 3 (d = 40) kernels of the attention libraries
-        lines = ptxas_lines(report, "bf16_wgmmaILi3E")
-        spills = [line.strip() for line in lines
-                  if re.search(r"[1-9]\d* bytes spill stores", line)]
-        if lines:
-            check(not spills, f"{name}: ptxas reports no spill in the "
-                              f"KSTEPS 3 kernels" + (f" ({spills})" if spills
-                                                     else ""))
+        # the KSTEPS 3 (d = 40) kernels of the attention libraries and
+        # every instantiation of the short-key forward
+        for wanted, what in (("bf16_wgmmaILi3E", "KSTEPS 3 kernels"),
+                             ("bf16_short", "short-key kernels")):
+            lines = ptxas_lines(report, wanted)
+            spills = [line.strip() for line in lines
+                      if re.search(r"[1-9]\d* bytes spill stores", line)]
+            if lines:
+                check(not spills, f"{name}: ptxas reports no spill in the "
+                                  f"{what}" + (f" ({spills})" if spills
+                                               else ""))
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(_build.nvcc_path()), "cuobjdump")
     if not os.path.exists(tool):
@@ -825,10 +925,12 @@ def sass_check() -> None:
 
 
 # the d = 40 rows of `tools/head_dim_times.py` that phase 3 times beside its
-# d > 64 ones: the forward and dK/dV at DepthFM's 4096 tokens, the forward
-# at the pix2gestalt grid
-HEAD_DIM_40_FWD = (((4, 8, 4096, 40), 4096), ((2, 8, 1024, 40), 1024))
-HEAD_DIM_40_BWD = (((4, 8, 4096, 40), 4096),)
+# d > 64 ones: the forward and the backward pair at DepthFM's 4096 tokens,
+# self and onto its 77 context keys, the forward at the pix2gestalt grid,
+# self and onto its one key
+HEAD_DIM_40_FWD = (((4, 8, 4096, 40), 4096), ((4, 8, 4096, 40), 77),
+                   ((2, 8, 1024, 40), 1024), ((2, 8, 1024, 40), 1))
+HEAD_DIM_40_BWD = (((4, 8, 4096, 40), 4096), ((4, 8, 4096, 40), 77))
 
 
 def wide_head_rows(gpu: str) -> tuple[list, list]:
@@ -847,7 +949,7 @@ def wide_head_rows(gpu: str) -> tuple[list, list]:
     for shape, nk in [c for c in hd.FWD_CASES
                       if c[0][3] > 64 or c in HEAD_DIM_40_FWD]:
         r = hd.fwd_row(shape, nk, calls=10)
-        want = fwd_instantiation(torch.bfloat16, shape[3])
+        want = fwd_instantiation(torch.bfloat16, shape[3], nk)
         print(f"  device time bf16 fwd q {list(shape)} Nk={nk}: "
               f"{r['kernel']} {as_ms(r['device_ms'])}, SDPA "
               f"{as_ms(r['sdpa_device_ms'])}, bound {r['bound_ms']:.4f} ms "
@@ -900,6 +1002,7 @@ def attention_phase(gpu: str) -> dict:
     for shape, nk in PROXY_ATTN_CASES:
         attention_case(gen, shape, nk, None, "float32", gpu, runs)
     attention_edge_cases(runs)
+    short_key_cases(runs)
     heuristics_attention_cases()
     main["depthfm_shapes"] = unet
     main["heuristics_shapes"] = heur
@@ -1181,6 +1284,7 @@ def attention_bwd_phase(gpu: str) -> dict:
             if (shape, nk, kv_len, dt_name) == BWD_MAIN_CASE:
                 main.update(got)
     attention_bwd_edge_cases(runs)
+    dq_narrow_cases(runs)
     autograd_check()
     for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
         main[name]["instantiations"] = [
@@ -1254,6 +1358,63 @@ def attention_bwd_edge_cases(runs: dict) -> None:
               f"{dead}); a second run of dQ and dK/dV bit-identical "
               f"({unequal} of {3 * len(cases)} differ)"
               + (f"; failing (Nq, Nk, kv_len, err): {bad}" if bad else ""))
+
+
+# dQ at d = 40 (boxes of d columns) at a cut-down DepthFM training shape:
+# self-attention with a ragged kv_len, onto 77 keys of which 70 live (K and
+# V narrow), onto 31 keys (under half a streamed tile: 64-column K and V
+# boxes): (q shape, Nk, kv_len)
+DQ_NARROW_CASES = [((2, 8, 1000, 40), 1000, 990), ((2, 8, 1000, 40), 77, 70),
+                   ((2, 8, 1000, 40), 31, None)]
+
+
+def dq_narrow_cases(runs: dict) -> None:
+    """dQ at d = 40 on DQ_NARROW_CASES against `mha_bwd_reference`, its
+    error relative to the reference dQ's max abs; each call's profiled
+    kernel must be the instantiation `bwd_instantiations` names."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.ops.flash_attention import (
+        bwd_instantiations, flash_attn_bwd_dq, mha, mha_bwd_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    worst, bad, calls, wants = 0.0, [], [], []
+    for (b, h, nq, d), nk, kv_len in DQ_NARROW_CASES:
+        q, do = (torch.randn((b, nq, h, d), generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2) for _ in range(2))
+        k, v = (torch.randn((b, h, nk, d), generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        if kv_len is not None and nq == nk:
+            do[:, :, kv_len:] = 0   # padded query rows carry no cotangent
+        o, lse = mha(q, k, v, kv_len=kv_len, return_lse=True)
+        delta = (do.float() * o.float()).sum(-1)
+        kw = {"sm_scale": d ** -0.5, "kv_len": kv_len}
+        dq = flash_attn_bwd_dq(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        ref = mha_bwd_reference(q.float(), k.float(), v.float(), o.float(),
+                                lse, do.float(), **kw)[0]
+        err = ((dq.float() - ref).abs().max() / ref.abs().max()).item()
+        want = bwd_instantiations(torch.bfloat16, d)[0]
+        if not err <= TOL["bfloat16"]:
+            bad.append(((b, h, nq, d), nk, kv_len, err))
+        worst = max(worst, err)
+        calls.append(lambda args=(q, k, v, do, lse, delta), kw=kw:
+                     flash_attn_bwd_dq(*args, **kw))
+        wants.append(want)
+        run = runs.setdefault(want, {"cases": 0, "max_rel_err": 0.0,
+                                     "timed": []})
+        run["cases"] += 1
+        run["max_rel_err"] = max(run["max_rel_err"], err)
+    ran = launched_kernels(calls, "flash_attn_bwd_dq_")
+    if ran != wants:
+        bad.append(("profiled", ran, "wanted", wants))
+    check(not bad,
+          f"flash_attn_bwd dq bf16 d=40 on boxes of d columns, "
+          f"{len(DQ_NARROW_CASES)} cases (self with kv_len N-10, onto 77 "
+          f"keys of which 70 live, onto 31 keys): max abs {worst:.3e} of "
+          f"the reference's max abs <= {TOL['bfloat16']}; each call's "
+          f"profiled kernel the table's instantiation"
+          + (f"; failing (q, Nk, kv_len, err): {bad}" if bad else ""))
 
 
 def autograd_check() -> None:
@@ -1553,17 +1714,23 @@ def depthfm_phase(gpu: str) -> int:
     pipe(img, mask, obs)  # warm-up
     torch.cuda.reset_peak_memory_stats()
     latencies = []
-    mha.launches = 0                      # the main path starts here
+    mha.launches = mha.short_launches = 0   # the main path starts here
     for _ in range(DEPTHFM_CALLS):
         t = time.perf_counter()
         depth = pipe(img, mask, obs)      # returns numpy: synchronised
         latencies.append(time.perf_counter() - t)
     launches = mha.launches               # ... and ends here
+    short = mha.short_launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(launches == DEPTHFM_LAUNCHES * DEPTHFM_CALLS,
           f"bf16 DepthFM main path launched flash_attn_fwd {launches} times "
           f"({DEPTHFM_LAUNCHES * DEPTHFM_CALLS} = {DEPTHFM_LAUNCHES} per "
           f"call)")
+    cross = DEPTHFM_LAUNCHES // 2 * DEPTHFM_CALLS   # onto the 77 keys
+    check(cross <= short < launches,
+          f"bf16 DepthFM main path: {short} of the launches went to the "
+          f"short-key kernel (every cross-attention onto the 77 context "
+          f"keys, {cross}, and self-attention over at most 80 tokens)")
     check(depth.shape == (DEPTHFM_BATCH, *shape) and np.isfinite(depth).all()
           and depth.min() >= 0.0 and depth.max() <= 1.0
           and depth.std() > MIN_STD,
@@ -1579,6 +1746,7 @@ def depthfm_phase(gpu: str) -> int:
           f"{[round(x * 1e3, 1) for x in latencies]} ms, peak memory "
           f"{peak:.2f} GiB; bf16 vs f32 depth max abs {diff:.3e} [{gpu}]",
           flush=True)
+    SHORT_LAUNCHES["depthfm"] = short
     return launches
 
 
@@ -6046,6 +6214,7 @@ def main() -> int:
         **{f"launches_{k}": v for k, v in s12_launches.items()},
         **{f"launches_{k}": v for k, v in s13["scripts"].items()},
         launches_per_replay_traced=per_replay,
+        **{f"launches_{k}_short_keys": v for k, v in SHORT_LAUNCHES.items()},
         compression_shapes=tome_rows)
     ends = [t for _, t in stamps[1:]] + [time.time() - started]
     print(f"  all phases took {time.time() - started:.1f} s: "

@@ -16,7 +16,8 @@ from amodal_depth_anything_tpu.ops.flash_attention import \
 from amodal_depth_anything_tpu_torch.ops import _build
 from amodal_depth_anything_tpu_torch.ops.attention import multi_head_attention
 from amodal_depth_anything_tpu_torch.ops.flash_attention import (
-    _check, _check_bwd, fwd_instantiation, mha, mha_reference)
+    SHORT_FEW_KEYS, SHORT_KEYS, _check, _check_bwd, fwd_instantiation, mha,
+    mha_reference)
 from tests.test_torch_models import few_torch_threads  # noqa: F401
 
 TOL = 1e-5
@@ -117,11 +118,12 @@ def test_mha_plain_takes_other_head_dims():
 
 def test_cpu_never_counts_a_launch():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 40, 40, seed=4))
-    before = mha.launches
+    before = mha.launches, mha.short_launches
     mha(q, k, v)
     multi_head_attention(q, k, v)
     multi_head_attention(q, k, v, impl="plain")
-    assert mha.launches == before
+    mha(q.bfloat16(), k[:, :, :1].bfloat16(), v[:, :, :1].bfloat16())
+    assert (mha.launches, mha.short_launches) == before
 
 
 def test_dispatch_defaults_to_plain_on_cpu_and_rejects_unknown():
@@ -244,7 +246,8 @@ def test_check_head_dim_rule(dtype, d, ok):
             _check(q, k, k, 7)
 
 
-@pytest.mark.parametrize("dtype,d,name", [
+# (dtype, head dim, kernel) with every key past the short-key cut
+FWD_TABLE = [
     (torch.bfloat16, 8, "flash_attn_fwd_bf16_wgmma<1, 2>"),
     (torch.bfloat16, 40, "flash_attn_fwd_bf16_wgmma<3, 2>"),
     (torch.bfloat16, 48, "flash_attn_fwd_bf16_wgmma<3, 2>"),
@@ -256,20 +259,105 @@ def test_check_head_dim_rule(dtype, d, ok):
     (torch.float32, 12, "flash_attn_fwd_f32<16>"),
     (torch.float32, 40, "flash_attn_fwd_f32<48>"),
     (torch.float32, 80, "flash_attn_fwd_f32<80>"),
-    (torch.float32, 100, "flash_attn_fwd_f32<160>")])
-def test_fwd_instantiation_follows_the_source_table(dtype, d, name):
+    (torch.float32, 100, "flash_attn_fwd_f32<160>")]
+# (dtype, head dim, kv_len, kernel) around the short-key cut: onto one key
+# and 77, at the cut and one past it
+FWD_KV_TABLE = [
+    (torch.bfloat16, 40, 1, "flash_attn_fwd_bf16_short<3, 16>"),
+    (torch.bfloat16, 40, 77, "flash_attn_fwd_bf16_short<3, 80>"),
+    (torch.bfloat16, 40, SHORT_KEYS, "flash_attn_fwd_bf16_short<3, 80>"),
+    (torch.bfloat16, 40, SHORT_KEYS + 1, "flash_attn_fwd_bf16_wgmma<3, 2>"),
+    (torch.bfloat16, 64, SHORT_FEW_KEYS, "flash_attn_fwd_bf16_short<4, 16>"),
+    (torch.bfloat16, 64, SHORT_FEW_KEYS + 1,
+     "flash_attn_fwd_bf16_short<4, 80>"),
+    (torch.bfloat16, 80, 1, "flash_attn_fwd_bf16_short<5, 16>"),
+    (torch.bfloat16, 80, 77, "flash_attn_fwd_bf16_short<5, 80>"),
+    (torch.bfloat16, 80, SHORT_KEYS + 1, "flash_attn_fwd_bf16_wgmma<5, 2>"),
+    (torch.bfloat16, 160, 1, "flash_attn_fwd_bf16_short<10, 16>"),
+    (torch.bfloat16, 160, 77, "flash_attn_fwd_bf16_short<10, 80>"),
+    (torch.bfloat16, 160, SHORT_KEYS + 1,
+     "flash_attn_fwd_bf16_wgmma<10, 2>"),
+    (torch.bfloat16, 24, 64, "flash_attn_fwd_bf16_short<2, 80>"),
+    (torch.float32, 40, 77, "flash_attn_fwd_f32<48>")]
+
+
+@pytest.mark.parametrize("dtype,d,kv_len,name", [
+    pytest.param(dtype, d, None, name, id=f"dtype{i}-{d}-{name}")
+    for i, (dtype, d, name) in enumerate(FWD_TABLE)] + [
+    pytest.param(dtype, d, kv, name, id=f"{dtype}-{d}-kv{kv}-{name}")
+    for dtype, d, kv, name in FWD_KV_TABLE])
+def test_fwd_instantiation_follows_the_source_table(dtype, d, kv_len, name):
     """`fwd_instantiation` names the kernel `flash_attn_fwd.cu` dispatches
     to: its template, and the instantiation in the source's table (at
-    KSTEPS 3 its warpgroups by name, `kNarrowWarpgroups`)."""
-    assert fwd_instantiation(dtype, d) == name
+    KSTEPS 3 its warpgroups by name, `kNarrowWarpgroups`; onto a short key
+    set the table's cut and the tile of keys by name)."""
+    assert fwd_instantiation(dtype, d, kv_len=kv_len) == name
     src = (_build.CSRC / "flash_attn_fwd.cu").read_text()
     assert f"\n{name.split('<')[0]}(" in src, name
     template, args = name[:-1].split("<")
+    if "short" in template:
+        steps, keys = args.split(", ")
+        assert (f"constexpr int kShortKeys = {SHORT_KEYS}, kShortFewKeys = "
+                f"{SHORT_FEW_KEYS};") in src
+        assert "    if (kv_len <= kShortKeys) {   // every key in one tile" in src
+        assert f"return (int)launch_short_keys<{steps}>(" in src, name
+        tile = "kShortFewKeys" if int(keys) == SHORT_FEW_KEYS else "kShortKeys"
+        assert f"launch_short<KSTEPS, {tile}>(" in src
+        return
     call = ("launch_wgmma" if "wgmma" in template else "launch_f32")
     if args == "3, 2":
         assert "constexpr int kNarrowWarpgroups = 2;" in src
         args = "3, kNarrowWarpgroups"
     assert f"{call}<{args}>(" in src, name
+
+
+# the bf16 forward's short-key kernel (kv_len <= SHORT_KEYS, every key in
+# one tile of 16 or 80) and its edges: kv_len at the cut and one past it
+# (the streaming kernel), onto one key, 16, 17 and 77, a ragged Nq (past a
+# 64-row tile, and under one), keys past kv_len, d = 40 / 80 / 160, and a
+# negative scale: (b, h, n_q, n_k, kv_len, d, sm_scale)
+SHORT_KEY_CASES = [
+    (1, 2, 100, SHORT_KEYS, None, 40, None),
+    (1, 2, 100, SHORT_KEYS + 1, None, 40, None),
+    (2, 1, 70, 77, None, 80, None),
+    (1, 1, 65, 96, SHORT_KEYS, 160, None),
+    (1, 1, 65, 96, SHORT_KEYS + 1, 160, None),
+    (1, 2, 130, 1, None, 80, None),
+    (1, 2, 200, SHORT_FEW_KEYS, None, 160, None),
+    (1, 1, 17, SHORT_FEW_KEYS + 1, None, 40, None),
+    (1, 1, 33, 77, 70, 40, -0.2)]
+
+
+@pytest.mark.parametrize("b,h,nq,nk,kv_len,d,scale", SHORT_KEY_CASES)
+def test_mha_matches_jax_reference_at_the_short_key_cut(b, h, nq, nk, kv_len,
+                                                        d, scale):
+    """The port's plain version against the JAX reference on
+    SHORT_KEY_CASES, output and LSE."""
+    q, k, v = _qkv(b, h, nq, nk, d=d, seed=10)
+    ref = np.asarray(jax_mha_reference(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), kv_len=kv_len,
+                                       sm_scale=scale))
+    ours, lse = mha(torch.from_numpy(q), torch.from_numpy(k),
+                    torch.from_numpy(v), kv_len=kv_len, sm_scale=scale,
+                    return_lse=True)
+    assert ours.shape == (b, h, nq, d)
+    assert np.abs(ours.numpy() - ref).max() <= TOL
+    sc = d ** -0.5 if scale is None else scale
+    s = np.einsum("bhqd,bhkd->bhqk", q * sc, k)[..., :kv_len or nk]
+    ref_lse = np.asarray(jax.scipy.special.logsumexp(jnp.asarray(s), axis=-1))
+    assert np.abs(lse.numpy() - ref_lse).max() <= TOL
+
+
+@pytest.mark.parametrize("b,h,nq,nk,kv_len,d,scale",
+                         [SHORT_KEY_CASES[i] for i in (0, 1, 5, 8)])
+def test_mha_matches_jax_pallas_interpret_at_the_short_key_cut(
+        b, h, nq, nk, kv_len, d, scale):
+    q, k, v = _qkv(b, h, nq, nk, d=d, seed=11)
+    ref = np.asarray(jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             interpret=True, kv_len=kv_len, sm_scale=scale))
+    ours = mha(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+               kv_len=kv_len, sm_scale=scale).numpy()
+    assert np.abs(ours - ref).max() <= TOL
 
 
 def test_backward_kernels_keep_head_dim_64():

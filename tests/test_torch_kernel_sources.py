@@ -73,12 +73,39 @@ def test_build_targets_sm_90a():
     assert "arch=compute_90a,code=sm_90a" in flags
 
 
+# a kernel function read alone: its source, and the sm90.cuh helpers through
+# which its body issues each instruction (None: it issues none of it; the
+# short-key forward is one warpgroup a block, with no producer warpgroup to
+# take registers from)
+KERNEL_CALLS = {"flash_attn_fwd_bf16_short": ("flash_attn_fwd.cu", {
+    "wgmma.mma_async": ("wgmma_ss<0>(", "wgmma_rs("),
+    "cp.async.bulk.tensor": ("tma_load_boxes<", "tma_store_4d("),
+    "mbarrier.try_wait.parity": ("mbar_wait(",),
+    "setmaxnreg": None})}
+
+
+def _kernel_body(source: str, kernel: str) -> str:
+    """The text of `kernel`'s definition in csrc/<source>."""
+    src = (CSRC / source).read_text()
+    start = src.index(f"\n{kernel}(")
+    return src[start:src.index("\n}\n", start)]
+
+
 @pytest.mark.parametrize("name", ["flash_attn_fwd.cu", "flash_attn_bwd.cu",
-                                  "fused_epilogue.cu"])
+                                  "fused_epilogue.cu",
+                                  "flash_attn_fwd_bf16_short"])
 @pytest.mark.parametrize("ptx", [
     "wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait.parity",
     "setmaxnreg"])
 def test_tensor_core_kernels_are_built_from_wgmma_and_tma(name, ptx):
+    if name in KERNEL_CALLS:
+        source, calls = KERNEL_CALLS[name]
+        body = _kernel_body(source, name)
+        if calls[ptx] is None:
+            assert ptx not in body
+        else:
+            assert all(call in body for call in calls[ptx])
+        name = source
     assert '#include "sm90.cuh"' in (CSRC / name).read_text()
     assert ptx in _with_headers(name)
 
@@ -106,12 +133,19 @@ def test_ablation_edits_still_find_their_text(library, ablation):
 
 @pytest.mark.parametrize("name", ["flash_attn_fwd.cu", "flash_attn_bwd.cu"])
 def test_kstep3_reads_boxes_of_d_columns(name):
-    """The bf16 forward and dK/dV at KSTEPS 3 (d = 40) load boxes of d
-    columns (`attention_map(..., narrow)` in sm90.cuh) and zero the k16
-    steps' columns past d themselves; dQ keeps 64-column boxes."""
+    """The bf16 forward (both kernels), dK/dV and dQ at KSTEPS 3 (d = 40)
+    load boxes of d columns (`attention_map(..., narrow)` in sm90.cuh) and
+    zero the k16 steps' columns past d themselves; dQ's streamed K and V
+    are narrow where their keys fill at least half a tile."""
     src = (CSRC / name).read_text()
     assert "KSTEPS == 3 && kNarrow" in src and "zero_chunks(" in src
     header = (CSRC / "sm90.cuh").read_text()
     assert "const int box[4] = {narrow ? d : 64, rows, 1, 1};" in header
+    if name == "flash_attn_fwd.cu":
+        assert "constexpr bool kShortNarrow = true;" in src
+        assert "kNarrow = KSTEPS == 3 && kShortNarrow;" in src
     if name == "flash_attn_bwd.cu":
-        assert "using DqTiles = BwdTiles<KSTEPS, kDqSplit<KSTEPS>>;" in src
+        assert "constexpr bool kNarrowDqBoxes = true;" in src
+        assert "KSTEPS == 3 && kNarrowDqBoxes>;" in src
+        assert "  return T::kNarrow && kv_len >= kWgStream / 2;" in src
+        assert "wgmma_maps<T>(a, true, dq_kv_narrow<T>(a.kv_len), m)" in src
