@@ -24,7 +24,12 @@
 // twice that) written: several hundred operations per byte at N = 1370 in
 // bfloat16, so both are bound by operations wherever training calls them
 // (989 TFLOP/s of bf16 tensor cores; float32 is held to the 67 TFLOP/s of
-// the FP32 units outside the tensor cores).
+// the FP32 units outside the tensor cores). Onto a short key set (kv_len <=
+// 80: the SD-1.5 UNet's 77 context keys, its mid block's 64 tokens) one pass
+// does 10*B*H*Nq*kv_len*d operations against 3*B*H*Nq*d elements moved (q
+// and dO read, dq written; K, V, dK and dV are small): 1.7 kv_len
+// operations a byte (128 onto 77 keys, under the card's 295), bound by
+// bytes.
 //
 // Design. The TPU kernels keep a whole stream resident in VMEM (K and V in
 // the dQ kernel, Q and dO in the dK/dV kernel); a Hopper block has at most
@@ -33,9 +38,22 @@
 // element is summed by one thread in a fixed order: no atomics, no second
 // pass, the same bits on every run. The dK/dV kernel works on the transposed
 // problem, S^T = K Q^T and dP^T = V dO^T, so that the key rows are the
-// accumulator rows. Which kernel runs is a fixed table by dtype and head dim
-// d (the forward's):
+// accumulator rows. Onto a short key set that split reads Q and dO twice,
+// computes S and dP twice, and gives dK/dV one block per 64 or 128 key rows
+// (64 blocks on 132 SMs at [8,8,4096,40] x 77), each walking all of its
+// head's query tiles: there one kernel takes every key in one tile and
+// makes one pass over the query rows, dQ whole and dK, dV as partial sums a
+// block; a second, small kernel sums the blocks' partial sums in index
+// order (still no atomics: the same bits on every run, as the captured
+// train steps need). Which kernel runs is a fixed table by dtype, kv_len and
+// head dim d (the forward's):
 //
+//   bfloat16, kv_len <= 80
+//                       flash_attn_bwd_bf16_short<KSTEPS, NK>, KSTEPS as the
+//                       pair's below (boxes of d columns at 3), NK 16 up to
+//                       16 keys and 80 above (kShortKeys, kShortFewKeys),
+//                       then flash_attn_bwd_short_sum where a head's query
+//                       tiles span several blocks
 //   bfloat16, d <= 32   flash_attn_bwd_dq_bf16_wgmma<ceil(d / 16)>,
 //                       flash_attn_bwd_dkv_bf16_wgmma<ceil(d / 16), 2>
 //   bfloat16, d <= 48   flash_attn_bwd_dq_bf16_wgmma<3>,
@@ -102,6 +120,31 @@
 //    barrier with the TMA bytes; in the dQ kernel the keys at or past
 //    kv_len of the last tile are masked by a second instance of the tile
 //    body.
+//  * bfloat16 onto a short key set (kv_len <= 80), flash_attn_bwd_bf16_short:
+//    a block is a score warpgroup (two at 33 <= d <= 48, each on every other
+//    tile), a dV and a dK warpgroup over `items` 64-row query tiles of one
+//    (batch, head), as few as fill every block the card holds (the
+//    forward's rule). K and V land once by TMA and stay (boxes of d columns
+//    at KSTEPS 3); Q and dO tiles come by TMA through a ring of up to four
+//    stages, refilled by one thread of the dK warpgroup, the last to read a
+//    stage (a producer warpgroup would cut every thread to the 128
+//    registers of a 512-thread block, too few for the d = 160 sums). A
+//    score warpgroup computes, a tile at a time, S = Q K^T and dP = dO V^T
+//    (KSTEPS wgmma m64n80k16 / m64n16k16 each), P = exp2(c S - LSE2) and dS
+//    = P (dP - delta) in float32 on the fragments (LSE2 = +inf past Nq; keys
+//    past kv_len 0), hands P and dS, rounded to bf16 with the rows at or
+//    past q_len zeroed, to the other two through a ring of [64 rows, 80
+//    keys] tiles in the 128-byte swizzle, and sums dQ = s dS K whole (dS
+//    from registers, K the MN-major B), out by TMA store; the LSE and delta
+//    of the next tile are read during this tile's products. The dV
+//    warpgroup sums dV^T += dO^T P and the dK warpgroup dK^T += Q^T dS over
+//    the block's tiles: the head dim as M (one m64 chunk up to d = 64, two
+//    at 80, three at 160: 40 registers each onto 80 keys) and the keys as
+//    N, both operands MN-major from shared memory (the transpose of A is
+//    the dO / Q tile as it landed). Where a head's tiles fit one block it
+//    writes dK (times s) and dV itself; otherwise each block writes its
+//    float32 partial sums to a workspace the op allocates, [B, H, slabs,
+//    keys, head dim], and flash_attn_bwd_short_sum adds them up.
 //  * float32: 256 threads, each a 4x4 patch of the score tiles and 4 rows x
 //    DPAD/16 columns of the output tiles, scalar FMAs on float32 smem tiles
 //    (TF32 would miss the parity bar); 64-row tiles of DPAD + 4 floats, the
@@ -1216,6 +1259,474 @@ flash_attn_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// ----------------- bfloat16 onto a short key set: one pass, then a sum
+
+// kv_len up to kShortKeys runs flash_attn_bwd_bf16_short<KSTEPS, NK>, then
+// flash_attn_bwd_short_sum: every key in one tile of NK keys, 16 up to
+// kShortFewKeys and 80 above (the forward's cut and tiles: DepthFM's 77
+// context keys and the UNet mid block's 64 tokens). Each choice below has
+// an ablation in `tools/kernel_ablation.py`.
+constexpr int kShortKeys = 80, kShortFewKeys = 16;
+// dV^T = dO^T P and dK^T = Q^T dS: the head dim as the wgmma M (one to
+// three m64 chunks, N = NK keys: 40 registers a chunk), not the keys (two
+// m64 chunks for 80 keys, N = the head dim: 8 KSTEPS registers each)
+constexpr bool kShortDRows = true;
+constexpr int kShortQStages = 4;     // Q/dO tiles in flight, at most
+constexpr int kShortPStages = 2;     // P/dS tiles in flight, at most
+constexpr bool kShortNarrow = true;  // boxes of d columns at KSTEPS 3
+// Score warpgroups a block, each on every other tile: two at KSTEPS 3 (d
+// 33-48, the UNet's 40), one elsewhere. A tile's path through one
+// warpgroup is a chain of waits (loads, products, hand-overs) whose parts
+// taken out alone gain little (`tools/kernel_ablation.py`, bwd_short_no_*),
+// so two chains interleave; ptxas compiles every thread of a block for
+// 65536 / threads registers, and the 128 of four warpgroups hold the
+// scores at KSTEPS 3 (128), not at 1 and 2 (134 and 137 a thread: a
+// spill), nor above (162 at d = 80), nor the d = 160 sums' 120
+// accumulators. No producer warpgroup, for the same reason: the dK
+// warpgroup, the last to read a Q / dO stage, refills it.
+constexpr bool kShortTwoScores = true;
+template <int KSTEPS>
+constexpr int kShortScores = KSTEPS == 3 && kShortTwoScores ? 2 : 1;
+
+// The shared memory of flash_attn_bwd_bf16_short<KSTEPS, NK>: K and V (NK
+// rows, resident), a ring of kQStages Q and dO tiles (64 rows), a ring of
+// kPStages P and dS tiles ([64 query rows, NK keys] in 64-key boxes, bf16:
+// the MN-major B of the sums), each score warpgroup's dQ tile for its TMA
+// stores, then the barriers.
+// Each Q, dO, K, V or dQ tile is kBoxes boxes of 64 head-dim columns, every
+// box 1024-byte aligned. The rings take what K, V and the dQ tiles leave:
+// two P stages where that keeps two Q stages, Q stages up to kShortQStages
+// (4, 3 and 2 at d <= 64, 80 and 160 onto 80 keys). With two score
+// warpgroups both rings hold a multiple of two stages, so that a stage
+// serves one of them: a warpgroup then waits on a stage's barriers at
+// most one phase ahead, where a parity wait cannot mistake an older phase
+// for the one it waits for.
+template <int KSTEPS, int NK>
+struct ShortBwd {
+  static constexpr int kScores = kShortScores<KSTEPS>;
+  static constexpr int kWgs = kScores + 2;   // + the dV and dK warpgroups
+  static constexpr int kThreads = 128 * kWgs;
+  static constexpr int kBoxes = kHeadBoxes<KSTEPS>;
+  static constexpr int kPBoxes = (NK + 63) / 64;
+  static constexpr bool kNarrow = KSTEPS == 3 && kShortNarrow;
+  static constexpr int kQBox = 64 * 64;      // elements of a 64-row box
+  static constexpr int kKVBox = NK * 64;
+  static constexpr int kQTile = kBoxes * kQBox;
+  static constexpr int kKVTile = kBoxes * kKVBox;
+  static constexpr int kPTile = kPBoxes * kQBox;
+  static constexpr int kRows = 16 * KSTEPS;  // head-dim rows of a partial sum
+  // a sum warpgroup's accumulators: kChunks m64 chunks of M (head dim or
+  // keys), each m64nkN
+  static constexpr int kChunks = kShortDRows ? kBoxes : kPBoxes;
+  static constexpr int kN = kShortDRows ? NK : 16 * KSTEPS;
+  static constexpr int kQStageBytes = 2 * 2 * kQTile;   // Q and dO
+  static constexpr int kPStageBytes = 2 * 2 * kPTile;   // P and dS
+  static constexpr int kFixed =   // K, V, a dQ tile a score warpgroup
+      2 * 2 * kKVTile + kScores * 2 * kQTile + 256 + kSwizzleAtom;
+  static constexpr int kRoom = kSmemMax - kFixed;
+  static constexpr int kPFit =
+      (kRoom - kShortPStages * kPStageBytes) / kQStageBytes >= 2
+          ? kShortPStages : 1;
+  static constexpr int kPStages = kPFit / kScores * kScores > 0
+                                      ? kPFit / kScores * kScores : kScores;
+  static constexpr int kQMax = (kRoom - kPStages * kPStageBytes) /
+                               kQStageBytes;
+  static constexpr int kQFit = kQMax < kShortQStages ? kQMax : kShortQStages;
+  static constexpr int kQStages = kQFit / kScores * kScores > 0
+                                      ? kQFit / kScores * kScores : kScores;
+  static constexpr int kSmemBytes =
+      kFixed + kQStages * kQStageBytes + kPStages * kPStageBytes;
+  static_assert(kQStages >= 1 && kSmemBytes <= kSmemMax, "shared memory");
+  static_assert(kQStages % kScores == 0 && kPStages % kScores == 0,
+                "a stage serves one score warpgroup");
+};
+
+// the 128 threads of score warpgroup w meet (named barrier 8 + w; 4 or 5
+// is consumers_sync's)
+__device__ __forceinline__ void score_sync(int w) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(8 + w) : "memory");
+}
+
+// An m64nN accumulator (N / 2 values a thread), rounded to bf16, as the A
+// fragments of N / 16 k16 steps: its column tiles 2kk and 2kk + 1 are one
+// m64k16 A fragment (pack_a for any N)
+template <int N>
+__device__ __forceinline__ void pack_frags(uint32_t (&f)[N / 16][4],
+                                           const float (&s)[N / 2]) {
+  #pragma unroll
+  for (int i = 0; i < N / 2; i += 2)
+    f[i >> 3][(i >> 1) & 3] = pack_bf16(s[i], s[i + 1]);
+}
+
+// Those fragments into a [64 rows, N columns] tile of 64-column boxes in the
+// 128-byte swizzle (the thread's rows rsub and rsub + 8, its columns col0
+// and col0 + 1 of each 8-wide column tile), zeros for a row whose keep is
+// false
+template <int N>
+__device__ __forceinline__ void store_frags(bf16* tile,
+                                            const uint32_t (&f)[N / 16][4],
+                                            int rsub, int col0,
+                                            const bool (&keep)[2]) {
+  uint8_t* base = reinterpret_cast<uint8_t*>(tile);
+  #pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    #pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int j = 2 * kk + (x >> 1);   // the 8-wide column tile
+      const int row = rsub + 8 * (x & 1);
+      *reinterpret_cast<uint32_t*>(
+          base + (j / 8) * (64 * kSwizzleRow) + row * kSwizzleRow +
+          (((j % 8) ^ (row & 7)) << 4) + 2 * col0) = keep[x & 1] ? f[kk][x]
+                                                                 : 0u;
+    }
+}
+
+template <int KSTEPS,   // k16 steps over the head dim, as the pair's
+          int NK>       // keys of the one K/V tile: 16 or 80
+__global__ void __launch_bounds__(ShortBwd<KSTEPS, NK>::kThreads, 1)
+flash_attn_bwd_bf16_short(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const __grid_constant__ CUtensorMap map_dq,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ ws, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int nq, int nk, int q_len,
+                          int kv_len, int d, float sm_scale, int items,
+                          Strides sdk, Strides sdv) {
+  using T = ShortBwd<KSTEPS, NK>;
+  constexpr int kS = NK / 2;   // score registers a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((kSwizzleAtom - smem_addr(smem_raw)) &
+                              (kSwizzleAtom - 1));
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + T::kKVTile;
+  bf16* qs = vs + T::kKVTile;                   // [stage]
+  bf16* dos = qs + T::kQStages * T::kQTile;     // [stage]
+  bf16* ps = dos + T::kQStages * T::kQTile;     // [stage]
+  bf16* dss = ps + T::kPStages * T::kPTile;     // [stage]
+  bf16* os = dss + T::kPStages * T::kPTile;
+  uint64_t* kv_full =   // past the score warpgroups' dQ tiles
+      reinterpret_cast<uint64_t*>(os + T::kScores * T::kQTile);
+  uint64_t* q_full = kv_full + 1;               // [stage]
+  uint64_t* q_empty = q_full + T::kQStages;     // [stage]
+  uint64_t* p_full = q_empty + T::kQStages;     // [stage]
+  uint64_t* ds_full = p_full + T::kPStages;     // [stage]
+  uint64_t* ps_empty = ds_full + T::kPStages;   // [stage]
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tile0 = blockIdx.x * items;   // the block's first 64-row tile
+  const int tiles = min(items, (nq + 63) / 64 - tile0);
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < T::kQStages; ++s) {
+      mbar_init(q_full + s, 1);    // the loading thread; TMA adds bytes
+      mbar_init(q_empty + s, 3);   // one thread of each consumer warpgroup
+    }
+    for (int s = 0; s < T::kPStages; ++s) {
+      mbar_init(p_full + s, 128);   // every score thread, after its fence
+      mbar_init(ds_full + s, 128);
+      mbar_init(ps_empty + s, 2);   // one thread of the dV and dK warpgroups
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the loads, issued by one thread of the dK warpgroup: K and V once, Q
+  // and dO tile n into stage n % kQStages once the stage's last tile is
+  // read by all three warpgroups
+  const uint32_t q_bytes = T::kNarrow ? 2 * 64 * d : 2 * T::kQTile;
+  const auto load_q = [&](int n) {
+    const int stage = n % T::kQStages;
+    mbar_arrive_expect_tx(q_full + stage, 2 * q_bytes);
+    const int row = (tile0 + n) * 64;
+    tma_load_boxes<T::kBoxes>(qs + stage * T::kQTile, T::kQBox, &map_q,
+                              q_full + stage, row, h, b);
+    tma_load_boxes<T::kBoxes>(dos + stage * T::kQTile, T::kQBox, &map_do,
+                              q_full + stage, row, h, b);
+  };
+  if (threadIdx.x == (T::kScores + 1) * 128) {   // the dK warpgroup's first
+    const uint32_t kv_bytes = T::kNarrow ? 2 * NK * d : 2 * T::kKVTile;
+    tma_prefetch_map(&map_q);
+    tma_prefetch_map(&map_k);
+    tma_prefetch_map(&map_v);
+    tma_prefetch_map(&map_do);
+    mbar_arrive_expect_tx(kv_full, 2 * kv_bytes);
+    tma_load_boxes<T::kBoxes>(ks, T::kKVBox, &map_k, kv_full, 0, h, b);
+    tma_load_boxes<T::kBoxes>(vs, T::kKVBox, &map_v, kv_full, 0, h, b);
+    for (int n = 0; n < T::kQStages && n < tiles; ++n) load_q(n);
+  }
+  if (T::kNarrow) {
+    // A narrow box brings d columns: the columns from d on are zeros
+    // written here once, while the first loads are under way: in K and V
+    // those the k16 steps read, in every Q and dO stage the whole box
+    // (its columns are the M rows of the transposed products)
+    zero_chunks(ks, 2 * NK, d / 8, 2 * KSTEPS, threadIdx.x, T::kThreads);
+    zero_chunks(qs, 2 * T::kQStages * 64, d / 8, 8, threadIdx.x,
+                T::kThreads);
+    fence_proxy_async();
+    consumers_sync<T::kWgs>();
+  }
+  const int lane = threadIdx.x & 31;
+  // per thread: rows rsub and rsub + 8 of an m64 tile; in each 8-wide
+  // column tile, columns col0 and col0 + 1 (the accumulator layout,
+  // sm90.cuh)
+  const int rsub = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  const bool elected = (threadIdx.x & 127) == 0;
+
+  if (wg < T::kScores) {
+    // ----------- scores: S, dP, P, dS and dQ of tiles wg, wg + kScores..
+    const float c = sm_scale * kLog2e;
+    const long long stat0 = ((long long)b * gridDim.y + h) * nq;
+    const uint64_t k_desc = wgmma_desc(ks, 16, kSwizzleAtom);
+    const uint64_t v_desc = wgmma_desc(vs, 16, kSwizzleAtom);
+    // K as the MN-major B of dS K, its 64-column boxes LBO apart
+    const uint64_t kn_desc = wgmma_desc(ks, 2 * T::kKVBox, kSwizzleAtom);
+    bf16* ow = os + wg * T::kQTile;   // this warpgroup's dQ tile
+    if (elected) tma_prefetch_map(&map_dq);
+    // a tile's rows' LSE in log2 units (+inf past nq: P = 0) and delta,
+    // read a tile ahead, so that the loads run under the tile before
+    float lse2[2], dl[2], next_lse2[2], next_dl[2];
+    const auto stats = [&](int n, float (&l2)[2], float (&dd)[2]) {
+      #pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = (tile0 + n) * 64 + rsub + 8 * r;
+        const bool in = n < tiles && row < nq;
+        l2[r] = in ? lse[stat0 + row] * kLog2e : INFINITY;
+        dd[r] = in ? delta[stat0 + row] : 0.f;
+      }
+    };
+    stats(wg, next_lse2, next_dl);
+    if (tiles > wg) mbar_wait(kv_full, 0);
+    for (int n = wg; n < tiles; n += T::kScores) {
+      const int qst = n % T::kQStages, pst = n % T::kPStages;
+      const int q0 = (tile0 + n) * 64;
+      bool live[2];   // rows at or past q_len add nothing to dK and dV
+      #pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        lse2[r] = next_lse2[r];
+        dl[r] = next_dl[r];
+        live[r] = q0 + rsub + 8 * r < q_len;
+      }
+      // S = Q K^T and dP = dO V^T: KSTEPS wgmma m64nNKk16 each, both
+      // operands K-major in shared memory
+      float s[kS], dp[kS];
+      mbar_wait(q_full + qst, (n / T::kQStages) & 1);
+      const uint64_t q_desc =
+          wgmma_desc(qs + qst * T::kQTile, 16, kSwizzleAtom);
+      const uint64_t do_desc =
+          wgmma_desc(dos + qst * T::kQTile, 16, kSwizzleAtom);
+      wgmma_fence();
+      #pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk)
+        wgmma_ss<0>(s, kstep_desc(q_desc, kk, 2 * T::kQBox),
+                    kstep_desc(k_desc, kk, 2 * T::kKVBox), kk != 0);
+      wgmma_commit();
+      #pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk)
+        wgmma_ss<0>(dp, kstep_desc(do_desc, kk, 2 * T::kQBox),
+                    kstep_desc(v_desc, kk, 2 * T::kKVBox), kk != 0);
+      wgmma_commit();
+      stats(n + T::kScores, next_lse2, next_dl);
+      wgmma_wait<1>();   // S is complete, dP may still run
+      wgmma_pin(s);
+      // P = exp2(c S - LSE2) in place, keys at or past kv_len 0
+      #pragma unroll
+      for (int i = 0; i < kS; ++i) {
+        const float p = ex2(fmaf(s[i], c, -lse2[(i >> 1) & 1]));
+        s[i] = (i >> 2) * 8 + col0 + (i & 1) < kv_len ? p : 0.f;
+      }
+      wgmma_wait<0>();
+      wgmma_pin(dp);
+      if (elected) mbar_arrive(q_empty + qst);   // done with Q and dO
+      // P, rounded to bf16, to the dV warpgroup; then dS = P (dP -
+      // delta) in place of dP, rounded, to the dK warpgroup
+      uint32_t f[NK / 16][4];
+      pack_frags<NK>(f, s);
+      mbar_wait(ps_empty + pst, ((n / T::kPStages) & 1) ^ 1);
+      store_frags<NK>(ps + pst * T::kPTile, f, rsub, col0, live);
+      fence_proxy_async();
+      mbar_arrive(p_full + pst);
+      #pragma unroll
+      for (int i = 0; i < kS; ++i)
+        dp[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]);
+      pack_frags<NK>(f, dp);
+      store_frags<NK>(dss + pst * T::kPTile, f, rsub, col0, live);
+      fence_proxy_async();
+      mbar_arrive(ds_full + pst);
+      // dQ = sm_scale dS K: NK / 16 wgmma m64nNk16, N = 16 KSTEPS, dS
+      // from registers, K the MN-major B
+      float acc[8 * KSTEPS];
+      #pragma unroll
+      for (int i = 0; i < 8 * KSTEPS; ++i) acc[i] = 0.f;
+      wgmma_fence();   // acc and f were written by ordinary code
+      #pragma unroll
+      for (int kk = 0; kk < NK / 16; ++kk)
+        wgmma_rs(acc, f[kk],
+                 wgmma_desc_advance(kn_desc, kk * kWgKStepBytes));
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_pin(acc);
+      // dQ into the swizzled tile, then out by TMA (rows past nq and
+      // columns past d are not written); the tile is free once the tile
+      // before's store has read it
+      if (elected) tma_store_wait_read();
+      score_sync(wg);
+      #pragma unroll
+      for (int j = 0; j < 2 * KSTEPS; ++j) {
+        uint8_t* box = reinterpret_cast<uint8_t*>(ow + (j / 8) * T::kQBox);
+        #pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = rsub + r * 8;
+          *reinterpret_cast<__nv_bfloat162*>(
+              box + row * kSwizzleRow + (((j % 8) ^ (row & 7)) << 4) +
+              2 * col0) = __floats2bfloat162_rn(
+              acc[4 * j + 2 * r] * sm_scale,
+              acc[4 * j + 2 * r + 1] * sm_scale);
+        }
+      }
+      fence_proxy_async();
+      score_sync(wg);
+      if (elected) {
+        #pragma unroll
+        for (int x = 0; x < T::kBoxes; ++x)
+          tma_store_4d(&map_dq, ow + x * T::kQBox, 64 * x, q0, h, b);
+        tma_store_commit();
+      }
+    }
+    if (elected) tma_store_wait_read();
+  } else {
+    // ---------- the sums: dV^T += dO^T P (the first), dK^T += Q^T dS
+    const bool dv_wg = wg == T::kScores;
+    const bf16* a_tiles = dv_wg ? dos : qs;   // [Q stage]
+    const bf16* b_tiles = dv_wg ? ps : dss;   // [P stage]
+    uint64_t* full = dv_wg ? p_full : ds_full;
+    float acc[T::kChunks][T::kN / 2];
+    #pragma unroll
+    for (int m = 0; m < T::kChunks; ++m)
+      #pragma unroll
+      for (int i = 0; i < T::kN / 2; ++i) acc[m][i] = 0.f;
+    for (int n = 0; n < tiles; ++n) {
+      const int qst = n % T::kQStages, pst = n % T::kPStages;
+      mbar_wait(full + pst, (n / T::kPStages) & 1);
+      mbar_wait(q_full + qst, (n / T::kQStages) & 1);
+      const bf16* qt = a_tiles + qst * T::kQTile;   // [64 queries, d]
+      const bf16* pt = b_tiles + pst * T::kPTile;   // [64 queries, NK]
+      wgmma_fence();
+      // four k16 steps over the tile's 64 query rows, both operands
+      // MN-major (16 rows a step); M chunk m is 64 columns of the head
+      // dim (kShortDRows: A = the Q / dO box m, B = P / dS) or of the
+      // keys (A = the P / dS box m, B = Q / dO)
+      #pragma unroll
+      for (int m = 0; m < T::kChunks; ++m) {
+        const uint64_t da = kShortDRows
+            ? wgmma_desc(qt + m * T::kQBox, 2 * T::kQBox, kSwizzleAtom)
+            : wgmma_desc(pt + m * T::kQBox, 2 * T::kQBox, kSwizzleAtom);
+        const uint64_t db = kShortDRows
+            ? wgmma_desc(pt, 2 * T::kQBox, kSwizzleAtom)
+            : wgmma_desc(qt, 2 * T::kQBox, kSwizzleAtom);
+        #pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<1, 1>(acc[m],
+                         wgmma_desc_advance(da, kk * kWgKStepBytes),
+                         wgmma_desc_advance(db, kk * kWgKStepBytes), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      #pragma unroll
+      for (int m = 0; m < T::kChunks; ++m) wgmma_pin(acc[m]);
+      if (elected) {
+        mbar_arrive(ps_empty + pst);
+        mbar_arrive(q_empty + qst);
+        if (!dv_wg && n + T::kQStages < tiles) {   // refill the stage
+          mbar_wait(q_empty + qst, (n / T::kQStages) & 1);
+          load_q(n + T::kQStages);
+        }
+      }
+    }
+    // Where one block holds all of its head's query tiles it writes dK
+    // (times sm_scale) and dV itself, bf16, zeros from kv_len on (its
+    // sums there are 0); otherwise its partial sums go to its slab of the
+    // workspace, [B, H, slabs][dV, dK][NK keys][kRows head-dim columns],
+    // float32, for flash_attn_bwd_short_sum.
+    const bool direct = gridDim.x == 1;
+    const float mul = dv_wg ? 1.f : sm_scale;
+    bf16* out = dv_wg ? dv + b * sdv.b + h * sdv.h
+                      : dk + b * sdk.b + h * sdk.h;
+    const long long out_n = dv_wg ? sdv.n : sdk.n;
+    float* w = ws + ((((long long)b * gridDim.y + h) * gridDim.x +
+                      blockIdx.x) * 2 + (dv_wg ? 0 : 1)) *
+                        (T::kRows * NK);
+    const int keys = nk < NK ? nk : NK;
+    #pragma unroll
+    for (int m = 0; m < T::kChunks; ++m)
+      #pragma unroll
+      for (int j = 0; j < T::kN / 8; ++j)
+        #pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // (key, head-dim column) of accumulator value 4j + e
+          const int row = m * 64 + rsub + 8 * (e >> 1);
+          const int col = 8 * j + col0 + (e & 1);
+          const int key = kShortDRows ? col : row;
+          const int dd = kShortDRows ? row : col;
+          const float x = acc[m][4 * j + e];
+          if (direct) {
+            if (key < keys && dd < d)
+              out[(long long)key * out_n + dd] = __float2bfloat16(x * mul);
+          } else if (key < NK && dd < T::kRows) {
+            w[key * T::kRows + dd] = x;
+          }
+        }
+    if (direct)   // rows NK .. nk, past every key of the tile
+      for (int i = threadIdx.x & 127; i < (nk - keys) * d; i += 128)
+        out[(long long)(keys + i / d) * out_n + i % d] =
+            __float2bfloat16(0.f);
+  }
+}
+
+// The second pass of the short-key backward, where a head's query tiles
+// span several blocks: each (batch, head)'s dK and dV as the sum of its
+// blocks' partial sums in slab order (dK times sm_scale), rounded to bf16;
+// rows kv_len .. nk are written as zero. Thread i takes key i / (d / 2) and
+// columns 2 (i % (d / 2)) and the next, so that a warp reads and writes
+// neighbouring columns.
+__global__ void __launch_bounds__(256)
+flash_attn_bwd_short_sum(const float* __restrict__ ws, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int nk, int kv_len, int d,
+                         int rows, int keys, int slabs, float sm_scale,
+                         Strides sdk, Strides sdv) {
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= nk * (d / 2)) return;
+  const int key = i / (d / 2), col = 2 * (i % (d / 2));
+  float v0 = 0.f, v1 = 0.f, k0 = 0.f, k1 = 0.f;
+  if (key < kv_len) {
+    const long long part = (long long)keys * rows;
+    const float* w = ws + ((long long)b * gridDim.y + h) * slabs * 2 * part +
+                     key * rows + col;
+    for (int s = 0; s < slabs; ++s, w += 2 * part) {
+      const float2 pv = *reinterpret_cast<const float2*>(w);
+      const float2 pk = *reinterpret_cast<const float2*>(w + part);
+      v0 += pv.x;
+      v1 += pv.y;
+      k0 += pk.x;
+      k1 += pk.y;
+    }
+  }
+  *reinterpret_cast<__nv_bfloat162*>(dv + b * sdv.b + h * sdv.h +
+                                     (long long)key * sdv.n + col) =
+      __floats2bfloat162_rn(v0, v1);
+  *reinterpret_cast<__nv_bfloat162*>(dk + b * sdk.b + h * sdk.h +
+                                     (long long)key * sdk.n + col) =
+      __floats2bfloat162_rn(k0 * sm_scale, k1 * sm_scale);
+}
+
 // ---------------------------------------------------------------- launches
 
 Strides strides_at(const long long* st, int i) {
@@ -1368,6 +1879,115 @@ bool valid(int dtype, int d) {
          d % (dtype == 0 ? 4 : 8) == 0;
 }
 
+// The short-key backward's grid: `items` 64-row query tiles of one (batch,
+// head) a block, as few as fill every block the card holds at once, so
+// that K and V are loaded, and a partial sum written, once for as many
+// tiles as the grid allows (the forward's rule); the blocks an SM holds
+// are counted once per instantiation. slabs = ceil(tiles / items) blocks a
+// (batch, head).
+template <int KSTEPS, int NK>
+cudaError_t short_items(int nq, int heads, int batch, int* items) {
+  using T = ShortBwd<KSTEPS, NK>;
+  const auto kernel = flash_attn_bwd_bf16_short<KSTEPS, NK>;
+  static int slots = 0;   // blocks in flight on the card
+  if (slots == 0) {
+    cudaError_t err = allow_smem(kernel, T::kSmemBytes);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (err != cudaSuccess || (err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, T::kThreads, T::kSmemBytes)) != cudaSuccess)
+      return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    slots = sms * per_sm;
+  }
+  const int tiles = (nq + 63) / 64;
+  const int per_block = (tiles * heads * batch + slots - 1) / slots;
+  *items = tiles < per_block ? tiles : per_block;
+  return cudaSuccess;
+}
+
+struct ShortArgs {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  void *dq, *dk, *dv;
+  float* ws;
+  int batch, heads, nq, nk, q_len, kv_len, d, slabs;
+  long long ws_floats;
+  float sm_scale;
+  Strides sq, sk, sv, sdo, sdq, sdk, sdv;
+};
+
+template <int KSTEPS, int NK>
+int short_slabs(int nq, int heads, int batch) {
+  int items = 0;
+  const cudaError_t err = short_items<KSTEPS, NK>(nq, heads, batch, &items);
+  if (err != cudaSuccess) return -(int)err;
+  return ((nq + 63) / 64 + items - 1) / items;
+}
+
+// The one-pass kernel, then the sum, on stream s; the caller's slabs and
+// workspace must be those of short_slabs and ShortBwd.
+template <int KSTEPS, int NK>
+cudaError_t launch_short(const ShortArgs& a, cudaStream_t s) {
+  using T = ShortBwd<KSTEPS, NK>;
+  const auto kernel = flash_attn_bwd_bf16_short<KSTEPS, NK>;
+  int items = 0;
+  cudaError_t err = short_items<KSTEPS, NK>(a.nq, a.heads, a.batch, &items);
+  if (err != cudaSuccess) return err;
+  const int slabs = ((a.nq + 63) / 64 + items - 1) / items;
+  if (slabs != a.slabs ||
+      (slabs > 1 && (long long)a.batch * a.heads * slabs * 2 * T::kRows * NK >
+                        a.ws_floats))
+    return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo, mdq;
+  if (!attention_map(&mq, a.q, a.d, a.nq, a.heads, a.batch, a.sq, 64,
+                     T::kNarrow) ||
+      !attention_map(&mk, a.k, a.d, a.kv_len, a.heads, a.batch, a.sk, NK,
+                     T::kNarrow) ||
+      !attention_map(&mv, a.v, a.d, a.kv_len, a.heads, a.batch, a.sv, NK,
+                     T::kNarrow) ||
+      !attention_map(&mdo, a.dout, a.d, a.nq, a.heads, a.batch, a.sdo, 64,
+                     T::kNarrow) ||
+      !attention_map(&mdq, a.dq, a.d, a.nq, a.heads, a.batch, a.sdq, 64,
+                     T::kNarrow))
+    return cudaErrorInvalidValue;
+  if ((err = allow_smem(kernel, T::kSmemBytes)) != cudaSuccess) return err;
+  kernel<<<dim3(slabs, a.heads, a.batch), T::kThreads, T::kSmemBytes, s>>>(
+      mq, mk, mv, mdo, mdq, a.lse, a.delta, a.ws, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.nq, a.nk, a.q_len, a.kv_len, a.d,
+      a.sm_scale, items, a.sdk, a.sdv);
+  if ((err = cudaGetLastError()) != cudaSuccess || slabs == 1) return err;
+  const int pairs = a.nk * (a.d / 2);
+  flash_attn_bwd_short_sum<<<dim3((pairs + 255) / 256, a.heads, a.batch), 256,
+                             0, s>>>(
+      a.ws, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.nk,
+      a.kv_len, a.d, T::kRows, NK, slabs, a.sm_scale, a.sdk, a.sdv);
+  return cudaGetLastError();
+}
+
+// The fixed table of the header note, by head dim: KSTEPS as the pair's
+template <int NK>
+cudaError_t dispatch_short_d(const ShortArgs& a, cudaStream_t s) {
+  if (a.d <= 16) return launch_short<1, NK>(a, s);
+  if (a.d <= 32) return launch_short<2, NK>(a, s);
+  if (a.d <= 48) return launch_short<3, NK>(a, s);
+  if (a.d <= 64) return launch_short<4, NK>(a, s);
+  if (a.d <= 80) return launch_short<5, NK>(a, s);
+  return launch_short<10, NK>(a, s);
+}
+
+template <int NK>
+int slabs_d(int d, int nq, int heads, int batch) {
+  if (d <= 16) return short_slabs<1, NK>(nq, heads, batch);
+  if (d <= 32) return short_slabs<2, NK>(nq, heads, batch);
+  if (d <= 48) return short_slabs<3, NK>(nq, heads, batch);
+  if (d <= 64) return short_slabs<4, NK>(nq, heads, batch);
+  if (d <= 80) return short_slabs<5, NK>(nq, heads, batch);
+  return short_slabs<10, NK>(nq, heads, batch);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q, dout, dq: [B, H, Nq, d]; k, v:
@@ -1408,4 +2028,46 @@ extern "C" int flash_attn_bwd_dkv(int dtype, const void* q, const void* k,
          strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
          strides_at(st, 3), strides_at(st, 4), strides_at(st, 5)};
   return (int)dispatch_dkv(dtype, a, static_cast<cudaStream_t>(stream));
+}
+
+// The short-key backward's blocks a (batch, head), the slabs of its
+// workspace, for bfloat16 at head dim d onto kv_len <= 80 keys under nq
+// query rows; a negative cudaError_t if the runtime refuses the query.
+extern "C" int flash_attn_bwd_short_slabs(int d, int kv_len, int nq,
+                                          int heads, int batch) {
+  if (!valid(1, d) || kv_len < 1 || kv_len > kShortKeys)
+    return -(int)cudaErrorInvalidValue;
+  return kv_len <= kShortFewKeys
+             ? slabs_d<kShortFewKeys>(d, nq, heads, batch)
+             : slabs_d<kShortKeys>(d, nq, heads, batch);
+}
+
+// dQ, dK and dV of the short-key backward (bfloat16 only, kv_len <= 80):
+// dq [B, H, Nq, d], dk and dv [B, H, Nk, d]; slabs as
+// flash_attn_bwd_short_slabs gives them; ws: float32 scratch of ws_floats
+// >= B * H * slabs * 2 * (16 up to 16 keys, else 80) * 16 ceil(d / 16) (80
+// and 160 above 64) where slabs > 1, unused at one slab; 21 strides: q, k,
+// v, dout, dq, dk, dv. Rows of dk and dv in
+// [kv_len, nk) are written as zero; query rows at or past q_len are left
+// out of dK and dV.
+extern "C" int flash_attn_bwd_short(int dtype, const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* delta,
+                                    void* dq, void* dk, void* dv, void* ws,
+                                    int batch, int heads, int nq, int nk,
+                                    int q_len, int kv_len, int d, int slabs,
+                                    long long ws_floats, float sm_scale,
+                                    const long long* st, void* stream) {
+  if (dtype != 1 || !valid(dtype, d) || kv_len < 1 || kv_len > kShortKeys)
+    return (int)cudaErrorInvalidValue;
+  const ShortArgs a{q, k, v, dout, static_cast<const float*>(lse),
+                    static_cast<const float*>(delta), dq, dk, dv,
+                    static_cast<float*>(ws), batch, heads, nq, nk, q_len,
+                    kv_len, d, slabs, ws_floats, sm_scale,
+                    strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+                    strides_at(st, 3), strides_at(st, 4), strides_at(st, 5),
+                    strides_at(st, 6)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(kv_len <= kShortFewKeys ? dispatch_short_d<kShortFewKeys>(a, s)
+                                       : dispatch_short_d<kShortKeys>(a, s));
 }

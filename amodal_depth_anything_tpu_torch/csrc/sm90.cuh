@@ -13,7 +13,10 @@
 // reduction (K) dim is the contiguous one ("K-major": x, Q, K^T) steps
 // 32 bytes along the row per k16 instruction; an operand whose other dim is
 // contiguous ("MN-major": w [K, N], V [keys, d]) is read with the
-// instruction's transpose bit and steps 16 rows (2048 bytes).
+// instruction's transpose bit and steps 16 rows (2048 bytes). That holds for
+// both operands: an MN-major A (the transpose of a [K, M] tile, TRANS_A = 1,
+// as the short-key backward reads dO and Q) takes the descriptor of an
+// MN-major B.
 
 #pragma once
 
@@ -272,8 +275,8 @@ __device__ __forceinline__ void fence_proxy_async() {
 // along N).
 
 // d[64 x 64] (+)= A[64 x 16] * B[16 x 64], both operands in shared memory
-// (A K-major; B K-major when TRANS_B = 0, MN-major when 1)
-template <int TRANS_B>
+// (A K-major when TRANS_A = 0, MN-major when 1; B likewise by TRANS_B)
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32],
     uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -285,7 +288,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32],
       " %8, %9, %10, %11, %12, %13, %14, %15, "
       " %16, %17, %18, %19, %20, %21, %22, %23, "
       " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n"
+      "%32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -295,12 +298,13 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A),
+        "n"(TRANS_B));
 }
 
 // d[64 x 16] (+)= A[64 x 16] * B[16 x 16], both operands in shared memory
-// (A K-major; B K-major when TRANS_B = 0, MN-major when 1)
-template <int TRANS_B>
+// (A K-major when TRANS_A = 0, MN-major when 1; B likewise by TRANS_B)
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[8],
     uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -309,16 +313,61 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8],
       "setp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "%8, %9, p, 1, 1, 0, %11;\n"
+      "%8, %9, p, 1, 1, %11, %12;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A),
+        "n"(TRANS_B));
 }
 
-// d[64 x 80] (+)= A[64 x 16] * B[16 x 80], both operands in shared memory
-// (A K-major; B K-major when TRANS_B = 0, MN-major when 1)
-template <int TRANS_B>
+// d[64 x 32] (+)= A[64 x 16] * B[16 x 32], as the m64n16 form
+template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A),
+        "n"(TRANS_B));
+}
+
+// d[64 x 48] (+)= A[64 x 16] * B[16 x 48], as the m64n16 form
+template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[24],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, %27, %28;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A),
+        "n"(TRANS_B));
+}
+
+// d[64 x 80] (+)= A[64 x 16] * B[16 x 80], as the m64n16 form
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[40],
     uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -331,7 +380,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[40],
       " %16, %17, %18, %19, %20, %21, %22, %23, "
       " %24, %25, %26, %27, %28, %29, %30, %31, "
       " %32, %33, %34, %35, %36, %37, %38, %39}, "
-      "%40, %41, p, 1, 1, 0, %43;\n"
+      "%40, %41, p, 1, 1, %43, %44;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -343,7 +392,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[40],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
         "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A),
+        "n"(TRANS_B));
 }
 
 // d[64 x 128] (+)= A[64 x 16] * B[16 x 128], both operands in shared memory
@@ -383,6 +433,51 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d[64 x 160] (+)= A[64 x 16] * B[16 x 160], as the m64n16 form
+template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[80],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "%80, %81, p, 1, 1, %83, %84;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A),
+        "n"(TRANS_B));
 }
 
 // d[64 x 256] (+)= A[64 x 16] * B[16 x 256], both operands in shared memory

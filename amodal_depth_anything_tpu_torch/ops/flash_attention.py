@@ -1,27 +1,34 @@
 """Flash attention, forward and backward: the hand-written Hopper kernels
 and their plain versions, as `torch.library` custom ops.
 
-Three ops of the `adat` namespace carry the kernels:
+Four ops of the `adat` namespace carry the kernels:
 `adat::flash_attn_fwd` runs `csrc/flash_attn_fwd.cu` (the port of the Pallas
 TPU kernel `amodal_depth_anything_tpu/ops/flash_attention.py::
 _attn_fwd_kernel`), `adat::flash_attn_bwd_dq` and `adat::flash_attn_bwd_dkv`
-the two kernels of `csrc/flash_attn_bwd.cu` (the ports of
-`_attn_bwd_dq_kernel` and `_attn_bwd_dkv_kernel`). Each op's CUDA
-implementation is its kernel and its CPU implementation the plain version
-(`mha_reference`, and the backward's arithmetic step by step in f32): the
-dispatcher picks by the tensors' device, so a CUDA tensor gets the kernel or
-an exception. Each op has a fake implementation, so `torch.export` and
-CUDA-graph capture trace through it. The forward op's gradient is
-registered with `register_autograd` and runs the two backward ops (the JAX
-`mha` is a `custom_vjp`). `mha.launches`, `mha.bwd_dq_launches` and
-`mha.bwd_dkv_launches` count the three kernels' launches from Python: at
-eager calls, warm-ups and captures, never at a graph's replay;
-`mha.short_launches` counts those of the forward's that went to its
-short-key kernel.
+the two streaming kernels of `csrc/flash_attn_bwd.cu` (the ports of
+`_attn_bwd_dq_kernel` and `_attn_bwd_dkv_kernel`), and
+`adat::flash_attn_bwd_short` that file's bfloat16 backward onto at most
+SHORT_KEYS keys: dQ, dK and dV in one pass over the query rows (every key
+in one tile), partial dK and dV a block summed by a second, small kernel
+in a fixed order (no atomics). Each op's CUDA implementation is its kernel
+and its CPU implementation the plain version (`mha_reference`, and the
+backward's arithmetic step by step in f32): the dispatcher picks by the
+tensors' device, so a CUDA tensor gets the kernel or an exception. Each op
+has a fake implementation, so `torch.export` and CUDA-graph capture trace
+through it. The forward op's gradient is registered with
+`register_autograd` (the JAX `mha` is a `custom_vjp`): in bfloat16 onto at
+most SHORT_KEYS keys (the UNets' cross-attention onto 77 context keys, the
+SD-1.5 mid block's 64 tokens) it runs the short backward op, otherwise the
+two streaming ones. `mha.launches`, `mha.bwd_dq_launches`,
+`mha.bwd_dkv_launches` and `mha.bwd_short_launches` count the kernels'
+launches from Python: at eager calls, warm-ups and captures, never at a
+graph's replay; `mha.short_launches` counts those of the forward's that
+went to its short-key kernel.
 
 The ops return their outputs token-major, [B,N,H,D] contiguous; the Python
-wrappers (`mha`, `flash_attn_bwd_dq`, `flash_attn_bwd_dkv`) hand out the
-[B,H,N,D] views, so `o.transpose(1, 2).reshape(B, N, H*D)` is free.
+wrappers (`mha`, `flash_attn_bwd_dq`, `flash_attn_bwd_dkv`,
+`flash_attn_bwd_short`) hand out the [B,H,N,D] views, so
+`o.transpose(1, 2).reshape(B, N, H*D)` is free.
 
 Layout [B, H, N, D] as in the JAX package. The kernels take any Nq and Nk
 (they mask the ragged edges and keys >= `kv_len` themselves) and float32 or
@@ -31,9 +38,9 @@ trunks' 64 and the SD-1.5 UNet's 40, 80 and 160 among them. In bfloat16
 all three run on TMA + wgmma at every head dim, padded to 16 * ceil(d / 16)
 up to 64 and to 80 or 160 above. In bfloat16 a forward onto at most
 SHORT_KEYS keys (the UNets' cross-attention onto 77 context keys or one)
-runs a kernel of its own that holds every key in one tile.
-`fwd_instantiation` and `bwd_instantiations` name the kernels a dtype, head
-dim and key count run (the sources' fixed tables).
+runs a kernel of its own that holds every key in one tile, and so does its
+backward. `fwd_instantiation` and `bwd_instantiations` name the kernels a
+dtype, head dim and key count run (the sources' fixed tables).
 """
 
 from __future__ import annotations
@@ -43,16 +50,17 @@ import ctypes
 import torch
 
 __all__ = ["mha", "mha_reference", "mha_bwd_reference", "flash_attn_bwd_dq",
-           "flash_attn_bwd_dkv", "entry_argtypes", "check_head_dim",
-           "kernel_strides", "fwd_instantiation",
+           "flash_attn_bwd_dkv", "flash_attn_bwd_short", "entry_argtypes",
+           "check_head_dim", "kernel_strides", "fwd_instantiation",
            "bwd_instantiations", "MAX_HEAD_DIM", "NEG_INF", "SHORT_KEYS",
            "SHORT_FEW_KEYS"]
 
 NEG_INF = -1e30  # the JAX package's mask value (avoids inf - inf NaNs)
 MAX_HEAD_DIM = 160   # the kernels' widest instantiation
-# the bf16 forward's short-key kernel: kv_len up to SHORT_KEYS in one tile
-# of 16 keys (up to SHORT_FEW_KEYS) or SHORT_KEYS (`csrc/flash_attn_fwd.cu`,
-# kShortKeys and kShortFewKeys)
+# the bf16 short-key kernels, forward and backward: kv_len up to SHORT_KEYS
+# in one tile of 16 keys (up to SHORT_FEW_KEYS) or SHORT_KEYS
+# (`csrc/flash_attn_fwd.cu` and `csrc/flash_attn_bwd.cu`, kShortKeys and
+# kShortFewKeys)
 SHORT_KEYS, SHORT_FEW_KEYS = 80, 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -154,15 +162,33 @@ def fwd_instantiation(dtype, d: int, kv_len: int | None = None) -> str:
     return f"flash_attn_fwd_bf16_wgmma<{_wgmma_steps(d)}, 2>"
 
 
-def bwd_instantiations(dtype, d: int) -> tuple[str, str]:
-    """The (dQ, dK/dV) kernel instantiations `csrc/flash_attn_bwd.cu` runs
-    for `dtype` and head dim `d` (its fixed table); dK/dV in bfloat16 is
-    `<KSTEPS, consumer warpgroups>`."""
+def _short_keys(dtype, kv_len: int | None) -> bool:
+    """Whether a backward of `dtype` onto `kv_len` live keys takes the
+    short-key kernel: bfloat16, at most SHORT_KEYS keys."""
+    return (dtype == torch.bfloat16 and kv_len is not None
+            and kv_len <= SHORT_KEYS)
+
+
+def _short_tile(kv_len: int) -> int:
+    """Keys of the short-key kernels' one K/V tile."""
+    return SHORT_FEW_KEYS if kv_len <= SHORT_FEW_KEYS else SHORT_KEYS
+
+
+def bwd_instantiations(dtype, d: int, *,
+                       kv_len: int | None = None) -> tuple[str, str]:
+    """The two kernels `csrc/flash_attn_bwd.cu` runs for `dtype`, head dim
+    `d` and `kv_len` live keys (its fixed table; None: more than
+    SHORT_KEYS): the (dQ, dK/dV) pair, dK/dV in bfloat16 `<KSTEPS, consumer
+    warpgroups>`; or in bfloat16 at most SHORT_KEYS keys, the one-pass
+    kernel `<KSTEPS, keys a tile>` and the sum of its partial dK and dV."""
     check_head_dim(d, dtype)
     if dtype != torch.bfloat16:
         kind = f"f32<{_padded(d)}>"
         return f"flash_attn_bwd_dq_{kind}", f"flash_attn_bwd_dkv_{kind}"
     steps = _wgmma_steps(d)
+    if _short_keys(dtype, kv_len):
+        return (f"flash_attn_bwd_bf16_short<{steps}, {_short_tile(kv_len)}>",
+                "flash_attn_bwd_short_sum")
     return (f"flash_attn_bwd_dq_bf16_wgmma<{steps}>",
             f"flash_attn_bwd_dkv_bf16_wgmma<{steps}, 2>")
 
@@ -216,18 +242,27 @@ def _vector_ready(t) -> bool:
 # C entry point -> (library under csrc/, pointer arguments, int arguments)
 _ENTRIES = {"flash_attn_fwd": ("flash_attn_fwd", 5, 5),
             "flash_attn_bwd_dq": ("flash_attn_bwd", 7, 5),
-            "flash_attn_bwd_dkv": ("flash_attn_bwd", 8, 7)}
+            "flash_attn_bwd_dkv": ("flash_attn_bwd", 8, 7),
+            "flash_attn_bwd_short": ("flash_attn_bwd", 10, 9),
+            "flash_attn_bwd_short_slabs": ("flash_attn_bwd", 0, 5)}
 
 
 def entry_argtypes(name: str) -> list:
     """The ctypes signature of C entry point `name`: (dtype, pointers...,
     ints..., sm_scale, strides, [lse strides], stream), every pointer and
-    the stream as c_void_p."""
+    the stream as c_void_p; the short-key backward's last int, its
+    workspace's size in floats, a c_longlong; its slab query takes its five
+    ints alone."""
     _, n_ptrs, n_ints = _ENTRIES[name]
+    if name == "flash_attn_bwd_short_slabs":
+        return [ctypes.c_int] * n_ints
+    ints = [ctypes.c_int] * n_ints
+    if name == "flash_attn_bwd_short":
+        ints[-1] = ctypes.c_longlong
     lse_strides = [ctypes.c_longlong] * 2 if name == "flash_attn_fwd" else []
-    return ([ctypes.c_int] + [ctypes.c_void_p] * n_ptrs
-            + [ctypes.c_int] * n_ints + [ctypes.c_float, ctypes.c_void_p]
-            + lse_strides + [ctypes.c_void_p])
+    return ([ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + ints
+            + [ctypes.c_float, ctypes.c_void_p] + lse_strides
+            + [ctypes.c_void_p])
 
 
 def _entry(name: str):
@@ -333,6 +368,46 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float, kv_len: int):
     return dk.transpose(1, 2), dv.transpose(1, 2)
 
 
+def _launch_bwd_short(q, k, v, do, lse, delta, sm_scale: float,
+                      kv_len: int):
+    """The short-key backward (bf16, kv_len <= SHORT_KEYS): (dq [B,Nq,H,D],
+    dk, dv [B,Nk,H,D]). Where a head's query tiles span several blocks
+    (slabs), their float32 partial dK and dV go to a workspace allocated
+    here on the current stream (from the graph's pool under capture)."""
+    _check_bwd(q, k, v, do, lse, delta, kv_len)
+    if not _short_keys(q.dtype, kv_len):
+        raise ValueError(f"the short-key backward takes bfloat16 onto at most "
+                         f"{SHORT_KEYS} keys, got {q.dtype} onto {kv_len}")
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    q_len = kv_len if nq == nk else nq
+    dq = _token_major(b, h, nq, d, q)
+    dk = _token_major(b, h, nk, d, k)
+    dv = _token_major(b, h, nk, d, v)
+    with torch.cuda.device(q.device):
+        slabs = _entry("flash_attn_bwd_short_slabs")(d, kv_len, nq, h, b)
+        if slabs <= 0:
+            raise RuntimeError(f"flash_attn_bwd_short_slabs failed: "
+                               f"cudaError {-slabs}")
+        # [B, H, slabs][dV, dK][tile keys][16 KSTEPS head-dim columns],
+        # summed by the second pass; at one slab a block writes dK, dV
+        ws = torch.empty((b, h, slabs, 2, _short_tile(kv_len),
+                          16 * _wgmma_steps(d)) if slabs > 1 else (0,),
+                         dtype=torch.float32, device=q.device)
+        err = _entry("flash_attn_bwd_short")(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), b, h, nq, nk, q_len,
+            kv_len, d, slabs, ws.numel(), float(sm_scale),
+            _strides(q, k, v, do, dq, dk, dv),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attn_bwd_short launch failed: cudaError {err}")
+    mha.bwd_short_launches += 1
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
 # --------------------------------------------------------------- the ops
 # Each op: the plain version as its CPU implementation, the kernel as its
 # CUDA one, a fake implementation for tracing. Ops return token-major
@@ -417,6 +492,30 @@ def _(q, k, v, do, lse, delta, sm_scale, kv_len):
     return k.new_empty((b, nk, h, d)), v.new_empty((b, nk, h, d))
 
 
+@torch.library.custom_op("adat::flash_attn_bwd_short", mutates_args=(),
+                         device_types="cpu")
+def _bwd_short_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  sm_scale: float, kv_len: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    dq, dk, dv = _bwd_plain(q, k, v, do, lse, delta, sm_scale, kv_len,
+                            True, True)
+    return _tokens(dq), _tokens(dk), _tokens(dv)
+
+
+@_bwd_short_op.register_kernel("cuda")
+def _(q, k, v, do, lse, delta, sm_scale, kv_len):
+    return _launch_bwd_short(q, k, v, do, lse, delta, sm_scale, kv_len)
+
+
+@_bwd_short_op.register_fake
+def _(q, k, v, do, lse, delta, sm_scale, kv_len):
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    return (q.new_empty((b, nq, h, d)), k.new_empty((b, nk, h, d)),
+            v.new_empty((b, nk, h, d)))
+
+
 def _kv_len(k, kv_len) -> int:
     return k.shape[2] if kv_len is None else int(kv_len)
 
@@ -443,8 +542,21 @@ def flash_attn_bwd_dkv(q, k, v, do, lse, delta, *, sm_scale: float,
     return dk.transpose(1, 2), dv.transpose(1, 2)
 
 
+def flash_attn_bwd_short(q, k, v, do, lse, delta, *, sm_scale: float,
+                         kv_len: int | None = None):
+    """dQ, dK and dV in one call, `adat::flash_attn_bwd_short`: on CUDA
+    tensors the bf16 short-key kernels (kv_len <= SHORT_KEYS; anything else
+    raises), on CPU tensors the plain version; arguments and rows as
+    `flash_attn_bwd_dq` and `flash_attn_bwd_dkv`. Returns [B,H,N,D] views of
+    [B,N,H,D] buffers."""
+    dq, dk, dv = torch.ops.adat.flash_attn_bwd_short(
+        q, k, v, do, lse, delta, float(sm_scale), _kv_len(k, kv_len))
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
 def _attn_backward(q, k, v, o, lse, do, sm_scale: float, kv_len: int):
-    """(dq, dk, dv) through the two backward ops."""
+    """(dq, dk, dv): in bfloat16 onto at most SHORT_KEYS keys through the
+    short backward op, otherwise through the two streaming ones."""
     if q.is_cuda and not _vector_ready(do):
         # whatever view autograd handed over: an explicit copy, never the
         # plain version
@@ -452,6 +564,9 @@ def _attn_backward(q, k, v, o, lse, do, sm_scale: float, kv_len: int):
     # outside the kernels, as in the JAX package: delta = rowsum(dO * O), f32
     delta = (do.float() * o.float()).sum(-1)
     lse = lse.contiguous()
+    if _short_keys(q.dtype, kv_len):
+        return flash_attn_bwd_short(q, k, v, do, lse, delta,
+                                    sm_scale=sm_scale, kv_len=kv_len)
     dq = flash_attn_bwd_dq(q, k, v, do, lse, delta, sm_scale=sm_scale,
                            kv_len=kv_len)
     dk, dv = flash_attn_bwd_dkv(q, k, v, do, lse, delta, sm_scale=sm_scale,
@@ -537,3 +652,4 @@ mha.launches = 0
 mha.short_launches = 0
 mha.bwd_dq_launches = 0
 mha.bwd_dkv_launches = 0
+mha.bwd_short_launches = 0

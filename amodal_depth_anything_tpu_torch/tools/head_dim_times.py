@@ -11,7 +11,12 @@ forward (`mha`) at the DepthFM and pix2gestalt UNet shapes (self-attention
 and onto 77 or 1 keys; at d = 40 also ToMe-SD's merged 2049 tokens and the
 p2g proxy replay's batch 10), and dQ and dK/dV at DepthFM training's (batch
 4, and the shapes of a step at the recipe's batch 8: self and onto 77
-keys); then the d = 64 trunk shapes as guards. Each time is the
+keys); then the d = 64 trunk shapes as guards. A backward row onto at most
+80 keys ("bwd short") times the short-key backward the gradient takes
+there (`flash_attn_bwd_short`: the one-pass kernel and, where a head's
+tiles span several blocks, the sum of their partial dK and dV), with the
+one-pass bound (10 B*H*Nq*Nk*d operations; q, dO, k, v, LSE and delta read
+and dq, dk, dv written once), beside the pair on the same inputs. Each time is the
 kernel's device time per call from a torch.profiler trace (no launch or
 dispatch cost), with the name of the kernel the trace shows; SDPA's
 forward and backward are read the same way (a yardstick only). The bound
@@ -65,7 +70,7 @@ PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12   # H100 SXM, bf16 dense, HBM3
 SMS, EX2_PER_CLOCK = 132, 16   # H100 SXM: SMs, MUFU ex2 a clock an SM
 KERNEL = re.compile(r"(flash_attn_\w+(?:<[^>]*>)?)")
 
-__all__ = ["FWD_CASES", "BWD_CASES", "fwd_bound", "bwd_bounds",
+__all__ = ["FWD_CASES", "BWD_CASES", "fwd_bound", "bwd_bounds", "short_bound",
            "exp_floor", "sm_clock_mhz", "device_events", "device_times",
            "fwd_row", "bwd_row"]
 
@@ -89,6 +94,16 @@ def bwd_bounds(shape, nk: int) -> tuple[tuple, tuple]:
     io = 2 * (2 * b * h * n * d + 2 * b * h * nk * d) + 2 * b * h * n * 4
     return (_roofline(6 * b * h * n * nk * d, io + 2 * b * h * n * d),
             _roofline(8 * b * h * n * nk * d, io + 4 * b * h * nk * d))
+
+
+def short_bound(shape, nk: int) -> tuple[float, str]:
+    """(ms, what bounds it) of the one-pass bf16 backward onto a short key
+    set: q, dO, k, v, LSE and delta read once, dq, dk and dv written once;
+    S, dP, dS K, P^T dO and dS^T Q."""
+    b, h, n, d = shape
+    return _roofline(10 * b * h * n * nk * d,
+                     2 * (3 * b * h * n * d + 4 * b * h * nk * d)
+                     + 2 * b * h * n * 4)
 
 
 def exp_floor(shape, nk: int, mhz: float) -> float:
@@ -191,12 +206,14 @@ def fwd_row(shape, nk: int, calls: int = 20) -> dict:
 
 
 def bwd_row(shape, nk: int, calls: int = 20) -> dict:
-    """dQ, dK/dV and SDPA's backward at one shape, bf16."""
+    """dQ, dK/dV and SDPA's backward at one shape, bf16; onto at most
+    SHORT_KEYS keys also the short-key backward ("short_*")."""
     import torch
     import torch.nn.functional as F
 
     from amodal_depth_anything_tpu_torch.ops.flash_attention import (
-        flash_attn_bwd_dkv, flash_attn_bwd_dq, mha)
+        SHORT_KEYS, flash_attn_bwd_dkv, flash_attn_bwd_dq,
+        flash_attn_bwd_short, mha)
 
     q, k, v, do = _inputs(shape, nk, 1)
     o, lse = mha(q, k, v, return_lse=True)
@@ -212,7 +229,20 @@ def bwd_row(shape, nk: int, calls: int = 20) -> dict:
     sdpa = device_times(lambda: torch.autograd.grad(
         out, leaves, do, retain_graph=True), calls)["all"]
     dq_bound, dkv_bound = bwd_bounds(shape, nk)
-    return {"q": list(shape), "nk": nk, "dq_kernel": dq_name,
+    short = {}
+    if nk <= SHORT_KEYS:   # the one-pass kernel, then (maybe) the sum
+        t = device_times(lambda: flash_attn_bwd_short(*args, sm_scale=scale),
+                         calls)
+        one = [(k, v) for k, v in t.items()
+               if k.startswith("flash_attn_bwd_bf16_short<")]
+        bound, by = short_bound(shape, nk)
+        short = {"short_kernel": one[0][0] if one else None,
+                 "short_device_ms": (sum(v for _, v in one)
+                                     + t.get("flash_attn_bwd_short_sum", 0.0)
+                                     if one else None),
+                 "short_sum_ms": t.get("flash_attn_bwd_short_sum"),
+                 "short_bound_ms": bound, "short_bound_by": by}
+    return {"q": list(shape), "nk": nk, **short, "dq_kernel": dq_name,
             "dq_device_ms": dq_ms, "dq_bound_ms": dq_bound[0],
             "dkv_kernel": dkv_name, "dkv_device_ms": dkv_ms,
             "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
@@ -255,6 +285,12 @@ def main() -> int:
     for shape, nk in BWD_CASES:
         r = bwd_row(shape, nk, args.calls)
         rows["bwd"].append(r)
+        if "short_kernel" in r:
+            print(f"  bwd short q {r['q']} Nk={nk}: {r['short_kernel']} "
+                  f"{_ms(r['short_device_ms'])} (the sum "
+                  f"{_ms(r['short_sum_ms'])}; bound "
+                  f"{r['short_bound_ms']:.4f}, {r['short_bound_by']})",
+                  flush=True)
         print(f"  bwd q {r['q']} Nk={nk}: {r['dq_kernel']} "
               f"{_ms(r['dq_device_ms'])} (bound {r['dq_bound_ms']:.4f}), "
               f"{r['dkv_kernel']} {_ms(r['dkv_device_ms'])} (bound "

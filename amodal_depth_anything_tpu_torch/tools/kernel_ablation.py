@@ -86,6 +86,28 @@ instantiations of each kernel):
                   (dq_box64), and on narrow Q and dO but 64-column K and
                   V boxes (dq_kv_box64); three warpgroups on 192 query
                   rows (dq_three_warpgroups: 128 registers a thread).
+                  The short-key backward (kv_len <= 80, timed at DepthFM
+                  training's shapes onto 77 keys and the mid block's 64
+                  tokens): bwd_short_off times the dQ and dK/dV pair there
+                  (the design it replaced, no edit); bwd_short_no_exp,
+                  bwd_short_no_sums, bwd_short_no_dq and
+                  bwd_short_no_scores take out its exponentials, the dV
+                  and dK products, dS K, or S and dP; and the choices of
+                  its design, each turned back: the keys as the sums' M
+                  (bwd_short_keys_as_m: two m64 chunks for 80 keys, 16
+                  KSTEPS registers each), one score warpgroup at d = 40
+                  too (bwd_short_one_score), one, two or eight Q/dO stages
+                  (bwd_short_one_q_stage, bwd_short_two_q_stages,
+                  bwd_short_eight_q_stages) and one P/dS stage
+                  (bwd_short_one_p_stage; at d = 40, with two score
+                  warpgroups, both rings keep an even count: two and six
+                  Q stages, two P stages), 64-column boxes at d = 40
+                  (bwd_short_box64), every tile of a head in one block
+                  (bwd_short_one_slab: no second pass, fewer blocks) and
+                  one tile a block (bwd_short_one_tile: the most slabs);
+                  and one alternative: P and dS handed over by one arrive
+                  a warp after a __syncwarp, not one a thread
+                  (bwd_short_warp_arrives).
   fused_epilogue  product_only: no residual load, no epilogue arithmetic,
                   no store; epilogue_only: one k tile per output tile.
   pad_rows        (both attention libraries) edits nothing: the same kernel
@@ -119,6 +141,11 @@ FWD_CROSS = [((2, 8, 1024, 40), 1), ((4, 8, 4096, 40), 77),
 # the backward onto DepthFM's 77 context keys at d = 40 (batch 4 and the
 # training recipe's 8): dQ streams K and V of 77 keys
 BWD_CROSS = [((4, 8, 4096, 40), 77), ((8, 8, 4096, 40), 77)]
+# the short-key backward's shapes: DepthFM training's onto 77 keys at d =
+# 40, 80 and 160 and the mid block's 64-token self-attention
+SHORT_BWD = [((4, 8, 4096, 40), 77), ((8, 8, 4096, 40), 77),
+             ((8, 8, 1024, 80), 77), ((8, 8, 256, 160), 77),
+             ((8, 8, 64, 160), 64)]
 GEMM_SHAPES = [(42640, 1536, 1536), (42640, 1024, 1024), (5480, 4096, 1536)]
 
 # the dK/dV consumer loop of csrc/flash_attn_bwd.cu (one batch of wgmmas in
@@ -693,6 +720,70 @@ ABLATIONS = {
                       "constexpr bool kNarrowDqBoxes = false;")],
         "dq_kv_box64": [("  return T::kNarrow && kv_len >= kWgStream / 2;",
                          "  return T::kNarrow && kv_len < 0;")],
+        "bwd_short_off": [],
+        "bwd_short_no_exp": [(
+            "        const float p = ex2(fmaf(s[i], c, -lse2[(i >> 1) & 1]));",
+            "        const float p = fmaf(s[i], c, -lse2[(i >> 1) & 1]);")],
+        "bwd_short_no_sums": [(
+            "          wgmma_ss<1, 1>(acc[m],\n"
+            "                         wgmma_desc_advance(da, kk * "
+            "kWgKStepBytes),\n"
+            "                         wgmma_desc_advance(db, kk * "
+            "kWgKStepBytes), 1);",
+            "          acc[m][kk] += __uint_as_float((uint32_t)(da + db) & "
+            "0x3fffffffu);")],
+        "bwd_short_keys_as_m": [("constexpr bool kShortDRows = true;",
+                                 "constexpr bool kShortDRows = false;")],
+        "bwd_short_one_q_stage": [(
+            "constexpr int kShortQStages = 4;",
+            "constexpr int kShortQStages = 1;")],
+        "bwd_short_two_q_stages": [(
+            "constexpr int kShortQStages = 4;",
+            "constexpr int kShortQStages = 2;")],
+        "bwd_short_eight_q_stages": [(
+            "constexpr int kShortQStages = 4;",
+            "constexpr int kShortQStages = 8;")],
+        "bwd_short_no_dq": [(
+            "        wgmma_rs(acc, f[kk],\n"
+            "                 wgmma_desc_advance(kn_desc, kk * "
+            "kWgKStepBytes));",
+            "        acc[kk] += __uint_as_float(f[kk][0] ^ "
+            "(uint32_t)kn_desc);")],
+        "bwd_short_no_scores": [
+            ("        wgmma_ss<0>(s, kstep_desc(q_desc, kk, 2 * T::kQBox),\n"
+             "                    kstep_desc(k_desc, kk, 2 * T::kKVBox), "
+             "kk != 0);",
+             "        s[kk] = __uint_as_float((uint32_t)(q_desc + k_desc) & "
+             "0x3fffffffu);"),
+            ("        wgmma_ss<0>(dp, kstep_desc(do_desc, kk, 2 * T::kQBox),\n"
+             "                    kstep_desc(v_desc, kk, 2 * T::kKVBox), "
+             "kk != 0);",
+             "        dp[kk] = __uint_as_float((uint32_t)(do_desc + v_desc) & "
+             "0x3fffffffu);")],
+        "bwd_short_one_p_stage": [(
+            "constexpr int kShortPStages = 2;",
+            "constexpr int kShortPStages = 1;")],
+        "bwd_short_box64": [("constexpr bool kShortNarrow = true;",
+                             "constexpr bool kShortNarrow = false;")],
+        "bwd_short_one_slab": [(
+            "  *items = tiles < per_block ? tiles : per_block;",
+            "  *items = tiles + 0 * per_block;")],
+        "bwd_short_one_score": [("constexpr bool kShortTwoScores = true;",
+                                 "constexpr bool kShortTwoScores = false;")],
+        "bwd_short_warp_arrives": [
+            ("      mbar_init(p_full + s, 128);   // every score thread, after "
+             "its fence\n      mbar_init(ds_full + s, 128);",
+             "      mbar_init(p_full + s, 4);\n"
+             "      mbar_init(ds_full + s, 4);"),
+            ("      fence_proxy_async();\n      mbar_arrive(p_full + pst);",
+             "      fence_proxy_async();\n      __syncwarp();\n"
+             "      if ((threadIdx.x & 31) == 0) mbar_arrive(p_full + pst);"),
+            ("      fence_proxy_async();\n      mbar_arrive(ds_full + pst);",
+             "      fence_proxy_async();\n      __syncwarp();\n"
+             "      if ((threadIdx.x & 31) == 0) mbar_arrive(ds_full + pst);")],
+        "bwd_short_one_tile": [(
+            "  *items = tiles < per_block ? tiles : per_block;",
+            "  *items = 1 + 0 * per_block;")],
     },
     "fused_epilogue": {
         "full": [],
@@ -726,6 +817,8 @@ ABLATIONS = {
 
 # ablations that edit no source but time the kernel on other operands
 PADDED = ("pad_rows",)
+# ... or another kernel: the pair where the short-key backward runs
+PAIR = ("bwd_short_off",)
 
 
 def ablation_edits(ablations: dict, label: str) -> list:
@@ -781,7 +874,8 @@ def main() -> int:
 
     from ..ops import _build
     from ..ops.flash_attention import (flash_attn_bwd_dkv, flash_attn_bwd_dq,
-                                       mha, mha_reference)
+                                       flash_attn_bwd_short, mha,
+                                       mha_reference)
     from ..ops.fused_epilogue import matmul_scale_residual
 
     if not torch.cuda.is_available():
@@ -812,8 +906,9 @@ def main() -> int:
                            for s in (shape, (*shape[:2], nk, shape[3]),
                                      (*shape[:2], nk, shape[3]))))
              for shape, nk in FWD_CROSS if dims is None or shape[3] in dims]
+    short_shapes = [c for c in SHORT_BWD if dims is None or c[0][3] in dims]
     bwds = []   # (q, k, v, dO, LSE, delta); the forward by the plain version
-    for (b, h, n, d), nk in bwd_shapes:
+    for (b, h, n, d), nk in bwd_shapes + short_shapes:
         q, k, v, do = (torch.randn((b, h, rows, d), generator=gen,
                                    device="cuda", dtype=torch.bfloat16)
                        for rows in (n, nk, nk, n))
@@ -854,7 +949,23 @@ def main() -> int:
             pad = any(part in PADDED for part in label.split("+"))
             times = []
             if name == "flash_attn_bwd":
+                short_only = label.startswith("bwd_short")
+                for (shape, nk), args_ in zip(short_shapes,
+                                              bwds[len(bwd_shapes):]):
+                    if not short_only and label != "full":
+                        break
+                    scale = shape[3] ** -0.5
+                    if label in PAIR:
+                        ms = device_ms(lambda: (
+                            flash_attn_bwd_dq(*args_, sm_scale=scale),
+                            flash_attn_bwd_dkv(*args_, sm_scale=scale)))
+                    else:
+                        ms = device_ms(lambda: flash_attn_bwd_short(
+                            *args_, sm_scale=scale))
+                    times.append(f"{list(shape)} x {nk} short {ms:.4f} ms")
                 for (shape, nk), args_ in zip(bwd_shapes, bwds):
+                    if short_only:
+                        break
                     if pad and shape[3] % 64 == 0:
                         continue
                     if pad:

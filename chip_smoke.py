@@ -12,8 +12,8 @@ plain PyTorch version on the card:
      once); ptxas's `-v` report (kept beside each library) must show no
      serialised wgmma (C7512 and its kin); where `cuobjdump` is found, the
      SASS of each wgmma kernel function (every bf16 instantiation of the
-     forward, the short-key forward, dQ and dK/dV, d = 16 to 160; the
-     epilogue's) must hold
+     forward, the short-key forward, dQ and dK/dV, the short-key backward,
+     d = 16 to 160; the epilogue's) must hold
      HGMMA (wgmma) and UTMALDG (TMA load) opcodes, and no bf16 attention
      kernel on mma.sync may be left;
   3. kernel vs plain version at the main paths' attention shapes and
@@ -41,8 +41,16 @@ plain PyTorch version on the card:
      head dims 64/40/24/8/80/136/160 and bf16 48), dQ at d = 40 on boxes
      of d columns (self with a ragged kv_len, onto 77 and onto 31 keys,
      the profiled kernel checked), and `mha` under autograd on strided
-     CUDA views; the KSTEPS 3 (d = 40) and short-key kernels' ptxas report
-     without spills; the device time (torch.profiler) of the bf16
+     CUDA views; the bf16 backward onto a short key set (kv_len <= 80:
+     dQ, dK and dV in one pass, then the sum of the blocks' partial dK and
+     dV) through the gradient's route at d = 40/80/160 onto 1, 16, 17, 77,
+     80 and 81 keys (one past the cut: the pair) under 999 query rows, the
+     mid block's 64-token self-attention, padded (kv_len < Nq), keys past
+     kv_len, a negative scale, each case twice and bit-identical, each
+     call's profiled kernels the table's, and timed at [8,8,4096,40] onto
+     77 keys beside the pair and SDPA's backward; the KSTEPS 3 (d = 40)
+     and short-key kernels' ptxas report without spills; the device time
+     (torch.profiler) of the bf16
      forward, dQ and dK/dV at every d > 64 UNet shape and the d = 40 ones
      of HEAD_DIM_40_* (`tools/head_dim_times.py`'s: the forward self and
      onto 77 or 1 keys, DepthFM training's backward at batch 4 and at
@@ -101,8 +109,11 @@ plain PyTorch version on the card:
      remat "attn", so no UNet recompute), fed batches of 8 synthetic scenes
      at 518 px (64 x 64 latents) from memory. Five captured steps through
      `trainer.train()`: finite losses, a moved UNet, a bit-identical frozen
-     VAE and text embedding, exactly 32 forward, 32 dQ and 32 dK/dV
-     launches a step at the capture and in a traced replay; one step with `remat=True` (64 forward launches)
+     VAE and text embedding, exactly 32 forward launches a step, and of the
+     32 backward calls 17 on the short-key backward (the 16 cross-attentions
+     onto 77 keys and the mid block's 64-token self-attention) and 15 on
+     the dQ and dK/dV pair, at the capture and in a traced replay; one step
+     with `remat=True` (64 forward launches, the same backward)
      beside the recipe's, with peak memory; steps/s, p50 step time, peak
      memory and a torch.profiler breakdown of one step (each attention
      instantiation, GroupNorm's plain ops, device busy against wall); one
@@ -250,15 +261,17 @@ plain PyTorch version on the card:
      --rehearse --skip_chain` (no FAIL row); (b), (c), (d)'s single
      reconstruction and (f) also in one process where PIL, cv2, matplotlib
      and safetensors cannot be imported, their maps equal to the
-     in-process calls'; then (a) `cli.train --config
+     in-process calls'; (a) `cli.train --config
      configs/train_discriminative_vitg_singlechip.yaml` (vitg, adafactor,
-     remat "attn", bf16, batch 4 at 518 px) on the SAM tree (one
-     iteration: 8 micro-steps of 4, the accumulate and the apply programs
-     each captured, 40 + 40 + 40 launches at each one's warm-up and
-     capture), the captured adafactor step against the eager one and a
-     resume, bit for bit, and adam and adam-bf16mu for two eager steps
-     each and adafactor + `head_tile=1` for two captured steps (peak
-     memory, optimizer-state bytes); then the forward kernel at
+     remat "attn", bf16, batch 4 at 518 px) on the SAM tree, in a process
+     of its own that runs beside (b)-(f) (one iteration: 8 micro-steps of
+     4, the accumulate and the apply programs each captured, 40 + 40 + 40
+     launches at each one's warm-up and capture); adam and adam-bf16mu
+     for two eager steps each and adafactor + `head_tile=1` for two
+     captured steps (peak memory, optimizer-state bytes; beside that
+     process while it runs); then, alone, the captured adafactor step
+     against the eager one and a resume, bit for bit; then the forward
+     kernel at
      [1,24,362,64] (vitg at 266 px) and DepthFM's batch-10 shapes and the
      backward pair at [4,24,1370,64], against their plain versions, beside
      SDPA. Capped at 150 s.
@@ -318,6 +331,9 @@ KERNELS = {"flash_attn_fwd": (CSRC + "flash_attn_fwd.cu",
                                  JAX_KERNELS + ":208"),
            "flash_attn_bwd_dkv": (CSRC + "flash_attn_bwd.cu",
                                   JAX_KERNELS + ":228"),
+           # dQ, dK and dV in one pass onto <= 80 keys (also replaces :208)
+           "flash_attn_bwd_short": (CSRC + "flash_attn_bwd.cu",
+                                    JAX_KERNELS + ":228"),
            "fused_epilogue": (CSRC + "fused_epilogue.cu",
                               JAX_EPILOGUE + ":46")}
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, FP32 outside the
@@ -413,6 +429,12 @@ CAPTURE_STEPS = 3   # eager and captured steps held bit for bit, per trainer
 DEPTHFM_TRAIN_CONFIG = "configs/train_depthfm_base.yaml"
 DDPM_TRAIN_CONFIG = "configs/train_depthfm_ddpm_finetune.yaml"
 DEPTHFM_TRAIN_STEPS, DDPM_TRAIN_STEPS, UNET_ATTN = 5, 2, 32
+# of a UNet call's 32 backward attentions, those onto at most 80 keys take
+# the short-key backward (the 16 cross-attentions onto the 77 context keys
+# and the mid block's 64-token self-attention), the rest the pair
+UNET_SHORT_BWD = 17
+UNET_BWD = {"fwd": UNET_ATTN, "dq": UNET_ATTN - UNET_SHORT_BWD,
+            "dkv": UNET_ATTN - UNET_SHORT_BWD, "short": UNET_SHORT_BWD}
 # heuristics (phase 10): the trained pix2gestalt proxy card vs CPU at 64 px
 # (one UNet call at the proxies' bar; the 100-step completion at a bar of
 # its own, set before its first run, since a loop can grow an error), then
@@ -699,12 +721,12 @@ SHORT_KEY_CASES = [((2, 4, 999, d), nk, None, None) for d in (40, 80, 160)
                        ((2, 4, 999, 80), 77, None, -0.3)]
 
 
-def launched_kernels(fns, prefix: str) -> list:
+def launched_kernels(fns, prefix: str, expect: int | None = None) -> list:
     """The name (with its template, as `fwd_instantiation` writes it) of
     each kernel whose name starts with `prefix` that the calls `fns`
     launched, in launch order, read from one torch.profiler trace of one
-    call of each; a trace that lost events is taken again, up to three
-    times."""
+    call of each; a trace that lost events (fewer than `expect`, by default
+    one a call) is taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -724,7 +746,7 @@ def launched_kernels(fns, prefix: str) -> list:
             and not getattr(e, "is_hidden_event", lambda: False)())
         names = [m.group(1) for _, m in found
                  if m and m.group(1).startswith(prefix)]
-        if len(names) == len(fns):
+        if len(names) == (len(fns) if expect is None else expect):
             break
     return names
 
@@ -853,7 +875,9 @@ WGMMA_FUNCTIONS = {
     "flash_attn_bwd": [f"flash_attn_bwd_dkv_bf16_wgmmaILi{k}ELi{w}E"
                        for k, w in WGMMA_STEPS]
                       + [f"flash_attn_bwd_dq_bf16_wgmmaILi{k}E"
-                         for k in (1, 2, 3, 4, 5, 10)],
+                         for k in (1, 2, 3, 4, 5, 10)]
+                      + [f"flash_attn_bwd_bf16_shortILi{k}ELi{n}E"
+                         for k, _ in WGMMA_STEPS for n in (16, 80)],
     "fused_epilogue": ["fused_epilogue_bf16"]}
 # bf16 kernels on mma.sync that no longer exist: the forward, dQ and dK/dV
 # run on wgmma at every head dim
@@ -976,6 +1000,18 @@ def wide_head_rows(gpu: str) -> tuple[list, list]:
               and r["dkv_device_ms"] is not None,
               f"the backward at {list(shape)} Nk={nk} ran {r['dq_kernel']} "
               f"and {r['dkv_kernel']} ({want})")
+        if "short_kernel" in r:   # the route onto at most 80 keys
+            short = bwd_instantiations(torch.bfloat16, shape[3],
+                                       kv_len=nk)[0]
+            print(f"  device time bf16 bwd short q {list(shape)} Nk={nk}: "
+                  f"{r['short_kernel']} (+ the sum) "
+                  f"{as_ms(r['short_device_ms'])} (bound "
+                  f"{r['short_bound_ms']:.4f} ms, {r['short_bound_by']}) "
+                  f"[{gpu}]", flush=True)
+            check(r["short_kernel"] == short
+                  and r["short_device_ms"] is not None,
+                  f"the short backward at {list(shape)} Nk={nk} ran "
+                  f"{r['short_kernel']} ({short})")
         bwd.append(r)
     torch.cuda.empty_cache()
     return fwd, bwd
@@ -1285,6 +1321,7 @@ def attention_bwd_phase(gpu: str) -> dict:
                 main.update(got)
     attention_bwd_edge_cases(runs)
     dq_narrow_cases(runs)
+    main["flash_attn_bwd_short"] = short_bwd_cases(runs)
     autograd_check()
     for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
         main[name]["instantiations"] = [
@@ -1415,6 +1452,168 @@ def dq_narrow_cases(runs: dict) -> None:
           f"the reference's max abs <= {TOL['bfloat16']}; each call's "
           f"profiled kernel the table's instantiation"
           + (f"; failing (q, Nk, kv_len, err): {bad}" if bad else ""))
+
+
+# the bf16 backward onto a short key set (kv_len <= SHORT_KEYS: dQ, dK and dV
+# in one pass, then the sum of the blocks' partial dK and dV) through the
+# gradient's route at the UNet's head dims under a ragged Nq, on 64 heads,
+# so that a block takes several tiles (its Q / dO and P / dS rings wrap, and
+# its partial dK, dV sum over them) and both score warpgroups run: onto 1,
+# 16 and 17 keys (the two key tiles), 77, 80 (the cut) and 81 (past it: the
+# pair); DepthFM training's cross-attentions at batch 8 and 4 (d = 80 at
+# 1024 tokens, d = 160 at 256); the mid block's 64-token self-attention,
+# and padded (kv_len < Nq); keys past kv_len; a negative scale; the last
+# four one tile a block: (q shape, Nk, kv_len, sm_scale)
+SHORT_BWD_CASES = [((8, 8, 999, d), nk, None, None) for d in (40, 80, 160)
+                   for nk in (1, 16, 17, 77, 80, 81)] + [
+                       ((b, 8, n, d), 77, None, None) for b in (8, 4)
+                       for n, d in ((1024, 80), (256, 160))] + [
+                       ((8, 8, 64, 160), 64, None, None),
+                       ((2, 4, 64, 160), 64, 50, None),
+                       ((2, 4, 64, 40), 96, 80, None),
+                       ((2, 4, 300, 80), 77, None, -0.3)]
+# the kernels-line shape: DepthFM training's [8,8,4096,40] onto 77 keys
+SHORT_BWD_MAIN_CASE = ((8, 8, 4096, 40), 77)
+
+
+def err_of(outs, refs, one_key: bool = False) -> list:
+    """The max abs error of each of dQ, dK, dV `outs` against float32
+    `refs`, relative to that reference's max abs; `one_key`: relative to
+    the largest of the three (onto one key P = 1 and dP - delta = 0, so
+    dQ and dK are 0 up to rounding)."""
+    tops = [r.abs().max().item() for r in refs]
+    return [(a.float() - r).abs().max().item() / (max(tops) if one_key
+                                                   else top)
+            for a, r, top in zip(outs, refs, tops)]
+
+
+def short_bwd_cases(runs: dict) -> dict:
+    """The gradient's route (`_attn_backward`, as `mha`'s autograd runs it)
+    on SHORT_BWD_CASES against `mha_bwd_reference`, with phase 3's
+    backward bar (each gradient's error relative to its own reference's
+    max abs, as `bwd_case` holds it; onto one key, where P = 1 and dQ, dK
+    are 0 up to rounding, to the largest gradient's), each case twice and
+    bit-identical, rows of dK and dV past kv_len exactly 0; each
+    call's profiled kernels those `bwd_instantiations(..., kv_len=)` names
+    (the sum only where a head's tiles span several blocks); then the
+    short route timed at SHORT_BWD_MAIN_CASE beside the pair, the plain
+    version and SDPA's backward. Returns the kernels-line entry."""
+    import torch
+    import torch.nn.functional as F
+
+    from amodal_depth_anything_tpu_torch.ops import flash_attention as fa
+    from amodal_depth_anything_tpu_torch.tools.head_dim_times import \
+        device_times
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    worst, bad, calls, wants = 0.0, [], [], []
+    for (b, h, nq, d), nk, kv_len, scale in SHORT_BWD_CASES:
+        q, do = (torch.randn((b, nq, h, d), generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2) for _ in range(2))
+        k, v = (torch.randn((b, h, nk, d), generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        if kv_len is not None and nq == nk:
+            do[:, :, kv_len:] = 0   # padded query rows carry no cotangent
+        kv = kv_len or nk
+        sc = d ** -0.5 if scale is None else scale
+        o, lse = fa.mha(q, k, v, kv_len=kv, sm_scale=sc, return_lse=True)
+        args = (q, k, v, o, lse, do, sc, kv)
+        outs = fa._attn_backward(*args)
+        again = fa._attn_backward(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, r) for a, r in zip(outs, again))
+        refs = fa.mha_bwd_reference(q.float(), k.float(), v.float(),
+                                    o.float(), lse, do.float(), sm_scale=sc,
+                                    kv_len=kv)
+        err = max(err_of(outs, refs, one_key=kv == 1))
+        dead = max(outs[1][:, :, kv:].abs().max().item(),
+                   outs[2][:, :, kv:].abs().max().item()) if kv < nk else 0.0
+        if not (err <= TOL["bfloat16"] and same and dead == 0.0):
+            bad.append(((b, h, nq, d), nk, kv_len, scale, err, same, dead))
+        worst = max(worst, err)
+        want = fa.bwd_instantiations(torch.bfloat16, d, kv_len=kv)
+        run = runs.setdefault(want[0], {"cases": 0, "max_rel_err": 0.0,
+                                        "timed": []})
+        run["cases"] += 1
+        run["max_rel_err"] = max(run["max_rel_err"], err)
+        if kv <= fa.SHORT_KEYS:
+            slabs = fa._entry("flash_attn_bwd_short_slabs")(d, kv, nq, h, b)
+            want = want[:1] if slabs == 1 else want
+        calls.append(lambda args=args: fa._attn_backward(*args))
+        wants += list(want)
+    ran = launched_kernels(calls, "flash_attn_bwd_", expect=len(wants))
+    if ran != wants:
+        bad.append(("profiled", ran, "wanted", wants))
+    check(not bad,
+          f"flash_attn_bwd bf16 onto a short key set through the gradient's "
+          f"route on {len(SHORT_BWD_CASES)} cases (d 40/80/160 onto 1, 16, "
+          f"17, 77, {fa.SHORT_KEYS} and {fa.SHORT_KEYS + 1} keys under 999 "
+          f"query rows, the mid block's 64 tokens, padded, keys past kv_len, "
+          f"a negative scale): each gradient's max abs {worst:.3e} of its "
+          f"reference's (onto one key: of the largest gradient's) <= "
+          f"{TOL['bfloat16']}; each case twice bit-identical; "
+          f"rows >= kv_len of dK and dV exactly 0; each call's profiled "
+          f"kernels the table's"
+          + (f"; failing (q, Nk, kv_len, scale, err, same, dead): {bad}"
+             if bad else ""))
+
+    # the kernels-line entry: the short route at DepthFM training's shape
+    (b, h, nq, d), nk = SHORT_BWD_MAIN_CASE
+    q, do = (torch.randn((b, h, nq, d), generator=gen, device="cuda")
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, h, nk, d), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    o, lse = fa.mha(q, k, v, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    args, kw = (q, k, v, do, lse, delta), {"sm_scale": d ** -0.5}
+    outs = fa.flash_attn_bwd_short(*args, **kw)
+    torch.cuda.synchronize()
+    refs = fa.mha_bwd_reference(q.float(), k.float(), v.float(), o.float(),
+                                lse, do.float())
+    err = max((a.float() - r).abs().max().item() for a, r in zip(outs, refs))
+    rel = max(err_of(outs, refs))
+    del outs, refs
+    flops = 10 * b * h * nq * nk * d
+    nbytes = 2 * (3 * b * h * nq * d + 4 * b * h * nk * d) + 8 * b * h * nq
+    bound_ms, bound_by = roofline(flops, nbytes, "bfloat16")
+    ms = cuda_ms(lambda: fa.flash_attn_bwd_short(*args, **kw), 30)
+    pair_ms = cuda_ms(lambda: (fa.flash_attn_bwd_dq(*args, **kw),
+                               fa.flash_attn_bwd_dkv(*args, **kw)), 30)
+    names = fa.bwd_instantiations(torch.bfloat16, d, kv_len=nk)
+    times = device_times(lambda: fa.flash_attn_bwd_short(*args, **kw), 5)
+    dev = {name: times.get(name) for name in names}
+    dev_ms = sum(x for x in dev.values() if x is not None) or None
+    pair_dev = all_device_ms(lambda: (fa.flash_attn_bwd_dq(*args, **kw),
+                                      fa.flash_attn_bwd_dkv(*args, **kw)))
+    plain_ms = cuda_ms(lambda: fa.mha_bwd_reference(q, k, v, o, lse, do), 2,
+                       warmup=1)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                 retain_graph=True), 30)
+    lib_dev = all_device_ms(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True))
+    gpu = card()
+    print(f"  short bwd bf16 q {[b, h, nq, d]} Nk={nk}: {names[0]} + "
+          f"{names[1]} {ms:.4f} ms (device {as_ms(dev_ms)}: {dev}), the pair "
+          f"{pair_ms:.4f} ms (device {as_ms(pair_dev)}), plain "
+          f"{plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms (device "
+          f"{as_ms(lib_dev)}), bound {bound_ms:.4f} ms ({bound_by}); max abs "
+          f"{err:.3e} [{gpu}]", flush=True)
+    check(rel <= TOL["bfloat16"],
+          f"flash_attn_bwd_short at {[b, h, nq, d]} x {nk}: max abs "
+          f"{err:.3e}, of dQ, dK and dV each at most {rel:.3e} of its "
+          f"reference's max abs <= {TOL['bfloat16']}")
+    del q, k, v, do, o, lse, delta, args, leaves, out
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "max_rel_err": worst, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms,
+            "library_device_ms": lib_dev, "pair_ms": pair_ms,
+            "pair_device_ms": pair_dev, "q": [b, h, nq, d], "nk": nk,
+            "instantiations": [{"name": kernel, **run}
+                               for kernel, run in sorted(runs.items())
+                               if "short" in kernel]}
 
 
 def autograd_check() -> None:
@@ -2101,28 +2300,32 @@ def cudnn_reading(trainer, batch, what: str, gpu: str) -> None:
           flush=True)
 
 
-def captured_launches(launches: dict, per_step: int, what: str) -> None:
+def captured_launches(launches: dict, per_step, what: str) -> None:
     """The counters of a `train()` whose steps are captured: each kernel's
-    launches of one step at the capture's warm-up and the capture itself
-    (the Python counters count those; a replay counts none)."""
+    launches of one step (`per_step`, or `per_step[name]`) at the
+    capture's warm-up and the capture itself (the Python counters count
+    those; a replay counts none)."""
     from amodal_depth_anything_tpu_torch.utils.graphs import WARMUP_CALLS
 
     for name, count in launches.items():
-        check(count == per_step * (WARMUP_CALLS + 1),
-              f"{what} counted {name} {count} times: {per_step} a step at "
+        want = per_step[name] if isinstance(per_step, dict) else per_step
+        check(count == want * (WARMUP_CALLS + 1),
+              f"{what} counted {name} {count} times: {want} a step at "
               f"the capture's {WARMUP_CALLS} warm-up steps and the capture "
               f"(replays launch it from the graph)")
 
 
-def replay_launches(trainer, loader, per_step: int, what: str) -> None:
+def replay_launches(trainer, loader, per_step, what: str) -> None:
     """One more captured step, traced: the attention kernels' launches in
-    the replay's trace (`per_step` each), printed. A reading, not a check:
-    the profiler has dropped a graph node's event now and then (PR 10)."""
+    the replay's trace (`per_step` each, or as `per_step` names them),
+    printed. A reading, not a check: the profiler has dropped a graph
+    node's event now and then."""
     batch = trainer._device_batch(next(iter(loader)))
     _, _, got = trace_call(lambda: float(trainer._train_step(batch)), names=(
-        "flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"))
+        "flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+        "flash_attn_bwd_bf16", "flash_attn_bwd_short"))   # the short route
     print(f"  {what}: a traced replay of the captured step shows {got} "
-          f"launches ({per_step} each launched)", flush=True)
+          f"launches ({per_step} launched)", flush=True)
 
 
 def trainer_like(_loader=None):
@@ -2154,18 +2357,18 @@ def capture_batches(trainer, dataset, n: int = CAPTURE_STEPS,
     return out
 
 
-def trainer_state(trainer) -> list:
-    """Every tensor a train step changes, copied to the host in a fixed
-    order: the model's state dict (parameters and BatchNorm statistics),
-    the optimizer state and the step's device scalars."""
-    out = [v.detach().cpu().clone() for v in
-           trainer.model.state_dict().values()]
+def trainer_state(trainer, copy: bool = True) -> list:
+    """Every tensor a train step changes, in a fixed order: the model's
+    state dict (parameters and BatchNorm statistics), the optimizer state
+    and the step's device scalars; copied where they lie (on the card: no
+    trip through the host), or (`copy=False`) the live tensors."""
+    out = list(trainer.model.state_dict().values())
     for key in sorted(trainer.state.opt_state):
         value = trainer.state.opt_state[key]
         if isinstance(value, list):
-            out += [v.detach().cpu().clone() for v in value]
-    out += [v.cpu().clone() for v in (trainer._scalars or {}).values()]
-    return out
+            out += value
+    out += list((trainer._scalars or {}).values())
+    return [v.detach().clone() if copy else v.detach() for v in out]
 
 
 def captured_step_phase(what: str, make, batches: list, gpu: str,
@@ -2179,8 +2382,10 @@ def captured_step_phase(what: str, make, batches: list, gpu: str,
     loading it and taking the rest, bit-identical to the unbroken run;
     (`cudnn`) `cudnn_reading` on the eager trainer. Then the captured
     step's p50 over the steps after the first, one profiled replay (device
-    busy, launches by kernel) and peak memory. Returns {p50_ms, busy_pct,
-    peak_gib, launches: {kernel: per replay}, eager_p50_ms, eager_peak_gib}."""
+    busy, launches by kernel) and peak memory (less the eager trainer's
+    state, held on the card meanwhile for the comparison). Returns {p50_ms,
+    busy_pct, peak_gib, launches: {kernel: per replay}, eager_p50_ms,
+    eager_peak_gib}."""
     import torch
 
     def timed(trainer):
@@ -2196,7 +2401,9 @@ def captured_step_phase(what: str, make, batches: list, gpu: str,
     eager = make(captured=False)
     eager_losses, eager_ms = timed(eager)
     eager_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    held = torch.cuda.memory_allocated()
     eager_state = trainer_state(eager)
+    held = torch.cuda.memory_allocated() - held   # the copies' bytes
     if cudnn:
         cudnn_reading(eager, batches[0], what, gpu)
     del eager
@@ -2214,14 +2421,18 @@ def captured_step_phase(what: str, make, batches: list, gpu: str,
         t0 = time.perf_counter()
         losses.append(float(cap._train_step(b)))
         ms.append((time.perf_counter() - t0) * 1e3)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    cap_state = trainer_state(cap)
-    same = [torch.equal(a, b) for a, b in zip(eager_state, cap_state)]
-    check(losses == eager_losses and all(same)
-          and len(same) == len(eager_state),
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    live = trainer_state(cap, copy=False)
+    same = [torch.equal(a, b) for a, b in zip(eager_state, live)]
+    n_state = len(eager_state)
+    del eager_state
+    cap_state = trainer_state(cap) if resume else None
+    check(losses == eager_losses and all(same) and len(live) == n_state
+          and len(same) == n_state,
           f"{what}: {len(batches)} captured steps bit-identical to eager "
           f"ones (losses {[round(x, 6) for x in losses]}; {sum(same)} of "
           f"{len(same)} state tensors equal)")
+    del live
     wall, busy, counts = trace_call(
         lambda: float(cap._train_step(batches[-1])),
         names=("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
@@ -2237,13 +2448,13 @@ def captured_step_phase(what: str, make, batches: list, gpu: str,
     resumed.load_checkpoint(os.path.join(ckpt, "resume"))
     check(resumed.state.step == cut, f"{what}: resumed at step {cut}")
     rest = [float(resumed._train_step(b)) for b in batches[cut:]]
-    got = trainer_state(resumed)
+    got = trainer_state(resumed, copy=False)
     same = [torch.equal(a, b) for a, b in zip(cap_state, got)]
     check(rest == losses[cut:] and all(same),
           f"{what}: save after {cut} captured steps -> load -> "
           f"{len(batches) - cut} more, bit-identical to the unbroken run "
           f"({sum(same)} of {len(same)} state tensors equal)")
-    del resumed
+    del resumed, got, cap_state
     shutil.rmtree(os.path.join(ckpt, "resume"), ignore_errors=True)
     return _captured_summary(what, ms, eager_ms, wall, busy, total, counts,
                              peak, eager_peak, gpu)
@@ -2326,10 +2537,12 @@ def depthfm_train_phase(gpu: str) -> dict:
     from amodal_depth_anything_tpu_torch.utils.profiling import StepTimer
 
     def counts():
-        return (mha.launches, mha.bwd_dq_launches, mha.bwd_dkv_launches)
+        return (mha.launches, mha.bwd_dq_launches, mha.bwd_dkv_launches,
+                mha.bwd_short_launches)
 
     def zero_counts():
         mha.launches = mha.bwd_dq_launches = mha.bwd_dkv_launches = 0
+        mha.bwd_short_launches = 0
 
     def build(path, steps, loader, val_loader, captured=None):
         cfg = recursive_load_config(path)
@@ -2405,9 +2618,10 @@ def depthfm_train_phase(gpu: str) -> dict:
           and bool(np.isfinite(losses).all()) and min(losses) > 0,
           f"{DEPTHFM_TRAIN_STEPS} DepthFMAmodal train steps, losses finite "
           f"and positive: {[round(x, 5) for x in losses]}")
-    captured_launches(dict(zip(("fwd", "dq", "dkv"), launches)), UNET_ATTN,
-                      "DepthFM training (16 self + 16 cross a step)")
-    replay_launches(trainer, loader, UNET_ATTN, "DepthFM training")
+    captured_launches(dict(zip(UNET_BWD, launches)), UNET_BWD,
+                      "DepthFM training (16 self + 16 cross a step; the "
+                      "backward onto <= 80 keys short)")
+    replay_launches(trainer, loader, UNET_BWD, "DepthFM training")
     for k, old in unet.items():
         new = trainer.state.params[k]
         check(bool(torch.isfinite(new).all()) and not torch.equal(new, old),
@@ -2438,9 +2652,11 @@ def depthfm_train_phase(gpu: str) -> dict:
         zero_counts()
         ms = cuda_ms(lambda: trainer.loss_and_grads(batch8), 1, warmup=0)
         got = counts()
-        check(got == (want * UNET_ATTN, UNET_ATTN, UNET_ATTN),
-              f"DepthFM remat={remat!r}: fwd, dq, dkv launches {got} per step "
-              f"({want * UNET_ATTN}, {UNET_ATTN}, {UNET_ATTN})")
+        per = (want * UNET_ATTN, UNET_BWD["dq"], UNET_BWD["dkv"],
+               UNET_BWD["short"])
+        check(got == per,
+              f"DepthFM remat={remat!r}: fwd, dq, dkv, short backward "
+              f"launches {got} per step {per}")
         print(f"  DepthFM remat={remat!r}: forward + backward {ms:.1f} ms, "
               f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
               f"GiB [{gpu}]", flush=True)
@@ -2509,8 +2725,8 @@ def depthfm_train_phase(gpu: str) -> dict:
           f"{DDPM_TRAIN_STEPS} DDPM train steps: losses "
           f"{[round(x, 5) for x in ddpm_losses]} finite and positive; "
           f"peak memory {ddpm_peak:.2f} GiB [{gpu}]")
-    captured_launches(dict(zip(("fwd", "dq", "dkv"), ddpm_launches)),
-                      UNET_ATTN, "DDPM training")
+    captured_launches(dict(zip(UNET_BWD, ddpm_launches)), UNET_BWD,
+                      "DDPM training")
     results = trainer.validate()
     bank = results[scenes.disp_name]
     values = [bank[b][m] for b in ("overall", "align_overall")
@@ -2525,7 +2741,8 @@ def depthfm_train_phase(gpu: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"flash_attn_fwd": launches[0], "flash_attn_bwd_dq": launches[1],
-            "flash_attn_bwd_dkv": launches[2], "ddpm": ddpm_launches}
+            "flash_attn_bwd_dkv": launches[2],
+            "flash_attn_bwd_short": launches[3], "ddpm": ddpm_launches}
 
 
 def trace_call(fn, names=("flash_attn_fwd",), spent: dict | None = None):
@@ -3656,12 +3873,17 @@ def baseline_train_case(config: str, name: str, head_dim, per_step: int,
     torch.cuda.reset_peak_memory_stats()
     with HeadDims() as dims:
         mha.launches = mha.bwd_dq_launches = mha.bwd_dkv_launches = 0
+        mha.bwd_short_launches = 0
         t_train = time.time()
         trainer.train()                            # the main path
         t_train = time.time() - t_train
         launches = {"flash_attn_fwd": mha.launches,
                     "flash_attn_bwd_dq": mha.bwd_dq_launches,
                     "flash_attn_bwd_dkv": mha.bwd_dkv_launches}
+        short = mha.bwd_short_launches
+    # the mViT's memory is 256 tokens: none of the baselines' backward
+    # calls is onto a short key set
+    check(short == 0, f"{name}: {short} short-key backward launches (0)")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     trainer._train_step = step
     check(len(losses) == BASELINE_STEPS and bool(np.isfinite(losses).all()),
@@ -5317,54 +5539,59 @@ def opt_state_bytes(trainer) -> int:
                if isinstance(v, list) for t in v)
 
 
-def vitg_singlechip_phase(tree: str, list_path: str, gpu: str) -> dict:
-    """(a) `cli.train --config
-    configs/train_discriminative_vitg_singlechip.yaml` on the synthetic SAM
-    tree at 518 px, batch 4, bf16, adafactor, remat "attn": VITG_ITERS
-    update of 8 micro-steps (finite losses; the accumulate and the apply
-    programs each captured, 40 + 40 + 40 attention launches at each one's
-    warm-up steps and capture), then the captured adafactor step against
-    the eager one and a resume, bit for bit (p50, busy share, peak memory),
-    then each of VITG_KNOBS for two steps (the tiled head captured, the
-    optimizers eagerly): its peak memory, optimizer-state bytes and step
-    time. Returns the attention kernels' launches of the CLI run."""
-    import torch
+def vitg_cli_start(tree: str, list_path: str) -> tuple:
+    """Start (a)'s `cli.train --config
+    configs/train_discriminative_vitg_singlechip.yaml` run in a process of
+    its own, so that it runs beside the scripts (b)-(f): VITG_ITERS
+    iteration on the synthetic SAM tree, its attention launches counted
+    from 0 in that process, which prints them with its peak memory and
+    seconds as one `VITG_CLI {json}` line. Its output goes to a log under
+    build/. Returns (process, overlay, run directory, log)."""
+    overlay = vitg_overlay(tree, list_path)
+    run_dir = os.path.join(BUILD, "smoke_vitg_run")
+    log = os.path.join(BUILD, "smoke_vitg_cli.log")
+    argv = ["--config", overlay, "--base_data_dir", tree, "--output_dir",
+            run_dir, "--max_iter", str(VITG_ITERS), "--no_wandb",
+            "--device", "cuda"]
+    code = (
+        "import json, time\n"
+        "t0 = time.time()\n"
+        "import torch\n"
+        "from amodal_depth_anything_tpu_torch.cli import train\n"
+        "from amodal_depth_anything_tpu_torch.ops.flash_attention "
+        "import mha\n"
+        f"train.main({argv!r})\n"
+        "print('VITG_CLI ' + json.dumps({'launches': {\n"
+        "    'flash_attn_fwd': mha.launches,\n"
+        "    'flash_attn_bwd_dq': mha.bwd_dq_launches,\n"
+        "    'flash_attn_bwd_dkv': mha.bwd_dkv_launches},\n"
+        "    'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30,\n"
+        "    'seconds': time.time() - t0}), flush=True)\n")
+    with open(log, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-c", code], stdout=out,
+                                stderr=subprocess.STDOUT, text=True)
+    return proc, overlay, run_dir, log
 
-    from amodal_depth_anything_tpu_torch.cli import train as train_cli
-    from amodal_depth_anything_tpu_torch.cli.train import \
-        trainer_config_from_cfg
-    from amodal_depth_anything_tpu_torch.data import DatasetMode, get_dataset
-    from amodal_depth_anything_tpu_torch.models import get_model
-    from amodal_depth_anything_tpu_torch.ops.flash_attention import mha
-    from amodal_depth_anything_tpu_torch.train import get_trainer_cls
-    from amodal_depth_anything_tpu_torch.utils.config import \
-        recursive_load_config
-    from amodal_depth_anything_tpu_torch.utils.depth_transform import \
-        get_depth_normalizer
+
+def vitg_cli_finish(cli: tuple, tcfg, gpu: str) -> dict:
+    """Wait for the `cli.train` process `vitg_cli_start` started and check
+    it: exit 0, its latest checkpoint written, 40 + 40 + 40 attention
+    launches at each captured program's warm-up steps and capture. Returns
+    those launches."""
     from amodal_depth_anything_tpu_torch.utils.graphs import WARMUP_CALLS
 
-    overlay = vitg_overlay(tree, list_path)
-    cfg = recursive_load_config(overlay)
-    tcfg = trainer_config_from_cfg(cfg, accumulation_steps=round(
-        int(cfg.dataloader.effective_batch_size)
-        / int(cfg.dataloader.max_train_batch_size)))
-    check((cfg.model.kwargs.encoder, tcfg.optimizer, tcfg.remat,
-           tcfg.compute_dtype, int(cfg.dataloader.max_train_batch_size))
-          == ("vitg", "adafactor", "attn", "bfloat16", VITG_BATCH),
-          f"{VITG_CONFIG}: vitg, adafactor, remat attn, bfloat16, batch "
-          f"{VITG_BATCH}")
-    run_dir = os.path.join(BUILD, "smoke_vitg_run")
+    proc, _, run_dir, log = cli
     t0 = time.time()
-    torch.cuda.reset_peak_memory_stats()
-    mha.launches = mha.bwd_dq_launches = mha.bwd_dkv_launches = 0
     try:
-        train_cli.main(["--config", overlay, "--base_data_dir", tree,
-                        "--output_dir", run_dir, "--max_iter",
-                        str(VITG_ITERS), "--no_wandb", "--device", "cuda"])
-        launches = {"flash_attn_fwd": mha.launches,
-                    "flash_attn_bwd_dq": mha.bwd_dq_launches,
-                    "flash_attn_bwd_dkv": mha.bwd_dkv_launches}
-        cli_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rc = proc.wait(timeout=600)
+        with open(log) as f:
+            out = f.read()
+        print(out.rstrip(), file=sys.stderr, flush=True)
+        found = re.search(r"^VITG_CLI (\{.*\})$", out, re.M)
+        run = json.loads(found.group(1)) if found else {}
+        check(rc == 0 and bool(run), f"cli.train's process: exit {rc}, "
+                                     f"its VITG_CLI line read: {bool(run)}")
+        launches = run.get("launches", {})
         saved = [os.path.join(d, f) for d, _, fs in os.walk(run_dir)
                  for f in fs if f == "state.pt"]
         check(len(saved) == 1, f"cli.train wrote its latest checkpoint "
@@ -5375,17 +5602,55 @@ def vitg_singlechip_phase(tree: str, list_path: str, gpu: str) -> dict:
     # card: two programs (accumulate; accumulate and apply), each captured
     micro = tcfg.accumulation_steps
     programs = 2 if micro > 1 else 1
-    check(all(n == programs * VITG_BLOCKS * (WARMUP_CALLS + 1)
-              for n in launches.values()),
+    check(len(launches) == 3
+          and all(n == programs * VITG_BLOCKS * (WARMUP_CALLS + 1)
+                  for n in launches.values()),
           f"cli.train vitg single-card recipe, {VITG_ITERS} iteration of "
           f"{micro} micro-steps: {launches} launches ({VITG_BLOCKS} of each "
           f"a step at each of the {programs} programs' {WARMUP_CALLS} "
           f"warm-up steps and capture)")
     print(f"  cli.train {VITG_CONFIG} ({VITG_ITERS} iteration = {micro} "
           f"captured micro-steps of {VITG_BATCH} at {SIZE} px, the latest "
-          f"checkpoint written): {time.time() - t0:.1f} s, peak memory "
-          f"{cli_peak:.2f} GiB [{gpu}]", flush=True)
+          f"checkpoint written) in a process of its own beside (b)-(f): "
+          f"{run.get('seconds', float('nan')):.1f} s from its start, "
+          f"{time.time() - t0:.1f} s waited for after the knobs, peak memory "
+          f"{run.get('peak_gib', float('nan')):.2f} GiB [{gpu}]",
+          flush=True)
+    return launches
 
+
+def vitg_singlechip_phase(cli: tuple, tree: str, gpu: str) -> dict:
+    """(a) the vitg single-card recipe (adafactor, remat "attn", batch 4,
+    bf16, 518 px): each of VITG_KNOBS for two steps (the tiled head
+    captured, the optimizers eagerly; beside the `cli.train` process that
+    `vitg_cli_start` started, if it still runs): its peak memory,
+    optimizer-state bytes and step time; then that process waited for and
+    checked (`vitg_cli_finish`); then, alone on the card, the captured
+    adafactor step against the eager one and a resume, bit for bit (p50,
+    busy share, peak memory). Returns the attention kernels' launches of
+    the CLI run."""
+    import torch
+
+    from amodal_depth_anything_tpu_torch.cli.train import \
+        trainer_config_from_cfg
+    from amodal_depth_anything_tpu_torch.data import DatasetMode, get_dataset
+    from amodal_depth_anything_tpu_torch.models import get_model
+    from amodal_depth_anything_tpu_torch.train import get_trainer_cls
+    from amodal_depth_anything_tpu_torch.utils.config import \
+        recursive_load_config
+    from amodal_depth_anything_tpu_torch.utils.depth_transform import \
+        get_depth_normalizer
+
+    overlay = cli[1]
+    cfg = recursive_load_config(overlay)
+    tcfg = trainer_config_from_cfg(cfg, accumulation_steps=round(
+        int(cfg.dataloader.effective_batch_size)
+        / int(cfg.dataloader.max_train_batch_size)))
+    check((cfg.model.kwargs.encoder, tcfg.optimizer, tcfg.remat,
+           tcfg.compute_dtype, int(cfg.dataloader.max_train_batch_size))
+          == ("vitg", "adafactor", "attn", "bfloat16", VITG_BATCH),
+          f"{VITG_CONFIG}: vitg, adafactor, remat attn, bfloat16, batch "
+          f"{VITG_BATCH}")
     normalizer = get_depth_normalizer(cfg.get("depth_normalization"))
     train_ds = get_dataset(cfg.dataset.train.to_dict(), tree,
                            DatasetMode.TRAIN, depth_transform=normalizer)
@@ -5404,15 +5669,13 @@ def vitg_singlechip_phase(tree: str, list_path: str, gpu: str) -> dict:
 
     batches = capture_batches(trainer_like(), train_ds,
                               batch_size=VITG_BATCH)
-    gc.collect()
-    torch.cuda.empty_cache()
-    summary = captured_step_phase("vitg adafactor train step", make,
-                                  batches, gpu, RESUME_CKPT)
     rows = []
     for optimizer, tile in VITG_KNOBS:
         # the tiled head captured (its chunks recompute in the backward
         # inside the graph), the optimizers eagerly: each beside the same
-        # kind of run of the recipe's step
+        # kind of run of the recipe's step. They run while cli.train's
+        # process may still run: their memory is this process's alone,
+        # their step times have company
         captured = tile is not None
         gc.collect()
         torch.cuda.empty_cache()
@@ -5428,10 +5691,13 @@ def vitg_singlechip_phase(tree: str, list_path: str, gpu: str) -> dict:
                      "captured": captured,
                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                      "opt_state_gb": opt_state_bytes(trainer) / 1e9,
-                     "step_ms": ms[-1], "loss": loss})
+                     "step_ms": ms[-1], "loss": loss, "beside": True})
         del trainer
     gc.collect()
     torch.cuda.empty_cache()
+    launches = vitg_cli_finish(cli, tcfg, gpu)
+    summary = captured_step_phase("vitg adafactor train step", make,
+                                  batches, gpu, RESUME_CKPT)
     for captured in (False, True):
         rows.insert(0, {"optimizer": "adafactor", "head_tile": None,
                         "captured": captured,
@@ -5440,12 +5706,13 @@ def vitg_singlechip_phase(tree: str, list_path: str, gpu: str) -> dict:
                         "opt_state_gb": rows[-1]["opt_state_gb"],
                         "step_ms": summary["p50_ms" if captured
                                            else "eager_p50_ms"],
-                        "loss": float("nan")})
+                        "loss": float("nan"), "beside": False})
     for r in rows:
         print(f"    vitg {r['optimizer']:<12} head_tile={r['head_tile']} "
               f"{'captured' if r['captured'] else 'eager'}: peak memory "
               f"{r['peak_gib']:.2f} GiB, optimizer state "
-              f"{r['opt_state_gb']:.3f} GB, step {r['step_ms']:.1f} ms, "
+              f"{r['opt_state_gb']:.3f} GB, step {r['step_ms']:.1f} ms"
+              f"{' (beside cli.train)' if r['beside'] else ''}, "
               f"loss {r['loss']:.5f} [{gpu}]", flush=True)
     by = {(r["optimizer"], r["head_tile"]): r for r in rows}
     check(by[("adafactor", None)]["opt_state_gb"]
@@ -5490,9 +5757,10 @@ def slice13_alone(gpu: str) -> dict:
 
 
 def slice13_phase(mh, gpu: str) -> dict:
-    """Phase 14: (b)-(f) (the scripts), then (a) (the vitg single-card
-    training knobs), then the kernels at the new shapes; each path's
-    launches counted from 0."""
+    """Phase 14: (b)-(f) (the scripts) with (a)'s `cli.train` in a process
+    beside them, then the rest of (a) (the vitg single-card training
+    knobs), then the kernels at the new shapes; each path's launches
+    counted from 0."""
     import torch
 
     t0 = time.time()
@@ -5501,14 +5769,20 @@ def slice13_phase(mh, gpu: str) -> dict:
         print(f"  {what} (at +{time.time() - t0:.1f} s)", flush=True)
 
     step("(b)-(f) the scripts, (b) (c) (d) (f) also without PIL / cv2 / "
-         "matplotlib / safetensors")
+         "matplotlib / safetensors; (a)'s cli.train in a process beside")
     tree, list_path = write_sam_tree(BASELINE_TREE, SIZE)
-    scripts = scripts_phase(mh, tree, list_path, gpu)
-    gc.collect()
-    torch.cuda.empty_cache()
-    step("(a) the vitg single-card recipe: cli.train, captured vs eager, "
-         "resume, the knobs")
-    vitg = vitg_singlechip_phase(tree, list_path, gpu)
+    cli = vitg_cli_start(tree, list_path)   # (a)'s cli.train, beside
+    try:
+        scripts = scripts_phase(mh, tree, list_path, gpu)
+        gc.collect()
+        torch.cuda.empty_cache()
+        step("(a) the vitg single-card recipe: the knobs, cli.train's "
+             "checks, captured vs eager, resume")
+        vitg = vitg_singlechip_phase(cli, tree, gpu)
+    finally:
+        if cli[0].poll() is None:
+            cli[0].kill()
+            cli[0].wait()
     gc.collect()
     torch.cuda.empty_cache()
     step("the kernels at the new shapes")
@@ -6180,6 +6454,7 @@ def main() -> int:
     # process's count), autotuner and layer walk), the
     # backward pair on three, the fused epilogue on its chain [3]
     launches["fused_epilogue"] = measured["fused_epilogue"]["launches"]
+    launches["flash_attn_bwd_short"] = 0   # none in the vitl step
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, **measured[name],
                 "launches": launches[name]}
@@ -6200,6 +6475,14 @@ def main() -> int:
             baseline_shapes=[{"q": row["q"], "nk": row["nk"],
                               "dtype": row["dtype"], **row[name]}
                              for row in base["rows"]])
+    # the short-key backward: DepthFM training and its DDPM finetune (phase
+    # 8), each counted from 0 around its path; the baselines run none
+    # (phase 11 checks)
+    next(k for k in kernels if k["name"] == "flash_attn_bwd_short").update(
+        launches=dfm_train["flash_attn_bwd_short"] + dfm_train["ddpm"][3],
+        launches_depthfm_training=dfm_train["flash_attn_bwd_short"],
+        launches_ddpm_training=dfm_train["ddpm"][3],
+        also_replaces=JAX_KERNELS + ":208")
     # serving: the Python counter counts the eager calls, warm-ups and
     # captures; a replay's launches are read from its trace
     kernels[0].update(

@@ -2,7 +2,8 @@
 
 Each op's CPU implementation is the plain version, bit for bit (the forward
 against `mha_reference`, the two backward ops against `mha_bwd_reference`,
-the epilogue against `matmul_scale_residual_reference`);
+the short-key backward op against `mha_bwd_reference` too, the epilogue
+against `matmul_scale_residual_reference`);
 `torch.library.opcheck` passes on every op (schema, fake implementation,
 autograd registration); `torch.export` traces `mha` into one
 `adat.flash_attn_fwd` node whose program gives the eager bits; and a CUDA
@@ -64,6 +65,23 @@ def test_backward_ops_are_the_plain_version(nq, nk, kv_len):
         torch.testing.assert_close(got.transpose(1, 2), ref, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("nq,nk,kv_len", [(15, 15, 11), (8, 24, 20),
+                                          (9, 5, 5)])
+def test_short_backward_op_is_the_plain_version(nq, nk, kv_len):
+    q, k, v = _qkv(1, 2, nq, nk, 8, seed=9)
+    o, lse = fa.mha_reference(q, k, v, sm_scale=0.4, kv_len=kv_len,
+                              return_lse=True)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(10))
+    delta = (do * o).sum(-1)
+    got = torch.ops.adat.flash_attn_bwd_short(q, k, v, do, lse, delta, 0.4,
+                                              kv_len)
+    assert all(t.is_contiguous() for t in got)
+    want = fa.mha_bwd_reference(q, k, v, o, lse, do, sm_scale=0.4,
+                                kv_len=kv_len)
+    for g, ref in zip(got, want):
+        torch.testing.assert_close(g.transpose(1, 2), ref, rtol=0, atol=0)
+
+
 def test_epilogue_op_is_the_plain_version():
     gen = torch.Generator().manual_seed(5)
     x, w, r = (torch.randn(s, generator=gen) for s in
@@ -76,7 +94,8 @@ def test_epilogue_op_is_the_plain_version():
 
 
 @pytest.mark.parametrize("op", ["flash_attn_fwd", "flash_attn_bwd_dq",
-                                "flash_attn_bwd_dkv", "fused_epilogue"])
+                                "flash_attn_bwd_dkv", "flash_attn_bwd_short",
+                                "fused_epilogue"])
 def test_opcheck(op):
     q, k, v = _qkv(1, 2, 6, 6, 8, seed=6)
     if op == "fused_epilogue":
@@ -112,7 +131,8 @@ def test_export_traces_mha_into_the_op():
 
 
 @pytest.mark.parametrize("op", ["flash_attn_fwd", "flash_attn_bwd_dq",
-                                "flash_attn_bwd_dkv", "fused_epilogue"])
+                                "flash_attn_bwd_dkv", "flash_attn_bwd_short",
+                                "fused_epilogue"])
 def test_ops_take_the_plain_version_only_on_the_cpu(op):
     """Each op has a CPU kernel (the plain version), a CUDA kernel (the
     hand-written one), a Meta kernel (the fake implementation) and, for

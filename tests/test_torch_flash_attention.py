@@ -118,12 +118,18 @@ def test_mha_plain_takes_other_head_dims():
 
 def test_cpu_never_counts_a_launch():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 40, 40, seed=4))
-    before = mha.launches, mha.short_launches
+    counters = ("launches", "short_launches", "bwd_dq_launches",
+                "bwd_dkv_launches", "bwd_short_launches")
+    before = [getattr(mha, c) for c in counters]
     mha(q, k, v)
     multi_head_attention(q, k, v)
     multi_head_attention(q, k, v, impl="plain")
     mha(q.bfloat16(), k[:, :, :1].bfloat16(), v[:, :, :1].bfloat16())
-    assert (mha.launches, mha.short_launches) == before
+    # backward passes: the pair (float32) and the short-key op (bfloat16)
+    for dtype in (torch.float32, torch.bfloat16):
+        leaves = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+        mha(*leaves).float().sum().backward()
+    assert [getattr(mha, c) for c in counters] == before
 
 
 def test_dispatch_defaults_to_plain_on_cpu_and_rejects_unknown():

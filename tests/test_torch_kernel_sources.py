@@ -3,9 +3,11 @@
 Every kernel library has its source, each C entry point takes as many
 arguments as its Python wrapper declares, the build targets `sm_90a`, the
 three tensor-core kernel libraries redesigned for Hopper (the forward, the
-backward pair, the fused epilogue) are built from wgmma and TMA, and no
-source leans on a library's kernels."""
+backward, the fused epilogue) are built from wgmma and TMA, the short-key
+backward's two kernels take no atomics, and no source leans on a library's
+kernels."""
 
+import ctypes
 import re
 
 import pytest
@@ -25,6 +27,12 @@ ENTRIES = {
                           flash_attention.entry_argtypes("flash_attn_bwd_dq")),
     "flash_attn_bwd_dkv": (
         "flash_attn_bwd", flash_attention.entry_argtypes("flash_attn_bwd_dkv")),
+    "flash_attn_bwd_short": (
+        "flash_attn_bwd",
+        flash_attention.entry_argtypes("flash_attn_bwd_short")),
+    "flash_attn_bwd_short_slabs": (
+        "flash_attn_bwd",
+        flash_attention.entry_argtypes("flash_attn_bwd_short_slabs")),
     "fused_epilogue": ("fused_epilogue", fused_epilogue.entry_argtypes()),
 }
 
@@ -62,6 +70,22 @@ def test_entry_point_takes_what_its_wrapper_declares(entry):
     assert len(params) == len(argtypes)
 
 
+# a C parameter's type, its qualifiers and name dropped -> its ctypes type
+C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+           "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_entry_point_types_match_its_wrapper(entry):
+    library, argtypes = ENTRIES[entry]
+    found = dict(ENTRY.findall((CSRC / f"{library}.cu").read_text()))
+    params = [p.strip() for p in found[entry].split(",") if p.strip()]
+    for param, argtype in zip(params, argtypes, strict=True):
+        ctype = param.replace("const ", "").rsplit(None, 1)[0]
+        want = ctypes.c_void_p if ctype.endswith("*") else C_TYPES[ctype]
+        assert argtype is want, (param, argtype)
+
+
 def test_every_entry_point_has_a_wrapper():
     for name in _build.KERNELS:
         for entry, _ in ENTRY.findall((CSRC / f"{name}.cu").read_text()):
@@ -75,13 +99,18 @@ def test_build_targets_sm_90a():
 
 # a kernel function read alone: its source, and the sm90.cuh helpers through
 # which its body issues each instruction (None: it issues none of it; the
-# short-key forward is one warpgroup a block, with no producer warpgroup to
-# take registers from)
+# short-key forward is one warpgroup a block and the short-key backward
+# three, with no producer warpgroup to take registers from)
 KERNEL_CALLS = {"flash_attn_fwd_bf16_short": ("flash_attn_fwd.cu", {
     "wgmma.mma_async": ("wgmma_ss<0>(", "wgmma_rs("),
     "cp.async.bulk.tensor": ("tma_load_boxes<", "tma_store_4d("),
     "mbarrier.try_wait.parity": ("mbar_wait(",),
-    "setmaxnreg": None})}
+    "setmaxnreg": None}),
+    "flash_attn_bwd_bf16_short": ("flash_attn_bwd.cu", {
+        "wgmma.mma_async": ("wgmma_ss<0>(", "wgmma_ss<1, 1>(", "wgmma_rs("),
+        "cp.async.bulk.tensor": ("tma_load_boxes<", "tma_store_4d("),
+        "mbarrier.try_wait.parity": ("mbar_wait(",),
+        "setmaxnreg": None})}
 
 
 def _kernel_body(source: str, kernel: str) -> str:
@@ -93,7 +122,8 @@ def _kernel_body(source: str, kernel: str) -> str:
 
 @pytest.mark.parametrize("name", ["flash_attn_fwd.cu", "flash_attn_bwd.cu",
                                   "fused_epilogue.cu",
-                                  "flash_attn_fwd_bf16_short"])
+                                  "flash_attn_fwd_bf16_short",
+                                  "flash_attn_bwd_bf16_short"])
 @pytest.mark.parametrize("ptx", [
     "wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait.parity",
     "setmaxnreg"])
@@ -108,6 +138,24 @@ def test_tensor_core_kernels_are_built_from_wgmma_and_tma(name, ptx):
         name = source
     assert '#include "sm90.cuh"' in (CSRC / name).read_text()
     assert ptx in _with_headers(name)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attn_bwd_bf16_short",
+                                    "flash_attn_bwd_short_sum"])
+def test_short_backward_takes_no_atomics(kernel):
+    """The short-key backward sums its blocks' partial dK and dV in a second
+    pass in a fixed order, so that a run gives the same bits every time (the
+    captured train steps are held bit for bit to eager): neither kernel,
+    nor a helper it calls, takes an atomic; the one-pass kernel writes its
+    partial sums where its head's tiles span several blocks."""
+    atomic = re.compile(r"\batomic[A-Z]\w*\s*\(|\batom\.|\bred\.")
+    body = _kernel_body("flash_attn_bwd.cu", kernel)
+    src = _with_headers("flash_attn_bwd.cu")
+    assert not atomic.search(body) and not atomic.search(src)
+    if kernel == "flash_attn_bwd_bf16_short":
+        assert "const bool direct = gridDim.x == 1;" in body
+    else:
+        assert "for (int s = 0; s < slabs; ++s" in body
 
 
 @pytest.mark.parametrize("path", sorted(
